@@ -1,0 +1,53 @@
+"""CMNeXt: the dual-stream Swin backbone and three SegFormer heads (fused,
+rgb-only, dte-only).  Counterpart of ir_ads_tpu/models/cmnext.py.
+
+``upsample_logits=False`` returns the heads' native H/4 logits, so that an
+ensembling predictor can sum before one bilinear upsample (exact by
+linearity), as the JAX eval path does.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from ir_ads_tpu_torch.models.backbones.swin import swin_b
+from ir_ads_tpu_torch.models.heads.segformer import SegFormerHead
+from ir_ads_tpu_torch.ops.layers import resize_bilinear
+
+BACKBONES = {"SwinTransformer-B": swin_b}
+
+
+class CMNeXt(nn.Module):
+    def __init__(
+        self,
+        backbone: str = "SwinTransformer-B",
+        num_classes: int = 40,
+        backbone_kwargs: Optional[dict] = None,
+        head_dims: Tuple[int, int] = (512, 256),
+        upsample_logits: bool = True,
+    ):
+        super().__init__()
+        if backbone not in BACKBONES:
+            raise NotImplementedError(f"backbone {backbone!r}: the port has {list(BACKBONES)}")
+        self.backbone = BACKBONES[backbone](**(backbone_kwargs or {}))
+        dims = self.backbone.num_features
+        self.decode_head = SegFormerHead(dims, head_dims[0], num_classes)
+        self.decode_head_rgb = SegFormerHead(dims, head_dims[1], num_classes)
+        self.decode_head_dte = SegFormerHead(dims, head_dims[1], num_classes)
+        self.upsample_logits = upsample_logits
+
+    def forward(self, x_rgb: torch.Tensor, x_dte: torch.Tensor):
+        """x_rgb, x_dte: (B, H, W, 3).  Returns (fused, rgb, dte) logits."""
+        feats, feats_rgb, feats_dte = self.backbone(x_rgb, x_dte)
+        ys = (
+            self.decode_head(feats),
+            self.decode_head_rgb(feats_rgb),
+            self.decode_head_dte(feats_dte),
+        )
+        if self.upsample_logits:
+            size = x_rgb.shape[1:3]
+            ys = tuple(resize_bilinear(y, size, align_corners=False) for y in ys)
+        return ys

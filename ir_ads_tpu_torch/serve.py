@@ -1,0 +1,112 @@
+"""Batched RGB-D semantic-segmentation predictor: the port's entry point.
+
+Counterpart of ``infer_mm.SemSeg`` (input normalisation) together with the
+bench predictor (sliding window, tile = image, overlap 1/3, horizontal-flip
+ensemble, fused-head logits at H/4 upsampled once).  Runs on the GPU unless
+the caller passes ``device="cpu"``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from ir_ads_tpu_torch.evaluation.semseg_eval import make_sliding_window_fn
+from ir_ads_tpu_torch.models.cmnext import CMNeXt
+
+# ImageNet statistics (ir_ads_tpu/data/augmentations.py)
+IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], np.float32)
+IMAGENET_STD = np.asarray([0.229, 0.224, 0.225], np.float32)
+
+# parameters the TPU kernels read in f32 whatever the compute dtype
+F32_PARAMS = ("relative_position_bias_table", "rpe_table")
+
+
+def init_random_(model: torch.nn.Module, seed: int) -> None:
+    """Deterministic random weights (the repository holds no checkpoint):
+    linear and convolution weights ~ N(0, 1/fan_in), so that every block's
+    branch is as large as its input and a check of the logits sees every
+    kernel; rel-pos bias tables ~ N(0, 1); biases and BN means small,
+    LayerNorm/BN scales and combiner weights around 1."""
+    g = torch.Generator().manual_seed(seed)
+    with torch.no_grad():
+        for mod in model.modules():
+            norm = isinstance(mod, (torch.nn.LayerNorm, torch.nn.BatchNorm2d))
+            for leaf, p in mod.named_parameters(recurse=False):
+                noise = torch.randn(p.shape, generator=g)
+                if norm and leaf == "weight":
+                    p.copy_(1.0 + 0.05 * noise)
+                elif leaf == "weight" and p.ndim in (2, 4):  # linear, conv
+                    p.copy_(noise / np.sqrt(p[0].numel()))
+                elif leaf in F32_PARAMS:
+                    p.copy_(noise)
+                elif leaf.startswith("tfts_gamma") or leaf == "identity_weight":
+                    p.copy_(1.0 + 0.02 * noise)
+                elif leaf == "deform_weight":
+                    p.mul_(1.0 + 0.02 * noise)
+                else:
+                    p.copy_(0.02 * noise)
+        for name, buf in model.named_buffers():
+            if name.endswith("running_var"):
+                buf.copy_(torch.rand(buf.shape, generator=g) + 0.5)
+            elif name.endswith("running_mean"):
+                buf.copy_(torch.randn(buf.shape, generator=g) * 0.1)
+
+
+def cast_model_(model: torch.nn.Module, dtype: torch.dtype) -> None:
+    """Compute dtype for every parameter except the bias tables the kernels
+    read in f32."""
+    model.to(dtype)
+    for name, p in model.named_parameters():
+        if name.endswith(F32_PARAMS):
+            p.data = p.data.float()
+
+
+class SemSegPredictor:
+    """Sliding-window flip-ensembled CMNeXt predictor.
+
+    ``predictor(rgb, depth)`` takes (B, H, W, 3) uint8 or [0, 255] float
+    frames (depth as a 3-channel image) and returns (logits (B, H, W, K)
+    f32, labels (B, H, W) int64).
+    """
+
+    def __init__(
+        self,
+        device: str = "cuda",
+        dtype: torch.dtype = torch.bfloat16,
+        seed: int = 0,
+        num_classes: int = 40,
+        image_size: Tuple[int, int] = (480, 640),
+        backbone_kwargs: Optional[dict] = None,
+        head_dims: Tuple[int, int] = (512, 256),
+    ):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("SemSegPredictor: CUDA is not available "
+                               "(pass device='cpu' to run the plain versions)")
+        self.dtype = dtype
+        model = CMNeXt(num_classes=num_classes, backbone_kwargs=backbone_kwargs,
+                       head_dims=head_dims, upsample_logits=False)
+        init_random_(model, seed)  # no checkpoint in the repository yet
+        cast_model_(model, dtype)
+        self.model = model.to(self.device).eval()
+        self.mean = torch.as_tensor(IMAGENET_MEAN, device=self.device)
+        self.std = torch.as_tensor(IMAGENET_STD, device=self.device)
+        self._predict = make_sliding_window_fn(
+            lambda r, d: self.model(r, d)[0], image_size, image_size,
+            num_classes, overlap=1.0 / 3.0, flip=True,
+        )
+
+    def normalize(self, rgb, depth):
+        rgb = torch.as_tensor(rgb, device=self.device).float()
+        depth = torch.as_tensor(depth, device=self.device).float()
+        rgb = (rgb / 255.0 - self.mean) / self.std
+        depth = depth / 255.0
+        return rgb.to(self.dtype), depth.to(self.dtype)
+
+    @torch.no_grad()
+    def __call__(self, rgb, depth):
+        logits = self._predict(*self.normalize(rgb, depth))
+        return logits, logits.argmax(dim=-1)

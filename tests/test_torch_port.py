@@ -1,0 +1,152 @@
+"""Ground rules of the PyTorch port: no JAX inside it, the GPU by default,
+only the r4 kernel configuration, and the sliding-window wrapper's overlap
+arithmetic against the JAX one."""
+
+import ast
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from ir_ads_tpu.evaluation.semseg_eval import make_sliding_window_fn as jax_sliding
+from ir_ads_tpu_torch.evaluation.semseg_eval import make_sliding_window_fn
+from ir_ads_tpu_torch.models.backbones import swin as tswin
+from ir_ads_tpu_torch.ops import block_tail, dscf_rows, dscf_rpe, swin_block
+from ir_ads_tpu_torch.serve import IMAGENET_MEAN, IMAGENET_STD, SemSegPredictor
+
+ROOT = Path(__file__).resolve().parent.parent
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ir_ads_tpu")
+
+
+def _port_sources():
+    return sorted((ROOT / "ir_ads_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", _port_sources(), ids=lambda p: p.name)
+def test_port_imports_nothing_of_jax(path):
+    tree = ast.parse(path.read_text())
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in FORBIDDEN, f"{path}: imports {name}"
+
+
+def test_predictor_defaults_to_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SemSegPredictor()
+
+
+def test_only_the_r4_configuration_is_accepted():
+    with pytest.raises(NotImplementedError):
+        tswin.SwinBlockAdapter(32, 2, 128, 4, shift=False, attn_impl="pallas6")
+    with pytest.raises(NotImplementedError):
+        tswin.SwinBlockAdapter(32, 2, 128, 4, shift=False, ffn_impl="xla")
+    with pytest.raises(NotImplementedError):
+        tswin.DAttentionMM(32, 4, 2, 4, attn_impl="xla")
+    with pytest.raises(NotImplementedError):
+        tswin.SwinTransformer(dual_batch=True)
+
+
+def test_every_kernel_targets_hopper_and_names_its_tpu_kernel():
+    for mod in (swin_block, block_tail, dscf_rpe, dscf_rows):
+        k = mod.KERNEL
+        assert k.source.exists()
+        assert k.replaces.startswith("ir_ads_tpu/ops/pallas_")
+        assert k.launches == 0  # nothing launched on the CPU
+        src = (ROOT / k.replaces.split(":")[0]).read_text().splitlines()
+        assert src[int(k.replaces.split(":")[1]) - 1].startswith("def _")
+
+
+@pytest.mark.parametrize("tile", [(32, 32), (48, 64)])
+def test_sliding_window_matches_jax_wrapper(tile):
+    """A linear stand-in for the model (tiles -> H/4 logits) through both
+    wrappers: tile extraction, flip ensemble, low-res upsample, overlap-add."""
+    h, w, k = 48, 64, 3
+    rng = np.random.RandomState(12)
+    mix = rng.randn(6, k).astype(np.float32)
+    rgb = rng.randn(2, h, w, 3).astype(np.float32)
+    dte = rng.randn(2, h, w, 3).astype(np.float32)
+
+    def jfwd(r, d):
+        x = jnp.concatenate([r, d], -1)[:, ::4, ::4]
+        return x @ mix
+
+    def tfwd(r, d):
+        return torch.cat([r, d], -1)[:, ::4, ::4] @ torch.from_numpy(mix)
+
+    want = jax_sliding(jfwd, (h, w), tile, k, overlap=1 / 3, flip=True, fuse=True)(
+        jnp.asarray(rgb), jnp.asarray(dte))
+    got = make_sliding_window_fn(tfwd, (h, w), tile, k)(
+        torch.from_numpy(rgb), torch.from_numpy(dte))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+def test_predictor_on_cpu_normalizes_like_infer_mm():
+    pred = SemSegPredictor(
+        device="cpu", dtype=torch.float32, num_classes=5, image_size=(64, 80),
+        backbone_kwargs=dict(embed_dim=16, depths=(1, 2, 1, 1),
+                             num_heads=(1, 2, 4, 8), window_size=4),
+        head_dims=(32, 16),
+    )
+    rng = np.random.RandomState(13)
+    rgb = rng.randint(0, 256, (2, 64, 80, 3)).astype(np.uint8)
+    dep = rng.randint(0, 256, (2, 64, 80, 3)).astype(np.uint8)
+    r, d = pred.normalize(rgb, dep)
+    np.testing.assert_allclose(
+        r.numpy(), (rgb / 255.0 - IMAGENET_MEAN) / IMAGENET_STD, atol=1e-5)
+    np.testing.assert_allclose(d.numpy(), dep / 255.0, atol=1e-6)
+    logits, labels = pred(rgb, dep)
+    assert logits.shape == (2, 64, 80, 5) and labels.shape == (2, 64, 80)
+    assert torch.isfinite(logits).all()
+    assert torch.equal(labels, logits.argmax(-1))
+
+
+@pytest.mark.parametrize("align_corners", [False, True])
+def test_resize_bilinear_matches_jax(align_corners):
+    from ir_ads_tpu.ops.layers import resize_bilinear as jax_resize
+    from ir_ads_tpu_torch.ops.layers import resize_bilinear
+
+    x = np.random.RandomState(14).randn(2, 8, 12, 5).astype(np.float32)
+    want = jax_resize(jnp.asarray(x), (32, 48), align_corners=align_corners)
+    got = resize_bilinear(torch.from_numpy(x), (32, 48), align_corners=align_corners)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
+
+
+def test_ffn_and_adapter_match_jax_modules():
+    """Mlp (tanh GELU, residual) and the no-skip Adapter, weights carried
+    across by from_flax."""
+    import jax
+
+    from ir_ads_tpu.models.backbones.swin import Adapter as JaxAdapter
+    from ir_ads_tpu.ops.layers import Mlp
+    from ir_ads_tpu_torch.ops.layers import FFN
+    from ir_ads_tpu_torch.utils.jax_params import from_flax
+
+    def load(port, name, params):
+        sd = from_flax({"params": {name: params}})
+        port.load_state_dict({k.split(".", 1)[1]: v for k, v in sd.items()})
+        return port
+
+    rng = np.random.RandomState(15)
+    x = rng.randn(4, 5, 32).astype(np.float32)
+    mlp = Mlp(hidden_dim=128)
+    vm = mlp.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    ffn = load(FFN(32, 128), "ffn", vm["params"])
+    ad = JaxAdapter(skip_connect=False)
+    va = jax.tree.map(lambda a: a + 0.05 * rng.randn(*a.shape).astype(np.float32),
+                      ad.init(jax.random.PRNGKey(1), jnp.asarray(x)))
+    adapter = load(tswin.Adapter(32), "adapter_rgb", va["params"])
+    with torch.no_grad():
+        got_ffn = ffn(torch.from_numpy(x), torch.from_numpy(x)).numpy()
+        got_ad = adapter(torch.from_numpy(x)).numpy()
+    for got, want in ((got_ffn, mlp.apply(vm, jnp.asarray(x))),
+                      (got_ad, ad.apply(va, jnp.asarray(x)))):
+        np.testing.assert_allclose(got, np.asarray(want), atol=1e-5, rtol=1e-5)
