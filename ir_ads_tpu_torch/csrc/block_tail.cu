@@ -14,14 +14,12 @@
 // of W1, GELU, then a WMMA product with the matching slice of W2 that
 // accumulates into the output tile), so it never reaches device memory.
 // Every weight is streamed once per row tile (from L2 for all but the first
-// tiles).
-#include "common.cuh"
+// tiles).  The adapter and FFN steps are shared with K5 (tail.cuh).
+#include "tail.cuh"
 
 using namespace port;
 
 namespace {
-
-constexpr int kLdF = kBN + 4;
 
 __global__ void __launch_bounds__(kThreads)
 block_tail_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
@@ -33,55 +31,27 @@ block_tail_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
                   int C, int H, int Ca, float eps, float adapter_scale) {
   extern __shared__ __align__(128) unsigned char smem[];
   const int bm = rows_per_block(C);
-  const int lda = C + 8, ldacc = C + 4, ldh = kBN + 8;
+  const int lda = C + 8, ldacc = C + 4;
   unsigned char* p = smem;
   bf16* A_s = reinterpret_cast<bf16*>(p);
   p += align128((size_t)bm * lda * 2);
   float* acc_s = reinterpret_cast<float*>(p);
   p += align128((size_t)bm * ldacc * 4);
-  float* F_s = reinterpret_cast<float*>(p);
-  p += align128((size_t)bm * kLdF * 4);
-  bf16* H_s = reinterpret_cast<bf16*>(p);
-  p += align128((size_t)bm * ldh * 2);
-  bf16* W_s = reinterpret_cast<bf16*>(p);
+  const TailScratch t = tail_scratch(p, bm);
   const int row0 = blockIdx.x * bm;
 
-  // adapter branch on x itself: acc = adapter_scale * (relu(x Wa1 + ab1) Wa2 + ab2)
+  // adapter branch on x itself: acc = adapter_scale * (relu(x Wa1 + ab1) Wa2 + ab2) + b2
   for (int idx = threadIdx.x; idx < bm * C; idx += kThreads) {
     const int r = idx / C, c = idx % C, row = row0 + r;
     A_s[r * lda + c] = row < T ? x[(size_t)row * C + c] : __float2bfloat16(0.0f);
   }
-  tile_gemm(F_s, kLdF, A_s, lda, bm, aw1, C, Ca, C, C, W_s, false);
-  for (int idx = threadIdx.x; idx < bm * kBN; idx += kThreads) {
-    const int r = idx / kBN, col = idx % kBN;
-    const float v = col < Ca ? fmaxf(F_s[r * kLdF + col] + __bfloat162float(ab1[col]), 0.0f) : 0.0f;
-    H_s[r * ldh + col] = __float2bfloat16(v);
-  }
-  const int Ka = (Ca + 15) / 16 * 16;
-  for (int n0 = 0; n0 < C; n0 += kBN)
-    tile_gemm(acc_s + n0, ldacc, H_s, ldh, bm, aw2 + (size_t)n0 * Ca, Ca, kBN,
-              Ca, Ka, W_s, false);
-  for (int idx = threadIdx.x; idx < bm * C; idx += kThreads) {
-    const int r = idx / C, c = idx % C;
-    float* a = acc_s + r * ldacc + c;
-    *a = adapter_scale * (*a + __bfloat162float(ab2[c])) + __bfloat162float(b2[c]);
-  }
+  adapter_into(acc_s, ldacc, A_s, lda, t, bm, C, Ca, aw1, ab1, aw2, ab2, b2,
+               adapter_scale);
 
   // LN2 -> A_s, then the FFN 64 hidden columns at a time, accumulated
   layer_norm_rows(A_s, lda, x, row0, bm, T, C, g, b, eps,
                   [](int) { return false; });
-  for (int j0 = 0; j0 < H; j0 += kBN) {
-    tile_gemm(F_s, kLdF, A_s, lda, bm, w1 + (size_t)j0 * C, C, kBN, C, C, W_s,
-              false);
-    for (int idx = threadIdx.x; idx < bm * kBN; idx += kThreads) {
-      const int r = idx / kBN, col = idx % kBN;
-      H_s[r * ldh + col] = __float2bfloat16(
-          gelu_tanh(F_s[r * kLdF + col] + __bfloat162float(b1[j0 + col])));
-    }
-    for (int n0 = 0; n0 < C; n0 += kBN)
-      tile_gemm(acc_s + n0, ldacc, H_s, ldh, bm, w2 + (size_t)n0 * H + j0, H,
-                kBN, kBN, kBN, W_s, true);
-  }
+  ffn_accumulate(acc_s, ldacc, A_s, lda, t, bm, C, H, w1, b1, w2);
 
   for (int idx = threadIdx.x; idx < bm * C; idx += kThreads) {
     const int r = idx / C, c = idx % C, row = row0 + r;
@@ -102,9 +72,7 @@ extern "C" int block_tail(const void* x, const void* ln_g, const void* ln_b,
                           void* stream) {
   const int bm = rows_per_block(C);
   const size_t smem = align128((size_t)bm * (C + 8) * 2) +
-                      align128((size_t)bm * (C + 4) * 4) +
-                      align128((size_t)bm * (kLdF) * 4) +
-                      align128((size_t)bm * (kBN + 8) * 2) + (size_t)kBN * kBK * 2;
+                      align128((size_t)bm * (C + 4) * 4) + tail_scratch_bytes(bm);
   cudaFuncSetAttribute(block_tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   block_tail_kernel<<<(T + bm - 1) / bm, kThreads, smem,
                       static_cast<cudaStream_t>(stream)>>>(

@@ -21,6 +21,7 @@ constexpr int kThreads = 256;  // every kernel here runs 8 warps per block
 constexpr int kWarps = kThreads / 32;
 constexpr int kBN = 64;  // output columns per tile_gemm call
 constexpr int kBK = 64;  // depth staged per step
+constexpr int kLdF = kBN + 4;  // row stride of a (rows, kBN) f32 tile
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -146,6 +147,38 @@ __device__ void layer_norm_rows(bf16* dst, int ld, const bf16* __restrict__ x,
     const float rstd = rsqrtf(warp_sum(v) / C + eps);
     for (int c = lane; c < C; c += 32) {
       const float d = (__bfloat162float(xr[c]) - mu) * rstd;
+      out[c] = __float2bfloat16(d * __bfloat162float(gamma[c]) +
+                                __bfloat162float(beta[c]));
+    }
+  }
+}
+
+// LayerNorm of `rows` f32 rows already in shared memory (src, row stride
+// lds) into dst (bf16, row stride ld), with the arithmetic of
+// layer_norm_rows.  Rows >= n_rows are written as zeros.  One warp per row.
+__device__ void layer_norm_tile(bf16* dst, int ld, const float* src, int lds,
+                                int rows, int n_rows, int C,
+                                const bf16* __restrict__ gamma,
+                                const bf16* __restrict__ beta, float eps) {
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < rows; r += kWarps) {
+    bf16* out = dst + r * ld;
+    if (r >= n_rows) {
+      for (int c = lane; c < C; c += 32) out[c] = __float2bfloat16(0.0f);
+      continue;
+    }
+    const float* xr = src + r * lds;
+    float s = 0.0f;
+    for (int c = lane; c < C; c += 32) s += xr[c];
+    const float mu = warp_sum(s) / C;
+    float v = 0.0f;
+    for (int c = lane; c < C; c += 32) {
+      const float d = xr[c] - mu;
+      v += d * d;
+    }
+    const float rstd = rsqrtf(warp_sum(v) / C + eps);
+    for (int c = lane; c < C; c += 32) {
+      const float d = (xr[c] - mu) * rstd;
       out[c] = __float2bfloat16(d * __bfloat162float(gamma[c]) +
                                 __bfloat162float(beta[c]));
     }

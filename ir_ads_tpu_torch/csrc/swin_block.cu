@@ -20,14 +20,13 @@
 //   proj_add    rows: attention output tile -> WMMA product with Wproj ->
 //               + bias + residual x -> y.
 // The qkv and attention maps make one round trip through device memory (the
-// TPU kernel keeps them in VMEM); fusing them away is later work.
-#include "common.cuh"
+// TPU kernel keeps them in VMEM); fusing them away is later work.  The LN1 +
+// qkv rows and the window attention are shared with K5 (window_block.cuh).
+#include "window_block.cuh"
 
 using namespace port;
 
 namespace {
-
-constexpr int kLdF = kBN + 4;  // f32 tile row stride
 
 __global__ void __launch_bounds__(kThreads)
 ln_qkv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
@@ -36,129 +35,30 @@ ln_qkv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
               int T, int Hp, int Wp, int C, int h_real, int w_real, int shift,
               float eps) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int bm = rows_per_block(C);
-  const int lda = C + 8;
-  bf16* A_s = reinterpret_cast<bf16*>(smem);
-  float* F_s = reinterpret_cast<float*>(smem + align128((size_t)bm * lda * 2));
-  bf16* W_s = reinterpret_cast<bf16*>(
-      reinterpret_cast<unsigned char*>(F_s) + align128((size_t)bm * kLdF * 4));
-  const int row0 = blockIdx.x * bm;
-  const bool padded = h_real != Hp || w_real != Wp;
-  layer_norm_rows(A_s, lda, x, row0, bm, T, C, g, b, eps, [=](int row) {
-    if (!padded) return false;
-    const int pix = row % (Hp * Wp);
-    const int r = pix / Wp, c = pix % Wp;
-    return (r + shift) % Hp >= h_real || (c + shift) % Wp >= w_real;
-  });
-  const int C3 = 3 * C;
-  for (int n0 = 0; n0 < C3; n0 += kBN) {
-    tile_gemm(F_s, kLdF, A_s, lda, bm, wqkv + (size_t)n0 * C, C, kBN, C, C,
-              W_s, false);
-    for (int idx = threadIdx.x; idx < bm * kBN; idx += kThreads) {
-      const int r = idx / kBN, col = idx % kBN, row = row0 + r;
-      if (row < T)
-        qkv[(size_t)row * C3 + n0 + col] = __float2bfloat16(
-            F_s[r * kLdF + col] + __bfloat162float(bqkv[n0 + col]));
-    }
-  }
+  ln_qkv_rows(smem, x, g, b, wqkv, bqkv, qkv, T, Hp, Wp, C, h_real, w_real,
+              shift, eps);
 }
 
-// One block per (window of one image, head).  N = ws*ws tokens, d channels.
+// One block per (window of one image, head) of the rolled map, read and
+// written in place.
 __global__ void __launch_bounds__(kThreads)
 window_attn_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
                    const int* __restrict__ region, bf16* __restrict__ att,
                    int Hp, int Wp, int C, int heads, int ws, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int N = ws * ws, d = C / heads;
+  const int N = ws * ws;
   const int nww = Wp / ws, nW = (Hp / ws) * nww;
-  const int img = blockIdx.x / nW, win = blockIdx.x % nW, h = blockIdx.y;
-  const int ldq = d + 8, lds = N + 4, ldp = N + 8, ldo = d + 4;
-  bf16* q_s = reinterpret_cast<bf16*>(smem);
-  bf16* k_s = q_s + N * ldq;
-  bf16* v_s = k_s + N * ldq;
-  float* S_s = reinterpret_cast<float*>(smem + align128((size_t)3 * N * ldq * 2));
-  bf16* P_s = reinterpret_cast<bf16*>(
-      reinterpret_cast<unsigned char*>(S_s) + align128((size_t)N * lds * 4));
-  float* O_s = S_s;  // P.V output reuses the score buffer
+  const int img = blockIdx.x / nW, win = blockIdx.x % nW;
   const int wr = win / nww, wc = win % nww;
-  const int C3 = 3 * C;
-
   auto token = [&](int i) -> size_t {
     const int r = wr * ws + i / ws, c = wc * ws + i % ws;
     return ((size_t)img * Hp + r) * Wp + c;
   };
-  for (int idx = threadIdx.x; idx < N * d; idx += kThreads) {
-    const int i = idx / d, e = idx % d;
-    const bf16* src = qkv + token(i) * C3 + h * d + e;
-    q_s[i * ldq + e] = __float2bfloat16(__bfloat162float(src[0]) * scale);
-    k_s[i * ldq + e] = src[C];
-    v_s[i * ldq + e] = src[2 * C];
-  }
-  __syncthreads();
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int nt = N / 16;
-  for (int f = warp; f < nt * nt; f += kWarps) {
-    const int mi = f / nt, ni = f % nt;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int kk = 0; kk < d; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bq;
-      wmma::load_matrix_sync(a, q_s + mi * 16 * ldq + kk, ldq);
-      wmma::load_matrix_sync(bq, k_s + ni * 16 * ldq + kk, ldq);
-      wmma::mma_sync(acc, a, bq, acc);
-    }
-    wmma::store_matrix_sync(S_s + mi * 16 * lds + ni * 16, acc, lds,
-                            wmma::mem_row_major);
-  }
-  __syncthreads();
-
-  const float* bh = bias + (size_t)h * N * N;
-  const int* reg = region ? region + (size_t)win * N : nullptr;
-  for (int i = warp; i < N; i += kWarps) {
-    float* srow = S_s + i * lds;
-    const int ri = reg ? reg[i] : 0;
-    float mx = -INFINITY;
-    for (int j = lane; j < N; j += 32) {
-      float s = srow[j] + bh[i * N + j];
-      if (reg && reg[j] != ri) s -= 1e9f;
-      srow[j] = s;
-      mx = fmaxf(mx, s);
-    }
-    mx = warp_max(mx);
-    float sum = 0.0f;
-    for (int j = lane; j < N; j += 32) {
-      const float e = expf(srow[j] - mx);
-      srow[j] = e;
-      sum += e;
-    }
-    const float inv = 1.0f / warp_sum(sum);
-    for (int j = lane; j < N; j += 32)
-      P_s[i * ldp + j] = __float2bfloat16(srow[j] * inv);
-  }
-  __syncthreads();
-
-  const int dt = d / 16;
-  for (int f = warp; f < nt * dt; f += kWarps) {
-    const int mi = f / dt, ni = f % dt;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    wmma::fill_fragment(acc, 0.0f);
-    for (int kk = 0; kk < N; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
-      wmma::load_matrix_sync(a, P_s + mi * 16 * ldp + kk, ldp);
-      wmma::load_matrix_sync(bv, v_s + kk * ldq + ni * 16, ldq);
-      wmma::mma_sync(acc, a, bv, acc);
-    }
-    wmma::store_matrix_sync(O_s + mi * 16 * ldo + ni * 16, acc, ldo,
-                            wmma::mem_row_major);
-  }
-  __syncthreads();
-  for (int idx = threadIdx.x; idx < N * d; idx += kThreads) {
-    const int i = idx / d, e = idx % d;
-    att[token(i) * C + h * d + e] = __float2bfloat16(O_s[i * ldo + e]);
-  }
+  window_attention(
+      smem, [&](int i) { return qkv + token(i) * (3 * C); },
+      [&](int i) { return att + token(i) * C; }, bias,
+      region ? region + (size_t)win * N : nullptr, C, heads, ws, blockIdx.y,
+      scale);
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -191,12 +91,6 @@ proj_add_kernel(const bf16* __restrict__ att, const bf16* __restrict__ x,
   }
 }
 
-size_t rows_smem(int C) {
-  const int bm = rows_per_block(C);
-  return align128((size_t)bm * (C + 8) * 2) + align128((size_t)bm * kLdF * 4) +
-         (size_t)kBN * kBK * 2;
-}
-
 }  // namespace
 
 extern "C" int swin_window_block(
@@ -217,9 +111,7 @@ extern "C" int swin_window_block(
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const int N = ws * ws, d = C / heads;
-  const size_t as = align128((size_t)3 * N * (d + 8) * 2) +
-                    align128((size_t)N * (N + 4) * 4) + (size_t)N * (N + 8) * 2;
+  const size_t as = window_attention_smem(ws * ws, C / heads);
   cudaFuncSetAttribute(window_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)as);
   dim3 grid(B * (Hp / ws) * (Wp / ws), heads);
   window_attn_kernel<<<grid, kThreads, as, st>>>(

@@ -1,0 +1,165 @@
+// Device code shared by the two Swin block kernels, K1 (swin_block.cu, the
+// half-block on the padded, rolled map) and K5 (swin_block_v6.cu, the whole
+// block on the real map):
+//   ln_qkv_rows       rows of a map: LN1 in f32 -> bf16 tile in shared
+//                     memory -> WMMA product with Wqkv -> qkv (bf16) rows;
+//   window_attention  one (window, head): scores, rel-pos bias, region mask,
+//                     softmax and P.V in shared memory, all WMMA.  Where the
+//                     window's tokens come from and where its output goes is
+//                     the caller's: K1 reads and writes the rolled map in
+//                     place, K5 folds pad, roll and crop into the indices.
+#pragma once
+
+#include "common.cuh"
+
+namespace port {
+
+// qkv[row] = round(LN1(x[row]) @ Wqkv^T + bqkv) for T rows of a (B, Hp, Wp)
+// map.  When (h_real, w_real) != (Hp, Wp), the map is padded and rolled by
+// `shift`: LN1 output is zeroed at positions that are padding of the
+// original map, so their qkv row is bqkv.  One block per tile of
+// rows_per_block(C) rows; smem holds rows_smem(C).
+__device__ void ln_qkv_rows(unsigned char* smem, const bf16* __restrict__ x,
+                            const bf16* __restrict__ g,
+                            const bf16* __restrict__ b,
+                            const bf16* __restrict__ wqkv,
+                            const bf16* __restrict__ bqkv,
+                            bf16* __restrict__ qkv, int T, int Hp, int Wp,
+                            int C, int h_real, int w_real, int shift,
+                            float eps) {
+  const int bm = rows_per_block(C);
+  const int lda = C + 8;
+  bf16* A_s = reinterpret_cast<bf16*>(smem);
+  float* F_s = reinterpret_cast<float*>(smem + align128((size_t)bm * lda * 2));
+  bf16* W_s = reinterpret_cast<bf16*>(
+      reinterpret_cast<unsigned char*>(F_s) + align128((size_t)bm * kLdF * 4));
+  const int row0 = blockIdx.x * bm;
+  const bool padded = h_real != Hp || w_real != Wp;
+  layer_norm_rows(A_s, lda, x, row0, bm, T, C, g, b, eps, [=](int row) {
+    if (!padded) return false;
+    const int pix = row % (Hp * Wp);
+    const int r = pix / Wp, c = pix % Wp;
+    return (r + shift) % Hp >= h_real || (c + shift) % Wp >= w_real;
+  });
+  const int C3 = 3 * C;
+  for (int n0 = 0; n0 < C3; n0 += kBN) {
+    tile_gemm(F_s, kLdF, A_s, lda, bm, wqkv + (size_t)n0 * C, C, kBN, C, C,
+              W_s, false);
+    for (int idx = threadIdx.x; idx < bm * kBN; idx += kThreads) {
+      const int r = idx / kBN, col = idx % kBN, row = row0 + r;
+      if (row < T)
+        qkv[(size_t)row * C3 + n0 + col] = __float2bfloat16(
+            F_s[r * kLdF + col] + __bfloat162float(bqkv[n0 + col]));
+    }
+  }
+}
+
+// Shared memory of the row kernels (ln_qkv_rows and K1's proj_add_kernel).
+inline size_t rows_smem(int C) {
+  const int bm = rows_per_block(C);
+  return align128((size_t)bm * (C + 8) * 2) + align128((size_t)bm * kLdF * 4) +
+         (size_t)kBN * kBK * 2;
+}
+
+inline size_t window_attention_smem(int N, int d) {
+  return align128((size_t)3 * N * (d + 8) * 2) + align128((size_t)N * (N + 4) * 4) +
+         (size_t)N * (N + 8) * 2;
+}
+
+// Attention of head h over one window of N = ws*ws tokens, d channels a
+// head.  load(i) gives token i's 3C-wide qkv row (q | k | v); store(i) gives
+// its C-wide output row, or nullptr to drop it.  region_win is the window's
+// (N) shift-region ids or nullptr.  q is scaled and rounded to bf16 on
+// load, scores and softmax are f32, the probabilities are rounded to bf16
+// before P.V, the output rounded once.  smem holds window_attention_smem.
+template <typename Load, typename Store>
+__device__ void window_attention(unsigned char* smem, Load load, Store store,
+                                 const float* __restrict__ bias,
+                                 const int* __restrict__ region_win, int C,
+                                 int heads, int ws, int h, float scale) {
+  const int N = ws * ws, d = C / heads;
+  const int ldq = d + 8, lds = N + 4, ldp = N + 8, ldo = d + 4;
+  bf16* q_s = reinterpret_cast<bf16*>(smem);
+  bf16* k_s = q_s + N * ldq;
+  bf16* v_s = k_s + N * ldq;
+  float* S_s = reinterpret_cast<float*>(smem + align128((size_t)3 * N * ldq * 2));
+  bf16* P_s = reinterpret_cast<bf16*>(
+      reinterpret_cast<unsigned char*>(S_s) + align128((size_t)N * lds * 4));
+  float* O_s = S_s;  // P.V output reuses the score buffer
+
+  for (int idx = threadIdx.x; idx < N * d; idx += kThreads) {
+    const int i = idx / d, e = idx % d;
+    const bf16* src = load(i) + h * d + e;
+    q_s[i * ldq + e] = __float2bfloat16(__bfloat162float(src[0]) * scale);
+    k_s[i * ldq + e] = src[C];
+    v_s[i * ldq + e] = src[2 * C];
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int nt = N / 16;
+  for (int f = warp; f < nt * nt; f += kWarps) {
+    const int mi = f / nt, ni = f % nt;
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+    wmma::fill_fragment(acc, 0.0f);
+    for (int kk = 0; kk < d; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bq;
+      wmma::load_matrix_sync(a, q_s + mi * 16 * ldq + kk, ldq);
+      wmma::load_matrix_sync(bq, k_s + ni * 16 * ldq + kk, ldq);
+      wmma::mma_sync(acc, a, bq, acc);
+    }
+    wmma::store_matrix_sync(S_s + mi * 16 * lds + ni * 16, acc, lds,
+                            wmma::mem_row_major);
+  }
+  __syncthreads();
+
+  const float* bh = bias + (size_t)h * N * N;
+  const int* reg = region_win;
+  for (int i = warp; i < N; i += kWarps) {
+    float* srow = S_s + i * lds;
+    const int ri = reg ? reg[i] : 0;
+    float mx = -INFINITY;
+    for (int j = lane; j < N; j += 32) {
+      float s = srow[j] + bh[i * N + j];
+      if (reg && reg[j] != ri) s -= 1e9f;
+      srow[j] = s;
+      mx = fmaxf(mx, s);
+    }
+    mx = warp_max(mx);
+    float sum = 0.0f;
+    for (int j = lane; j < N; j += 32) {
+      const float e = expf(srow[j] - mx);
+      srow[j] = e;
+      sum += e;
+    }
+    const float inv = 1.0f / warp_sum(sum);
+    for (int j = lane; j < N; j += 32)
+      P_s[i * ldp + j] = __float2bfloat16(srow[j] * inv);
+  }
+  __syncthreads();
+
+  const int dt = d / 16;
+  for (int f = warp; f < nt * dt; f += kWarps) {
+    const int mi = f / dt, ni = f % dt;
+    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
+    wmma::fill_fragment(acc, 0.0f);
+    for (int kk = 0; kk < N; kk += 16) {
+      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
+      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bv;
+      wmma::load_matrix_sync(a, P_s + mi * 16 * ldp + kk, ldp);
+      wmma::load_matrix_sync(bv, v_s + kk * ldq + ni * 16, ldq);
+      wmma::mma_sync(acc, a, bv, acc);
+    }
+    wmma::store_matrix_sync(O_s + mi * 16 * ldo + ni * 16, acc, ldo,
+                            wmma::mem_row_major);
+  }
+  __syncthreads();
+  for (int idx = threadIdx.x; idx < N * d; idx += kThreads) {
+    const int i = idx / d, e = idx % d;
+    bf16* dst = store(i);
+    if (dst) dst[h * d + e] = __float2bfloat16(O_s[i * ldo + e]);
+  }
+}
+
+}  // namespace port

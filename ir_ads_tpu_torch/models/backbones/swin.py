@@ -1,12 +1,21 @@
 """Dual-stream Swin backbone with MAPA adapters, MPG prompting and DSCF
 deformable cross-modal fusion, eval mode, NHWC.
 
-Counterpart of ir_ads_tpu/models/backbones/swin.py under its bench ``r4``
-kernel configuration: every Swin block runs the fused half-block kernel
-(K1, ops/swin_block.py) and the fused block tail (K2, ops/block_tail.py),
-and every DSCF level runs the rows-layout rpe bias kernel (K3, ops/dscf_rpe.py)
-and rows attention (K4, ops/dscf_rows.py).  Module and parameter names are
-the reference checkpoint's (semseg/models/backbones/swin.py), so a reference
+Counterpart of ir_ads_tpu/models/backbones/swin.py under two of its
+kernel configurations, chosen by explicit arguments (``DISPATCH``):
+
+  r5 (the default; the JAX package's default dispatch on its chip and the
+     bench's production set): stages 0-1 run the half-block kernel (K1,
+     ops/swin_block.py) and the block tail (K2, ops/block_tail.py), stages
+     2-3 the whole-block kernel (K5, ops/swin_block_v6.py); DSCF levels 0-2
+     run the rows-layout rpe bias (K3, ops/dscf_rpe.py) and rows attention
+     (K4, ops/dscf_rows.py), level 3 the einsum attention with its bias from
+     the packed-layout kernel (K6, ops/dscf_rpe_packed.py);
+  r4 (the bench's previous set): K1 + K2 at every stage, K3 + K4 at every
+     level.
+
+Module and parameter names are the reference checkpoint's
+(semseg/models/backbones/swin.py), the same under both, so a reference
 state_dict loads as it is and utils/jax_params.from_flax produces one.
 """
 
@@ -21,19 +30,28 @@ from torch import nn
 from ir_ads_tpu_torch.ops.block_tail import block_tail
 from ir_ads_tpu_torch.ops.dscf_rows import dscf_rows_attention
 from ir_ads_tpu_torch.ops.dscf_rpe import rpe_bias_rows
+from ir_ads_tpu_torch.ops.dscf_rpe_packed import rpe_bias_packed
 from ir_ads_tpu_torch.ops.grid_sample import grid_sample_matmul, make_ref_grid
 from ir_ads_tpu_torch.ops.layers import FFN, PatchEmbed, PatchMerging, layer_norm
 from ir_ads_tpu_torch.ops.swin_block import window_block
+from ir_ads_tpu_torch.ops.swin_block_v6 import window_block_v6
 from ir_ads_tpu_torch.ops.window_attention import (
     gather_rel_pos_bias, relative_position_index, shift_region_ids_on,
 )
 
-SWIN_ATTN = "pallas4"  # the only Swin block configuration this port has
-DSCF_ATTN = "pallas3"  # the only DSCF configuration this port has
+# (Swin block per stage, DSCF attention per level), as the JAX package's
+# IR_ADS_SWIN_ATTN / IR_ADS_DSCF_ATTN lists
+DISPATCH = {
+    "r5": (("pallas4", "pallas4", "pallas6", "pallas6"),
+           ("pallas3", "pallas3", "pallas3", "xla")),
+    "r4": (("pallas4",) * 4, ("pallas3",) * 4),
+}
+SWIN_ATTN = ("pallas4", "pallas6")
+DSCF_ATTN = ("pallas3", "xla")
 
 
-def _require(value: str, supported: str, what: str) -> None:
-    if value != supported:
+def _require(value, supported, what: str) -> None:
+    if value not in supported:
         raise NotImplementedError(
             f"{what}={value!r}: the port implements only {supported!r}"
         )
@@ -77,14 +95,16 @@ class Adapter(nn.Module):
 
 
 class SwinBlockAdapter(nn.Module):
-    """Swin block with per-modality adapters: y = x + W-MSA(LN1 x) by K1 on
-    the padded, rolled map, then x + FFN(LN2 x) + 0.5 Adapter(x) by K2."""
+    """Swin block with per-modality adapters.  ``pallas4``: y = x +
+    W-MSA(LN1 x) by K1 on the padded, rolled map, then y + FFN(LN2 y) + 0.5
+    Adapter(y) by K2.  ``pallas6``: the whole block by K5 on the real map."""
 
     def __init__(self, dim, num_heads, ffn_dim, window_size, shift,
-                 adapter_ratio=0.0625, attn_impl=SWIN_ATTN, ffn_impl="fused"):
+                 adapter_ratio=0.0625, attn_impl="pallas4", ffn_impl="fused"):
         super().__init__()
         _require(attn_impl, SWIN_ATTN, "attn_impl")
-        _require(ffn_impl, "fused", "ffn_impl")
+        _require(ffn_impl, ("fused",), "ffn_impl")
+        self.attn_impl = attn_impl
         self.num_heads = num_heads
         self.window_size = window_size
         self.shift = window_size // 2 if shift else 0
@@ -98,6 +118,25 @@ class SwinBlockAdapter(nn.Module):
     def forward(self, x: torch.Tensor, sub_mode: str) -> torch.Tensor:
         b, h, w, c = x.shape
         ws, shift = self.window_size, self.shift
+        msa = self.attn.w_msa
+        bias = gather_rel_pos_bias(msa.relative_position_bias_table,
+                                   msa.relative_position_index)
+        scale = (c // self.num_heads) ** -0.5
+        ad = self.MLP_RGB_Adapter if sub_mode == "rgb" else self.MLP_DTE_Adapter
+        f1, f2 = self.ffn.layers[0][0], self.ffn.layers[1]
+        if self.attn_impl == "pallas6":
+            # pad, roll and crop are index arithmetic inside K5
+            hp, wp = -(-h // ws) * ws, -(-w // ws) * ws
+            region = shift_region_ids_on(hp, wp, ws, shift, x.device) if shift else None
+            return window_block_v6(
+                x,
+                (self.norm1.weight, self.norm1.bias, msa.qkv.weight,
+                 msa.qkv.bias, msa.proj.weight, msa.proj.bias, bias),
+                (self.norm2.weight, self.norm2.bias, f1.weight, f1.bias,
+                 f2.weight, f2.bias, ad.D_fc1.weight, ad.D_fc1.bias,
+                 ad.D_fc2.weight, ad.D_fc2.bias),
+                region, scale, self.num_heads, ws, shift,
+            )
         pad_b, pad_r = (ws - h % ws) % ws, (ws - w % ws) % ws
         xm = F.pad(x, (0, 0, 0, pad_r, 0, pad_b)) if pad_b or pad_r else x
         hp, wp = h + pad_b, w + pad_r
@@ -105,19 +144,14 @@ class SwinBlockAdapter(nn.Module):
         if shift:
             xm = torch.roll(xm, shifts=(-shift, -shift), dims=(1, 2))
             region = shift_region_ids_on(hp, wp, ws, shift, x.device)
-        msa = self.attn.w_msa
-        bias = gather_rel_pos_bias(msa.relative_position_bias_table,
-                                   msa.relative_position_index)
         y = window_block(
             xm, self.norm1.weight, self.norm1.bias, msa.qkv.weight,
             msa.qkv.bias, msa.proj.weight, msa.proj.bias, bias, region,
-            (c // self.num_heads) ** -0.5, self.num_heads, ws, h, w, shift,
+            scale, self.num_heads, ws, h, w, shift,
         )
         if shift:
             y = torch.roll(y, shifts=(shift, shift), dims=(1, 2))
         y = y[:, :h, :w].contiguous()
-        ad = self.MLP_RGB_Adapter if sub_mode == "rgb" else self.MLP_DTE_Adapter
-        f1, f2 = self.ffn.layers[0][0], self.ffn.layers[1]
         out = block_tail(
             y.reshape(-1, c), self.norm2.weight, self.norm2.bias, f1.weight,
             f1.bias, f2.weight, f2.bias, ad.D_fc1.weight, ad.D_fc1.bias,
@@ -132,11 +166,12 @@ class SwinStage(nn.Module):
     are a plain list."""
 
     def __init__(self, dim, depth, num_heads, window_size, downsample,
-                 adapter_ratio=0.0625, mlp_ratio=4.0):
+                 adapter_ratio=0.0625, mlp_ratio=4.0, attn_impl="pallas4"):
         super().__init__()
         self.blocks = nn.ModuleList(
             SwinBlockAdapter(dim, num_heads, int(mlp_ratio * dim), window_size,
-                             shift=j % 2 == 1, adapter_ratio=adapter_ratio)
+                             shift=j % 2 == 1, adapter_ratio=adapter_ratio,
+                             attn_impl=attn_impl)
             for j in range(depth)
         )
         self.downsample = PatchMerging(dim, 2 * dim) if downsample else None
@@ -215,13 +250,16 @@ def _pointwise(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
 
 
 class DAttentionMM(nn.Module):
-    """Bi-directional deformable cross-modal attention (DSCF core), the JAX
-    module's ``pallas3`` branch: rpe bias by K3, attention by K4."""
+    """Bi-directional deformable cross-modal attention (DSCF core).  The JAX
+    module's ``pallas3`` branch: rpe bias by K3, attention by K4; its
+    ``xla`` branch: rpe bias by K6 (``IR_ADS_DSCF_RPE3=pallas``), the
+    attention as f32-accumulated products in PyTorch."""
 
     def __init__(self, dim, n_heads, n_groups, stride, ksize=9, level=0,
-                 rpe_size=(60, 80), attn_impl=DSCF_ATTN):
+                 rpe_size=(60, 80), attn_impl="pallas3"):
         super().__init__()
         _require(attn_impl, DSCF_ATTN, "attn_impl")
+        self.attn_impl = attn_impl
         self.n_heads, self.n_groups = n_heads, n_groups
         gc = dim // n_groups
         self.conv_offset_x = offset_head(gc, ksize, stride)
@@ -280,30 +318,60 @@ class DAttentionMM(nn.Module):
 
         s1, s2 = self.rpe_table.shape[1:]
         pos_cat = torch.cat([pos_x.reshape(b * g, n, 2), pos_y.reshape(b * g, n, 2)], dim=1)
-        bias = rpe_bias_rows(pos_cat, self.rpe_table.reshape(g, hg, s1, s2), h, w, x.dtype)
+        table = self.rpe_table.reshape(g, hg, s1, s2)
+        if self.attn_impl == "xla":
+            out = self._einsum_attention(q, k, v, pos_cat, table, scale)
+        else:
+            out = self._rows_attention(q, k, v, pos_cat, table, scale)
+        out = _pointwise(self.proj_out, out)
+        return self.deform_weight * out + self.identity_weight * xy
+
+    def _einsum_attention(self, q, k, v, pos_cat, table, scale):
+        """Scores q.k summed in f32 and scaled in f32, plus the K6 bias in
+        f32; f32 softmax; probabilities rounded; P.V summed in f32 and
+        rounded once (JAX ``swin.py`` einsum branch)."""
+        b, h, w, c = q.shape
+        heads, m = self.n_heads, k.shape[1]
+        hc = c // heads
+        bias = rpe_bias_packed(pos_cat, table, h, w, q.dtype)  # (BG, hg, M, HW)
+        bias = bias.reshape(b, heads, m, h * w).transpose(-1, -2)
+        qh = q.reshape(b, h * w, heads, hc).transpose(1, 2)
+        kh = k.reshape(b, m, heads, hc).transpose(1, 2)
+        vh = v.reshape(b, m, heads, hc).transpose(1, 2)
+        s = (qh.float() @ kh.float().transpose(-1, -2)) * scale + bias.float()
+        p = torch.softmax(s, dim=-1).to(vh.dtype)
+        out = (p.float() @ vh.float()).to(vh.dtype)
+        return out.transpose(1, 2).reshape(b, h, w, c)
+
+    def _rows_attention(self, q, k, v, pos_cat, table, scale):
+        """Bias by K3 in the rows layout, attention by K4."""
+        b, h, w, c = q.shape
+        g, hg = self.n_groups, self.n_heads // self.n_groups
+        gc, n2 = c // g, k.shape[1]
+        bias = rpe_bias_rows(pos_cat, table, h, w, q.dtype)
 
         def to_groups(t, m):  # (B, M, C) -> (B*g, M, gc)
             return t.reshape(b, m, g, gc).transpose(1, 2).reshape(b * g, m, gc)
 
-        mp = -(-2 * n // 8) * 8
-        kg = F.pad(to_groups(k, 2 * n), (0, 0, 0, mp - 2 * n))
-        vg = F.pad(to_groups(v, 2 * n), (0, 0, 0, mp - 2 * n))
+        mp = -(-n2 // 8) * 8
+        kg = F.pad(to_groups(k, n2), (0, 0, 0, mp - n2))
+        vg = F.pad(to_groups(v, n2), (0, 0, 0, mp - n2))
         out = dscf_rows_attention(to_groups(q.reshape(b, h * w, c), h * w), kg, vg,
                                   bias, scale, hg)
-        out = out.reshape(b, g, h * w, gc).transpose(1, 2).reshape(b, h, w, c)
-        out = _pointwise(self.proj_out, out)
-        return self.deform_weight * out + self.identity_weight * xy
+        return out.reshape(b, g, h * w, gc).transpose(1, 2).reshape(b, h, w, c)
 
 
 class DeformMPGBlock(nn.Module):
     """DSCF fusion: down-project both streams, DAttentionMM, up-project."""
 
-    def __init__(self, dim, stride, n_groups, n_heads, level, ratio=0.125):
+    def __init__(self, dim, stride, n_groups, n_heads, level, ratio=0.125,
+                 attn_impl="pallas3"):
         super().__init__()
         hidden = int(dim * ratio)
         self.D_fc1 = nn.Linear(dim, hidden)
         self.D_fc2 = nn.Linear(dim, hidden)
-        self.deform_atten = DAttentionMM(hidden, n_heads, n_groups, stride, level=level)
+        self.deform_atten = DAttentionMM(hidden, n_heads, n_groups, stride,
+                                         level=level, attn_impl=attn_impl)
         self.U_fc1 = nn.Linear(hidden, dim)
 
     def forward(self, x_rgb, x_dte):
@@ -313,7 +381,8 @@ class DeformMPGBlock(nn.Module):
 class SwinTransformer(nn.Module):
     """Dual-stream Swin backbone; returns three 4-level NHWC pyramids
     (fused, rgb, dte).  Defaults are Swin-B (embed 128, depths 2/2/18/2,
-    heads 4/8/16/32, window 12)."""
+    heads 4/8/16/32, window 12) under the ``r5`` dispatch; ``attn_impl``
+    and ``dscf_attn`` take one of the ``DISPATCH`` pairs."""
 
     def __init__(
         self,
@@ -330,10 +399,14 @@ class SwinTransformer(nn.Module):
         dscf_groups: Sequence[int] = (1, 2, 4, 8),
         dscf_heads: Sequence[int] = (2, 4, 8, 16),
         dual_batch: bool = False,
+        attn_impl: Sequence[str] = DISPATCH["r5"][0],
+        dscf_attn: Sequence[str] = DISPATCH["r5"][1],
     ):
         super().__init__()
         if dual_batch:
             raise NotImplementedError("dual_batch=True: the port runs the streams in turn")
+        _require((tuple(attn_impl), tuple(dscf_attn)), tuple(DISPATCH.values()),
+                 "(attn_impl, dscf_attn)")
         nl = len(depths)
         dims = [embed_dim * 2 ** i for i in range(nl)]
         self.num_features = dims
@@ -341,13 +414,14 @@ class SwinTransformer(nn.Module):
         self.extra_patch_embed = PatchEmbed(embed_dim, patch_size)
         self.stages = nn.ModuleList(
             SwinStage(dims[i], depths[i], num_heads[i], window_size, i < nl - 1,
-                      adapter_ratio, mlp_ratio)
+                      adapter_ratio, mlp_ratio, attn_impl[i])
             for i in range(nl)
         )
         self.MPGBlocks = nn.ModuleList(MPGBlock(d, mapa_ratio) for d in dims)
         self.DeformMPGBlocks = nn.ModuleList(
             DeformMPGBlock(dims[i], dscf_strides[i], dscf_groups[i],
-                           dscf_heads[i], level=i, ratio=dscf_ratio)
+                           dscf_heads[i], level=i, ratio=dscf_ratio,
+                           attn_impl=dscf_attn[i])
             for i in range(nl)
         )
         for i, d in enumerate(dims):

@@ -42,11 +42,15 @@ def nvcc_path() -> str:
 
 
 class CudaKernel:
-    """One CUDA source, its shared library and its launch count."""
+    """One entry point of a CUDA source, its shared library and its launch
+    count.  Two kernels may share a source (``unit``, default ``name``): it
+    is then built once."""
 
-    def __init__(self, name: str, fn: str, argtypes: Sequence, replaces: str):
+    def __init__(self, name: str, fn: str, argtypes: Sequence, replaces: str,
+                 unit: str = ""):
         self.name = name
         self.fn = fn
+        self.unit = unit or name
         self.argtypes = list(argtypes)
         self.replaces = replaces  # file:line of the TPU kernel it ports
         self.launches = 0
@@ -54,11 +58,11 @@ class CudaKernel:
 
     @property
     def source(self) -> Path:
-        return CSRC / f"{self.name}.cu"
+        return CSRC / f"{self.unit}.cu"
 
     @property
     def library(self) -> Path:
-        return BUILD / f"lib{self.name}.so"
+        return BUILD / f"lib{self.unit}.so"
 
     def _stale(self) -> bool:
         if not self.library.exists():
@@ -106,8 +110,9 @@ def build_all(kernels: Sequence[CudaKernel]) -> Dict[str, str]:
     """Compile every stale library in parallel (one nvcc per source).
 
     Returns the compiler output (ptxas register and shared-memory report) by
-    kernel name; raises with that output if any build fails."""
-    procs = {k.name: k.start_build() for k in kernels}
+    source name; raises with that output if any build fails."""
+    units = {k.unit: k for k in kernels}
+    procs = {name: k.start_build() for name, k in units.items()}
     logs: Dict[str, str] = {}
     failed = []
     for name, proc in procs.items():

@@ -26,8 +26,9 @@ KERNEL = CudaKernel(
 )
 
 
-def rpe_bias_rows_reference(pos, table, h, w, out_dtype):
-    """Plain PyTorch version: separable hat-weight products in f32."""
+def rpe_bias_f32(pos, table, h, w, order):
+    """The bias in f32 by separable hat-weight products, with the output
+    axes in ``order`` over (b, e, m, h, w) = (BG, hg, M, h, w)."""
     bg, m, _ = pos.shape
     g, hg, s1, s2 = table.shape
     dev = pos.device
@@ -43,8 +44,12 @@ def rpe_bias_rows_reference(pos, table, h, w, out_dtype):
     wx = torch.clamp(1.0 - (ix[..., None] - ar(s2)).abs(), min=0.0)  # (BG,M,w,S2)
     tb = table.float()[torch.arange(bg, device=dev) % g]  # (BG, hg, S1, S2)
     u = torch.einsum("best,bmwt->bmesw", tb, wx)
-    bias = torch.einsum("bmhs,bmesw->behmw", wy, u)  # (BG, hg, h, M, w)
-    return bias.to(out_dtype)
+    return torch.einsum(f"bmhs,bmesw->{order}", wy, u)
+
+
+def rpe_bias_rows_reference(pos, table, h, w, out_dtype):
+    """Plain PyTorch version: separable hat-weight products in f32."""
+    return rpe_bias_f32(pos, table, h, w, "behmw").to(out_dtype)  # (BG, hg, h, M, w)
 
 
 def rpe_bias_rows(

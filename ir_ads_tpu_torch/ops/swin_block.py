@@ -44,8 +44,6 @@ def window_block_reference(
     """Plain PyTorch version, with the TPU kernel's rounding points."""
     cdt = x.dtype
     b, hp, wp, c = x.shape
-    d = c // heads
-    n = ws * ws
     xf = x.float()
     xn = F.layer_norm(xf, (c,), ln_w.float(), ln_b.float(), eps)
     if h_real != hp or w_real != wp:
@@ -55,6 +53,20 @@ def window_block_reference(
         )
     xn = xn.to(cdt).float()
     qkv = (xn @ wqkv.float().t() + bqkv.float()).to(cdt)
+    att = window_attention_reference(qkv, bias, region, scale, heads, ws)
+    out = att.float() @ wproj.float().t() + bproj.float()
+    return (xf + out).to(cdt)
+
+
+def window_attention_reference(qkv, bias, region, scale, heads, ws):
+    """W-MSA of a (B, Hp, Wp, 3C) qkv map in the compute dtype, as the TPU
+    kernels round it: (q * scale) rounded, f32 scores + f32 bias, -1e9 at
+    pairs of different shift regions, f32 softmax, probabilities rounded,
+    P.V summed in f32 and rounded once.  Returns (B, Hp, Wp, C)."""
+    cdt = qkv.dtype
+    b, hp, wp, c3 = qkv.shape
+    c, n = c3 // 3, ws * ws
+    d = c // heads
     wins = window_partition(qkv, ws)  # (B*nW, N, 3C)
     bn = wins.shape[0]
     heads_of = lambda t: t.reshape(bn, n, heads, d).transpose(1, 2)  # noqa: E731
@@ -68,9 +80,7 @@ def window_block_reference(
              - 1e9 * neq[None, :, None].float()).reshape(bn, heads, n, n)
     p = torch.softmax(s, dim=-1).to(cdt)
     o = (p.float() @ v.float()).to(cdt)
-    att = window_reverse(o.transpose(1, 2).reshape(bn, n, c), ws, hp, wp)
-    out = att.float() @ wproj.float().t() + bproj.float()
-    return (xf + out).to(cdt)
+    return window_reverse(o.transpose(1, 2).reshape(bn, n, c), ws, hp, wp)
 
 
 def window_block(

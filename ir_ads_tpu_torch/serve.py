@@ -3,7 +3,8 @@
 Counterpart of ``infer_mm.SemSeg`` (input normalisation) together with the
 bench predictor (sliding window, tile = image, overlap 1/3, horizontal-flip
 ensemble, fused-head logits at H/4 upsampled once).  Runs on the GPU unless
-the caller passes ``device="cpu"``.
+the caller passes ``device="cpu"``, under the ``r5`` kernel dispatch unless
+the caller passes ``dispatch="r4"`` (models/backbones/swin.py DISPATCH).
 """
 
 from __future__ import annotations
@@ -81,6 +82,7 @@ class SemSegPredictor:
         image_size: Tuple[int, int] = (480, 640),
         backbone_kwargs: Optional[dict] = None,
         head_dims: Tuple[int, int] = (512, 256),
+        dispatch: str = "r5",
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -88,7 +90,8 @@ class SemSegPredictor:
                                "(pass device='cpu' to run the plain versions)")
         self.dtype = dtype
         model = CMNeXt(num_classes=num_classes, backbone_kwargs=backbone_kwargs,
-                       head_dims=head_dims, upsample_logits=False)
+                       head_dims=head_dims, upsample_logits=False,
+                       dispatch=dispatch)
         init_random_(model, seed)  # no checkpoint in the repository yet
         cast_model_(model, dtype)
         self.model = model.to(self.device).eval()

@@ -2,10 +2,11 @@
 """Where one request's time goes on the GPU: the port's predictor under
 torch.profiler.
 
-    python3 profile_port.py [--seed 0] [--batch 2]
+    python3 profile_port.py [--seed 0] [--batch 2] [--dispatch r5]
 
 Builds the full-size predictor (Swin-B CMNeXt, 480x640 RGB-D, flip, bf16,
-weights from --seed), serves one warm-up request, then one profiled request.
+weights from --seed) under the given kernel dispatch (r5, the default, or
+r4), serves one warm-up request, then one profiled request.
 Prints the request's wall time, the summed device time of its kernels, the
 device idle share (1 - busy / wall; kernels run on one stream, so their sum
 is the busy time), and device time by kernel, the port's own kernels marked.
@@ -21,8 +22,10 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-PORT_KERNELS = ("ln_qkv_kernel", "window_attn_kernel", "proj_add_kernel",
-                "block_tail_kernel", "rpe_rows_kernel", "dscf_rows_kernel")
+PORT_KERNELS = ("ln_qkv_kernel", "window_attn_kernel", "proj_add_kernel",  # K1
+                "block_tail_kernel",                                         # K2
+                "v6_ln_qkv_kernel", "v6_attn_kernel", "proj_tail_kernel",    # K5
+                "rpe_rows_kernel", "dscf_rows_kernel", "rpe_packed_kernel")  # K3 K4 K6
 
 
 def device_us(evt) -> float:
@@ -36,13 +39,14 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batch", type=int, default=2)
+    ap.add_argument("--dispatch", default="r5", choices=("r5", "r4"))
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_port: CUDA is not available")
 
     from ir_ads_tpu_torch.serve import SemSegPredictor
 
-    pred = SemSegPredictor(device="cuda", seed=args.seed)
+    pred = SemSegPredictor(device="cuda", seed=args.seed, dispatch=args.dispatch)
     g = torch.Generator().manual_seed(args.seed + 1)
     rgb, dep = (torch.randint(0, 256, (args.batch, 480, 640, 3), generator=g,
                               dtype=torch.uint8) for _ in range(2))
@@ -62,7 +66,7 @@ def main():
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     port = sum(r[1] for r in rows if any(k in r[0] for k in PORT_KERNELS))
-    print(f"{torch.cuda.get_device_name(0)}; request of {args.batch} frames: "
+    print(f"{torch.cuda.get_device_name(0)}; {args.dispatch}; request of {args.batch} frames: "
           f"wall {wall_ms:.2f} ms, device busy {busy:.2f} ms, idle share "
           f"{1 - busy / wall_ms:.3f}; port kernels {port:.2f} ms "
           f"({port / busy:.3f} of busy)")
@@ -70,7 +74,7 @@ def main():
         mark = "*" if any(k in name for k in PORT_KERNELS) else " "
         print(f" {mark} {ms:9.3f} ms  x{count:<5d} {name[:100]}")
     print(json.dumps({
-        "wall_ms": wall_ms, "device_busy_ms": busy, "idle_share": 1 - busy / wall_ms,
+        "dispatch": args.dispatch, "wall_ms": wall_ms, "device_busy_ms": busy, "idle_share": 1 - busy / wall_ms,
         "port_kernels_ms": port,
         "top": [{"name": n[:120], "ms": ms, "count": c} for n, ms, c in rows[:25]],
     }))

@@ -1,10 +1,11 @@
-"""The plain PyTorch versions of the port's four kernels against the JAX
+"""The plain PyTorch versions of the port's six kernels against the JAX
 Pallas kernels they replace (run in interpret mode) and against the
 kernels' XLA twins, on the CPU, in f32 and in bf16.
 
 Inputs come from numpy with a fixed seed and go through both frameworks.
 Tolerances are those of the JAX package's own kernel tests
-(tests/test_pallas_swin_v4.py, test_pallas_mlp.py, test_dscf_rows.py):
+(tests/test_pallas_swin_v4.py, test_pallas_swin_v5.py, test_pallas_mlp.py,
+test_dscf_rows.py, test_pallas_dscf_rpe.py):
 the same function in f32, differing only in summation order.  The CUDA
 kernels themselves are held against these plain versions on the card by
 chip_smoke.py.
@@ -17,16 +18,20 @@ import torch
 
 from ir_ads_tpu.ops.pallas_dscf import dscf_rows_reference, pallas_dscf_attention_rows
 from ir_ads_tpu.ops.pallas_dscf_rpe import (
+    dscf_rpe_bias_packed_pallas, dscf_rpe_bias_packed_reference,
     dscf_rpe_bias_rows_pallas, dscf_rpe_bias_rows_reference,
 )
 from ir_ads_tpu.ops.pallas_mlp import block_tail_reference, fused_block_tail_pallas
 from ir_ads_tpu.ops.pallas_swin import (
-    _block_reference, pallas_window_block, shift_region_ids as jax_region_ids,
+    _block_reference, _block_v6_reference, pallas_window_block,
+    pallas_window_block_v6, shift_region_ids as jax_region_ids,
 )
 from ir_ads_tpu_torch.ops.block_tail import block_tail
 from ir_ads_tpu_torch.ops.dscf_rows import dscf_rows_attention
 from ir_ads_tpu_torch.ops.dscf_rpe import rpe_bias_rows
+from ir_ads_tpu_torch.ops.dscf_rpe_packed import rpe_bias_packed
 from ir_ads_tpu_torch.ops.swin_block import window_block
+from ir_ads_tpu_torch.ops.swin_block_v6 import window_block_v6
 from ir_ads_tpu_torch.ops.window_attention import shift_region_ids
 
 
@@ -233,7 +238,122 @@ def test_rows_attention_bf16_matches_rows_kernels(packed):
                                    rtol=1e-2, atol=1e-2)
 
 
-def test_cpu_wrappers_reject_planes_the_formula_divides_by():
+@pytest.mark.parametrize("fn", [rpe_bias_rows, rpe_bias_packed])
+def test_cpu_wrappers_reject_planes_the_formula_divides_by(fn):
     with pytest.raises(ValueError):
-        rpe_bias_rows(torch.zeros(1, 8, 2), torch.zeros(1, 2, 5, 5), 1, 4,
-                      torch.float32)
+        fn(torch.zeros(1, 8, 2), torch.zeros(1, 2, 5, 5), 1, 4, torch.float32)
+
+
+# K5 (whole block, v6) and K6 (packed rpe bias).
+
+
+def _v6_case(rng, b, h, w, c, heads, ws, shift, streams, std):
+    """numpy inputs of one v6 block in the JAX layouts (Dense kernels (in,
+    out)); ``std(fan_in)`` is the weights' spread."""
+    hidden, ca, n = 4 * c, c // 8, ws * ws
+    hp, wp = -(-h // ws) * ws, -(-w // ws) * ws
+    lead = (streams,) if streams > 1 else ()
+    x = _rand(rng, b, h, w, c)
+    attn = [_rand(rng, c, std=0.05, mean=1.0), _rand(rng, c, std=0.05),
+            _rand(rng, c, 3 * c, std=std(c)), _rand(rng, 3 * c, std=0.02),
+            _rand(rng, c, c, std=std(c)), _rand(rng, c, std=0.02),
+            _rand(rng, heads, n, n)]
+    tail = [_rand(rng, c, std=0.05, mean=1.0), _rand(rng, c, std=0.05),
+            _rand(rng, c, hidden, std=std(c)), _rand(rng, hidden, std=0.02),
+            _rand(rng, hidden, c, std=std(hidden)), _rand(rng, c, std=0.02),
+            _rand(rng, *lead, c, ca, std=std(c)), _rand(rng, *lead, ca, std=0.02),
+            _rand(rng, *lead, ca, c, std=std(ca)), _rand(rng, *lead, c, std=0.02)]
+    region = shift_region_ids(hp, wp, ws, shift) if shift else None
+    return x, attn, tail, region, (c // heads) ** -0.5
+
+
+def _torch_v6(attn, tail):
+    """The port's parameter layout: Linear weights (out, in), the rel-pos
+    bias as it is."""
+    tw = lambda a: torch.tensor(a).transpose(-1, -2)  # noqa: E731
+    ta = [tw(a) if i in (2, 4) else torch.tensor(a) for i, a in enumerate(attn)]
+    tt = [tw(a) if i in (2, 4, 6, 8) else torch.tensor(a) for i, a in enumerate(tail)]
+    return ta, tt
+
+
+@pytest.mark.parametrize(
+    "h,w,shift,streams", [(8, 8, 0, 1), (7, 6, 2, 1), (7, 10, 2, 2)]
+)
+def test_window_block_v6_matches_v6_kernel_and_twin(h, w, shift, streams):
+    ws, c, heads, b = 4, 32, 2, 4
+    rng = np.random.RandomState(20)
+    x, attn, tail, region, scale = _v6_case(
+        rng, b, h, w, c, heads, ws, shift, streams, lambda f: 0.05)
+    j = lambda a: [jnp.asarray(t) for t in a]  # noqa: E731
+    jreg = None if region is None else jnp.asarray(region)
+    want_kernel = pallas_window_block_v6(
+        jnp.asarray(x), j(attn), j(tail), jreg, scale, heads, ws, shift=shift,
+        interpret=True)
+    want_twin = _block_v6_reference(
+        jnp.asarray(x), j(attn), j(tail), jreg, scale, heads, ws, shift=shift)
+    ta, tt = _torch_v6(attn, tail)
+    got = window_block_v6(_t(x), ta, tt, None if region is None else _t(region),
+                          scale, heads, ws, shift).numpy()
+    # in f32 the twin's rounding of y between the halves does nothing: the
+    # bar of tests/test_pallas_swin_v5.py for kernel against twin
+    for want in (want_kernel, want_twin):
+        np.testing.assert_allclose(got, np.asarray(want), atol=2e-5, rtol=2e-5)
+
+
+@pytest.mark.parametrize("streams", [1, 2])
+def test_window_block_v6_bf16_matches_v6_kernel(streams):
+    h, w, shift, ws, c, heads, b = 7, 10, 2, 4, 32, 2, 4
+    rng = np.random.RandomState(21)
+    x, attn, tail, region, scale = _v6_case(
+        rng, b, h, w, c, heads, ws, shift, streams, lambda f: f ** -0.5)
+    bf = lambda a: [jnp.asarray(t, jnp.bfloat16) for t in a]  # noqa: E731
+    ja, jt = bf(attn[:6]) + [jnp.asarray(attn[6])], bf(tail)
+    jx = jnp.asarray(x, jnp.bfloat16)
+    want = pallas_window_block_v6(jx, ja, jt, jnp.asarray(region), scale, heads,
+                                  ws, shift=shift, interpret=True)
+    ta, tt = _torch_v6([np.asarray(a, np.float32) for a in ja],
+                       [np.asarray(a, np.float32) for a in jt])
+    ta = [t.to(torch.bfloat16) for t in ta[:6]] + [ta[6]]
+    tt = [t.to(torch.bfloat16) for t in tt]
+    got = window_block_v6(torch.as_tensor(np.asarray(jx, np.float32)).to(torch.bfloat16),
+                          ta, tt, _t(region), scale, heads, ws, shift)
+    assert got.dtype == torch.bfloat16
+    # the kernel keeps y = x + attention in f32 and rounds the output once; a
+    # plain version that rounded y between the halves differs by several
+    # ulps wherever the tail cancels y.  Same rounding points, f32 sums of
+    # another order: an output may flip by one ulp
+    assert _ulps(got, want).max() <= 1.0
+    assert _branch_rel(got, want, np.asarray(jx, np.float32)) <= 1e-3
+
+
+@pytest.mark.parametrize("h,w,g,hg", [(15, 20, 2, 2), (6, 8, 1, 2)])
+def test_rpe_packed_matches_packed_kernel_and_twin(h, w, g, hg):
+    b, m, s1, s2 = 2, 16, 23, 31
+    rng = np.random.RandomState(22)
+    pos = rng.uniform(-1.0, 1.0, (b * g, m, 2)).astype(np.float32)
+    table = _rand(rng, g, hg, s1, s2)
+    want_kernel = dscf_rpe_bias_packed_pallas(
+        jnp.asarray(pos), jnp.asarray(table), h, w, out_dtype=jnp.float32,
+        j_chunk=8, interpret=True)
+    want_twin = dscf_rpe_bias_packed_reference(
+        jnp.asarray(pos), jnp.asarray(table), h, w, out_dtype=jnp.float32)
+    got = rpe_bias_packed(_t(pos), _t(table), h, w, torch.float32).numpy()
+    assert got.shape == (b * g, hg, m, h * w)
+    for want in (want_kernel, want_twin):
+        np.testing.assert_allclose(got, np.asarray(want), rtol=1e-5, atol=1e-5)
+
+
+def test_rpe_packed_bf16_matches_packed_kernel():
+    h, w, g, hg, b, m, s1, s2 = 15, 20, 2, 2, 2, 16, 23, 31
+    rng = np.random.RandomState(23)
+    pos = rng.uniform(-1.0, 1.0, (b * g, m, 2)).astype(np.float32)
+    table = _rand(rng, g, hg, s1, s2, std=0.5)
+    want = np.asarray(dscf_rpe_bias_packed_pallas(
+        jnp.asarray(pos), jnp.asarray(table), h, w, out_dtype=jnp.bfloat16,
+        interpret=True), np.float32)
+    got = rpe_bias_packed(_t(pos), _t(table), h, w, torch.bfloat16)
+    assert got.dtype == torch.bfloat16
+    # as for K3: the TPU kernel rounds the table, both hat weights and u to
+    # bf16 before one rounding of the output; the port samples in f32
+    bar = 4 * 2.0 ** -9 * np.abs(table).max() + 2.0 ** -7 * np.abs(want)
+    assert (np.abs(got.float().numpy() - want) <= bar).all()

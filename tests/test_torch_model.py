@@ -6,10 +6,13 @@ shapes (jax.eval_shape of ``init``; no flax initializer runs), so the
 adapters, BN statistics and combiner weights are all non-trivial.
 
   * SwinBlockAdapter: the JAX block under the pallas4 + fused-tail kernels
-    (interpret mode) against the port's block, which runs the plain
-    versions of K1 and K2 on the CPU.
+    and under the pallas6 whole-block kernel (interpret mode) against the
+    port's block, which runs the plain versions of K1 and K2, or K5, on the
+    CPU.
   * DAttentionMM / DeformMPGBlock: the JAX pallas3 branch (rows kernels in
-    interpret mode) against the port's.
+    interpret mode) against the port's; at level 3 the JAX einsum branch,
+    with its bias from the packed rpe kernel or from XLA, against the
+    port's, whose bias is K6's plain version.
   * CMNeXt end to end: the JAX sliding-window predictor (tile = image,
     overlap 1/3, flip, low-res logits) against the port's, atol 2e-3 and
     rtol 1e-3 as tests/test_swin_parity.py.  JAX runs its CPU default there,
@@ -78,23 +81,54 @@ def pallas_interpret(monkeypatch):
         lambda *a, **kw: orig_rpe(*a, **{**kw, "interpret": True}))
 
 
-@pytest.mark.parametrize(
-    "h,w,shifted,sub_mode",
-    [(8, 8, False, "rgb"), (8, 8, True, "dte"), (7, 10, True, "rgb")],
-)
-def test_swin_block_matches_jax_pallas4_block(pallas_interpret, h, w, shifted, sub_mode):
+BLOCK_CASES = [(8, 8, False, "rgb"), (8, 8, True, "dte"), (7, 10, True, "rgb")]
+
+
+def _port_block_matches_jax(h, w, shifted, sub_mode, attn_impl):
     x = np.random.RandomState(4).randn(2, h, w, 32).astype(np.float32)
     blk = jswin.SwinBlockAdapter(dim=32, num_heads=2, ffn_dim=128,
                                  window_size=4, shift=shifted)
     v = random_variables(blk, 5, jnp.asarray(x), sub_mode, True)
     want = blk.apply(v, jnp.asarray(x), sub_mode, True)
-    port = tswin.SwinBlockAdapter(32, 2, 128, 4, shift=shifted)
+    port = tswin.SwinBlockAdapter(32, 2, 128, 4, shift=shifted, attn_impl=attn_impl)
     missing, unexpected = port.load_state_dict(from_flax(v), strict=False)
     other = "MLP_DTE_Adapter" if sub_mode == "rgb" else "MLP_RGB_Adapter"
     assert not unexpected and all(k.startswith(other) for k in missing)
     with torch.no_grad():
         got = port(torch.from_numpy(x), sub_mode).numpy()
     np.testing.assert_allclose(got, _np(want), atol=5e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("h,w,shifted,sub_mode", BLOCK_CASES)
+def test_swin_block_matches_jax_pallas4_block(pallas_interpret, h, w, shifted, sub_mode):
+    _port_block_matches_jax(h, w, shifted, sub_mode, "pallas4")
+
+
+@pytest.mark.parametrize("h,w,shifted,sub_mode", BLOCK_CASES)
+def test_swin_block_matches_jax_pallas6_block(pallas_interpret, monkeypatch, h, w,
+                                              shifted, sub_mode):
+    monkeypatch.setenv("IR_ADS_SWIN_ATTN", "pallas6")
+    _port_block_matches_jax(h, w, shifted, sub_mode, "pallas6")
+
+
+def test_flax_tree_is_the_same_under_every_swin_kernel(pallas_interpret, monkeypatch):
+    """The JAX block declares the same parameters under pallas4 and pallas6,
+    so one from_flax serves both dispatches of the port."""
+    x = jnp.zeros((2, 8, 8, 32))
+    blk = jswin.SwinBlockAdapter(dim=32, num_heads=2, ffn_dim=128,
+                                 window_size=4, shift=True)
+    trees = {}
+    for impl in ("pallas4", "pallas6"):
+        monkeypatch.setenv("IR_ADS_SWIN_ATTN", impl)
+        shapes = jax.eval_shape(
+            lambda: blk.init({"params": jax.random.PRNGKey(0)}, x, "rgb", True))
+        trees[impl] = jax.tree_util.tree_map(lambda a: a.shape, shapes)
+    assert trees["pallas4"] == trees["pallas6"]
+    sd = from_flax(random_variables(blk, 5, x, "rgb", True))
+    for impl in ("pallas4", "pallas6"):
+        port = tswin.SwinBlockAdapter(32, 2, 128, 4, shift=True, attn_impl=impl)
+        missing, unexpected = port.load_state_dict(sd, strict=False)
+        assert not unexpected and all(k.startswith("MLP_DTE") for k in missing)
 
 
 def test_dattention_matches_jax_pallas3(pallas_interpret):
@@ -105,6 +139,25 @@ def test_dattention_matches_jax_pallas3(pallas_interpret):
     v = random_variables(mod, 7, jnp.asarray(x), jnp.asarray(y))
     want = mod.apply(v, jnp.asarray(x), jnp.asarray(y), False)
     port = tswin.DAttentionMM(32, 4, 2, 4).eval()
+    port.load_state_dict(from_flax(v))
+    with torch.no_grad():
+        got = port(torch.from_numpy(x), torch.from_numpy(y)).numpy()
+    np.testing.assert_allclose(got, _np(want), atol=2e-4, rtol=2e-4)
+
+
+@pytest.mark.parametrize("rpe3", ["pallas", "xla"])
+def test_dattention_level3_matches_jax_einsum_branch(pallas_interpret, monkeypatch, rpe3):
+    """Level 3 of r5: JAX's einsum ("xla") branch, its bias from the packed
+    Pallas kernel (IR_ADS_DSCF_RPE3=pallas) or from XLA (the TPU default),
+    against the port's, whose bias is K6's plain version."""
+    monkeypatch.setenv("IR_ADS_DSCF_RPE3", rpe3)
+    rng = np.random.RandomState(16)
+    x, y = (rng.randn(2, 6, 8, 32).astype(np.float32) for _ in range(2))
+    mod = jswin.DAttentionMM(dim=32, n_heads=4, n_groups=2, stride=1, level=3,
+                             attn_impl="xla")
+    v = random_variables(mod, 17, jnp.asarray(x), jnp.asarray(y))
+    want = mod.apply(v, jnp.asarray(x), jnp.asarray(y), False)
+    port = tswin.DAttentionMM(32, 4, 2, 1, level=3, attn_impl="xla").eval()
     port.load_state_dict(from_flax(v))
     with torch.no_grad():
         got = port(torch.from_numpy(x), torch.from_numpy(y)).numpy()

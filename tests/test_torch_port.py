@@ -1,6 +1,6 @@
 """Ground rules of the PyTorch port: no JAX inside it, the GPU by default,
-only the r4 kernel configuration, and the sliding-window wrapper's overlap
-arithmetic against the JAX one."""
+the r5 kernel dispatch by default and r4 on request (nothing else), and the
+sliding-window wrapper's overlap arithmetic against the JAX one."""
 
 import ast
 from pathlib import Path
@@ -13,7 +13,10 @@ import torch
 from ir_ads_tpu.evaluation.semseg_eval import make_sliding_window_fn as jax_sliding
 from ir_ads_tpu_torch.evaluation.semseg_eval import make_sliding_window_fn
 from ir_ads_tpu_torch.models.backbones import swin as tswin
-from ir_ads_tpu_torch.ops import block_tail, dscf_rows, dscf_rpe, swin_block
+from ir_ads_tpu_torch.models.cmnext import CMNeXt
+from ir_ads_tpu_torch.ops import (
+    block_tail, dscf_rows, dscf_rpe, dscf_rpe_packed, swin_block, swin_block_v6,
+)
 from ir_ads_tpu_torch.serve import IMAGENET_MEAN, IMAGENET_STD, SemSegPredictor
 
 ROOT = Path(__file__).resolve().parent.parent
@@ -44,21 +47,78 @@ def test_predictor_defaults_to_cuda(monkeypatch):
         SemSegPredictor()
 
 
-def test_only_the_r4_configuration_is_accepted():
+SMALL = dict(embed_dim=16, depths=(1, 1, 1, 1), num_heads=(1, 2, 4, 8),
+             window_size=4)
+
+
+def _dispatch(model):
+    bb = model.backbone
+    return ([s.blocks[0].attn_impl for s in bb.stages],
+            [m.deform_atten.attn_impl for m in bb.DeformMPGBlocks])
+
+
+def test_only_the_r5_and_r4_dispatches_are_accepted():
+    r5 = (["pallas4", "pallas4", "pallas6", "pallas6"],
+          ["pallas3", "pallas3", "pallas3", "xla"])
+    assert tswin.DISPATCH["r5"] == tuple(tuple(x) for x in r5)
+    assert _dispatch(CMNeXt(num_classes=5, backbone_kwargs=SMALL)) == r5
+    assert _dispatch(CMNeXt(num_classes=5, backbone_kwargs=SMALL, dispatch="r4")) == (
+        ["pallas4"] * 4, ["pallas3"] * 4)
+    tswin.SwinTransformer(**SMALL, attn_impl=("pallas4",) * 4, dscf_attn=("pallas3",) * 4)
     with pytest.raises(NotImplementedError):
-        tswin.SwinBlockAdapter(32, 2, 128, 4, shift=False, attn_impl="pallas6")
+        CMNeXt(num_classes=5, backbone_kwargs=SMALL, dispatch="r3")
+    for attn, dscf in [(("pallas6",) * 4, ("pallas3",) * 4),
+                       (("pallas4",) * 4, ("pallas3", "pallas3", "pallas3", "xla")),
+                       (("pallas4", "pallas4", "pallas6"), ("pallas3",) * 3 + ("xla",)),
+                       (("xla",) * 4, ("xla",) * 4)]:
+        with pytest.raises(NotImplementedError):
+            tswin.SwinTransformer(**SMALL, attn_impl=attn, dscf_attn=dscf)
+    for impl in ("pallas5", "pallas7", "xla", "auto"):
+        with pytest.raises(NotImplementedError):
+            tswin.SwinBlockAdapter(32, 2, 128, 4, shift=False, attn_impl=impl)
     with pytest.raises(NotImplementedError):
         tswin.SwinBlockAdapter(32, 2, 128, 4, shift=False, ffn_impl="xla")
-    with pytest.raises(NotImplementedError):
-        tswin.DAttentionMM(32, 4, 2, 4, attn_impl="xla")
+    for impl in ("pallas", "pallas2", "pallas4", "auto"):
+        with pytest.raises(NotImplementedError):
+            tswin.DAttentionMM(32, 4, 2, 4, attn_impl=impl)
     with pytest.raises(NotImplementedError):
         tswin.SwinTransformer(dual_batch=True)
 
 
+def test_pallas6_block_takes_the_real_map_with_no_pad_roll_or_crop():
+    """K5 gets the block's real input map; the padding, the cyclic shift and
+    the crop are the kernel's."""
+    import inspect
+
+    src = inspect.getsource(tswin.SwinBlockAdapter.forward)
+    branch = src[src.index('if self.attn_impl == "pallas6"'):src.index("pad_b, pad_r")]
+    for banned in ("F.pad", "torch.roll", "[:, :h", "contiguous"):
+        assert banned not in branch
+    blk = tswin.SwinBlockAdapter(32, 2, 128, 4, shift=True, attn_impl="pallas6")
+    seen = {}
+    orig = tswin.window_block_v6
+
+    def spy(x, *a, **kw):
+        seen["shape"] = tuple(x.shape)
+        return orig(x, *a, **kw)
+
+    tswin.window_block_v6 = spy
+    try:
+        with torch.no_grad():
+            out = blk(torch.randn(2, 7, 10, 32), "rgb")
+    finally:
+        tswin.window_block_v6 = orig
+    assert seen["shape"] == (2, 7, 10, 32) and out.shape == (2, 7, 10, 32)
+
+
 def test_every_kernel_targets_hopper_and_names_its_tpu_kernel():
-    for mod in (swin_block, block_tail, dscf_rpe, dscf_rows):
+    mods = (swin_block, block_tail, dscf_rpe, dscf_rows, swin_block_v6, dscf_rpe_packed)
+    assert len({m.KERNEL.name for m in mods}) == 6
+    assert len({m.KERNEL.replaces for m in mods}) == 6
+    for mod in mods:
         k = mod.KERNEL
         assert k.source.exists()
+        assert f'extern "C" int {k.fn}(' in k.source.read_text()
         assert k.replaces.startswith("ir_ads_tpu/ops/pallas_")
         assert k.launches == 0  # nothing launched on the CPU
         src = (ROOT / k.replaces.split(":")[0]).read_text().splitlines()
