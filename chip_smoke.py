@@ -8,7 +8,8 @@ Phases, each of which raises on failure:
   2. build every CUDA kernel of the slice from csrc/ (one nvcc per source,
      all started together) and print the build time;
   3. hold each kernel against its plain PyTorch version on the card, in
-     bf16, at the shapes the main path gives it, element by element and on
+     bf16, at the shapes the main paths (serving and training) give it,
+     element by element and on
      what the kernel adds (the branch, for the residual kernels); show that
      a planted fault in the plain version fails the same bar; print the
      errors against the stated tolerances and the kernel's, the plain
@@ -24,7 +25,26 @@ Phases, each of which raises on failure:
      with the plain versions on the card, while the plain path with a
      planted fault in K1 or in K5 does not; then, for the record, the same
      requests' latency under the ``r4`` dispatch (K1 + K2 and K3 + K4
-     everywhere).
+     everywhere);
+  5. train: ``SemSegTrainer`` (the same model under the ``train`` dispatch,
+     f32 master parameters, bf16 compute, adapter-only AdamW, MMST 3-head
+     loss) on batches of 4 frames drawn from --seed.  (a) With every
+     stochastic rate at 0, one forward and backward on the kernel path (K1
+     with its backward K7 at every stage, K3 + K4 with K8 at DSCF levels
+     0-2, K6 at level 3).  Backward kernels: its gradients, parameter group
+     by group, against the same forward with the plain K7 and K8 behind it.
+     Forward kernels: every launch of K1, K3, K4 and K6 inside the step
+     against its plain version on that launch's own inputs; the loss against
+     the all-plain path; and its gradients, group by group, no further from
+     the all-plain path's than a control is (the plain versions with f32
+     inside, which compute the same functions with fewer roundings).  A
+     planted fault must fail each bar: K7 without its region mask, K8 with
+     a scaled dbias, K1 without its region mask at stage 3 alone.  (b) Four
+     steps of the shipped recipe (drop-path, dropout and the modality mask
+     on), the first a warm-up: finite losses, every trainable parameter
+     moved, every frozen one bit-equal, and per step 48 launches of K1 and
+     of K7, 3 of K3, K4 and K8, 1 of K6 and none of K2 and K5.  (c) The p50
+     step time, images per second and peak memory.
 The line before the last is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``.  Nothing of JAX is imported.
 """
@@ -32,6 +52,7 @@ The line before the last is the kernel table as JSON, the last line
 from __future__ import annotations
 
 import argparse
+import functools
 import json
 import subprocess
 import time
@@ -44,6 +65,7 @@ BF16_TENSOR_FLOPS = 989e12     # dense bf16 tensor cores
 F32_FLOPS = 67e12              # f32 outside the tensor cores
 IMAGE = (480, 640)
 NUM_CLASSES = 40
+TRAIN_BATCH = 4               # the shipped recipe's (configs/nyu_rgbd.yaml)
 
 
 def fail(msg: str):
@@ -334,6 +356,121 @@ def check_rows(g, b, level):
     )
 
 
+def _rms(t):
+    return float(t.float().pow(2).mean().sqrt())
+
+
+def check_window_attn_bwd(g, b, h_real, w_real, c, heads, shift, want_ow, want_dbias):
+    """K7 at one stage's training shape.  Outputs are barred one by one:
+    dqkv and ow are bf16 roundings of f32 sums over 144 (or 32) bf16
+    products, in another order than the plain version's, after two bf16
+    roundings inside (pc, dS * scale) that can each flip by an ulp (2^-8):
+    rtol two ulps, atol 5 % of the output's rms for the elements that
+    cancel to near zero.  dbias is an f32 sum of f32 dS over all windows,
+    which differs only by the sums' order and the exp's last bits: 1e-3."""
+    from ir_ads_tpu_torch.ops import window_attn_bwd as k7
+    from ir_ads_tpu_torch.ops.window_attention import shift_region_ids_on
+
+    ws, n = 12, 144
+    hp, wp = -(-h_real // ws) * ws, -(-w_real // ws) * ws
+    bn = b * (hp // ws) * (wp // ws)
+    qkvw = _rand(g, bn, n, 3 * c)
+    dow = _rand(g, bn, n, c)
+    bias = _rand(g, heads, n, n, dtype=torch.float32)
+    region = shift_region_ids_on(hp, wp, ws, shift, qkvw.device) if shift else None
+    scale = (c // heads) ** -0.5
+    keep = lambda outs: tuple(o for o in outs if o is not None)  # noqa: E731
+    run = lambda: keep(k7.window_attention_bwd(  # noqa: E731
+        qkvw, dow, bias, region, scale, heads, want_ow, want_dbias))
+    plain = lambda: keep(k7.window_attention_bwd_reference(  # noqa: E731
+        qkvw, dow, bias, region, scale, heads, want_ow, want_dbias))
+    faulted = lambda: keep(k7.window_attention_bwd_reference(  # noqa: E731
+        qkvw, dow, bias, None, scale, heads, want_ow, want_dbias))
+    names = ["dqkv"] + ["ow"] * want_ow + ["dbias"] * want_dbias
+    tol = {"dqkv": (0.05, 2e-2), "ow": (0.05, 2e-2), "dbias": (1e-3, 1e-3)}
+
+    # the library call: the backward of scaled_dot_product_attention with
+    # bias + region mask as its float mask (the graph is built outside the
+    # timing; gradients of q, k, v and of the bias)
+    d = c // heads
+    heads_of = lambda t: t.reshape(bn, n, heads, d).transpose(1, 2)  # noqa: E731
+    leaves = [heads_of(qkvw[..., i * c:(i + 1) * c]).detach().requires_grad_()
+              for i in range(3)]
+    bias_leaf = bias.to(torch.bfloat16).requires_grad_()
+    mask = bias_leaf[None]
+    if region is not None:
+        neq = (region[:, :, None] != region[:, None, :]).repeat(b, 1, 1)
+        mask = mask + torch.where(neq, -1e9, 0.0).to(torch.bfloat16)[:, None]
+    out = F.scaled_dot_product_attention(*leaves, attn_mask=mask.expand(bn, -1, -1, -1),
+                                         scale=scale)
+    do = heads_of(dow)
+    wanted = leaves + [bias_leaf] * want_dbias
+
+    def library():
+        return torch.autograd.grad(out, wanted, do, retain_graph=True)
+
+    flops = bn * heads * 2 * n * n * d * (5 + want_ow)
+    io = (nbytes(qkvw, dow, bias, region) + nbytes(qkvw)
+          + nbytes(dow) * want_ow + nbytes(bias) * want_dbias)
+    return dict(
+        name="window_attn_bwd",
+        case=f"C={c} {bn} windows shift {shift} ow {int(want_ow)} dbias {int(want_dbias)}",
+        run=run, plain=plain, faulted=faulted, fault="region mask dropped",
+        base=None, library=library, outputs=names,
+        atol=[tol[k][0] for k in names], rtol=[tol[k][1] for k in names],
+        atol_of_rms=True, bytes=io, flops=flops, rate=BF16_TENSOR_FLOPS,
+    )
+
+
+def check_rows_bwd(g, b, level):
+    """K8 at one DSCF level's training shape.  dq is a bf16 rounding of an
+    f32 sum over 600 keys of bf16(dS * scale) products (rtol two ulps, atol
+    5 % of rms); dk and dv are f32 sums over every query pixel of products
+    of bf16-rounded factors whose rounding can flip (1 % of rms, rtol two
+    ulps); dbias is dS itself in f32 (1e-3, the exp's and the sums' last
+    bits)."""
+    from ir_ads_tpu_torch.ops import dscf_rows_bwd as k8
+    from ir_ads_tpu_torch.ops import dscf_rpe as k3
+
+    h, w, groups, bg, hg, m, pos, table = _dscf_inputs(g, b, level)
+    gc = 16
+    q = _rand(g, bg, h * w, gc)
+    k = _rand(g, bg, m, gc)
+    v = _rand(g, bg, m, gc)
+    dout = _rand(g, bg, h * w, gc)
+    bias = k3.rpe_bias_rows_reference(pos, table, h, w, torch.bfloat16)
+    scale = 8 ** -0.5
+    run = lambda: k8.dscf_rows_bwd(q, k, v, bias, dout, scale, hg)  # noqa: E731
+    plain = lambda: k8.dscf_rows_bwd_reference(q, k, v, bias, dout, scale, hg)  # noqa: E731
+
+    def faulted():
+        dq, dk, dv, dbias = plain()
+        return dq, dk, dv, dbias * scale
+
+    heads_of = lambda t, n: t.reshape(bg, n, hg, 8).transpose(1, 2)  # noqa: E731
+    leaves = [heads_of(q, h * w).detach().requires_grad_(),
+              heads_of(k, m).detach().requires_grad_(),
+              heads_of(v, m).detach().requires_grad_(),
+              bias.permute(0, 1, 2, 4, 3).reshape(bg, hg, h * w, m).contiguous()
+              .requires_grad_()]
+    out = F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3], scale=scale)
+    do = heads_of(dout, h * w)
+
+    def library():
+        return torch.autograd.grad(out, leaves, do, retain_graph=True)
+
+    scores = bg * hg * h * w * m
+    return dict(
+        name="dscf_rows_bwd", case=f"level {level} plane {h}x{w} BG={bg}",
+        run=run, plain=plain, faulted=faulted, fault="dbias scaled by scale",
+        base=None, library=library, outputs=["dq", "dk", "dv", "dbias"],
+        atol=[0.05, 0.01, 0.01, 1e-3], rtol=[2e-2, 2e-2, 2e-2, 1e-3],
+        atol_of_rms=True,
+        bytes=nbytes(q, k, v, bias, dout) + nbytes(q) + 2 * nbytes(k) * 2 + scores * 4,
+        flops=scores * 80, rate=BF16_TENSOR_FLOPS,
+    )
+
+
 def _rel(got, want, base):
     """||got - want|| / ||want - base|| in f32 (base None: zero)."""
     ref = want.float() if base is None else want.float() - base.float()
@@ -362,33 +499,52 @@ def phase_kernels(seed: int, images: int):
         lambda: check_rows(g, images, 0),
         lambda: check_rows(g, images, 2),
         lambda: check_rpe_packed(g, images, 3),
+        # the training path: K1 again at stages 2-3; K7 at the four stages as
+        # the adapter recipe runs it (attention parameters frozen: no ow, no
+        # dbias) and once with every gradient wanted; K8 at levels 0 and 2
+        lambda: check_window_block(g, TRAIN_BATCH, 30, 40, 512, 16, 6,
+                                   "region mask dropped"),
+        lambda: check_window_block(g, TRAIN_BATCH, 15, 20, 1024, 32, 6,
+                                   "rel-pos bias dropped"),
+        lambda: check_window_attn_bwd(g, TRAIN_BATCH, 120, 160, 128, 4, 6, False, False),
+        lambda: check_window_attn_bwd(g, TRAIN_BATCH, 60, 80, 256, 8, 6, False, False),
+        lambda: check_window_attn_bwd(g, TRAIN_BATCH, 30, 40, 512, 16, 6, False, False),
+        lambda: check_window_attn_bwd(g, TRAIN_BATCH, 15, 20, 1024, 32, 6, False, False),
+        lambda: check_window_attn_bwd(g, TRAIN_BATCH, 60, 80, 256, 8, 6, True, True),
+        lambda: check_rows_bwd(g, TRAIN_BATCH, 0),
+        lambda: check_rows_bwd(g, TRAIN_BATCH, 2),
     ]
     rows = []
     for make in cases:
         case = make()
         run, plain, library = case.pop("run"), case.pop("plain"), case.pop("library")
         faulted, base = case.pop("faulted"), case.pop("base")
-        got = run()
-        want = plain()
+        names = case.pop("outputs", ["out"])
+        of_rms = case.pop("atol_of_rms", False)
+        as_list = lambda v: list(v) if isinstance(v, (list, tuple)) else [v]  # noqa: E731
+        atols, rtols = as_list(case["atol"]), as_list(case["rtol"])
+        got, want = as_list(run()), as_list(plain())
         torch.cuda.synchronize()
-        err = (got.float() - want.float()).abs()
-        tol = case["atol"] + case["rtol"] * want.float().abs()
-        finite = bool(torch.isfinite(got.float()).all())
-        elem_ok = bool((err <= tol).all())
-        max_err = float(err.max())
-        rel = _rel(got, want, base)
-        del got, err, tol
-        bad = faulted()
-        fault_rel = _rel(bad, want, base)
-        del want, bad
+        bad = as_list(faulted())
+        finite, elem_ok, max_err, rel, fault_rel, parts = True, True, 0.0, 0.0, 0.0, []
+        for name, gt, wt, bd, atol, rtol in zip(names, got, want, bad, atols, rtols):
+            err = (gt.float() - wt.float()).abs()
+            tol = atol * (_rms(wt) if of_rms else 1.0) + rtol * wt.float().abs()
+            finite = finite and bool(torch.isfinite(gt.float()).all())
+            elem_ok = elem_ok and bool((err <= tol).all())
+            r, fr = _rel(gt, wt, base), _rel(bd, wt, base)
+            parts.append(f"{name} max_abs_err {float(err.max()):.3e} rel {r:.3e}")
+            max_err, rel, fault_rel = max(max_err, float(err.max())), max(rel, r), max(fault_rel, fr)
+            del err, tol
+        del got, want, bad
         ms = time_ms(run)
         plain_ms = time_ms(plain, iters=3, warmup=1)
         lib_ms = time_ms(library) if library else None
         b_ms, b_by = bound_ms(case["bytes"], case["flops"], case["rate"])
         print(
-            f"  {case['name']:<15} {case['case']:<34} max_abs_err {max_err:.3e} "
-            f"(tol atol {case['atol']} + rtol {case['rtol']}) rel {rel:.3e} "
-            f"(tol {REL_TOL}; planted fault '{case['fault']}': {fault_rel:.3e}) "
+            f"  {case['name']:<15} {case['case']:<34} " + "; ".join(parts) +
+            f" (tol atol {case['atol']}{' x rms' if of_rms else ''} + rtol {case['rtol']}; "
+            f"rel tol {REL_TOL}; planted fault '{case['fault']}': {fault_rel:.3e}) "
             f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
             f"library {'%.4f' % lib_ms if lib_ms is not None else 'n/a'} ms "
             f"bound {b_ms:.4f} ms ({b_by})",
@@ -426,11 +582,12 @@ LOGIT_TOL = dict(rel_mean=2e-2, rel_max=0.06, label_agree=0.97)
 
 def _ops_modules():
     from ir_ads_tpu_torch.ops import (
-        block_tail, dscf_rows, dscf_rpe, dscf_rpe_packed, swin_block, swin_block_v6,
+        block_tail, dscf_rows, dscf_rows_bwd, dscf_rpe, dscf_rpe_packed, swin_block,
+        swin_block_v6, window_attn_bwd,
     )
 
     return (swin_block, block_tail, swin_block_v6, dscf_rpe, dscf_rows,
-            dscf_rpe_packed)
+            dscf_rpe_packed, window_attn_bwd, dscf_rows_bwd)
 
 
 def expected_launches(model):
@@ -534,9 +691,8 @@ def phase_serve(seed: int, requests: int, batch: int, card_line: str):
     ]
     _warm_up(pred, frames)
 
-    kernels = [m.KERNEL for m in _ops_modules()]
-    for k in kernels:
-        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()  # phase 3 allocated more than serving does
+    kernels = _reset_launches()
     lat, outs = _serve(pred, frames)
     launches = {k.name: k.launches for k in kernels}
 
@@ -547,9 +703,9 @@ def phase_serve(seed: int, requests: int, batch: int, card_line: str):
         fail(f"the predictor's dispatch gives {per_request} launches per request, "
              f"not r5's {r5}")
     for name, n in launches.items():
-        if n != per_request[name] * requests:
+        if n != per_request.get(name, 0) * requests:
             fail(f"{name} launched {n} times on the main path, expected "
-                 f"{per_request[name]} per request x {requests}")
+                 f"{per_request.get(name, 0)} per request x {requests}")
     for logits, labels in outs:
         if logits.shape != (batch, *IMAGE, NUM_CLASSES) or labels.shape != (batch, *IMAGE):
             fail(f"output shape {tuple(logits.shape)}")
@@ -617,7 +773,371 @@ def phase_serve(seed: int, requests: int, batch: int, card_line: str):
     return launches, serve
 
 
-def kernel_table(rows, launches):
+# --------------------------------------------------------------------------
+# phase 5: training steps through the port's entry point
+# --------------------------------------------------------------------------
+
+# launches per training step under the ``train`` dispatch: every block of
+# both streams runs K1 forward and K7 backward (24 x 2), every DSCF level
+# 0-2 runs K3, K4 and K8, level 3 runs K6; the eval kernels do not run
+TRAIN_LAUNCHES = {"swin_block": 48, "window_attn_bwd": 48, "dscf_rpe": 3,
+                  "dscf_rows": 3, "dscf_rows_bwd": 3, "dscf_rpe_packed": 1,
+                  "block_tail": 0, "swin_block_v6": 0}
+
+# One forward and backward in bf16 with f32 master parameters, every
+# stochastic rate 0, gradients taken group by group (a group's parameters as
+# one vector, ||got - want|| / ||want||).  Measured on the card
+# (grad_noise.py): the same path run twice differs by ~1 % of a group's norm
+# (PyTorch's own backward sums with atomics), and two bf16 forwards of the
+# same function that round at different points give gradients 0.6 % (decode
+# heads) to 100 % (DSCF offsets) apart, group by group, while their losses
+# agree to 1e-5.  So the two halves are barred apart:
+#   * backward kernels (K7, K8): the kernel path against the path with the
+#     SAME forward kernels and the plain versions of K7 and K8 in the
+#     backward.  The forwards are bit-equal, so only the backward kernels'
+#     summation order and the run-to-run 1 % remain: every group within
+#     ``bwd_group_rel``.
+#   * forward kernels (K1 at all four stages, K3, K4, K6), three bars.
+#     Every launch inside the step against its plain version on that
+#     launch's own inputs, on what it adds (phase 3's bar, ``fwd_call_rel``).
+#     The loss against the all-plain path within ``loss``.  And every
+#     group's gradient against the all-plain path's, no further from it than
+#     ``noise_ratio`` times a control is: the plain path with f32 inside K1
+#     and K4 (the same functions with fewer roundings; K3 and K6 compute in
+#     f32 already), which measures in this run what a change of rounding
+#     alone does to each group.  grad_noise.py: the kernel path is 0.69 to
+#     1.14 times as far from the plain path as the control, group by group,
+#     and all of that distance comes from K1 (swapping K3, K4 or K6 alone
+#     moves no group beyond the run-to-run 1 %).
+# One planted fault per bar must fail it: K7 without its region mask, K8
+# with dbias scaled by ``scale``, and K1's forward without its region mask
+# at stage 3 alone (2 of the 48 launches).
+GRAD_TOL = dict(loss=2e-3, bwd_group_rel=0.05, fwd_call_rel=REL_TOL, noise_ratio=2.0)
+FORWARD = ("swin_block", "dscf_rpe", "dscf_rows", "dscf_rpe_packed")
+BACKWARD = ("window_attn_bwd", "dscf_rows_bwd")
+
+
+def _grad_group(name: str) -> str:
+    parts = name.split(".")
+    if parts[0] != "backbone":
+        return parts[0]
+    if parts[1] == "DeformMPGBlocks":
+        leaf = "rpe_table" if parts[-1] == "rpe_table" else (
+            "offsets" if "conv_offset" in name else "rest")
+        return f"DeformMPGBlocks.{parts[2]}.{leaf}"
+    if parts[1] in ("stages", "MPGBlocks"):
+        return ".".join(parts[1:3])
+    return parts[1]
+
+
+def _train_wrappers():
+    """Kernel name -> (module, the name through which the differentiable
+    wrapper reaches the kernel, the plain version to put there)."""
+    from ir_ads_tpu_torch.ops import (
+        dscf_rows, dscf_rows_bwd, dscf_rpe, dscf_rpe_packed, swin_block, window_attn_bwd,
+    )
+
+    return {
+        "swin_block": (swin_block, "_forward", _block_forward_plain),
+        "dscf_rpe": (dscf_rpe, "_rows_forward", dscf_rpe.rpe_bias_rows_reference),
+        "dscf_rows": (dscf_rows, "_forward", dscf_rows.dscf_rows_reference),
+        "dscf_rpe_packed": (dscf_rpe_packed, "_packed_forward",
+                            dscf_rpe_packed.rpe_bias_packed_reference),
+        "window_attn_bwd": (swin_block, "window_attention_bwd",
+                            window_attn_bwd.window_attention_bwd_reference),
+        "dscf_rows_bwd": (dscf_rows, "dscf_rows_bwd",
+                          dscf_rows_bwd.dscf_rows_bwd_reference),
+    }
+
+
+def _swap_train_path(plain=(), **replaced):
+    """Point the kernels named in ``plain`` at their plain versions (on CUDA
+    tensors) and those in ``replaced`` at the given functions, and return a
+    function that restores the kernels."""
+    wrappers = _train_wrappers()
+    swap = {name: wrappers[name][2] for name in plain}
+    swap.update(replaced)
+    saved = {name: getattr(*wrappers[name][:2]) for name in swap}
+    for name, f in swap.items():
+        setattr(*wrappers[name][:2], f)
+    return lambda: [setattr(*wrappers[name][:2], f) for name, f in saved.items()]
+
+
+def _block_forward_plain(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, region,
+                         *rest, no_region_at=(), inside=None):
+    """K1's plain forward behind its wrapper's parameter rounding.  With
+    ``no_region_at`` a planted fault: the shift-region mask left out at
+    those channel widths.  With ``inside=torch.float32`` the control: the
+    same rounded inputs, no rounding inside, the output rounded once."""
+    from ir_ads_tpu_torch.ops.swin_block import window_block_reference
+
+    params = (t.to(x.dtype).to(inside or x.dtype)
+              for t in (ln_w, ln_b, wqkv, bqkv, wproj, bproj))
+    keep = x.shape[-1] not in no_region_at
+    return window_block_reference(x.to(inside or x.dtype), *params, bias.float(),
+                                  region if keep else None, *rest).to(x.dtype)
+
+
+def _rows_f32_inside(q, k, v, bias, scale, hg):
+    """K4's plain version as the control: no rounding inside."""
+    from ir_ads_tpu_torch.ops.dscf_rows import dscf_rows_reference
+
+    return dscf_rows_reference(q.float(), k.float(), v.float(), bias.float(),
+                               scale, hg).to(q.dtype)
+
+
+CONTROL = dict(swin_block=functools.partial(_block_forward_plain, inside=torch.float32),
+               dscf_rows=_rows_f32_inside)
+
+
+def _checked_forwards(log, **faults):
+    """Replacements for the four forward kernels that launch the kernel, run
+    its plain version (or ``faults``' version of it) on the same inputs, add
+    (kernel, output shape, error on what the kernel adds) to ``log`` and
+    hand on the kernel's output."""
+    def both(name, kernel, plain):
+        def run(*args):
+            got, want = kernel(*args), plain(*args)
+            base = args[0] if name == "swin_block" else None  # K1: y - x
+            log.append((name, tuple(got.shape), _rel(got, want, base)))
+            return got
+        return run
+
+    wrappers = _train_wrappers()
+    return {name: both(name, getattr(*wrappers[name][:2]),
+                       faults.get(name, wrappers[name][2])) for name in FORWARD}
+
+
+def _attn_bwd_no_region(qkvw, dow, bias, region, *rest, **kw):
+    """K7's plain version with a planted fault: the shift-region mask left out."""
+    from ir_ads_tpu_torch.ops.window_attn_bwd import window_attention_bwd_reference
+
+    return window_attention_bwd_reference(qkvw, dow, bias, None, *rest, **kw)
+
+
+def _rows_bwd_scaled_dbias(q, k, v, bias, dout, scale, hg):
+    """K8's plain version with a planted fault: dbias scaled by ``scale``."""
+    from ir_ads_tpu_torch.ops.dscf_rows_bwd import dscf_rows_bwd_reference
+
+    dq, dk, dv, dbias = dscf_rows_bwd_reference(q, k, v, bias, dout, scale, hg)
+    return dq, dk, dv, dbias * scale
+
+
+def _train_batches(seed: int, batch: int, n: int):
+    """Normalised frames and labels (one row band ignored) from the seed."""
+    g = torch.Generator().manual_seed(seed + 2)
+    out = []
+    for _ in range(n):
+        rgb = torch.randn(batch, *IMAGE, 3, generator=g)
+        dte = torch.rand(batch, *IMAGE, 3, generator=g)
+        label = torch.randint(0, NUM_CLASSES, (batch, *IMAGE), generator=g)
+        label[:, :8] = 255
+        out.append((rgb, dte, label))
+    return out
+
+
+def _reset_launches():
+    kernels = [m.KERNEL for m in _ops_modules()]
+    for k in kernels:
+        k.launches = 0
+    return kernels
+
+
+def gradient_run(seed: int, dtype, batch):
+    """A trainer with every stochastic rate at 0 and a function that runs one
+    forward and backward on ``batch`` with the train path swapped as
+    ``_swap_train_path`` says, and returns the loss and the gradient of every
+    parameter group as one f32 vector."""
+    from ir_ads_tpu_torch.train import SemSegTrainer
+    from ir_ads_tpu_torch.training.train_state import compute_loss
+
+    tr = SemSegTrainer(device="cuda", dtype=dtype, seed=seed, num_classes=NUM_CLASSES,
+                       head_drop=0.0, mmst_mask=False,
+                       backbone_kwargs=dict(drop_path_rate=0.0, adapter_drop=0.0))
+    params = dict(tr.model.named_parameters())
+    data = tr.batch(*batch)
+
+    def run(plain=(), **replaced):
+        restore = _swap_train_path(plain, **replaced)
+        try:
+            tr.model.train()
+            tr.optimizer.zero_grad(set_to_none=True)
+            loss, _ = compute_loss(tr.model, data, tr.loss_fn, tr.generator)
+            loss.backward()
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        groups = {}
+        for name, p in params.items():
+            if p.requires_grad:
+                groups.setdefault(_grad_group(name), []).append(p.grad.flatten().float())
+        grads = {k: torch.cat(v) for k, v in groups.items()}
+        if not all(bool(torch.isfinite(v).all()) for v in grads.values()):
+            fail("non-finite gradients")
+        return float(loss.detach()), grads
+
+    return tr, run
+
+
+def group_rel(got, want):
+    return {k: float((got[k] - want[k]).norm() / want[k].norm()) for k in want}
+
+
+def phase_train(seed: int, card_line: str):
+    from ir_ads_tpu_torch.train import SemSegTrainer
+
+    batch = TRAIN_BATCH
+    batches = _train_batches(seed, batch, 4)
+
+    # (a) kernel path against plain versions, stochastic rates 0
+    def median(rels):
+        return sorted(rels.values())[len(rels) // 2]
+
+    t0 = time.time()
+    tr, run = gradient_run(seed, torch.bfloat16, batches[0])
+    n_all = sum(p.numel() for p in tr.model.parameters())
+    n_train = sum(p.numel() for p in tr.model.parameters() if p.requires_grad)
+    print(f"  model: Swin-B CMNeXt under the train dispatch, f32 masters, bf16 compute, "
+          f"{n_train / 1e6:.2f} M of {n_all / 1e6:.1f} M parameters trainable, built in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    kernels = _reset_launches()
+    loss_k, grads_k = run()
+    once = {k.name: k.launches for k in kernels}
+    if once != TRAIN_LAUNCHES:
+        fail(f"one forward and backward launched {once}, expected {TRAIN_LAUNCHES}")
+
+    # backward kernels: same forward, K7 and K8 against their plain versions
+    _, grads_pb = run(BACKWARD)
+
+    def backward_bar(grads, what):
+        rels = group_rel(grads, grads_pb)
+        worst = max(rels, key=rels.get)
+        print(f"  {what} vs the plain K7 and K8 behind the same forward: gradient "
+              f"||diff|| / ||ref|| over {len(rels)} parameter groups: worst "
+              f"{rels[worst]:.3e} ({worst}), median {median(rels):.3e} "
+              f"(tol {GRAD_TOL['bwd_group_rel']})", flush=True)
+        return rels, rels[worst] <= GRAD_TOL["bwd_group_rel"]
+
+    bwd_rels, ok = backward_bar(grads_k, "kernel path")
+    if not ok:
+        fail("K7 or K8 disagrees with its plain version inside the training step")
+    if backward_bar(run(BACKWARD, window_attn_bwd=_attn_bwd_no_region)[1],
+                    "planted fault (K7 without the shift-region mask)")[1]:
+        fail("a K7 without its shift-region mask passes the gradient bar")
+    if backward_bar(run(BACKWARD, dscf_rows_bwd=_rows_bwd_scaled_dbias)[1],
+                    "planted fault (K8 with dbias scaled by scale)")[1]:
+        fail("a K8 whose dbias is scaled passes the gradient bar")
+    del grads_pb
+
+    # forward kernels, launch by launch inside the step
+    stage3_fault = functools.partial(_block_forward_plain, no_region_at=(1024,))
+
+    def forward_calls(what, **faults):
+        log = []
+        run(**_checked_forwards(log, **faults))
+        worst = {}
+        for name, shape, r in log:
+            if r >= worst.get(name, (0.0, None))[0]:
+                worst[name] = (r, shape)
+        print(f"  {what}: {len(log)} forward launches inside the step against their "
+              f"plain versions on the same inputs, worst error on what the kernel adds: "
+              + ", ".join(f"{k} {r:.3e} {shape}" for k, (r, shape) in worst.items())
+              + f" (tol {GRAD_TOL['fwd_call_rel']})", flush=True)
+        if len(log) != sum(TRAIN_LAUNCHES[k] for k in FORWARD):
+            fail(f"{len(log)} forward launches were checked inside the step")
+        return ({k: r for k, (r, _) in worst.items()},
+                all(r <= GRAD_TOL["fwd_call_rel"] for r, _ in worst.values()))
+
+    call_rels, ok = forward_calls("kernel path")
+    if not ok:
+        fail("a forward kernel disagrees with its plain version inside the training step")
+    if forward_calls("planted fault (plain K1 without the shift-region mask at stage 3)",
+                     swin_block=stage3_fault)[1]:
+        fail("a K1 without its shift-region mask at stage 3 passes the launch bar")
+
+    # forward kernels, through the step: loss and gradients against the
+    # all-plain path, the gradients barred by the control's distance from it
+    loss_p, grads_p = run(FORWARD + BACKWARD)
+    loss_c, grads_c = run(FORWARD + BACKWARD, **CONTROL)
+    noise = group_rel(grads_c, grads_p)
+
+    def forward_bar(grads, what):
+        rels = group_rel(grads, grads_p)
+        ratio = {k: rels[k] / noise[k] for k in rels}
+        worst = max(ratio, key=ratio.get)
+        print(f"  {what} vs all plain versions: gradient ||diff|| / ||ref|| over "
+              f"{len(rels)} parameter groups, median {median(rels):.3e} (control "
+              f"{median(noise):.3e}); worst against the control {ratio[worst]:.3f} x "
+              f"({worst}: {rels[worst]:.3e}, control {noise[worst]:.3e}; tol "
+              f"{GRAD_TOL['noise_ratio']} x)", flush=True)
+        return rels, ratio[worst] <= GRAD_TOL["noise_ratio"]
+
+    dloss = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"  kernel path vs all plain versions: loss {loss_k:.6f} vs {loss_p:.6f} (rel "
+          f"{dloss:.2e}, tol {GRAD_TOL['loss']}; control {loss_c:.6f})", flush=True)
+    if dloss > GRAD_TOL["loss"]:
+        fail("the training loss on the kernel path disagrees with the plain path")
+    fwd_rels, ok = forward_bar(grads_k, "kernel path")
+    if not ok:
+        fail("the kernel path's gradients are further from the plain path's than a "
+             "change of rounding explains")
+    if forward_bar(run(FORWARD + BACKWARD, swin_block=stage3_fault)[1],
+                   "planted fault (K1 forward without the shift-region mask at stage 3)")[1]:
+        fail("a K1 forward without its shift-region mask at stage 3 passes the "
+             "gradient bar")
+    rels = dict(backward=bwd_rels, forward_calls=call_rels, kernel_vs_plain=fwd_rels,
+                control_vs_plain=noise)
+    del tr, run, grads_k, grads_p, grads_c
+    torch.cuda.empty_cache()
+
+    # (b) the shipped recipe: dropout, drop-path and the modality mask on
+    tr = SemSegTrainer(device="cuda", seed=seed, num_classes=NUM_CLASSES)
+    start = {n: p.detach().clone() for n, p in tr.model.named_parameters()}
+    tr.step(*batches[0])  # warm-up (allocator, cuBLAS handles, AdamW state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = _reset_launches()
+    ms, metrics = [], []
+    for b in batches[1:]:
+        t = time.perf_counter()
+        metrics.append(tr.step(*b))  # returns floats: the step has finished
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    launches = {k.name: k.launches for k in kernels}
+    steps = len(ms)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for name, n in launches.items():
+        if n != TRAIN_LAUNCHES[name] * steps:
+            fail(f"{name} launched {n} times in {steps} training steps, expected "
+                 f"{TRAIN_LAUNCHES[name]} per step")
+    for m in metrics:
+        if not all(torch.isfinite(torch.tensor(list(m.values())))):
+            fail(f"non-finite loss {m}")
+    for name, p in tr.model.named_parameters():
+        same = torch.equal(p, start[name])
+        # softmax ignores a shift of all scores, so the DSCF key bias has a zero
+        # gradient and may stay where it was
+        if p.requires_grad and same and not name.endswith("proj_k.bias"):
+            fail(f"trainable parameter {name} did not change in {steps + 1} steps")
+        if not p.requires_grad and not same:
+            fail(f"frozen parameter {name} changed")
+        if p.dtype != torch.float32:
+            fail(f"parameter {name} is {p.dtype}, not an f32 master")
+    p50 = _p50(ms)
+    print(f"  shipped recipe: {steps} steps x {batch} frames {IMAGE[0]}x{IMAGE[1]} RGB-D after a "
+          f"warm-up step, loss {['%.4f' % m['loss'] for m in metrics]} loss_main "
+          f"{['%.4f' % m['loss_main'] for m in metrics]}, step ms "
+          f"{['%.1f' % v for v in ms]} p50 {p50:.1f}, {batch * 1e3 / p50:.2f} images/s, "
+          f"peak memory {peak:.2f} GiB [{card_line}]", flush=True)
+    print(f"  launches on the training path ({steps} steps): {launches}", flush=True)
+    return launches, dict(batch=batch, steps=steps, step_ms=ms, p50_ms=p50,
+                          images_per_s=batch * 1e3 / p50, peak_memory_gib=peak,
+                          losses=metrics, group_rel_err=rels)
+
+
+def kernel_table(rows, launches, train_launches):
+    """One entry per kernel; ``launches`` sums the two main paths' runs (the
+    serving requests and the training steps, each counted from 0)."""
     from ir_ads_tpu_torch.ops.cuda_lib import PKG
 
     out = []
@@ -628,7 +1148,9 @@ def kernel_table(rows, launches):
         out.append(dict(
             name=k.name, route="cuda",
             source=str(k.source.relative_to(PKG.parent)),
-            replaces=k.replaces, launches=launches[k.name],
+            replaces=k.replaces,
+            launches=launches[k.name] + train_launches[k.name],
+            launches_serve=launches[k.name], launches_train=train_launches[k.name],
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=first["ms"], plain_ms=first["plain_ms"],
             bound_ms=first["bound_ms"], bound_by=first["bound_by"],
@@ -676,8 +1198,11 @@ def main():
     print("phase 4: serving", flush=True)
     launches, serve = phase_serve(args.seed, args.requests, args.batch, card_line)
 
-    print(json.dumps({"kernels": kernel_table(rows, launches), "serve": serve,
-                      "card": card_line}))
+    print("phase 5: training", flush=True)
+    train_launches, train = phase_train(args.seed, card_line)
+
+    print(json.dumps({"kernels": kernel_table(rows, launches, train_launches),
+                      "serve": serve, "train": train, "card": card_line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

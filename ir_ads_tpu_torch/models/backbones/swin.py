@@ -1,7 +1,7 @@
 """Dual-stream Swin backbone with MAPA adapters, MPG prompting and DSCF
-deformable cross-modal fusion, eval mode, NHWC.
+deformable cross-modal fusion, NHWC.
 
-Counterpart of ir_ads_tpu/models/backbones/swin.py under two of its
+Counterpart of ir_ads_tpu/models/backbones/swin.py under three of its
 kernel configurations, chosen by explicit arguments (``DISPATCH``):
 
   r5 (the default; the JAX package's default dispatch on its chip and the
@@ -13,16 +13,34 @@ kernel configurations, chosen by explicit arguments (``DISPATCH``):
      the packed-layout kernel (K6, ops/dscf_rpe_packed.py);
   r4 (the bench's previous set): K1 + K2 at every stage, K3 + K4 at every
      level.
+  train (what the JAX package runs under ``train=True``): K1 at every stage,
+     differentiable through K7 (ops/window_attn_bwd.py), with drop-path by
+     reconstruction, ``x + drop_path(K1(x) - x)``; the block tail as modules
+     under autograd (LN2, FFN with drop-path, 0.5 * Adapter with dropout);
+     DSCF as r5, K4 differentiable through K8 (ops/dscf_rows_bwd.py) and the
+     bias kernels through their f32 twin.
+
+r5 and r4 are the eval dispatches: K2 and K5 have no backward and raise when
+an input requires a gradient, and a model built for them draws no random
+numbers in any mode.  Under ``train`` the stochastic pieces (MMST modality
+mask, drop-path, adapter dropout) are on while ``module.training`` is set
+and draw from the ``generator`` handed to ``forward``.
+
+Parameters may be kept in f32 while the activations are bf16: every module
+casts its parameters at use (``layers.cast``), as flax does, and the kernel
+wrappers round theirs on entry.
 
 Module and parameter names are the reference checkpoint's
-(semseg/models/backbones/swin.py), the same under both, so a reference
-state_dict loads as it is and utils/jax_params.from_flax produces one.
+(semseg/models/backbones/swin.py), the same under every dispatch, so a
+reference state_dict loads as it is and utils/jax_params.from_flax produces
+one.
 """
 
 from __future__ import annotations
 
-from typing import List, Sequence, Tuple
+from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -32,22 +50,27 @@ from ir_ads_tpu_torch.ops.dscf_rows import dscf_rows_attention
 from ir_ads_tpu_torch.ops.dscf_rpe import rpe_bias_rows
 from ir_ads_tpu_torch.ops.dscf_rpe_packed import rpe_bias_packed
 from ir_ads_tpu_torch.ops.grid_sample import grid_sample_matmul, make_ref_grid
-from ir_ads_tpu_torch.ops.layers import FFN, PatchEmbed, PatchMerging, layer_norm
+from ir_ads_tpu_torch.ops.layers import (
+    FFN, FlaxBatchNorm2d, PatchEmbed, PatchMerging, cast, conv2d, drop_path, dropout,
+    gelu, layer_norm, linear, pointwise,
+)
 from ir_ads_tpu_torch.ops.swin_block import window_block
 from ir_ads_tpu_torch.ops.swin_block_v6 import window_block_v6
 from ir_ads_tpu_torch.ops.window_attention import (
     gather_rel_pos_bias, relative_position_index, shift_region_ids_on,
 )
 
-# (Swin block per stage, DSCF attention per level), as the JAX package's
-# IR_ADS_SWIN_ATTN / IR_ADS_DSCF_ATTN lists
+# (Swin block per stage, DSCF attention per level, block tail), as the JAX
+# package's IR_ADS_SWIN_ATTN / IR_ADS_DSCF_ATTN lists and IR_ADS_FFN
 DISPATCH = {
     "r5": (("pallas4", "pallas4", "pallas6", "pallas6"),
-           ("pallas3", "pallas3", "pallas3", "xla")),
-    "r4": (("pallas4",) * 4, ("pallas3",) * 4),
+           ("pallas3", "pallas3", "pallas3", "xla"), "fused"),
+    "r4": (("pallas4",) * 4, ("pallas3",) * 4, "fused"),
+    "train": (("pallas4",) * 4, ("pallas3", "pallas3", "pallas3", "xla"), "module"),
 }
 SWIN_ATTN = ("pallas4", "pallas6")
 DSCF_ATTN = ("pallas3", "xla")
+FFN_IMPL = ("fused", "module")
 
 
 def _require(value, supported, what: str) -> None:
@@ -82,7 +105,8 @@ class ShiftWindowMSA(nn.Module):
 
 class Adapter(nn.Module):
     """Adapter MLP, C -> C*ratio -> C with relu, no skip (the block tail
-    kernel computes it; ``forward`` is its plain form)."""
+    kernel computes it in eval; ``forward`` is its module form, with dropout
+    of rate ``drop`` after the relu)."""
 
     def __init__(self, dim: int, ratio: float = 0.0625):
         super().__init__()
@@ -90,21 +114,32 @@ class Adapter(nn.Module):
         self.D_fc1 = nn.Linear(dim, hidden)
         self.D_fc2 = nn.Linear(hidden, dim)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.D_fc2(torch.relu(self.D_fc1(x)))
+    def forward(self, x: torch.Tensor, drop: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        h = dropout(torch.relu(linear(x, self.D_fc1)), drop, drop > 0.0, generator)
+        return linear(h, self.D_fc2)
 
 
 class SwinBlockAdapter(nn.Module):
     """Swin block with per-modality adapters.  ``pallas4``: y = x +
     W-MSA(LN1 x) by K1 on the padded, rolled map, then y + FFN(LN2 y) + 0.5
-    Adapter(y) by K2.  ``pallas6``: the whole block by K5 on the real map."""
+    Adapter(y), by K2 (``ffn_impl="fused"``) or as modules under autograd
+    (``"module"``, the training tail: drop-path on the attention and FFN
+    branches and dropout inside the adapter while ``training``).
+    ``pallas6``: the whole block by K5 on the real map."""
 
     def __init__(self, dim, num_heads, ffn_dim, window_size, shift,
-                 adapter_ratio=0.0625, attn_impl="pallas4", ffn_impl="fused"):
+                 adapter_ratio=0.0625, attn_impl="pallas4", ffn_impl="fused",
+                 drop_path_rate=0.0, adapter_drop=0.1):
         super().__init__()
         _require(attn_impl, SWIN_ATTN, "attn_impl")
-        _require(ffn_impl, ("fused",), "ffn_impl")
+        _require(ffn_impl, FFN_IMPL, "ffn_impl")
+        if attn_impl == "pallas6" and ffn_impl != "fused":
+            raise NotImplementedError("pallas6 is the whole block: ffn_impl must be 'fused'")
         self.attn_impl = attn_impl
+        self.ffn_impl = ffn_impl
+        self.drop_path_rate = float(drop_path_rate)
+        self.adapter_drop = float(adapter_drop)
         self.num_heads = num_heads
         self.window_size = window_size
         self.shift = window_size // 2 if shift else 0
@@ -115,7 +150,8 @@ class SwinBlockAdapter(nn.Module):
         self.MLP_RGB_Adapter = Adapter(dim, adapter_ratio)
         self.MLP_DTE_Adapter = Adapter(dim, adapter_ratio)
 
-    def forward(self, x: torch.Tensor, sub_mode: str) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, sub_mode: str,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         b, h, w, c = x.shape
         ws, shift = self.window_size, self.shift
         msa = self.attn.w_msa
@@ -151,13 +187,21 @@ class SwinBlockAdapter(nn.Module):
         )
         if shift:
             y = torch.roll(y, shifts=(shift, shift), dims=(1, 2))
-        y = y[:, :h, :w].contiguous()
-        out = block_tail(
-            y.reshape(-1, c), self.norm2.weight, self.norm2.bias, f1.weight,
-            f1.bias, f2.weight, f2.bias, ad.D_fc1.weight, ad.D_fc1.bias,
-            ad.D_fc2.weight, ad.D_fc2.bias,
-        )
-        return out.reshape(b, h, w, c)
+        y = y[:, :h, :w]
+        if self.ffn_impl == "fused":
+            out = block_tail(
+                y.contiguous().reshape(-1, c), self.norm2.weight, self.norm2.bias, f1.weight,
+                f1.bias, f2.weight, f2.bias, ad.D_fc1.weight, ad.D_fc1.bias,
+                ad.D_fc2.weight, ad.D_fc2.bias,
+            )
+            return out.reshape(b, h, w, c)
+        rate = self.drop_path_rate if self.training else 0.0
+        if rate > 0.0:
+            # K1 fused the residual: recover the branch and drop it per sample
+            y = x + drop_path(y - x, rate, True, generator)
+        adapter_x = 0.5 * ad(y, self.adapter_drop if self.training else 0.0, generator)
+        out = self.ffn(layer_norm(y, self.norm2), y, rate, generator)
+        return out + adapter_x
 
 
 class SwinStage(nn.Module):
@@ -166,19 +210,23 @@ class SwinStage(nn.Module):
     are a plain list."""
 
     def __init__(self, dim, depth, num_heads, window_size, downsample,
-                 adapter_ratio=0.0625, mlp_ratio=4.0, attn_impl="pallas4"):
+                 adapter_ratio=0.0625, mlp_ratio=4.0, attn_impl="pallas4",
+                 ffn_impl="fused", drop_path_rates=None, adapter_drop=0.1):
         super().__init__()
+        rates = [0.0] * depth if drop_path_rates is None else list(drop_path_rates)
         self.blocks = nn.ModuleList(
             SwinBlockAdapter(dim, num_heads, int(mlp_ratio * dim), window_size,
                              shift=j % 2 == 1, adapter_ratio=adapter_ratio,
-                             attn_impl=attn_impl)
+                             attn_impl=attn_impl, ffn_impl=ffn_impl,
+                             drop_path_rate=rates[j], adapter_drop=adapter_drop)
             for j in range(depth)
         )
         self.downsample = PatchMerging(dim, 2 * dim) if downsample else None
 
-    def forward(self, x: torch.Tensor, sub_mode: str):
+    def forward(self, x: torch.Tensor, sub_mode: str,
+                generator: Optional[torch.Generator] = None):
         for blk in self.blocks:
-            x = blk(x, sub_mode)
+            x = blk(x, sub_mode, generator)
         out = x
         if self.downsample is not None:
             x = self.downsample(x)
@@ -202,10 +250,10 @@ class MPGBlock(nn.Module):
         self.tfts_beta_dte = nn.Parameter(torch.zeros(dim))
 
     def forward(self, x_rgb, x_dte):
-        x = torch.cat([self.D_fc1(x_rgb), self.D_fc2(x_dte)], dim=-1)
-        x = self.U_fc1(self.P_fc2(x))
-        p_rgb = x * self.tfts_gamma_rgb + self.tfts_beta_rgb
-        p_dte = x * self.tfts_gamma_dte + self.tfts_beta_dte
+        x = torch.cat([linear(x_rgb, self.D_fc1), linear(x_dte, self.D_fc2)], dim=-1)
+        x = linear(linear(x, self.P_fc2), self.U_fc1)
+        p_rgb = x * cast(self.tfts_gamma_rgb, x) + cast(self.tfts_beta_rgb, x)
+        p_dte = x * cast(self.tfts_gamma_dte, x) + cast(self.tfts_beta_dte, x)
         return x + p_rgb, x + p_dte
 
 
@@ -220,15 +268,20 @@ class _LNProxy(nn.Module):
         return layer_norm(x.permute(0, 2, 3, 1), self.norm).permute(0, 3, 1, 2)
 
 
-def offset_head(channels: int, ksize: int, stride: int) -> nn.Sequential:
+class _OffsetHead(nn.Sequential):
     """Depthwise conv -> LN -> GELU -> 1x1 conv to 2 (dy, dx), on NCHW."""
-    pad = ksize // 2 if ksize != stride else 0
-    return nn.Sequential(
-        nn.Conv2d(channels, channels, ksize, stride, pad, groups=channels),
-        _LNProxy(channels),
-        nn.GELU(approximate="tanh"),
-        nn.Conv2d(channels, 2, 1, bias=False),
-    )
+
+    def __init__(self, channels: int, ksize: int, stride: int):
+        pad = ksize // 2 if ksize != stride else 0
+        super().__init__(
+            nn.Conv2d(channels, channels, ksize, stride, pad, groups=channels),
+            _LNProxy(channels),
+            nn.GELU(approximate="tanh"),
+            nn.Conv2d(channels, 2, 1, bias=False),
+        )
+
+    def forward(self, x):
+        return conv2d(gelu(self[1](conv2d(x, self[0]))), self[3])
 
 
 class _ConvBNGELU(nn.Module):
@@ -236,17 +289,12 @@ class _ConvBNGELU(nn.Module):
         super().__init__()
         self.conv = nn.Sequential(
             nn.Conv2d(cin, cout, 3, padding=1),
-            nn.BatchNorm2d(cout, eps=1e-5, momentum=0.1),
+            FlaxBatchNorm2d(cout, eps=1e-5, momentum=0.1),
             nn.GELU(approximate="tanh"),
         )
 
     def forward(self, x):
-        return self.conv(x)
-
-
-def _pointwise(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """A 1x1 conv on channels-last x, as a linear map."""
-    return F.linear(x, conv.weight.flatten(1), conv.bias)
+        return gelu(self.conv[1](conv2d(x, self.conv[0])))
 
 
 class DAttentionMM(nn.Module):
@@ -262,8 +310,8 @@ class DAttentionMM(nn.Module):
         self.attn_impl = attn_impl
         self.n_heads, self.n_groups = n_heads, n_groups
         gc = dim // n_groups
-        self.conv_offset_x = offset_head(gc, ksize, stride)
-        self.conv_offset_y = offset_head(gc, ksize, stride)
+        self.conv_offset_x = _OffsetHead(gc, ksize, stride)
+        self.conv_offset_y = _OffsetHead(gc, ksize, stride)
         self.fuse_q = _ConvBNGELU(2 * dim, dim)
         self.proj_q = nn.Conv2d(dim, dim, 1)
         self.get_sample_weight = nn.Sequential(
@@ -288,7 +336,7 @@ class DAttentionMM(nn.Module):
         nhwc = lambda t: t.permute(0, 2, 3, 1)  # noqa: E731
 
         xy = nhwc(self.fuse_q(nchw(torch.cat([x, y], dim=-1))))
-        q = _pointwise(self.proj_q, xy)
+        q = pointwise(self.proj_q, xy)
 
         def group_view(t):  # (B, H, W, C) -> (B*g, H, W, gc)
             return t.reshape(b, h, w, g, gc).permute(0, 3, 1, 2, 4).reshape(b * g, h, w, gc)
@@ -310,11 +358,11 @@ class DAttentionMM(nn.Module):
 
         x_s, y_s, q_s = both(x), both(y), both(q)
         fc1, fc2 = self.get_sample_weight[0], self.get_sample_weight[2]
-        wgt = _pointwise(fc2, torch.relu(_pointwise(fc1, q_s)))
+        wgt = pointwise(fc2, torch.relu(pointwise(fc1, q_s)))
         wgt = torch.softmax(wgt.float(), dim=-1)
         sampled = (wgt[..., 0:1] * x_s.float() + wgt[..., 1:2] * y_s.float()).to(x_s.dtype)
-        k = _pointwise(self.proj_k, sampled)
-        v = _pointwise(self.proj_v, sampled)
+        k = pointwise(self.proj_k, sampled)
+        v = pointwise(self.proj_v, sampled)
 
         s1, s2 = self.rpe_table.shape[1:]
         pos_cat = torch.cat([pos_x.reshape(b * g, n, 2), pos_y.reshape(b * g, n, 2)], dim=1)
@@ -323,8 +371,8 @@ class DAttentionMM(nn.Module):
             out = self._einsum_attention(q, k, v, pos_cat, table, scale)
         else:
             out = self._rows_attention(q, k, v, pos_cat, table, scale)
-        out = _pointwise(self.proj_out, out)
-        return self.deform_weight * out + self.identity_weight * xy
+        out = pointwise(self.proj_out, out)
+        return cast(self.deform_weight, out) * out + cast(self.identity_weight, xy) * xy
 
     def _einsum_attention(self, q, k, v, pos_cat, table, scale):
         """Scores q.k summed in f32 and scaled in f32, plus the K6 bias in
@@ -375,14 +423,32 @@ class DeformMPGBlock(nn.Module):
         self.U_fc1 = nn.Linear(hidden, dim)
 
     def forward(self, x_rgb, x_dte):
-        return self.U_fc1(self.deform_atten(self.D_fc1(x_rgb), self.D_fc2(x_dte)))
+        fused = self.deform_atten(linear(x_rgb, self.D_fc1), linear(x_dte, self.D_fc2))
+        return linear(fused, self.U_fc1)
+
+
+def apply_modality_mask(
+    rgb: torch.Tensor, dte: torch.Tensor,
+    generator: Optional[torch.Generator] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """MMST modality dropout: two distinct random samples of the batch; the
+    RGB stream of the first and the DTE stream of the second are zeroed."""
+    b = rgb.shape[0]
+    perm = torch.randperm(b, device=rgb.device, generator=generator)
+    ids = torch.arange(b, device=rgb.device)
+    shape = (b,) + (1,) * (rgb.ndim - 1)
+    rgb_mask = (ids != perm[0]).to(rgb.dtype).reshape(shape)
+    dte_mask = (ids != perm[1 % b]).to(dte.dtype).reshape(shape)
+    return rgb * rgb_mask, dte * dte_mask
 
 
 class SwinTransformer(nn.Module):
     """Dual-stream Swin backbone; returns three 4-level NHWC pyramids
     (fused, rgb, dte).  Defaults are Swin-B (embed 128, depths 2/2/18/2,
-    heads 4/8/16/32, window 12) under the ``r5`` dispatch; ``attn_impl``
-    and ``dscf_attn`` take one of the ``DISPATCH`` pairs."""
+    heads 4/8/16/32, window 12) under the ``r5`` dispatch; ``attn_impl``,
+    ``dscf_attn`` and ``ffn_impl`` take one of the ``DISPATCH`` triples.
+    ``drop_path_rate`` (spread linearly over the blocks), ``adapter_drop``
+    and ``mmst_mask`` act only under the ``train`` dispatch, in train mode."""
 
     def __init__(
         self,
@@ -392,29 +458,37 @@ class SwinTransformer(nn.Module):
         window_size: int = 12,
         patch_size: int = 4,
         mlp_ratio: float = 4.0,
+        drop_path_rate: float = 0.3,
         mapa_ratio: float = 0.125,
         adapter_ratio: float = 0.0625,
+        adapter_drop: float = 0.1,
         dscf_ratio: float = 0.125,
         dscf_strides: Sequence[int] = (8, 4, 2, 1),
         dscf_groups: Sequence[int] = (1, 2, 4, 8),
         dscf_heads: Sequence[int] = (2, 4, 8, 16),
         dual_batch: bool = False,
+        mmst_mask: bool = True,
         attn_impl: Sequence[str] = DISPATCH["r5"][0],
         dscf_attn: Sequence[str] = DISPATCH["r5"][1],
+        ffn_impl: str = DISPATCH["r5"][2],
     ):
         super().__init__()
         if dual_batch:
             raise NotImplementedError("dual_batch=True: the port runs the streams in turn")
-        _require((tuple(attn_impl), tuple(dscf_attn)), tuple(DISPATCH.values()),
-                 "(attn_impl, dscf_attn)")
+        _require((tuple(attn_impl), tuple(dscf_attn), ffn_impl),
+                 tuple(DISPATCH.values()), "(attn_impl, dscf_attn, ffn_impl)")
         nl = len(depths)
         dims = [embed_dim * 2 ** i for i in range(nl)]
         self.num_features = dims
+        self.stochastic = ffn_impl == "module"  # the train dispatch
+        self.mmst_mask = mmst_mask
+        dpr = np.linspace(0.0, drop_path_rate, sum(depths)).tolist()
         self.patch_embed = PatchEmbed(embed_dim, patch_size)
         self.extra_patch_embed = PatchEmbed(embed_dim, patch_size)
         self.stages = nn.ModuleList(
             SwinStage(dims[i], depths[i], num_heads[i], window_size, i < nl - 1,
-                      adapter_ratio, mlp_ratio, attn_impl[i])
+                      adapter_ratio, mlp_ratio, attn_impl[i], ffn_impl,
+                      dpr[sum(depths[:i]):sum(depths[:i + 1])], adapter_drop)
             for i in range(nl)
         )
         self.MPGBlocks = nn.ModuleList(MPGBlock(d, mapa_ratio) for d in dims)
@@ -428,16 +502,19 @@ class SwinTransformer(nn.Module):
             for name in (f"norm{i}", f"extra_norm{i}", f"fuse_norm{i}"):
                 setattr(self, name, nn.LayerNorm(d, eps=1e-5))
 
-    def forward(self, x_rgb, x_dte) -> Tuple[List[torch.Tensor], ...]:
+    def forward(self, x_rgb, x_dte, generator: Optional[torch.Generator] = None,
+                ) -> Tuple[List[torch.Tensor], ...]:
         x_rgb = self.patch_embed(x_rgb)
         x_dte = self.extra_patch_embed(x_dte)
+        if self.training and self.stochastic and self.mmst_mask:
+            x_rgb, x_dte = apply_modality_mask(x_rgb, x_dte, generator)
         outs, outs_rgb, outs_dte = [], [], []
         for i, stage in enumerate(self.stages):
             prompt_rgb, prompt_dte = self.MPGBlocks[i](x_rgb, x_dte)
             x_rgb = x_rgb + prompt_rgb
             x_dte = x_dte + prompt_dte
-            x_rgb, rgb_out = stage(x_rgb, "rgb")
-            x_dte, dte_out = stage(x_dte, "dte")
+            x_rgb, rgb_out = stage(x_rgb, "rgb", generator)
+            x_dte, dte_out = stage(x_dte, "dte", generator)
             rgb_out = layer_norm(rgb_out, getattr(self, f"norm{i}"))
             dte_out = layer_norm(dte_out, getattr(self, f"extra_norm{i}"))
             fused = self.DeformMPGBlocks[i](rgb_out, dte_out)

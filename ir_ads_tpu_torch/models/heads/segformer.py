@@ -6,18 +6,23 @@ per-level projections exactly as ir_ads_tpu/models/heads/segformer.py does:
 Each level's projection and its block of the 1x1 fuse conv are composed (in
 f32) into one matrix applied at the level's own resolution.  Parameter names
 are the reference's (linear_c{k}.proj, linear_fuse.conv, linear_fuse.bn,
-linear_pred).
+linear_pred).  In train mode the BatchNorm normalises with the batch's
+statistics and updates its running ones as flax does
+(``layers.FlaxBatchNorm2d``), and ``forward`` takes the dropout rate applied
+before the classifier.
 """
 
 from __future__ import annotations
 
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ir_ads_tpu_torch.ops.layers import resize_bilinear
+from ir_ads_tpu_torch.ops.layers import (
+    FlaxBatchNorm2d, conv2d, dropout, resize_bilinear,
+)
 
 
 class _Proj(nn.Module):
@@ -30,7 +35,7 @@ class _Fuse(nn.Module):
     def __init__(self, cin: int, cout: int):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, 1, bias=False)
-        self.bn = nn.BatchNorm2d(cout, eps=1e-5, momentum=0.1)
+        self.bn = FlaxBatchNorm2d(cout, eps=1e-5, momentum=0.1)
 
 
 class SegFormerHead(nn.Module):
@@ -43,7 +48,8 @@ class SegFormerHead(nn.Module):
         self.linear_fuse = _Fuse(self.num_levels * embed_dim, embed_dim)
         self.linear_pred = nn.Conv2d(embed_dim, num_classes, 1)
 
-    def forward(self, features: Sequence[torch.Tensor]) -> torch.Tensor:
+    def forward(self, features: Sequence[torch.Tensor], drop: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h, w = features[0].shape[1:3]
         nl = self.num_levels
         e = self.linear_fuse.conv.out_channels
@@ -59,8 +65,6 @@ class SegFormerHead(nn.Module):
             if i > 0:
                 y = resize_bilinear(y, (h, w), align_corners=False)
             acc = y if acc is None else acc + y
-        bn = self.linear_fuse.bn
-        x = F.batch_norm(acc.permute(0, 3, 1, 2), bn.running_mean, bn.running_var,
-                         bn.weight, bn.bias, False, 0.0, bn.eps)
-        x = torch.relu(x)
-        return self.linear_pred(x).permute(0, 2, 3, 1)
+        x = torch.relu(self.linear_fuse.bn(acc.permute(0, 3, 1, 2)))
+        x = dropout(x, drop, drop > 0.0, generator)
+        return conv2d(x, self.linear_pred).permute(0, 2, 3, 1)

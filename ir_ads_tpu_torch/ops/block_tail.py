@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from ir_ads_tpu_torch.ops.cuda_lib import (
-    FLOAT, INT, VOIDP, CudaKernel, check_cuda, ptr,
+    FLOAT, INT, VOIDP, CudaKernel, check_cuda, forbid_grad, ptr,
 )
 
 KERNEL = CudaKernel(
@@ -58,6 +58,7 @@ def block_tail(
     eps: float = 1e-5,
     adapter_scale: float = 0.5,
 ) -> torch.Tensor:
+    forbid_grad("block_tail", x, ln_w, ln_b, w1, b1, w2, b2, aw1, ab1, aw2, ab2)
     cdt = x.dtype
     params = tuple(
         t.to(cdt).contiguous()

@@ -131,6 +131,23 @@ def build_all(kernels: Sequence[CudaKernel]) -> Dict[str, str]:
     return logs
 
 
+def up(t: torch.Tensor) -> torch.Tensor:
+    """The dtype a plain version accumulates in: f32, or f64 for f64 inputs
+    (so that ``torch.autograd.gradcheck`` can run the plain versions)."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
+def forbid_grad(name: str, *tensors: torch.Tensor) -> None:
+    """Raise when autograd would record a forward-only kernel: its output
+    would carry no gradient (on the card) or the wrong one (the plain
+    version's, on the CPU)."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{name} is an eval-only kernel with no backward: an input requires "
+            "a gradient.  Build the model with dispatch='train' (K1 with its "
+            "backward K7 and the module tail) or run under torch.no_grad()")
+
+
 def ptr(t: torch.Tensor) -> int:
     return t.data_ptr()
 

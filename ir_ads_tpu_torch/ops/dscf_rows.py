@@ -12,7 +12,9 @@ channels [e*hc, (e+1)*hc).  The probabilities are normalised, then rounded
 to the value dtype, then multiplied with V, as in the twin.
 
 ``dscf_rows_attention`` launches the kernel for CUDA tensors and runs
-``dscf_rows_reference``, the plain version, only for CPU tensors.
+``dscf_rows_reference``, the plain version, only for CPU tensors.  It is
+differentiable: its backward is K8 (ops/dscf_rows_bwd.py), which saves the
+inputs only and recomputes the softmax, as ``pallas_dscf._rows_bwd`` does.
 """
 
 from __future__ import annotations
@@ -20,14 +22,14 @@ from __future__ import annotations
 import torch
 
 from ir_ads_tpu_torch.ops.cuda_lib import (
-    FLOAT, INT, VOIDP, CudaKernel, check_cuda, ptr,
+    FLOAT, INT, VOIDP, CudaKernel, check_cuda, ptr, up,
 )
+from ir_ads_tpu_torch.ops.dscf_rows_bwd import HEAD_CHANNELS, dscf_rows_bwd
 
 KERNEL = CudaKernel(
     "dscf_rows", "dscf_rows_attention", [VOIDP] * 5 + [INT] * 6 + [FLOAT],
     replaces="ir_ads_tpu/ops/pallas_dscf.py:190",
 )
-HEAD_CHANNELS = 8  # the kernel's channels per head (every Swin-B DSCF level)
 
 
 def dscf_rows_reference(q, k, v, bias, scale, hg):
@@ -39,21 +41,14 @@ def dscf_rows_reference(q, k, v, bias, scale, hg):
     qh = q.reshape(bg, hw, hg, hc).transpose(1, 2)  # (BG, hg, HW, hc)
     kh = k[:, :m].reshape(bg, m, hg, hc).transpose(1, 2)
     vh = v[:, :m].reshape(bg, m, hg, hc).transpose(1, 2)
-    bh = bias.to(cdt).float().permute(0, 1, 2, 4, 3).reshape(bg, hg, hw, m)
-    s = (qh.float() * scale).to(cdt).float() @ kh.float().transpose(-1, -2)
+    bh = up(bias.to(cdt)).permute(0, 1, 2, 4, 3).reshape(bg, hg, hw, m)
+    s = up((up(qh) * scale).to(cdt)) @ up(kh).transpose(-1, -2)
     p = torch.softmax(s + bh, dim=-1).to(cdt)
-    out = (p.float() @ vh.float()).to(cdt)
+    out = (up(p) @ up(vh)).to(cdt)
     return out.transpose(1, 2).reshape(bg, hw, gc)
 
 
-def dscf_rows_attention(
-    q: torch.Tensor,     # (BG, h*w, GC)
-    k: torch.Tensor,     # (BG, Mp, GC)
-    v: torch.Tensor,     # (BG, Mp, GC)
-    bias: torch.Tensor,  # (BG, hg, h, M, w)
-    scale: float,
-    hg: int,
-) -> torch.Tensor:
+def _forward(q, k, v, bias, scale, hg):
     bg, hw, gc = q.shape
     mp = k.shape[1]
     _, _, h, m, w = bias.shape
@@ -69,3 +64,30 @@ def dscf_rows_attention(
     KERNEL.call(ptr(q), ptr(k), ptr(v), ptr(bias), ptr(out), bg, hg, h, w, m,
                 mp, float(scale))
     return out
+
+
+class _RowsAttention(torch.autograd.Function):
+    """K4 forward, K8 backward; saves inputs only."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, bias, scale, hg):
+        ctx.save_for_backward(q, k, v, bias)
+        ctx.static = (scale, hg)
+        return _forward(q, k, v, bias, scale, hg)
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, bias = ctx.saved_tensors
+        dq, dk, dv, dbias = dscf_rows_bwd(q, k, v, bias, g, *ctx.static)
+        return dq, dk.to(k.dtype), dv.to(v.dtype), dbias.to(bias.dtype), None, None
+
+
+def dscf_rows_attention(
+    q: torch.Tensor,     # (BG, h*w, GC)
+    k: torch.Tensor,     # (BG, Mp, GC)
+    v: torch.Tensor,     # (BG, Mp, GC)
+    bias: torch.Tensor,  # (BG, hg, h, M, w)
+    scale: float,
+    hg: int,
+) -> torch.Tensor:
+    return _RowsAttention.apply(q, k, v, bias, scale, hg)

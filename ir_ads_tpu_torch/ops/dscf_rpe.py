@@ -12,6 +12,10 @@ BG = B * G is group-minor: row bg uses table group bg % G.
 products, in f32), only for CPU tensors.  The kernel computes in f32 and
 rounds once to bf16 on store; against the f32 twin it agrees to bf16
 rounding (relative 2^-8) on top of the twin tests' 1e-5.
+
+``rpe_bias_rows`` is differentiable in ``pos`` and ``table``: its backward
+recomputes the bias through ``rpe_bias_f32`` under autograd, as the JAX
+package's ``_rpe_rows_bwd`` recomputes through its XLA twin.
 """
 
 from __future__ import annotations
@@ -52,18 +56,33 @@ def rpe_bias_rows_reference(pos, table, h, w, out_dtype):
     return rpe_bias_f32(pos, table, h, w, "behmw").to(out_dtype)  # (BG, hg, h, M, w)
 
 
-def rpe_bias_rows(
-    pos: torch.Tensor,    # (BG, M, 2) f32, (y, x) in [-1, 1]
-    table: torch.Tensor,  # (G, hg, S1, S2) f32
-    h: int,
-    w: int,
-    out_dtype: torch.dtype,
-) -> torch.Tensor:
-    """Returns the bias (BG, hg, h, M, w) in ``out_dtype``."""
-    if h < 2 or w < 2:
-        raise ValueError(f"rpe_bias_rows: query plane {h}x{w} needs h, w >= 2")
-    pos = pos.float().contiguous()
-    table = table.float().contiguous()
+class RpeBias(torch.autograd.Function):
+    """A bias kernel's forward (K3 or K6, or its plain version) with the
+    backward taken through ``rpe_bias_f32`` in the layout ``order``."""
+
+    @staticmethod
+    def forward(ctx, pos, table, h, w, out_dtype, order, build):
+        ctx.save_for_backward(pos, table)
+        ctx.static = (h, w, out_dtype, order)
+        return build(pos, table, h, w, out_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        h, w, out_dtype, order = ctx.static
+        wanted = [i for i in (0, 1) if ctx.needs_input_grad[i]]
+        with torch.enable_grad():
+            leaves = [t.detach().requires_grad_(i in wanted)
+                      for i, t in enumerate(ctx.saved_tensors)]
+            out = rpe_bias_f32(*leaves, h, w, order).to(out_dtype)
+            got = torch.autograd.grad(out, [leaves[i] for i in wanted], g.reshape(out.shape))
+        grads = [None, None]
+        for i, gi in zip(wanted, got):
+            grads[i] = gi
+        return (*grads, None, None, None, None, None)
+
+
+def _rows_forward(pos, table, h, w, out_dtype):
+    pos, table = pos.contiguous(), table.contiguous()
     if pos.device.type == "cpu":
         return rpe_bias_rows_reference(pos, table, h, w, out_dtype)
     check_cuda("rpe_bias_rows", pos, table, dtype=torch.float32)
@@ -74,3 +93,17 @@ def rpe_bias_rows(
     out = torch.empty((bg, hg, h, m, w), dtype=out_dtype, device=pos.device)
     KERNEL.call(ptr(pos), ptr(table), ptr(out), bg, g, hg, h, m, w, s1, s2)
     return out
+
+
+def rpe_bias_rows(
+    pos: torch.Tensor,    # (BG, M, 2) f32, (y, x) in [-1, 1]
+    table: torch.Tensor,  # (G, hg, S1, S2) f32
+    h: int,
+    w: int,
+    out_dtype: torch.dtype,
+) -> torch.Tensor:
+    """Returns the bias (BG, hg, h, M, w) in ``out_dtype``."""
+    if h < 2 or w < 2:
+        raise ValueError(f"rpe_bias_rows: query plane {h}x{w} needs h, w >= 2")
+    return RpeBias.apply(pos.float(), table.float(), h, w, out_dtype, "behmw",
+                         _rows_forward)

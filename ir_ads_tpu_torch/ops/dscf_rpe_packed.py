@@ -12,7 +12,9 @@ design.  BG = B * G is group-minor: row bg uses table group bg % G.
 ``rpe_bias_packed`` launches the kernel for CUDA tensors and runs
 ``rpe_bias_packed_reference``, the plain version (the twin's hat-weight
 products, in f32), only for CPU tensors.  The kernel computes in f32 and
-rounds once to bf16 on store.
+rounds once to bf16 on store.  ``rpe_bias_packed`` is differentiable in
+``pos`` and ``table`` through ``dscf_rpe.RpeBias`` (a recompute through
+``rpe_bias_f32`` under autograd).
 """
 
 from __future__ import annotations
@@ -20,7 +22,7 @@ from __future__ import annotations
 import torch
 
 from ir_ads_tpu_torch.ops.cuda_lib import INT, VOIDP, CudaKernel, check_cuda, ptr
-from ir_ads_tpu_torch.ops.dscf_rpe import rpe_bias_f32
+from ir_ads_tpu_torch.ops.dscf_rpe import RpeBias, rpe_bias_f32
 
 KERNEL = CudaKernel(
     "dscf_rpe_packed", "dscf_rpe_packed", [VOIDP] * 3 + [INT] * 8,
@@ -34,18 +36,8 @@ def rpe_bias_packed_reference(pos, table, h, w, out_dtype):
     return bias.flatten(3).to(out_dtype)
 
 
-def rpe_bias_packed(
-    pos: torch.Tensor,    # (BG, M, 2) f32, (y, x) in [-1, 1]
-    table: torch.Tensor,  # (G, hg, S1, S2) f32
-    h: int,
-    w: int,
-    out_dtype: torch.dtype,
-) -> torch.Tensor:
-    """Returns the bias (BG, hg, M, h*w) in ``out_dtype``."""
-    if h < 2 or w < 2:
-        raise ValueError(f"rpe_bias_packed: query plane {h}x{w} needs h, w >= 2")
-    pos = pos.float().contiguous()
-    table = table.float().contiguous()
+def _packed_forward(pos, table, h, w, out_dtype):
+    pos, table = pos.contiguous(), table.contiguous()
     if pos.device.type == "cpu":
         return rpe_bias_packed_reference(pos, table, h, w, out_dtype)
     check_cuda("rpe_bias_packed", pos, table, dtype=torch.float32)
@@ -56,3 +48,17 @@ def rpe_bias_packed(
     out = torch.empty((bg, hg, m, h * w), dtype=out_dtype, device=pos.device)
     KERNEL.call(ptr(pos), ptr(table), ptr(out), bg, g, hg, h, m, w, s1, s2)
     return out
+
+
+def rpe_bias_packed(
+    pos: torch.Tensor,    # (BG, M, 2) f32, (y, x) in [-1, 1]
+    table: torch.Tensor,  # (G, hg, S1, S2) f32
+    h: int,
+    w: int,
+    out_dtype: torch.dtype,
+) -> torch.Tensor:
+    """Returns the bias (BG, hg, M, h*w) in ``out_dtype``."""
+    if h < 2 or w < 2:
+        raise ValueError(f"rpe_bias_packed: query plane {h}x{w} needs h, w >= 2")
+    return RpeBias.apply(pos.float(), table.float(), h, w, out_dtype, "bemhw",
+                         _packed_forward)

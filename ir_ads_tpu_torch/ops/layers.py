@@ -8,7 +8,7 @@ the tanh approximation (flax ``nn.gelu``'s default), not torch's erf default.
 from __future__ import annotations
 
 import functools
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 import torch
@@ -20,8 +20,75 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+def cast(p: Optional[torch.Tensor], like: torch.Tensor) -> Optional[torch.Tensor]:
+    """A parameter in the dtype of the activation that meets it.  The
+    trainer keeps f32 master parameters and computes in bf16, as flax does
+    (``promote_dtype``); the predictor's parameters are cast once, so this
+    is a no-op there."""
+    return p if p is None or p.dtype == like.dtype else p.to(like.dtype)
+
+
 def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
-    return F.layer_norm(x, norm.normalized_shape, norm.weight, norm.bias, 1e-5)
+    return F.layer_norm(x, norm.normalized_shape, cast(norm.weight, x),
+                        cast(norm.bias, x), 1e-5)
+
+
+def linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
+    return F.linear(x, cast(lin.weight, x), cast(lin.bias, x))
+
+
+def conv2d(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
+    """``conv`` on an NCHW map, its parameters cast at use."""
+    return F.conv2d(x, cast(conv.weight, x), cast(conv.bias, x), conv.stride,
+                    conv.padding, conv.dilation, conv.groups)
+
+
+def pointwise(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """A 1x1 conv on channels-last x, as a linear map."""
+    return F.linear(x, cast(conv.weight.flatten(1), x), cast(conv.bias, x))
+
+
+def drop_path(x: torch.Tensor, rate: float, training: bool,
+              generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Stochastic depth on the leading (batch) axis: a dropped sample's
+    branch is zero, a kept one's is scaled by 1 / keep."""
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    shape = (x.shape[0],) + (1,) * (x.ndim - 1)
+    mask = torch.rand(shape, device=x.device, generator=generator) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+def dropout(x: torch.Tensor, rate: float, training: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Elementwise dropout drawn from an explicit generator."""
+    if not training or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, device=x.device, generator=generator) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
+class FlaxBatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm2d whose train mode is flax's: statistics in f32 with the
+    fast variance E[x^2] - E[x]^2, and running statistics updated with the
+    BIASED batch variance (torch uses the unbiased one).  flax momentum 0.9
+    is ``momentum=0.1`` here.  Eval mode is torch's own."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        xf = x.float()
+        mean = xf.mean(dim=(0, 2, 3))
+        var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)
+        with torch.no_grad():
+            m = self.momentum
+            self.running_mean.mul_(1.0 - m).add_(mean.to(self.running_mean.dtype), alpha=m)
+            self.running_var.mul_(1.0 - m).add_(var.to(self.running_var.dtype), alpha=m)
+        scale = torch.rsqrt(var + self.eps) * self.weight.float()
+        y = (xf - mean[None, :, None, None]) * scale[None, :, None, None]
+        return (y + self.bias.float()[None, :, None, None]).to(x.dtype)
 
 
 class FFN(nn.Module):
@@ -34,8 +101,13 @@ class FFN(nn.Module):
             [nn.Sequential(nn.Linear(dim, hidden)), nn.Linear(hidden, dim)]
         )
 
-    def forward(self, x: torch.Tensor, identity: torch.Tensor) -> torch.Tensor:
-        return identity + self.layers[1](gelu(self.layers[0][0](x)))
+    def forward(self, x: torch.Tensor, identity: torch.Tensor,
+                drop_path_rate: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """identity + drop_path(fc2(gelu(fc1 x))): the JAX ``Mlp`` with
+        ``add_identity`` (its ``drop_rate`` is 0 in every recipe)."""
+        h = linear(gelu(linear(x, self.layers[0][0])), self.layers[1])
+        return identity + drop_path(h, drop_path_rate, self.training, generator)
 
 
 def adaptive_pad(
@@ -71,7 +143,7 @@ class PatchEmbed(nn.Module):
             .reshape(b, h // p, w // p, p * p * c)
         )
         wk = self.projection.weight.permute(0, 2, 3, 1).reshape(-1, p * p * c)
-        return layer_norm(F.linear(xp, wk, self.projection.bias), self.norm)
+        return layer_norm(F.linear(xp, cast(wk, xp), cast(self.projection.bias, xp)), self.norm)
 
 
 class PatchMerging(nn.Module):
@@ -91,7 +163,7 @@ class PatchMerging(nn.Module):
             .permute(0, 1, 3, 5, 2, 4)
             .reshape(b, hp // 2, wp // 2, 4 * c)
         )
-        return self.reduction(layer_norm(x, self.norm))
+        return linear(layer_norm(x, self.norm), self.reduction)
 
 
 def resize_bilinear(

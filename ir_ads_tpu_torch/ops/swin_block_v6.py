@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from ir_ads_tpu_torch.ops.cuda_lib import (
-    FLOAT, INT, VOIDP, CudaKernel, check_cuda, ptr,
+    FLOAT, INT, VOIDP, CudaKernel, check_cuda, forbid_grad, ptr,
 )
 from ir_ads_tpu_torch.ops.swin_block import window_attention_reference
 
@@ -95,6 +95,7 @@ def window_block_v6(
     eps: float = 1e-5,
     adapter_scale: float = 0.5,
 ) -> torch.Tensor:
+    forbid_grad("window_block_v6", x, *attn_params, *tail_params)
     cdt = x.dtype
     attn = tuple(t.to(cdt).contiguous() for t in attn_params[:6])
     attn += (attn_params[6].float().contiguous(),)

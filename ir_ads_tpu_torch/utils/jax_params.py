@@ -14,7 +14,11 @@ reference checkpoint's.  It is the inverse of
   stages)                           -> stages.i.blocks.{2p, 2p+1}
 
 plus the buffers the flax tree does not hold (relative_position_index,
-num_batches_tracked).
+num_batches_tracked).  Any tree of the same structure goes through the same
+mapping: a flax gradient tree or an updated parameter tree given as
+``{"params": tree}`` comes back keyed by the port's parameter names, and
+``batch_stats`` by its buffer names, so a training step is compared name by
+name.
 """
 
 from __future__ import annotations

@@ -1,5 +1,5 @@
 """Ground rules of the PyTorch port: no JAX inside it, the GPU by default,
-the r5 kernel dispatch by default and r4 on request (nothing else), and the
+the r5 kernel dispatch by default, r4 and train on request (nothing else), the
 sliding-window wrapper's overlap arithmetic against the JAX one."""
 
 import ast
@@ -15,7 +15,8 @@ from ir_ads_tpu_torch.evaluation.semseg_eval import make_sliding_window_fn
 from ir_ads_tpu_torch.models.backbones import swin as tswin
 from ir_ads_tpu_torch.models.cmnext import CMNeXt
 from ir_ads_tpu_torch.ops import (
-    block_tail, dscf_rows, dscf_rpe, dscf_rpe_packed, swin_block, swin_block_v6,
+    block_tail, dscf_rows, dscf_rows_bwd, dscf_rpe, dscf_rpe_packed, swin_block,
+    swin_block_v6, window_attn_bwd,
 )
 from ir_ads_tpu_torch.serve import IMAGENET_MEAN, IMAGENET_STD, SemSegPredictor
 
@@ -24,7 +25,8 @@ FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ir_ads_tpu")
 
 
 def _port_sources():
-    return sorted((ROOT / "ir_ads_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    scripts = ("chip_smoke.py", "profile_port.py", "grad_noise.py")
+    return sorted((ROOT / "ir_ads_tpu_torch").rglob("*.py")) + [ROOT / n for n in scripts]
 
 
 @pytest.mark.parametrize("path", _port_sources(), ids=lambda p: p.name)
@@ -60,7 +62,12 @@ def _dispatch(model):
 def test_only_the_r5_and_r4_dispatches_are_accepted():
     r5 = (["pallas4", "pallas4", "pallas6", "pallas6"],
           ["pallas3", "pallas3", "pallas3", "xla"])
-    assert tswin.DISPATCH["r5"] == tuple(tuple(x) for x in r5)
+    assert tswin.DISPATCH["r5"] == tuple(tuple(x) for x in r5) + ("fused",)
+    assert tswin.DISPATCH["train"] == (
+        ("pallas4",) * 4, ("pallas3", "pallas3", "pallas3", "xla"), "module")
+    train = CMNeXt(num_classes=5, backbone_kwargs=SMALL, dispatch="train")
+    assert _dispatch(train) == (["pallas4"] * 4, r5[1])
+    assert {b.ffn_impl for s in train.backbone.stages for b in s.blocks} == {"module"}
     assert _dispatch(CMNeXt(num_classes=5, backbone_kwargs=SMALL)) == r5
     assert _dispatch(CMNeXt(num_classes=5, backbone_kwargs=SMALL, dispatch="r4")) == (
         ["pallas4"] * 4, ["pallas3"] * 4)
@@ -78,6 +85,11 @@ def test_only_the_r5_and_r4_dispatches_are_accepted():
             tswin.SwinBlockAdapter(32, 2, 128, 4, shift=False, attn_impl=impl)
     with pytest.raises(NotImplementedError):
         tswin.SwinBlockAdapter(32, 2, 128, 4, shift=False, ffn_impl="xla")
+    with pytest.raises(NotImplementedError):  # K5 is the whole block
+        tswin.SwinBlockAdapter(32, 2, 128, 4, shift=False, attn_impl="pallas6",
+                               ffn_impl="module")
+    with pytest.raises(NotImplementedError):  # the train tail only with its dispatch
+        tswin.SwinTransformer(**SMALL, ffn_impl="module")
     for impl in ("pallas", "pallas2", "pallas4", "auto"):
         with pytest.raises(NotImplementedError):
             tswin.DAttentionMM(32, 4, 2, 4, attn_impl=impl)
@@ -112,9 +124,10 @@ def test_pallas6_block_takes_the_real_map_with_no_pad_roll_or_crop():
 
 
 def test_every_kernel_targets_hopper_and_names_its_tpu_kernel():
-    mods = (swin_block, block_tail, dscf_rpe, dscf_rows, swin_block_v6, dscf_rpe_packed)
-    assert len({m.KERNEL.name for m in mods}) == 6
-    assert len({m.KERNEL.replaces for m in mods}) == 6
+    mods = (swin_block, block_tail, dscf_rpe, dscf_rows, swin_block_v6, dscf_rpe_packed,
+            window_attn_bwd, dscf_rows_bwd)
+    assert len({m.KERNEL.name for m in mods}) == 8
+    assert len({m.KERNEL.replaces for m in mods}) == 8
     for mod in mods:
         k = mod.KERNEL
         assert k.source.exists()
