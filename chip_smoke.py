@@ -44,7 +44,24 @@ Phases, each of which raises on failure:
      on), the first a warm-up: finite losses, every trainable parameter
      moved, every frozen one bit-equal, and per step 48 launches of K1 and
      of K7, 3 of K3, K4 and K8, 1 of K6 and none of K2 and K5.  (c) The p50
-     step time, images per second and peak memory.
+     step time, images per second and peak memory;
+  6. detect: ``DetPredictor`` (vCLR deformable-mask DINO at the full width
+     and depth of configs/detection/dino_r50.py: frozen-BN ResNet-50, 4
+     levels at 256 channels, 6 + 6 layers, 2000 queries, 20 classes, mask and
+     ROI heads, bf16, weights drawn from --seed, the zero-initialised
+     sampling projections included) on one 800x1216 image per request, a
+     warm-up and 3 requests: shapes, finiteness, 12 launches of K9 per
+     request and none of K1-K8; each of a request's 12 launches against its
+     plain version on that launch's own inputs (a plain version without the
+     -0.5 of the pixel coordinate in one decoder layer must fail the bar);
+     the encoder memory and the proposal scores before the top-k selection
+     against the all-plain path on the card (the same planted fault, in
+     every layer, must fail), then the share of the 2000 selected tokens and
+     of the kept boxes that agree; the last layer's class logits and boxes
+     of the kernel path run on the plain path's selected tokens against the
+     plain path's (the planted fault in the decoder layers alone must fail);
+     p50 request time, images per second, the post-processing's share, peak
+     memory.
 The line before the last is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``.  Nothing of JAX is imported.
 """
@@ -66,6 +83,9 @@ F32_FLOPS = 67e12              # f32 outside the tensor cores
 IMAGE = (480, 640)
 NUM_CLASSES = 40
 TRAIN_BATCH = 4               # the shipped recipe's (configs/nyu_rgbd.yaml)
+DET_IMAGE = (800, 1216)       # one image per detection request
+DET_LEVELS = ((100, 152), (50, 76), (25, 38), (13, 19))  # strides 8 .. 64
+DET_QUERIES, DET_CLASSES, DET_TOPK = 2000, 20, 300
 
 
 def fail(msg: str):
@@ -471,6 +491,86 @@ def check_rows_bwd(g, b, level):
     )
 
 
+def _without_half_pixel(loc, spatial_shapes):
+    """Locations that make the plain version sample at loc * size instead
+    of loc * size - 0.5: the planted fault 'no -0.5'."""
+    norm = torch.tensor([[w, h] for h, w in spatial_shapes], dtype=torch.float32,
+                        device=loc.device)
+    return loc + 0.5 / norm[None, None, None, :, None, :]
+
+
+def _border_padding(loc, spatial_shapes):
+    """Locations clamped into each level's pixel centres: the plain version
+    then keeps the weight of a corner outside the map on its clamped index
+    (grid_sample's border padding), the planted fault 'zeros padding lost'."""
+    size = torch.tensor([[w, h] for h, w in spatial_shapes], dtype=torch.float32,
+                        device=loc.device)[None, None, None, :, None, :]
+    return (torch.minimum((loc * size - 0.5).clamp(min=0.0), size - 1) + 0.5) / size
+
+
+def check_msdeform(g, lq, dtype, fault):
+    """K9 at the DINO encoder shape (every token a query, its reference its
+    own position) or the decoder shape (2000 queries anywhere in the image):
+    value (1, 20197, 8, 32), 4 levels x 4 points, locations = reference +
+    offsets of a few pixels, so that part of the corners fall outside."""
+    from ir_ads_tpu_torch.detection.transformer import make_encoder_reference_points
+    from ir_ads_tpu_torch.ops import msdeform as k9
+
+    shapes, heads, d, points = DET_LEVELS, 8, 32, 4
+    levels = len(shapes)
+    s = sum(h * w for h, w in shapes)
+    value = _rand(g, 1, s, heads, d, dtype=dtype)
+    if lq == s:
+        ref = torch.from_numpy(make_encoder_reference_points(shapes)).cuda()[None]
+    else:
+        ref = torch.rand(1, lq, 1, 2, generator=g, device="cuda").expand(-1, -1, levels, -1)
+    norm = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32, device="cuda")
+    reach = torch.arange(1, points + 1, device="cuda")[None, None, None, None, :, None]
+    offsets = torch.randn(1, lq, heads, levels, points, 2, generator=g, device="cuda") * reach
+    loc = (ref[:, :, None, :, None, :] + offsets / norm[None, None, None, :, None, :]).contiguous()
+    att = torch.softmax(torch.randn(1, lq, heads, levels * points, generator=g, device="cuda"),
+                        -1).reshape(1, lq, heads, levels, points).to(dtype)
+
+    wgt = torch.stack(k9.corner_tables(shapes, loc, att)[1])
+    read = int((wgt != 0).sum())  # corners this run's data reads
+    outside = 1.0 - read / wgt.numel()
+    del wgt
+    bad_loc = (_without_half_pixel if fault == "no -0.5" else _border_padding)(loc, shapes)
+
+    def grid_sample_form():
+        """Four F.grid_sample calls and a weighted sum: for the record (no
+        single PyTorch call computes the function)."""
+        out, start = 0, 0
+        grids = 2 * loc - 1
+        for lvl, (h, w) in enumerate(shapes):
+            v = value[0, start:start + h * w].permute(1, 2, 0).reshape(heads, d, h, w).float()
+            start += h * w
+            smp = F.grid_sample(v, grids[0, :, :, lvl].transpose(0, 1), mode="bilinear",
+                                padding_mode="zeros", align_corners=False)  # (H, D, Lq, P)
+            out = out + (smp * att[0, :, :, lvl].float().permute(1, 0, 2)[:, None]).sum(-1)
+        return out.permute(2, 0, 1).reshape(1, lq, heads * d).to(dtype)
+
+    f32 = dtype == torch.float32
+    slots = lq * heads * levels * points
+    return dict(
+        name="msdeform",
+        case=f"Lq={lq} {'f32' if f32 else 'bf16'} ({outside:.3f} of corners outside; "
+             f"gathered {read * d * value.element_size() / 1e6:.0f} MB; "
+             f"{DET_LAUNCHES // 2} launches per request)",
+        run=lambda: k9.ms_deform_attn(value, shapes, loc, att),
+        plain=lambda: k9.ms_deform_attn_plain(value, shapes, loc, att),
+        faulted=lambda: k9.ms_deform_attn_plain(value, shapes, bad_loc, att),
+        fault=fault, base=None, library=None,
+        also=("four F.grid_sample + weighted sum", grid_sample_form),
+        # f32: one function, sums of another order.  bf16: the same f32 sums
+        # rounded once on store, so a sum near a rounding boundary lands one
+        # bf16 ulp (2^-8 relative) apart; atol for sums that cancel
+        atol=1e-5 if f32 else 2e-3, rtol=1e-5 if f32 else 1e-2,
+        bytes=nbytes(value, loc, att) + lq * heads * d * value.element_size(),
+        flops=slots * (4 * d * 2 + 40), rate=F32_FLOPS,
+    )
+
+
 def _rel(got, want, base):
     """||got - want|| / ||want - base|| in f32 (base None: zero)."""
     ref = want.float() if base is None else want.float() - base.float()
@@ -479,6 +579,7 @@ def _rel(got, want, base):
 
 def phase_kernels(seed: int, images: int):
     g = torch.Generator(device="cuda").manual_seed(seed)
+    s_det = sum(h * w for h, w in DET_LEVELS)
     # the r5 main path: K1 + K2 at stages 0-1, K5 at stages 2-3, K3 + K4 at
     # DSCF levels 0-2, K6 at level 3
     cases = [
@@ -513,10 +614,17 @@ def phase_kernels(seed: int, images: int):
         lambda: check_window_attn_bwd(g, TRAIN_BATCH, 60, 80, 256, 8, 6, True, True),
         lambda: check_rows_bwd(g, TRAIN_BATCH, 0),
         lambda: check_rows_bwd(g, TRAIN_BATCH, 2),
+        # the detection path: K9 as the encoder's self-attention and the
+        # decoder's cross-attention run it (bf16), and once each in f32
+        lambda: check_msdeform(g, s_det, torch.bfloat16, "no -0.5"),
+        lambda: check_msdeform(g, DET_QUERIES, torch.bfloat16, "zeros padding lost"),
+        lambda: check_msdeform(g, s_det, torch.float32, "zeros padding lost"),
+        lambda: check_msdeform(g, DET_QUERIES, torch.float32, "no -0.5"),
     ]
     rows = []
     for make in cases:
         case = make()
+        also = case.pop("also", None)
         run, plain, library = case.pop("run"), case.pop("plain"), case.pop("library")
         faulted, base = case.pop("faulted"), case.pop("base")
         names = case.pop("outputs", ["out"])
@@ -540,6 +648,7 @@ def phase_kernels(seed: int, images: int):
         ms = time_ms(run)
         plain_ms = time_ms(plain, iters=3, warmup=1)
         lib_ms = time_ms(library) if library else None
+        also_ms = f"; {also[0]} {time_ms(also[1], iters=3, warmup=1):.4f} ms" if also else ""
         b_ms, b_by = bound_ms(case["bytes"], case["flops"], case["rate"])
         print(
             f"  {case['name']:<15} {case['case']:<34} " + "; ".join(parts) +
@@ -547,7 +656,7 @@ def phase_kernels(seed: int, images: int):
             f"rel tol {REL_TOL}; planted fault '{case['fault']}': {fault_rel:.3e}) "
             f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
             f"library {'%.4f' % lib_ms if lib_ms is not None else 'n/a'} ms "
-            f"bound {b_ms:.4f} ms ({b_by})",
+            f"bound {b_ms:.4f} ms ({b_by}){also_ms}",
             flush=True,
         )
         if not (finite and elem_ok and rel <= REL_TOL):
@@ -558,7 +667,7 @@ def phase_kernels(seed: int, images: int):
         rows.append(dict(case, max_abs_err=max_err, rel_err=rel,
                          fault_rel_err=fault_rel, ms=ms, plain_ms=plain_ms,
                          library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
-        del run, plain, library, faulted, base, case
+        del run, plain, library, faulted, base, case, also
         torch.cuda.empty_cache()
     return rows
 
@@ -582,12 +691,12 @@ LOGIT_TOL = dict(rel_mean=2e-2, rel_max=0.06, label_agree=0.97)
 
 def _ops_modules():
     from ir_ads_tpu_torch.ops import (
-        block_tail, dscf_rows, dscf_rows_bwd, dscf_rpe, dscf_rpe_packed, swin_block,
-        swin_block_v6, window_attn_bwd,
+        block_tail, dscf_rows, dscf_rows_bwd, dscf_rpe, dscf_rpe_packed, msdeform,
+        swin_block, swin_block_v6, window_attn_bwd,
     )
 
     return (swin_block, block_tail, swin_block_v6, dscf_rpe, dscf_rows,
-            dscf_rpe_packed, window_attn_bwd, dscf_rows_bwd)
+            dscf_rpe_packed, window_attn_bwd, dscf_rows_bwd, msdeform)
 
 
 def expected_launches(model):
@@ -782,7 +891,7 @@ def phase_serve(seed: int, requests: int, batch: int, card_line: str):
 # 0-2 runs K3, K4 and K8, level 3 runs K6; the eval kernels do not run
 TRAIN_LAUNCHES = {"swin_block": 48, "window_attn_bwd": 48, "dscf_rpe": 3,
                   "dscf_rows": 3, "dscf_rows_bwd": 3, "dscf_rpe_packed": 1,
-                  "block_tail": 0, "swin_block_v6": 0}
+                  "block_tail": 0, "swin_block_v6": 0, "msdeform": 0}
 
 # One forward and backward in bf16 with f32 master parameters, every
 # stochastic rate 0, gradients taken group by group (a group's parameters as
@@ -1135,9 +1244,241 @@ def phase_train(seed: int, card_line: str):
                           losses=metrics, group_rel_err=rels)
 
 
-def kernel_table(rows, launches, train_launches):
-    """One entry per kernel; ``launches`` sums the two main paths' runs (the
-    serving requests and the training steps, each counted from 0)."""
+# --------------------------------------------------------------------------
+# phase 6: detection requests through the port's entry point
+# --------------------------------------------------------------------------
+
+# Kernel path against plain path, both bf16.  Launch by launch, on the
+# launch's own inputs, K9 and its plain version differ by single bf16
+# roundings (phase 3's bar, REL_TOL, on the launch's output).  Through the six
+# encoder layers those flips spread: the encoder memory and the proposal
+# scores agree to a few 1e-3 of their size on average (``memory``,
+# ``scores``: mean |diff| / mean |ref|).  What follows is a selection: top
+# 2000 of 20197 tokens by a bf16 score, where a score that moves by one ulp
+# changes the set and shifts every later query's rank, then argmax classes
+# and a greedy NMS.  So the selected tokens (with a floor on the share in
+# common) and the kept boxes are reported as shares that agree.  What follows
+# the selection is held to a tolerance with the selection taken out: the
+# kernel path is run once more on the plain path's selected tokens, and its
+# last layer's class logits and boxes are held against the plain path's
+# (``logits``, ``boxes``: mean |diff| / mean |ref|).  The planted fault (a
+# plain version that samples at loc * size, without the -0.5) must fail the
+# launch bar when it sits in one decoder layer, the memory bar when it sits
+# in every layer, and the logits bar when it sits in the decoder layers alone
+# behind the same memory and selection.
+DET_TOL = dict(call_rel=REL_TOL, memory=2e-2, scores=2e-2, tokens=0.95, logits=2e-2,
+               boxes=2e-2)
+DET_ENC_LAUNCHES = 6
+DET_LAUNCHES = 12  # 6 encoder self-attentions + 6 decoder cross-attentions
+
+
+def _plain_without_half_pixel(value, spatial_shapes, locations, weights):
+    """K9's plain version with the planted fault 'no -0.5'."""
+    from ir_ads_tpu_torch.ops.msdeform import ms_deform_attn_plain
+
+    return ms_deform_attn_plain(
+        value, spatial_shapes, _without_half_pixel(locations.float(), spatial_shapes), weights)
+
+
+def phase_detect(seed: int, requests: int, card_line: str):
+    from ir_ads_tpu_torch.detection import msdeform_attn as det_attn
+    from ir_ads_tpu_torch.detection import transformer as det_tr
+    from ir_ads_tpu_torch.detection.box_ops import box_iou
+    from ir_ads_tpu_torch.ops.msdeform import ms_deform_attn_plain
+    from ir_ads_tpu_torch.serve import DetPredictor
+
+    t0 = time.time()
+    pred = DetPredictor(device="cuda", seed=seed, num_classes=DET_CLASSES,
+                        num_queries=DET_QUERIES, topk=DET_TOPK)
+    n_params = sum(p.numel() for p in pred.model.parameters())
+    print(f"  model: DINO-R50 deformable-mask detector, {n_params / 1e6:.1f} M parameters, "
+          f"bf16, 6 + 6 layers, {DET_QUERIES} queries, built in {time.time() - t0:.1f} s",
+          flush=True)
+    g = torch.Generator().manual_seed(seed + 3)
+    images = [torch.randint(0, 256, (1, *DET_IMAGE, 3), generator=g, dtype=torch.uint8)
+              for _ in range(requests + 1)]
+    pred(images[0])  # warm-up (allocator, cuDNN and cuBLAS handles), not timed
+    torch.cuda.synchronize()
+
+    torch.cuda.reset_peak_memory_stats()
+    kernels = _reset_launches()
+    lat, outs = [], []
+    for img in images[1:]:
+        t = time.perf_counter()
+        outs.append(pred(img))
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t) * 1e3)
+    launches = {k.name: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for name, n in launches.items():
+        want = DET_LAUNCHES * requests if name == "msdeform" else 0
+        if n != want:
+            fail(f"{name} launched {n} times in {requests} detection requests, expected {want}")
+    k = DET_TOPK
+    for s, xyxy, keep, cls_ids, order in outs:
+        shapes = (tuple(s.shape), tuple(xyxy.shape), tuple(keep.shape), tuple(cls_ids.shape),
+                  tuple(order.shape))
+        if shapes != ((1, k), (1, k, 4), (1, k), (1, DET_QUERIES), (1, k)):
+            fail(f"detection output shapes {shapes}")
+        if not bool(torch.isfinite(s).all() and torch.isfinite(xyxy).all()):
+            fail("non-finite detection scores or boxes")
+        if not bool((s[:, :-1] >= s[:, 1:]).all()) or not bool(keep[:, 0].all()):
+            fail("detection scores are not sorted or the best box is suppressed")
+        if int(cls_ids.min()) < 0 or int(cls_ids.max()) >= DET_CLASSES:
+            fail("class ids out of range")
+        if sorted(order[0].tolist()) != list(range(k)):
+            fail("order is not a permutation of the top-k")
+
+    model, img = pred.model, images[1].cuda()
+
+    # the post-processing's share of a request (ranking, top-k, NMS on the host)
+    with torch.no_grad():
+        t = time.perf_counter()
+        out = model(img, want_masks=True)
+        torch.cuda.synchronize()
+        t_model = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        pred.postprocess(out)
+        torch.cuda.synchronize()
+        t_post = (time.perf_counter() - t) * 1e3
+    del out
+
+    def forward(sample=None, tokens=None):
+        """One forward with the module's sampling function replaced by
+        ``sample`` (the wrapper, K9, when None) and, where ``tokens`` is
+        given, those token indices in the place of the transformer's own
+        top-k: what the checks read, never the mask stacks."""
+        saved = det_attn.ms_deform_attn, det_tr.top_k
+        det_attn.ms_deform_attn = sample or saved[0]
+        if tokens is not None:
+            det_tr.top_k = lambda scores, k: (torch.gather(scores, 1, tokens), tokens)
+        seen = {}
+        hook = model.transformer.register_forward_hook(
+            lambda mod, args, out: seen.update(out))
+        try:
+            with torch.no_grad():
+                res = pred.postprocess(model(img, want_masks=True))
+            torch.cuda.synchronize()
+        finally:
+            hook.remove()
+            det_attn.ms_deform_attn, det_tr.top_k = saved
+        return dict(memory=seen["memory"], scores=seen["enc_scores"], tokens=seen["topk_idx"],
+                    logits=seen["pred_logits"][-1], pred_boxes=seen["pred_boxes"][-1],
+                    boxes=res[1], keep=res[2])
+
+    def faulted(launches):
+        """The plain version, without the -0.5 at those launches of a forward."""
+        n = iter(range(DET_LAUNCHES))
+
+        def sample(value, spatial_shapes, locations, weights):
+            fn = _plain_without_half_pixel if next(n) in launches else ms_deform_attn_plain
+            return fn(value, spatial_shapes, locations, weights)
+
+        return sample
+
+    # (a) every launch of one request against its plain version on its inputs
+    def launch_check(what, fault_at=None):
+        log = []
+
+        def both(value, spatial_shapes, locations, weights):
+            got = kernel(value, spatial_shapes, locations, weights)
+            plain = _plain_without_half_pixel if len(log) == fault_at else ms_deform_attn_plain
+            want = plain(value, spatial_shapes, locations, weights)
+            log.append((locations.shape[1], _rel(got, want, None),
+                        float((got.float() - want.float()).abs().max())))
+            return got
+
+        kernel = det_attn.ms_deform_attn
+        forward(sample=both)
+        worst = max(log, key=lambda e: e[1])
+        print(f"  {what}: {len(log)} launches inside the request against their plain versions "
+              f"on the same inputs, ||diff|| / ||ref|| worst {worst[1]:.3e} (Lq {worst[0]}, max "
+              f"abs err {worst[2]:.3e}), by launch {['%.1e' % e[1] for e in log]} "
+              f"(tol {DET_TOL['call_rel']})", flush=True)
+        if len(log) != DET_LAUNCHES:
+            fail(f"{len(log)} launches were checked inside the request")
+        return worst[1], worst[1] <= DET_TOL["call_rel"]
+
+    call_rel, ok = launch_check("kernel path")
+    if not ok:
+        fail("K9 disagrees with its plain version inside the detection request")
+    if launch_check("planted fault (plain K9 without the -0.5 in decoder layer 2)",
+                    fault_at=8)[1]:
+        fail("a K9 plain version without the -0.5 in one decoder layer passes the launch bar")
+
+    # (b) before the selection, against the all-plain path; then the selections
+    got, want = forward(), forward(sample=ms_deform_attn_plain)
+    mean_rel = lambda x, y: float((x.float() - y.float()).abs().mean()  # noqa: E731
+                                  / y.float().abs().mean())
+
+    def compare(a, what):
+        valid = torch.isfinite(want["scores"])
+        mem = mean_rel(a["memory"], want["memory"])
+        sc = mean_rel(a["scores"][valid], want["scores"][valid])
+        tokens = len(set(a["tokens"][0].tolist()) & set(want["tokens"][0].tolist())) / DET_QUERIES
+        same_rank = float((a["tokens"] == want["tokens"]).float().mean())
+        ka, kw = a["boxes"][0][a["keep"][0]], want["boxes"][0][want["keep"][0]]
+        boxes = float((box_iou(ka, kw)[0].amax(1) > 0.9).float().mean())
+        print(f"  {what} vs the all-plain path on the card: encoder memory mean |diff| / mean "
+              f"|ref| {mem:.3e} (tol {DET_TOL['memory']}), proposal scores {sc:.3e} (tol "
+              f"{DET_TOL['scores']}); selected tokens in common {tokens:.4f} (floor "
+              f"{DET_TOL['tokens']}), at the same rank {same_rank:.4f}; kept boxes "
+              f"{len(ka)} vs {len(kw)}, with a plain-path box at IoU > 0.9: {boxes:.4f}",
+              flush=True)
+        return (dict(memory=mem, scores=sc, tokens_common=tokens, tokens_same_rank=same_rank,
+                     kept=len(ka), kept_plain=len(kw), boxes_matched=boxes),
+                mem <= DET_TOL["memory"] and sc <= DET_TOL["scores"]
+                and tokens >= DET_TOL["tokens"])
+
+    agree, ok = compare(got, "kernel path")
+    if not ok:
+        fail("the kernel path's encoder memory or proposals disagree with the plain path")
+    if compare(forward(sample=faulted(range(DET_LAUNCHES))),
+               "planted fault (plain K9 without the -0.5)")[1]:
+        fail("a K9 without the -0.5 passes the encoder bars")
+
+    # (c) after the selection, on the plain path's selected tokens
+    def compare_forced(a, what):
+        if not torch.equal(a["tokens"], want["tokens"]):
+            fail(f"{what}: the forced selection was not taken")
+        lg = mean_rel(a["logits"], want["logits"])
+        bx = mean_rel(a["pred_boxes"], want["pred_boxes"])
+        cls = float((a["logits"].argmax(-1) == want["logits"].argmax(-1)).float().mean())
+        print(f"  {what} on the plain path's {DET_QUERIES} selected tokens, last decoder "
+              f"layer vs the all-plain path: class logits mean |diff| / mean |ref| {lg:.3e} "
+              f"(tol {DET_TOL['logits']}), boxes {bx:.3e} (tol {DET_TOL['boxes']}), same "
+              f"best class {cls:.4f}", flush=True)
+        return (dict(logits=lg, boxes=bx, same_class=cls),
+                lg <= DET_TOL["logits"] and bx <= DET_TOL["boxes"])
+
+    forced, ok = compare_forced(forward(tokens=want["tokens"]), "kernel path")
+    if not ok:
+        fail("the kernel path's decoder output disagrees with the plain path's on the "
+             "same selected tokens")
+    agree["forced_selection"] = forced
+    if compare_forced(
+            forward(sample=faulted(range(DET_ENC_LAUNCHES, DET_LAUNCHES)),
+                    tokens=want["tokens"]),
+            "planted fault (plain K9 without the -0.5 in the decoder layers)")[1]:
+        fail("a K9 without the -0.5 in the decoder passes the decoder-output bars")
+    del got, want
+
+    p50 = _p50(lat)
+    print(f"  {requests} requests x 1 image {DET_IMAGE[0]}x{DET_IMAGE[1]} after a warm-up, latency "
+          f"ms {['%.1f' % v for v in lat]} p50 {p50:.1f}, {1e3 / p50:.2f} images/s; one more "
+          f"request apart: model {t_model:.1f} ms, post-processing {t_post:.1f} ms "
+          f"({t_post / (t_model + t_post):.3f} of the request); peak memory {peak:.2f} GiB; "
+          f"kept boxes per request {[int(o[2].sum()) for o in outs]} [{card_line}]", flush=True)
+    print(f"  launches on the detection path ({requests} requests): {launches}", flush=True)
+    return launches, dict(latency_ms=lat, p50_ms=p50, images_per_s=1e3 / p50,
+                          model_ms=t_model, postprocess_ms=t_post, peak_memory_gib=peak,
+                          launch_rel_err=call_rel, agreement=agree)
+
+
+def kernel_table(rows, launches, train_launches, det_launches):
+    """One entry per kernel; ``launches`` sums the three main paths' runs (the
+    serving requests, the training steps and the detection requests, each
+    counted from 0)."""
     from ir_ads_tpu_torch.ops.cuda_lib import PKG
 
     out = []
@@ -1149,8 +1490,9 @@ def kernel_table(rows, launches, train_launches):
             name=k.name, route="cuda",
             source=str(k.source.relative_to(PKG.parent)),
             replaces=k.replaces,
-            launches=launches[k.name] + train_launches[k.name],
+            launches=launches[k.name] + train_launches[k.name] + det_launches[k.name],
             launches_serve=launches[k.name], launches_train=train_launches[k.name],
+            launches_detect=det_launches[k.name],
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=first["ms"], plain_ms=first["plain_ms"],
             bound_ms=first["bound_ms"], bound_by=first["bound_by"],
@@ -1191,18 +1533,17 @@ def main():
         regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
         print(f"  {name}: " + " | ".join(regs), flush=True)
 
-    print("phase 3: kernels against their plain versions (bf16, main-path shapes)",
-          flush=True)
+    print("phase 3: kernels against their plain versions (main-path shapes)", flush=True)
     rows = phase_kernels(args.seed, 2 * args.batch)
-
     print("phase 4: serving", flush=True)
     launches, serve = phase_serve(args.seed, args.requests, args.batch, card_line)
-
     print("phase 5: training", flush=True)
     train_launches, train = phase_train(args.seed, card_line)
+    print("phase 6: detection", flush=True)
+    det_launches, detect = phase_detect(args.seed, args.requests, card_line)
 
-    print(json.dumps({"kernels": kernel_table(rows, launches, train_launches),
-                      "serve": serve, "train": train, "card": card_line}))
+    print(json.dumps({"kernels": kernel_table(rows, launches, train_launches, det_launches),
+                      "serve": serve, "train": train, "detect": detect, "card": card_line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,10 +1,19 @@
-"""Batched RGB-D semantic-segmentation predictor: the port's entry point.
+"""The port's serving entry points: ``SemSegPredictor`` (batched RGB-D
+semantic segmentation) and ``DetPredictor`` (open-set detection).
+
+``SemSegPredictor``:
 
 Counterpart of ``infer_mm.SemSeg`` (input normalisation) together with the
 bench predictor (sliding window, tile = image, overlap 1/3, horizontal-flip
 ensemble, fused-head logits at H/4 upsampled once).  Runs on the GPU unless
 the caller passes ``device="cpu"``, under the ``r5`` kernel dispatch unless
 the caller passes ``dispatch="r4"`` (models/backbones/swin.py DISPATCH).
+
+``DetPredictor``: counterpart of ``train_net.evaluate_detector``'s ``_infer``
+around the vCLR deformable-mask DINO detector (``configs/detection/
+dino_r50.py``): forward, sigmoid class scores, mask-scored ranking, top-k and
+class-agnostic NMS.  Runs on the GPU, with the deformable-attention kernel,
+unless the caller passes ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -14,7 +23,9 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ir_ads_tpu_torch.detection.dino import DINODetector, nms_topk
 from ir_ads_tpu_torch.evaluation.semseg_eval import make_sliding_window_fn
+from ir_ads_tpu_torch.models.backbones.resnet import FrozenBatchNorm2d
 from ir_ads_tpu_torch.models.cmnext import CMNeXt
 
 # ImageNet statistics (ir_ads_tpu/data/augmentations.py)
@@ -30,17 +41,23 @@ def init_random_(model: torch.nn.Module, seed: int) -> None:
     linear and convolution weights ~ N(0, 1/fan_in), so that every block's
     branch is as large as its input and a check of the logits sees every
     kernel; rel-pos bias tables ~ N(0, 1); biases and BN means small,
-    LayerNorm/BN scales and combiner weights around 1."""
+    LayerNorm/GroupNorm/BN scales (a frozen BN's are buffers) and combiner
+    weights around 1."""
     g = torch.Generator().manual_seed(seed)
+    norms = (torch.nn.LayerNorm, torch.nn.BatchNorm2d, torch.nn.GroupNorm,
+             FrozenBatchNorm2d)
     with torch.no_grad():
         for mod in model.modules():
-            norm = isinstance(mod, (torch.nn.LayerNorm, torch.nn.BatchNorm2d))
-            for leaf, p in mod.named_parameters(recurse=False):
+            norm = isinstance(mod, norms)
+            leaves = list(mod.named_parameters(recurse=False))
+            if isinstance(mod, FrozenBatchNorm2d):  # its affine is two buffers
+                leaves += [(k, getattr(mod, k)) for k in ("weight", "bias")]
+            for leaf, p in leaves:
                 noise = torch.randn(p.shape, generator=g)
                 if norm and leaf == "weight":
                     p.copy_(1.0 + 0.05 * noise)
-                elif leaf == "weight" and p.ndim in (2, 4):  # linear, conv
-                    p.copy_(noise / np.sqrt(p[0].numel()))
+                elif leaf in ("weight", "in_proj_weight") and p.ndim in (2, 4):
+                    p.copy_(noise / np.sqrt(p[0].numel()))  # linear, conv: 1/fan_in
                 elif leaf in F32_PARAMS:
                     p.copy_(noise)
                 elif leaf.startswith("tfts_gamma") or leaf == "identity_weight":
@@ -113,3 +130,65 @@ class SemSegPredictor:
     def __call__(self, rgb, depth):
         logits = self._predict(*self.normalize(rgb, depth))
         return logits, logits.argmax(dim=-1)
+
+
+class DetPredictor:
+    """vCLR deformable-mask DINO detector behind its inference post-processing.
+
+    ``predictor(images)`` takes (B, H, W, 3) uint8 or [0, 255] float RGB and
+    returns ``(scores (B, k), boxes_xyxy (B, k, 4) normalised, keep (B, k),
+    class_ids (B, Q), order (B, k))``: the top-k queries by
+    sqrt(class score x mask score), their boxes, the NMS keep mask, every
+    query's best class, and the kept boxes' order (best first, suppressed
+    ones last); with ``want_masks=True`` also the last layer's mask logits
+    (B, Q, h0, w0).
+    """
+
+    def __init__(
+        self,
+        device: str = "cuda",
+        dtype: torch.dtype = torch.bfloat16,
+        seed: int = 0,
+        num_classes: int = 20,
+        num_queries: int = 2000,
+        topk: int = 300,
+        iou_thresh: float = 0.7,
+        model_kwargs: Optional[dict] = None,
+    ):
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError("DetPredictor: CUDA is not available "
+                               "(pass device='cpu' to run the plain versions)")
+        self.topk, self.iou_thresh = topk, iou_thresh
+        model = DINODetector(num_classes=num_classes, num_queries=num_queries,
+                             **(model_kwargs or {}))
+        # no checkpoint in the repository yet.  Every weight is drawn, the
+        # zero-initialised sampling_offsets and attention_weights included:
+        # at their init every query samples one pattern with uniform weights
+        # and a check of the output would barely see the sampling kernel
+        init_random_(model, seed)
+        self.model = model.to(dtype).to(self.device).eval()
+
+    @torch.no_grad()
+    def __call__(self, images, want_masks: bool = False):
+        images = torch.as_tensor(images, device=self.device)
+        out = self.model(images, want_masks=True)  # the ranking needs the masks
+        return self.postprocess(out, want_masks)
+
+    def postprocess(self, out, want_masks: bool = False):
+        logits = out["pred_logits"][-1].float()
+        boxes = out["pred_boxes"][-1]
+        masks = out["pred_masks"][-1]  # (B, Q, h0, w0) logits, f32
+        scores = logits.sigmoid()
+        # mask-scored ranking: sqrt(class score x mean foreground probability)
+        mask_fg = (masks > 0).float()
+        mask_score = (mask_fg * masks.float().sigmoid()).sum((-2, -1)) / (
+            mask_fg.sum((-2, -1)) + 1e-10)
+        cls_scores = torch.sqrt(scores.amax(-1) * mask_score.clamp(min=1e-6))
+        cls_ids = scores.argmax(-1)
+        s, xyxy, keep = nms_topk(cls_scores, boxes, topk=min(self.topk, boxes.shape[1]),
+                                 iou_thresh=self.iou_thresh)
+        order = torch.argsort(-torch.where(keep, s, -torch.ones_like(s)), dim=1,
+                              stable=True)
+        result = (s, xyxy, keep, cls_ids, order)
+        return result + (masks,) if want_masks else result

@@ -19,6 +19,11 @@ mapping: a flax gradient tree or an updated parameter tree given as
 ``{"params": tree}`` comes back keyed by the port's parameter names, and
 ``batch_stats`` by its buffer names, so a training step is compared name by
 name.
+
+``dino_from_flax(variables)`` does the same for the detection stack's
+``DINODetector`` (``ir_ads_tpu_torch.detection.dino``): the inverse of
+``import_dino_state_dict``, from either parameter layout of the flax
+transformer (unrolled, or stacked by ``scan_layers``).
 """
 
 from __future__ import annotations
@@ -115,5 +120,136 @@ def from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
             sd[name[: -len("bias_table")] + "index"] = torch.from_numpy(
                 relative_position_index(ws, ws))
         if name.endswith("running_var"):
+            sd[name[: -len("running_var")] + "num_batches_tracked"] = torch.tensor(0)
+    return sd
+
+
+# --------------------------------------------------------------------------
+# detection: DINODetector
+# --------------------------------------------------------------------------
+
+_DINO_TOP = {
+    "seg_map_conv1": "mapping_fpn_features_for_seg.0",
+    "seg_map_bn": "mapping_fpn_features_for_seg.1",
+    "seg_map_conv2": "mapping_fpn_features_for_seg.3",
+    "seg_post_ln": "post_layernorm",
+}
+_DINO_TRANSFORMER = {
+    "ref_point_head": "transformer.decoder.ref_point_head",
+    "decoder_norm": "transformer.decoder.norm",
+    "enc_output": "transformer.enc_output",
+    "enc_output_norm": "transformer.enc_output_norm",
+}
+_DINO_LAYER = {"Dense_0": "ffns.0.layers.0.0", "Dense_1": "ffns.0.layers.1"}
+
+
+def _unstack_scanned(tr: Dict) -> Dict:
+    """A ``scan_layers`` transformer tree (``encoder_scan/layer``,
+    ``decoder_scan/{layer,bbox_embed,class_embed}``, leaves stacked on a
+    leading layer axis) as the unrolled one (``encoder_i``, ``decoder_i``,
+    ``bbox_embed_i``, ``class_embed_i``)."""
+    out = {k: v for k, v in tr.items() if k not in ("encoder_scan", "decoder_scan")}
+
+    def unstack(stacked, name):
+        leaves = list(_walk(stacked))
+        for i in range(leaves[0][1].shape[0]):
+            layer = out.setdefault(f"{name}_{i}", {})
+            for path, arr in leaves:
+                node = layer
+                for seg in path[:-1]:
+                    node = node.setdefault(seg, {})
+                node[path[-1]] = arr[i]
+
+    if "encoder_scan" in tr:
+        unstack(tr["encoder_scan"]["layer"], "encoder")
+    if "decoder_scan" in tr:
+        unstack(tr["decoder_scan"]["layer"], "decoder")
+        unstack(tr["decoder_scan"]["bbox_embed"], "bbox_embed")
+        unstack(tr["decoder_scan"]["class_embed"], "class_embed")
+    return out
+
+
+def _dino_module(path: Tuple[str, ...], n_mapped: int) -> str:
+    """Reference module path of a flax module path (leaf excluded)."""
+    head, rest = path[0], path[1:]
+
+    def sub(segs):  # an MLP's ``layer{k}`` is ``layers.k`` there
+        return "".join("." + (f"layers.{s[5:]}" if s.startswith("layer") else s)
+                       for s in segs)
+
+    if head == "backbone":
+        mod = rest[0]
+        if mod in ("stem_conv", "stem_bn"):
+            return "backbone.stem.conv1" + (".norm" if mod == "stem_bn" else "")
+        m = re.fullmatch(r"layer(\d+)_(\d+)", mod)
+        block = f"backbone.res{int(m.group(1)) + 1}.{m.group(2)}"
+        part = rest[1]
+        if part.startswith("downsample"):
+            return f"{block}.shortcut" + (".norm" if part.endswith("bn") else "")
+        return f"{block}.conv{part[-1]}" + (".norm" if part.startswith("bn") else "")
+    if head == "neck":
+        kind, i = rest[0].rsplit("_", 1)
+        leaf = "conv" if kind.endswith("conv") else "gn"
+        if kind.startswith("extra"):
+            return f"neck.extra_convs.{int(i) - n_mapped}.{leaf}"
+        return f"neck.convs.{i}.{leaf}"
+    if head == "transformer":
+        mod = rest[0]
+        if mod in _DINO_TRANSFORMER:
+            return _DINO_TRANSFORMER[mod] + sub(rest[1:])
+        m = re.fullmatch(r"(encoder|decoder|class_embed|bbox_embed)_(\d+)", mod)
+        kind, i = m.group(1), m.group(2)
+        if kind in ("class_embed", "bbox_embed"):
+            return f"{kind}.{i}" + sub(rest[1:])
+        base = f"transformer.{kind}.layers.{i}"
+        part = rest[1]
+        if part in ("self_attn", "cross_attn"):
+            slot = 1 if part == "cross_attn" else 0
+            return f"{base}.attentions.{slot}" + sub(rest[2:])
+        if part == "ffn":
+            return f"{base}.{_DINO_LAYER[rest[2]]}"
+        return f"{base}.norms.{int(part[-1]) - 1}"  # norm1 ..
+    m = re.fullmatch(r"(mask|roi)_embed_(\d+)", head)
+    if m:
+        name = "mask_embed" if m.group(1) == "mask" else "ROI_embed"
+        return f"{name}.{m.group(2)}" + (".0" if m.group(1) == "roi" else "") + sub(rest)
+    return _DINO_TOP[head]
+
+
+def dino_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """flax ``DINODetector`` variables (nested dicts of numpy arrays, from
+    either transformer layout) -> the port's state_dict.  A tree that holds
+    only some of the detector's subtrees maps those."""
+    params = dict(variables["params"])
+    if "transformer" in params:
+        params["transformer"] = _unstack_scanned(params["transformer"])
+    n_mapped = sum(1 for k in params.get("neck", {}) if re.fullmatch(r"conv_\d+", k))
+    sd: Dict[str, torch.Tensor] = {}
+    mha: Dict[str, Dict[str, np.ndarray]] = {}
+    for coll in (params, variables.get("batch_stats", {})):
+        for path, arr in _walk(coll):
+            leaf = path[-1]
+            if path == ("label_enc",):
+                sd["label_enc.weight"] = _tensor(leaf, arr)
+            elif path[0] == "transformer" and len(path) == 2:
+                name = {"tgt_embed": "tgt_embed.weight"}.get(leaf, leaf)
+                sd[f"transformer.{name}"] = _tensor(leaf, arr)  # level_embeds, tgt_embed
+            elif "self_attn" in path and path[1].startswith("decoder_") \
+                    and path[-2] in ("q_proj", "k_proj", "v_proj"):
+                base = _dino_module(path[:-2], n_mapped)
+                mha.setdefault(base, {})[f"{path[-2]}.{leaf}"] = arr
+            else:
+                mods = tuple(s for s in path[:-1] if s != "BatchNorm_0")
+                name = _dino_module(mods, n_mapped)
+                if "self_attn" in path and path[1].startswith("decoder_"):
+                    name = name.replace(".attentions.0.", ".attentions.0.attn.")
+                sd[f"{name}.{_LEAF.get(leaf, leaf)}"] = _tensor(leaf, arr)
+    for base, parts in mha.items():  # the three projections packed as torch's MHA
+        sd[f"{base}.attn.in_proj_weight"] = torch.cat(
+            [_tensor("kernel", parts[f"{p}_proj.kernel"]) for p in "qkv"])
+        sd[f"{base}.attn.in_proj_bias"] = torch.cat(
+            [_tensor("bias", parts[f"{p}_proj.bias"]) for p in "qkv"])
+    for name in list(sd):
+        if name.endswith("running_var") and ".norm." not in name:
             sd[name[: -len("running_var")] + "num_batches_tracked"] = torch.tensor(0)
     return sd

@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
-"""Where the time goes on the GPU: one request of the port's predictor, or
+"""Where the time goes on the GPU: one request of the port's predictors, or
 one step of its trainer, under torch.profiler.
 
     python3 profile_port.py [--seed 0] [--batch 2] [--dispatch r5]
     python3 profile_port.py --train [--seed 0] [--batch 4]
+    python3 profile_port.py --det [--seed 0]
 
 Serving: builds the full-size predictor (Swin-B CMNeXt, 480x640 RGB-D, flip,
 bf16, weights from --seed) under the given kernel dispatch (r5, the default,
@@ -12,6 +13,12 @@ Training (--train): builds the full-size trainer (the ``train`` dispatch, f32
 masters, bf16 compute, the shipped adapter-only AdamW recipe), takes two
 warm-up steps, then profiles one step in three parts: forward with the loss,
 backward, optimizer update.
+Detection (--det): builds the full-size detector (DINO-R50 deformable-mask,
+6 + 6 layers, 2000 queries, bf16, weights from --seed), serves one warm-up
+request of one 800x1216 image, then profiles one request in two parts: the
+model, and the post-processing (mask-scored ranking, top-k, NMS); before
+that, one unprofiled request's timeline is split by module (backbone, neck,
+encoder, decoder, the seg map and mask heads) with CUDA events around each.
 Prints, for each part, its wall time, the summed device time of its kernels,
 the device idle share (1 - busy / wall; kernels run on one stream, so their
 sum is the busy time), and device time by kernel, the port's own kernels
@@ -31,7 +38,8 @@ PORT_KERNELS = ("ln_qkv_kernel", "window_attn_kernel", "proj_add_kernel",  # K1
                 "block_tail_kernel",                                         # K2
                 "v6_ln_qkv_kernel", "v6_attn_kernel", "proj_tail_kernel",    # K5
                 "rpe_rows_kernel", "dscf_rows_kernel", "rpe_packed_kernel",  # K3 K4 K6
-                "window_attn_bwd_kernel", "dscf_rows_bwd_kernel")            # K7 K8
+                "window_attn_bwd_kernel", "dscf_rows_bwd_kernel",            # K7 K8
+                "msdeform_kernel")                                           # K9
 
 
 def device_us(evt) -> float:
@@ -127,6 +135,72 @@ def profile_step(args) -> dict:
                 backward=bwd, optimizer=upd)
 
 
+def profile_detection(args) -> dict:
+    from ir_ads_tpu_torch.serve import DetPredictor
+
+    pred = DetPredictor(device="cuda", seed=args.seed)
+    g = torch.Generator().manual_seed(args.seed + 3)
+    image = torch.randint(0, 256, (1, 800, 1216, 3), generator=g, dtype=torch.uint8).cuda()
+    pred(image)
+    torch.cuda.synchronize()
+    card = f"{torch.cuda.get_device_name(0)}; detection; request of 1 image 800x1216"
+
+    # the request's timeline by module, before the profiler runs: CUDA events
+    # at each module's ends.  An event fires when the device reaches it, so a
+    # span holds the module's kernels and the device's waits for the host
+    m, marks = pred.model, []
+
+    def mark(name):
+        def hook(*_):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            marks.append((name, e))
+        return hook
+
+    mods = {"backbone": m.backbone, "neck": m.neck, "encoder": m.transformer.encoder.layers,
+            "decoder": m.transformer.decoder.layers}
+    hooks = []
+    for name, mod in mods.items():
+        first, last = (mod[0], mod[-1]) if isinstance(mod, torch.nn.ModuleList) else (mod, mod)
+        hooks.append(first.register_forward_pre_hook(mark(name + " start")))
+        hooks.append(last.register_forward_hook(mark(name + " end")))
+    with torch.no_grad():
+        mark("request start")()
+        out = pred.model(image, want_masks=True)
+        mark("model end")()
+        pred.postprocess(out)
+        mark("request end")()
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    at = {name: marks[0][1].elapsed_time(e) for name, e in marks}
+    by_module = {name: at[name + " end"] - at[name + " start"] for name in mods}
+    by_module["two-stage selection"] = at["decoder start"] - at["encoder end"]
+    by_module["seg map, mask and ROI heads"] = at["model end"] - at["decoder end"]
+    by_module["post-processing"] = at["request end"] - at["model end"]
+    total = at["request end"]
+    del out  # 0.85 GB of mask logits: one copy alive while the peak is read
+    print(f"{card}: timeline by module (CUDA events, no profiler; waits for the host "
+          "included), ms: "
+          + ", ".join(f"{k} {v:.2f}" for k, v in by_module.items()) + f"; request {total:.2f}")
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        out, model = profiled(lambda: pred.model(image, want_masks=True))
+        _, post = profiled(lambda: pred.postprocess(out))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for what, part in (("model", model), ("post-processing", post)):
+        show(f"{card}; {what}", part)
+
+    busy = model["device_busy_ms"] + post["device_busy_ms"]
+    wall = model["wall_ms"] + post["wall_ms"]
+    print(f"{card}: wall {wall:.2f} ms (profiler on), device busy {busy:.2f} ms, "
+          f"idle share {1 - busy / wall:.3f}, K9 {model['port_kernels_ms']:.2f} ms "
+          f"({model['port_kernels_ms'] / busy:.3f} of busy), peak memory {peak:.2f} GiB")
+    return dict(wall_ms=wall, device_busy_ms=busy, idle_share=1 - busy / wall,
+                peak_memory_gib=peak, model=model, postprocess=post, by_module_ms=by_module,
+                request_ms_no_profiler=total)
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -135,12 +209,15 @@ def main():
     ap.add_argument("--dispatch", default="r5", choices=("r5", "r4"))
     ap.add_argument("--train", action="store_true",
                     help="profile one training step instead of one request")
+    ap.add_argument("--det", action="store_true",
+                    help="profile one detection request instead")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_port: CUDA is not available")
     if args.batch is None:
         args.batch = 4 if args.train else 2
-    print(json.dumps(profile_step(args) if args.train else profile_request(args)))
+    run = profile_detection if args.det else profile_step if args.train else profile_request
+    print(json.dumps(run(args)))
 
 
 if __name__ == "__main__":

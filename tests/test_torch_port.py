@@ -15,7 +15,7 @@ from ir_ads_tpu_torch.evaluation.semseg_eval import make_sliding_window_fn
 from ir_ads_tpu_torch.models.backbones import swin as tswin
 from ir_ads_tpu_torch.models.cmnext import CMNeXt
 from ir_ads_tpu_torch.ops import (
-    block_tail, dscf_rows, dscf_rows_bwd, dscf_rpe, dscf_rpe_packed, swin_block,
+    block_tail, dscf_rows, dscf_rows_bwd, dscf_rpe, dscf_rpe_packed, msdeform, swin_block,
     swin_block_v6, window_attn_bwd,
 )
 from ir_ads_tpu_torch.serve import IMAGENET_MEAN, IMAGENET_STD, SemSegPredictor
@@ -125,9 +125,9 @@ def test_pallas6_block_takes_the_real_map_with_no_pad_roll_or_crop():
 
 def test_every_kernel_targets_hopper_and_names_its_tpu_kernel():
     mods = (swin_block, block_tail, dscf_rpe, dscf_rows, swin_block_v6, dscf_rpe_packed,
-            window_attn_bwd, dscf_rows_bwd)
-    assert len({m.KERNEL.name for m in mods}) == 8
-    assert len({m.KERNEL.replaces for m in mods}) == 8
+            window_attn_bwd, dscf_rows_bwd, msdeform)
+    assert len({m.KERNEL.name for m in mods}) == 9
+    assert len({m.KERNEL.replaces for m in mods}) == 9
     for mod in mods:
         k = mod.KERNEL
         assert k.source.exists()
