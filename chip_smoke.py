@@ -8,7 +8,8 @@ Phases, each of which raises on failure:
   2. build every CUDA kernel of the slice from csrc/ (one nvcc per source,
      all started together) and print the build time;
   3. hold each kernel against its plain PyTorch version on the card, in
-     bf16, at the shapes the main paths (serving and training) give it,
+     bf16, at the shapes the main paths (serving under r5 and r4i8, training,
+     detection) give it,
      element by element and on
      what the kernel adds (the branch, for the residual kernels); show that
      a planted fault in the plain version fails the same bar; print the
@@ -25,7 +26,12 @@ Phases, each of which raises on failure:
      with the plain versions on the card, while the plain path with a
      planted fault in K1 or in K5 does not; then, for the record, the same
      requests' latency under the ``r4`` dispatch (K1 + K2 and K3 + K4
-     everywhere);
+     everywhere); then the same weights and requests under the w8a8 ``r4i8``
+     dispatch (K10 + K11 at every block, K3 + K4 at every level, the DSCF
+     and head products in s8): launches, shapes, finiteness, one request's
+     logits against the all-plain r4i8 path on the card (a K10 without its
+     region mask must fail), p50 and frames/s beside r5's, and, with no
+     bar, the logit distance and label agreement between r4i8 and r5;
   5. train: ``SemSegTrainer`` (the same model under the ``train`` dispatch,
      f32 master parameters, bf16 compute, adapter-only AdamW, MMST 3-head
      loss) on batches of 4 frames drawn from --seed.  (a) With every
@@ -71,6 +77,7 @@ from __future__ import annotations
 import argparse
 import functools
 import json
+import math
 import subprocess
 import time
 
@@ -79,6 +86,7 @@ import torch.nn.functional as F
 
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 BF16_TENSOR_FLOPS = 989e12     # dense bf16 tensor cores
+INT8_TENSOR_OPS = 1979e12      # dense int8 tensor cores
 F32_FLOPS = 67e12              # f32 outside the tensor cores
 IMAGE = (480, 640)
 NUM_CLASSES = 40
@@ -113,9 +121,13 @@ def time_ms(fn, iters: int = 10, warmup: int = 2) -> float:
     return start.elapsed_time(end) / iters
 
 
-def bound_ms(nbytes: float, flops: float, rate: float):
+def bound_ms(nbytes: float, flops, rate):
+    """The larger of the bytes' time and the operations' time; ``flops`` and
+    ``rate`` may be tuples (int8 and bf16 operations of one kernel), whose
+    times add."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / rate * 1e3
+    pairs = zip(flops, rate) if isinstance(flops, (tuple, list)) else [(flops, rate)]
+    t_ops = sum(f / r for f, r in pairs) * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -265,6 +277,127 @@ def check_block_tail(g, rows, c):
         library=None, atol=3e-2, rtol=2e-2,
         bytes=nbytes(x, *args) + nbytes(x), flops=flops,
         rate=BF16_TENSOR_FLOPS,
+    )
+
+
+def _channel_scaled(g, fan_out, fan_in):
+    """A float weight ~ N(0, 1/fan_in) whose output channels differ in
+    scale (x 1/4 to 1, log-uniform), as trained weights' do: a per-tensor
+    scale then costs the small channels precision."""
+    w = _linear(g, fan_out, fan_in).float()
+    return w * torch.exp(-math.log(4.0) * torch.rand(fan_out, 1, generator=g, device="cuda"))
+
+
+def _per_tensor(w):
+    """w quantized with one scale for the whole tensor, as (codes, scale per
+    output channel): the planted fault of K11's weights."""
+    s = torch.clamp(w.abs().max(), min=1e-12) / 127.0
+    return torch.clamp(torch.round(w / s), -127, 127).to(torch.int8), s.expand(w.shape[0])
+
+
+def _int8_linear_per_tensor(x, w_q, s_w, floor_first=False):
+    """``ops.int8.int8_linear`` with one activation scale for the whole
+    tensor instead of one per row: the planted fault of K10's plain version
+    (both its LN output and its attention output quantized so)."""
+    from ir_ads_tpu_torch.ops.int8 import int_mm
+
+    xf = x.float()
+    s_x = torch.clamp(xf.abs().max(), min=1e-12) / 127.0
+    xq = torch.clamp(torch.round(xf / s_x), -127, 127).to(torch.int8)
+    acc = int_mm(xq.reshape(-1, x.shape[-1]), w_q)
+    return (acc.float().reshape(*x.shape[:-1], -1) * s_x) * s_w.float()
+
+
+# K10 and K11 against their plain versions: both quantize the same values
+# with the same scales and sum s8 products exactly; they differ where f32
+# sums of another order (the LN statistics, the attention, the adapter) flip
+# a bf16 rounding, and one such flip upstream of an s8 stage can move a code
+# by one step: an output by max|a| max|w| / 127, 2 to 8 times the flip
+# itself.  K11's only such stage is fed by f32 values (its hidden), where a
+# flip is rare: 6.2e-4 to 9.5e-4 on an H100 80GB HBM3 at 700 W, against
+# 1.3e-2 to 1.7e-2 between int8 and float in the CPU tests, so K11's bar is
+# 4e-3, which a fault of the quantization's own size (per-tensor weights,
+# 1.5e-2 to 1.9e-2) fails.  K10 quantizes its bf16 attention output, where
+# K1's flips (one bf16 ulp, common) become code steps: 7.7e-3 to 1.08e-2 on
+# the card, so its bar is 2e-2; its fault (per-tensor activation scales)
+# sits at 4.6e-2 to 5.7e-2.  That bar would pass K1's float function too
+# (about 1.5e-2 from the int8 one), so one more K10 case makes the attention
+# all but one-hot (rel-pos bias x 30): the attention output then has no
+# flips, K10 is held at K11's bar, and K1's float half-block on the same
+# float weights must fail it.
+INT8_REL_TOL = dict(swin_block_int8=2e-2, block_tail_int8=4e-3, peaked=4e-3)
+
+
+def check_window_block_int8(g, b, h_real, w_real, c, heads, shift, peaked=False):
+    from ir_ads_tpu_torch.ops import swin_block_int8 as k10
+    from ir_ads_tpu_torch.ops.int8 import quantize_weight
+    from ir_ads_tpu_torch.ops.swin_block import window_block_reference
+    from ir_ads_tpu_torch.ops.window_attention import shift_region_ids_on
+
+    ws, n = 12, 144
+    hp, wp = -(-h_real // ws) * ws, -(-w_real // ws) * ws
+    x = _rand(g, b, hp, wp, c)
+    ln = (_rand(g, c, std=0.05, mean=1.0), _rand(g, c, std=0.05))
+    wqkv, wproj = _channel_scaled(g, 3 * c, c), _channel_scaled(g, c, c)
+    bqkv, bproj = _rand(g, 3 * c, std=0.02), _rand(g, c, std=0.02)
+    bias = _rand(g, heads, n, n, std=30.0 if peaked else 1.0, dtype=torch.float32)
+    args = [*ln, *quantize_weight(wqkv), bqkv, *quantize_weight(wproj), bproj, bias]
+    region = shift_region_ids_on(hp, wp, ws, shift, x.device) if shift else None
+    scale = (c // heads) ** -0.5
+    rest = (region, scale, heads, ws, h_real, w_real, shift)
+
+    def per_tensor():
+        saved = k10.int8_linear
+        k10.int8_linear = _int8_linear_per_tensor
+        try:
+            return k10.window_block_int8_reference(x, *args, *rest)
+        finally:
+            k10.int8_linear = saved
+
+    def floated():
+        return window_block_reference(x, *ln, wqkv.to(x.dtype), bqkv, wproj.to(x.dtype), bproj,
+                                      bias, *rest)
+
+    t = b * hp * wp
+    return dict(
+        name="swin_block_int8",
+        case=f"stage C={c} map {hp}x{wp} shift {shift}" + (" one-hot" if peaked else ""),
+        run=lambda: k10.window_block_int8(x, *args, *rest),
+        plain=lambda: k10.window_block_int8_reference(x, *args, *rest),
+        faulted=floated if peaked else per_tensor,
+        fault=("the float half-block (K1's function)" if peaked
+               else "activations scaled per tensor, not per row"), base=x,
+        # elementwise: two bf16 ulps, and one code step of the proj product
+        library=None, atol=3e-2, rtol=2e-2,
+        rel_tol=INT8_REL_TOL["peaked" if peaked else "swin_block_int8"],
+        bytes=nbytes(x, *args, region) + nbytes(x),
+        flops=(t * 8 * c * c, t * 4 * n * c), rate=(INT8_TENSOR_OPS, BF16_TENSOR_FLOPS),
+    )
+
+
+def check_block_tail_int8(g, rows, c):
+    from ir_ads_tpu_torch.ops import block_tail_int8 as k11
+    from ir_ads_tpu_torch.ops.int8 import quantize_weight
+
+    hid, ca = 4 * c, c // 16
+    x = _rand(g, rows, c)
+    w1, w2 = _channel_scaled(g, hid, c), _channel_scaled(g, c, hid)
+    ln = (_rand(g, c, std=0.05, mean=1.0), _rand(g, c, std=0.05))
+    b1, b2 = _rand(g, hid, std=0.02), _rand(g, c, std=0.02)
+    adapter = (_linear(g, ca, c), _rand(g, ca, std=0.02), _linear(g, c, ca),
+               _rand(g, c, std=0.02))
+    args = (*ln, *quantize_weight(w1), b1, *quantize_weight(w2), b2, *adapter)
+    bad = (*ln, *_per_tensor(w1), b1, *_per_tensor(w2), b2, *adapter)
+    return dict(
+        name="block_tail_int8", case=f"C={c} rows {rows}",
+        run=lambda: k11.block_tail_int8(x, *args),
+        plain=lambda: k11.block_tail_int8_reference(x, *args),
+        faulted=lambda: k11.block_tail_int8_reference(x, *bad),
+        fault="weights scaled per tensor, not per channel", base=x,
+        # as K10: two bf16 ulps, and one code step of the fc2 product
+        library=None, atol=3e-2, rtol=2e-2, rel_tol=INT8_REL_TOL["block_tail_int8"],
+        bytes=nbytes(x, *args) + nbytes(x),
+        flops=(rows * 16 * c * c, rows * 4 * c * ca), rate=(INT8_TENSOR_OPS, BF16_TENSOR_FLOPS),
     )
 
 
@@ -620,56 +753,76 @@ def phase_kernels(seed: int, images: int):
         lambda: check_msdeform(g, DET_QUERIES, torch.bfloat16, "zeros padding lost"),
         lambda: check_msdeform(g, s_det, torch.float32, "zeros padding lost"),
         lambda: check_msdeform(g, DET_QUERIES, torch.float32, "no -0.5"),
+        # the r4i8 path: K10 and K11 at the four stages
+        *int8_cases(g, images),
     ]
-    rows = []
-    for make in cases:
-        case = make()
-        also = case.pop("also", None)
-        run, plain, library = case.pop("run"), case.pop("plain"), case.pop("library")
-        faulted, base = case.pop("faulted"), case.pop("base")
-        names = case.pop("outputs", ["out"])
-        of_rms = case.pop("atol_of_rms", False)
-        as_list = lambda v: list(v) if isinstance(v, (list, tuple)) else [v]  # noqa: E731
-        atols, rtols = as_list(case["atol"]), as_list(case["rtol"])
-        got, want = as_list(run()), as_list(plain())
-        torch.cuda.synchronize()
-        bad = as_list(faulted())
-        finite, elem_ok, max_err, rel, fault_rel, parts = True, True, 0.0, 0.0, 0.0, []
-        for name, gt, wt, bd, atol, rtol in zip(names, got, want, bad, atols, rtols):
-            err = (gt.float() - wt.float()).abs()
-            tol = atol * (_rms(wt) if of_rms else 1.0) + rtol * wt.float().abs()
-            finite = finite and bool(torch.isfinite(gt.float()).all())
-            elem_ok = elem_ok and bool((err <= tol).all())
-            r, fr = _rel(gt, wt, base), _rel(bd, wt, base)
-            parts.append(f"{name} max_abs_err {float(err.max()):.3e} rel {r:.3e}")
-            max_err, rel, fault_rel = max(max_err, float(err.max())), max(rel, r), max(fault_rel, fr)
-            del err, tol
-        del got, want, bad
-        ms = time_ms(run)
-        plain_ms = time_ms(plain, iters=3, warmup=1)
-        lib_ms = time_ms(library) if library else None
-        also_ms = f"; {also[0]} {time_ms(also[1], iters=3, warmup=1):.4f} ms" if also else ""
-        b_ms, b_by = bound_ms(case["bytes"], case["flops"], case["rate"])
-        print(
-            f"  {case['name']:<15} {case['case']:<34} " + "; ".join(parts) +
-            f" (tol atol {case['atol']}{' x rms' if of_rms else ''} + rtol {case['rtol']}; "
-            f"rel tol {REL_TOL}; planted fault '{case['fault']}': {fault_rel:.3e}) "
-            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
-            f"library {'%.4f' % lib_ms if lib_ms is not None else 'n/a'} ms "
-            f"bound {b_ms:.4f} ms ({b_by}){also_ms}",
-            flush=True,
-        )
-        if not (finite and elem_ok and rel <= REL_TOL):
-            fail(f"{case['name']} ({case['case']}) disagrees with its plain version")
-        if fault_rel <= REL_TOL:
-            fail(f"{case['name']} ({case['case']}): the planted fault "
-                 f"'{case['fault']}' passes the bar, which is too loose")
-        rows.append(dict(case, max_abs_err=max_err, rel_err=rel,
-                         fault_rel_err=fault_rel, ms=ms, plain_ms=plain_ms,
-                         library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by))
-        del run, plain, library, faulted, base, case, also
-        torch.cuda.empty_cache()
+    rows = [hold(make()) for make in cases]
     return rows
+
+
+def int8_cases(g, images):
+    """K10 and K11 at the r4i8 path's four stages (480x640 tiles: maps
+    120x160 down to 15x20; K10 on the map padded to whole windows)."""
+    stages = ((120, 160, 128, 4), (60, 80, 256, 8), (30, 40, 512, 16), (15, 20, 1024, 32))
+    return [
+        *(functools.partial(check_window_block_int8, g, images, h, w, c, heads, 6 * (i != 1))
+          for i, (h, w, c, heads) in enumerate(stages)),
+        functools.partial(check_window_block_int8, g, images, *stages[2][:2], 512, 16, 6,
+                          peaked=True),
+        *(functools.partial(check_block_tail_int8, g, images * h * w, c)
+          for h, w, c, _ in stages),
+    ]
+
+
+def hold(case):
+    """Hold one case's kernel against its plain version (and its planted
+    fault); print the errors and the times; return the kernel table's row."""
+    also = case.pop("also", None)
+    run, plain, library = case.pop("run"), case.pop("plain"), case.pop("library")
+    faulted, base = case.pop("faulted"), case.pop("base")
+    names = case.pop("outputs", ["out"])
+    of_rms = case.pop("atol_of_rms", False)
+    rel_tol = case.pop("rel_tol", REL_TOL)
+    as_list = lambda v: list(v) if isinstance(v, (list, tuple)) else [v]  # noqa: E731
+    atols, rtols = as_list(case["atol"]), as_list(case["rtol"])
+    got, want = as_list(run()), as_list(plain())
+    torch.cuda.synchronize()
+    bad = as_list(faulted())
+    finite, elem_ok, max_err, rel, fault_rel, parts = True, True, 0.0, 0.0, 0.0, []
+    for name, gt, wt, bd, atol, rtol in zip(names, got, want, bad, atols, rtols):
+        err = (gt.float() - wt.float()).abs()
+        tol = atol * (_rms(wt) if of_rms else 1.0) + rtol * wt.float().abs()
+        finite = finite and bool(torch.isfinite(gt.float()).all())
+        elem_ok = elem_ok and bool((err <= tol).all())
+        r, fr = _rel(gt, wt, base), _rel(bd, wt, base)
+        parts.append(f"{name} max_abs_err {float(err.max()):.3e} rel {r:.3e}")
+        max_err, rel, fault_rel = max(max_err, float(err.max())), max(rel, r), max(fault_rel, fr)
+        del err, tol
+    del got, want, bad
+    ms = time_ms(run)
+    plain_ms = time_ms(plain, iters=3, warmup=1)
+    lib_ms = time_ms(library) if library else None
+    also_ms = f"; {also[0]} {time_ms(also[1], iters=3, warmup=1):.4f} ms" if also else ""
+    b_ms, b_by = bound_ms(case["bytes"], case["flops"], case["rate"])
+    print(
+        f"  {case['name']:<15} {case['case']:<34} " + "; ".join(parts) +
+        f" (tol atol {case['atol']}{' x rms' if of_rms else ''} + rtol {case['rtol']}; "
+        f"rel tol {rel_tol}; planted fault '{case['fault']}': {fault_rel:.3e}) "
+        f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
+        f"library {'%.4f' % lib_ms if lib_ms is not None else 'n/a'} ms "
+        f"bound {b_ms:.4f} ms ({b_by}){also_ms}",
+        flush=True,
+    )
+    if not (finite and elem_ok and rel <= rel_tol):
+        fail(f"{case['name']} ({case['case']}) disagrees with its plain version")
+    if fault_rel <= rel_tol:
+        fail(f"{case['name']} ({case['case']}): the planted fault "
+             f"'{case['fault']}' passes the bar, which is too loose")
+    row = dict(case, max_abs_err=max_err, rel_err=rel, fault_rel_err=fault_rel, ms=ms,
+               plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+    del run, plain, library, faulted, base, case, also
+    torch.cuda.empty_cache()
+    return row
 
 
 # --------------------------------------------------------------------------
@@ -687,28 +840,42 @@ def phase_kernels(seed: int, images: int):
 # touches only the windows on the seam, near the bottom and right edges, so
 # it moves the mean little but the worst logit by ~0.1 of the largest.
 LOGIT_TOL = dict(rel_mean=2e-2, rel_max=0.06, label_agree=0.97)
+# r4i8's kernel path against its all-plain path: both quantize and sum in s8
+# exactly, and differ where a bf16 rounding flips (as under r4) and then moves
+# an s8 code by one step, which every later block's per-row scales carry on:
+# mean 1.244e-2, worst 2.427e-2, labels 0.9696 (an H100 at 700 W; r5: 6.8e-3
+# and 0.982).  The float path is not much further: r5's logits on the same
+# weights and frames lie 1.78e-2 from r4i8's, labels 0.951.  So the bars sit
+# between the two, mean 1.6e-2 and labels 0.96, and the phase prints where
+# r5 falls against them; a K10 without its region mask (every shifted block
+# of both streams, 1.08e-1) must fail them too.
+LOGIT_TOL_I8 = dict(rel_mean=1.6e-2, rel_max=0.06, label_agree=0.96)
 
 
 def _ops_modules():
     from ir_ads_tpu_torch.ops import (
-        block_tail, dscf_rows, dscf_rows_bwd, dscf_rpe, dscf_rpe_packed, msdeform,
-        swin_block, swin_block_v6, window_attn_bwd,
+        block_tail, block_tail_int8, dscf_rows, dscf_rows_bwd, dscf_rpe, dscf_rpe_packed,
+        msdeform, swin_block, swin_block_int8, swin_block_v6, window_attn_bwd,
     )
 
     return (swin_block, block_tail, swin_block_v6, dscf_rpe, dscf_rows,
-            dscf_rpe_packed, window_attn_bwd, dscf_rows_bwd, msdeform)
+            dscf_rpe_packed, window_attn_bwd, dscf_rows_bwd, msdeform, swin_block_int8,
+            block_tail_int8)
 
 
 def expected_launches(model):
     """Launches of each kernel in one forward, from the model's dispatch:
-    every block of a stage runs K1 + K2 (pallas4) or K5 (pallas6), every
-    DSCF level K3 + K4 (pallas3) or K6 (xla); the two streams run in turn."""
+    every block of a stage runs K1 + K2 (pallas4), K10 + K11 (pallas4 under
+    int8) or K5 (pallas6), every DSCF level K3 + K4 (pallas3) or K6 (xla);
+    the two streams run in turn."""
     n = dict.fromkeys(("swin_block", "block_tail", "swin_block_v6", "dscf_rpe",
-                       "dscf_rows", "dscf_rpe_packed"), 0)
+                       "dscf_rows", "dscf_rpe_packed", "swin_block_int8",
+                       "block_tail_int8"), 0)
     for stage in model.backbone.stages:
         for blk in stage.blocks:
             names = ("swin_block_v6",) if blk.attn_impl == "pallas6" else (
-                "swin_block", "block_tail")
+                ("swin_block_int8", "block_tail_int8") if blk.int8 else
+                ("swin_block", "block_tail"))
             for k in names:
                 n[k] += 2
     for dm in model.backbone.DeformMPGBlocks:
@@ -736,19 +903,31 @@ def _window_block_v6_no_region(x, attn, tail, region, *rest):
     return window_block_v6_reference(x, attn, tail, None, *rest)
 
 
+def _window_block_int8_no_region(x, ln_w, ln_b, wqkv_q, sqkv, bqkv, wproj_q, sproj, bproj,
+                                 bias, region, *rest):
+    """K10's plain version with K1's planted fault: no shift-region mask."""
+    from ir_ads_tpu_torch.ops.swin_block_int8 import window_block_int8_reference
+
+    return window_block_int8_reference(x, ln_w, ln_b, wqkv_q, sqkv, bqkv, wproj_q, sproj,
+                                       bproj, bias, None, *rest)
+
+
 def _plain_path(**faults):
     """Point the backbone at the plain versions (on CUDA tensors), with any
     of them replaced by ``faults``, and return a function that restores the
     kernels."""
     from ir_ads_tpu_torch.models.backbones import swin
     from ir_ads_tpu_torch.ops import (
-        block_tail, dscf_rows, dscf_rpe, dscf_rpe_packed, swin_block, swin_block_v6,
+        block_tail, block_tail_int8, dscf_rows, dscf_rpe, dscf_rpe_packed, swin_block,
+        swin_block_int8, swin_block_v6,
     )
 
     swap = {
         "window_block": swin_block.window_block_reference,
         "block_tail": block_tail.block_tail_reference,
         "window_block_v6": swin_block_v6.window_block_v6_reference,
+        "window_block_int8": swin_block_int8.window_block_int8_reference,
+        "block_tail_int8": block_tail_int8.block_tail_int8_reference,
         "rpe_bias_rows": lambda pos, table, h, w, dt: dscf_rpe.rpe_bias_rows_reference(
             pos.float(), table.float(), h, w, dt),
         "rpe_bias_packed": lambda pos, table, h, w, dt: (
@@ -783,6 +962,62 @@ def _p50(lat):
     return sorted(lat)[len(lat) // 2]
 
 
+R5_LAUNCHES = {"swin_block": 8, "block_tail": 8, "swin_block_v6": 40, "dscf_rpe": 3,
+               "dscf_rows": 3, "dscf_rpe_packed": 1}
+# r4i8: K10 + K11 at the 24 blocks of both streams, K3 + K4 at the 4 levels
+R4I8_LAUNCHES = {"swin_block_int8": 48, "block_tail_int8": 48, "dscf_rpe": 4, "dscf_rows": 4}
+
+
+def _plain_request(pred, frames, **faults):
+    """The first request through ``pred`` with the plain versions (and
+    ``faults``) in place of the kernels."""
+    restore = _plain_path(**faults)
+    try:
+        out = pred(*frames[0])
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    return out
+
+
+def _compare(got, got_labels, want, want_labels, what, tol):
+    err = (got - want).abs()
+    rel_mean = float(err.mean() / want.abs().mean())
+    rel_max = float(err.max() / want.abs().max())
+    agree = float((got_labels == want_labels).float().mean())
+    print(f"  {what} vs plain versions on the card: mean |err| / mean |ref| "
+          f"{rel_mean:.3e} (tol {tol['rel_mean']}), max |err| / max |ref| "
+          f"{rel_max:.3e} (tol {tol['rel_max']}), labels agree "
+          f"{agree:.4f} (tol {tol['label_agree']})", flush=True)
+    return (rel_mean <= tol["rel_mean"] and rel_max <= tol["rel_max"]
+            and agree >= tol["label_agree"])
+
+
+def _served(pred, frames, requests, batch, want_per_request, what):
+    """Serve ``frames`` with every launch count at 0 first; check the
+    dispatch's launches per request, the launches, shapes and finiteness.
+    Returns (latencies, outputs, launches)."""
+    _warm_up(pred, frames)
+    torch.cuda.reset_peak_memory_stats()  # phase 3 allocated more than serving does
+    kernels = _reset_launches()
+    lat, outs = _serve(pred, frames)
+    launches = {k.name: k.launches for k in kernels}
+    per_request = {k: v for k, v in expected_launches(pred.model).items() if v}
+    if per_request != want_per_request:
+        fail(f"the {what} predictor's dispatch gives {per_request} launches per request, "
+             f"not {want_per_request}")
+    for name, n in launches.items():
+        if n != per_request.get(name, 0) * requests:
+            fail(f"{name} launched {n} times on the {what} path, expected "
+                 f"{per_request.get(name, 0)} per request x {requests}")
+    for logits, labels in outs:
+        if logits.shape != (batch, *IMAGE, NUM_CLASSES) or labels.shape != (batch, *IMAGE):
+            fail(f"output shape {tuple(logits.shape)}")
+        if not bool(torch.isfinite(logits).all()):
+            fail("non-finite logits")
+    return lat, outs, launches
+
+
 def phase_serve(seed: int, requests: int, batch: int, card_line: str):
     from ir_ads_tpu_torch.serve import SemSegPredictor
 
@@ -798,59 +1033,17 @@ def phase_serve(seed: int, requests: int, batch: int, card_line: str):
          torch.randint(0, 256, (batch, *IMAGE, 3), generator=g, dtype=torch.uint8))
         for _ in range(requests)
     ]
-    _warm_up(pred, frames)
+    lat, outs, launches = _served(pred, frames, requests, batch, R5_LAUNCHES, "r5")
 
-    torch.cuda.reset_peak_memory_stats()  # phase 3 allocated more than serving does
-    kernels = _reset_launches()
-    lat, outs = _serve(pred, frames)
-    launches = {k.name: k.launches for k in kernels}
-
-    per_request = expected_launches(pred.model)
-    r5 = {"swin_block": 8, "block_tail": 8, "swin_block_v6": 40, "dscf_rpe": 3,
-          "dscf_rows": 3, "dscf_rpe_packed": 1}
-    if per_request != r5:
-        fail(f"the predictor's dispatch gives {per_request} launches per request, "
-             f"not r5's {r5}")
-    for name, n in launches.items():
-        if n != per_request.get(name, 0) * requests:
-            fail(f"{name} launched {n} times on the main path, expected "
-                 f"{per_request.get(name, 0)} per request x {requests}")
-    for logits, labels in outs:
-        if logits.shape != (batch, *IMAGE, NUM_CLASSES) or labels.shape != (batch, *IMAGE):
-            fail(f"output shape {tuple(logits.shape)}")
-        if not bool(torch.isfinite(logits).all()):
-            fail("non-finite logits")
-
-    def plain_request(**faults):
-        restore = _plain_path(**faults)
-        try:
-            out = pred(*frames[0])
-            torch.cuda.synchronize()
-        finally:
-            restore()
-        return out
-
-    def compare(got, got_labels, what):
-        err = (got - want).abs()
-        rel_mean = float(err.mean() / want.abs().mean())
-        rel_max = float(err.max() / want.abs().max())
-        agree = float((got_labels == want_labels).float().mean())
-        print(f"  {what} vs plain versions on the card: mean |err| / mean |ref| "
-              f"{rel_mean:.3e} (tol {LOGIT_TOL['rel_mean']}), max |err| / max |ref| "
-              f"{rel_max:.3e} (tol {LOGIT_TOL['rel_max']}), labels agree "
-              f"{agree:.4f} (tol {LOGIT_TOL['label_agree']})", flush=True)
-        return (rel_mean <= LOGIT_TOL["rel_mean"] and rel_max <= LOGIT_TOL["rel_max"]
-                and agree >= LOGIT_TOL["label_agree"])
-
-    want, want_labels = plain_request()
-    if not compare(*outs[0], "kernel path"):
+    want = _plain_request(pred, frames)
+    if not _compare(*outs[0], *want, "kernel path", LOGIT_TOL):
         fail("kernel path disagrees with the plain path end to end")
     # the same bar must see a fault in one piece of one kernel's function
-    if compare(*plain_request(window_block=_window_block_no_region),
-               "planted fault (K1 without the shift-region mask)"):
+    if _compare(*_plain_request(pred, frames, window_block=_window_block_no_region), *want,
+                "planted fault (K1 without the shift-region mask)", LOGIT_TOL):
         fail("a K1 without its shift-region mask passes the end-to-end bar")
-    if compare(*plain_request(window_block_v6=_window_block_v6_no_region),
-               "planted fault (K5 without the shift-region mask)"):
+    if _compare(*_plain_request(pred, frames, window_block_v6=_window_block_v6_no_region),
+                *want, "planted fault (K5 without the shift-region mask)", LOGIT_TOL):
         fail("a K5 without its shift-region mask passes the end-to-end bar")
 
     p50 = _p50(lat)
@@ -865,8 +1058,8 @@ def phase_serve(seed: int, requests: int, batch: int, card_line: str):
                  frames_per_s=batch * 1e3 / p50)
 
     # for the record: the same weights and requests under r4 (no check)
-    ref5 = outs[0][0]
-    del pred, outs
+    ref5, labels5 = outs[0]
+    del pred, outs, want
     torch.cuda.empty_cache()
     pred4 = SemSegPredictor(device="cuda", seed=seed, num_classes=NUM_CLASSES,
                             image_size=IMAGE, dispatch="r4")
@@ -879,7 +1072,35 @@ def phase_serve(seed: int, requests: int, batch: int, card_line: str):
           f"|diff| / mean |r5| {diff:.3e} [{card_line}]", flush=True)
     serve["r4"] = dict(latency_ms=lat4, p50_ms=p50_4,
                        frames_per_s=batch * 1e3 / p50_4, rel_mean_vs_r5=diff)
-    return launches, serve
+    del pred4, outs4
+    torch.cuda.empty_cache()
+
+    # r4i8, the w8a8 path (K10 + K11, K3 + K4, int8 DSCF and head products):
+    # the same weights (quantized from f32 before the cast) and requests
+    pred8 = SemSegPredictor(device="cuda", seed=seed, num_classes=NUM_CLASSES,
+                            image_size=IMAGE, dispatch="r4i8")
+    lat8, outs8, launches8 = _served(pred8, frames, requests, batch, R4I8_LAUNCHES, "r4i8")
+    peak8 = torch.cuda.max_memory_allocated() / 2**30
+    want8 = _plain_request(pred8, frames)
+    if not _compare(*outs8[0], *want8, "r4i8 kernel path", LOGIT_TOL_I8):
+        fail("the r4i8 kernel path disagrees with its plain path end to end")
+    if _compare(*_plain_request(pred8, frames, window_block_int8=_window_block_int8_no_region),
+                *want8, "planted fault (K10 without the shift-region mask)", LOGIT_TOL_I8):
+        fail("a K10 without its shift-region mask passes the end-to-end bar")
+    _compare(ref5, labels5, *want8, "r5, the float path (information, no bar)", LOGIT_TOL_I8)
+    p50_8 = _p50(lat8)
+    logits8, labels8 = outs8[0]
+    vs5 = float((logits8 - ref5).abs().mean() / ref5.abs().mean())
+    agree5 = float((labels8 == labels5).float().mean())
+    print(f"  r4i8: latency ms {['%.1f' % v for v in lat8]} p50 {p50_8:.1f}, "
+          f"{batch * 1e3 / p50_8:.2f} frames/s (r5 {p50:.1f} ms, {batch * 1e3 / p50:.2f} "
+          f"frames/s), peak memory {peak8:.2f} GiB; against r5 on the same weights and frames "
+          f"(information, no bar): mean |diff| / mean |r5| {vs5:.3e}, labels agree "
+          f"{agree5:.4f} [{card_line}]", flush=True)
+    print(f"  launches on the r4i8 path ({requests} requests): {launches8}", flush=True)
+    serve["r4i8"] = dict(latency_ms=lat8, p50_ms=p50_8, frames_per_s=batch * 1e3 / p50_8,
+                         peak_memory_gib=peak8, rel_mean_vs_r5=vs5, label_agree_vs_r5=agree5)
+    return launches, launches8, serve
 
 
 # --------------------------------------------------------------------------
@@ -891,7 +1112,8 @@ def phase_serve(seed: int, requests: int, batch: int, card_line: str):
 # 0-2 runs K3, K4 and K8, level 3 runs K6; the eval kernels do not run
 TRAIN_LAUNCHES = {"swin_block": 48, "window_attn_bwd": 48, "dscf_rpe": 3,
                   "dscf_rows": 3, "dscf_rows_bwd": 3, "dscf_rpe_packed": 1,
-                  "block_tail": 0, "swin_block_v6": 0, "msdeform": 0}
+                  "block_tail": 0, "swin_block_v6": 0, "msdeform": 0,
+                  "swin_block_int8": 0, "block_tail_int8": 0}
 
 # One forward and backward in bf16 with f32 master parameters, every
 # stochastic rate 0, gradients taken group by group (a group's parameters as
@@ -1475,10 +1697,10 @@ def phase_detect(seed: int, requests: int, card_line: str):
                           launch_rel_err=call_rel, agreement=agree)
 
 
-def kernel_table(rows, launches, train_launches, det_launches):
-    """One entry per kernel; ``launches`` sums the three main paths' runs (the
-    serving requests, the training steps and the detection requests, each
-    counted from 0)."""
+def kernel_table(rows, launches, launches_i8, train_launches, det_launches):
+    """One entry per kernel; ``launches`` sums the four main paths' runs (the
+    serving requests under r5 and under r4i8, the training steps and the
+    detection requests, each counted from 0)."""
     from ir_ads_tpu_torch.ops.cuda_lib import PKG
 
     out = []
@@ -1490,8 +1712,10 @@ def kernel_table(rows, launches, train_launches, det_launches):
             name=k.name, route="cuda",
             source=str(k.source.relative_to(PKG.parent)),
             replaces=k.replaces,
-            launches=launches[k.name] + train_launches[k.name] + det_launches[k.name],
-            launches_serve=launches[k.name], launches_train=train_launches[k.name],
+            launches=(launches[k.name] + launches_i8[k.name] + train_launches[k.name]
+                      + det_launches[k.name]),
+            launches_serve=launches[k.name], launches_serve_r4i8=launches_i8[k.name],
+            launches_train=train_launches[k.name],
             launches_detect=det_launches[k.name],
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=first["ms"], plain_ms=first["plain_ms"],
@@ -1536,13 +1760,14 @@ def main():
     print("phase 3: kernels against their plain versions (main-path shapes)", flush=True)
     rows = phase_kernels(args.seed, 2 * args.batch)
     print("phase 4: serving", flush=True)
-    launches, serve = phase_serve(args.seed, args.requests, args.batch, card_line)
+    launches, launches_i8, serve = phase_serve(args.seed, args.requests, args.batch, card_line)
     print("phase 5: training", flush=True)
     train_launches, train = phase_train(args.seed, card_line)
     print("phase 6: detection", flush=True)
     det_launches, detect = phase_detect(args.seed, args.requests, card_line)
 
-    print(json.dumps({"kernels": kernel_table(rows, launches, train_launches, det_launches),
+    print(json.dumps({"kernels": kernel_table(rows, launches, launches_i8, train_launches,
+                                              det_launches),
                       "serve": serve, "train": train, "detect": detect, "card": card_line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -39,28 +39,6 @@ ln_qkv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
               shift, eps);
 }
 
-// One block per (window of one image, head) of the rolled map, read and
-// written in place.
-__global__ void __launch_bounds__(kThreads)
-window_attn_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
-                   const int* __restrict__ region, bf16* __restrict__ att,
-                   int Hp, int Wp, int C, int heads, int ws, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int N = ws * ws;
-  const int nww = Wp / ws, nW = (Hp / ws) * nww;
-  const int img = blockIdx.x / nW, win = blockIdx.x % nW;
-  const int wr = win / nww, wc = win % nww;
-  auto token = [&](int i) -> size_t {
-    const int r = wr * ws + i / ws, c = wc * ws + i % ws;
-    return ((size_t)img * Hp + r) * Wp + c;
-  };
-  window_attention(
-      smem, [&](int i) { return qkv + token(i) * (3 * C); },
-      [&](int i) { return att + token(i) * C; }, bias,
-      region ? region + (size_t)win * N : nullptr, C, heads, ws, blockIdx.y,
-      scale);
-}
-
 __global__ void __launch_bounds__(kThreads)
 proj_add_kernel(const bf16* __restrict__ att, const bf16* __restrict__ x,
                 const bf16* __restrict__ wproj, const bf16* __restrict__ bproj,

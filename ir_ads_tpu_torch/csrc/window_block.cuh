@@ -7,7 +7,8 @@
 //                     softmax and P.V in shared memory, all WMMA.  Where the
 //                     window's tokens come from and where its output goes is
 //                     the caller's: K1 reads and writes the rolled map in
-//                     place, K5 folds pad, roll and crop into the indices.
+//                     place (window_attn_kernel, which K10 launches too),
+//                     K5 folds pad, roll and crop into the indices.
 #pragma once
 
 #include "common.cuh"
@@ -160,6 +161,30 @@ __device__ void window_attention(unsigned char* smem, Load load, Store store,
     bf16* dst = store(i);
     if (dst) dst[h * d + e] = __float2bfloat16(O_s[i * ldo + e]);
   }
+}
+
+// One block per (window of one image, head) of the padded, rolled (B, Hp,
+// Wp) map, read and written in place: the attention launch of K1 and of its
+// int8 variant K10.  Defined in every source that includes this header; only
+// those two launch it.
+__global__ void __launch_bounds__(kThreads)
+window_attn_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
+                   const int* __restrict__ region, bf16* __restrict__ att,
+                   int Hp, int Wp, int C, int heads, int ws, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int N = ws * ws;
+  const int nww = Wp / ws, nW = (Hp / ws) * nww;
+  const int img = blockIdx.x / nW, win = blockIdx.x % nW;
+  const int wr = win / nww, wc = win % nww;
+  auto token = [&](int i) -> size_t {
+    const int r = wr * ws + i / ws, c = wc * ws + i % ws;
+    return ((size_t)img * Hp + r) * Wp + c;
+  };
+  window_attention(
+      smem, [&](int i) { return qkv + token(i) * (3 * C); },
+      [&](int i) { return att + token(i) * C; }, bias,
+      region ? region + (size_t)win * N : nullptr, C, heads, ws, blockIdx.y,
+      scale);
 }
 
 }  // namespace port

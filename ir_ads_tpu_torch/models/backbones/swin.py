@@ -1,7 +1,7 @@
 """Dual-stream Swin backbone with MAPA adapters, MPG prompting and DSCF
 deformable cross-modal fusion, NHWC.
 
-Counterpart of ir_ads_tpu/models/backbones/swin.py under three of its
+Counterpart of ir_ads_tpu/models/backbones/swin.py under four of its
 kernel configurations, chosen by explicit arguments (``DISPATCH``):
 
   r5 (the default; the JAX package's default dispatch on its chip and the
@@ -13,6 +13,15 @@ kernel configurations, chosen by explicit arguments (``DISPATCH``):
      the packed-layout kernel (K6, ops/dscf_rpe_packed.py);
   r4 (the bench's previous set): K1 + K2 at every stage, K3 + K4 at every
      level.
+  r4i8 (the bench's w8a8 eval set, ``IR_ADS_INT8=1`` on r4): r4 with every
+     trunk, DSCF and head product in s8 x s8 -> s32.  The half-block and the
+     tail are their int8 kernels, K10 (ops/swin_block_int8.py) and K11
+     (ops/block_tail_int8.py); the DSCF's ``QuantConv`` sites (fuse_q conv
+     3x3 with one activation scale per tensor, proj_q, the two sample-weight
+     convs, proj_k, proj_v; not the offset heads, not proj_out) are
+     ``ops.int8`` products.  Quantized weights are non-persistent ``int8_*``
+     buffers, made by ``ops.int8.quantize_int8_(model)`` from the float
+     weights once they are loaded.
   train (what the JAX package runs under ``train=True``): K1 at every stage,
      differentiable through K7 (ops/window_attn_bwd.py), with drop-path by
      reconstruction, ``x + drop_path(K1(x) - x)``; the block tail as modules
@@ -20,7 +29,7 @@ kernel configurations, chosen by explicit arguments (``DISPATCH``):
      DSCF as r5, K4 differentiable through K8 (ops/dscf_rows_bwd.py) and the
      bias kernels through their f32 twin.
 
-r5 and r4 are the eval dispatches: K2 and K5 have no backward and raise when
+r5, r4 and r4i8 are the eval dispatches: K2, K5, K10 and K11 have no backward and raise when
 an input requires a gradient, and a model built for them draws no random
 numbers in any mode.  Under ``train`` the stochastic pieces (MMST modality
 mask, drop-path, adapter dropout) are on while ``module.training`` is set
@@ -46,27 +55,32 @@ import torch.nn.functional as F
 from torch import nn
 
 from ir_ads_tpu_torch.ops.block_tail import block_tail
+from ir_ads_tpu_torch.ops.block_tail_int8 import block_tail_int8
 from ir_ads_tpu_torch.ops.dscf_rows import dscf_rows_attention
 from ir_ads_tpu_torch.ops.dscf_rpe import rpe_bias_rows
 from ir_ads_tpu_torch.ops.dscf_rpe_packed import rpe_bias_packed
 from ir_ads_tpu_torch.ops.grid_sample import grid_sample_matmul, make_ref_grid
+from ir_ads_tpu_torch.ops.int8 import int8_conv, int8_linear, int8_weight, set_int8_weight
 from ir_ads_tpu_torch.ops.layers import (
     FFN, FlaxBatchNorm2d, PatchEmbed, PatchMerging, cast, conv2d, drop_path, dropout,
     gelu, layer_norm, linear, pointwise,
 )
 from ir_ads_tpu_torch.ops.swin_block import window_block
+from ir_ads_tpu_torch.ops.swin_block_int8 import window_block_int8
 from ir_ads_tpu_torch.ops.swin_block_v6 import window_block_v6
 from ir_ads_tpu_torch.ops.window_attention import (
     gather_rel_pos_bias, relative_position_index, shift_region_ids_on,
 )
 
-# (Swin block per stage, DSCF attention per level, block tail), as the JAX
-# package's IR_ADS_SWIN_ATTN / IR_ADS_DSCF_ATTN lists and IR_ADS_FFN
+# (Swin block per stage, DSCF attention per level, block tail, int8), as the
+# JAX package's IR_ADS_SWIN_ATTN / IR_ADS_DSCF_ATTN lists, IR_ADS_FFN and
+# IR_ADS_INT8
 DISPATCH = {
     "r5": (("pallas4", "pallas4", "pallas6", "pallas6"),
-           ("pallas3", "pallas3", "pallas3", "xla"), "fused"),
-    "r4": (("pallas4",) * 4, ("pallas3",) * 4, "fused"),
-    "train": (("pallas4",) * 4, ("pallas3", "pallas3", "pallas3", "xla"), "module"),
+           ("pallas3", "pallas3", "pallas3", "xla"), "fused", False),
+    "r4": (("pallas4",) * 4, ("pallas3",) * 4, "fused", False),
+    "r4i8": (("pallas4",) * 4, ("pallas3",) * 4, "fused", True),
+    "train": (("pallas4",) * 4, ("pallas3", "pallas3", "pallas3", "xla"), "module", False),
 }
 SWIN_ATTN = ("pallas4", "pallas6")
 DSCF_ATTN = ("pallas3", "xla")
@@ -126,18 +140,23 @@ class SwinBlockAdapter(nn.Module):
     Adapter(y), by K2 (``ffn_impl="fused"``) or as modules under autograd
     (``"module"``, the training tail: drop-path on the attention and FFN
     branches and dropout inside the adapter while ``training``).
-    ``pallas6``: the whole block by K5 on the real map."""
+    ``pallas6``: the whole block by K5 on the real map.  ``int8`` (with
+    pallas4 and the fused tail only): K10 in place of K1 and K11 in place of
+    K2, from the s8 weights ``quantize_int8_`` makes."""
 
     def __init__(self, dim, num_heads, ffn_dim, window_size, shift,
                  adapter_ratio=0.0625, attn_impl="pallas4", ffn_impl="fused",
-                 drop_path_rate=0.0, adapter_drop=0.1):
+                 drop_path_rate=0.0, adapter_drop=0.1, int8=False):
         super().__init__()
         _require(attn_impl, SWIN_ATTN, "attn_impl")
         _require(ffn_impl, FFN_IMPL, "ffn_impl")
         if attn_impl == "pallas6" and ffn_impl != "fused":
             raise NotImplementedError("pallas6 is the whole block: ffn_impl must be 'fused'")
+        if int8 and (attn_impl, ffn_impl) != ("pallas4", "fused"):
+            raise NotImplementedError("int8 runs the pallas4 half-block and the fused tail only")
         self.attn_impl = attn_impl
         self.ffn_impl = ffn_impl
+        self.int8 = bool(int8)
         self.drop_path_rate = float(drop_path_rate)
         self.adapter_drop = float(adapter_drop)
         self.num_heads = num_heads
@@ -149,6 +168,14 @@ class SwinBlockAdapter(nn.Module):
         self.ffn = FFN(dim, ffn_dim)
         self.MLP_RGB_Adapter = Adapter(dim, adapter_ratio)
         self.MLP_DTE_Adapter = Adapter(dim, adapter_ratio)
+
+    def quantize_int8_(self, dtype=None) -> None:
+        """s8 qkv, proj, fc1 and fc2 from the float weights, per output
+        channel (``pallas_mlp.quantize_weight``'s scales)."""
+        msa = self.attn.w_msa
+        for name, lin in (("qkv", msa.qkv), ("proj", msa.proj),
+                          ("fc1", self.ffn.layers[0][0]), ("fc2", self.ffn.layers[1])):
+            set_int8_weight(self, name, lin.weight)
 
     def forward(self, x: torch.Tensor, sub_mode: str,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
@@ -180,14 +207,28 @@ class SwinBlockAdapter(nn.Module):
         if shift:
             xm = torch.roll(xm, shifts=(-shift, -shift), dims=(1, 2))
             region = shift_region_ids_on(hp, wp, ws, shift, x.device)
-        y = window_block(
-            xm, self.norm1.weight, self.norm1.bias, msa.qkv.weight,
-            msa.qkv.bias, msa.proj.weight, msa.proj.bias, bias, region,
-            scale, self.num_heads, ws, h, w, shift,
-        )
+        if self.int8:
+            y = window_block_int8(
+                xm, self.norm1.weight, self.norm1.bias, *int8_weight(self, "qkv"),
+                msa.qkv.bias, *int8_weight(self, "proj"), msa.proj.bias, bias, region,
+                scale, self.num_heads, ws, h, w, shift,
+            )
+        else:
+            y = window_block(
+                xm, self.norm1.weight, self.norm1.bias, msa.qkv.weight,
+                msa.qkv.bias, msa.proj.weight, msa.proj.bias, bias, region,
+                scale, self.num_heads, ws, h, w, shift,
+            )
         if shift:
             y = torch.roll(y, shifts=(shift, shift), dims=(1, 2))
         y = y[:, :h, :w]
+        if self.int8:
+            out = block_tail_int8(
+                y.contiguous().reshape(-1, c), self.norm2.weight, self.norm2.bias,
+                *int8_weight(self, "fc1"), f1.bias, *int8_weight(self, "fc2"), f2.bias,
+                ad.D_fc1.weight, ad.D_fc1.bias, ad.D_fc2.weight, ad.D_fc2.bias,
+            )
+            return out.reshape(b, h, w, c)
         if self.ffn_impl == "fused":
             out = block_tail(
                 y.contiguous().reshape(-1, c), self.norm2.weight, self.norm2.bias, f1.weight,
@@ -211,14 +252,15 @@ class SwinStage(nn.Module):
 
     def __init__(self, dim, depth, num_heads, window_size, downsample,
                  adapter_ratio=0.0625, mlp_ratio=4.0, attn_impl="pallas4",
-                 ffn_impl="fused", drop_path_rates=None, adapter_drop=0.1):
+                 ffn_impl="fused", drop_path_rates=None, adapter_drop=0.1, int8=False):
         super().__init__()
         rates = [0.0] * depth if drop_path_rates is None else list(drop_path_rates)
         self.blocks = nn.ModuleList(
             SwinBlockAdapter(dim, num_heads, int(mlp_ratio * dim), window_size,
                              shift=j % 2 == 1, adapter_ratio=adapter_ratio,
                              attn_impl=attn_impl, ffn_impl=ffn_impl,
-                             drop_path_rate=rates[j], adapter_drop=adapter_drop)
+                             drop_path_rate=rates[j], adapter_drop=adapter_drop,
+                             int8=int8)
             for j in range(depth)
         )
         self.downsample = PatchMerging(dim, 2 * dim) if downsample else None
@@ -301,13 +343,18 @@ class DAttentionMM(nn.Module):
     """Bi-directional deformable cross-modal attention (DSCF core).  The JAX
     module's ``pallas3`` branch: rpe bias by K3, attention by K4; its
     ``xla`` branch: rpe bias by K6 (``IR_ADS_DSCF_RPE3=pallas``), the
-    attention as f32-accumulated products in PyTorch."""
+    attention as f32-accumulated products in PyTorch.  ``int8``: the JAX
+    module's ``QuantConv`` sites as w8a8 products (``ops.int8``), each
+    output cast to the activation dtype before its bias is added."""
+
+    INT8_SITES = ("proj_q", "proj_k", "proj_v")
 
     def __init__(self, dim, n_heads, n_groups, stride, ksize=9, level=0,
-                 rpe_size=(60, 80), attn_impl="pallas3"):
+                 rpe_size=(60, 80), attn_impl="pallas3", int8=False):
         super().__init__()
         _require(attn_impl, DSCF_ATTN, "attn_impl")
         self.attn_impl = attn_impl
+        self.int8 = bool(int8)
         self.n_heads, self.n_groups = n_heads, n_groups
         gc = dim // n_groups
         self.conv_offset_x = _OffsetHead(gc, ksize, stride)
@@ -327,6 +374,32 @@ class DAttentionMM(nn.Module):
         )
         self.identity_weight = nn.Parameter(torch.ones(dim))
 
+    def quantize_int8_(self, dtype=None) -> None:
+        """s8 weights of the QuantConv sites, with ``quantized_matmul``'s and
+        ``quantized_conv``'s scales (floor after the division)."""
+        set_int8_weight(self, "fuse_q", self.fuse_q.conv[0].weight, floor_first=False)
+        for name in self.INT8_SITES:
+            set_int8_weight(self, name, getattr(self, name).weight, floor_first=False)
+        for i in (0, 2):
+            set_int8_weight(self, f"sample_weight_fc{i // 2 + 1}",
+                            self.get_sample_weight[i].weight, floor_first=False)
+
+    def _pointwise(self, name: str, conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+        """A 1x1 conv on channels-last x: w8a8 under ``int8``, else float."""
+        if not self.int8:
+            return pointwise(conv, x)
+        w_q, s_w = int8_weight(self, name)
+        return int8_linear(x, w_q.flatten(1), s_w).to(x.dtype) + cast(conv.bias, x)
+
+    def _fuse_q(self, xy: torch.Tensor) -> torch.Tensor:
+        """fuse_q (3x3 conv, BN, GELU) on the channels-last concatenation."""
+        if not self.int8:
+            return self.fuse_q(xy.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+        conv, bn = self.fuse_q.conv[0], self.fuse_q.conv[1]
+        y = int8_conv(xy, *int8_weight(self, "fuse_q"), padding=1).to(xy.dtype)
+        y = (y + cast(conv.bias, y)).permute(0, 3, 1, 2)
+        return gelu(bn(y)).permute(0, 2, 3, 1)
+
     def forward(self, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         b, h, w, c = x.shape
         g, heads = self.n_groups, self.n_heads
@@ -335,8 +408,8 @@ class DAttentionMM(nn.Module):
         nchw = lambda t: t.permute(0, 3, 1, 2)  # noqa: E731
         nhwc = lambda t: t.permute(0, 2, 3, 1)  # noqa: E731
 
-        xy = nhwc(self.fuse_q(nchw(torch.cat([x, y], dim=-1))))
-        q = pointwise(self.proj_q, xy)
+        xy = self._fuse_q(torch.cat([x, y], dim=-1))
+        q = self._pointwise("proj_q", self.proj_q, xy)
 
         def group_view(t):  # (B, H, W, C) -> (B*g, H, W, gc)
             return t.reshape(b, h, w, g, gc).permute(0, 3, 1, 2, 4).reshape(b * g, h, w, gc)
@@ -358,11 +431,12 @@ class DAttentionMM(nn.Module):
 
         x_s, y_s, q_s = both(x), both(y), both(q)
         fc1, fc2 = self.get_sample_weight[0], self.get_sample_weight[2]
-        wgt = pointwise(fc2, torch.relu(pointwise(fc1, q_s)))
+        wgt = self._pointwise("sample_weight_fc2", fc2, torch.relu(
+            self._pointwise("sample_weight_fc1", fc1, q_s)))
         wgt = torch.softmax(wgt.float(), dim=-1)
         sampled = (wgt[..., 0:1] * x_s.float() + wgt[..., 1:2] * y_s.float()).to(x_s.dtype)
-        k = pointwise(self.proj_k, sampled)
-        v = pointwise(self.proj_v, sampled)
+        k = self._pointwise("proj_k", self.proj_k, sampled)
+        v = self._pointwise("proj_v", self.proj_v, sampled)
 
         s1, s2 = self.rpe_table.shape[1:]
         pos_cat = torch.cat([pos_x.reshape(b * g, n, 2), pos_y.reshape(b * g, n, 2)], dim=1)
@@ -413,13 +487,13 @@ class DeformMPGBlock(nn.Module):
     """DSCF fusion: down-project both streams, DAttentionMM, up-project."""
 
     def __init__(self, dim, stride, n_groups, n_heads, level, ratio=0.125,
-                 attn_impl="pallas3"):
+                 attn_impl="pallas3", int8=False):
         super().__init__()
         hidden = int(dim * ratio)
         self.D_fc1 = nn.Linear(dim, hidden)
         self.D_fc2 = nn.Linear(dim, hidden)
         self.deform_atten = DAttentionMM(hidden, n_heads, n_groups, stride,
-                                         level=level, attn_impl=attn_impl)
+                                         level=level, attn_impl=attn_impl, int8=int8)
         self.U_fc1 = nn.Linear(hidden, dim)
 
     def forward(self, x_rgb, x_dte):
@@ -446,7 +520,8 @@ class SwinTransformer(nn.Module):
     """Dual-stream Swin backbone; returns three 4-level NHWC pyramids
     (fused, rgb, dte).  Defaults are Swin-B (embed 128, depths 2/2/18/2,
     heads 4/8/16/32, window 12) under the ``r5`` dispatch; ``attn_impl``,
-    ``dscf_attn`` and ``ffn_impl`` take one of the ``DISPATCH`` triples.
+    ``dscf_attn``, ``ffn_impl`` and ``int8`` take one of the ``DISPATCH``
+    entries.
     ``drop_path_rate`` (spread linearly over the blocks), ``adapter_drop``
     and ``mmst_mask`` act only under the ``train`` dispatch, in train mode."""
 
@@ -471,12 +546,13 @@ class SwinTransformer(nn.Module):
         attn_impl: Sequence[str] = DISPATCH["r5"][0],
         dscf_attn: Sequence[str] = DISPATCH["r5"][1],
         ffn_impl: str = DISPATCH["r5"][2],
+        int8: bool = False,
     ):
         super().__init__()
         if dual_batch:
             raise NotImplementedError("dual_batch=True: the port runs the streams in turn")
-        _require((tuple(attn_impl), tuple(dscf_attn), ffn_impl),
-                 tuple(DISPATCH.values()), "(attn_impl, dscf_attn, ffn_impl)")
+        _require((tuple(attn_impl), tuple(dscf_attn), ffn_impl, bool(int8)),
+                 tuple(DISPATCH.values()), "(attn_impl, dscf_attn, ffn_impl, int8)")
         nl = len(depths)
         dims = [embed_dim * 2 ** i for i in range(nl)]
         self.num_features = dims
@@ -488,14 +564,14 @@ class SwinTransformer(nn.Module):
         self.stages = nn.ModuleList(
             SwinStage(dims[i], depths[i], num_heads[i], window_size, i < nl - 1,
                       adapter_ratio, mlp_ratio, attn_impl[i], ffn_impl,
-                      dpr[sum(depths[:i]):sum(depths[:i + 1])], adapter_drop)
+                      dpr[sum(depths[:i]):sum(depths[:i + 1])], adapter_drop, int8)
             for i in range(nl)
         )
         self.MPGBlocks = nn.ModuleList(MPGBlock(d, mapa_ratio) for d in dims)
         self.DeformMPGBlocks = nn.ModuleList(
             DeformMPGBlock(dims[i], dscf_strides[i], dscf_groups[i],
                            dscf_heads[i], level=i, ratio=dscf_ratio,
-                           attn_impl=dscf_attn[i])
+                           attn_impl=dscf_attn[i], int8=int8)
             for i in range(nl)
         )
         for i, d in enumerate(dims):

@@ -4,8 +4,10 @@ rgb-only, dte-only).  Counterpart of ir_ads_tpu/models/cmnext.py.
 ``upsample_logits=False`` returns the heads' native H/4 logits, so that an
 ensembling predictor can sum before one bilinear upsample (exact by
 linearity), as the JAX eval path does.  ``dispatch`` names the backbone's
-kernel configuration (``swin.DISPATCH``): ``"r5"``, the default, or ``"r4"``
-for eval, ``"train"`` for a model that takes gradients.  Under ``"train"``,
+kernel configuration (``swin.DISPATCH``): ``"r5"``, the default, ``"r4"`` or
+``"r4i8"`` (w8a8: backbone and heads; call ``ops.int8.quantize_int8_`` once
+the weights are loaded) for eval, ``"train"`` for a model that takes
+gradients.  Under ``"train"``,
 in train mode, the MMST modality mask, drop-path, adapter dropout and the
 heads' dropout (``head_drop``) draw from ``forward``'s ``generator``.
 """
@@ -41,14 +43,14 @@ class CMNeXt(nn.Module):
             raise NotImplementedError(f"backbone {backbone!r}: the port has {list(BACKBONES)}")
         if dispatch not in DISPATCH:
             raise NotImplementedError(f"dispatch {dispatch!r}: the port has {list(DISPATCH)}")
-        attn_impl, dscf_attn, ffn_impl = DISPATCH[dispatch]
+        attn_impl, dscf_attn, ffn_impl, int8 = DISPATCH[dispatch]
         self.backbone = BACKBONES[backbone](
-            attn_impl=attn_impl, dscf_attn=dscf_attn, ffn_impl=ffn_impl,
+            attn_impl=attn_impl, dscf_attn=dscf_attn, ffn_impl=ffn_impl, int8=int8,
             mmst_mask=mmst_mask, **(backbone_kwargs or {}))
         dims = self.backbone.num_features
-        self.decode_head = SegFormerHead(dims, head_dims[0], num_classes)
-        self.decode_head_rgb = SegFormerHead(dims, head_dims[1], num_classes)
-        self.decode_head_dte = SegFormerHead(dims, head_dims[1], num_classes)
+        self.decode_head = SegFormerHead(dims, head_dims[0], num_classes, int8)
+        self.decode_head_rgb = SegFormerHead(dims, head_dims[1], num_classes, int8)
+        self.decode_head_dte = SegFormerHead(dims, head_dims[1], num_classes, int8)
         self.upsample_logits = upsample_logits
         self.head_drop = float(head_drop)
 

@@ -10,6 +10,12 @@ linear_pred).  In train mode the BatchNorm normalises with the batch's
 statistics and updates its running ones as flax does
 (``layers.FlaxBatchNorm2d``), and ``forward`` takes the dropout rate applied
 before the classifier.
+
+Under ``int8`` (the ``r4i8`` dispatch) each level's composed projection is a
+w8a8 product, as ir_ads_tpu/models/heads/segformer.py:98-107 computes it:
+``quantize_int8_`` composes wc and bc in f32 from the float weights, rounds
+both to the compute dtype and quantizes the rounded wc per output channel;
+the product's output is cast to the activation dtype before bc is added.
 """
 
 from __future__ import annotations
@@ -20,6 +26,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ir_ads_tpu_torch.ops.int8 import PREFIX, int8_linear, int8_weight, set_int8_weight
 from ir_ads_tpu_torch.ops.layers import (
     FlaxBatchNorm2d, conv2d, dropout, resize_bilinear,
 )
@@ -40,28 +47,44 @@ class _Fuse(nn.Module):
 
 class SegFormerHead(nn.Module):
     def __init__(self, in_dims: Sequence[int], embed_dim: int = 256,
-                 num_classes: int = 19):
+                 num_classes: int = 19, int8: bool = False):
         super().__init__()
+        self.int8 = bool(int8)
         self.num_levels = len(in_dims)
         for i, d in enumerate(in_dims):
             setattr(self, f"linear_c{i + 1}", _Proj(d, embed_dim))
         self.linear_fuse = _Fuse(self.num_levels * embed_dim, embed_dim)
         self.linear_pred = nn.Conv2d(embed_dim, num_classes, 1)
 
+    def _composed(self, i: int):
+        """Level i's projection composed with its block of the fuse conv, in
+        f32: (wc (e, C_i), bc (e,))."""
+        nl, e = self.num_levels, self.linear_fuse.conv.out_channels
+        proj = getattr(self, f"linear_c{i + 1}").proj
+        # the reference concatenates the levels reversed (c4..c1)
+        blk = self.linear_fuse.conv.weight.flatten(1).float()[:, (nl - 1 - i) * e:(nl - i) * e]
+        return blk @ proj.weight.float(), blk @ proj.bias.float()
+
+    def quantize_int8_(self, dtype=None) -> None:
+        for i in range(self.num_levels):
+            wc, bc = self._composed(i)
+            if dtype is not None:
+                wc, bc = wc.to(dtype), bc.to(dtype)
+            set_int8_weight(self, f"c{i + 1}", wc, floor_first=False)
+            self.register_buffer(f"{PREFIX}c{i + 1}_bias", bc.float(), persistent=False)
+
     def forward(self, features: Sequence[torch.Tensor], drop: float = 0.0,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h, w = features[0].shape[1:3]
-        nl = self.num_levels
-        e = self.linear_fuse.conv.out_channels
-        fuse = self.linear_fuse.conv.weight.flatten(1).float()  # (e, nl*e)
         acc = None
         for i, feat in enumerate(features):
-            proj = getattr(self, f"linear_c{i + 1}").proj
-            # the reference concatenates the levels reversed (c4..c1)
-            blk = fuse[:, (nl - 1 - i) * e:(nl - i) * e]
-            wc = (blk @ proj.weight.float()).to(feat.dtype)
-            bc = (blk @ proj.bias.float()).to(feat.dtype)
-            y = F.linear(feat, wc, bc)
+            if self.int8:
+                w_q, s_w = int8_weight(self, f"c{i + 1}")
+                bc = getattr(self, f"{PREFIX}c{i + 1}_bias").to(feat.dtype)
+                y = int8_linear(feat, w_q, s_w).to(feat.dtype) + bc
+            else:
+                wc, bc = self._composed(i)
+                y = F.linear(feat, wc.to(feat.dtype), bc.to(feat.dtype))
             if i > 0:
                 y = resize_bilinear(y, (h, w), align_corners=False)
             acc = y if acc is None else acc + y

@@ -7,7 +7,9 @@ Counterpart of ``infer_mm.SemSeg`` (input normalisation) together with the
 bench predictor (sliding window, tile = image, overlap 1/3, horizontal-flip
 ensemble, fused-head logits at H/4 upsampled once).  Runs on the GPU unless
 the caller passes ``device="cpu"``, under the ``r5`` kernel dispatch unless
-the caller passes ``dispatch="r4"`` (models/backbones/swin.py DISPATCH).
+the caller passes ``dispatch="r4"`` or ``dispatch="r4i8"`` (w8a8, its
+weights quantized from the f32 ones before the cast to the compute dtype;
+models/backbones/swin.py DISPATCH).
 
 ``DetPredictor``: counterpart of ``train_net.evaluate_detector``'s ``_infer``
 around the vCLR deformable-mask DINO detector (``configs/detection/
@@ -27,6 +29,7 @@ from ir_ads_tpu_torch.detection.dino import DINODetector, nms_topk
 from ir_ads_tpu_torch.evaluation.semseg_eval import make_sliding_window_fn
 from ir_ads_tpu_torch.models.backbones.resnet import FrozenBatchNorm2d
 from ir_ads_tpu_torch.models.cmnext import CMNeXt
+from ir_ads_tpu_torch.ops.int8 import PREFIX, quantize_int8_
 
 # ImageNet statistics (ir_ads_tpu/data/augmentations.py)
 IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], np.float32)
@@ -74,12 +77,16 @@ def init_random_(model: torch.nn.Module, seed: int) -> None:
 
 
 def cast_model_(model: torch.nn.Module, dtype: torch.dtype) -> None:
-    """Compute dtype for every parameter except the bias tables the kernels
-    read in f32."""
-    model.to(dtype)
-    for name, p in model.named_parameters():
-        if name.endswith(F32_PARAMS):
-            p.data = p.data.float()
+    """Compute dtype for every floating parameter and buffer except the bias
+    tables the kernels read in f32 and the int8 dispatch's quantized weights
+    and scales (``int8_*`` buffers)."""
+    for mod in model.modules():
+        for name, p in mod.named_parameters(recurse=False):
+            if p.is_floating_point() and name not in F32_PARAMS:
+                p.data = p.data.to(dtype)
+        for name, buf in mod.named_buffers(recurse=False):
+            if buf.is_floating_point() and not name.startswith(PREFIX):
+                setattr(mod, name, buf.to(dtype))
 
 
 class SemSegPredictor:
@@ -110,6 +117,7 @@ class SemSegPredictor:
                        head_dims=head_dims, upsample_logits=False,
                        dispatch=dispatch)
         init_random_(model, seed)  # no checkpoint in the repository yet
+        quantize_int8_(model, dtype)  # the int8 sites of an int8 dispatch, from f32
         cast_model_(model, dtype)
         self.model = model.to(self.device).eval()
         self.mean = torch.as_tensor(IMAGENET_MEAN, device=self.device)

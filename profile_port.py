@@ -2,13 +2,15 @@
 """Where the time goes on the GPU: one request of the port's predictors, or
 one step of its trainer, under torch.profiler.
 
-    python3 profile_port.py [--seed 0] [--batch 2] [--dispatch r5]
+    python3 profile_port.py [--seed 0] [--batch 2] [--dispatch r5|r4|r4i8]
     python3 profile_port.py --train [--seed 0] [--batch 4]
     python3 profile_port.py --det [--seed 0]
 
 Serving: builds the full-size predictor (Swin-B CMNeXt, 480x640 RGB-D, flip,
 bf16, weights from --seed) under the given kernel dispatch (r5, the default,
-or r4), serves one warm-up request, then one profiled request.
+r4 or the w8a8 r4i8), serves one warm-up request, then one profiled request,
+and sums its port kernels' device time by kernel (K1-K11) with their
+launches.
 Training (--train): builds the full-size trainer (the ``train`` dispatch, f32
 masters, bf16 compute, the shipped adapter-only AdamW recipe), takes two
 warm-up steps, then profiles one step in three parts: forward with the loss,
@@ -29,17 +31,32 @@ from __future__ import annotations
 
 import argparse
 import json
+import re
 import time
 
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-PORT_KERNELS = ("ln_qkv_kernel", "window_attn_kernel", "proj_add_kernel",  # K1
-                "block_tail_kernel",                                         # K2
-                "v6_ln_qkv_kernel", "v6_attn_kernel", "proj_tail_kernel",    # K5
-                "rpe_rows_kernel", "dscf_rows_kernel", "rpe_packed_kernel",  # K3 K4 K6
-                "window_attn_bwd_kernel", "dscf_rows_bwd_kernel",            # K7 K8
-                "msdeform_kernel")                                           # K9
+# device kernel names of each port kernel (window_attn_kernel is K1's and
+# K10's: a dispatch runs one of them)
+BY_KERNEL = {
+    "K1/K10 attention": ("window_attn_kernel",),
+    "K1 rows": ("ln_qkv_kernel", "proj_add_kernel"),
+    "K2": ("block_tail_kernel",),
+    "K5": ("v6_ln_qkv_kernel", "v6_attn_kernel", "proj_tail_kernel"),
+    "K3": ("rpe_rows_kernel",), "K4": ("dscf_rows_kernel",), "K6": ("rpe_packed_kernel",),
+    "K7": ("window_attn_bwd_kernel",), "K8": ("dscf_rows_bwd_kernel",),
+    "K9": ("msdeform_kernel",),
+    "K10 rows": ("ln_quant_qkv_kernel", "quant_proj_add_kernel"),
+    "K11": ("block_tail_int8_kernel",),
+}
+PORT_KERNELS = tuple(n for names in BY_KERNEL.values() for n in names)
+
+
+def _is(name: str, kernel: str) -> bool:
+    """``name`` (a profiler key: a demangled or mangled C++ signature) is the
+    device kernel ``kernel``, not one whose name contains it."""
+    return re.search(rf"(?<![A-Za-z0-9_]){kernel}\(|{len(kernel)}{kernel}E", name) is not None
 
 
 def device_us(evt) -> float:
@@ -68,9 +85,15 @@ def profiled(fn):
             rows.append((evt.key, us / 1e3, evt.count))
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
-    port = sum(r[1] for r in rows if any(k in r[0] for k in PORT_KERNELS))
+    port = sum(r[1] for r in rows if any(_is(r[0], k) for k in PORT_KERNELS))
+    by_kernel = {}
+    for label, names in BY_KERNEL.items():
+        mine = [r for r in rows if any(_is(r[0], k) for k in names)]
+        if mine:
+            by_kernel[label] = dict(ms=sum(r[1] for r in mine),
+                                    launches=max(r[2] for r in mine))
     return out, dict(wall_ms=wall_ms, device_busy_ms=busy, idle_share=1 - busy / wall_ms,
-                     port_kernels_ms=port,
+                     port_kernels_ms=port, by_kernel=by_kernel,
                      top=[{"name": n[:120], "ms": ms, "count": c} for n, ms, c in rows[:25]])
 
 
@@ -79,8 +102,11 @@ def show(what: str, part: dict) -> None:
           f"{part['device_busy_ms']:.2f} ms, idle share {part['idle_share']:.3f}; "
           f"port kernels {part['port_kernels_ms']:.2f} ms "
           f"({part['port_kernels_ms'] / part['device_busy_ms']:.3f} of busy)")
+    print("  port kernels: " + "; ".join(
+        f"{k} {v['ms']:.3f} ms in {v['launches']} launches "
+        f"({v['ms'] / v['launches']:.4f} ms each)" for k, v in part["by_kernel"].items()))
     for row in part["top"]:
-        mark = "*" if any(k in row["name"] for k in PORT_KERNELS) else " "
+        mark = "*" if any(_is(row["name"], k) for k in PORT_KERNELS) else " "
         print(f" {mark} {row['ms']:9.3f} ms  x{row['count']:<5d} {row['name'][:100]}")
 
 
@@ -206,7 +232,7 @@ def main():
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--batch", type=int, default=None,
                     help="frames per request (default 2) or per step (default 4)")
-    ap.add_argument("--dispatch", default="r5", choices=("r5", "r4"))
+    ap.add_argument("--dispatch", default="r5", choices=("r5", "r4", "r4i8"))
     ap.add_argument("--train", action="store_true",
                     help="profile one training step instead of one request")
     ap.add_argument("--det", action="store_true",

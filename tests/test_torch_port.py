@@ -1,5 +1,6 @@
 """Ground rules of the PyTorch port: no JAX inside it, the GPU by default,
-the r5 kernel dispatch by default, r4 and train on request (nothing else), the
+the r5 kernel dispatch by default, r4, r4i8 and train on request (nothing
+else), the
 sliding-window wrapper's overlap arithmetic against the JAX one."""
 
 import ast
@@ -15,8 +16,8 @@ from ir_ads_tpu_torch.evaluation.semseg_eval import make_sliding_window_fn
 from ir_ads_tpu_torch.models.backbones import swin as tswin
 from ir_ads_tpu_torch.models.cmnext import CMNeXt
 from ir_ads_tpu_torch.ops import (
-    block_tail, dscf_rows, dscf_rows_bwd, dscf_rpe, dscf_rpe_packed, msdeform, swin_block,
-    swin_block_v6, window_attn_bwd,
+    block_tail, block_tail_int8, dscf_rows, dscf_rows_bwd, dscf_rpe, dscf_rpe_packed, msdeform,
+    swin_block, swin_block_int8, swin_block_v6, window_attn_bwd,
 )
 from ir_ads_tpu_torch.serve import IMAGENET_MEAN, IMAGENET_STD, SemSegPredictor
 
@@ -62,15 +63,24 @@ def _dispatch(model):
 def test_only_the_r5_and_r4_dispatches_are_accepted():
     r5 = (["pallas4", "pallas4", "pallas6", "pallas6"],
           ["pallas3", "pallas3", "pallas3", "xla"])
-    assert tswin.DISPATCH["r5"] == tuple(tuple(x) for x in r5) + ("fused",)
+    assert tswin.DISPATCH["r5"] == tuple(tuple(x) for x in r5) + ("fused", False)
     assert tswin.DISPATCH["train"] == (
-        ("pallas4",) * 4, ("pallas3", "pallas3", "pallas3", "xla"), "module")
+        ("pallas4",) * 4, ("pallas3", "pallas3", "pallas3", "xla"), "module", False)
+    assert tswin.DISPATCH["r4i8"] == tswin.DISPATCH["r4"][:3] + (True,)
+    assert set(tswin.DISPATCH) == {"r5", "r4", "r4i8", "train"}
     train = CMNeXt(num_classes=5, backbone_kwargs=SMALL, dispatch="train")
     assert _dispatch(train) == (["pallas4"] * 4, r5[1])
     assert {b.ffn_impl for s in train.backbone.stages for b in s.blocks} == {"module"}
     assert _dispatch(CMNeXt(num_classes=5, backbone_kwargs=SMALL)) == r5
     assert _dispatch(CMNeXt(num_classes=5, backbone_kwargs=SMALL, dispatch="r4")) == (
         ["pallas4"] * 4, ["pallas3"] * 4)
+    r4i8 = CMNeXt(num_classes=5, backbone_kwargs=SMALL, dispatch="r4i8")
+    assert _dispatch(r4i8) == (["pallas4"] * 4, ["pallas3"] * 4)
+    assert all(m.int8 for m in r4i8.modules() if hasattr(m, "int8"))
+    with pytest.raises(NotImplementedError):  # int8 is r4's kernels, not r5's
+        tswin.SwinTransformer(**SMALL, int8=True)
+    with pytest.raises(NotImplementedError):  # nor the train tail's
+        tswin.SwinBlockAdapter(32, 2, 128, 4, shift=False, ffn_impl="module", int8=True)
     tswin.SwinTransformer(**SMALL, attn_impl=("pallas4",) * 4, dscf_attn=("pallas3",) * 4)
     with pytest.raises(NotImplementedError):
         CMNeXt(num_classes=5, backbone_kwargs=SMALL, dispatch="r3")
@@ -125,9 +135,9 @@ def test_pallas6_block_takes_the_real_map_with_no_pad_roll_or_crop():
 
 def test_every_kernel_targets_hopper_and_names_its_tpu_kernel():
     mods = (swin_block, block_tail, dscf_rpe, dscf_rows, swin_block_v6, dscf_rpe_packed,
-            window_attn_bwd, dscf_rows_bwd, msdeform)
-    assert len({m.KERNEL.name for m in mods}) == 9
-    assert len({m.KERNEL.replaces for m in mods}) == 9
+            window_attn_bwd, dscf_rows_bwd, msdeform, swin_block_int8, block_tail_int8)
+    assert len({m.KERNEL.name for m in mods}) == 11
+    assert len({m.KERNEL.replaces for m in mods}) == 11
     for mod in mods:
         k = mod.KERNEL
         assert k.source.exists()
