@@ -8,8 +8,9 @@ Phases, each of which raises on failure:
   2. build every CUDA kernel of the slice from csrc/ (one nvcc per source,
      all started together) and print the build time;
   3. hold each kernel against its plain PyTorch version on the card, in
-     bf16, at the shapes the main paths (serving under r5 and r4i8, training,
-     detection) give it,
+     bf16, at the shapes the main paths (serving under r5, r4i8, r2 and r1,
+     training, detection) give it (K12 also under autograd: its output and
+     the gradients its backward, the plain version's vjp, gives),
      element by element and on
      what the kernel adds (the branch, for the residual kernels); show that
      a planted fault in the plain version fails the same bar; print the
@@ -31,7 +32,14 @@ Phases, each of which raises on failure:
      and head products in s8): launches, shapes, finiteness, one request's
      logits against the all-plain r4i8 path on the card (a K10 without its
      region mask must fail), p50 and frames/s beside r5's, and, with no
-     bar, the logit distance and label agreement between r4i8 and r5;
+     bar, the logit distance and label agreement between r4i8 and r5; then
+     the bench's module-path sets on the same weights and requests: r2 (the
+     module path of every block with K12 and K2, K3 + K4 at every level;
+     launches per request K12 48, K2 48, K3 4, K4 4; a K12 without its
+     region mask must fail the logit bar), r1 (K12 48, K2 48, the einsum
+     DSCF with its XLA-form bias) and xla (``window_attention`` with the
+     -100 mask, K2 48), each against its own all-plain path, with p50,
+     frames/s, peak memory and, with no bar, the distance from r2 and r5;
   5. train: ``SemSegTrainer`` (the same model under the ``train`` dispatch,
      f32 master parameters, bf16 compute, adapter-only AdamW, MMST 3-head
      loss) on batches of 4 frames drawn from --seed.  (a) With every
@@ -401,6 +409,100 @@ def check_block_tail_int8(g, rows, c):
     )
 
 
+def _window_qkv_inputs(g, b, h_real, w_real, c, heads, shift):
+    """Windowed qkv (B*nW, 144, 3C) of a stage's map padded to whole windows
+    (what the module path's qkv linear hands K12), its bias and region."""
+    from ir_ads_tpu_torch.ops.window_attention import shift_region_ids_on
+
+    ws, n = 12, 144
+    hp, wp = -(-h_real // ws) * ws, -(-w_real // ws) * ws
+    bn = b * (hp // ws) * (wp // ws)
+    qkv = _rand(g, bn, n, 3 * c)
+    bias = _rand(g, heads, n, n, dtype=torch.float32)
+    region = shift_region_ids_on(hp, wp, ws, shift, qkv.device) if shift else None
+    return qkv, bias, region, (c // heads) ** -0.5, bn
+
+
+def _sdpa_with_region(qkv, bias, region, scale, heads):
+    """The library call: one scaled_dot_product_attention with the bias and
+    the -1e9 region mask folded into its float mask (built outside the
+    timing), on the heads split out of qkv (views, no copy)."""
+    bn, n, c3 = qkv.shape
+    c = c3 // 3
+    heads_of = lambda t: t.reshape(bn, n, heads, c // heads).transpose(1, 2)  # noqa: E731
+    q, k, v = (heads_of(qkv[..., i * c:(i + 1) * c]) for i in range(3))
+    mask = bias.to(qkv.dtype)[None]
+    if region is not None:
+        neq = (region[:, :, None] != region[:, None, :]).repeat(bn // region.shape[0], 1, 1)
+        mask = mask + torch.where(neq, -1e9, 0.0).to(qkv.dtype)[:, None]
+    mask = mask.expand(bn, -1, -1, -1)
+    return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
+
+
+def check_window_attention_qkv(g, b, h_real, w_real, c, heads, shift):
+    """K12 at one stage's r2 / r1 shape (4 tiles: 560, 140, 48, 16
+    windows).  Planted fault: on a shifted case the region mask left out,
+    on an unshifted one the rel-pos bias."""
+    from ir_ads_tpu_torch.ops import window_attention_qkv as k12
+
+    qkv, bias, region, scale, bn = _window_qkv_inputs(g, b, h_real, w_real, c, heads, shift)
+    if shift:
+        fault = "region mask dropped"
+        faulted = lambda: k12.window_attention_qkv_reference(  # noqa: E731
+            qkv, bias, None, scale, heads)
+    else:
+        fault = "rel-pos bias dropped"
+        faulted = lambda: k12.window_attention_qkv_reference(  # noqa: E731
+            qkv, torch.zeros_like(bias), None, scale, heads)
+    n = qkv.shape[1]
+    return dict(
+        name="window_attention_qkv", case=f"C={c} {bn} windows shift {shift}",
+        run=lambda: k12.window_attention_qkv(qkv, bias, region, scale, heads),
+        plain=lambda: k12.window_attention_qkv_reference(qkv, bias, region, scale, heads),
+        faulted=faulted, fault=fault, base=None,
+        library=_sdpa_with_region(qkv, bias, region, scale, heads),
+        # K1's attention template: the same rounding points (q * scale, the
+        # probabilities, the output), f32 sums of another order, so a
+        # rounding can flip by one bf16 ulp (2^-8) inside and on the output;
+        # atol for outputs that cancel to near zero
+        atol=1e-2, rtol=2e-2,
+        bytes=nbytes(qkv, bias, region) + nbytes(qkv) // 3, flops=4 * bn * n * n * c,
+        rate=BF16_TENSOR_FLOPS,
+    )
+
+
+def check_window_attention_qkv_grad(g, b, h_real, w_real, c, heads, shift):
+    """K12 under autograd on the card: its output and the gradients of qkv
+    and of the bias its backward takes (the plain version's vjp, recomputed)
+    against the plain version's forward and ``torch.autograd.grad``.
+    Planted fault: the plain vjp without the region mask."""
+    from ir_ads_tpu_torch.ops import window_attention_qkv as k12
+
+    qkv, bias, region, scale, bn = _window_qkv_inputs(g, b, h_real, w_real, c, heads, shift)
+    dout = _rand(g, bn, qkv.shape[1], c)
+
+    def through(fn, reg):
+        leaves = [qkv.detach().requires_grad_(), bias.detach().requires_grad_()]
+        out = fn(*leaves, reg, scale, heads)
+        return (out.detach(), *torch.autograd.grad(out, leaves, dout))
+
+    n = qkv.shape[1]
+    return dict(
+        name="window_attention_qkv", case=f"autograd C={c} {bn} windows shift {shift}",
+        run=lambda: through(k12.window_attention_qkv, region),
+        plain=lambda: through(k12.window_attention_qkv_reference, region),
+        faulted=lambda: through(k12.window_attention_qkv_reference, None),
+        fault="vjp without the region mask", base=None, library=None,
+        outputs=["out", "dqkv", "dbias"],
+        # the output as above; the backward is the plain version's own vjp,
+        # recomputed from the same inputs: equal but for the order of its
+        # f32 sums, which a recompute does not change
+        atol=[1e-2, 1e-6, 1e-6], rtol=[2e-2, 1e-6, 1e-6],
+        bytes=nbytes(qkv, bias, region, dout) + nbytes(qkv) // 3 + nbytes(qkv, bias),
+        flops=4 * bn * n * n * c * 3, rate=BF16_TENSOR_FLOPS,
+    )
+
+
 def _dscf_inputs(g, b, level):
     h, w = 120 >> level, 160 >> level
     groups = 1 << level
@@ -755,22 +857,30 @@ def phase_kernels(seed: int, images: int):
         lambda: check_msdeform(g, DET_QUERIES, torch.float32, "no -0.5"),
         # the r4i8 path: K10 and K11 at the four stages
         *int8_cases(g, images),
+        # the r2 and r1 paths: K12 at the four stages, shifted and not, and
+        # once under autograd
+        *(functools.partial(check_window_attention_qkv, g, images, h, w, c, heads, shift)
+          for h, w, c, heads in STAGES for shift in (0, 6)),
+        lambda: check_window_attention_qkv_grad(g, images, 30, 40, 512, 16, 6),
     ]
     rows = [hold(make()) for make in cases]
     return rows
 
 
+# the four Swin stages of a 480x640 tile: real map, channels, heads
+STAGES = ((120, 160, 128, 4), (60, 80, 256, 8), (30, 40, 512, 16), (15, 20, 1024, 32))
+
+
 def int8_cases(g, images):
     """K10 and K11 at the r4i8 path's four stages (480x640 tiles: maps
     120x160 down to 15x20; K10 on the map padded to whole windows)."""
-    stages = ((120, 160, 128, 4), (60, 80, 256, 8), (30, 40, 512, 16), (15, 20, 1024, 32))
     return [
         *(functools.partial(check_window_block_int8, g, images, h, w, c, heads, 6 * (i != 1))
-          for i, (h, w, c, heads) in enumerate(stages)),
-        functools.partial(check_window_block_int8, g, images, *stages[2][:2], 512, 16, 6,
+          for i, (h, w, c, heads) in enumerate(STAGES)),
+        functools.partial(check_window_block_int8, g, images, *STAGES[2][:2], 512, 16, 6,
                           peaked=True),
         *(functools.partial(check_block_tail_int8, g, images * h * w, c)
-          for h, w, c, _ in stages),
+          for h, w, c, _ in STAGES),
     ]
 
 
@@ -855,32 +965,43 @@ LOGIT_TOL_I8 = dict(rel_mean=1.6e-2, rel_max=0.06, label_agree=0.96)
 def _ops_modules():
     from ir_ads_tpu_torch.ops import (
         block_tail, block_tail_int8, dscf_rows, dscf_rows_bwd, dscf_rpe, dscf_rpe_packed,
-        msdeform, swin_block, swin_block_int8, swin_block_v6, window_attn_bwd,
+        msdeform, swin_block, swin_block_int8, swin_block_v6, window_attention_qkv,
+        window_attn_bwd,
     )
 
     return (swin_block, block_tail, swin_block_v6, dscf_rpe, dscf_rows,
             dscf_rpe_packed, window_attn_bwd, dscf_rows_bwd, msdeform, swin_block_int8,
-            block_tail_int8)
+            block_tail_int8, window_attention_qkv)
 
 
 def expected_launches(model):
-    """Launches of each kernel in one forward, from the model's dispatch:
-    every block of a stage runs K1 + K2 (pallas4), K10 + K11 (pallas4 under
-    int8) or K5 (pallas6), every DSCF level K3 + K4 (pallas3) or K6 (xla);
-    the two streams run in turn."""
+    """Launches of each kernel in one forward of a 480x640 tile, from the
+    model's dispatch: every block of a stage runs K1 + K2 (pallas4), K10 +
+    K11 (pallas4 under int8), K5 (pallas6), or its module path and K2
+    (pallas: with K12; xla: with no attention kernel); every DSCF level K3 +
+    K4 (its rows path: pallas3, and 2n % 8 == 0 for the n = 15 x 20 offsets
+    a field of every level here) or the einsum attention, its bias by K6
+    where the dispatch takes the packed kernel for a plane of at most 2048
+    pixels; the two streams run in turn."""
     n = dict.fromkeys(("swin_block", "block_tail", "swin_block_v6", "dscf_rpe",
                        "dscf_rows", "dscf_rpe_packed", "swin_block_int8",
-                       "block_tail_int8"), 0)
+                       "block_tail_int8", "window_attention_qkv"), 0)
+    per_block = {"pallas6": ("swin_block_v6",), "pallas4": ("swin_block", "block_tail"),
+                 "pallas": ("window_attention_qkv", "block_tail"), "xla": ("block_tail",)}
     for stage in model.backbone.stages:
         for blk in stage.blocks:
-            names = ("swin_block_v6",) if blk.attn_impl == "pallas6" else (
-                ("swin_block_int8", "block_tail_int8") if blk.int8 else
-                ("swin_block", "block_tail"))
+            names = (("swin_block_int8", "block_tail_int8") if blk.int8
+                     else per_block[blk.attn_impl])
             for k in names:
                 n[k] += 2
-    for dm in model.backbone.DeformMPGBlocks:
-        names = ("dscf_rpe_packed",) if dm.deform_atten.attn_impl == "xla" else (
-            "dscf_rpe", "dscf_rows")
+    offsets = (IMAGE[0] // 32) * (IMAGE[1] // 32)
+    for level, dm in enumerate(model.backbone.DeformMPGBlocks):
+        da = dm.deform_atten
+        if da.rows_path(offsets):
+            names = ("dscf_rpe", "dscf_rows")
+        else:
+            names = ("dscf_rpe_packed",) if da.bias_kernel(
+                IMAGE[0] // 4 >> level, IMAGE[1] // 4 >> level) else ()
         for k in names:
             n[k] += 1
     return n
@@ -903,6 +1024,13 @@ def _window_block_v6_no_region(x, attn, tail, region, *rest):
     return window_block_v6_reference(x, attn, tail, None, *rest)
 
 
+def _window_attention_qkv_no_region(qkv, bias, region, scale, heads):
+    """K12's plain version with the planted fault: no shift-region mask."""
+    from ir_ads_tpu_torch.ops.window_attention_qkv import window_attention_qkv_reference
+
+    return window_attention_qkv_reference(qkv, bias, None, scale, heads)
+
+
 def _window_block_int8_no_region(x, ln_w, ln_b, wqkv_q, sqkv, bqkv, wproj_q, sproj, bproj,
                                  bias, region, *rest):
     """K10's plain version with K1's planted fault: no shift-region mask."""
@@ -919,10 +1047,11 @@ def _plain_path(**faults):
     from ir_ads_tpu_torch.models.backbones import swin
     from ir_ads_tpu_torch.ops import (
         block_tail, block_tail_int8, dscf_rows, dscf_rpe, dscf_rpe_packed, swin_block,
-        swin_block_int8, swin_block_v6,
+        swin_block_int8, swin_block_v6, window_attention_qkv,
     )
 
     swap = {
+        "window_attention_qkv": window_attention_qkv.window_attention_qkv_reference,
         "window_block": swin_block.window_block_reference,
         "block_tail": block_tail.block_tail_reference,
         "window_block_v6": swin_block_v6.window_block_v6_reference,
@@ -966,6 +1095,14 @@ R5_LAUNCHES = {"swin_block": 8, "block_tail": 8, "swin_block_v6": 40, "dscf_rpe"
                "dscf_rows": 3, "dscf_rpe_packed": 1}
 # r4i8: K10 + K11 at the 24 blocks of both streams, K3 + K4 at the 4 levels
 R4I8_LAUNCHES = {"swin_block_int8": 48, "block_tail_int8": 48, "dscf_rpe": 4, "dscf_rows": 4}
+# the module path: K12 (r2, r1) and K2 at the 24 blocks of both streams;
+# K3 + K4 at the 4 levels under r2, the einsum DSCF with its XLA-form bias
+# (no kernel) under r1 and xla
+MODULE_LAUNCHES = {
+    "r2": {"window_attention_qkv": 48, "block_tail": 48, "dscf_rpe": 4, "dscf_rows": 4},
+    "r1": {"window_attention_qkv": 48, "block_tail": 48},
+    "xla": {"block_tail": 48},
+}
 
 
 def _plain_request(pred, frames, **faults):
@@ -1100,7 +1237,54 @@ def phase_serve(seed: int, requests: int, batch: int, card_line: str):
     print(f"  launches on the r4i8 path ({requests} requests): {launches8}", flush=True)
     serve["r4i8"] = dict(latency_ms=lat8, p50_ms=p50_8, frames_per_s=batch * 1e3 / p50_8,
                          peak_memory_gib=peak8, rel_mean_vs_r5=vs5, label_agree_vs_r5=agree5)
-    return launches, launches8, serve
+    del pred8, outs8, want8
+    torch.cuda.empty_cache()
+    module_launches = phase_serve_module_path(seed, frames, requests, batch, ref5, serve,
+                                              card_line)
+    return launches, launches8, module_launches, serve
+
+
+def phase_serve_module_path(seed, frames, requests, batch, ref5, serve, card_line):
+    """The same weights and requests under the bench's module-path sets:
+    r2 (K12 + K2 at every block, K3 + K4 at every level), r1 (K12 + K2, the
+    einsum DSCF) and xla (``window_attention`` + K2, the einsum DSCF), each
+    with its launches and its logits against its own all-plain path; a K12
+    without its region mask must fail r2's bar.  Returns the launches of
+    each dispatch's requests."""
+    from ir_ads_tpu_torch.serve import SemSegPredictor
+
+    out = {}
+    ref2 = None
+    for dispatch in ("r2", "r1", "xla"):
+        pred = SemSegPredictor(device="cuda", seed=seed, num_classes=NUM_CLASSES,
+                               image_size=IMAGE, dispatch=dispatch)
+        lat, outs, launches = _served(pred, frames, requests, batch,
+                                      MODULE_LAUNCHES[dispatch], dispatch)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want = _plain_request(pred, frames)
+        if not _compare(*outs[0], *want, f"{dispatch} kernel path", LOGIT_TOL):
+            fail(f"the {dispatch} kernel path disagrees with its plain path end to end")
+        if dispatch == "r2" and _compare(
+                *_plain_request(pred, frames, window_attention_qkv=_window_attention_qkv_no_region),
+                *want, "planted fault (K12 without the shift-region mask)", LOGIT_TOL):
+            fail("a K12 without its shift-region mask passes the end-to-end bar")
+        logits, labels = outs[0]
+        ref2 = logits if ref2 is None else ref2
+        p50 = _p50(lat)
+        vs5 = float((logits - ref5).abs().mean() / ref5.abs().mean())
+        vs2 = float((logits - ref2).abs().mean() / ref2.abs().mean())
+        print(f"  {dispatch}: latency ms {['%.1f' % v for v in lat]} p50 {p50:.1f}, "
+              f"{batch * 1e3 / p50:.2f} frames/s, peak memory {peak:.2f} GiB; logits "
+              f"(information, no bar) mean |diff| / mean |ref| vs r2 {vs2:.3e}, vs r5 "
+              f"{vs5:.3e} [{card_line}]", flush=True)
+        print(f"  launches on the {dispatch} path ({requests} requests): {launches}",
+              flush=True)
+        serve[dispatch] = dict(latency_ms=lat, p50_ms=p50, frames_per_s=batch * 1e3 / p50,
+                               peak_memory_gib=peak, rel_mean_vs_r2=vs2, rel_mean_vs_r5=vs5)
+        out[dispatch] = launches
+        del pred, outs, want, logits, labels
+        torch.cuda.empty_cache()
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1113,7 +1297,7 @@ def phase_serve(seed: int, requests: int, batch: int, card_line: str):
 TRAIN_LAUNCHES = {"swin_block": 48, "window_attn_bwd": 48, "dscf_rpe": 3,
                   "dscf_rows": 3, "dscf_rows_bwd": 3, "dscf_rpe_packed": 1,
                   "block_tail": 0, "swin_block_v6": 0, "msdeform": 0,
-                  "swin_block_int8": 0, "block_tail_int8": 0}
+                  "swin_block_int8": 0, "block_tail_int8": 0, "window_attention_qkv": 0}
 
 # One forward and backward in bf16 with f32 master parameters, every
 # stochastic rate 0, gradients taken group by group (a group's parameters as
@@ -1697,10 +1881,10 @@ def phase_detect(seed: int, requests: int, card_line: str):
                           launch_rel_err=call_rel, agreement=agree)
 
 
-def kernel_table(rows, launches, launches_i8, train_launches, det_launches):
-    """One entry per kernel; ``launches`` sums the four main paths' runs (the
-    serving requests under r5 and under r4i8, the training steps and the
-    detection requests, each counted from 0)."""
+def kernel_table(rows, launches, launches_i8, module_launches, train_launches, det_launches):
+    """One entry per kernel; ``launches`` sums the main paths' runs (the
+    serving requests under r5, r4i8, r2, r1 and xla, the training steps and
+    the detection requests, each counted from 0)."""
     from ir_ads_tpu_torch.ops.cuda_lib import PKG
 
     out = []
@@ -1713,8 +1897,9 @@ def kernel_table(rows, launches, launches_i8, train_launches, det_launches):
             source=str(k.source.relative_to(PKG.parent)),
             replaces=k.replaces,
             launches=(launches[k.name] + launches_i8[k.name] + train_launches[k.name]
-                      + det_launches[k.name]),
+                      + det_launches[k.name] + sum(m[k.name] for m in module_launches.values())),
             launches_serve=launches[k.name], launches_serve_r4i8=launches_i8[k.name],
+            **{f"launches_serve_{d}": m[k.name] for d, m in module_launches.items()},
             launches_train=train_launches[k.name],
             launches_detect=det_launches[k.name],
             max_abs_err=max(c["max_abs_err"] for c in cases),
@@ -1760,14 +1945,15 @@ def main():
     print("phase 3: kernels against their plain versions (main-path shapes)", flush=True)
     rows = phase_kernels(args.seed, 2 * args.batch)
     print("phase 4: serving", flush=True)
-    launches, launches_i8, serve = phase_serve(args.seed, args.requests, args.batch, card_line)
+    launches, launches_i8, module_launches, serve = phase_serve(
+        args.seed, args.requests, args.batch, card_line)
     print("phase 5: training", flush=True)
     train_launches, train = phase_train(args.seed, card_line)
     print("phase 6: detection", flush=True)
     det_launches, detect = phase_detect(args.seed, args.requests, card_line)
 
-    print(json.dumps({"kernels": kernel_table(rows, launches, launches_i8, train_launches,
-                                              det_launches),
+    print(json.dumps({"kernels": kernel_table(rows, launches, launches_i8, module_launches,
+                                              train_launches, det_launches),
                       "serve": serve, "train": train, "detect": detect, "card": card_line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -24,7 +24,7 @@ from ir_ads_tpu_torch.detection.transformer import (
     MLP, NORM_EPS, DINOTransformer, layer_norm, top_k,
 )
 from ir_ads_tpu_torch.models.backbones.resnet import ARCHS, ResNet
-from ir_ads_tpu_torch.ops.layers import FlaxBatchNorm2d, resize_bilinear
+from ir_ads_tpu_torch.ops.layers import FlaxBatchNorm2d, GroupNorm, resize_bilinear
 
 PIXEL_MEAN = np.asarray([123.675, 116.280, 103.530], np.float32)
 PIXEL_STD = np.asarray([58.395, 57.120, 57.375], np.float32)
@@ -39,7 +39,7 @@ class _ConvGN(nn.Module):
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1):
         super().__init__()
         self.conv = nn.Conv2d(cin, cout, kernel, stride, kernel // 2)
-        self.gn = nn.GroupNorm(32, cout, eps=NORM_EPS)
+        self.gn = GroupNorm(32, cout, eps=NORM_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return self.gn(self.conv(x))

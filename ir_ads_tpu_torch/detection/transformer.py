@@ -21,12 +21,13 @@ import torch.nn.functional as F
 from torch import nn
 
 from ir_ads_tpu_torch.detection.msdeform_attn import MSDeformAttention, dense
+from ir_ads_tpu_torch.ops.layers import LayerNorm
 
 NORM_EPS = 1e-6  # flax's LayerNorm default, which the JAX modules keep
 
 
-def layer_norm(dim: int) -> nn.LayerNorm:
-    return nn.LayerNorm(dim, eps=NORM_EPS)
+def layer_norm(dim: int) -> LayerNorm:
+    return LayerNorm(dim, eps=NORM_EPS)
 
 
 def inverse_sigmoid(x: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:

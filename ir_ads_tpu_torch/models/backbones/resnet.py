@@ -16,6 +16,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ir_ads_tpu_torch.ops.layers import batch_norm_eval
+
 BN_EPS = 1e-5
 
 
@@ -28,9 +30,8 @@ class FrozenBatchNorm2d(nn.Module):
         self.register_buffer("running_var", torch.ones(channels))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        # statistics and affine applied in f32, one rounding to x's dtype
-        return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
-                            self.bias, False, 0.0, BN_EPS)
+        return batch_norm_eval(x, self.running_mean, self.running_var, self.weight,
+                               self.bias, BN_EPS)
 
 
 class ConvNorm(nn.Conv2d):

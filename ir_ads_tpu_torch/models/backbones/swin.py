@@ -1,7 +1,7 @@
 """Dual-stream Swin backbone with MAPA adapters, MPG prompting and DSCF
 deformable cross-modal fusion, NHWC.
 
-Counterpart of ir_ads_tpu/models/backbones/swin.py under four of its
+Counterpart of ir_ads_tpu/models/backbones/swin.py under seven of its
 kernel configurations, chosen by explicit arguments (``DISPATCH``):
 
   r5 (the default; the JAX package's default dispatch on its chip and the
@@ -28,8 +28,22 @@ kernel configurations, chosen by explicit arguments (``DISPATCH``):
      under autograd (LN2, FFN with drop-path, 0.5 * Adapter with dropout);
      DSCF as r5, K4 differentiable through K8 (ops/dscf_rows_bwd.py) and the
      bias kernels through their f32 twin.
+  r2 (the bench's "production r2"), r1 (its round-1 set) and xla (its plain
+     set): the module path of every block, LN1 -> ``ShiftWindowMSA`` (pad,
+     roll, window partition, ``WindowMSA``: qkv linear, attention, proj
+     linear; reverse, roll back, crop) -> residual, then K2.  The attention
+     is K12 (ops/window_attention_qkv.py) under r2 and r1, and
+     ``window_attention`` with the reference's -100 dense shift mask under
+     xla.  DSCF: K3 + K4 at every level under r2, the einsum attention under
+     r1 and xla; their einsum branch takes the XLA-form bias
+     (``dscf_rpe.rpe_bias_xla``), as the bench leaves ``IR_ADS_DSCF_RPE3``.
 
-r5, r4 and r4i8 are the eval dispatches: K2, K5, K10 and K11 have no backward and raise when
+At every dispatch the DSCF rows path (K3 + K4) runs only where the 2n
+deformable keys are a multiple of 8, as the reference guards ``pallas3``;
+elsewhere the einsum attention runs, its bias from K6 where ``rpe3`` is
+"pallas" and the query plane has at most 2048 pixels, else the XLA form.
+
+All but train are eval dispatches: K2, K5, K10 and K11 have no backward and raise when
 an input requires a gradient, and a model built for them draws no random
 numbers in any mode.  Under ``train`` the stochastic pieces (MMST modality
 mask, drop-path, adapter dropout) are on while ``module.training`` is set
@@ -57,7 +71,7 @@ from torch import nn
 from ir_ads_tpu_torch.ops.block_tail import block_tail
 from ir_ads_tpu_torch.ops.block_tail_int8 import block_tail_int8
 from ir_ads_tpu_torch.ops.dscf_rows import dscf_rows_attention
-from ir_ads_tpu_torch.ops.dscf_rpe import rpe_bias_rows
+from ir_ads_tpu_torch.ops.dscf_rpe import rpe_bias_rows, rpe_bias_xla
 from ir_ads_tpu_torch.ops.dscf_rpe_packed import rpe_bias_packed
 from ir_ads_tpu_torch.ops.grid_sample import grid_sample_matmul, make_ref_grid
 from ir_ads_tpu_torch.ops.int8 import int8_conv, int8_linear, int8_weight, set_int8_weight
@@ -70,21 +84,33 @@ from ir_ads_tpu_torch.ops.swin_block_int8 import window_block_int8
 from ir_ads_tpu_torch.ops.swin_block_v6 import window_block_v6
 from ir_ads_tpu_torch.ops.window_attention import (
     gather_rel_pos_bias, relative_position_index, shift_region_ids_on,
+    shift_window_mask_on, window_attention, window_partition, window_reverse,
 )
+from ir_ads_tpu_torch.ops.window_attention_qkv import window_attention_qkv
 
-# (Swin block per stage, DSCF attention per level, block tail, int8), as the
-# JAX package's IR_ADS_SWIN_ATTN / IR_ADS_DSCF_ATTN lists, IR_ADS_FFN and
-# IR_ADS_INT8
+# (Swin block per stage, DSCF attention per level, block tail, int8, bias of
+# the DSCF einsum branch), as the JAX package's IR_ADS_SWIN_ATTN /
+# IR_ADS_DSCF_ATTN lists, IR_ADS_FFN, IR_ADS_INT8 and IR_ADS_DSCF_RPE3.  The
+# bench sets no IR_ADS_FFN for r2, r1 and xla: on its chip ``_ffn_impl()``
+# is then "fused", K2.  It leaves IR_ADS_DSCF_RPE3 at "auto", the XLA form;
+# r5, r4, r4i8 and train take the packed kernel K6 (a recorded choice).
 DISPATCH = {
     "r5": (("pallas4", "pallas4", "pallas6", "pallas6"),
-           ("pallas3", "pallas3", "pallas3", "xla"), "fused", False),
-    "r4": (("pallas4",) * 4, ("pallas3",) * 4, "fused", False),
-    "r4i8": (("pallas4",) * 4, ("pallas3",) * 4, "fused", True),
-    "train": (("pallas4",) * 4, ("pallas3", "pallas3", "pallas3", "xla"), "module", False),
+           ("pallas3", "pallas3", "pallas3", "xla"), "fused", False, "pallas"),
+    "r4": (("pallas4",) * 4, ("pallas3",) * 4, "fused", False, "pallas"),
+    "r4i8": (("pallas4",) * 4, ("pallas3",) * 4, "fused", True, "pallas"),
+    "train": (("pallas4",) * 4, ("pallas3", "pallas3", "pallas3", "xla"), "module", False,
+              "pallas"),
+    "r2": (("pallas",) * 4, ("pallas3",) * 4, "fused", False, "xla"),
+    "r1": (("pallas",) * 4, ("xla",) * 4, "fused", False, "xla"),
+    "xla": (("xla",) * 4, ("xla",) * 4, "fused", False, "xla"),
 }
-SWIN_ATTN = ("pallas4", "pallas6")
+SWIN_ATTN = ("pallas4", "pallas6", "pallas", "xla")
+MODULE_ATTN = ("pallas", "xla")  # the module path: LN1, ShiftWindowMSA, residual
 DSCF_ATTN = ("pallas3", "xla")
+DSCF_RPE3 = ("pallas", "xla")
 FFN_IMPL = ("fused", "module")
+RPE3_PLANE_MAX = 2048  # the packed bias kernel only up to this many query pixels
 
 
 def _require(value, supported, what: str) -> None:
@@ -94,12 +120,31 @@ def _require(value, supported, what: str) -> None:
         )
 
 
+def pad_and_roll(x: torch.Tensor, ws: int, shift: int) -> torch.Tensor:
+    """An NHWC map padded with zeros at the bottom and right to whole
+    windows, then rolled by -shift (the reference's order)."""
+    h, w = x.shape[1:3]
+    pad_b, pad_r = (ws - h % ws) % ws, (ws - w % ws) % ws
+    if pad_b or pad_r:
+        x = F.pad(x, (0, 0, 0, pad_r, 0, pad_b))
+    return torch.roll(x, shifts=(-shift, -shift), dims=(1, 2)) if shift else x
+
+
+def unroll_and_crop(y: torch.Tensor, h: int, w: int, shift: int) -> torch.Tensor:
+    """The inverse of ``pad_and_roll`` on a map of real size h x w."""
+    if shift:
+        y = torch.roll(y, shifts=(shift, shift), dims=(1, 2))
+    return y[:, :h, :w]
+
+
 class WindowMSA(nn.Module):
-    """Parameters of one W-MSA: rel-pos bias table, qkv and proj."""
+    """One W-MSA: rel-pos bias table, qkv and proj.  The kernel paths read
+    its parameters; ``forward`` is the module path's."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int):
         super().__init__()
         ws = window_size
+        self.num_heads = num_heads
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * ws - 1) ** 2, num_heads)
         )
@@ -110,11 +155,50 @@ class WindowMSA(nn.Module):
         self.qkv = nn.Linear(dim, 3 * dim)
         self.proj = nn.Linear(dim, dim)
 
+    def forward(self, x: torch.Tensor, attn_impl: str,
+                mask: Optional[torch.Tensor] = None,
+                region: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """x: (B*nW, N, C) windows.  ``"pallas"``: K12 on the unsplit qkv
+        with the region ids (None when unshifted, where the reference's zero
+        region masks nothing); ``"xla"``: ``window_attention`` with the
+        dense ``mask``.  Returns (B*nW, N, C)."""
+        bn, n, c = x.shape
+        heads = self.num_heads
+        scale = (c // heads) ** -0.5
+        qkv = linear(x, self.qkv)
+        bias = gather_rel_pos_bias(self.relative_position_bias_table,
+                                   self.relative_position_index)
+        if attn_impl == "pallas":
+            out = window_attention_qkv(qkv, bias, region, scale, heads)
+        else:
+            qkv = qkv.reshape(bn, n, 3, heads, c // heads)
+            q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
+            out = window_attention(q, k, v, bias, mask, scale)
+            out = out.transpose(1, 2).reshape(bn, n, c)
+        return linear(out, self.proj)
+
 
 class ShiftWindowMSA(nn.Module):
-    def __init__(self, dim: int, num_heads: int, window_size: int):
+    """Pad -> cyclic shift -> window partition -> W-MSA -> reverse -> shift
+    back -> crop, on an NHWC map (the reference's module path)."""
+
+    def __init__(self, dim: int, num_heads: int, window_size: int, shift: int = 0):
         super().__init__()
+        self.window_size, self.shift = window_size, shift
         self.w_msa = WindowMSA(dim, num_heads, window_size)
+
+    def forward(self, x: torch.Tensor, attn_impl: str) -> torch.Tensor:
+        h, w = x.shape[1:3]
+        ws, shift = self.window_size, self.shift
+        x = pad_and_roll(x, ws, shift)  # after LN1: pad tokens are zeros, their qkv is bqkv
+        hp, wp = x.shape[1:3]
+        mask = region = None
+        if shift and attn_impl == "xla":
+            mask = shift_window_mask_on(hp, wp, ws, shift, x.device)
+        elif shift:
+            region = shift_region_ids_on(hp, wp, ws, shift, x.device)
+        wins = self.w_msa(window_partition(x, ws), attn_impl, mask, region)
+        return unroll_and_crop(window_reverse(wins, ws, hp, wp), h, w, shift)
 
 
 class Adapter(nn.Module):
@@ -142,7 +226,10 @@ class SwinBlockAdapter(nn.Module):
     branches and dropout inside the adapter while ``training``).
     ``pallas6``: the whole block by K5 on the real map.  ``int8`` (with
     pallas4 and the fused tail only): K10 in place of K1 and K11 in place of
-    K2, from the s8 weights ``quantize_int8_`` makes."""
+    K2, from the s8 weights ``quantize_int8_`` makes.  ``pallas`` and
+    ``xla`` (with the fused tail only): the module path, y = h + x with h =
+    ShiftWindowMSA(LN1 x) rounded at the proj output and the residual a
+    rounded add (K1 instead keeps the residual in f32), then K2."""
 
     def __init__(self, dim, num_heads, ffn_dim, window_size, shift,
                  adapter_ratio=0.0625, attn_impl="pallas4", ffn_impl="fused",
@@ -154,6 +241,8 @@ class SwinBlockAdapter(nn.Module):
             raise NotImplementedError("pallas6 is the whole block: ffn_impl must be 'fused'")
         if int8 and (attn_impl, ffn_impl) != ("pallas4", "fused"):
             raise NotImplementedError("int8 runs the pallas4 half-block and the fused tail only")
+        if attn_impl in MODULE_ATTN and ffn_impl != "fused":
+            raise NotImplementedError("the module attention path runs with the fused tail only")
         self.attn_impl = attn_impl
         self.ffn_impl = ffn_impl
         self.int8 = bool(int8)
@@ -163,7 +252,7 @@ class SwinBlockAdapter(nn.Module):
         self.window_size = window_size
         self.shift = window_size // 2 if shift else 0
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
-        self.attn = ShiftWindowMSA(dim, num_heads, window_size)
+        self.attn = ShiftWindowMSA(dim, num_heads, window_size, self.shift)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
         self.ffn = FFN(dim, ffn_dim)
         self.MLP_RGB_Adapter = Adapter(dim, adapter_ratio)
@@ -182,9 +271,6 @@ class SwinBlockAdapter(nn.Module):
         b, h, w, c = x.shape
         ws, shift = self.window_size, self.shift
         msa = self.attn.w_msa
-        bias = gather_rel_pos_bias(msa.relative_position_bias_table,
-                                   msa.relative_position_index)
-        scale = (c // self.num_heads) ** -0.5
         ad = self.MLP_RGB_Adapter if sub_mode == "rgb" else self.MLP_DTE_Adapter
         f1, f2 = self.ffn.layers[0][0], self.ffn.layers[1]
         if self.attn_impl == "pallas6":
@@ -194,34 +280,16 @@ class SwinBlockAdapter(nn.Module):
             return window_block_v6(
                 x,
                 (self.norm1.weight, self.norm1.bias, msa.qkv.weight,
-                 msa.qkv.bias, msa.proj.weight, msa.proj.bias, bias),
+                 msa.qkv.bias, msa.proj.weight, msa.proj.bias, self._rel_pos_bias()),
                 (self.norm2.weight, self.norm2.bias, f1.weight, f1.bias,
                  f2.weight, f2.bias, ad.D_fc1.weight, ad.D_fc1.bias,
                  ad.D_fc2.weight, ad.D_fc2.bias),
-                region, scale, self.num_heads, ws, shift,
+                region, (c // self.num_heads) ** -0.5, self.num_heads, ws, shift,
             )
-        pad_b, pad_r = (ws - h % ws) % ws, (ws - w % ws) % ws
-        xm = F.pad(x, (0, 0, 0, pad_r, 0, pad_b)) if pad_b or pad_r else x
-        hp, wp = h + pad_b, w + pad_r
-        region = None
-        if shift:
-            xm = torch.roll(xm, shifts=(-shift, -shift), dims=(1, 2))
-            region = shift_region_ids_on(hp, wp, ws, shift, x.device)
-        if self.int8:
-            y = window_block_int8(
-                xm, self.norm1.weight, self.norm1.bias, *int8_weight(self, "qkv"),
-                msa.qkv.bias, *int8_weight(self, "proj"), msa.proj.bias, bias, region,
-                scale, self.num_heads, ws, h, w, shift,
-            )
+        if self.attn_impl in MODULE_ATTN:
+            y = self.attn(layer_norm(x, self.norm1), self.attn_impl) + x
         else:
-            y = window_block(
-                xm, self.norm1.weight, self.norm1.bias, msa.qkv.weight,
-                msa.qkv.bias, msa.proj.weight, msa.proj.bias, bias, region,
-                scale, self.num_heads, ws, h, w, shift,
-            )
-        if shift:
-            y = torch.roll(y, shifts=(shift, shift), dims=(1, 2))
-        y = y[:, :h, :w]
+            y = self._half_block(x)
         if self.int8:
             out = block_tail_int8(
                 y.contiguous().reshape(-1, c), self.norm2.weight, self.norm2.bias,
@@ -243,6 +311,35 @@ class SwinBlockAdapter(nn.Module):
         adapter_x = 0.5 * ad(y, self.adapter_drop if self.training else 0.0, generator)
         out = self.ffn(layer_norm(y, self.norm2), y, rate, generator)
         return out + adapter_x
+
+    def _rel_pos_bias(self) -> torch.Tensor:
+        msa = self.attn.w_msa
+        return gather_rel_pos_bias(msa.relative_position_bias_table,
+                                   msa.relative_position_index)
+
+    def _half_block(self, x: torch.Tensor) -> torch.Tensor:
+        """y = x + W-MSA(LN1 x) by K1 (K10 under int8) on the padded, rolled
+        map; the pad, the roll and the crop around it."""
+        b, h, w, c = x.shape
+        ws, shift = self.window_size, self.shift
+        msa = self.attn.w_msa
+        bias, scale = self._rel_pos_bias(), (c // self.num_heads) ** -0.5
+        xm = pad_and_roll(x, ws, shift)
+        hp, wp = xm.shape[1:3]
+        region = shift_region_ids_on(hp, wp, ws, shift, x.device) if shift else None
+        if self.int8:
+            y = window_block_int8(
+                xm, self.norm1.weight, self.norm1.bias, *int8_weight(self, "qkv"),
+                msa.qkv.bias, *int8_weight(self, "proj"), msa.proj.bias, bias, region,
+                scale, self.num_heads, ws, h, w, shift,
+            )
+        else:
+            y = window_block(
+                xm, self.norm1.weight, self.norm1.bias, msa.qkv.weight,
+                msa.qkv.bias, msa.proj.weight, msa.proj.bias, bias, region,
+                scale, self.num_heads, ws, h, w, shift,
+            )
+        return unroll_and_crop(y, h, w, shift)
 
 
 class SwinStage(nn.Module):
@@ -341,19 +438,23 @@ class _ConvBNGELU(nn.Module):
 
 class DAttentionMM(nn.Module):
     """Bi-directional deformable cross-modal attention (DSCF core).  The JAX
-    module's ``pallas3`` branch: rpe bias by K3, attention by K4; its
-    ``xla`` branch: rpe bias by K6 (``IR_ADS_DSCF_RPE3=pallas``), the
-    attention as f32-accumulated products in PyTorch.  ``int8``: the JAX
-    module's ``QuantConv`` sites as w8a8 products (``ops.int8``), each
+    module's ``pallas3`` branch: rpe bias by K3, attention by K4, taken only
+    where the 2n deformable keys are a multiple of 8 (the reference's guard);
+    its einsum (``xla``) branch otherwise: the attention as f32-accumulated
+    products in PyTorch, the bias by K6 under ``rpe3="pallas"``
+    (``IR_ADS_DSCF_RPE3=pallas``) up to ``RPE3_PLANE_MAX`` query pixels, else
+    in the reference's XLA form (``dscf_rpe.rpe_bias_xla``).  ``int8``: the
+    JAX module's ``QuantConv`` sites as w8a8 products (``ops.int8``), each
     output cast to the activation dtype before its bias is added."""
 
     INT8_SITES = ("proj_q", "proj_k", "proj_v")
 
     def __init__(self, dim, n_heads, n_groups, stride, ksize=9, level=0,
-                 rpe_size=(60, 80), attn_impl="pallas3", int8=False):
+                 rpe_size=(60, 80), attn_impl="pallas3", int8=False, rpe3="pallas"):
         super().__init__()
         _require(attn_impl, DSCF_ATTN, "attn_impl")
-        self.attn_impl = attn_impl
+        _require(rpe3, DSCF_RPE3, "rpe3")
+        self.attn_impl, self.rpe3 = attn_impl, rpe3
         self.int8 = bool(int8)
         self.n_heads, self.n_groups = n_heads, n_groups
         gc = dim // n_groups
@@ -441,21 +542,30 @@ class DAttentionMM(nn.Module):
         s1, s2 = self.rpe_table.shape[1:]
         pos_cat = torch.cat([pos_x.reshape(b * g, n, 2), pos_y.reshape(b * g, n, 2)], dim=1)
         table = self.rpe_table.reshape(g, hg, s1, s2)
-        if self.attn_impl == "xla":
-            out = self._einsum_attention(q, k, v, pos_cat, table, scale)
-        else:
+        if self.rows_path(n):
             out = self._rows_attention(q, k, v, pos_cat, table, scale)
+        else:
+            out = self._einsum_attention(q, k, v, pos_cat, table, scale)
         out = pointwise(self.proj_out, out)
         return cast(self.deform_weight, out) * out + cast(self.identity_weight, xy) * xy
 
+    def rows_path(self, n: int) -> bool:
+        """K3 + K4 for ``n`` offsets a field: pallas3 where 2n % 8 == 0."""
+        return self.attn_impl == "pallas3" and 2 * n % 8 == 0
+
+    def bias_kernel(self, h: int, w: int) -> bool:
+        """The einsum branch's bias by K6 (else in the XLA form)."""
+        return self.rpe3 == "pallas" and h * w <= RPE3_PLANE_MAX
+
     def _einsum_attention(self, q, k, v, pos_cat, table, scale):
-        """Scores q.k summed in f32 and scaled in f32, plus the K6 bias in
-        f32; f32 softmax; probabilities rounded; P.V summed in f32 and
-        rounded once (JAX ``swin.py`` einsum branch)."""
+        """Scores q.k summed in f32 and scaled in f32, plus the bias in f32;
+        f32 softmax; probabilities rounded; P.V summed in f32 and rounded
+        once (JAX ``swin.py`` einsum branch)."""
         b, h, w, c = q.shape
         heads, m = self.n_heads, k.shape[1]
         hc = c // heads
-        bias = rpe_bias_packed(pos_cat, table, h, w, q.dtype)  # (BG, hg, M, HW)
+        build = rpe_bias_packed if self.bias_kernel(h, w) else rpe_bias_xla
+        bias = build(pos_cat, table, h, w, q.dtype)  # (BG, hg, M, HW)
         bias = bias.reshape(b, heads, m, h * w).transpose(-1, -2)
         qh = q.reshape(b, h * w, heads, hc).transpose(1, 2)
         kh = k.reshape(b, m, heads, hc).transpose(1, 2)
@@ -487,13 +597,13 @@ class DeformMPGBlock(nn.Module):
     """DSCF fusion: down-project both streams, DAttentionMM, up-project."""
 
     def __init__(self, dim, stride, n_groups, n_heads, level, ratio=0.125,
-                 attn_impl="pallas3", int8=False):
+                 attn_impl="pallas3", int8=False, rpe3="pallas"):
         super().__init__()
         hidden = int(dim * ratio)
         self.D_fc1 = nn.Linear(dim, hidden)
         self.D_fc2 = nn.Linear(dim, hidden)
-        self.deform_atten = DAttentionMM(hidden, n_heads, n_groups, stride,
-                                         level=level, attn_impl=attn_impl, int8=int8)
+        self.deform_atten = DAttentionMM(hidden, n_heads, n_groups, stride, level=level,
+                                         attn_impl=attn_impl, int8=int8, rpe3=rpe3)
         self.U_fc1 = nn.Linear(hidden, dim)
 
     def forward(self, x_rgb, x_dte):
@@ -520,8 +630,8 @@ class SwinTransformer(nn.Module):
     """Dual-stream Swin backbone; returns three 4-level NHWC pyramids
     (fused, rgb, dte).  Defaults are Swin-B (embed 128, depths 2/2/18/2,
     heads 4/8/16/32, window 12) under the ``r5`` dispatch; ``attn_impl``,
-    ``dscf_attn``, ``ffn_impl`` and ``int8`` take one of the ``DISPATCH``
-    entries.
+    ``dscf_attn``, ``ffn_impl``, ``int8`` and ``rpe3`` take one of the
+    ``DISPATCH`` entries.
     ``drop_path_rate`` (spread linearly over the blocks), ``adapter_drop``
     and ``mmst_mask`` act only under the ``train`` dispatch, in train mode."""
 
@@ -547,12 +657,13 @@ class SwinTransformer(nn.Module):
         dscf_attn: Sequence[str] = DISPATCH["r5"][1],
         ffn_impl: str = DISPATCH["r5"][2],
         int8: bool = False,
+        rpe3: str = DISPATCH["r5"][4],
     ):
         super().__init__()
         if dual_batch:
             raise NotImplementedError("dual_batch=True: the port runs the streams in turn")
-        _require((tuple(attn_impl), tuple(dscf_attn), ffn_impl, bool(int8)),
-                 tuple(DISPATCH.values()), "(attn_impl, dscf_attn, ffn_impl, int8)")
+        _require((tuple(attn_impl), tuple(dscf_attn), ffn_impl, bool(int8), rpe3),
+                 tuple(DISPATCH.values()), "(attn_impl, dscf_attn, ffn_impl, int8, rpe3)")
         nl = len(depths)
         dims = [embed_dim * 2 ** i for i in range(nl)]
         self.num_features = dims
@@ -571,7 +682,7 @@ class SwinTransformer(nn.Module):
         self.DeformMPGBlocks = nn.ModuleList(
             DeformMPGBlock(dims[i], dscf_strides[i], dscf_groups[i],
                            dscf_heads[i], level=i, ratio=dscf_ratio,
-                           attn_impl=dscf_attn[i], int8=int8)
+                           attn_impl=dscf_attn[i], int8=int8, rpe3=rpe3)
             for i in range(nl)
         )
         for i, d in enumerate(dims):

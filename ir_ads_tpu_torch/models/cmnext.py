@@ -4,10 +4,10 @@ rgb-only, dte-only).  Counterpart of ir_ads_tpu/models/cmnext.py.
 ``upsample_logits=False`` returns the heads' native H/4 logits, so that an
 ensembling predictor can sum before one bilinear upsample (exact by
 linearity), as the JAX eval path does.  ``dispatch`` names the backbone's
-kernel configuration (``swin.DISPATCH``): ``"r5"``, the default, ``"r4"`` or
+kernel configuration (``swin.DISPATCH``): ``"r5"``, the default, ``"r4"``,
 ``"r4i8"`` (w8a8: backbone and heads; call ``ops.int8.quantize_int8_`` once
-the weights are loaded) for eval, ``"train"`` for a model that takes
-gradients.  Under ``"train"``,
+the weights are loaded), or the module-path sets ``"r2"``, ``"r1"`` and
+``"xla"`` for eval, ``"train"`` for a model that takes gradients.  Under ``"train"``,
 in train mode, the MMST modality mask, drop-path, adapter dropout and the
 heads' dropout (``head_drop``) draw from ``forward``'s ``generator``.
 """
@@ -43,10 +43,10 @@ class CMNeXt(nn.Module):
             raise NotImplementedError(f"backbone {backbone!r}: the port has {list(BACKBONES)}")
         if dispatch not in DISPATCH:
             raise NotImplementedError(f"dispatch {dispatch!r}: the port has {list(DISPATCH)}")
-        attn_impl, dscf_attn, ffn_impl, int8 = DISPATCH[dispatch]
+        attn_impl, dscf_attn, ffn_impl, int8, rpe3 = DISPATCH[dispatch]
         self.backbone = BACKBONES[backbone](
             attn_impl=attn_impl, dscf_attn=dscf_attn, ffn_impl=ffn_impl, int8=int8,
-            mmst_mask=mmst_mask, **(backbone_kwargs or {}))
+            rpe3=rpe3, mmst_mask=mmst_mask, **(backbone_kwargs or {}))
         dims = self.backbone.num_features
         self.decode_head = SegFormerHead(dims, head_dims[0], num_classes, int8)
         self.decode_head_rgb = SegFormerHead(dims, head_dims[1], num_classes, int8)

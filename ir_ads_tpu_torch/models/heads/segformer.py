@@ -4,7 +4,9 @@ per-level projections exactly as ir_ads_tpu/models/heads/segformer.py does:
     fuse(concat_i(resize(proj_i(f_i)))) == sum_i resize((W_fuse_i W_ci)(f_i))
 
 Each level's projection and its block of the 1x1 fuse conv are composed (in
-f32) into one matrix applied at the level's own resolution.  Parameter names
+f32, from f32 parameters, which ``serve.cast_model_`` leaves f32) into one
+matrix, rounded once to the compute dtype and applied at the level's own
+resolution.  Parameter names
 are the reference's (linear_c{k}.proj, linear_fuse.conv, linear_fuse.bn,
 linear_pred).  In train mode the BatchNorm normalises with the batch's
 statistics and updates its running ones as flax does
@@ -55,6 +57,12 @@ class SegFormerHead(nn.Module):
             setattr(self, f"linear_c{i + 1}", _Proj(d, embed_dim))
         self.linear_fuse = _Fuse(self.num_levels * embed_dim, embed_dim)
         self.linear_pred = nn.Conv2d(embed_dim, num_classes, 1)
+
+    def composed_in_f32(self):
+        """The modules whose parameters the head composes in f32 before its
+        one rounding (``_composed``): they stay f32 in a bf16 model."""
+        return [getattr(self, f"linear_c{i + 1}") for i in range(self.num_levels)] + [
+            self.linear_fuse.conv]
 
     def _composed(self, i: int):
         """Level i's projection composed with its block of the fuse conv, in

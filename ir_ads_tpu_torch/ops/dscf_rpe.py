@@ -16,6 +16,10 @@ rounding (relative 2^-8) on top of the twin tests' 1e-5.
 ``rpe_bias_rows`` is differentiable in ``pos`` and ``table``: its backward
 recomputes the bias through ``rpe_bias_f32`` under autograd, as the JAX
 package's ``_rpe_rows_bwd`` recomputes through its XLA twin.
+
+``rpe_bias_xla`` is the reference's XLA form of the same bias (``rpe_bias``
+inside ``DAttentionMM``), which its einsum branch takes where no bias kernel
+runs: plain PyTorch with the reference's rounding points, no kernel.
 """
 
 from __future__ import annotations
@@ -107,3 +111,39 @@ def rpe_bias_rows(
         raise ValueError(f"rpe_bias_rows: query plane {h}x{w} needs h, w >= 2")
     return RpeBias.apply(pos.float(), table.float(), h, w, out_dtype, "behmw",
                          _rows_forward)
+
+
+def rpe_bias_xla(
+    pos: torch.Tensor,    # (BG, M, 2) f32, (y, x) in [-1, 1]
+    table: torch.Tensor,  # (G, hg, S1, S2) f32
+    h: int,
+    w: int,
+    store: torch.dtype,
+) -> torch.Tensor:
+    """The bias (BG, hg, M, h*w) as the reference's einsum branch builds it
+    (ir_ads_tpu/models/backbones/swin.py ``rpe_bias``): the sample index
+    from the query grid ``qy`` and the key position in the reference's own
+    expression and order (f32 is ill-conditioned there: the index reaches
+    S1 - 1), the hat weights ``wy``, ``wx`` and the table cast to ``store``,
+    the contraction over S2 summed in f32 and rounded to ``store`` (``u``),
+    the one over S1 likewise.  Differentiable by autograd, as the
+    reference's is by autodiff."""
+    bg, m, _ = pos.shape
+    g, hg, s1, s2 = table.shape
+    dev = pos.device
+    f32 = torch.float32
+    qy = torch.arange(h, dtype=f32, device=dev) / max(h - 1, 1) * 2.0 - 1.0
+    qx = torch.arange(w, dtype=f32, device=dev) / max(w - 1, 1) * 2.0 - 1.0
+    pf = pos.float()
+    iy = (0.5 * (qy[None, None, :] - pf[:, :, 0:1]) + 1.0) * 0.5 * (s1 - 1)  # (BG, M, h)
+    ix = (0.5 * (qx[None, None, :] - pf[:, :, 1:2]) + 1.0) * 0.5 * (s2 - 1)  # (BG, M, w)
+    wy = torch.clamp(1.0 - (iy[..., None] - torch.arange(s1, dtype=f32, device=dev)).abs(),
+                     min=0.0).to(store)  # (BG, M, h, S1)
+    wx = torch.clamp(1.0 - (ix[..., None] - torch.arange(s2, dtype=f32, device=dev)).abs(),
+                     min=0.0).to(store)  # (BG, M, w, S2)
+    tb = table.to(store)[torch.arange(bg, device=dev) % g]  # (BG, hg, S1, S2)
+    # products of store-dtype operands, summed in f32 and rounded once: a
+    # bf16 product on the card and on the CPU accumulates in f32
+    u = torch.einsum("best,bmwt->bmwse", tb, wx)  # (BG, M, w, S1, hg)
+    bias = torch.einsum("bmhs,bmwse->bemhw", wy, u)  # (BG, hg, M, h, w)
+    return bias.reshape(bg, hg, m, h * w)

@@ -3,6 +3,11 @@ layout), with the reference checkpoint's parameter names.
 
 Counterpart of ir_ads_tpu/ops/layers.py.  LayerNorms use eps 1e-5; GELU is
 the tanh approximation (flax ``nn.gelu``'s default), not torch's erf default.
+
+Normalisations compute as flax's ``_normalize`` does whatever the activation
+dtype: statistics, scale, bias (and a BatchNorm's running statistics) in f32,
+one rounding of the result to the input's dtype.  Their parameters stay f32
+when the rest of a model is cast to bf16 (``serve.cast_model_``).
 """
 
 from __future__ import annotations
@@ -28,9 +33,39 @@ def cast(p: Optional[torch.Tensor], like: torch.Tensor) -> Optional[torch.Tensor
     return p if p is None or p.dtype == like.dtype else p.to(like.dtype)
 
 
+def up(t: torch.Tensor) -> torch.Tensor:
+    """f32, or f64 for f64 tensors: the dtype a normalisation computes in."""
+    return t if t.dtype == torch.float64 else t.float()
+
+
 def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
-    return F.layer_norm(x, norm.normalized_shape, cast(norm.weight, x),
-                        cast(norm.bias, x), 1e-5)
+    """flax's LayerNorm: in f32 with f32 scale and bias, rounded once."""
+    return F.layer_norm(up(x), norm.normalized_shape, up(norm.weight), up(norm.bias),
+                        norm.eps).to(x.dtype)
+
+
+def batch_norm_eval(x: torch.Tensor, mean, var, weight, bias, eps: float) -> torch.Tensor:
+    """A BatchNorm with running statistics on an NCHW map, as flax's: in f32
+    with f32 statistics and affine, rounded once.  A bf16 map goes in as it
+    is: PyTorch's batch norm takes f32 parameters beside a bf16 input and
+    computes in f32 (no f32 copy of the map, unlike LayerNorm and GroupNorm,
+    whose CUDA kernels want one dtype)."""
+    return F.batch_norm(x, up(mean), up(var), up(weight), up(bias), False, 0.0, eps)
+
+
+class LayerNorm(nn.LayerNorm):
+    """``nn.LayerNorm`` that computes as ``layer_norm``."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return layer_norm(x, self)
+
+
+class GroupNorm(nn.GroupNorm):
+    """``nn.GroupNorm`` on NCHW that computes as flax's: in f32, rounded once."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.group_norm(up(x), self.num_groups, up(self.weight), up(self.bias),
+                            self.eps).to(x.dtype)
 
 
 def linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
@@ -74,11 +109,12 @@ class FlaxBatchNorm2d(nn.BatchNorm2d):
     """BatchNorm2d whose train mode is flax's: statistics in f32 with the
     fast variance E[x^2] - E[x]^2, and running statistics updated with the
     BIASED batch variance (torch uses the unbiased one).  flax momentum 0.9
-    is ``momentum=0.1`` here.  Eval mode is torch's own."""
+    is ``momentum=0.1`` here.  Eval mode is ``batch_norm_eval``."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
-            return super().forward(x)
+            return batch_norm_eval(x, self.running_mean, self.running_var, self.weight,
+                                   self.bias, self.eps)
         xf = x.float()
         mean = xf.mean(dim=(0, 2, 3))
         var = torch.clamp((xf * xf).mean(dim=(0, 2, 3)) - mean * mean, min=0.0)

@@ -29,6 +29,7 @@ from ir_ads_tpu_torch.ops.cuda_lib import (
 )
 from ir_ads_tpu_torch.ops.window_attn_bwd import window_attention_bwd
 from ir_ads_tpu_torch.ops.window_attention import window_partition, window_reverse
+from ir_ads_tpu_torch.ops.window_attention_qkv import window_attention_qkv_reference
 
 KERNEL = CudaKernel(
     "swin_block", "swin_window_block", [VOIDP] * 12 + [INT] * 9 + [FLOAT] * 2,
@@ -67,27 +68,11 @@ def window_block_reference(
 
 def window_attention_reference(qkv, bias, region, scale, heads, ws):
     """W-MSA of a (B, Hp, Wp, 3C) qkv map in the compute dtype, as the TPU
-    kernels round it: (q * scale) rounded, f32 scores + f32 bias, -1e9 at
-    pairs of different shift regions, f32 softmax, probabilities rounded,
-    P.V summed in f32 and rounded once.  Returns (B, Hp, Wp, C)."""
-    cdt = qkv.dtype
-    b, hp, wp, c3 = qkv.shape
-    c, n = c3 // 3, ws * ws
-    d = c // heads
-    wins = window_partition(qkv, ws)  # (B*nW, N, 3C)
-    bn = wins.shape[0]
-    heads_of = lambda t: t.reshape(bn, n, heads, d).transpose(1, 2)  # noqa: E731
-    q, k, v = (heads_of(wins[..., i * c:(i + 1) * c]) for i in range(3))
-    s = up((up(q) * scale).to(cdt)) @ up(k).transpose(-1, -2)
-    s = s + up(bias)[None]
-    if region is not None:
-        neq = region[:, :, None] != region[:, None, :]  # (nW, N, N)
-        nw = neq.shape[0]
-        s = (s.reshape(bn // nw, nw, heads, n, n)
-             - 1e9 * neq[None, :, None].to(s.dtype)).reshape(bn, heads, n, n)
-    p = torch.softmax(s, dim=-1).to(cdt)
-    o = (up(p) @ up(v)).to(cdt)
-    return window_reverse(o.transpose(1, 2).reshape(bn, n, c), ws, hp, wp)
+    kernels round it: K12's plain version (``window_attention_qkv``) on its
+    windows.  Returns (B, Hp, Wp, C)."""
+    hp, wp = qkv.shape[1:3]
+    out = window_attention_qkv_reference(window_partition(qkv, ws), bias, region, scale, heads)
+    return window_reverse(out, ws, hp, wp)
 
 
 def _forward(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, region, scale,

@@ -1,5 +1,7 @@
-"""Window geometry for Swin W-MSA / SW-MSA: partition and reverse, the
-relative-position index and bias gather, and the shift-region ids.
+"""Window geometry and plain window attention for Swin W-MSA / SW-MSA:
+partition and reverse, the relative-position index and bias gather, the
+shift-region ids and the dense shift mask, and ``window_attention``, the
+module path's attention (the JAX package's XLA path).
 
 Counterpart of ir_ads_tpu/ops/window_attention.py and
 ``pallas_swin.shift_region_ids``.
@@ -8,6 +10,7 @@ Counterpart of ir_ads_tpu/ops/window_attention.py and
 from __future__ import annotations
 
 import functools
+from typing import Optional
 
 import numpy as np
 import torch
@@ -68,3 +71,46 @@ def shift_region_ids_on(hp: int, wp: int, ws: int, shift: int,
     """``shift_region_ids`` as an int32 tensor, copied to ``device`` once per
     geometry so a forward pass enqueues no host-to-device copy for it."""
     return torch.from_numpy(shift_region_ids(hp, wp, ws, shift)).to(device)
+
+
+@functools.lru_cache(maxsize=None)
+def shift_window_mask(hp: int, wp: int, ws: int, shift: int) -> np.ndarray:
+    """SW-MSA attention mask, (nW, ws*ws, ws*ws) f32: 0 between tokens of
+    one shift region, -100 across regions (the reference's constant)."""
+    wins = shift_region_ids(hp, wp, ws, shift)
+    diff = wins[:, None, :] - wins[:, :, None]
+    return np.where(diff != 0, -100.0, 0.0).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def shift_window_mask_on(hp: int, wp: int, ws: int, shift: int,
+                         device: torch.device) -> torch.Tensor:
+    """``shift_window_mask`` copied to ``device`` once per geometry."""
+    return torch.from_numpy(shift_window_mask(hp, wp, ws, shift)).to(device)
+
+
+def _up(t: torch.Tensor) -> torch.Tensor:
+    return t if t.dtype == torch.float64 else t.float()
+
+
+def window_attention(
+    q: torch.Tensor,      # (B*nW, heads, N, d)
+    k: torch.Tensor,
+    v: torch.Tensor,
+    bias: torch.Tensor,   # (heads, N, N)
+    mask: Optional[torch.Tensor],  # (nW, N, N) additive, or None
+    scale: float,
+) -> torch.Tensor:
+    """Windowed attention with the reference's rounding points: ``q *
+    scale`` in q's dtype (rounded in bf16), scores summed in f32, bias and
+    mask added in f32, f32 softmax, probabilities cast to v's dtype, P.V
+    summed in f32 and rounded once.  Returns (B*nW, heads, N, d)."""
+    bn, nh, n, _ = q.shape
+    attn = _up(q * scale) @ _up(k).transpose(-1, -2)
+    attn = attn + _up(bias)[None]
+    if mask is not None:
+        nw = mask.shape[0]
+        attn = (attn.reshape(bn // nw, nw, nh, n, n)
+                + _up(mask)[None, :, None]).reshape(bn, nh, n, n)
+    p = torch.softmax(attn, dim=-1).to(v.dtype)
+    return (_up(p) @ _up(v)).to(v.dtype)

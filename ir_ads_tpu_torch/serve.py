@@ -7,9 +7,9 @@ Counterpart of ``infer_mm.SemSeg`` (input normalisation) together with the
 bench predictor (sliding window, tile = image, overlap 1/3, horizontal-flip
 ensemble, fused-head logits at H/4 upsampled once).  Runs on the GPU unless
 the caller passes ``device="cpu"``, under the ``r5`` kernel dispatch unless
-the caller passes ``dispatch="r4"`` or ``dispatch="r4i8"`` (w8a8, its
-weights quantized from the f32 ones before the cast to the compute dtype;
-models/backbones/swin.py DISPATCH).
+the caller passes another of models/backbones/swin.py's ``DISPATCH``: ``"r4"``,
+``"r4i8"`` (w8a8, its weights quantized from the f32 ones before the cast to
+the compute dtype), or the module-path sets ``"r2"``, ``"r1"`` and ``"xla"``.
 
 ``DetPredictor``: counterpart of ``train_net.evaluate_detector``'s ``_infer``
 around the vCLR deformable-mask DINO detector (``configs/detection/
@@ -35,8 +35,12 @@ from ir_ads_tpu_torch.ops.int8 import PREFIX, quantize_int8_
 IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], np.float32)
 IMAGENET_STD = np.asarray([0.229, 0.224, 0.225], np.float32)
 
-# parameters the TPU kernels read in f32 whatever the compute dtype
+# tensors read in f32 whatever the compute dtype: the rel-pos bias tables the
+# TPU kernels take in f32, and the detector's pixel statistics
 F32_PARAMS = ("relative_position_bias_table", "rpe_table")
+F32_BUFFERS = ("pixel_mean", "pixel_std")
+# flax normalises in f32 with f32 scale, bias and statistics (``_normalize``)
+NORMS = (torch.nn.LayerNorm, torch.nn.BatchNorm2d, torch.nn.GroupNorm, FrozenBatchNorm2d)
 
 
 def init_random_(model: torch.nn.Module, seed: int) -> None:
@@ -76,16 +80,33 @@ def init_random_(model: torch.nn.Module, seed: int) -> None:
                 buf.copy_(torch.randn(buf.shape, generator=g) * 0.1)
 
 
+def f32_tensors(model: torch.nn.Module) -> set:
+    """ids of the parameters and buffers that stay f32 in a bf16 model, as
+    flax keeps them: every normalisation's, and those a module composes in
+    f32 before one rounding (``composed_in_f32``, the SegFormer head's)."""
+    keep = set()
+    for mod in model.modules():
+        subs = [mod] if isinstance(mod, NORMS) else []
+        if hasattr(mod, "composed_in_f32"):
+            subs += mod.composed_in_f32()
+        for sub in subs:
+            keep.update(id(t) for t in (*sub.parameters(), *sub.buffers()))
+    return keep
+
+
 def cast_model_(model: torch.nn.Module, dtype: torch.dtype) -> None:
-    """Compute dtype for every floating parameter and buffer except the bias
-    tables the kernels read in f32 and the int8 dispatch's quantized weights
-    and scales (``int8_*`` buffers)."""
+    """Compute dtype for every floating parameter and buffer that flax
+    rounds where it meets a layer (``promote_dtype``) or casts explicitly;
+    f32 stay the ``f32_tensors``, the bias tables, the pixel statistics and
+    the int8 dispatch's quantized weights and scales (``int8_*`` buffers)."""
+    keep = f32_tensors(model)
     for mod in model.modules():
         for name, p in mod.named_parameters(recurse=False):
-            if p.is_floating_point() and name not in F32_PARAMS:
+            if p.is_floating_point() and name not in F32_PARAMS and id(p) not in keep:
                 p.data = p.data.to(dtype)
         for name, buf in mod.named_buffers(recurse=False):
-            if buf.is_floating_point() and not name.startswith(PREFIX):
+            if (buf.is_floating_point() and not name.startswith(PREFIX)
+                    and name not in F32_BUFFERS and id(buf) not in keep):
                 setattr(mod, name, buf.to(dtype))
 
 
@@ -175,7 +196,8 @@ class DetPredictor:
         # at their init every query samples one pattern with uniform weights
         # and a check of the output would barely see the sampling kernel
         init_random_(model, seed)
-        self.model = model.to(dtype).to(self.device).eval()
+        cast_model_(model, dtype)
+        self.model = model.to(self.device).eval()
 
     @torch.no_grad()
     def __call__(self, images, want_masks: bool = False):

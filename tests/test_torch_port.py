@@ -1,6 +1,6 @@
 """Ground rules of the PyTorch port: no JAX inside it, the GPU by default,
-the r5 kernel dispatch by default, r4, r4i8 and train on request (nothing
-else), the
+the r5 kernel dispatch by default, r4, r4i8, train, r2, r1 and xla on
+request (nothing else), the
 sliding-window wrapper's overlap arithmetic against the JAX one."""
 
 import ast
@@ -17,7 +17,7 @@ from ir_ads_tpu_torch.models.backbones import swin as tswin
 from ir_ads_tpu_torch.models.cmnext import CMNeXt
 from ir_ads_tpu_torch.ops import (
     block_tail, block_tail_int8, dscf_rows, dscf_rows_bwd, dscf_rpe, dscf_rpe_packed, msdeform,
-    swin_block, swin_block_int8, swin_block_v6, window_attn_bwd,
+    swin_block, swin_block_int8, swin_block_v6, window_attention_qkv, window_attn_bwd,
 )
 from ir_ads_tpu_torch.serve import IMAGENET_MEAN, IMAGENET_STD, SemSegPredictor
 
@@ -63,11 +63,20 @@ def _dispatch(model):
 def test_only_the_r5_and_r4_dispatches_are_accepted():
     r5 = (["pallas4", "pallas4", "pallas6", "pallas6"],
           ["pallas3", "pallas3", "pallas3", "xla"])
-    assert tswin.DISPATCH["r5"] == tuple(tuple(x) for x in r5) + ("fused", False)
+    assert tswin.DISPATCH["r5"] == tuple(tuple(x) for x in r5) + ("fused", False, "pallas")
     assert tswin.DISPATCH["train"] == (
-        ("pallas4",) * 4, ("pallas3", "pallas3", "pallas3", "xla"), "module", False)
-    assert tswin.DISPATCH["r4i8"] == tswin.DISPATCH["r4"][:3] + (True,)
-    assert set(tswin.DISPATCH) == {"r5", "r4", "r4i8", "train"}
+        ("pallas4",) * 4, ("pallas3", "pallas3", "pallas3", "xla"), "module", False, "pallas")
+    assert tswin.DISPATCH["r4i8"] == tswin.DISPATCH["r4"][:3] + (True, "pallas")
+    # bench.py's r2, r1 and xla sets: no IR_ADS_FFN (fused on its chip),
+    # IR_ADS_DSCF_RPE3 left at auto (the XLA form)
+    assert tswin.DISPATCH["r2"] == (("pallas",) * 4, ("pallas3",) * 4, "fused", False, "xla")
+    assert tswin.DISPATCH["r1"] == (("pallas",) * 4, ("xla",) * 4, "fused", False, "xla")
+    assert tswin.DISPATCH["xla"] == (("xla",) * 4, ("xla",) * 4, "fused", False, "xla")
+    assert set(tswin.DISPATCH) == {"r5", "r4", "r4i8", "train", "r2", "r1", "xla"}
+    for name in ("r2", "r1", "xla"):
+        model = CMNeXt(num_classes=5, backbone_kwargs=SMALL, dispatch=name)
+        assert _dispatch(model) == tuple(list(x) for x in tswin.DISPATCH[name][:2])
+        assert {m.deform_atten.rpe3 for m in model.backbone.DeformMPGBlocks} == {"xla"}
     train = CMNeXt(num_classes=5, backbone_kwargs=SMALL, dispatch="train")
     assert _dispatch(train) == (["pallas4"] * 4, r5[1])
     assert {b.ffn_impl for s in train.backbone.stages for b in s.blocks} == {"module"}
@@ -87,12 +96,19 @@ def test_only_the_r5_and_r4_dispatches_are_accepted():
     for attn, dscf in [(("pallas6",) * 4, ("pallas3",) * 4),
                        (("pallas4",) * 4, ("pallas3", "pallas3", "pallas3", "xla")),
                        (("pallas4", "pallas4", "pallas6"), ("pallas3",) * 3 + ("xla",)),
-                       (("xla",) * 4, ("xla",) * 4)]:
+                       (("xla",) * 4, ("pallas3",) * 4),
+                       (("pallas",) * 4, ("pallas3",) * 3 + ("xla",))]:
         with pytest.raises(NotImplementedError):
             tswin.SwinTransformer(**SMALL, attn_impl=attn, dscf_attn=dscf)
-    for impl in ("pallas5", "pallas7", "xla", "auto"):
+    for impl in ("pallas5", "pallas7", "pallas_map", "auto"):
         with pytest.raises(NotImplementedError):
             tswin.SwinBlockAdapter(32, 2, 128, 4, shift=False, attn_impl=impl)
+    with pytest.raises(NotImplementedError):  # the bench's xla set keeps r5's bias kernel
+        tswin.SwinTransformer(**SMALL, attn_impl=("xla",) * 4, dscf_attn=("xla",) * 4)
+    for impl in ("pallas", "xla"):  # the module attention path is eval-only
+        with pytest.raises(NotImplementedError):
+            tswin.SwinBlockAdapter(32, 2, 128, 4, shift=False, attn_impl=impl,
+                                   ffn_impl="module")
     with pytest.raises(NotImplementedError):
         tswin.SwinBlockAdapter(32, 2, 128, 4, shift=False, ffn_impl="xla")
     with pytest.raises(NotImplementedError):  # K5 is the whole block
@@ -104,6 +120,8 @@ def test_only_the_r5_and_r4_dispatches_are_accepted():
         with pytest.raises(NotImplementedError):
             tswin.DAttentionMM(32, 4, 2, 4, attn_impl=impl)
     with pytest.raises(NotImplementedError):
+        tswin.DAttentionMM(32, 4, 2, 4, rpe3="auto")
+    with pytest.raises(NotImplementedError):
         tswin.SwinTransformer(dual_batch=True)
 
 
@@ -113,7 +131,7 @@ def test_pallas6_block_takes_the_real_map_with_no_pad_roll_or_crop():
     import inspect
 
     src = inspect.getsource(tswin.SwinBlockAdapter.forward)
-    branch = src[src.index('if self.attn_impl == "pallas6"'):src.index("pad_b, pad_r")]
+    branch = src[src.index('if self.attn_impl == "pallas6"'):src.index("MODULE_ATTN")]
     for banned in ("F.pad", "torch.roll", "[:, :h", "contiguous"):
         assert banned not in branch
     blk = tswin.SwinBlockAdapter(32, 2, 128, 4, shift=True, attn_impl="pallas6")
@@ -135,9 +153,10 @@ def test_pallas6_block_takes_the_real_map_with_no_pad_roll_or_crop():
 
 def test_every_kernel_targets_hopper_and_names_its_tpu_kernel():
     mods = (swin_block, block_tail, dscf_rpe, dscf_rows, swin_block_v6, dscf_rpe_packed,
-            window_attn_bwd, dscf_rows_bwd, msdeform, swin_block_int8, block_tail_int8)
-    assert len({m.KERNEL.name for m in mods}) == 11
-    assert len({m.KERNEL.replaces for m in mods}) == 11
+            window_attn_bwd, dscf_rows_bwd, msdeform, swin_block_int8, block_tail_int8,
+            window_attention_qkv)
+    assert len({m.KERNEL.name for m in mods}) == 12
+    assert len({m.KERNEL.replaces for m in mods}) == 12
     for mod in mods:
         k = mod.KERNEL
         assert k.source.exists()

@@ -16,7 +16,12 @@ from ir_ads_tpu.models.cmnext import CMNeXt as JaxCMNeXt
 from ir_ads_tpu_torch.evaluation.semseg_eval import make_sliding_window_fn
 from ir_ads_tpu_torch.models.cmnext import CMNeXt
 from ir_ads_tpu_torch.utils.jax_params import from_flax
-from test_torch_model import H, TINY, W, random_variables
+from test_torch_model import TINY, random_variables
+
+# n = 2 x 4 offsets a field at every DSCF level (2n % 8 == 0): JAX's pallas3
+# runs its rows kernels and meets the port's K3 + K4 (at 64x80, n = 6, both
+# sides take the einsum branch: tests/test_torch_model.py)
+H, W = 64, 112
 
 R5_ENV = {
     "IR_ADS_SWIN_ATTN": "pallas4,pallas4,pallas6,pallas6",
