@@ -8,15 +8,18 @@ Phases, each of which raises on failure:
   2. build every CUDA kernel of the slice from csrc/ (one nvcc per source,
      all started together) and print the build time;
   3. hold each kernel against its plain PyTorch version on the card, in
-     bf16, at the shapes the main paths (serving under r5, r4i8, r2 and r1,
-     training, detection) give it (K12 also under autograd: its output and
-     the gradients its backward, the plain version's vjp, gives),
-     element by element and on
-     what the kernel adds (the branch, for the residual kernels); show that
-     a planted fault in the plain version fails the same bar; print the
-     errors against the stated tolerances and the kernel's, the plain
-     version's and (where one PyTorch call computes the same function) the
-     library call's times;
+     bf16, at the shapes the main paths (serving under r5, r4i8, r2, r1,
+     v7_01, v5 and map, training, detection) give it (K12 also under
+     autograd: its output and the gradients its backward, the plain
+     version's vjp, gives), element by element and on what the kernel adds
+     (the branch, for the residual kernels); K3 and K6 bit for bit; show
+     that a planted fault in the plain version fails the same bar (for K3
+     and K6 the all-f32 form that rounds only the output); hold K13, K14
+     and K15 bit for bit against the compositions of kernels they replace
+     (K1, un-roll and crop, K2; pad and roll, K1, un-roll and crop;
+     partition, K12, reverse); print the errors against the stated
+     tolerances and the kernel's, the plain version's and (where one
+     PyTorch call computes the same function) the library call's times;
   4. serve a few requests of 480x640 RGB-D frames through
      ``SemSegPredictor`` (full-width, full-depth Swin-B CMNeXt, 40 classes,
      bf16, flip, weights drawn from --seed) under its default ``r5``
@@ -40,6 +43,12 @@ Phases, each of which raises on failure:
      DSCF with its XLA-form bias) and xla (``window_attention`` with the
      -100 mask, K2 48), each against its own all-plain path, with p50,
      frames/s, peak memory and, with no bar, the distance from r2 and r5;
+     then the block variants on the same weights and requests: v7_01 (r5
+     with K13 at stages 0-1: K13 8, K5 40, K3 3, K4 3, K6 1 per request), v5
+     (r4 with K14: K14 48, K2 48, K3 4, K4 4) and map (r2 with K15 on the
+     qkv map: K15 48, K2 48, K3 4, K4 4), each against its own all-plain
+     path, v7_01's logits bit-equal to r5's and v5's to r4's, map's
+     compared with r2's and printed, with p50, frames/s and peak memory;
   5. train: ``SemSegTrainer`` (the same model under the ``train`` dispatch,
      f32 master parameters, bf16 compute, adapter-only AdamW, MMST 3-head
      loss) on batches of 4 frames drawn from --seed.  (a) With every
@@ -209,15 +218,12 @@ def check_window_block(g, b, h_real, w_real, c, heads, shift, fault):
     )
 
 
-def check_window_block_v6(g, b, h, w, c, heads, shift, fault, streams=1):
-    from ir_ads_tpu_torch.ops import swin_block_v6 as k5
-    from ir_ads_tpu_torch.ops.window_attention import shift_region_ids_on
-
-    ws, n = 12, 144
-    hp, wp = -(-h // ws) * ws, -(-w // ws) * ws
-    hid, ca = 4 * c, c // 16
+def _block_params(g, c, heads, streams=1):
+    """A block's attention and tail parameters at one stage (the port's
+    layout, bf16 but the f32 rel-pos bias; adapters stacked over
+    ``streams`` when more than one)."""
+    n, hid, ca = 144, 4 * c, c // 16
     lead = (streams,) if streams > 1 else ()
-    x = _rand(g, b, h, w, c)
     attn = (
         _rand(g, c, std=0.05, mean=1.0), _rand(g, c, std=0.05),
         _linear(g, 3 * c, c), _rand(g, 3 * c, std=0.02),
@@ -231,6 +237,18 @@ def check_window_block_v6(g, b, h, w, c, heads, shift, fault, streams=1):
         _rand(g, *lead, ca, c, std=c ** -0.5), _rand(g, *lead, ca, std=0.02),
         _rand(g, *lead, c, ca, std=ca ** -0.5), _rand(g, *lead, c, std=0.02),
     )
+    return attn, tail
+
+
+def check_window_block_v6(g, b, h, w, c, heads, shift, fault, streams=1):
+    from ir_ads_tpu_torch.ops import swin_block_v6 as k5
+    from ir_ads_tpu_torch.ops.window_attention import shift_region_ids_on
+
+    ws, n = 12, 144
+    hp, wp = -(-h // ws) * ws, -(-w // ws) * ws
+    x = _rand(g, b, h, w, c)
+    attn, tail = _block_params(g, c, heads, streams)
+    ca = tail[6].shape[-2]
     region = shift_region_ids_on(hp, wp, ws, shift, x.device) if shift else None
     scale = (c // heads) ** -0.5
     run = lambda: k5.window_block_v6(  # noqa: E731
@@ -423,19 +441,31 @@ def _window_qkv_inputs(g, b, h_real, w_real, c, heads, shift):
     return qkv, bias, region, (c // heads) ** -0.5, bn
 
 
+def _sdpa_mask(bias, region, bn, dtype):
+    """The rel-pos bias and the -1e9 region mask folded into one float
+    attention mask for ``bn`` windows (region row w % nW for window w)."""
+    mask = bias.to(dtype)[None]
+    if region is not None:
+        neq = (region[:, :, None] != region[:, None, :]).repeat(bn // region.shape[0], 1, 1)
+        mask = mask + torch.where(neq, -1e9, 0.0).to(dtype)[:, None]
+    return mask.expand(bn, -1, -1, -1)
+
+
+def _split_heads(wins, heads):
+    """q, k, v (B nW, heads, N, d) split out of windowed qkv (B nW, N, 3C)
+    (views, no copy)."""
+    bn, n, c3 = wins.shape
+    c = c3 // 3
+    heads_of = lambda t: t.reshape(bn, n, heads, c // heads).transpose(1, 2)  # noqa: E731
+    return [heads_of(wins[..., i * c:(i + 1) * c]) for i in range(3)]
+
+
 def _sdpa_with_region(qkv, bias, region, scale, heads):
     """The library call: one scaled_dot_product_attention with the bias and
     the -1e9 region mask folded into its float mask (built outside the
     timing), on the heads split out of qkv (views, no copy)."""
-    bn, n, c3 = qkv.shape
-    c = c3 // 3
-    heads_of = lambda t: t.reshape(bn, n, heads, c // heads).transpose(1, 2)  # noqa: E731
-    q, k, v = (heads_of(qkv[..., i * c:(i + 1) * c]) for i in range(3))
-    mask = bias.to(qkv.dtype)[None]
-    if region is not None:
-        neq = (region[:, :, None] != region[:, None, :]).repeat(bn // region.shape[0], 1, 1)
-        mask = mask + torch.where(neq, -1e9, 0.0).to(qkv.dtype)[:, None]
-    mask = mask.expand(bn, -1, -1, -1)
+    q, k, v = _split_heads(qkv, heads)
+    mask = _sdpa_mask(bias, region, qkv.shape[0], qkv.dtype)
     return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
 
 
@@ -503,6 +533,147 @@ def check_window_attention_qkv_grad(g, b, h_real, w_real, c, heads, shift):
     )
 
 
+def check_window_block_v7(g, b, h, w, c, heads, shift, streams=1):
+    """K13 at one stage of the v7_01 path: the real map padded and rolled
+    as the block hands it over.  Composition (bit-equal at every real
+    position): K1, un-roll and crop, K2 per stream.  Planted fault: on a
+    shifted case the region mask left out, on an unshifted one the rel-pos
+    bias."""
+    from ir_ads_tpu_torch.models.backbones.swin import pad_and_roll, unroll_and_crop
+    from ir_ads_tpu_torch.ops import block_tail as k2
+    from ir_ads_tpu_torch.ops import swin_block as k1
+    from ir_ads_tpu_torch.ops import swin_block_v7 as k13
+    from ir_ads_tpu_torch.ops.window_attention import shift_region_ids_on
+
+    ws, n = 12, 144
+    xm = pad_and_roll(_rand(g, b, h, w, c), ws, shift).contiguous()
+    hp, wp = xm.shape[1:3]
+    attn, tail = _block_params(g, c, heads, streams)
+    ca = tail[6].shape[-2]
+    region = shift_region_ids_on(hp, wp, ws, shift, xm.device) if shift else None
+    scale = (c // heads) ** -0.5
+    geo = (scale, heads, ws, h, w, shift)
+    bad_attn, bad_region = attn, None
+    if shift:
+        fault = "region mask dropped"
+    else:
+        fault, bad_attn = "rel-pos bias dropped", attn[:6] + (torch.zeros_like(attn[6]),)
+
+    def composed():
+        y = unroll_and_crop(k1.window_block(xm, *attn, region, *geo), h, w, shift)
+        per = b // streams
+        return torch.cat([
+            k2.block_tail(y[i * per:(i + 1) * per].contiguous().reshape(-1, c), *tail[:6],
+                          *(t[i] if streams > 1 else t for t in tail[6:]))
+            for i in range(streams)]).reshape(b, h, w, c)
+
+    t = b * hp * wp  # every position of the padded map runs the whole block
+    return dict(
+        name="swin_block_v7",
+        case=f"C={c} map {hp}x{wp} shift {shift}" + (f" S={streams}" if streams > 1 else ""),
+        run=lambda: k13.window_block_v7(xm, attn, tail, region, *geo),
+        plain=lambda: k13.window_block_v7_reference(xm, attn, tail, region, *geo),
+        faulted=lambda: k13.window_block_v7_reference(xm, bad_attn, tail, bad_region, *geo),
+        fault=fault, base=xm,
+        composition=(lambda out: unroll_and_crop(out, h, w, shift), composed,
+                     "K1, un-roll and crop, K2"),
+        # K1's then K2's: the same rounding points, f32 sums of another order
+        library=None, atol=3e-2, rtol=2e-2,
+        bytes=nbytes(xm, *attn, region, *tail) + nbytes(xm),
+        flops=t * (24 * c * c + 4 * n * c + 4 * c * ca), rate=BF16_TENSOR_FLOPS,
+    )
+
+
+def check_window_block_full(g, b, h, w, c, heads, shift):
+    """K14 at one stage of the v5 path, on the real map.  Composition
+    (bit-equal): pad and roll, K1, un-roll and crop.  Planted fault: on a
+    shifted case the roll left out (the region mask kept), on an unshifted
+    one the rel-pos bias."""
+    from ir_ads_tpu_torch.models.backbones.swin import pad_and_roll, unroll_and_crop
+    from ir_ads_tpu_torch.ops import swin_block as k1
+    from ir_ads_tpu_torch.ops import swin_block_full as k14
+    from ir_ads_tpu_torch.ops.window_attention import shift_region_ids_on
+
+    ws, n = 12, 144
+    hp, wp = -(-h // ws) * ws, -(-w // ws) * ws
+    x = _rand(g, b, h, w, c)
+    attn, _ = _block_params(g, c, heads)
+    region = shift_region_ids_on(hp, wp, ws, shift, x.device) if shift else None
+    scale = (c // heads) ** -0.5
+    bad_attn, bad_shift = attn, 0
+    if shift:
+        fault = "roll left out, mask kept"
+    else:
+        fault, bad_attn = "rel-pos bias dropped", attn[:6] + (torch.zeros_like(attn[6]),)
+    return dict(
+        name="swin_block_full", case=f"C={c} map {h}x{w} shift {shift}",
+        run=lambda: k14.window_block_full(x, *attn, region, scale, heads, ws, shift),
+        plain=lambda: k14.window_block_full_reference(x, *attn, region, scale, heads, ws, shift),
+        faulted=lambda: k14.window_block_full_reference(x, *bad_attn, region, scale, heads, ws,
+                                                        bad_shift),
+        fault=fault, base=x,
+        composition=(lambda out: out, lambda: unroll_and_crop(k1.window_block(
+            pad_and_roll(x, ws, shift).contiguous(), *attn, region, scale, heads, ws, h, w,
+            shift), h, w, shift), "pad and roll, K1, un-roll and crop"),
+        # K1's bar: the same rounding points, f32 sums of another order
+        library=None, atol=3e-2, rtol=2e-2,
+        bytes=nbytes(x, *attn, region) + nbytes(x),
+        # qkv and proj of the real tokens; every query of the padded map
+        # attends to its window
+        flops=b * h * w * 8 * c * c + b * hp * wp * 4 * n * c, rate=BF16_TENSOR_FLOPS,
+    )
+
+
+def check_window_attention_map(g, b, h, w, c, heads, shift):
+    """K15 at one stage of the map path: the qkv map of the padded, rolled
+    map.  Composition (bit-equal): window partition, K12, window reverse.
+    Planted fault: the window reverse transposed (window (wy, wx) written
+    to the grid's (wx, wy) order)."""
+    from ir_ads_tpu_torch.ops import window_attention_map as k15
+    from ir_ads_tpu_torch.ops import window_attention_qkv as k12
+    from ir_ads_tpu_torch.ops.window_attention import (
+        shift_region_ids_on, window_partition, window_reverse,
+    )
+
+    ws, n = 12, 144
+    hp, wp = -(-h // ws) * ws, -(-w // ws) * ws
+    nh, nw = hp // ws, wp // ws
+    qkv = _rand(g, b, hp, wp, 3 * c)
+    bias = _rand(g, heads, n, n, dtype=torch.float32)
+    region = shift_region_ids_on(hp, wp, ws, shift, qkv.device) if shift else None
+    scale = (c // heads) ** -0.5
+
+    def transposed():
+        out = k12.window_attention_qkv_reference(window_partition(qkv, ws), bias, region,
+                                                 scale, heads)
+        out = out.reshape(b, nh, nw, n, c).transpose(1, 2).reshape(b * nh * nw, n, c)
+        return window_reverse(out, ws, hp, wp)
+
+    mask = _sdpa_mask(bias, region, b * nh * nw, qkv.dtype)
+
+    def library():
+        # SDPA on the partitioned windows, with the partition and reverse
+        # copies it needs (the float mask built outside the timing)
+        out = F.scaled_dot_product_attention(
+            *_split_heads(window_partition(qkv, ws), heads), attn_mask=mask, scale=scale)
+        return window_reverse(out.transpose(1, 2).reshape(-1, n, c), ws, hp, wp)
+
+    return dict(
+        name="window_attention_map", case=f"C={c} map {hp}x{wp} shift {shift}",
+        run=lambda: k15.window_attention_map(qkv, bias, region, scale, heads, ws),
+        plain=lambda: k15.window_attention_map_reference(qkv, bias, region, scale, heads, ws),
+        faulted=transposed, fault="window reverse transposed (wy, wx swapped)", base=None,
+        composition=(lambda out: out, lambda: window_reverse(k12.window_attention_qkv(
+            window_partition(qkv, ws), bias, region, scale, heads), ws, hp, wp),
+            "window partition, K12, window reverse"),
+        library=library,
+        # K12's bar (the same device code on another layout)
+        atol=1e-2, rtol=2e-2,
+        bytes=nbytes(qkv, bias, region) + nbytes(qkv) // 3,
+        flops=4 * b * nh * nw * n * n * c, rate=BF16_TENSOR_FLOPS,
+    )
+
+
 def _dscf_inputs(g, b, level):
     h, w = 120 >> level, 160 >> level
     groups = 1 << level
@@ -529,19 +700,17 @@ def check_rpe(g, b, level):
     def library():
         return F.grid_sample(tb, grid, mode="bilinear", align_corners=True)
 
-    swapped = pos.flip(-1).contiguous()
     return dict(
         name="dscf_rpe", case=f"level {level} plane {h}x{w} BG={bg}",
         run=lambda: k3.rpe_bias_rows(pos, table, h, w, torch.bfloat16),
         plain=lambda: k3.rpe_bias_rows_reference(pos, table, h, w, torch.bfloat16),
-        faulted=lambda: k3.rpe_bias_rows_reference(
-            swapped, table, h, w, torch.bfloat16),
-        fault="key (y, x) read as (x, y)", base=None,
-        # rtol: one bf16 rounding of the stored value (2^-7 relative at most).
-        # atol: the sample index (up to 158) carries an f32 ulp of ~1.5e-5,
-        # and the output moves by up to |T[s+1] - T[s]| (~3 for this table)
-        # per unit of index, so two f32 implementations differ by ~5e-5.
-        library=library, atol=1e-4, rtol=8e-3,
+        faulted=lambda: k3.rpe_bias_f32(pos, table, h, w, "behmw").to(torch.bfloat16),
+        fault="the all-f32 form (no bf16 rounding inside)", base=None,
+        # bit-equal: the kernel rounds the hat weights (computed in the TPU
+        # kernel's f32 order, no FMA), the table and u to bf16 where the
+        # plain version does, and each sum has at most two non-zero terms,
+        # each an exact bf16 x bf16 product
+        library=library, atol=0.0, rtol=0.0, rel_tol=0.0,
         bytes=nbytes(pos, table) + out_elems * 2, flops=out_elems * 20,
         rate=F32_FLOPS,
     )
@@ -563,16 +732,15 @@ def check_rpe_packed(g, b, level):
     def library():
         return F.grid_sample(tb, grid, mode="bilinear", align_corners=True)
 
-    swapped = pos.flip(-1).contiguous()
     return dict(
         name="dscf_rpe_packed", case=f"level {level} plane {h}x{w} BG={bg}",
         run=lambda: k6.rpe_bias_packed(pos, table, h, w, torch.bfloat16),
         plain=lambda: k6.rpe_bias_packed_reference(pos, table, h, w, torch.bfloat16),
-        faulted=lambda: k6.rpe_bias_packed_reference(
-            swapped, table, h, w, torch.bfloat16),
-        fault="key (y, x) read as (x, y)", base=None,
-        # K3's function and bars (see check_rpe)
-        library=library, atol=1e-4, rtol=8e-3,
+        faulted=lambda: k6.rpe_bias_f32(pos, table, h, w, "bemhw").flatten(3).to(
+            torch.bfloat16),
+        fault="the all-f32 form (no bf16 rounding inside)", base=None,
+        # K3's function and bar (see check_rpe): bit-equal
+        library=library, atol=0.0, rtol=0.0, rel_tol=0.0,
         bytes=nbytes(pos, table) + out_elems * 2, flops=out_elems * 20,
         rate=F32_FLOPS,
     )
@@ -862,6 +1030,17 @@ def phase_kernels(seed: int, images: int):
         *(functools.partial(check_window_attention_qkv, g, images, h, w, c, heads, shift)
           for h, w, c, heads in STAGES for shift in (0, 6)),
         lambda: check_window_attention_qkv_grad(g, images, 30, 40, 512, 16, 6),
+        # the block variants: K13 at the v7_01 path's stages 0-1 (and once
+        # with adapters stacked over two streams), K14 (v5) and K15 (map) at
+        # the four stages, shifted and not, each also against the
+        # composition of kernels it replaces
+        *(functools.partial(check_window_block_v7, g, images, h, w, c, heads, shift)
+          for h, w, c, heads in STAGES[:2] for shift in (0, 6)),
+        functools.partial(check_window_block_v7, g, images, *STAGES[1], 6, streams=2),
+        *(functools.partial(check_window_block_full, g, images, h, w, c, heads, shift)
+          for h, w, c, heads in STAGES for shift in (0, 6)),
+        *(functools.partial(check_window_attention_map, g, images, h, w, c, heads, shift)
+          for h, w, c, heads in STAGES for shift in (0, 6)),
     ]
     rows = [hold(make()) for make in cases]
     return rows
@@ -888,6 +1067,7 @@ def hold(case):
     """Hold one case's kernel against its plain version (and its planted
     fault); print the errors and the times; return the kernel table's row."""
     also = case.pop("also", None)
+    composition = case.pop("composition", None)
     run, plain, library = case.pop("run"), case.pop("plain"), case.pop("library")
     faulted, base = case.pop("faulted"), case.pop("base")
     names = case.pop("outputs", ["out"])
@@ -908,6 +1088,19 @@ def hold(case):
         parts.append(f"{name} max_abs_err {float(err.max()):.3e} rel {r:.3e}")
         max_err, rel, fault_rel = max(max_err, float(err.max())), max(rel, r), max(fault_rel, fr)
         del err, tol
+    composed = ""
+    if composition is not None:
+        # the kernel against the composition of kernels it replaces: bit-equal
+        view, compose, what = composition
+        mine, theirs = view(got[0]), compose()
+        torch.cuda.synchronize()
+        differ = int((mine != theirs).sum())
+        composed = f"; against {what}: {differ} of {mine.numel()} elements differ"
+        case["composition_differ"] = differ
+        if differ:
+            print(f"  {case['name']:<15} {case['case']:<34}{composed}", flush=True)
+            fail(f"{case['name']} ({case['case']}) is not bit-equal to {what}")
+        del mine, theirs
     del got, want, bad
     ms = time_ms(run)
     plain_ms = time_ms(plain, iters=3, warmup=1)
@@ -920,7 +1113,7 @@ def hold(case):
         f"rel tol {rel_tol}; planted fault '{case['fault']}': {fault_rel:.3e}) "
         f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms "
         f"library {'%.4f' % lib_ms if lib_ms is not None else 'n/a'} ms "
-        f"bound {b_ms:.4f} ms ({b_by}){also_ms}",
+        f"bound {b_ms:.4f} ms ({b_by}){also_ms}{composed}",
         flush=True,
     )
     if not (finite and elem_ok and rel <= rel_tol):
@@ -930,7 +1123,7 @@ def hold(case):
              f"'{case['fault']}' passes the bar, which is too loose")
     row = dict(case, max_abs_err=max_err, rel_err=rel, fault_rel_err=fault_rel, ms=ms,
                plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
-    del run, plain, library, faulted, base, case, also
+    del run, plain, library, faulted, base, case, also, composition
     torch.cuda.empty_cache()
     return row
 
@@ -965,29 +1158,34 @@ LOGIT_TOL_I8 = dict(rel_mean=1.6e-2, rel_max=0.06, label_agree=0.96)
 def _ops_modules():
     from ir_ads_tpu_torch.ops import (
         block_tail, block_tail_int8, dscf_rows, dscf_rows_bwd, dscf_rpe, dscf_rpe_packed,
-        msdeform, swin_block, swin_block_int8, swin_block_v6, window_attention_qkv,
-        window_attn_bwd,
+        msdeform, swin_block, swin_block_full, swin_block_int8, swin_block_v6, swin_block_v7,
+        window_attention_map, window_attention_qkv, window_attn_bwd,
     )
 
     return (swin_block, block_tail, swin_block_v6, dscf_rpe, dscf_rows,
             dscf_rpe_packed, window_attn_bwd, dscf_rows_bwd, msdeform, swin_block_int8,
-            block_tail_int8, window_attention_qkv)
+            block_tail_int8, window_attention_qkv, swin_block_v7, swin_block_full,
+            window_attention_map)
 
 
 def expected_launches(model):
     """Launches of each kernel in one forward of a 480x640 tile, from the
     model's dispatch: every block of a stage runs K1 + K2 (pallas4), K10 +
-    K11 (pallas4 under int8), K5 (pallas6), or its module path and K2
-    (pallas: with K12; xla: with no attention kernel); every DSCF level K3 +
+    K11 (pallas4 under int8), K5 (pallas6), K13 (pallas7), K14 + K2
+    (pallas5), or its module path and K2 (pallas: with K12; pallas_map: with
+    K15; xla: with no attention kernel); every DSCF level K3 +
     K4 (its rows path: pallas3, and 2n % 8 == 0 for the n = 15 x 20 offsets
     a field of every level here) or the einsum attention, its bias by K6
     where the dispatch takes the packed kernel for a plane of at most 2048
     pixels; the two streams run in turn."""
     n = dict.fromkeys(("swin_block", "block_tail", "swin_block_v6", "dscf_rpe",
                        "dscf_rows", "dscf_rpe_packed", "swin_block_int8",
-                       "block_tail_int8", "window_attention_qkv"), 0)
+                       "block_tail_int8", "window_attention_qkv", "swin_block_v7",
+                       "swin_block_full", "window_attention_map"), 0)
     per_block = {"pallas6": ("swin_block_v6",), "pallas4": ("swin_block", "block_tail"),
-                 "pallas": ("window_attention_qkv", "block_tail"), "xla": ("block_tail",)}
+                 "pallas7": ("swin_block_v7",), "pallas5": ("swin_block_full", "block_tail"),
+                 "pallas": ("window_attention_qkv", "block_tail"),
+                 "pallas_map": ("window_attention_map", "block_tail"), "xla": ("block_tail",)}
     for stage in model.backbone.stages:
         for blk in stage.blocks:
             names = (("swin_block_int8", "block_tail_int8") if blk.int8
@@ -1047,11 +1245,15 @@ def _plain_path(**faults):
     from ir_ads_tpu_torch.models.backbones import swin
     from ir_ads_tpu_torch.ops import (
         block_tail, block_tail_int8, dscf_rows, dscf_rpe, dscf_rpe_packed, swin_block,
-        swin_block_int8, swin_block_v6, window_attention_qkv,
+        swin_block_full, swin_block_int8, swin_block_v6, swin_block_v7, window_attention_map,
+        window_attention_qkv,
     )
 
     swap = {
         "window_attention_qkv": window_attention_qkv.window_attention_qkv_reference,
+        "window_attention_map": window_attention_map.window_attention_map_reference,
+        "window_block_full": swin_block_full.window_block_full_reference,
+        "window_block_v7": swin_block_v7.window_block_v7_reference,
         "window_block": swin_block.window_block_reference,
         "block_tail": block_tail.block_tail_reference,
         "window_block_v6": swin_block_v6.window_block_v6_reference,
@@ -1209,6 +1411,7 @@ def phase_serve(seed: int, requests: int, batch: int, card_line: str):
           f"|diff| / mean |r5| {diff:.3e} [{card_line}]", flush=True)
     serve["r4"] = dict(latency_ms=lat4, p50_ms=p50_4,
                        frames_per_s=batch * 1e3 / p50_4, rel_mean_vs_r5=diff)
+    refs = {"r5": (ref5, labels5), "r4": outs4[0]}
     del pred4, outs4
     torch.cuda.empty_cache()
 
@@ -1239,21 +1442,24 @@ def phase_serve(seed: int, requests: int, batch: int, card_line: str):
                          peak_memory_gib=peak8, rel_mean_vs_r5=vs5, label_agree_vs_r5=agree5)
     del pred8, outs8, want8
     torch.cuda.empty_cache()
-    module_launches = phase_serve_module_path(seed, frames, requests, batch, ref5, serve,
+    module_launches = phase_serve_module_path(seed, frames, requests, batch, refs, serve,
                                               card_line)
+    module_launches.update(phase_serve_variants(seed, frames, requests, batch, refs, serve,
+                                                card_line))
     return launches, launches8, module_launches, serve
 
 
-def phase_serve_module_path(seed, frames, requests, batch, ref5, serve, card_line):
+def phase_serve_module_path(seed, frames, requests, batch, refs, serve, card_line):
     """The same weights and requests under the bench's module-path sets:
     r2 (K12 + K2 at every block, K3 + K4 at every level), r1 (K12 + K2, the
     einsum DSCF) and xla (``window_attention`` + K2, the einsum DSCF), each
     with its launches and its logits against its own all-plain path; a K12
     without its region mask must fail r2's bar.  Returns the launches of
-    each dispatch's requests."""
+    each dispatch's requests; adds r2's first request to ``refs``."""
     from ir_ads_tpu_torch.serve import SemSegPredictor
 
     out = {}
+    ref5 = refs["r5"][0]
     ref2 = None
     for dispatch in ("r2", "r1", "xla"):
         pred = SemSegPredictor(device="cuda", seed=seed, num_classes=NUM_CLASSES,
@@ -1269,7 +1475,8 @@ def phase_serve_module_path(seed, frames, requests, batch, ref5, serve, card_lin
                 *want, "planted fault (K12 without the shift-region mask)", LOGIT_TOL):
             fail("a K12 without its shift-region mask passes the end-to-end bar")
         logits, labels = outs[0]
-        ref2 = logits if ref2 is None else ref2
+        if ref2 is None:
+            ref2, refs["r2"] = logits, outs[0]
         p50 = _p50(lat)
         vs5 = float((logits - ref5).abs().mean() / ref5.abs().mean())
         vs2 = float((logits - ref2).abs().mean() / ref2.abs().mean())
@@ -1287,6 +1494,87 @@ def phase_serve_module_path(seed, frames, requests, batch, ref5, serve, card_lin
     return out
 
 
+# the block variants: v7_01 is r5 with K13 in place of K1 + K2 at stages
+# 0-1; v5 is r4 with K14 in place of K1 (K2 stays); map is r2 with K15 on the
+# qkv map in place of K12 on its windows
+VARIANT_LAUNCHES = {
+    "v7_01": {"swin_block_v7": 8, "swin_block_v6": 40, "dscf_rpe": 3, "dscf_rows": 3,
+              "dscf_rpe_packed": 1},
+    "v5": {"swin_block_full": 48, "block_tail": 48, "dscf_rpe": 4, "dscf_rows": 4},
+    "map": {"window_attention_map": 48, "block_tail": 48, "dscf_rpe": 4, "dscf_rows": 4},
+}
+# the dispatch each variant replaces kernels of, and whether its logits must
+# equal that dispatch's bit for bit (K13 and K14 are bit-equal to the
+# compositions they replace; map's qkv and proj products are cuBLAS calls on
+# the map where r2 makes them on the windows: the same shapes, rows in
+# another order)
+VARIANT_OF = {"v7_01": ("r5", True), "v5": ("r4", True), "map": ("r2", False)}
+
+
+def phase_serve_variants(seed, frames, requests, batch, refs, serve, card_line):
+    """The same weights and requests under the block variants v7_01, v5 and
+    map: launches per request, logits against each one's own all-plain path
+    (LOGIT_TOL), then against the dispatch it varies (``VARIANT_OF``).
+    Returns the launches of each dispatch's requests."""
+    from ir_ads_tpu_torch.serve import SemSegPredictor
+
+    out = {}
+    for dispatch in ("v7_01", "v5", "map"):
+        pred = SemSegPredictor(device="cuda", seed=seed, num_classes=NUM_CLASSES,
+                               image_size=IMAGE, dispatch=dispatch)
+        lat, outs, launches = _served(pred, frames, requests, batch,
+                                      VARIANT_LAUNCHES[dispatch], dispatch)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        want = _plain_request(pred, frames)
+        if not _compare(*outs[0], *want, f"{dispatch} kernel path", LOGIT_TOL):
+            fail(f"the {dispatch} kernel path disagrees with its plain path end to end")
+        logits, labels = outs[0]
+        base, exact = VARIANT_OF[dispatch]
+        ref, ref_labels = refs[base]
+        differ = int((logits != ref).sum())
+        vs = float((logits - ref).abs().mean() / ref.abs().mean())
+        worst = float((logits - ref).abs().max() / ref.abs().max())
+        agree = float((labels == ref_labels).float().mean())
+        print(f"  {dispatch} against {base} on the same weights and frames: {differ} of "
+              f"{logits.numel()} logits differ (mean |diff| / mean |{base}| {vs:.3e}, max "
+              f"{worst:.3e}, labels agree {agree:.4f})"
+              + ("; bit-equal required" if exact else "; no bar"), flush=True)
+        if exact and differ:
+            fail(f"the {dispatch} logits are not bit-equal to {base}'s")
+        p50 = _p50(lat)
+        print(f"  {dispatch}: latency ms {['%.1f' % v for v in lat]} p50 {p50:.1f}, "
+              f"{batch * 1e3 / p50:.2f} frames/s, peak memory {peak:.2f} GiB [{card_line}]",
+              flush=True)
+        print(f"  launches on the {dispatch} path ({requests} requests): {launches}",
+              flush=True)
+        del outs, want, logits, labels
+        # the variant and the dispatch it varies in turns (base, variant,
+        # variant, base, ...), both built now: calls and requests spread
+        # more than the two differ
+        pred_base = SemSegPredictor(device="cuda", seed=seed, num_classes=NUM_CLASSES,
+                                    image_size=IMAGE, dispatch=base)
+        _warm_up(pred_base, frames)
+        turns = {base: [], dispatch: []}
+        for i in range(2 * requests):
+            order = ((base, pred_base), (dispatch, pred))
+            for name, p in (order if i % 2 == 0 else order[::-1]):
+                turns[name] += _serve(p, frames[i % requests:][:1])[0]
+        p_var, p_base = _p50(turns[dispatch]), _p50(turns[base])
+        print(f"  in turns, {2 * requests} requests each: {dispatch} p50 {p_var:.1f} ms "
+              f"({batch * 1e3 / p_var:.2f} frames/s), {base} p50 {p_base:.1f} ms "
+              f"({batch * 1e3 / p_base:.2f} frames/s), ratio {p_var / p_base:.3f} "
+              f"[{card_line}]", flush=True)
+        serve[dispatch] = dict(latency_ms=lat, p50_ms=p50, frames_per_s=batch * 1e3 / p50,
+                               peak_memory_gib=peak, logits_differ_vs=[base, differ],
+                               rel_mean_vs=[base, vs], label_agree_vs=[base, agree],
+                               in_turns_ms={k: v for k, v in turns.items()},
+                               in_turns_p50_ms={dispatch: p_var, base: p_base})
+        out[dispatch] = launches
+        del pred, pred_base
+        torch.cuda.empty_cache()
+    return out
+
+
 # --------------------------------------------------------------------------
 # phase 5: training steps through the port's entry point
 # --------------------------------------------------------------------------
@@ -1297,7 +1585,8 @@ def phase_serve_module_path(seed, frames, requests, batch, ref5, serve, card_lin
 TRAIN_LAUNCHES = {"swin_block": 48, "window_attn_bwd": 48, "dscf_rpe": 3,
                   "dscf_rows": 3, "dscf_rows_bwd": 3, "dscf_rpe_packed": 1,
                   "block_tail": 0, "swin_block_v6": 0, "msdeform": 0,
-                  "swin_block_int8": 0, "block_tail_int8": 0, "window_attention_qkv": 0}
+                  "swin_block_int8": 0, "block_tail_int8": 0, "window_attention_qkv": 0,
+                  "swin_block_v7": 0, "swin_block_full": 0, "window_attention_map": 0}
 
 # One forward and backward in bf16 with f32 master parameters, every
 # stochastic rate 0, gradients taken group by group (a group's parameters as

@@ -117,16 +117,17 @@ __device__ void tile_gemm(float* out_s, int ldo, const bf16* A_s, int lda,
   __syncthreads();
 }
 
-// LayerNorm of `rows` rows of x (bf16, row stride C) into dst (bf16, row
-// stride ld): f32 statistics, gamma/beta in bf16 as the TPU kernels take
-// them, output rounded to bf16.  Rows >= n_rows and rows flagged by
-// zero_row(row) are written as zeros.  One warp per row.
-template <typename ZeroRow>
-__device__ void layer_norm_rows(bf16* dst, int ld, const bf16* __restrict__ x,
-                                int row0, int rows, int n_rows, int C,
-                                const bf16* __restrict__ gamma,
-                                const bf16* __restrict__ beta, float eps,
-                                ZeroRow zero_row) {
+// LayerNorm of `rows` bf16 rows into dst (bf16, row stride ld): f32
+// statistics, gamma/beta in bf16 as the TPU kernels take them, output
+// rounded to bf16.  row_ptr(row) gives row `row0 + r`'s C values, in device
+// or shared memory.  Rows >= n_rows and rows flagged by zero_row(row) are
+// written as zeros.  One warp per row.
+template <typename RowPtr, typename ZeroRow>
+__device__ void layer_norm_rows_of(bf16* dst, int ld, RowPtr row_ptr, int row0,
+                                   int rows, int n_rows, int C,
+                                   const bf16* __restrict__ gamma,
+                                   const bf16* __restrict__ beta, float eps,
+                                   ZeroRow zero_row) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < rows; r += kWarps) {
     const int row = row0 + r;
@@ -135,7 +136,7 @@ __device__ void layer_norm_rows(bf16* dst, int ld, const bf16* __restrict__ x,
       for (int c = lane; c < C; c += 32) out[c] = __float2bfloat16(0.0f);
       continue;
     }
-    const bf16* xr = x + (size_t)row * C;
+    const bf16* xr = row_ptr(row);
     float s = 0.0f;
     for (int c = lane; c < C; c += 32) s += __bfloat162float(xr[c]);
     const float mu = warp_sum(s) / C;
@@ -151,6 +152,17 @@ __device__ void layer_norm_rows(bf16* dst, int ld, const bf16* __restrict__ x,
                                 __bfloat162float(beta[c]));
     }
   }
+}
+
+// layer_norm_rows_of on rows of x (bf16, row stride C) in device memory.
+template <typename ZeroRow>
+__device__ void layer_norm_rows(bf16* dst, int ld, const bf16* __restrict__ x,
+                                int row0, int rows, int n_rows, int C,
+                                const bf16* __restrict__ gamma,
+                                const bf16* __restrict__ beta, float eps,
+                                ZeroRow zero_row) {
+  layer_norm_rows_of(dst, ld, [=](int row) { return x + (size_t)row * C; },
+                     row0, rows, n_rows, C, gamma, beta, eps, zero_row);
 }
 
 // LayerNorm of `rows` f32 rows already in shared memory (src, row stride

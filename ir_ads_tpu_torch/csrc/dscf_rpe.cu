@@ -8,52 +8,71 @@
 // Replace ir_ads_tpu/ops/pallas_dscf_rpe.py:_rpe_rows_kernel (launched by
 // dscf_rpe_bias_rows_pallas) and _rpe_packed_kernel (launched by
 // dscf_rpe_bias_packed_pallas).  The TPU kernels write the bilinear form as
-// two dense hat-weight products because its matrix unit wants dense work;
-// a hat weight has only two non-zero taps per axis, so here each output is a
-// 2 x 2-tap bilinear form over the table, read through L1/L2.  The hat
-// weights are evaluated as max(0, 1 - |i - s|) exactly as the f32 twin does,
-// in f32; only the stored result is rounded to bf16.
+// two dense hat-weight products because its matrix unit wants dense work,
+// and round where a bf16 product would: the hat weights
+// max(0, 1 - |(ay*r - s) + by|) (that f32 order), the table and the partial
+// product u[s] = sum_t wx[t] T[s, t] go to bf16 before their f32 sums, the
+// output once.  A hat weight has at most two non-zero taps per axis and a
+// bf16 x bf16 product is exact in f32, so here each output is the 2 x 2-tap
+// form of the same sums, bit for bit: for the rows y0, y0+1 the hat touches,
+// u = bf16(wx0 T[s, x0] + wx1 T[s, x0+1]), then bf16(wy0 u0 + wy1 u1).  The
+// taps searched are the four around the sample index, since the weights'
+// order can move a tap's edge by an ulp.  The index arithmetic is written
+// with __fmul_rn / __fsub_rn / __fadd_rn: nvcc -O3 would contract
+// a*r - s into an FMA, skip the product's rounding, and one f32 ulp in a
+// weight can flip its bf16 rounding.  ay and ax come from the host, rounded
+// once from double as the TPU kernel's Python constants are.
 //
-// Bound on an H100: bytes (the bf16 output: about 16 flop per 2-byte output,
-// table reads hit the cache).  Design: one thread per output element,
-// consecutive threads along the minor output axis (the query column c for
-// K3, the flat query pixel for K6), so stores coalesce; both layouts share
-// one sampling routine.
+// Bound on an H100: bytes (the bf16 output: a few dozen flops per 2-byte
+// output, table reads hit the cache).  Design: one thread per output
+// element, consecutive threads along the minor output axis (the query
+// column c for K3, the flat query pixel for K6), so stores coalesce; both
+// layouts share one sampling routine.
 #include "common.cuh"
 
 using namespace port;
 
 namespace {
 
-// One output of the bias: the bilinear sample of table[bg % G, e] at the
-// displacement between query pixel (r, c) and key j, in f32.
+// bf16(max(0, 1 - |(a*i - s) + b|)), the TPU kernels' hat weight, in f32.
+__device__ __forceinline__ float hat(float a, int i, int s, float b) {
+  const float d = __fadd_rn(__fsub_rn(__fmul_rn(a, (float)i), (float)s), b);
+  return round_bf16(fmaxf(0.0f, __fsub_rn(1.0f, fabsf(d))));
+}
+
+// One output of the bias before its final rounding: the sample of
+// table[bg % G, e] at the displacement between query pixel (r, c) and key
+// j, with the TPU kernels' bf16 rounding points.
 __device__ __forceinline__ float rpe_sample(const float* __restrict__ pos,
                                             const float* __restrict__ table,
                                             int bg, int e, int j, int r, int c,
-                                            int G, int hg, int h, int M, int w,
-                                            int s1, int s2) {
-  const float ay = (s1 - 1.0f) / (2.0f * (h - 1.0f));
-  const float ax = (s2 - 1.0f) / (2.0f * (w - 1.0f));
+                                            int G, int hg, int M, int s1,
+                                            int s2, float ay, float ax) {
   const float* p = pos + ((size_t)bg * M + j) * 2;
-  const float by = (0.5f - 0.5f * p[0]) * 0.5f * (s1 - 1.0f);
-  const float bx = (0.5f - 0.5f * p[1]) * 0.5f * (s2 - 1.0f);
-  const float iy = ay * r + by;
-  const float ix = ax * c + bx;
-  const int y0 = (int)floorf(iy), x0 = (int)floorf(ix);
+  const float by = __fmul_rn(__fmul_rn(__fsub_rn(0.5f, 0.5f * p[0]), 0.5f), (float)(s1 - 1));
+  const float bx = __fmul_rn(__fmul_rn(__fsub_rn(0.5f, 0.5f * p[1]), 0.5f), (float)(s2 - 1));
+  const int y0 = (int)floorf(__fadd_rn(__fmul_rn(ay, (float)r), by)) - 1;
+  const int x0 = (int)floorf(__fadd_rn(__fmul_rn(ax, (float)c), bx)) - 1;
+  float wx[4];
+#pragma unroll
+  for (int dx = 0; dx < 4; ++dx) {
+    const int t = x0 + dx;
+    wx[dx] = (t < 0 || t >= s2) ? 0.0f : hat(ax, c, t, bx);
+  }
   const float* T = table + ((size_t)(bg % G) * hg + e) * s1 * s2;
   float acc = 0.0f;
 #pragma unroll
-  for (int dy = 0; dy < 2; ++dy) {
+  for (int dy = 0; dy < 4; ++dy) {
     const int s = y0 + dy;
     if (s < 0 || s >= s1) continue;
-    const float wy = fmaxf(0.0f, 1.0f - fabsf(iy - (float)s));
+    const float wy = hat(ay, r, s, by);
+    if (wy == 0.0f) continue;
+    float u = 0.0f;
 #pragma unroll
-    for (int dx = 0; dx < 2; ++dx) {
-      const int u = x0 + dx;
-      if (u < 0 || u >= s2) continue;
-      const float wx = fmaxf(0.0f, 1.0f - fabsf(ix - (float)u));
-      acc += wy * wx * T[s * s2 + u];
-    }
+    for (int dx = 0; dx < 4; ++dx)
+      if (wx[dx] != 0.0f)  // products of bf16 values: exact in f32
+        u = __fadd_rn(u, __fmul_rn(wx[dx], round_bf16(T[s * s2 + x0 + dx])));
+    acc = __fadd_rn(acc, __fmul_rn(wy, round_bf16(u)));
   }
   return acc;
 }
@@ -62,7 +81,7 @@ __device__ __forceinline__ float rpe_sample(const float* __restrict__ pos,
 __global__ void __launch_bounds__(kThreads)
 rpe_rows_kernel(const float* __restrict__ pos, const float* __restrict__ table,
                 bf16* __restrict__ out, long long total, int G, int hg, int h,
-                int M, int w, int s1, int s2) {
+                int M, int w, int s1, int s2, float ay, float ax) {
   const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (idx >= total) return;
   const int c = (int)(idx % w);
@@ -74,14 +93,14 @@ rpe_rows_kernel(const float* __restrict__ pos, const float* __restrict__ table,
   const int e = (int)(t % hg);
   const int bg = (int)(t / hg);
   out[idx] = __float2bfloat16(
-      rpe_sample(pos, table, bg, e, j, r, c, G, hg, h, M, w, s1, s2));
+      rpe_sample(pos, table, bg, e, j, r, c, G, hg, M, s1, s2, ay, ax));
 }
 
 // Packed layout (BG, hg, M, h*w): the query plane flat and minor.
 __global__ void __launch_bounds__(kThreads)
 rpe_packed_kernel(const float* __restrict__ pos, const float* __restrict__ table,
                   bf16* __restrict__ out, long long total, int G, int hg, int h,
-                  int M, int w, int s1, int s2) {
+                  int M, int w, int s1, int s2, float ay, float ax) {
   const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (idx >= total) return;
   const int hw = h * w;
@@ -92,31 +111,32 @@ rpe_packed_kernel(const float* __restrict__ pos, const float* __restrict__ table
   const int e = (int)(t % hg);
   const int bg = (int)(t / hg);
   out[idx] = __float2bfloat16(
-      rpe_sample(pos, table, bg, e, j, q / w, q % w, G, hg, h, M, w, s1, s2));
+      rpe_sample(pos, table, bg, e, j, q / w, q % w, G, hg, M, s1, s2, ay, ax));
 }
 
 }  // namespace
 
 extern "C" int dscf_rpe_rows(const void* pos, const void* table, void* out,
                              int BG, int G, int hg, int h, int M, int w, int s1,
-                             int s2, void* stream) {
+                             int s2, float ay, float ax, void* stream) {
   const long long total = (long long)BG * hg * h * M * w;
   const long long blocks = (total + kThreads - 1) / kThreads;
   rpe_rows_kernel<<<(unsigned)blocks, kThreads, 0,
                     static_cast<cudaStream_t>(stream)>>>(
       (const float*)pos, (const float*)table, (bf16*)out, total, G, hg, h, M,
-      w, s1, s2);
+      w, s1, s2, ay, ax);
   return (int)cudaGetLastError();
 }
 
 extern "C" int dscf_rpe_packed(const void* pos, const void* table, void* out,
                                int BG, int G, int hg, int h, int M, int w,
-                               int s1, int s2, void* stream) {
+                               int s1, int s2, float ay, float ax,
+                               void* stream) {
   const long long total = (long long)BG * hg * M * h * w;
   const long long blocks = (total + kThreads - 1) / kThreads;
   rpe_packed_kernel<<<(unsigned)blocks, kThreads, 0,
                       static_cast<cudaStream_t>(stream)>>>(
       (const float*)pos, (const float*)table, (bf16*)out, total, G, hg, h, M,
-      w, s1, s2);
+      w, s1, s2, ay, ax);
   return (int)cudaGetLastError();
 }

@@ -21,7 +21,8 @@
 //               + bias + residual x -> y.
 // The qkv and attention maps make one round trip through device memory (the
 // TPU kernel keeps them in VMEM); fusing them away is later work.  The LN1 +
-// qkv rows and the window attention are shared with K5 (window_block.cuh).
+// qkv rows, the window attention and the proj rows are shared with K5, K13
+// and K14 (window_block.cuh).
 #include "window_block.cuh"
 
 using namespace port;
@@ -44,29 +45,7 @@ proj_add_kernel(const bf16* __restrict__ att, const bf16* __restrict__ x,
                 const bf16* __restrict__ wproj, const bf16* __restrict__ bproj,
                 bf16* __restrict__ y, int T, int C) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int bm = rows_per_block(C);
-  const int lda = C + 8;
-  bf16* A_s = reinterpret_cast<bf16*>(smem);
-  float* F_s = reinterpret_cast<float*>(smem + align128((size_t)bm * lda * 2));
-  bf16* W_s = reinterpret_cast<bf16*>(
-      reinterpret_cast<unsigned char*>(F_s) + align128((size_t)bm * kLdF * 4));
-  const int row0 = blockIdx.x * bm;
-  for (int idx = threadIdx.x; idx < bm * C; idx += kThreads) {
-    const int r = idx / C, c = idx % C, row = row0 + r;
-    A_s[r * lda + c] = row < T ? att[(size_t)row * C + c] : __float2bfloat16(0.0f);
-  }
-  for (int n0 = 0; n0 < C; n0 += kBN) {
-    tile_gemm(F_s, kLdF, A_s, lda, bm, wproj + (size_t)n0 * C, C, kBN, C, C,
-              W_s, false);
-    for (int idx = threadIdx.x; idx < bm * kBN; idx += kThreads) {
-      const int r = idx / kBN, col = idx % kBN, row = row0 + r;
-      if (row < T) {
-        const size_t o = (size_t)row * C + n0 + col;
-        y[o] = __float2bfloat16(__bfloat162float(x[o]) + F_s[r * kLdF + col] +
-                                __bfloat162float(bproj[n0 + col]));
-      }
-    }
-  }
+  proj_add_rows(smem, att, x, wproj, bproj, y, T, C);
 }
 
 }  // namespace

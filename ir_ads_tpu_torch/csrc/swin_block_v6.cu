@@ -61,30 +61,8 @@ v6_attn_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ bqkv,
                bf16* __restrict__ att, int H, int W, int C, int heads, int ws,
                int shift, float scale) {
   extern __shared__ __align__(128) unsigned char smem[];
-  const int N = ws * ws;
-  const int Hp = (H + ws - 1) / ws * ws, Wp = (W + ws - 1) / ws * ws;
-  const int nww = Wp / ws, nW = (Hp / ws) * nww;
-  const int img = blockIdx.x / nW, win = blockIdx.x % nW;
-  const int wr = win / nww, wc = win % nww;
-  // token i of the rolled window holds position (r, c) of the padded map;
-  // returns its row of the real map, or -1 where it is padding
-  auto real = [&](int i) -> long long {
-    const int r = (wr * ws + i / ws + shift) % Hp;
-    const int c = (wc * ws + i % ws + shift) % Wp;
-    return (r < H && c < W) ? ((long long)img * H + r) * W + c : -1;
-  };
-  window_attention(
-      smem,
-      [&](int i) {
-        const long long t = real(i);
-        return t < 0 ? bqkv : qkv + t * (3 * C);
-      },
-      [&](int i) -> bf16* {
-        const long long t = real(i);
-        return t < 0 ? nullptr : att + t * C;
-      },
-      bias, region ? region + (size_t)win * N : nullptr, C, heads, ws,
-      blockIdx.y, scale);
+  real_map_window_attention(smem, qkv, bqkv, bias, region, att, H, W, C, heads,
+                            ws, shift, scale);
 }
 
 size_t proj_tail_smem(int C) {

@@ -1,14 +1,21 @@
-// Device code shared by the two Swin block kernels, K1 (swin_block.cu, the
-// half-block on the padded, rolled map) and K5 (swin_block_v6.cu, the whole
-// block on the real map):
+// Device code shared by the Swin block kernels: K1 (swin_block.cu, the
+// half-block on the padded, rolled map), K5 (swin_block_v6.cu, the whole
+// block on the real map), K10 (its int8 variant), K12 and K15
+// (window_attention_qkv.cu, attention on windowed and on map-layout qkv),
+// K13 (swin_block_v7.cu, K1's half-block and K2's tail in one pass) and K14
+// (swin_block_full.cu, K1's half-block on the real map):
 //   ln_qkv_rows       rows of a map: LN1 in f32 -> bf16 tile in shared
 //                     memory -> WMMA product with Wqkv -> qkv (bf16) rows;
 //   window_attention  one (window, head): scores, rel-pos bias, region mask,
 //                     softmax and P.V in shared memory, all WMMA.  Where the
 //                     window's tokens come from and where its output goes is
-//                     the caller's: K1 reads and writes the rolled map in
-//                     place (window_attn_kernel, which K10 launches too),
-//                     K5 folds pad, roll and crop into the indices.
+//                     the caller's:
+//     map_window_attention       reads and writes a padded, rolled map in
+//                                place (K1, K10, K13, K15);
+//     real_map_window_attention  folds pad, roll and crop into the indices
+//                                of the real map (K5, K14);
+//   proj_add_rows     rows: attention output tile -> WMMA product with
+//                     Wproj -> + bias + residual x -> y (K1, K14).
 #pragma once
 
 #include "common.cuh"
@@ -163,15 +170,16 @@ __device__ void window_attention(unsigned char* smem, Load load, Store store,
   }
 }
 
-// One block per (window of one image, head) of the padded, rolled (B, Hp,
-// Wp) map, read and written in place: the attention launch of K1 and of its
-// int8 variant K10.  Defined in every source that includes this header; only
-// those two launch it.
-__global__ void __launch_bounds__(kThreads)
-window_attn_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
-                   const int* __restrict__ region, bf16* __restrict__ att,
-                   int Hp, int Wp, int C, int heads, int ws, float scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
+// The block's (window of one image, head) of the padded, rolled (B, Hp, Wp)
+// map, read and written in place, for a grid of (B * nW, heads): token i of
+// window (b, wy, wx) is map row (b * Hp + wy * ws + i / ws) * Wp + wx * ws +
+// i % ws.  The window partition and reverse are this index arithmetic.
+__device__ void map_window_attention(unsigned char* smem,
+                                     const bf16* __restrict__ qkv,
+                                     const float* __restrict__ bias,
+                                     const int* __restrict__ region,
+                                     bf16* __restrict__ att, int Hp, int Wp,
+                                     int C, int heads, int ws, float scale) {
   const int N = ws * ws;
   const int nww = Wp / ws, nW = (Hp / ws) * nww;
   const int img = blockIdx.x / nW, win = blockIdx.x % nW;
@@ -185,6 +193,90 @@ window_attn_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
       [&](int i) { return att + token(i) * C; }, bias,
       region ? region + (size_t)win * N : nullptr, C, heads, ws, blockIdx.y,
       scale);
+}
+
+// The block's (window of the rolled padded map of one image, head), for a
+// grid of (B * nW, heads), over the REAL (B, H, W) map: token i of a window
+// reads the qkv row of the real position it rolls from, or the bias row
+// bqkv where that position is padding, and writes its output only where it
+// is real.  Pad, roll and crop are index arithmetic on loads and stores.
+__device__ void real_map_window_attention(unsigned char* smem,
+                                          const bf16* __restrict__ qkv,
+                                          const bf16* __restrict__ bqkv,
+                                          const float* __restrict__ bias,
+                                          const int* __restrict__ region,
+                                          bf16* __restrict__ att, int H, int W,
+                                          int C, int heads, int ws, int shift,
+                                          float scale) {
+  const int N = ws * ws;
+  const int Hp = (H + ws - 1) / ws * ws, Wp = (W + ws - 1) / ws * ws;
+  const int nww = Wp / ws, nW = (Hp / ws) * nww;
+  const int img = blockIdx.x / nW, win = blockIdx.x % nW;
+  const int wr = win / nww, wc = win % nww;
+  // token i of the rolled window holds position (r, c) of the padded map;
+  // returns its row of the real map, or -1 where it is padding
+  auto real = [&](int i) -> long long {
+    const int r = (wr * ws + i / ws + shift) % Hp;
+    const int c = (wc * ws + i % ws + shift) % Wp;
+    return (r < H && c < W) ? ((long long)img * H + r) * W + c : -1;
+  };
+  window_attention(
+      smem,
+      [&](int i) {
+        const long long t = real(i);
+        return t < 0 ? bqkv : qkv + t * (3 * C);
+      },
+      [&](int i) -> bf16* {
+        const long long t = real(i);
+        return t < 0 ? nullptr : att + t * C;
+      },
+      bias, region ? region + (size_t)win * N : nullptr, C, heads, ws,
+      blockIdx.y, scale);
+}
+
+// One block per (window of one image, head) of the padded, rolled map: the
+// attention launch of K1 and of its int8 variant K10.  Defined in every
+// source that includes this header; only those two launch it.
+__global__ void __launch_bounds__(kThreads)
+window_attn_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
+                   const int* __restrict__ region, bf16* __restrict__ att,
+                   int Hp, int Wp, int C, int heads, int ws, float scale) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  map_window_attention(smem, qkv, bias, region, att, Hp, Wp, C, heads, ws,
+                       scale);
+}
+
+// y[row] = round(x[row] + (att[row] @ Wproj^T) + bproj) for a tile of
+// rows_per_block(C) of T rows (the tile's: blockIdx.x); x and y are bf16,
+// the sum f32 and rounded once.  smem holds rows_smem(C).
+__device__ void proj_add_rows(unsigned char* smem, const bf16* __restrict__ att,
+                              const bf16* __restrict__ x,
+                              const bf16* __restrict__ wproj,
+                              const bf16* __restrict__ bproj,
+                              bf16* __restrict__ y, int T, int C) {
+  const int bm = rows_per_block(C);
+  const int lda = C + 8;
+  bf16* A_s = reinterpret_cast<bf16*>(smem);
+  float* F_s = reinterpret_cast<float*>(smem + align128((size_t)bm * lda * 2));
+  bf16* W_s = reinterpret_cast<bf16*>(
+      reinterpret_cast<unsigned char*>(F_s) + align128((size_t)bm * kLdF * 4));
+  const int row0 = blockIdx.x * bm;
+  for (int idx = threadIdx.x; idx < bm * C; idx += kThreads) {
+    const int r = idx / C, c = idx % C, row = row0 + r;
+    A_s[r * lda + c] = row < T ? att[(size_t)row * C + c] : __float2bfloat16(0.0f);
+  }
+  for (int n0 = 0; n0 < C; n0 += kBN) {
+    tile_gemm(F_s, kLdF, A_s, lda, bm, wproj + (size_t)n0 * C, C, kBN, C, C,
+              W_s, false);
+    for (int idx = threadIdx.x; idx < bm * kBN; idx += kThreads) {
+      const int r = idx / kBN, col = idx % kBN, row = row0 + r;
+      if (row < T) {
+        const size_t o = (size_t)row * C + n0 + col;
+        y[o] = __float2bfloat16(__bfloat162float(x[o]) + F_s[r * kLdF + col] +
+                                __bfloat162float(bproj[n0 + col]));
+      }
+    }
+  }
 }
 
 }  // namespace port

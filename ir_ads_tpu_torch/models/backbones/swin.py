@@ -1,7 +1,7 @@
 """Dual-stream Swin backbone with MAPA adapters, MPG prompting and DSCF
 deformable cross-modal fusion, NHWC.
 
-Counterpart of ir_ads_tpu/models/backbones/swin.py under seven of its
+Counterpart of ir_ads_tpu/models/backbones/swin.py under ten of its
 kernel configurations, chosen by explicit arguments (``DISPATCH``):
 
   r5 (the default; the JAX package's default dispatch on its chip and the
@@ -37,6 +37,15 @@ kernel configurations, chosen by explicit arguments (``DISPATCH``):
      xla.  DSCF: K3 + K4 at every level under r2, the einsum attention under
      r1 and xla; their einsum branch takes the XLA-form bias
      (``dscf_rpe.rpe_bias_xla``), as the bench leaves ``IR_ADS_DSCF_RPE3``.
+  v7_01, v5 and map (the JAX package's opt-in Swin block variants, as
+     ``IR_ADS_SWIN_ATTN`` selects them): v7_01 is r5 with the banded whole
+     block (K13, ops/swin_block_v7.py: K1's half-block and K2's tail in one
+     pass, on the padded, rolled map) at stages 0-1 (``dev/sweep_env.py``'s
+     variant of that name); v5 is r4 with the whole-map half-block (K14,
+     ops/swin_block_full.py: pad, roll and crop inside) in place of K1; map
+     is r2 with the attention on the qkv map (K15, ops/window_attention_map.py:
+     the window partition and reverse inside) between the module path's
+     qkv and proj linears.
 
 At every dispatch the DSCF rows path (K3 + K4) runs only where the 2n
 deformable keys are a multiple of 8, as the reference guards ``pallas3``;
@@ -81,11 +90,14 @@ from ir_ads_tpu_torch.ops.layers import (
 )
 from ir_ads_tpu_torch.ops.swin_block import window_block
 from ir_ads_tpu_torch.ops.swin_block_int8 import window_block_int8
+from ir_ads_tpu_torch.ops.swin_block_full import window_block_full
 from ir_ads_tpu_torch.ops.swin_block_v6 import window_block_v6
+from ir_ads_tpu_torch.ops.swin_block_v7 import window_block_v7
 from ir_ads_tpu_torch.ops.window_attention import (
     gather_rel_pos_bias, relative_position_index, shift_region_ids_on,
     shift_window_mask_on, window_attention, window_partition, window_reverse,
 )
+from ir_ads_tpu_torch.ops.window_attention_map import window_attention_map
 from ir_ads_tpu_torch.ops.window_attention_qkv import window_attention_qkv
 
 # (Swin block per stage, DSCF attention per level, block tail, int8, bias of
@@ -94,6 +106,9 @@ from ir_ads_tpu_torch.ops.window_attention_qkv import window_attention_qkv
 # bench sets no IR_ADS_FFN for r2, r1 and xla: on its chip ``_ffn_impl()``
 # is then "fused", K2.  It leaves IR_ADS_DSCF_RPE3 at "auto", the XLA form;
 # r5, r4, r4i8 and train take the packed kernel K6 (a recorded choice).
+# v7_01 (dev/sweep_env.py's variant of r5), v5 (r4 with pallas5) and map
+# (r2 with pallas_map) are the opt-in block variants with IR_ADS_FFN=fused,
+# v7_01 and v5 with IR_ADS_DSCF_RPE3=pallas.
 DISPATCH = {
     "r5": (("pallas4", "pallas4", "pallas6", "pallas6"),
            ("pallas3", "pallas3", "pallas3", "xla"), "fused", False, "pallas"),
@@ -104,9 +119,14 @@ DISPATCH = {
     "r2": (("pallas",) * 4, ("pallas3",) * 4, "fused", False, "xla"),
     "r1": (("pallas",) * 4, ("xla",) * 4, "fused", False, "xla"),
     "xla": (("xla",) * 4, ("xla",) * 4, "fused", False, "xla"),
+    "v7_01": (("pallas7", "pallas7", "pallas6", "pallas6"),
+              ("pallas3", "pallas3", "pallas3", "xla"), "fused", False, "pallas"),
+    "v5": (("pallas5",) * 4, ("pallas3",) * 4, "fused", False, "pallas"),
+    "map": (("pallas_map",) * 4, ("pallas3",) * 4, "fused", False, "xla"),
 }
-SWIN_ATTN = ("pallas4", "pallas6", "pallas", "xla")
-MODULE_ATTN = ("pallas", "xla")  # the module path: LN1, ShiftWindowMSA, residual
+SWIN_ATTN = ("pallas4", "pallas5", "pallas6", "pallas7", "pallas", "pallas_map", "xla")
+# the module path: LN1, ShiftWindowMSA, residual
+MODULE_ATTN = ("pallas", "pallas_map", "xla")
 DSCF_ATTN = ("pallas3", "xla")
 DSCF_RPE3 = ("pallas", "xla")
 FFN_IMPL = ("fused", "module")
@@ -144,7 +164,7 @@ class WindowMSA(nn.Module):
     def __init__(self, dim: int, num_heads: int, window_size: int):
         super().__init__()
         ws = window_size
-        self.num_heads = num_heads
+        self.num_heads, self.window_size = num_heads, ws
         self.relative_position_bias_table = nn.Parameter(
             torch.zeros((2 * ws - 1) ** 2, num_heads)
         )
@@ -158,19 +178,24 @@ class WindowMSA(nn.Module):
     def forward(self, x: torch.Tensor, attn_impl: str,
                 mask: Optional[torch.Tensor] = None,
                 region: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """x: (B*nW, N, C) windows.  ``"pallas"``: K12 on the unsplit qkv
-        with the region ids (None when unshifted, where the reference's zero
-        region masks nothing); ``"xla"``: ``window_attention`` with the
-        dense ``mask``.  Returns (B*nW, N, C)."""
-        bn, n, c = x.shape
+        """x: (B*nW, N, C) windows, or the (B, Hp, Wp, C) map under
+        ``"pallas_map"``.  ``"pallas"``: K12 on the unsplit qkv with the
+        region ids (None when unshifted, where the reference's zero region
+        masks nothing); ``"pallas_map"``: K15 on the qkv map, likewise;
+        ``"xla"``: ``window_attention`` with the dense ``mask``.  Returns x's
+        shape."""
+        c = x.shape[-1]
         heads = self.num_heads
         scale = (c // heads) ** -0.5
         qkv = linear(x, self.qkv)
         bias = gather_rel_pos_bias(self.relative_position_bias_table,
                                    self.relative_position_index)
-        if attn_impl == "pallas":
+        if attn_impl == "pallas_map":
+            out = window_attention_map(qkv, bias, region, scale, heads, self.window_size)
+        elif attn_impl == "pallas":
             out = window_attention_qkv(qkv, bias, region, scale, heads)
         else:
+            bn, n = x.shape[:2]
             qkv = qkv.reshape(bn, n, 3, heads, c // heads)
             q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
             out = window_attention(q, k, v, bias, mask, scale)
@@ -180,7 +205,8 @@ class WindowMSA(nn.Module):
 
 class ShiftWindowMSA(nn.Module):
     """Pad -> cyclic shift -> window partition -> W-MSA -> reverse -> shift
-    back -> crop, on an NHWC map (the reference's module path)."""
+    back -> crop, on an NHWC map (the reference's module path); under
+    ``"pallas_map"`` no partition and reverse: K15 takes the map."""
 
     def __init__(self, dim: int, num_heads: int, window_size: int, shift: int = 0):
         super().__init__()
@@ -197,6 +223,8 @@ class ShiftWindowMSA(nn.Module):
             mask = shift_window_mask_on(hp, wp, ws, shift, x.device)
         elif shift:
             region = shift_region_ids_on(hp, wp, ws, shift, x.device)
+        if attn_impl == "pallas_map":
+            return unroll_and_crop(self.w_msa(x, attn_impl, None, region), h, w, shift)
         wins = self.w_msa(window_partition(x, ws), attn_impl, mask, region)
         return unroll_and_crop(window_reverse(wins, ws, hp, wp), h, w, shift)
 
@@ -224,12 +252,16 @@ class SwinBlockAdapter(nn.Module):
     Adapter(y), by K2 (``ffn_impl="fused"``) or as modules under autograd
     (``"module"``, the training tail: drop-path on the attention and FFN
     branches and dropout inside the adapter while ``training``).
-    ``pallas6``: the whole block by K5 on the real map.  ``int8`` (with
-    pallas4 and the fused tail only): K10 in place of K1 and K11 in place of
-    K2, from the s8 weights ``quantize_int8_`` makes.  ``pallas`` and
+    ``pallas5``: y by K14 on the real map (pad, roll and crop inside), then
+    K2.  ``pallas6``: the whole block by K5 on the real map.  ``pallas7``:
+    the whole block by K13 on the padded, rolled map (K1's half-block, then
+    K2's tail on its rounded output).  ``int8`` (with pallas4 and the fused
+    tail only): K10 in place of K1 and K11 in place of K2, from the s8
+    weights ``quantize_int8_`` makes.  ``pallas``, ``pallas_map`` and
     ``xla`` (with the fused tail only): the module path, y = h + x with h =
     ShiftWindowMSA(LN1 x) rounded at the proj output and the residual a
-    rounded add (K1 instead keeps the residual in f32), then K2."""
+    rounded add (K1 instead keeps the residual in f32), then K2.  pallas5,
+    pallas6 and pallas7 are eval kernels, as the fused tail is."""
 
     def __init__(self, dim, num_heads, ffn_dim, window_size, shift,
                  adapter_ratio=0.0625, attn_impl="pallas4", ffn_impl="fused",
@@ -237,8 +269,8 @@ class SwinBlockAdapter(nn.Module):
         super().__init__()
         _require(attn_impl, SWIN_ATTN, "attn_impl")
         _require(ffn_impl, FFN_IMPL, "ffn_impl")
-        if attn_impl == "pallas6" and ffn_impl != "fused":
-            raise NotImplementedError("pallas6 is the whole block: ffn_impl must be 'fused'")
+        if attn_impl in ("pallas5", "pallas6", "pallas7") and ffn_impl != "fused":
+            raise NotImplementedError(f"{attn_impl} is an eval kernel: ffn_impl must be 'fused'")
         if int8 and (attn_impl, ffn_impl) != ("pallas4", "fused"):
             raise NotImplementedError("int8 runs the pallas4 half-block and the fused tail only")
         if attn_impl in MODULE_ATTN and ffn_impl != "fused":
@@ -270,24 +302,26 @@ class SwinBlockAdapter(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         b, h, w, c = x.shape
         ws, shift = self.window_size, self.shift
-        msa = self.attn.w_msa
         ad = self.MLP_RGB_Adapter if sub_mode == "rgb" else self.MLP_DTE_Adapter
         f1, f2 = self.ffn.layers[0][0], self.ffn.layers[1]
+        geo = ((c // self.num_heads) ** -0.5, self.num_heads, ws)
         if self.attn_impl == "pallas6":
             # pad, roll and crop are index arithmetic inside K5
-            hp, wp = -(-h // ws) * ws, -(-w // ws) * ws
-            region = shift_region_ids_on(hp, wp, ws, shift, x.device) if shift else None
-            return window_block_v6(
-                x,
-                (self.norm1.weight, self.norm1.bias, msa.qkv.weight,
-                 msa.qkv.bias, msa.proj.weight, msa.proj.bias, self._rel_pos_bias()),
-                (self.norm2.weight, self.norm2.bias, f1.weight, f1.bias,
-                 f2.weight, f2.bias, ad.D_fc1.weight, ad.D_fc1.bias,
-                 ad.D_fc2.weight, ad.D_fc2.bias),
-                region, (c // self.num_heads) ** -0.5, self.num_heads, ws, shift,
-            )
+            return window_block_v6(x, self._attn_params(), self._tail_params(ad),
+                                   self._region(h, w, x.device), *geo, shift)
+        if self.attn_impl == "pallas7":
+            # pad and roll, K13, un-roll and crop: the tail runs in rolled
+            # coordinates, exact at every real position (it is per token)
+            out = window_block_v7(pad_and_roll(x, ws, shift), self._attn_params(),
+                                  self._tail_params(ad), self._region(h, w, x.device),
+                                  *geo, h, w, shift)
+            return unroll_and_crop(out, h, w, shift)
         if self.attn_impl in MODULE_ATTN:
             y = self.attn(layer_norm(x, self.norm1), self.attn_impl) + x
+        elif self.attn_impl == "pallas5":
+            # pad, roll and crop are index arithmetic inside K14
+            y = window_block_full(x, *self._attn_params(), self._region(h, w, x.device),
+                                  *geo, shift)
         else:
             y = self._half_block(x)
         if self.int8:
@@ -298,11 +332,7 @@ class SwinBlockAdapter(nn.Module):
             )
             return out.reshape(b, h, w, c)
         if self.ffn_impl == "fused":
-            out = block_tail(
-                y.contiguous().reshape(-1, c), self.norm2.weight, self.norm2.bias, f1.weight,
-                f1.bias, f2.weight, f2.bias, ad.D_fc1.weight, ad.D_fc1.bias,
-                ad.D_fc2.weight, ad.D_fc2.bias,
-            )
+            out = block_tail(y.contiguous().reshape(-1, c), *self._tail_params(ad))
             return out.reshape(b, h, w, c)
         rate = self.drop_path_rate if self.training else 0.0
         if rate > 0.0:
@@ -317,28 +347,45 @@ class SwinBlockAdapter(nn.Module):
         return gather_rel_pos_bias(msa.relative_position_bias_table,
                                    msa.relative_position_index)
 
+    def _attn_params(self) -> Tuple[torch.Tensor, ...]:
+        """LN1, qkv, proj and the gathered rel-pos bias, in the order the
+        block kernels take them."""
+        msa = self.attn.w_msa
+        return (self.norm1.weight, self.norm1.bias, msa.qkv.weight, msa.qkv.bias,
+                msa.proj.weight, msa.proj.bias, self._rel_pos_bias())
+
+    def _tail_params(self, ad: Adapter) -> Tuple[torch.Tensor, ...]:
+        """LN2, FFN and the stream's adapter, in the order the tail kernels
+        take them."""
+        f1, f2 = self.ffn.layers[0][0], self.ffn.layers[1]
+        return (self.norm2.weight, self.norm2.bias, f1.weight, f1.bias, f2.weight, f2.bias,
+                ad.D_fc1.weight, ad.D_fc1.bias, ad.D_fc2.weight, ad.D_fc2.bias)
+
+    def _region(self, h: int, w: int, device) -> Optional[torch.Tensor]:
+        """Shift-region ids of the h x w map padded to whole windows, or None
+        for an unshifted block."""
+        ws = self.window_size
+        if not self.shift:
+            return None
+        return shift_region_ids_on(-(-h // ws) * ws, -(-w // ws) * ws, ws, self.shift, device)
+
     def _half_block(self, x: torch.Tensor) -> torch.Tensor:
         """y = x + W-MSA(LN1 x) by K1 (K10 under int8) on the padded, rolled
         map; the pad, the roll and the crop around it."""
         b, h, w, c = x.shape
         ws, shift = self.window_size, self.shift
         msa = self.attn.w_msa
-        bias, scale = self._rel_pos_bias(), (c // self.num_heads) ** -0.5
+        scale, region = (c // self.num_heads) ** -0.5, self._region(h, w, x.device)
         xm = pad_and_roll(x, ws, shift)
-        hp, wp = xm.shape[1:3]
-        region = shift_region_ids_on(hp, wp, ws, shift, x.device) if shift else None
         if self.int8:
             y = window_block_int8(
                 xm, self.norm1.weight, self.norm1.bias, *int8_weight(self, "qkv"),
-                msa.qkv.bias, *int8_weight(self, "proj"), msa.proj.bias, bias, region,
-                scale, self.num_heads, ws, h, w, shift,
+                msa.qkv.bias, *int8_weight(self, "proj"), msa.proj.bias, self._rel_pos_bias(),
+                region, scale, self.num_heads, ws, h, w, shift,
             )
         else:
-            y = window_block(
-                xm, self.norm1.weight, self.norm1.bias, msa.qkv.weight,
-                msa.qkv.bias, msa.proj.weight, msa.proj.bias, bias, region,
-                scale, self.num_heads, ws, h, w, shift,
-            )
+            y = window_block(xm, *self._attn_params(), region, scale, self.num_heads, ws, h, w,
+                             shift)
         return unroll_and_crop(y, h, w, shift)
 
 

@@ -6,8 +6,9 @@ ensembling predictor can sum before one bilinear upsample (exact by
 linearity), as the JAX eval path does.  ``dispatch`` names the backbone's
 kernel configuration (``swin.DISPATCH``): ``"r5"``, the default, ``"r4"``,
 ``"r4i8"`` (w8a8: backbone and heads; call ``ops.int8.quantize_int8_`` once
-the weights are loaded), or the module-path sets ``"r2"``, ``"r1"`` and
-``"xla"`` for eval, ``"train"`` for a model that takes gradients.  Under ``"train"``,
+the weights are loaded), the module-path sets ``"r2"``, ``"r1"`` and
+``"xla"``, or the block variants ``"v7_01"``, ``"v5"`` and ``"map"`` for eval,
+``"train"`` for a model that takes gradients.  Under ``"train"``,
 in train mode, the MMST modality mask, drop-path, adapter dropout and the
 heads' dropout (``head_drop``) draw from ``forward``'s ``generator``.
 """

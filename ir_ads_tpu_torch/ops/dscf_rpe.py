@@ -8,10 +8,12 @@ CUDA source is csrc/dscf_rpe.cu; its header states the bound and the design.
 BG = B * G is group-minor: row bg uses table group bg % G.
 
 ``rpe_bias_rows`` launches the kernel for CUDA tensors and runs
-``rpe_bias_rows_reference``, the plain version (the twin's hat-weight
-products, in f32), only for CPU tensors.  The kernel computes in f32 and
-rounds once to bf16 on store; against the f32 twin it agrees to bf16
-rounding (relative 2^-8) on top of the twin tests' 1e-5.
+``rpe_bias_rows_reference``, the plain version, only for CPU tensors.  In
+bf16 it rounds where the TPU kernel does (``rpe_bias_bf16``): the hat
+weights, in the TPU kernel's f32 order, the table and the partial product u
+are rounded to bf16 before their f32 sums, and the output once; the CUDA
+kernel computes the same in its 2 x 2-tap form, bit for bit.  In f32 it is
+the twin's hat-weight products (``rpe_bias_f32``).
 
 ``rpe_bias_rows`` is differentiable in ``pos`` and ``table``: its backward
 recomputes the bias through ``rpe_bias_f32`` under autograd, as the JAX
@@ -26,10 +28,10 @@ from __future__ import annotations
 
 import torch
 
-from ir_ads_tpu_torch.ops.cuda_lib import INT, VOIDP, CudaKernel, check_cuda, ptr
+from ir_ads_tpu_torch.ops.cuda_lib import FLOAT, INT, VOIDP, CudaKernel, check_cuda, ptr
 
 KERNEL = CudaKernel(
-    "dscf_rpe", "dscf_rpe_rows", [VOIDP] * 3 + [INT] * 8,
+    "dscf_rpe", "dscf_rpe_rows", [VOIDP] * 3 + [INT] * 8 + [FLOAT] * 2,
     replaces="ir_ads_tpu/ops/pallas_dscf_rpe.py:182",
 )
 
@@ -55,9 +57,43 @@ def rpe_bias_f32(pos, table, h, w, order):
     return torch.einsum(f"bmhs,bmesw->{order}", wy, u)
 
 
+def hat_slopes(s1, s2, h, w):
+    """(ay, ax): the sample index's step per query row and column, in f32
+    as the TPU kernels take them (a Python double rounded once)."""
+    return (float(torch.tensor((s1 - 1.0) / (2.0 * (h - 1.0)), dtype=torch.float32)),
+            float(torch.tensor((s2 - 1.0) / (2.0 * (w - 1.0)), dtype=torch.float32)))
+
+
+def rpe_bias_bf16(pos, table, h, w, order):
+    """The bias with the TPU kernels' bf16 rounding points, before its final
+    rounding: the hat weights max(0, 1 - |(ay*r - s) + by|) in that f32
+    order, rounded to bf16; the table rounded to bf16; u[s] = sum_t wx T[s,t]
+    summed in f32 and rounded to bf16; sum_s wy u[s] in f32.  Output axes in
+    ``order`` over (b, e, m, h, w) = (BG, hg, M, h, w)."""
+    bg, m, _ = pos.shape
+    g, hg, s1, s2 = table.shape
+    dev, f32, bf16 = pos.device, torch.float32, torch.bfloat16
+    ay, ax = (torch.tensor(a, dtype=f32, device=dev) for a in hat_slopes(s1, s2, h, w))
+    ar = lambda n: torch.arange(n, dtype=f32, device=dev)  # noqa: E731
+    pos = pos.float()
+    by = (0.5 - 0.5 * pos[..., 0]) * 0.5 * (s1 - 1.0)  # (BG, M)
+    bx = (0.5 - 0.5 * pos[..., 1]) * 0.5 * (s2 - 1.0)
+    base_y = ay * ar(h)[:, None] - ar(s1)  # (h, S1)
+    base_x = ax * ar(w)[:, None] - ar(s2)  # (w, S2)
+    wy = torch.clamp(1.0 - (base_y + by[..., None, None]).abs(), min=0.0)  # (BG,M,h,S1)
+    wx = torch.clamp(1.0 - (base_x + bx[..., None, None]).abs(), min=0.0)  # (BG,M,w,S2)
+    wy, wx = wy.to(bf16).float(), wx.to(bf16).float()
+    tb = table.to(bf16).float()[torch.arange(bg, device=dev) % g]  # (BG, hg, S1, S2)
+    # bf16 x bf16 products are exact in f32; the sums round once each
+    u = torch.einsum("best,bmwt->bmesw", tb, wx).to(bf16).float()
+    return torch.einsum(f"bmhs,bmesw->{order}", wy, u)
+
+
 def rpe_bias_rows_reference(pos, table, h, w, out_dtype):
-    """Plain PyTorch version: separable hat-weight products in f32."""
-    return rpe_bias_f32(pos, table, h, w, "behmw").to(out_dtype)  # (BG, hg, h, M, w)
+    """Plain PyTorch version: the TPU kernel's bf16 rounding points when it
+    stores bf16, else the hat-weight products in f32."""
+    build = rpe_bias_bf16 if out_dtype == torch.bfloat16 else rpe_bias_f32
+    return build(pos, table, h, w, "behmw").to(out_dtype)  # (BG, hg, h, M, w)
 
 
 class RpeBias(torch.autograd.Function):
@@ -95,7 +131,8 @@ def _rows_forward(pos, table, h, w, out_dtype):
     bg, m, _ = pos.shape
     g, hg, s1, s2 = table.shape
     out = torch.empty((bg, hg, h, m, w), dtype=out_dtype, device=pos.device)
-    KERNEL.call(ptr(pos), ptr(table), ptr(out), bg, g, hg, h, m, w, s1, s2)
+    KERNEL.call(ptr(pos), ptr(table), ptr(out), bg, g, hg, h, m, w, s1, s2,
+                *hat_slopes(s1, s2, h, w))
     return out
 
 

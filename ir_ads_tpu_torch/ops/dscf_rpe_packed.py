@@ -10,9 +10,10 @@ K3's and shares its sampling routine; the header states the bound and the
 design.  BG = B * G is group-minor: row bg uses table group bg % G.
 
 ``rpe_bias_packed`` launches the kernel for CUDA tensors and runs
-``rpe_bias_packed_reference``, the plain version (the twin's hat-weight
-products, in f32), only for CPU tensors.  The kernel computes in f32 and
-rounds once to bf16 on store.  ``rpe_bias_packed`` is differentiable in
+``rpe_bias_packed_reference``, the plain version, only for CPU tensors: in
+bf16 K3's ``rpe_bias_bf16`` (the TPU kernel's rounding points, which the
+CUDA kernel computes bit for bit), in f32 the twin's hat-weight products.
+``rpe_bias_packed`` is differentiable in
 ``pos`` and ``table`` through ``dscf_rpe.RpeBias`` (a recompute through
 ``rpe_bias_f32`` under autograd).
 """
@@ -21,18 +22,20 @@ from __future__ import annotations
 
 import torch
 
-from ir_ads_tpu_torch.ops.cuda_lib import INT, VOIDP, CudaKernel, check_cuda, ptr
-from ir_ads_tpu_torch.ops.dscf_rpe import RpeBias, rpe_bias_f32
+from ir_ads_tpu_torch.ops.cuda_lib import FLOAT, INT, VOIDP, CudaKernel, check_cuda, ptr
+from ir_ads_tpu_torch.ops.dscf_rpe import RpeBias, hat_slopes, rpe_bias_bf16, rpe_bias_f32
 
 KERNEL = CudaKernel(
-    "dscf_rpe_packed", "dscf_rpe_packed", [VOIDP] * 3 + [INT] * 8,
+    "dscf_rpe_packed", "dscf_rpe_packed", [VOIDP] * 3 + [INT] * 8 + [FLOAT] * 2,
     replaces="ir_ads_tpu/ops/pallas_dscf_rpe.py:317", unit="dscf_rpe",
 )
 
 
 def rpe_bias_packed_reference(pos, table, h, w, out_dtype):
-    """Plain PyTorch version: separable hat-weight products in f32."""
-    bias = rpe_bias_f32(pos, table, h, w, "bemhw")  # (BG, hg, M, h, w)
+    """Plain PyTorch version: the TPU kernel's bf16 rounding points when it
+    stores bf16, else the hat-weight products in f32."""
+    build = rpe_bias_bf16 if out_dtype == torch.bfloat16 else rpe_bias_f32
+    bias = build(pos, table, h, w, "bemhw")  # (BG, hg, M, h, w)
     return bias.flatten(3).to(out_dtype)
 
 
@@ -46,7 +49,8 @@ def _packed_forward(pos, table, h, w, out_dtype):
     bg, m, _ = pos.shape
     g, hg, s1, s2 = table.shape
     out = torch.empty((bg, hg, m, h * w), dtype=out_dtype, device=pos.device)
-    KERNEL.call(ptr(pos), ptr(table), ptr(out), bg, g, hg, h, m, w, s1, s2)
+    KERNEL.call(ptr(pos), ptr(table), ptr(out), bg, g, hg, h, m, w, s1, s2,
+                *hat_slopes(s1, s2, h, w))
     return out
 
 

@@ -29,7 +29,12 @@ from ir_ads_tpu_torch.ops.cuda_lib import (
 )
 from ir_ads_tpu_torch.ops.window_attn_bwd import window_attention_bwd
 from ir_ads_tpu_torch.ops.window_attention import window_partition, window_reverse
-from ir_ads_tpu_torch.ops.window_attention_qkv import window_attention_qkv_reference
+# W-MSA of a (B, Hp, Wp, 3C) qkv map as the TPU kernels round it: K15's plain
+# version, K12's on the map's windows; K1's, K5's, K10's and K14's plain
+# versions attend through it
+from ir_ads_tpu_torch.ops.window_attention_map import (
+    window_attention_map_reference as window_attention_reference,
+)
 
 KERNEL = CudaKernel(
     "swin_block", "swin_window_block", [VOIDP] * 12 + [INT] * 9 + [FLOAT] * 2,
@@ -64,15 +69,6 @@ def window_block_reference(
     att = window_attention_reference(qkv, bias, region, scale, heads, ws)
     out = up(att) @ up(wproj).t() + up(bproj)
     return (xf + out).to(cdt)
-
-
-def window_attention_reference(qkv, bias, region, scale, heads, ws):
-    """W-MSA of a (B, Hp, Wp, 3C) qkv map in the compute dtype, as the TPU
-    kernels round it: K12's plain version (``window_attention_qkv``) on its
-    windows.  Returns (B, Hp, Wp, C)."""
-    hp, wp = qkv.shape[1:3]
-    out = window_attention_qkv_reference(window_partition(qkv, ws), bias, region, scale, heads)
-    return window_reverse(out, ws, hp, wp)
 
 
 def _forward(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, region, scale,

@@ -9,7 +9,8 @@ ensemble, fused-head logits at H/4 upsampled once).  Runs on the GPU unless
 the caller passes ``device="cpu"``, under the ``r5`` kernel dispatch unless
 the caller passes another of models/backbones/swin.py's ``DISPATCH``: ``"r4"``,
 ``"r4i8"`` (w8a8, its weights quantized from the f32 ones before the cast to
-the compute dtype), or the module-path sets ``"r2"``, ``"r1"`` and ``"xla"``.
+the compute dtype), the module-path sets ``"r2"``, ``"r1"`` and ``"xla"``, or
+the block variants ``"v7_01"``, ``"v5"`` and ``"map"``.
 
 ``DetPredictor``: counterpart of ``train_net.evaluate_detector``'s ``_infer``
 around the vCLR deformable-mask DINO detector (``configs/detection/

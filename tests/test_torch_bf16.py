@@ -17,8 +17,11 @@ tests/test_torch_det_bf16.py.
 The DSCF guard: JAX runs its rows kernels (pallas3) only where the 2n
 deformable keys are a multiple of 8 and takes the einsum branch with its
 XLA-form bias elsewhere; so does the port.  On identical bf16 q, k, v and
-offsets the port's einsum branch is bit-equal to JAX's, while the rows path
-differs by about 4e-3.
+offsets the port's einsum branch is bit-equal to JAX's, with the XLA-form
+bias and with the packed kernel's (K6's plain version, which rounds the hat
+weights, the table and the partial product as the Pallas kernel does),
+while the rows path differs by about 2.8e-3 (4.0e-3 while K3 summed the
+bias in f32 and rounded once).
 """
 
 import jax
@@ -172,12 +175,15 @@ def test_dscf_takes_the_einsum_branch_where_2n_is_not_a_multiple_of_8(monkeypatc
     np.testing.assert_allclose(got, np.asarray(want), atol=2e-4, rtol=2e-4)
 
 
-def test_dscf_einsum_branch_is_jax_bf16_and_the_rows_path_is_not(monkeypatch):
+def _dscf_cores(monkeypatch, rpe3):
     """bf16, n = 6: the attention core (what enters proj_out) on identical
-    q, k, v and offsets, forced into both modules.  The port's einsum branch
-    with the XLA-form bias is JAX's bit for bit; the rows path (K3 + K4,
-    which the port ran here before the guard) rounds the bias elsewhere."""
-    monkeypatch.setenv("IR_ADS_DSCF_RPE3", "xla")
+    q, k, v and offsets, forced into both modules, with the einsum branch's
+    bias in the XLA form (``rpe3="xla"``) or from the packed kernel (JAX's
+    Pallas kernel in interpret mode, the port's K6 plain version).  Returns
+    JAX's core and the port's as a function of whether it takes the rows
+    path."""
+    monkeypatch.setenv("IR_ADS_DSCF_RPE3", rpe3)
+    monkeypatch.setenv("IR_ADS_PALLAS_INTERPRET", "1")
     rng = np.random.RandomState(60)
     b, h, w, c, g = 2, 8, 12, 32, 2
     x, y = (rng.randn(b, h, w, c).astype(np.float32) for _ in range(2))
@@ -215,7 +221,7 @@ def test_dscf_einsum_branch_is_jax_bf16_and_the_rows_path_is_not(monkeypatch):
             return self.a
 
     def port_core(rows):
-        port = tswin.DAttentionMM(32, 4, 2, 4, rpe3="xla").eval()
+        port = tswin.DAttentionMM(32, 4, 2, 4, rpe3=rpe3).eval()
         port.load_state_dict(from_flax(v))
         cast_model_(port, BF16)
         pointwise = port._pointwise
@@ -223,7 +229,7 @@ def test_dscf_einsum_branch_is_jax_bf16_and_the_rows_path_is_not(monkeypatch):
             torch.from_numpy(forced[name]).to(BF16) if name in forced else pointwise(name, conv, t))
         port.conv_offset_x = Fixed(forced["conv_offset_x"])
         port.conv_offset_y = Fixed(forced["conv_offset_y"])
-        assert not port.rows_path(n)
+        assert not port.rows_path(n) and port.bias_kernel(h, w) == (rpe3 == "pallas")
         port.rows_path = lambda n: rows
         seen = {}
         monkeypatch.setattr(tswin, "pointwise", lambda conv, t: (
@@ -233,7 +239,23 @@ def test_dscf_einsum_branch_is_jax_bf16_and_the_rows_path_is_not(monkeypatch):
             port(torch.from_numpy(x).to(BF16), torch.from_numpy(y).to(BF16))
         return seen["core"]
 
-    np.testing.assert_array_equal(port_core(rows=False), core["jax"])
-    rows = _rel(port_core(rows=True), core["jax"])
+    return core["jax"], port_core
+
+
+def test_dscf_einsum_branch_is_jax_bf16_and_the_rows_path_is_not(monkeypatch):
+    """The port's einsum branch with the XLA-form bias is JAX's bit for bit;
+    the rows path (K3 + K4, which the port ran here before the guard)
+    computes the bias in another layout and attends online, so it differs."""
+    want, port_core = _dscf_cores(monkeypatch, "xla")
+    np.testing.assert_array_equal(port_core(rows=False), want)
+    rows = _rel(port_core(rows=True), want)
     print(f"the rows path against JAX's einsum branch: {rows:.3e}")
     assert rows > 1e-3
+
+
+def test_dscf_einsum_branch_with_the_packed_bias_is_jax_bf16(monkeypatch):
+    """``IR_ADS_DSCF_RPE3=pallas`` and ``rpe3="pallas"``: the bias from the
+    packed kernel (JAX's ``_rpe_packed_kernel`` interpreted, the port's K6
+    plain version), then the same einsum attention: bit for bit."""
+    want, port_core = _dscf_cores(monkeypatch, "pallas")
+    np.testing.assert_array_equal(port_core(rows=False), want)

@@ -209,12 +209,12 @@ def test_rpe_rows_bf16_matches_rows_kernel():
         j_chunk=4, interpret=True), np.float32)
     got = rpe_bias_rows(_t(pos), _t(table), h, w, torch.bfloat16)
     assert got.dtype == torch.bfloat16
-    # In bf16 the TPU kernel rounds the table, both hat weights and the
-    # partial product u to bf16 (2^-9 relative each) before one rounding of
-    # the output; the port samples in f32 and rounds once.  Bar: four
-    # 2^-9 roundings of the largest table value plus two output ulps.
-    bar = 4 * 2.0 ** -9 * np.abs(table).max() + 2.0 ** -7 * np.abs(want)
-    assert (np.abs(got.float().numpy() - want) <= bar).all()
+    # In bf16 the TPU kernel rounds the table, both hat weights (computed as
+    # (ay*r - s) + by in f32) and the partial product u to bf16 before its
+    # f32 sums; the plain version rounds at the same points.  Each sum has
+    # at most two non-zero terms, each an exact bf16 x bf16 product, so no
+    # summation order can part them: bit-equal.
+    np.testing.assert_array_equal(got.float().numpy(), want)
 
 
 @pytest.mark.parametrize("packed", [False, True])
@@ -353,7 +353,6 @@ def test_rpe_packed_bf16_matches_packed_kernel():
         interpret=True), np.float32)
     got = rpe_bias_packed(_t(pos), _t(table), h, w, torch.bfloat16)
     assert got.dtype == torch.bfloat16
-    # as for K3: the TPU kernel rounds the table, both hat weights and u to
-    # bf16 before one rounding of the output; the port samples in f32
-    bar = 4 * 2.0 ** -9 * np.abs(table).max() + 2.0 ** -7 * np.abs(want)
-    assert (np.abs(got.float().numpy() - want) <= bar).all()
+    # as for K3: the same bf16 rounding points as the TPU kernel, sums of at
+    # most two exact products: bit-equal
+    np.testing.assert_array_equal(got.float().numpy(), want)

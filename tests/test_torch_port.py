@@ -1,6 +1,6 @@
 """Ground rules of the PyTorch port: no JAX inside it, the GPU by default,
-the r5 kernel dispatch by default, r4, r4i8, train, r2, r1 and xla on
-request (nothing else), the
+the r5 kernel dispatch by default, r4, r4i8, train, r2, r1, xla, v7_01, v5
+and map on request (nothing else), the
 sliding-window wrapper's overlap arithmetic against the JAX one."""
 
 import ast
@@ -17,7 +17,8 @@ from ir_ads_tpu_torch.models.backbones import swin as tswin
 from ir_ads_tpu_torch.models.cmnext import CMNeXt
 from ir_ads_tpu_torch.ops import (
     block_tail, block_tail_int8, dscf_rows, dscf_rows_bwd, dscf_rpe, dscf_rpe_packed, msdeform,
-    swin_block, swin_block_int8, swin_block_v6, window_attention_qkv, window_attn_bwd,
+    swin_block, swin_block_full, swin_block_int8, swin_block_v6, swin_block_v7,
+    window_attention_map, window_attention_qkv, window_attn_bwd,
 )
 from ir_ads_tpu_torch.serve import IMAGENET_MEAN, IMAGENET_STD, SemSegPredictor
 
@@ -72,7 +73,14 @@ def test_only_the_r5_and_r4_dispatches_are_accepted():
     assert tswin.DISPATCH["r2"] == (("pallas",) * 4, ("pallas3",) * 4, "fused", False, "xla")
     assert tswin.DISPATCH["r1"] == (("pallas",) * 4, ("xla",) * 4, "fused", False, "xla")
     assert tswin.DISPATCH["xla"] == (("xla",) * 4, ("xla",) * 4, "fused", False, "xla")
-    assert set(tswin.DISPATCH) == {"r5", "r4", "r4i8", "train", "r2", "r1", "xla"}
+    # the opt-in block variants: r5 with pallas7 at stages 0-1, r4 with
+    # pallas5, r2 with pallas_map
+    assert tswin.DISPATCH["v7_01"] == (("pallas7",) * 2 + ("pallas6",) * 2,) + tswin.DISPATCH[
+        "r5"][1:]
+    assert tswin.DISPATCH["v5"] == (("pallas5",) * 4,) + tswin.DISPATCH["r4"][1:]
+    assert tswin.DISPATCH["map"] == (("pallas_map",) * 4,) + tswin.DISPATCH["r2"][1:]
+    assert set(tswin.DISPATCH) == {"r5", "r4", "r4i8", "train", "r2", "r1", "xla", "v7_01",
+                                   "v5", "map"}
     for name in ("r2", "r1", "xla"):
         model = CMNeXt(num_classes=5, backbone_kwargs=SMALL, dispatch=name)
         assert _dispatch(model) == tuple(list(x) for x in tswin.DISPATCH[name][:2])
@@ -100,9 +108,14 @@ def test_only_the_r5_and_r4_dispatches_are_accepted():
                        (("pallas",) * 4, ("pallas3",) * 3 + ("xla",))]:
         with pytest.raises(NotImplementedError):
             tswin.SwinTransformer(**SMALL, attn_impl=attn, dscf_attn=dscf)
-    for impl in ("pallas5", "pallas7", "pallas_map", "auto"):
+    with pytest.raises(NotImplementedError):
+        tswin.SwinBlockAdapter(32, 2, 128, 4, shift=False, attn_impl="auto")
+    for impl in ("pallas5", "pallas7"):  # eval kernels: not with the train tail
         with pytest.raises(NotImplementedError):
-            tswin.SwinBlockAdapter(32, 2, 128, 4, shift=False, attn_impl=impl)
+            tswin.SwinBlockAdapter(32, 2, 128, 4, shift=False, attn_impl=impl,
+                                   ffn_impl="module")
+    with pytest.raises(NotImplementedError):  # int8 is r4's kernels, not v7's
+        tswin.SwinBlockAdapter(32, 2, 128, 4, shift=False, attn_impl="pallas7", int8=True)
     with pytest.raises(NotImplementedError):  # the bench's xla set keeps r5's bias kernel
         tswin.SwinTransformer(**SMALL, attn_impl=("xla",) * 4, dscf_attn=("xla",) * 4)
     for impl in ("pallas", "xla"):  # the module attention path is eval-only
@@ -154,9 +167,9 @@ def test_pallas6_block_takes_the_real_map_with_no_pad_roll_or_crop():
 def test_every_kernel_targets_hopper_and_names_its_tpu_kernel():
     mods = (swin_block, block_tail, dscf_rpe, dscf_rows, swin_block_v6, dscf_rpe_packed,
             window_attn_bwd, dscf_rows_bwd, msdeform, swin_block_int8, block_tail_int8,
-            window_attention_qkv)
-    assert len({m.KERNEL.name for m in mods}) == 12
-    assert len({m.KERNEL.replaces for m in mods}) == 12
+            window_attention_qkv, swin_block_v7, swin_block_full, window_attention_map)
+    assert len({m.KERNEL.name for m in mods}) == 15
+    assert len({m.KERNEL.replaces for m in mods}) == 15
     for mod in mods:
         k = mod.KERNEL
         assert k.source.exists()
