@@ -1,14 +1,21 @@
 // K4: DSCF deformable attention in the rows layout.  Every query pixel and
 // head attends over the M deformable keys of its (batch, group):
-//   out = softmax_j(q.k_j * scale + bias[j]) . V,
-// the probabilities normalised and rounded to bf16 before P.V, as the twin
-// (pallas_dscf.dscf_rows_reference) does.  Padded keys (M <= j < Mp) are
-// masked with -1e9 on the TPU; here they are simply not visited, which gives
-// the same probabilities (exp(-1e9 - max) is 0 in f32).
+//   out = softmax_j(bf16(q * scale) . k_j + bias[j]) . V,
+// with the K3 bias (BG, hg, h, M, w) added in f32.
 //
-// Replaces ir_ads_tpu/ops/pallas_dscf.py:_dscf_rows_kernel_packed and
-// _dscf_rows_kernel (launched by pallas_dscf_attention_rows): one function,
-// two TPU layouts of it.
+// Replaces the two rows kernels of ir_ads_tpu/ops/pallas_dscf.py (launched
+// by pallas_dscf_attention_rows), which round differently in bf16 and are
+// chosen per level by the reference's DAttentionMM (IR_ADS_DSCF_PACKED,
+// default "1,1,1,0"):
+//   packed=1  _dscf_rows_kernel_packed: the probabilities normalised,
+//             exp(s - max) / den, rounded to bf16, then P.V (levels 0-2);
+//   packed=0  _dscf_rows_kernel: the unnormalised exp(s - max) rounded to
+//             bf16, P.V summed in f32, divided by den, rounded once
+//             (level 3).
+// Both are dscf_attend<Packed> in csrc/dscf.cuh, which K16 and K17 share.
+// Padded keys (M <= j < Mp) are masked with -1e9 on the TPU; here they are
+// simply not visited, which gives the same result (exp(-1e9 - max) is 0 in
+// f32).
 //
 // Bound on an H100: bytes (the (BG, hg, h, M, w) bf16 bias is the only large
 // input: 2 bytes per score against ~35 flop per score).  Design: one block
@@ -18,14 +25,15 @@
 // reading the bias along the query column, so both passes coalesce.  The
 // products are 8-wide dot products on the CUDA cores: with 8 channels per
 // head they are too thin for the tensor cores to pay.
-#include "common.cuh"
+#include "dscf.cuh"
 
 using namespace port;
 
 namespace {
 
-constexpr int HC = 8;  // channels per DSCF head at every level of Swin-B
+constexpr int HC = kDscfHeadChannels;
 
+template <bool Packed>
 __global__ void __launch_bounds__(kThreads)
 dscf_rows_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const bf16* __restrict__ bias,
@@ -36,54 +44,32 @@ dscf_rows_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* V_s = kv_s + M * HC;
   const int bg = blockIdx.y / hg, e = blockIdx.y % hg;
   const int HW = h * w, GC = hg * HC;
-  const bf16* kb = k + (size_t)bg * Mp * GC + e * HC;
-  const bf16* vb = v + (size_t)bg * Mp * GC + e * HC;
-  for (int idx = threadIdx.x; idx < M * HC; idx += kThreads) {
-    const int j = idx / HC, d = idx % HC;
-    K_s[idx] = __bfloat162float(kb[(size_t)j * GC + d]);
-    V_s[idx] = __bfloat162float(vb[(size_t)j * GC + d]);
-  }
-  __syncthreads();
+  stage_head_kv(k + (size_t)bg * Mp * GC + e * HC, v + (size_t)bg * Mp * GC + e * HC, M,
+                GC, K_s, V_s);
   const int p = blockIdx.x * kThreads + threadIdx.x;
   if (p >= HW) return;
   const int r = p / w, c = p % w;
-  float qs[HC];
-  const bf16* qp = q + ((size_t)bg * HW + p) * GC + e * HC;
-#pragma unroll
-  for (int d = 0; d < HC; ++d)
-    qs[d] = round_bf16(__bfloat162float(qp[d]) * scale);
+  float qs[HC], acc[HC];
+  scaled_query(q + ((size_t)bg * HW + p) * GC + e * HC, scale, qs);
   const bf16* bp = bias + (((size_t)bg * hg + e) * h + r) * M * w + c;
-
-  auto score = [&](int j) {
-    const float* kj = K_s + j * HC;
-    float s = 0.0f;
-#pragma unroll
-    for (int d = 0; d < HC; ++d) s += qs[d] * kj[d];
-    return s + __bfloat162float(bp[(size_t)j * w]);
-  };
-  float mx = -INFINITY, l = 0.0f;
-  for (int j = 0; j < M; ++j) {
-    const float s = score(j);
-    if (s > mx) {
-      l = l * expf(mx - s) + 1.0f;
-      mx = s;
-    } else {
-      l += expf(s - mx);
-    }
-  }
-  const float inv = 1.0f / l;
-  float acc[HC];
-#pragma unroll
-  for (int d = 0; d < HC; ++d) acc[d] = 0.0f;
-  for (int j = 0; j < M; ++j) {
-    const float pj = round_bf16(expf(score(j) - mx) * inv);
-    const float* vj = V_s + j * HC;
-#pragma unroll
-    for (int d = 0; d < HC; ++d) acc[d] += pj * vj[d];
-  }
+  dscf_attend<Packed>(qs, K_s, V_s, M,
+                      [&](int j) { return __bfloat162float(bp[(size_t)j * w]); }, acc);
   bf16* op = out + ((size_t)bg * HW + p) * GC + e * HC;
 #pragma unroll
   for (int d = 0; d < HC; ++d) op[d] = __float2bfloat16(acc[d]);
+}
+
+template <bool Packed>
+int launch(const void* q, const void* k, const void* v, const void* bias, void* out,
+           int BG, int hg, int h, int w, int M, int Mp, float scale, cudaStream_t stream) {
+  const size_t smem = (size_t)2 * M * HC * sizeof(float);
+  cudaFuncSetAttribute(dscf_rows_kernel<Packed>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  dim3 grid((h * w + kThreads - 1) / kThreads, BG * hg);
+  dscf_rows_kernel<Packed><<<grid, kThreads, smem, stream>>>(
+      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)bias,
+      (bf16*)out, hg, h, w, M, Mp, scale);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -91,12 +77,8 @@ dscf_rows_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 extern "C" int dscf_rows_attention(const void* q, const void* k, const void* v,
                                    const void* bias, void* out, int BG, int hg,
                                    int h, int w, int M, int Mp, float scale,
-                                   void* stream) {
-  const size_t smem = (size_t)2 * M * HC * sizeof(float);
-  cudaFuncSetAttribute(dscf_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  dim3 grid((h * w + kThreads - 1) / kThreads, BG * hg);
-  dscf_rows_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)bias,
-      (bf16*)out, hg, h, w, M, Mp, scale);
-  return (int)cudaGetLastError();
+                                   int packed, void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  return packed ? launch<true>(q, k, v, bias, out, BG, hg, h, w, M, Mp, scale, s)
+                : launch<false>(q, k, v, bias, out, BG, hg, h, w, M, Mp, scale, s);
 }

@@ -1,7 +1,7 @@
 """Dual-stream Swin backbone with MAPA adapters, MPG prompting and DSCF
 deformable cross-modal fusion, NHWC.
 
-Counterpart of ir_ads_tpu/models/backbones/swin.py under ten of its
+Counterpart of ir_ads_tpu/models/backbones/swin.py under thirteen of its
 kernel configurations, chosen by explicit arguments (``DISPATCH``):
 
   r5 (the default; the JAX package's default dispatch on its chip and the
@@ -46,11 +46,20 @@ kernel configurations, chosen by explicit arguments (``DISPATCH``):
      is r2 with the attention on the qkv map (K15, ops/window_attention_map.py:
      the window partition and reverse inside) between the module path's
      qkv and proj linears.
+  dscf_pallas4, dscf_pallas and dscf_pallas2 (the JAX package's opt-in DSCF
+     variants, as ``IR_ADS_DSCF_ATTN`` selects them): r5's blocks, with the
+     DSCF fused (K16, ops/dscf_fused.py: the rpe bias sampled inside the
+     rows attention) at levels 0-2 and r5's einsum level 3; or at every
+     level the query-tiled attention over a packed bias (K17,
+     ops/dscf_attention.py), the bias in the XLA form (dscf_pallas) or from
+     the j-major bias kernel (K18, ops/dscf_rpe_jmajor.py; dscf_pallas2).
 
-At every dispatch the DSCF rows path (K3 + K4) runs only where the 2n
-deformable keys are a multiple of 8, as the reference guards ``pallas3``;
-elsewhere the einsum attention runs, its bias from K6 where ``rpe3`` is
-"pallas" and the query plane has at most 2048 pixels, else the XLA form.
+The DSCF rows path (K3 + K4) and the fused one (K16) run only where the 2n
+deformable keys are a multiple of 8, as the reference guards ``pallas3``
+and ``pallas4``; elsewhere the einsum attention runs, its bias from K6
+where ``rpe3`` is "pallas" and the query plane has at most 2048 pixels,
+else the XLA form.  ``pallas`` and ``pallas2`` take any 2n: they pad the
+keys to a multiple of 128.
 
 All but train are eval dispatches: K2, K5, K10 and K11 have no backward and raise when
 an input requires a gradient, and a model built for them draws no random
@@ -79,8 +88,11 @@ from torch import nn
 
 from ir_ads_tpu_torch.ops.block_tail import block_tail
 from ir_ads_tpu_torch.ops.block_tail_int8 import block_tail_int8
+from ir_ads_tpu_torch.ops.dscf_attention import KEY_LANES, NEG_INF, dscf_attention
+from ir_ads_tpu_torch.ops.dscf_fused import dscf_fused_attention
 from ir_ads_tpu_torch.ops.dscf_rows import dscf_rows_attention
 from ir_ads_tpu_torch.ops.dscf_rpe import rpe_bias_rows, rpe_bias_xla
+from ir_ads_tpu_torch.ops.dscf_rpe_jmajor import rpe_bias_jmajor
 from ir_ads_tpu_torch.ops.dscf_rpe_packed import rpe_bias_packed
 from ir_ads_tpu_torch.ops.grid_sample import grid_sample_matmul, make_ref_grid
 from ir_ads_tpu_torch.ops.int8 import int8_conv, int8_linear, int8_weight, set_int8_weight
@@ -108,10 +120,14 @@ from ir_ads_tpu_torch.ops.window_attention_qkv import window_attention_qkv
 # r5, r4, r4i8 and train take the packed kernel K6 (a recorded choice).
 # v7_01 (dev/sweep_env.py's variant of r5), v5 (r4 with pallas5) and map
 # (r2 with pallas_map) are the opt-in block variants with IR_ADS_FFN=fused,
-# v7_01 and v5 with IR_ADS_DSCF_RPE3=pallas.
+# v7_01 and v5 with IR_ADS_DSCF_RPE3=pallas.  dscf_pallas4, dscf_pallas and
+# dscf_pallas2 are r5's blocks with the opt-in DSCF variants
+# (IR_ADS_DSCF_ATTN=pallas4,pallas4,pallas4,xla with IR_ADS_DSCF_RPE3=pallas;
+# pallas; pallas2): pallas4 has no row band at a 15x20 level 3, whose
+# einsum branch takes K6's bias as r5's does.
+R5_BLOCKS = ("pallas4", "pallas4", "pallas6", "pallas6")
 DISPATCH = {
-    "r5": (("pallas4", "pallas4", "pallas6", "pallas6"),
-           ("pallas3", "pallas3", "pallas3", "xla"), "fused", False, "pallas"),
+    "r5": (R5_BLOCKS, ("pallas3", "pallas3", "pallas3", "xla"), "fused", False, "pallas"),
     "r4": (("pallas4",) * 4, ("pallas3",) * 4, "fused", False, "pallas"),
     "r4i8": (("pallas4",) * 4, ("pallas3",) * 4, "fused", True, "pallas"),
     "train": (("pallas4",) * 4, ("pallas3", "pallas3", "pallas3", "xla"), "module", False,
@@ -123,11 +139,15 @@ DISPATCH = {
               ("pallas3", "pallas3", "pallas3", "xla"), "fused", False, "pallas"),
     "v5": (("pallas5",) * 4, ("pallas3",) * 4, "fused", False, "pallas"),
     "map": (("pallas_map",) * 4, ("pallas3",) * 4, "fused", False, "xla"),
+    "dscf_pallas4": (R5_BLOCKS, ("pallas4", "pallas4", "pallas4", "xla"), "fused", False,
+                     "pallas"),
+    "dscf_pallas": (R5_BLOCKS, ("pallas",) * 4, "fused", False, "pallas"),
+    "dscf_pallas2": (R5_BLOCKS, ("pallas2",) * 4, "fused", False, "pallas"),
 }
 SWIN_ATTN = ("pallas4", "pallas5", "pallas6", "pallas7", "pallas", "pallas_map", "xla")
 # the module path: LN1, ShiftWindowMSA, residual
 MODULE_ATTN = ("pallas", "pallas_map", "xla")
-DSCF_ATTN = ("pallas3", "xla")
+DSCF_ATTN = ("pallas3", "pallas4", "pallas", "pallas2", "xla")
 DSCF_RPE3 = ("pallas", "xla")
 FFN_IMPL = ("fused", "module")
 RPE3_PLANE_MAX = 2048  # the packed bias kernel only up to this many query pixels
@@ -485,14 +505,29 @@ class _ConvBNGELU(nn.Module):
 
 class DAttentionMM(nn.Module):
     """Bi-directional deformable cross-modal attention (DSCF core).  The JAX
-    module's ``pallas3`` branch: rpe bias by K3, attention by K4, taken only
-    where the 2n deformable keys are a multiple of 8 (the reference's guard);
-    its einsum (``xla``) branch otherwise: the attention as f32-accumulated
-    products in PyTorch, the bias by K6 under ``rpe3="pallas"``
-    (``IR_ADS_DSCF_RPE3=pallas``) up to ``RPE3_PLANE_MAX`` query pixels, else
-    in the reference's XLA form (``dscf_rpe.rpe_bias_xla``).  ``int8``: the
-    JAX module's ``QuantConv`` sites as w8a8 products (``ops.int8``), each
-    output cast to the activation dtype before its bias is added."""
+    module's branches, chosen by ``attn_impl`` and guarded as the reference
+    guards them (``branch``):
+
+      pallas3, where the 2n deformable keys are a multiple of 8: rpe bias by
+        K3, attention by K4 in the rounding form the reference's default
+        ``IR_ADS_DSCF_PACKED="1,1,1,0"`` gives the level: packed at levels
+        0-2, unpacked at level 3 (a fixed choice; the port reads no
+        environment);
+      pallas4, where 2n is a multiple of 8: K16, the bias sampled inside
+        K4's unpacked attention; ``ValueError`` where the reference's fused
+        kernel has no row band (a 15x20 or 4x7 plane);
+      pallas and pallas2, any 2n: the keys padded with zeros to a multiple
+        of 128 and their bias columns with -1e9, attention by K17 over the
+        packed bias (BG, HW, hg*Mp), the bias in the XLA form (pallas) or
+        from K18 (pallas2);
+      the einsum (``xla``) branch otherwise: the attention as f32-accumulated
+        products in PyTorch, the bias by K6 under ``rpe3="pallas"``
+        (``IR_ADS_DSCF_RPE3=pallas``) up to ``RPE3_PLANE_MAX`` query pixels,
+        else in the reference's XLA form (``dscf_rpe.rpe_bias_xla``).
+
+    ``int8``: the JAX module's ``QuantConv`` sites as w8a8 products
+    (``ops.int8``), each output cast to the activation dtype before its bias
+    is added."""
 
     INT8_SITES = ("proj_q", "proj_k", "proj_v")
 
@@ -501,7 +536,7 @@ class DAttentionMM(nn.Module):
         super().__init__()
         _require(attn_impl, DSCF_ATTN, "attn_impl")
         _require(rpe3, DSCF_RPE3, "rpe3")
-        self.attn_impl, self.rpe3 = attn_impl, rpe3
+        self.attn_impl, self.rpe3, self.level = attn_impl, rpe3, level
         self.int8 = bool(int8)
         self.n_heads, self.n_groups = n_heads, n_groups
         gc = dim // n_groups
@@ -589,16 +624,28 @@ class DAttentionMM(nn.Module):
         s1, s2 = self.rpe_table.shape[1:]
         pos_cat = torch.cat([pos_x.reshape(b * g, n, 2), pos_y.reshape(b * g, n, 2)], dim=1)
         table = self.rpe_table.reshape(g, hg, s1, s2)
+        branch = self.branch(n)
         if self.rows_path(n):
             out = self._rows_attention(q, k, v, pos_cat, table, scale)
+        elif branch == "pallas4":
+            out = self._fused_attention(q, k, v, pos_cat, table, scale)
+        elif branch in ("pallas", "pallas2"):
+            out = self._packed_attention(q, k, v, pos_cat, table, scale)
         else:
             out = self._einsum_attention(q, k, v, pos_cat, table, scale)
         out = pointwise(self.proj_out, out)
         return cast(self.deform_weight, out) * out + cast(self.identity_weight, xy) * xy
 
+    def branch(self, n: int) -> str:
+        """The branch taken for ``n`` offsets a field: ``attn_impl``, but the
+        einsum ("xla") for pallas3 and pallas4 where 2n % 8 != 0."""
+        if self.attn_impl in ("pallas3", "pallas4") and 2 * n % 8:
+            return "xla"
+        return self.attn_impl
+
     def rows_path(self, n: int) -> bool:
         """K3 + K4 for ``n`` offsets a field: pallas3 where 2n % 8 == 0."""
-        return self.attn_impl == "pallas3" and 2 * n % 8 == 0
+        return self.branch(n) == "pallas3"
 
     def bias_kernel(self, h: int, w: int) -> bool:
         """The einsum branch's bias by K6 (else in the XLA form)."""
@@ -622,22 +669,54 @@ class DAttentionMM(nn.Module):
         out = (p.float() @ vh.float()).to(vh.dtype)
         return out.transpose(1, 2).reshape(b, h, w, c)
 
-    def _rows_attention(self, q, k, v, pos_cat, table, scale):
-        """Bias by K3 in the rows layout, attention by K4."""
+    def _groups(self, q, k, v, mp):
+        """q (B*g, HW, gc) and k, v (B*g, mp, gc) with zero keys past 2n:
+        the group-major layout of the DSCF kernels; and its inverse."""
         b, h, w, c = q.shape
-        g, hg = self.n_groups, self.n_heads // self.n_groups
+        g = self.n_groups
         gc, n2 = c // g, k.shape[1]
-        bias = rpe_bias_rows(pos_cat, table, h, w, q.dtype)
 
         def to_groups(t, m):  # (B, M, C) -> (B*g, M, gc)
             return t.reshape(b, m, g, gc).transpose(1, 2).reshape(b * g, m, gc)
 
-        mp = -(-n2 // 8) * 8
-        kg = F.pad(to_groups(k, n2), (0, 0, 0, mp - n2))
-        vg = F.pad(to_groups(v, n2), (0, 0, 0, mp - n2))
-        out = dscf_rows_attention(to_groups(q.reshape(b, h * w, c), h * w), kg, vg,
-                                  bias, scale, hg)
-        return out.reshape(b, g, h * w, gc).transpose(1, 2).reshape(b, h, w, c)
+        def back(out):  # (B*g, HW, gc) -> (B, h, w, C)
+            return out.reshape(b, g, h * w, gc).transpose(1, 2).reshape(b, h, w, c)
+
+        kg, vg = (F.pad(to_groups(t, n2), (0, 0, 0, mp - n2)) if mp > n2 else to_groups(t, n2)
+                  for t in (k, v))
+        return to_groups(q.reshape(b, h * w, c), h * w), kg, vg, back
+
+    def _rows_attention(self, q, k, v, pos_cat, table, scale):
+        """Bias by K3 in the rows layout, attention by K4 (packed below
+        level 3)."""
+        h, w = q.shape[1:3]
+        qg, kg, vg, back = self._groups(q, k, v, -(-k.shape[1] // 8) * 8)
+        bias = rpe_bias_rows(pos_cat, table, h, w, q.dtype)
+        return back(dscf_rows_attention(qg, kg, vg, bias, scale,
+                                        self.n_heads // self.n_groups, self.level < 3))
+
+    def _fused_attention(self, q, k, v, pos_cat, table, scale):
+        """K16: the bias sampled inside the attention."""
+        h, w = q.shape[1:3]
+        qg, kg, vg, back = self._groups(q, k, v, k.shape[1])
+        return back(dscf_fused_attention(qg, kg, vg, pos_cat, table, h, w, scale,
+                                         self.n_heads // self.n_groups))
+
+    def _packed_attention(self, q, k, v, pos_cat, table, scale):
+        """K17 over the packed bias (B*g, HW, hg*Mp), Mp = 2n padded to 128
+        keys with -1e9: the bias in the XLA form (pallas) or K18's j-major
+        one transposed (pallas2); the field-x keys before the field-y keys,
+        as the reference concatenates its two biases."""
+        b, h, w, c = q.shape
+        hg, n2 = self.n_heads // self.n_groups, k.shape[1]
+        mp = -(-n2 // KEY_LANES) * KEY_LANES
+        if self.attn_impl == "pallas2":  # (B*g, hg, 2n, h, w) -> (B*g, h, w, hg, 2n)
+            bias = rpe_bias_jmajor(pos_cat, table, h, w, q.dtype).permute(0, 3, 4, 1, 2)
+        else:  # (B*g, hg, 2n, HW) -> (B*g, HW, hg, 2n)
+            bias = rpe_bias_xla(pos_cat, table, h, w, q.dtype).permute(0, 3, 1, 2)
+        bias = F.pad(bias.reshape(-1, h * w, hg, n2), (0, mp - n2), value=NEG_INF)
+        qg, kg, vg, back = self._groups(q, k, v, mp)
+        return back(dscf_attention(qg, kg, vg, bias.reshape(-1, h * w, hg * mp), scale, hg))
 
 
 class DeformMPGBlock(nn.Module):

@@ -7,7 +7,8 @@ linearity), as the JAX eval path does.  ``dispatch`` names the backbone's
 kernel configuration (``swin.DISPATCH``): ``"r5"``, the default, ``"r4"``,
 ``"r4i8"`` (w8a8: backbone and heads; call ``ops.int8.quantize_int8_`` once
 the weights are loaded), the module-path sets ``"r2"``, ``"r1"`` and
-``"xla"``, or the block variants ``"v7_01"``, ``"v5"`` and ``"map"`` for eval,
+``"xla"``, the block variants ``"v7_01"``, ``"v5"`` and ``"map"``, or the DSCF
+variants ``"dscf_pallas4"``, ``"dscf_pallas"`` and ``"dscf_pallas2"`` for eval,
 ``"train"`` for a model that takes gradients.  Under ``"train"``,
 in train mode, the MMST modality mask, drop-path, adapter dropout and the
 heads' dropout (``head_drop``) draw from ``forward``'s ``generator``.

@@ -9,8 +9,9 @@ ensemble, fused-head logits at H/4 upsampled once).  Runs on the GPU unless
 the caller passes ``device="cpu"``, under the ``r5`` kernel dispatch unless
 the caller passes another of models/backbones/swin.py's ``DISPATCH``: ``"r4"``,
 ``"r4i8"`` (w8a8, its weights quantized from the f32 ones before the cast to
-the compute dtype), the module-path sets ``"r2"``, ``"r1"`` and ``"xla"``, or
-the block variants ``"v7_01"``, ``"v5"`` and ``"map"``.
+the compute dtype), the module-path sets ``"r2"``, ``"r1"`` and ``"xla"``, the
+block variants ``"v7_01"``, ``"v5"`` and ``"map"``, or the DSCF variants
+``"dscf_pallas4"``, ``"dscf_pallas"`` and ``"dscf_pallas2"``.
 
 ``DetPredictor``: counterpart of ``train_net.evaluate_detector``'s ``_infer``
 around the vCLR deformable-mask DINO detector (``configs/detection/

@@ -3,16 +3,18 @@
 one step of its trainer, under torch.profiler.
 
     python3 profile_port.py [--seed 0] [--batch 2]
-                            [--dispatch r5|r4|r4i8|r2|r1|xla|v7_01|v5|map]
+                            [--dispatch r5|r4|r4i8|r2|r1|xla|v7_01|v5|map|
+                                        dscf_pallas4|dscf_pallas|dscf_pallas2]
     python3 profile_port.py --train [--seed 0] [--batch 4]
     python3 profile_port.py --det [--seed 0]
 
 Serving: builds the full-size predictor (Swin-B CMNeXt, 480x640 RGB-D, flip,
 bf16, weights from --seed) under the given kernel dispatch (r5, the default,
-r4, the w8a8 r4i8, the module-path sets r2, r1 and xla, or the block
-variants v7_01, v5 and map), serves one warm-up request, then one profiled
-request, and sums its port kernels' device time by kernel (K1-K15) with
-their launches.
+r4, the w8a8 r4i8, the module-path sets r2, r1 and xla, the block
+variants v7_01, v5 and map, or the DSCF variants dscf_pallas4, dscf_pallas
+and dscf_pallas2), serves one warm-up request, then one profiled request,
+and sums its port kernels' device time by kernel (K1-K18) with their
+launches.
 Training (--train): builds the full-size trainer (the ``train`` dispatch, f32
 masters, bf16 compute, the shipped adapter-only AdamW recipe), takes two
 warm-up steps, then profiles one step in three parts: forward with the loss,
@@ -55,14 +57,18 @@ BY_KERNEL = {
     "K13": ("v7_ln_qkv_kernel", "v7_attn_kernel", "v7_proj_tail_kernel"),
     "K14": ("v5_ln_qkv_kernel", "v5_attn_kernel", "v5_proj_add_kernel"),
     "K15": ("window_attention_map_kernel",),
+    "K16": ("dscf_fused_kernel",), "K17": ("dscf_attention_kernel",),
+    "K18": ("rpe_jmajor_kernel",),
 }
 PORT_KERNELS = tuple(n for names in BY_KERNEL.values() for n in names)
 
 
 def _is(name: str, kernel: str) -> bool:
     """``name`` (a profiler key: a demangled or mangled C++ signature) is the
-    device kernel ``kernel``, not one whose name contains it."""
-    return re.search(rf"(?<![A-Za-z0-9_]){kernel}\(|{len(kernel)}{kernel}E", name) is not None
+    device kernel ``kernel`` or an instance of it (a template such as K4's
+    two forms), not one whose name contains it."""
+    return re.search(rf"(?<![A-Za-z0-9_]){kernel}(<[^>]*>)?\(|{len(kernel)}{kernel}[EI]",
+                     name) is not None
 
 
 def device_us(evt) -> float:
@@ -239,7 +245,8 @@ def main():
     ap.add_argument("--batch", type=int, default=None,
                     help="frames per request (default 2) or per step (default 4)")
     ap.add_argument("--dispatch", default="r5",
-                    choices=("r5", "r4", "r4i8", "r2", "r1", "xla", "v7_01", "v5", "map"))
+                    choices=("r5", "r4", "r4i8", "r2", "r1", "xla", "v7_01", "v5", "map",
+                             "dscf_pallas4", "dscf_pallas", "dscf_pallas2"))
     ap.add_argument("--train", action="store_true",
                     help="profile one training step instead of one request")
     ap.add_argument("--det", action="store_true",

@@ -299,7 +299,7 @@ def test_rows_attention_function_grads_match_jax_vjp():
     bg, h, w, gc, hg, m, mp, scale = 2, 4, 8, 16, 2, 5, 8, 0.25
     q, k, v, bias, g = _rows_inputs(10, bg, h, w, gc, hg, m, mp)
     leaves = [_t(a).requires_grad_() for a in (q, k, v, bias)]
-    dscf_rows.dscf_rows_attention(*leaves, scale, hg).backward(_t(g))
+    dscf_rows.dscf_rows_attention(*leaves, scale, hg, True).backward(_t(g))
     _, vjp = jax.vjp(lambda a, b, c, d: jax_rows_reference(a, b, c, d, scale, hg),
                      *(_j(a) for a in (q, k, v, bias)))
     for name, leaf, w_ in zip(("dq", "dk", "dv", "dbias"), leaves, vjp(_j(g))):
@@ -310,7 +310,7 @@ def test_rows_attention_gradcheck_f64():
     bg, h, w, gc, hg, m, mp = 1, 2, 3, 16, 2, 3, 8
     q, k, v, bias, _ = _rows_inputs(11, bg, h, w, gc, hg, m, mp)
     leaves = [torch.from_numpy(a).double().requires_grad_() for a in (q, k, v, bias)]
-    fn = lambda *a: dscf_rows.dscf_rows_attention(*a, 0.25, hg)  # noqa: E731
+    fn = lambda *a: dscf_rows.dscf_rows_attention(*a, 0.25, hg, True)  # noqa: E731
     assert torch.autograd.gradcheck(fn, leaves, eps=1e-6, atol=1e-6, rtol=1e-4)
 
 

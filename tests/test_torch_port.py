@@ -1,6 +1,6 @@
 """Ground rules of the PyTorch port: no JAX inside it, the GPU by default,
-the r5 kernel dispatch by default, r4, r4i8, train, r2, r1, xla, v7_01, v5
-and map on request (nothing else), the
+the r5 kernel dispatch by default, r4, r4i8, train, r2, r1, xla, v7_01, v5,
+map, dscf_pallas4, dscf_pallas and dscf_pallas2 on request (nothing else), the
 sliding-window wrapper's overlap arithmetic against the JAX one."""
 
 import ast
@@ -16,9 +16,9 @@ from ir_ads_tpu_torch.evaluation.semseg_eval import make_sliding_window_fn
 from ir_ads_tpu_torch.models.backbones import swin as tswin
 from ir_ads_tpu_torch.models.cmnext import CMNeXt
 from ir_ads_tpu_torch.ops import (
-    block_tail, block_tail_int8, dscf_rows, dscf_rows_bwd, dscf_rpe, dscf_rpe_packed, msdeform,
-    swin_block, swin_block_full, swin_block_int8, swin_block_v6, swin_block_v7,
-    window_attention_map, window_attention_qkv, window_attn_bwd,
+    block_tail, block_tail_int8, dscf_attention, dscf_fused, dscf_rows, dscf_rows_bwd, dscf_rpe,
+    dscf_rpe_jmajor, dscf_rpe_packed, msdeform, swin_block, swin_block_full, swin_block_int8,
+    swin_block_v6, swin_block_v7, window_attention_map, window_attention_qkv, window_attn_bwd,
 )
 from ir_ads_tpu_torch.serve import IMAGENET_MEAN, IMAGENET_STD, SemSegPredictor
 
@@ -79,8 +79,16 @@ def test_only_the_r5_and_r4_dispatches_are_accepted():
         "r5"][1:]
     assert tswin.DISPATCH["v5"] == (("pallas5",) * 4,) + tswin.DISPATCH["r4"][1:]
     assert tswin.DISPATCH["map"] == (("pallas_map",) * 4,) + tswin.DISPATCH["r2"][1:]
+    # the opt-in DSCF variants: r5's blocks, pallas4 (level 3 r5's einsum),
+    # pallas or pallas2 at every level
+    for name, dscf in [("dscf_pallas4", ("pallas4",) * 3 + ("xla",)),
+                       ("dscf_pallas", ("pallas",) * 4), ("dscf_pallas2", ("pallas2",) * 4)]:
+        assert tswin.DISPATCH[name] == (tswin.DISPATCH["r5"][0], dscf) + tswin.DISPATCH[
+            "r5"][2:]
+        model = CMNeXt(num_classes=5, backbone_kwargs=SMALL, dispatch=name)
+        assert _dispatch(model) == (r5[0], list(dscf))
     assert set(tswin.DISPATCH) == {"r5", "r4", "r4i8", "train", "r2", "r1", "xla", "v7_01",
-                                   "v5", "map"}
+                                   "v5", "map", "dscf_pallas4", "dscf_pallas", "dscf_pallas2"}
     for name in ("r2", "r1", "xla"):
         model = CMNeXt(num_classes=5, backbone_kwargs=SMALL, dispatch=name)
         assert _dispatch(model) == tuple(list(x) for x in tswin.DISPATCH[name][:2])
@@ -129,9 +137,10 @@ def test_only_the_r5_and_r4_dispatches_are_accepted():
                                ffn_impl="module")
     with pytest.raises(NotImplementedError):  # the train tail only with its dispatch
         tswin.SwinTransformer(**SMALL, ffn_impl="module")
-    for impl in ("pallas", "pallas2", "pallas4", "auto"):
-        with pytest.raises(NotImplementedError):
-            tswin.DAttentionMM(32, 4, 2, 4, attn_impl=impl)
+    for impl in ("pallas3", "pallas4", "pallas", "pallas2", "xla"):
+        assert tswin.DAttentionMM(32, 4, 2, 4, attn_impl=impl).attn_impl == impl
+    with pytest.raises(NotImplementedError):  # the port reads no environment
+        tswin.DAttentionMM(32, 4, 2, 4, attn_impl="auto")
     with pytest.raises(NotImplementedError):
         tswin.DAttentionMM(32, 4, 2, 4, rpe3="auto")
     with pytest.raises(NotImplementedError):
@@ -167,9 +176,10 @@ def test_pallas6_block_takes_the_real_map_with_no_pad_roll_or_crop():
 def test_every_kernel_targets_hopper_and_names_its_tpu_kernel():
     mods = (swin_block, block_tail, dscf_rpe, dscf_rows, swin_block_v6, dscf_rpe_packed,
             window_attn_bwd, dscf_rows_bwd, msdeform, swin_block_int8, block_tail_int8,
-            window_attention_qkv, swin_block_v7, swin_block_full, window_attention_map)
-    assert len({m.KERNEL.name for m in mods}) == 15
-    assert len({m.KERNEL.replaces for m in mods}) == 15
+            window_attention_qkv, swin_block_v7, swin_block_full, window_attention_map,
+            dscf_fused, dscf_attention, dscf_rpe_jmajor)
+    assert len({m.KERNEL.name for m in mods}) == 18
+    assert len({m.KERNEL.replaces for m in mods}) == 18
     for mod in mods:
         k = mod.KERNEL
         assert k.source.exists()
