@@ -24,6 +24,15 @@ Phases, each of which raises on failure:
      K4's packed form), and K4's unpacked form at level 3, each also held
      to a share of differing outputs (planted faults: K3's rounding for
      K18, padded bias columns 0 for K17, the packed form for K16 and K4);
+     K19 (the flat patch embedding) on one stream of a request's flat
+     frames (planted fault: the XLA form, whose LayerNorm scale and bias
+     stay f32; F.conv2d then F.layer_norm timed for the record) and K20
+     (the v1 window attention, which no model path runs) at the four
+     stages, shifted and not (planted faults: the region mask left out, the
+     twin's form that rounds q * bf16(scale)), and once under autograd (its
+     gradients, the twin's vjp, against the twin's); then, for the record,
+     the share of K1's outputs at stage 0 and K4's at level 0 that the
+     parent commit's f32 attention scale moves;
      print the errors against the stated tolerances and the kernel's, the
      plain version's and (where one PyTorch call computes the same
      function) the library call's times;
@@ -65,7 +74,14 @@ Phases, each of which raises on failure:
      planted faults must fail), the logits against each dispatch's
      all-plain path and, tighter, against the same path with the variant's
      kernels alone plain (a planted fault in each variant must fail), each
-     served in turns with r5;
+     served in turns with r5; then r5 on flat (B, H, W*3) frames
+     (``flat_input=True``): with the XLA patch embedding, logits bit-equal
+     to r5's; with K19 (``patch_embed="pallas"``, 2 launches a request),
+     each launch against its plain version on its own inputs, stage 0's
+     output against the same path with K19 alone plain (the XLA form must
+     fail both bars; the logits cannot tell them apart and are printed),
+     served in turns with r5; r5's and the flat path's logits under the
+     parent's f32 attention scale, printed (no bar);
   5. train: ``SemSegTrainer`` (the same model under the ``train`` dispatch,
      f32 master parameters, bf16 compute, adapter-only AdamW, MMST 3-head
      loss) on batches of 4 frames drawn from --seed.  (a) With every
@@ -101,7 +117,10 @@ Phases, each of which raises on failure:
      of the kernel path run on the plain path's selected tokens against the
      plain path's (the planted fault in the decoder layers alone must fail);
      p50 request time, images per second, the post-processing's share, peak
-     memory.
+     memory; and, with no bar, how far the parent's f32 attention scale
+     moves the encoder memory and the proposal scores (K9 attends there:
+     they do not move) and the last decoder layer's class logits and boxes
+     (the decoder's self-attention scales q).
 The line before the last is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``.  Nothing of JAX is imported.
 """
@@ -924,6 +943,167 @@ def check_dscf_fused(g, b, level):
     )
 
 
+def check_patch_embed(g, b):
+    """K19 at the flat r5 path's shape: one stream of a request, b flat
+    480x640 frames (B, 480, 1920) bf16, the (48, 128) weight ~ N(0, 1/48),
+    LayerNorm parameters f32 around 1 and 0, as the module holds them (the
+    wrapper rounds them to bf16, as the Pallas kernel does).  Planted fault:
+    the XLA form, whose LayerNorm scale and bias stay f32.  No one PyTorch
+    call computes patchify + projection + LayerNorm: F.conv2d (kernel =
+    stride = 4) then F.layer_norm on an NCHW copy is timed beside it for the
+    record."""
+    from ir_ads_tpu_torch.ops import patch_embed as k19
+
+    h, w = IMAGE
+    x = _rand(g, b, h, w * 3)
+    wk2 = _rand(g, 48, 128, std=48 ** -0.5)
+    bias = _rand(g, 128, std=0.02)
+    ln_w = _rand(g, 128, std=0.05, mean=1.0, dtype=torch.float32)
+    ln_b = _rand(g, 128, std=0.02, dtype=torch.float32)
+    args = (x, wk2, bias, ln_w, ln_b, 4, 3)
+    nchw = x.reshape(b, h, w, 3).permute(0, 3, 1, 2).contiguous()
+    conv_w = wk2.t().reshape(128, 4, 4, 3).permute(0, 3, 1, 2).contiguous()
+    ln_wb, ln_bb = ln_w.to(torch.bfloat16), ln_b.to(torch.bfloat16)
+
+    def conv_then_norm():
+        y = F.conv2d(nchw, conv_w, bias, stride=4)
+        return F.layer_norm(y.permute(0, 2, 3, 1), (128,), ln_wb, ln_bb, 1e-5)
+
+    pixels = b * (h // 4) * (w // 4)
+    return dict(
+        name="patch_embed", case=f"flat {b}x{h}x{w * 3}",
+        run=lambda: k19.patch_embed(*args),
+        plain=lambda: k19.patch_embed_reference(*args),
+        faulted=lambda: k19.patch_embed_reference(*args, round_ln=False),
+        fault="the XLA form (LayerNorm scale and bias in f32)", base=None,
+        library=None, also=("conv2d + layer_norm (no single call)", conv_then_norm),
+        # the same rounding points; the f32 sums of the 48 products and of
+        # the LayerNorm's statistics run in another order, so an output near
+        # a bf16 rounding boundary can flip by one ulp
+        atol=1e-2, rtol=1e-2, share_tol=ROUNDING_SHARE,
+        bytes=nbytes(x, wk2, bias, ln_wb, ln_bb) + pixels * 128 * 2,
+        flops=2 * pixels * 48 * 128, rate=BF16_TENSOR_FLOPS,
+    )
+
+
+def check_window_attention_v1(g, b, h_real, w_real, c, heads, shift):
+    """K20 at one Swin-B stage of a 480x640 tile (b tiles: 560, 140, 48, 16
+    windows, N 144, d 32), q, k and v apart.  Planted fault: on a shifted
+    case the region mask left out, on an unshifted one the twin's form
+    (q * bf16(scale) rounded to bf16)."""
+    from ir_ads_tpu_torch.ops import window_attention_v1 as k20
+
+    qkv, bias, region, scale, bn = _window_qkv_inputs(g, b, h_real, w_real, c, heads, shift)
+    q, k, v = (t.contiguous() for t in _split_heads(qkv, heads))
+    if shift:
+        fault = "region mask dropped"
+        faulted = lambda: k20.window_attention_v1_reference(  # noqa: E731
+            q, k, v, bias, None, scale)
+    else:
+        fault = "the twin's form (q * bf16(scale) rounded)"
+        faulted = lambda: k20.window_attention_v1_twin(  # noqa: E731
+            q, k, v, bias, region, scale)
+    n = qkv.shape[1]
+    return dict(
+        name="window_attention_v1", case=f"C={c} {bn} windows shift {shift}",
+        run=lambda: k20.window_attention_v1(q, k, v, bias, region, scale),
+        plain=lambda: k20.window_attention_v1_reference(q, k, v, bias, region, scale),
+        faulted=faulted, fault=fault, base=None,
+        library=_sdpa_with_region(qkv, bias, region, scale, heads),
+        # the same rounding points (q * scale kept f32, the probabilities,
+        # the output), f32 sums of another order: a rounding may flip by one
+        # ulp (measured: none did).  The twin's form, which rounds q *
+        # bf16(scale), puts about a third of the outputs an ulp away
+        atol=1e-2, rtol=2e-2, share_tol=ROUNDING_SHARE,
+        bytes=nbytes(q, k, v, bias, region) + nbytes(q), flops=4 * bn * n * n * c,
+        rate=BF16_TENSOR_FLOPS,
+    )
+
+
+def check_window_attention_v1_grad(g, b, h_real, w_real, c, heads, shift):
+    """K20 under autograd (``fused_window_attention``): its output against
+    the plain version's, and the gradients of q, k, v and the bias its
+    backward takes (the twin's vjp, recomputed) against
+    ``torch.autograd.grad`` of the twin.  Planted fault: the twin's vjp
+    without the region mask."""
+    from ir_ads_tpu_torch.ops import window_attention_v1 as k20
+
+    qkv, bias, region, scale, bn = _window_qkv_inputs(g, b, h_real, w_real, c, heads, shift)
+    q, k, v = (t.contiguous() for t in _split_heads(qkv, heads))
+    dout = _rand(g, *q.shape)
+
+    def through(forward, backward, reg):
+        leaves = [t.detach().requires_grad_() for t in (q, k, v, bias)]
+        out = forward(*leaves, reg, scale)
+        if backward is not forward:
+            out = out.detach()
+            grads = torch.autograd.grad(backward(*leaves, reg, scale), leaves, dout)
+        else:
+            grads = torch.autograd.grad(out, leaves, dout)
+        return (out.detach(), *grads)
+
+    n = qkv.shape[1]
+    fused = k20.fused_window_attention
+    return dict(
+        name="window_attention_v1", case=f"autograd C={c} {bn} windows shift {shift}",
+        run=lambda: through(fused, fused, region),
+        plain=lambda: through(k20.window_attention_v1_reference, k20.window_attention_v1_twin,
+                              region),
+        faulted=lambda: through(k20.window_attention_v1_reference,
+                                k20.window_attention_v1_twin, None),
+        fault="vjp without the region mask", base=None, library=None,
+        outputs=["out", "dq", "dk", "dv", "dbias"],
+        # the output as above; the backward is the twin's own vjp, recomputed
+        # from the same inputs: equal but for the order of its f32 sums
+        atol=[1e-2] + [1e-6] * 4, rtol=[2e-2] + [1e-6] * 4,
+        bytes=nbytes(q, k, v, bias, region, dout) + nbytes(q, q, k, v, bias),
+        flops=4 * bn * n * n * c * 3, rate=BF16_TENSOR_FLOPS,
+    )
+
+
+def _f32_scale():
+    """Give every forward attention the f32 scale, the parent commit's form
+    before the scale was rounded to q's dtype (``ops.layers.q_scale``);
+    returns a function that restores the repaired form."""
+    import importlib
+
+    names = ("ops.swin_block", "ops.swin_block_v6", "ops.swin_block_int8",
+             "ops.swin_block_v7", "ops.swin_block_full", "ops.window_attention",
+             "ops.window_attention_qkv", "ops.window_attention_map", "ops.dscf_rows",
+             "ops.dscf_fused", "ops.dscf_attention", "detection.transformer")
+    mods = [importlib.import_module(f"ir_ads_tpu_torch.{n}") for n in names]
+    saved = [m.q_scale for m in mods]
+    for m in mods:
+        m.q_scale = lambda scale, dtype: float(scale)
+    return lambda: [setattr(m, "q_scale", f) for m, f in zip(mods, saved)]
+
+
+def repair_record(g, images):
+    """How far the parent's f32 scale moves K1 at stage 0 and K4 at level 0
+    on phase 3's inputs: the share of differing outputs and the distance on
+    what the kernel adds (information, no bar)."""
+    out = {}
+    for what, case in (
+            ("K1 stage 0", check_window_block(g, images, 120, 160, 128, 4, 6,
+                                              "region mask dropped")),
+            ("K4 level 0", check_rows(g, images, 0))):
+        new = case["run"]()
+        restore = _f32_scale()
+        try:
+            old = case["run"]()
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        share, rel = float((old != new).float().mean()), _rel(old, new, case["base"])
+        print(f"  repair record, {what} ({case['case']}): the parent's f32 scale moves "
+              f"{share:.4f} of the kernel's outputs, rel {rel:.3e} (information, no bar)",
+              flush=True)
+        out[what] = dict(share=share, rel=rel)
+        del new, old, case
+    torch.cuda.empty_cache()
+    return out
+
+
 def _rms(t):
     return float(t.float().pow(2).mean().sqrt())
 
@@ -1193,6 +1373,13 @@ def phase_kernels(seed: int, images: int):
         *(functools.partial(check_dscf_attention, g, images, level) for level in (0, 3)),
         *(functools.partial(check_dscf_fused, g, images, level) for level in (0, 2)),
         functools.partial(check_rows, g, images, 3, packed=False),
+        # the flat r5 path: K19 on one stream of a request; K20 (v1, which
+        # no model path runs) at the four stages, shifted and not, and once
+        # under autograd
+        functools.partial(check_patch_embed, g, images),
+        *(functools.partial(check_window_attention_v1, g, images, h, w, c, heads, shift)
+          for h, w, c, heads in STAGES for shift in (0, 6)),
+        lambda: check_window_attention_v1_grad(g, images, 30, 40, 512, 16, 6),
     ]
     rows = [hold(make()) for make in cases]
     return rows
@@ -1336,15 +1523,16 @@ LOGIT_TOL_I8 = dict(rel_mean=1.6e-2, rel_max=0.06, label_agree=0.96)
 def _ops_modules():
     from ir_ads_tpu_torch.ops import (
         block_tail, block_tail_int8, dscf_attention, dscf_fused, dscf_rows, dscf_rows_bwd,
-        dscf_rpe, dscf_rpe_jmajor, dscf_rpe_packed, msdeform, swin_block, swin_block_full,
-        swin_block_int8, swin_block_v6, swin_block_v7, window_attention_map,
-        window_attention_qkv, window_attn_bwd,
+        dscf_rpe, dscf_rpe_jmajor, dscf_rpe_packed, msdeform, patch_embed, swin_block,
+        swin_block_full, swin_block_int8, swin_block_v6, swin_block_v7, window_attention_map,
+        window_attention_qkv, window_attention_v1, window_attn_bwd,
     )
 
     return (swin_block, block_tail, swin_block_v6, dscf_rpe, dscf_rows,
             dscf_rpe_packed, window_attn_bwd, dscf_rows_bwd, msdeform, swin_block_int8,
             block_tail_int8, window_attention_qkv, swin_block_v7, swin_block_full,
-            window_attention_map, dscf_fused, dscf_attention, dscf_rpe_jmajor)
+            window_attention_map, dscf_fused, dscf_attention, dscf_rpe_jmajor, patch_embed,
+            window_attention_v1)
 
 
 # the kernels of each DSCF branch (``DAttentionMM.branch``); the einsum
@@ -1364,10 +1552,13 @@ def expected_launches(model):
     (2n % 8 == 0): K3 + K4 (pallas3), K16 (pallas4), K17 (pallas), K18 +
     K17 (pallas2), or the einsum attention, its bias by K6 where the
     dispatch takes the packed kernel for a plane of at most 2048 pixels; the
-    two streams run in turn."""
+    two streams run in turn; K19 embeds each stream's flat frames where the
+    model's patch embedding takes it (``patch_embed="pallas"``)."""
     n = dict.fromkeys((m.KERNEL.name for m in _ops_modules()), 0)
     for k in ("window_attn_bwd", "dscf_rows_bwd", "msdeform"):
         del n[k]
+    if model.backbone.patch_embed.impl == "pallas":  # K19, one launch a stream
+        n["patch_embed"] += 2
     per_block = {"pallas6": ("swin_block_v6",), "pallas4": ("swin_block", "block_tail"),
                  "pallas7": ("swin_block_v7",), "pallas5": ("swin_block_full", "block_tail"),
                  "pallas": ("window_attention_qkv", "block_tail"),
@@ -1583,7 +1774,8 @@ def phase_serve(seed: int, requests: int, batch: int, card_line: str):
     print(f"  launches on the main path ({requests} requests): {launches}",
           flush=True)
     serve = dict(dispatch="r5", latency_ms=lat, p50_ms=p50,
-                 frames_per_s=batch * 1e3 / p50)
+                 frames_per_s=batch * 1e3 / p50,
+                 parent_f32_scale=_parent_scale(pred, frames, outs[0][0], "r5"))
 
     # for the record: the same weights and requests under r4 (no check)
     ref5, labels5 = outs[0]
@@ -1638,6 +1830,8 @@ def phase_serve(seed: int, requests: int, batch: int, card_line: str):
     module_launches.update(phase_serve_variants(seed, frames, requests, batch, refs, serve,
                                                 card_line))
     module_launches.update(phase_serve_dscf(seed, frames, requests, batch, refs, serve,
+                                            card_line))
+    module_launches.update(phase_serve_flat(seed, frames, requests, batch, refs, serve,
                                             card_line))
     return launches, launches8, module_launches, serve
 
@@ -1847,16 +2041,18 @@ def _dscf_launch_checks(dispatch):
             "dscf_pallas2": [k18_check, k17_check]}[dispatch]
 
 
-def _checked_request(pred, frames, checks):
+def _checked_request(pred, frames, checks, module=None):
     """The first request with each wrapper of ``checks`` replaced by one
     that launches the kernel, runs its plain version and its planted fault
     on the same inputs and logs (kernel, shape, rel, share, fault rel,
-    fault share); hands on the kernel's output."""
-    from ir_ads_tpu_torch.models.backbones import swin
+    fault share); hands on the kernel's output.  The wrappers are names of
+    ``module``, the backbone's module unless given."""
+    if module is None:
+        from ir_ads_tpu_torch.models.backbones import swin as module
 
     log, saved = [], {}
     for name, attr, plain, faulted, _ in checks:
-        saved[attr] = kernel = getattr(swin, attr)
+        saved[attr] = kernel = getattr(module, attr)
 
         def run(*args, name=name, kernel=kernel, plain=plain, faulted=faulted):
             got = kernel(*args)
@@ -1866,13 +2062,13 @@ def _checked_request(pred, frames, checks):
                         float((bad != want).float().mean()), got.numel()))
             return got
 
-        setattr(swin, attr, run)
+        setattr(module, attr, run)
     try:
         pred(*frames[0])
         torch.cuda.synchronize()
     finally:
         for attr, f in saved.items():
-            setattr(swin, attr, f)
+            setattr(module, attr, f)
     return log
 
 
@@ -1922,19 +2118,21 @@ def _dscf_swaps(dispatch):
     return plain, [(what, {**plain, **swap}, req) for what, swap, req in named] + extra
 
 
-def _swapped_request(pred, frames, swap):
-    """The first request with the backbone's names in ``swap`` replaced."""
-    from ir_ads_tpu_torch.models.backbones import swin
+def _swapped_request(pred, frames, swap, module=None):
+    """The first request with the names in ``swap`` of ``module`` (the
+    backbone's module unless given) replaced."""
+    if module is None:
+        from ir_ads_tpu_torch.models.backbones import swin as module
 
-    saved = {k: getattr(swin, k) for k in swap}
+    saved = {k: getattr(module, k) for k in swap}
     for k, f in swap.items():
-        setattr(swin, k, f)
+        setattr(module, k, f)
     try:
         out = pred(*frames[0])
         torch.cuda.synchronize()
     finally:
         for k, f in saved.items():
-            setattr(swin, k, f)
+            setattr(module, k, f)
     return out
 
 
@@ -2017,6 +2215,136 @@ def phase_serve_dscf(seed, frames, requests, batch, refs, serve, card_line):
     return out
 
 
+def _parent_scale(pred, frames, logits, what):
+    """The first request again with the f32 scale in every forward attention
+    (the parent commit's form, before the repair); prints and returns how
+    far this path's logits moved: [differing logits, mean |diff| / mean
+    |logits|]."""
+    restore = _f32_scale()
+    try:
+        old = pred(*frames[0])[0]
+        torch.cuda.synchronize()
+    finally:
+        restore()
+    differ = int((old != logits).sum())
+    rel = float((old - logits).abs().mean() / logits.abs().mean())
+    print(f"  {what}: the parent's f32 attention scale moves {differ} of {logits.numel()} "
+          f"logits, mean |diff| / mean |logits| {rel:.3e} (information, no bar)", flush=True)
+    return [differ, rel]
+
+
+# The flat r5 path: the request's frames enter the model as (B, H, W*3)
+# rows.  With patch_embed="xla" the patch embedding is NHWC's bit for bit, so
+# the logits must be r5's; with "pallas" K19 embeds each stream once a
+# request and every other kernel runs as under r5.  K19's own roundings are
+# held behind the same trunk: the kernel path against the same path with
+# K19 alone plain.  The logits cannot tell K19 from its planted fault (the
+# XLA form, f32 LayerNorm parameters): 24 bf16 blocks carry any difference
+# in the embedding, a few flipped ulps or a quarter of the values, to the
+# same distance (measured on an H100 80GB HBM3 at 700 W, mean |diff| / mean
+# |ref|: embedding 4e-8 against the fault's 1.3e-3; stage 0's output 4.5e-4
+# to 4.8e-4 against 5.4e-3 to 5.7e-3; level 0 of the fused pyramid 2.2e-3
+# against 8.2e-3; logits 6.6e-3 against 7.7e-3).  So the bar sits at the
+# output of stage 0 (its two blocks, both streams), and the logits'
+# distances are printed with no bar.
+FLAT_LAUNCHES = {"r5_flat": R5_LAUNCHES, "r5_flat_patch": {**R5_LAUNCHES, "patch_embed": 2}}
+STAGE0_ISO_TOL = 2e-3
+
+
+def _stage0_request(pred, frames, swap, module):
+    """The first request with the names in ``swap`` of ``module``
+    replaced: stage 0's output of both streams in f32, and the logits."""
+    seen = []
+    hook = pred.model.backbone.stages[0].register_forward_hook(
+        lambda mod, args, out: seen.append(out[1].float()))
+    try:
+        logits = _swapped_request(pred, frames, swap, module)[0]
+    finally:
+        hook.remove()
+    return seen, logits
+
+
+def phase_serve_flat(seed, frames, requests, batch, refs, serve, card_line):
+    """The same weights and requests on flat frames under r5: with the XLA
+    patch embedding (logits bit-equal to r5's), then with K19
+    (``patch_embed="pallas"``): launches per request (FLAT_LAUNCHES), each
+    K19 launch of one request against its plain version on its own inputs
+    (ROUNDING_SHARE; the XLA form must fail it), stage 0's output against
+    the same path with K19 alone plain (STAGE0_ISO_TOL; the XLA form must
+    fail it; the logits' distances printed), p50, frames/s and peak memory
+    in turns with r5, the distance from r5 (no bar).  Returns the launches
+    of each path's requests."""
+    from ir_ads_tpu_torch.ops import layers
+    from ir_ads_tpu_torch.ops import patch_embed as k19
+    from ir_ads_tpu_torch.serve import SemSegPredictor
+
+    out = {}
+    ref5, labels5 = refs["r5"]
+    for what, impl in (("r5_flat", "xla"), ("r5_flat_patch", "pallas")):
+        pred = SemSegPredictor(device="cuda", seed=seed, num_classes=NUM_CLASSES,
+                               image_size=IMAGE, flat_input=True, patch_embed=impl)
+        lat, outs, launches = _served(pred, frames, requests, batch, FLAT_LAUNCHES[what], what)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        logits, labels = outs[0]
+        differ = int((logits != ref5).sum())
+        vs5 = float((logits - ref5).abs().mean() / ref5.abs().mean())
+        agree5 = float((labels == labels5).float().mean())
+        print(f"  {what} against r5 on NHWC frames, the same weights and requests: {differ} "
+              f"of {logits.numel()} logits differ (mean |diff| / mean |r5| {vs5:.3e}, labels "
+              f"agree {agree5:.4f})" + ("; bit-equal required" if impl == "xla" else
+                                        "; no bar"), flush=True)
+        if impl == "xla" and differ:
+            fail("the flat r5 path with the XLA patch embedding is not r5 bit for bit")
+        entry = dict(peak_memory_gib=peak, logits_differ_vs_r5=differ, rel_mean_vs_r5=vs5,
+                     label_agree_vs_r5=agree5)
+        if impl == "pallas":
+            check = ("patch_embed", "patch_embed", k19.patch_embed_reference,
+                     functools.partial(k19.patch_embed_reference, round_ln=False),
+                     ROUNDING_SHARE)
+            log = _checked_request(pred, frames, [check], layers)
+            for name, shape, rel, share, fault_rel, fault_share, _ in log:
+                print(f"  {what} launch {name} {shape}: rel {rel:.3e} (tol {REL_TOL}), differ "
+                      f"{share:.4f} (tol {ROUNDING_SHARE}); planted fault (the XLA form): rel "
+                      f"{fault_rel:.3e}, differ {fault_share:.4f}", flush=True)
+                if not (rel <= REL_TOL and share <= ROUNDING_SHARE):
+                    fail(f"a K19 launch on the {what} path disagrees with its plain version")
+                if fault_rel <= REL_TOL and fault_share <= ROUNDING_SHARE:
+                    fail(f"the XLA form of K19 passes its launch bar on the {what} path")
+            if len(log) != FLAT_LAUNCHES[what]["patch_embed"]:
+                fail(f"{len(log)} K19 launches checked on the {what} path")
+            mine = _stage0_request(pred, frames, {}, layers)
+            iso = _stage0_request(pred, frames, {"patch_embed": check[2]}, layers)
+            bad = _stage0_request(pred, frames, {"patch_embed": check[3]}, layers)
+            mean_rel = lambda x, y: float((x - y).abs().mean() / y.abs().mean())  # noqa: E731
+            stage0 = [max(mean_rel(x, y) for x, y in zip(run[0], iso[0])) for run in (mine, bad)]
+            end = [mean_rel(run[1], iso[1]) for run in (mine, bad)]
+            print(f"  {what} against the same path with K19 alone plain, mean |diff| / mean "
+                  f"|ref| at stage 0's output (both streams): kernel {stage0[0]:.3e}, planted "
+                  f"fault (the XLA form) {stage0[1]:.3e} (tol {STAGE0_ISO_TOL}); logits "
+                  f"(information, no bar): kernel {end[0]:.3e}, fault {end[1]:.3e}", flush=True)
+            if stage0[0] > STAGE0_ISO_TOL:
+                fail(f"K19 disagrees with its plain version behind stage 0 on the {what} path")
+            if stage0[1] <= STAGE0_ISO_TOL:
+                fail(f"K19 in the XLA form passes the {what} stage-0 bar")
+            entry.update(stage0_rel_vs_k19_plain=stage0, logits_rel_vs_k19_plain=end,
+                         parent_f32_scale=_parent_scale(pred, frames, logits, what),
+                         launch_checks=[list(e) for e in log])
+            del mine, iso, bad
+        p50 = _p50(lat)
+        print(f"  {what}: latency ms {['%.1f' % v for v in lat]} p50 {p50:.1f}, "
+              f"{batch * 1e3 / p50:.2f} frames/s, peak memory {peak:.2f} GiB [{card_line}]",
+              flush=True)
+        print(f"  launches on the {what} path ({requests} requests): {launches}", flush=True)
+        del outs, logits, labels
+        if impl == "pallas":
+            entry.update(_in_turns(seed, "r5", what, pred, frames, requests, batch, card_line))
+        serve[what] = dict(latency_ms=lat, p50_ms=p50, frames_per_s=batch * 1e3 / p50, **entry)
+        out[what] = launches
+        del pred
+        torch.cuda.empty_cache()
+    return out
+
+
 # --------------------------------------------------------------------------
 # phase 5: training steps through the port's entry point
 # --------------------------------------------------------------------------
@@ -2029,7 +2357,8 @@ TRAIN_LAUNCHES = {"swin_block": 48, "window_attn_bwd": 48, "dscf_rpe": 3,
                   "block_tail": 0, "swin_block_v6": 0, "msdeform": 0,
                   "swin_block_int8": 0, "block_tail_int8": 0, "window_attention_qkv": 0,
                   "swin_block_v7": 0, "swin_block_full": 0, "window_attention_map": 0,
-                  "dscf_fused": 0, "dscf_attention": 0, "dscf_rpe_jmajor": 0}
+                  "dscf_fused": 0, "dscf_attention": 0, "dscf_rpe_jmajor": 0,
+                  "patch_embed": 0, "window_attention_v1": 0}
 
 # One forward and backward in bf16 with f32 master parameters, every
 # stochastic rate 0, gradients taken group by group (a group's parameters as
@@ -2575,6 +2904,26 @@ def phase_detect(seed: int, requests: int, card_line: str):
                "planted fault (plain K9 without the -0.5)")[1]:
         fail("a K9 without the -0.5 passes the encoder bars")
 
+    # for the record: the parent's f32 scale in MultiheadAttention, the
+    # decoder's self-attention (the encoder attends by K9), no bar
+    restore = _f32_scale()
+    try:
+        old = forward()
+    finally:
+        restore()
+    valid = torch.isfinite(got["scores"])
+    parent_scale = dict(memory=mean_rel(old["memory"], got["memory"]),
+                        scores=mean_rel(old["scores"][valid], got["scores"][valid]),
+                        same_tokens=bool(torch.equal(old["tokens"], got["tokens"])),
+                        logits=mean_rel(old["logits"], got["logits"]),
+                        boxes=mean_rel(old["pred_boxes"], got["pred_boxes"]))
+    print(f"  the parent's f32 attention scale (information, no bar), mean |diff| / mean |ref|: "
+          f"encoder memory {parent_scale['memory']:.3e}, proposal scores "
+          f"{parent_scale['scores']:.3e}, the same selected tokens "
+          f"{parent_scale['same_tokens']}; last decoder layer's class logits "
+          f"{parent_scale['logits']:.3e}, boxes {parent_scale['boxes']:.3e}", flush=True)
+    del old
+
     # (c) after the selection, on the plain path's selected tokens
     def compare_forced(a, what):
         if not torch.equal(a["tokens"], want["tokens"]):
@@ -2610,14 +2959,16 @@ def phase_detect(seed: int, requests: int, card_line: str):
     print(f"  launches on the detection path ({requests} requests): {launches}", flush=True)
     return launches, dict(latency_ms=lat, p50_ms=p50, images_per_s=1e3 / p50,
                           model_ms=t_model, postprocess_ms=t_post, peak_memory_gib=peak,
-                          launch_rel_err=call_rel, agreement=agree)
+                          launch_rel_err=call_rel, agreement=agree,
+                          parent_f32_scale=parent_scale)
 
 
 def kernel_table(rows, launches, launches_i8, module_launches, train_launches, det_launches):
     """One entry per kernel; ``launches`` sums the main paths' runs (the
     serving requests under r5, r4i8, r2, r1, xla, v7_01, v5, map,
-    dscf_pallas4, dscf_pallas and dscf_pallas2, the training steps and the
-    detection requests, each counted from 0)."""
+    dscf_pallas4, dscf_pallas and dscf_pallas2, r5 on flat frames with the
+    XLA patch embedding and with K19, the training steps and the detection
+    requests, each counted from 0; K20 runs on none of them)."""
     from ir_ads_tpu_torch.ops.cuda_lib import PKG
 
     out = []
@@ -2679,6 +3030,8 @@ def main():
 
     print("phase 3: kernels against their plain versions (main-path shapes)", flush=True)
     rows = phase_kernels(args.seed, 2 * args.batch)
+    repair = repair_record(torch.Generator(device="cuda").manual_seed(args.seed + 5),
+                           2 * args.batch)
     print("phase 4: serving", flush=True)
     launches, launches_i8, module_launches, serve = phase_serve(
         args.seed, args.requests, args.batch, card_line)
@@ -2689,7 +3042,8 @@ def main():
 
     print(json.dumps({"kernels": kernel_table(rows, launches, launches_i8, module_launches,
                                               train_launches, det_launches),
-                      "serve": serve, "train": train, "detect": detect, "card": card_line}))
+                      "serve": serve, "train": train, "detect": detect, "repair": repair,
+                      "card": card_line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

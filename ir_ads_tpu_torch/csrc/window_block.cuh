@@ -78,7 +78,9 @@ inline size_t window_attention_smem(int N, int d) {
 // head.  load(i) gives token i's 3C-wide qkv row (q | k | v); store(i) gives
 // its C-wide output row, or nullptr to drop it.  region_win is the window's
 // (N) shift-region ids or nullptr.  q is scaled and rounded to bf16 on
-// load, scores and softmax are f32, the probabilities are rounded to bf16
+// load (the wrapper passes the scale already rounded to bf16,
+// ops/layers.q_scale, as JAX casts the Python scalar to q's dtype before the
+// product), scores and softmax are f32, the probabilities are rounded to bf16
 // before P.V, the output rounded once.  smem holds window_attention_smem.
 template <typename Load, typename Store>
 __device__ void window_attention(unsigned char* smem, Load load, Store store,

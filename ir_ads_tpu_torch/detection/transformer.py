@@ -21,7 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ir_ads_tpu_torch.detection.msdeform_attn import MSDeformAttention, dense
-from ir_ads_tpu_torch.ops.layers import LayerNorm
+from ir_ads_tpu_torch.ops.layers import LayerNorm, q_scale
 
 NORM_EPS = 1e-6  # flax's LayerNorm default, which the JAX modules keep
 
@@ -150,7 +150,8 @@ class _PackedProjections(nn.Module):
 class MultiheadAttention(nn.Module):
     """Standard attention where query_pos / key_pos are added to q and k
     only.  Scores and softmax in f32 from ``q * head_dim**-0.5`` rounded to
-    the compute dtype; probabilities cast to the value dtype."""
+    the compute dtype, the scale itself first rounded to it (``q_scale``);
+    probabilities cast to the value dtype."""
 
     def __init__(self, embed_dim: int, num_heads: int):
         super().__init__()
@@ -178,8 +179,9 @@ class MultiheadAttention(nn.Module):
             return t.reshape(b, -1, self.num_heads, hd).transpose(1, 2)
 
         qh, kh, vh = split(q, 0), split(k, 1), split(value, 2)
-        # f32 scores of the rounded operands (their products are exact in f32)
-        attn = (qh * hd ** -0.5).float() @ kh.float().transpose(-1, -2)
+        # f32 scores of the rounded operands (their products are exact in f32);
+        # q scaled by the scale rounded to q's dtype, as JAX's weak typing does
+        attn = (qh * q_scale(hd ** -0.5, qh.dtype)).float() @ kh.float().transpose(-1, -2)
         if attn_mask is not None:  # True = masked
             attn = attn.masked_fill(attn_mask[None, None], -1e9)
         attn = torch.softmax(attn, -1)

@@ -27,6 +27,15 @@ def tile_grid(size: int, tile: int, stride: int) -> List[int]:
     return sorted({min(i * stride, size - tile) for i in range(n)})
 
 
+def flip_w(t: torch.Tensor, cf: int) -> torch.Tensor:
+    """Horizontal flip of (N, H, W, C) tiles, or of flat (N, H, W*cf) rows
+    as W-groups of cf."""
+    if t.ndim == 4:
+        return t.flip(2)
+    n, h, wc = t.shape
+    return t.reshape(n, h, wc // cf, cf).flip(2).reshape(n, h, wc)
+
+
 def make_sliding_window_fn(
     forward: Callable,
     image_size: Tuple[int, int],
@@ -37,7 +46,8 @@ def make_sliding_window_fn(
 ) -> Callable:
     """Returns predict(rgb, dte) -> (B, H, W, num_classes) f32 logits.
     ``forward(rgb, dte)`` maps (N, th, tw, 3) tiles to fused-head logits at
-    tile or at head resolution."""
+    tile or at head resolution.  ``predict`` also takes flat (B, H, W*3)
+    rows, and hands ``forward`` flat (N, th, tw*3) tiles."""
     h, w = image_size
     th, tw = tile_size
     ys = tile_grid(h, th, int(math.ceil(th * (1 - overlap))))
@@ -47,15 +57,20 @@ def make_sliding_window_fn(
 
     def predict(rgb: torch.Tensor, dte: torch.Tensor) -> torch.Tensor:
         b = rgb.shape[0]
+        # rank 3: flat (B, H, W*cf) rows, the bench's feed; W offsets and
+        # padding scale by the channel factor cf, the flip reverses W-groups
+        # of cf (the reference's ``flip_w``)
+        flat = rgb.ndim == 3
+        cf = rgb.shape[-1] // w if flat else 1
         if pad_h or pad_w:
-            rgb = F.pad(rgb, (0, 0, 0, pad_w, 0, pad_h))
-            dte = F.pad(dte, (0, 0, 0, pad_w, 0, pad_h))
-        tiles_rgb = torch.cat([rgb[:, y:y + th, x:x + tw] for y, x in offsets])
-        tiles_dte = torch.cat([dte[:, y:y + th, x:x + tw] for y, x in offsets])
+            pad = (0, pad_w * cf, 0, pad_h) if flat else (0, 0, 0, pad_w, 0, pad_h)
+            rgb, dte = F.pad(rgb, pad), F.pad(dte, pad)
+        tiles_rgb = torch.cat([rgb[:, y:y + th, x * cf:(x + tw) * cf] for y, x in offsets])
+        tiles_dte = torch.cat([dte[:, y:y + th, x * cf:(x + tw) * cf] for y, x in offsets])
         m = tiles_rgb.shape[0]
         if flip:
-            tiles_rgb = torch.cat([tiles_rgb, tiles_rgb.flip(2)])
-            tiles_dte = torch.cat([tiles_dte, tiles_dte.flip(2)])
+            tiles_rgb = torch.cat([tiles_rgb, flip_w(tiles_rgb, cf)])
+            tiles_dte = torch.cat([tiles_dte, flip_w(tiles_dte, cf)])
         out = forward(tiles_rgb, tiles_dte)
         if flip:
             out = out[:m] + out[m:].flip(2)

@@ -97,8 +97,8 @@ from ir_ads_tpu_torch.ops.dscf_rpe_packed import rpe_bias_packed
 from ir_ads_tpu_torch.ops.grid_sample import grid_sample_matmul, make_ref_grid
 from ir_ads_tpu_torch.ops.int8 import int8_conv, int8_linear, int8_weight, set_int8_weight
 from ir_ads_tpu_torch.ops.layers import (
-    FFN, FlaxBatchNorm2d, PatchEmbed, PatchMerging, cast, conv2d, drop_path, dropout,
-    gelu, layer_norm, linear, pointwise,
+    FFN, PATCH_EMBED, FlaxBatchNorm2d, PatchEmbed, PatchMerging, cast, conv2d, drop_path,
+    dropout, gelu, layer_norm, linear, pointwise,
 )
 from ir_ads_tpu_torch.ops.swin_block import window_block
 from ir_ads_tpu_torch.ops.swin_block_int8 import window_block_int8
@@ -757,7 +757,10 @@ class SwinTransformer(nn.Module):
     (fused, rgb, dte).  Defaults are Swin-B (embed 128, depths 2/2/18/2,
     heads 4/8/16/32, window 12) under the ``r5`` dispatch; ``attn_impl``,
     ``dscf_attn``, ``ffn_impl``, ``int8`` and ``rpe3`` take one of the
-    ``DISPATCH`` entries.
+    ``DISPATCH`` entries.  The inputs are (B, H, W, 3) frames or flat (B, H,
+    W*3) rows; ``patch_embed`` chooses the flat path of both streams'
+    ``PatchEmbed`` (``"xla"``, ``"xla2"``, or ``"pallas"``: K19, flat input
+    only).
     ``drop_path_rate`` (spread linearly over the blocks), ``adapter_drop``
     and ``mmst_mask`` act only under the ``train`` dispatch, in train mode."""
 
@@ -784,6 +787,7 @@ class SwinTransformer(nn.Module):
         ffn_impl: str = DISPATCH["r5"][2],
         int8: bool = False,
         rpe3: str = DISPATCH["r5"][4],
+        patch_embed: str = "xla",
     ):
         super().__init__()
         if dual_batch:
@@ -796,8 +800,9 @@ class SwinTransformer(nn.Module):
         self.stochastic = ffn_impl == "module"  # the train dispatch
         self.mmst_mask = mmst_mask
         dpr = np.linspace(0.0, drop_path_rate, sum(depths)).tolist()
-        self.patch_embed = PatchEmbed(embed_dim, patch_size)
-        self.extra_patch_embed = PatchEmbed(embed_dim, patch_size)
+        _require(patch_embed, PATCH_EMBED, "patch_embed")
+        self.patch_embed = PatchEmbed(embed_dim, patch_size, impl=patch_embed)
+        self.extra_patch_embed = PatchEmbed(embed_dim, patch_size, impl=patch_embed)
         self.stages = nn.ModuleList(
             SwinStage(dims[i], depths[i], num_heads[i], window_size, i < nl - 1,
                       adapter_ratio, mlp_ratio, attn_impl[i], ffn_impl,

@@ -12,6 +12,9 @@ variants ``"dscf_pallas4"``, ``"dscf_pallas"`` and ``"dscf_pallas2"`` for eval,
 ``"train"`` for a model that takes gradients.  Under ``"train"``,
 in train mode, the MMST modality mask, drop-path, adapter dropout and the
 heads' dropout (``head_drop``) draw from ``forward``'s ``generator``.
+The inputs may be flat (B, H, W*3) rows, the bench's feed: ``patch_embed``
+then chooses the patch embedding's path (``"xla"``, ``"xla2"`` or
+``"pallas"``, K19).
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ class CMNeXt(nn.Module):
         dispatch: str = "r5",
         head_drop: float = 0.1,
         mmst_mask: bool = True,
+        patch_embed: str = "xla",
     ):
         super().__init__()
         if backbone not in BACKBONES:
@@ -48,7 +52,8 @@ class CMNeXt(nn.Module):
         attn_impl, dscf_attn, ffn_impl, int8, rpe3 = DISPATCH[dispatch]
         self.backbone = BACKBONES[backbone](
             attn_impl=attn_impl, dscf_attn=dscf_attn, ffn_impl=ffn_impl, int8=int8,
-            rpe3=rpe3, mmst_mask=mmst_mask, **(backbone_kwargs or {}))
+            rpe3=rpe3, mmst_mask=mmst_mask, patch_embed=patch_embed,
+            **(backbone_kwargs or {}))
         dims = self.backbone.num_features
         self.decode_head = SegFormerHead(dims, head_dims[0], num_classes, int8)
         self.decode_head_rgb = SegFormerHead(dims, head_dims[1], num_classes, int8)
@@ -58,7 +63,8 @@ class CMNeXt(nn.Module):
 
     def forward(self, x_rgb: torch.Tensor, x_dte: torch.Tensor,
                 generator: Optional[torch.Generator] = None):
-        """x_rgb, x_dte: (B, H, W, 3).  Returns (fused, rgb, dte) logits."""
+        """x_rgb, x_dte: (B, H, W, 3) frames or flat (B, H, W*3) rows.
+        Returns (fused, rgb, dte) logits."""
         feats, feats_rgb, feats_dte = self.backbone(x_rgb, x_dte, generator)
         drop = self.head_drop if self.training and self.backbone.stochastic else 0.0
         ys = (
@@ -67,6 +73,7 @@ class CMNeXt(nn.Module):
             self.decode_head_dte(feats_dte, drop, generator),
         )
         if self.upsample_logits:
-            size = x_rgb.shape[1:3]
+            flat = x_rgb.ndim == 3
+            size = (x_rgb.shape[1], x_rgb.shape[2] // 3) if flat else x_rgb.shape[1:3]
             ys = tuple(resize_bilinear(y, size, align_corners=False) for y in ys)
         return ys

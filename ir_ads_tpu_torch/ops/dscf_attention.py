@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from ir_ads_tpu_torch.ops.cuda_lib import FLOAT, INT, VOIDP, CudaKernel, check_cuda, ptr
+from ir_ads_tpu_torch.ops.layers import q_scale
 from ir_ads_tpu_torch.ops.dscf_rows import attend_reference
 from ir_ads_tpu_torch.ops.dscf_rows_bwd import HEAD_CHANNELS
 
@@ -64,7 +65,8 @@ def _forward(q, k, v, bias, scale, hg):
         raise ValueError(f"dscf_attention: needs {HEAD_CHANNELS} channels per head and "
                          f"keys padded to a multiple of {KEY_LANES}, got {tuple(k.shape)}")
     out = torch.empty_like(q)
-    KERNEL.call(ptr(q), ptr(k), ptr(v), ptr(bias), ptr(out), bg, hg, hw, mp, float(scale))
+    KERNEL.call(ptr(q), ptr(k), ptr(v), ptr(bias), ptr(out), bg, hg, hw, mp,
+                q_scale(scale, q.dtype))
     return out
 
 

@@ -34,6 +34,7 @@ from __future__ import annotations
 import torch
 
 from ir_ads_tpu_torch.ops.cuda_lib import FLOAT, INT, VOIDP, CudaKernel, check_cuda, ptr
+from ir_ads_tpu_torch.ops.layers import q_scale
 from ir_ads_tpu_torch.ops.dscf_rows import dscf_rows_reference
 from ir_ads_tpu_torch.ops.dscf_rows_bwd import HEAD_CHANNELS
 from ir_ads_tpu_torch.ops.dscf_rpe import hat_slopes, rpe_bias_rows_reference
@@ -82,7 +83,7 @@ def _forward(q, k, v, pos, table, h, w, scale, hg):
     g, _, s1, s2 = table.shape
     out = torch.empty_like(q)
     KERNEL.call(ptr(q), ptr(k), ptr(v), ptr(pos), ptr(table), ptr(out), bg, g, hg, h, w, m,
-                mp, s1, s2, float(scale), *hat_slopes(s1, s2, h, w))
+                mp, s1, s2, q_scale(scale, q.dtype), *hat_slopes(s1, s2, h, w))
     return out
 
 

@@ -36,6 +36,7 @@ import torch
 from ir_ads_tpu_torch.ops.cuda_lib import (
     FLOAT, INT, VOIDP, CudaKernel, check_cuda, ptr, up,
 )
+from ir_ads_tpu_torch.ops.layers import q_scale
 from ir_ads_tpu_torch.ops.dscf_rows_bwd import HEAD_CHANNELS, dscf_rows_bwd
 
 KERNEL = CudaKernel(
@@ -51,7 +52,7 @@ def attend_reference(qh, kh, vh, bh, scale, packed):
     division, then ``packed`` (normalise, round, P.V) or not (round the
     unnormalised weights, P.V, divide); P.V summed in f32, rounded once."""
     cdt = qh.dtype
-    s = up((up(qh) * scale).to(cdt)) @ up(kh).transpose(-1, -2) + up(bh)
+    s = up((up(qh) * q_scale(scale, cdt)).to(cdt)) @ up(kh).transpose(-1, -2) + up(bh)
     ex = torch.exp(s - s.amax(-1, keepdim=True))
     den = ex.sum(-1, keepdim=True)
     if packed:
@@ -86,7 +87,7 @@ def _forward(q, k, v, bias, scale, hg, packed):
         raise ValueError(f"dscf_rows_attention: needs {HEAD_CHANNELS} channels per head")
     out = torch.empty_like(q)
     KERNEL.call(ptr(q), ptr(k), ptr(v), ptr(bias), ptr(out), bg, hg, h, w, m,
-                mp, float(scale), int(bool(packed)))
+                mp, q_scale(scale, q.dtype), int(bool(packed)))
     return out
 
 

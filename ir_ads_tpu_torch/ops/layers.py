@@ -20,6 +20,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ir_ads_tpu_torch.ops.patch_embed import patch_embed, patchify_flat
+
 
 def gelu(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
@@ -36,6 +38,16 @@ def cast(p: Optional[torch.Tensor], like: torch.Tensor) -> Optional[torch.Tensor
 def up(t: torch.Tensor) -> torch.Tensor:
     """f32, or f64 for f64 tensors: the dtype a normalisation computes in."""
     return t if t.dtype == torch.float64 else t.float()
+
+
+def q_scale(scale: float, dtype: torch.dtype) -> float:
+    """The attention scale as the reference multiplies q by it: JAX casts
+    the Python scalar of ``(q * scale).astype(q.dtype)`` to q's dtype first,
+    so in bf16 the scale is rounded to bf16 (8 ** -0.5 -> 0.353515625);
+    f32 keeps it.  Every forward attention kernel and its plain version
+    takes the scale through here; the backward kernels keep the exact one,
+    as the reference's do."""
+    return float(torch.tensor(scale, dtype=dtype))
 
 
 def layer_norm(x: torch.Tensor, norm: nn.LayerNorm) -> torch.Tensor:
@@ -159,27 +171,62 @@ def adaptive_pad(
     return F.pad(x, (0, 0, 0, pad_w, 0, pad_h))
 
 
+PATCH_EMBED = ("xla", "xla2", "pallas")
+
+
 class PatchEmbed(nn.Module):
     """Conv patch embedding (kernel == stride) as patchify + matmul, then
-    LayerNorm.  Input (B, H, W, 3), output (B, H/p, W/p, E)."""
+    LayerNorm.  Input (B, H, W, c) or flat (B, H, W*c) rows, output (B, H/p,
+    W/p, E).  Both layouts are padded at the bottom and right to whole
+    patches and patchified in the order (p_row, x_in_patch, c), which the
+    same reshaped conv weight serves, so flat input gives NHWC's output bit
+    for bit under ``impl="xla"``.  ``impl`` chooses the flat path, as
+    ``IR_ADS_PATCH_EMBED`` does the reference's: ``"xla"`` one product,
+    ``"xla2"`` one product per patch row summed in f32, ``"pallas"`` K19
+    (ops/patch_embed.py, which rounds the LayerNorm's parameters to the
+    compute dtype as the Pallas kernel does).  The reference reaches its
+    kernel on flat input only: ``"pallas"`` on NHWC input raises."""
 
-    def __init__(self, embed_dim: int, patch_size: int = 4, in_chans: int = 3):
+    def __init__(self, embed_dim: int, patch_size: int = 4, in_chans: int = 3,
+                 impl: str = "xla"):
         super().__init__()
-        self.patch_size = patch_size
+        if impl not in PATCH_EMBED:
+            raise NotImplementedError(
+                f"patch_embed={impl!r}: the port implements only {PATCH_EMBED!r}")
+        self.patch_size, self.in_chans, self.impl = patch_size, in_chans, impl
         self.projection = nn.Conv2d(in_chans, embed_dim, patch_size, patch_size)
         self.norm = nn.LayerNorm(embed_dim, eps=1e-5)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        p = self.patch_size
-        x = adaptive_pad(x, (p, p), (p, p))
-        b, h, w, c = x.shape
-        xp = (
-            x.reshape(b, h // p, p, w // p, p, c)
-            .permute(0, 1, 3, 2, 4, 5)
-            .reshape(b, h // p, w // p, p * p * c)
-        )
+        p, c = self.patch_size, self.in_chans
+        impl = self.impl
+        if x.ndim == 4:  # NHWC: its rows are the flat layout's, and always "xla"
+            if impl == "pallas":
+                raise ValueError("PatchEmbed(impl='pallas') takes flat (B, H, W*c) input: "
+                                 "the reference runs its kernel on flat input only")
+            x, impl = x.flatten(2), "xla"
+        pad_h, pad_w = -x.shape[1] % p, -(x.shape[2] // c) % p
+        if pad_h or pad_w:
+            x = F.pad(x, (0, pad_w * c, 0, pad_h))
         wk = self.projection.weight.permute(0, 2, 3, 1).reshape(-1, p * p * c)
+        if impl == "pallas":
+            return patch_embed(x, wk.t(), self.projection.bias, self.norm.weight,
+                               self.norm.bias, p, c, self.norm.eps)
+        if impl == "xla2":
+            return layer_norm(self._row_sums(x, wk), self.norm)
+        xp = patchify_flat(x, p, c)
         return layer_norm(F.linear(xp, cast(wk, xp), cast(self.projection.bias, xp)), self.norm)
+
+    def _row_sums(self, x: torch.Tensor, wk: torch.Tensor) -> torch.Tensor:
+        """The reference's xla2: for each of the p patch rows a strided
+        slice of the flat rows times its p*c columns of the weight, summed
+        in f32, rounded, plus the rounded bias, rounded again."""
+        p, c = self.patch_size, self.in_chans
+        b, h, wc = x.shape
+        wk3 = up(cast(wk, x)).reshape(-1, p, p * c)
+        y = sum(up(x[:, r::p].reshape(b, h // p, wc // (p * c), p * c)) @ wk3[:, r].t()
+                for r in range(p))
+        return (up(y.to(x.dtype)) + up(cast(self.projection.bias, x))).to(x.dtype)
 
 
 class PatchMerging(nn.Module):

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from ir_ads_tpu_torch.ops.cuda_lib import (
     FLOAT, INT, VOIDP, CudaKernel, check_cuda, ptr, up,
 )
+from ir_ads_tpu_torch.ops.layers import q_scale
 from ir_ads_tpu_torch.ops.window_attn_bwd import window_attention_bwd
 from ir_ads_tpu_torch.ops.window_attention import window_partition, window_reverse
 # W-MSA of a (B, Hp, Wp, 3C) qkv map as the TPU kernels round it: K15's plain
@@ -101,7 +102,7 @@ def _forward(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, region, scale,
         ptr(x), ptr(ln_w), ptr(ln_b), ptr(wqkv), ptr(bqkv), ptr(wproj),
         ptr(bproj), ptr(bias), ptr(region) if region is not None else None,
         ptr(qkv), ptr(att), ptr(y), b, hp, wp, c, heads, ws, h_real, w_real,
-        shift, float(scale), float(eps),
+        shift, q_scale(scale, cdt), float(eps),
     )
     return y
 

@@ -27,6 +27,7 @@ import torch.nn.functional as F
 from ir_ads_tpu_torch.ops.cuda_lib import (
     FLOAT, INT, VOIDP, CudaKernel, check_cuda, forbid_grad, ptr, up,
 )
+from ir_ads_tpu_torch.ops.layers import q_scale
 from ir_ads_tpu_torch.ops.swin_block import window_attention_reference
 
 KERNEL = CudaKernel(
@@ -97,6 +98,6 @@ def window_block_full(
     KERNEL.call(
         ptr(x), ptr(ln_w), ptr(ln_b), ptr(wqkv), ptr(bqkv), ptr(wproj), ptr(bproj),
         ptr(bias), ptr(region) if region is not None else None, ptr(qkv), ptr(att), ptr(y),
-        b, h, w, c, heads, ws, shift, float(scale), float(eps),
+        b, h, w, c, heads, ws, shift, q_scale(scale, cdt), float(eps),
     )
     return y

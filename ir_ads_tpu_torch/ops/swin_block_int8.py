@@ -25,6 +25,7 @@ from ir_ads_tpu_torch.ops.cuda_lib import (
     FLOAT, INT, VOIDP, CudaKernel, check_cuda, forbid_grad, ptr, up,
 )
 from ir_ads_tpu_torch.ops.int8 import int8_linear, layer_norm_rows
+from ir_ads_tpu_torch.ops.layers import q_scale
 from ir_ads_tpu_torch.ops.swin_block import pad_mask, window_attention_reference
 
 KERNEL = CudaKernel(
@@ -105,6 +106,6 @@ def window_block_int8(
         ptr(x), ptr(ln_w), ptr(ln_b), ptr(wqkv_q), ptr(sqkv), ptr(bqkv), ptr(wproj_q),
         ptr(sproj), ptr(bproj), ptr(bias), ptr(region) if region is not None else None,
         ptr(qkv), ptr(att), ptr(y), b, hp, wp, c, heads, ws, h_real, w_real, shift,
-        float(scale), float(eps),
+        q_scale(scale, cdt), float(eps),
     )
     return y

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from ir_ads_tpu_torch.ops.cuda_lib import (
     FLOAT, INT, VOIDP, CudaKernel, check_cuda, forbid_grad, ptr,
 )
+from ir_ads_tpu_torch.ops.layers import q_scale
 from ir_ads_tpu_torch.ops.swin_block import window_attention_reference
 
 KERNEL = CudaKernel(
@@ -127,6 +128,6 @@ def window_block_v6(
         ptr(x), *(ptr(t) for t in attn), ptr(region) if region is not None else None,
         *(ptr(t) for t in tail), ptr(qkv), ptr(att), ptr(out),
         b, h, w, c, heads, ws, shift, hidden, ca, streams,
-        float(scale), float(eps), float(adapter_scale),
+        q_scale(scale, cdt), float(eps), float(adapter_scale),
     )
     return out

@@ -15,6 +15,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ir_ads_tpu_torch.ops.layers import q_scale
+
 
 def window_partition(x: torch.Tensor, ws: int) -> torch.Tensor:
     """(B, H, W, C) -> (B * nWh * nWw, ws*ws, C); H, W divisible by ws."""
@@ -106,7 +108,7 @@ def window_attention(
     mask added in f32, f32 softmax, probabilities cast to v's dtype, P.V
     summed in f32 and rounded once.  Returns (B*nW, heads, N, d)."""
     bn, nh, n, _ = q.shape
-    attn = _up(q * scale) @ _up(k).transpose(-1, -2)
+    attn = _up(q * q_scale(scale, q.dtype)) @ _up(k).transpose(-1, -2)
     attn = attn + _up(bias)[None]
     if mask is not None:
         nw = mask.shape[0]

@@ -24,6 +24,7 @@ from typing import Optional
 import torch
 
 from ir_ads_tpu_torch.ops.cuda_lib import FLOAT, INT, VOIDP, CudaKernel, check_cuda, ptr
+from ir_ads_tpu_torch.ops.layers import q_scale
 from ir_ads_tpu_torch.ops.window_attention import window_partition, window_reverse
 from ir_ads_tpu_torch.ops.window_attention_qkv import window_attention_qkv_reference
 
@@ -58,7 +59,7 @@ def _forward(qkv, bias, region, scale, heads, ws):
         region = region.to(device=qkv.device, dtype=torch.int32).contiguous()
     out = torch.empty((b, hp, wp, c), dtype=qkv.dtype, device=qkv.device)
     KERNEL.call(ptr(qkv), ptr(bias), ptr(region) if region is not None else None,
-                ptr(out), b, hp, wp, c, heads, ws, float(scale))
+                ptr(out), b, hp, wp, c, heads, ws, q_scale(scale, qkv.dtype))
     return out
 
 

@@ -22,6 +22,7 @@ from typing import Optional
 import torch
 
 from ir_ads_tpu_torch.ops.cuda_lib import FLOAT, INT, VOIDP, CudaKernel, check_cuda, ptr
+from ir_ads_tpu_torch.ops.layers import q_scale
 from ir_ads_tpu_torch.ops.window_attention import window_attention
 
 KERNEL = CudaKernel(
@@ -69,7 +70,7 @@ def _forward(qkv, bias, region, scale, heads):
         region = region.to(device=qkv.device, dtype=torch.int32).contiguous()
     out = torch.empty((bn, n, c), dtype=qkv.dtype, device=qkv.device)
     KERNEL.call(ptr(qkv), ptr(bias), ptr(region) if region is not None else None,
-                ptr(out), bn, c, heads, ws, nw, float(scale))
+                ptr(out), bn, c, heads, ws, nw, q_scale(scale, qkv.dtype))
     return out
 
 

@@ -11,7 +11,12 @@ the caller passes another of models/backbones/swin.py's ``DISPATCH``: ``"r4"``,
 ``"r4i8"`` (w8a8, its weights quantized from the f32 ones before the cast to
 the compute dtype), the module-path sets ``"r2"``, ``"r1"`` and ``"xla"``, the
 block variants ``"v7_01"``, ``"v5"`` and ``"map"``, or the DSCF variants
-``"dscf_pallas4"``, ``"dscf_pallas"`` and ``"dscf_pallas2"``.
+``"dscf_pallas4"``, ``"dscf_pallas"`` and ``"dscf_pallas2"``.  With
+``flat_input=True`` the normalised frames enter the model as flat (B, H, W*3)
+rows, the bench's host-side reshape (``IR_ADS_FLAT_INPUT=1``), and
+``patch_embed`` chooses the patch embedding's flat path: ``"xla"`` (the
+default, NHWC's output bit for bit), ``"xla2"`` or ``"pallas"`` (K19, flat
+input only).
 
 ``DetPredictor``: counterpart of ``train_net.evaluate_detector``'s ``_infer``
 around the vCLR deformable-mask DINO detector (``configs/detection/
@@ -130,15 +135,21 @@ class SemSegPredictor:
         backbone_kwargs: Optional[dict] = None,
         head_dims: Tuple[int, int] = (512, 256),
         dispatch: str = "r5",
+        flat_input: bool = False,
+        patch_embed: str = "xla",
     ):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("SemSegPredictor: CUDA is not available "
                                "(pass device='cpu' to run the plain versions)")
+        if patch_embed == "pallas" and not flat_input:
+            raise ValueError("SemSegPredictor: patch_embed='pallas' (K19) takes flat input: "
+                             "pass flat_input=True")
         self.dtype = dtype
+        self.flat_input = flat_input
         model = CMNeXt(num_classes=num_classes, backbone_kwargs=backbone_kwargs,
                        head_dims=head_dims, upsample_logits=False,
-                       dispatch=dispatch)
+                       dispatch=dispatch, patch_embed=patch_embed)
         init_random_(model, seed)  # no checkpoint in the repository yet
         quantize_int8_(model, dtype)  # the int8 sites of an int8 dispatch, from f32
         cast_model_(model, dtype)
@@ -155,6 +166,8 @@ class SemSegPredictor:
         depth = torch.as_tensor(depth, device=self.device).float()
         rgb = (rgb / 255.0 - self.mean) / self.std
         depth = depth / 255.0
+        if self.flat_input:  # (B, H, W, 3) -> (B, H, W*3), a view
+            rgb, depth = rgb.flatten(2), depth.flatten(2)
         return rgb.to(self.dtype), depth.to(self.dtype)
 
     @torch.no_grad()

@@ -5,6 +5,7 @@ one step of its trainer, under torch.profiler.
     python3 profile_port.py [--seed 0] [--batch 2]
                             [--dispatch r5|r4|r4i8|r2|r1|xla|v7_01|v5|map|
                                         dscf_pallas4|dscf_pallas|dscf_pallas2]
+                            [--flat [--patch-embed xla|xla2|pallas]]
     python3 profile_port.py --train [--seed 0] [--batch 4]
     python3 profile_port.py --det [--seed 0]
 
@@ -13,8 +14,9 @@ bf16, weights from --seed) under the given kernel dispatch (r5, the default,
 r4, the w8a8 r4i8, the module-path sets r2, r1 and xla, the block
 variants v7_01, v5 and map, or the DSCF variants dscf_pallas4, dscf_pallas
 and dscf_pallas2), serves one warm-up request, then one profiled request,
-and sums its port kernels' device time by kernel (K1-K18) with their
-launches.
+and sums its port kernels' device time by kernel (K1-K20) with their
+launches.  With --flat the frames enter the model as flat (B, H, W*3) rows
+and --patch-embed chooses the patch embedding's path (pallas: K19).
 Training (--train): builds the full-size trainer (the ``train`` dispatch, f32
 masters, bf16 compute, the shipped adapter-only AdamW recipe), takes two
 warm-up steps, then profiles one step in three parts: forward with the loss,
@@ -58,7 +60,8 @@ BY_KERNEL = {
     "K14": ("v5_ln_qkv_kernel", "v5_attn_kernel", "v5_proj_add_kernel"),
     "K15": ("window_attention_map_kernel",),
     "K16": ("dscf_fused_kernel",), "K17": ("dscf_attention_kernel",),
-    "K18": ("rpe_jmajor_kernel",),
+    "K18": ("rpe_jmajor_kernel",), "K19": ("patch_embed_kernel",),
+    "K20": ("window_attention_v1_kernel",),
 }
 PORT_KERNELS = tuple(n for names in BY_KERNEL.values() for n in names)
 
@@ -125,16 +128,19 @@ def show(what: str, part: dict) -> None:
 def profile_request(args) -> dict:
     from ir_ads_tpu_torch.serve import SemSegPredictor
 
-    pred = SemSegPredictor(device="cuda", seed=args.seed, dispatch=args.dispatch)
+    pred = SemSegPredictor(device="cuda", seed=args.seed, dispatch=args.dispatch,
+                           flat_input=args.flat, patch_embed=args.patch_embed)
     g = torch.Generator().manual_seed(args.seed + 1)
     rgb, dep = (torch.randint(0, 256, (args.batch, 480, 640, 3), generator=g,
                               dtype=torch.uint8) for _ in range(2))
     pred(rgb, dep)
     torch.cuda.synchronize()
     _, part = profiled(lambda: pred(rgb, dep))
-    show(f"{torch.cuda.get_device_name(0)}; {args.dispatch}; request of "
+    flat = f" on flat frames, patch embedding {args.patch_embed}" if args.flat else ""
+    show(f"{torch.cuda.get_device_name(0)}; {args.dispatch}{flat}; request of "
          f"{args.batch} frames", part)
-    return dict(part, dispatch=args.dispatch)
+    return dict(part, dispatch=args.dispatch, flat_input=args.flat,
+                patch_embed=args.patch_embed)
 
 
 def profile_step(args) -> dict:
@@ -247,6 +253,10 @@ def main():
     ap.add_argument("--dispatch", default="r5",
                     choices=("r5", "r4", "r4i8", "r2", "r1", "xla", "v7_01", "v5", "map",
                              "dscf_pallas4", "dscf_pallas", "dscf_pallas2"))
+    ap.add_argument("--flat", action="store_true",
+                    help="serve flat (B, H, W*3) frames, as the bench feeds them")
+    ap.add_argument("--patch-embed", default="xla", choices=("xla", "xla2", "pallas"),
+                    help="the patch embedding's flat path (pallas: K19; needs --flat)")
     ap.add_argument("--train", action="store_true",
                     help="profile one training step instead of one request")
     ap.add_argument("--det", action="store_true",

@@ -17,8 +17,9 @@ from ir_ads_tpu_torch.models.backbones import swin as tswin
 from ir_ads_tpu_torch.models.cmnext import CMNeXt
 from ir_ads_tpu_torch.ops import (
     block_tail, block_tail_int8, dscf_attention, dscf_fused, dscf_rows, dscf_rows_bwd, dscf_rpe,
-    dscf_rpe_jmajor, dscf_rpe_packed, msdeform, swin_block, swin_block_full, swin_block_int8,
-    swin_block_v6, swin_block_v7, window_attention_map, window_attention_qkv, window_attn_bwd,
+    dscf_rpe_jmajor, dscf_rpe_packed, msdeform, patch_embed, swin_block, swin_block_full,
+    swin_block_int8, swin_block_v6, swin_block_v7, window_attention_map, window_attention_qkv,
+    window_attention_v1, window_attn_bwd,
 )
 from ir_ads_tpu_torch.serve import IMAGENET_MEAN, IMAGENET_STD, SemSegPredictor
 
@@ -177,9 +178,9 @@ def test_every_kernel_targets_hopper_and_names_its_tpu_kernel():
     mods = (swin_block, block_tail, dscf_rpe, dscf_rows, swin_block_v6, dscf_rpe_packed,
             window_attn_bwd, dscf_rows_bwd, msdeform, swin_block_int8, block_tail_int8,
             window_attention_qkv, swin_block_v7, swin_block_full, window_attention_map,
-            dscf_fused, dscf_attention, dscf_rpe_jmajor)
-    assert len({m.KERNEL.name for m in mods}) == 18
-    assert len({m.KERNEL.replaces for m in mods}) == 18
+            dscf_fused, dscf_attention, dscf_rpe_jmajor, patch_embed, window_attention_v1)
+    assert len({m.KERNEL.name for m in mods}) == 20
+    assert len({m.KERNEL.replaces for m in mods}) == 20
     for mod in mods:
         k = mod.KERNEL
         assert k.source.exists()

@@ -9,15 +9,13 @@ the packed one at levels 0-2 and the unpacked one at level 3
 (``IR_ADS_DSCF_PACKED="1,1,1,0"``).  The two forms put about 40 % of the
 bf16 outputs an ulp apart.
 
-At a scale exact in bf16 (0.25) each form of the port is its kernel's bit
-for bit, and the other form puts over ``SHARE`` of the outputs an ulp away.
-At the model's scale, 8 ** -0.5 (8 channels a head), about 6 % of the
-outputs differ: the reference multiplies bf16 q by the scale rounded to
-bf16 (JAX casts a Python scalar to the array's dtype), the port by the f32
-scale, and 2.7 % of the rounded products ``bf16(q * scale)`` differ, which
-moves a few outputs by up to 3 bf16 ulps.  That is a fault of its own,
-recorded in ROADMAP.md (Queue 3); there the bar is the share of differing
-outputs, under ``SHARE``, which the other form fails.
+Each form of the port is its kernel's bit for bit, and the other form puts
+over ``SHARE`` of the outputs an ulp away, at a scale exact in bf16 (0.25)
+and at the model's, 8 ** -0.5 (8 channels a head): the reference multiplies
+bf16 q by the scale rounded to bf16 (JAX casts a Python scalar to the
+array's dtype), and so does the port (``ops.layers.q_scale``).  With the f32
+scale 2.7 % of the rounded products ``bf16(q * scale)`` differ and about 6 %
+of the outputs.
 
 The inputs are those of a DSCF level: bg 2, an 8x16 plane, 2 heads of 8
 channels, 48 keys, the bias from the interpreted rpe rows kernel on a table
@@ -76,9 +74,8 @@ def test_rows_attention_bf16_rounds_as_the_kernel_of_its_form(rows_inputs, packe
         shares[form] = float((got != want).mean())
     print(f"packed={packed} scale {scale:.4f}: differing outputs, this form "
           f"{shares[packed]:.4f}, the other {shares[not packed]:.4f}")
-    if scale == 0.25:
-        assert shares[packed] == 0.0
-    assert shares[packed] <= SHARE < shares[not packed]
+    assert shares[packed] == 0.0
+    assert SHARE < shares[not packed]
 
 
 def test_dscf_level3_pallas3_bf16_rounds_as_jax(monkeypatch):
@@ -86,8 +83,7 @@ def test_dscf_level3_pallas3_bf16_rounds_as_jax(monkeypatch):
     with ``IR_ADS_DSCF_ATTN=pallas3`` (interpreted), on identical q, k, v and
     offsets forced into both modules (n = 2 x 4): the attention core, what
     enters proj_out.  JAX runs the unpacked rows kernel at level 3; the port
-    must too, and its packed form must fail the same bar (the scale's
-    rounding, module docstring, leaves about 6 % apart)."""
+    must too, bit for bit, and its packed form must fail."""
     monkeypatch.setenv("IR_ADS_DSCF_ATTN", "pallas3")
     monkeypatch.setenv("IR_ADS_PALLAS_INTERPRET", "1")
     rng = np.random.RandomState(71)
@@ -148,4 +144,5 @@ def test_dscf_level3_pallas3_bf16_rounds_as_jax(monkeypatch):
     got, packed = port_core(3), port_core(2)
     share, share_packed = float((got != want).mean()), float((packed != want).mean())
     print(f"level 3 core: {share:.4f} of outputs differ; in the packed form {share_packed:.4f}")
-    assert share <= SHARE < share_packed
+    assert share == 0.0
+    assert SHARE < share_packed
