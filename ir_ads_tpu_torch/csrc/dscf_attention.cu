@@ -12,19 +12,18 @@
 // with zeros and their bias columns with -1e9.  This kernel visits all Mp
 // keys, as the TPU kernel does, so it computes the function for any bias; a
 // padded key adds exactly 0 to the softmax sum and to P.V (exp(-1e9 - max)
-// is 0 in f32), so skipping the padding, given its count, would be exact
-// too.  The TPU kernel tiles the queries for VMEM; here a block of 256
-// queries plays that part.
+// is 0 in f32).
 //
-// Bound on an H100: bytes (the bf16 bias, 2 bytes per score, against ~35
-// flop per score on the CUDA cores).  Design: K4's (csrc/dscf_rows.cu) on
-// this layout: one block per (bg, head) and 256 query pixels, the head's K
-// and V (Mp x 8, 40 KB as f32 at Mp = 640) staged in shared memory, one
-// thread per query pixel running dscf_attend<true> (csrc/dscf.cuh): an
-// online max/sum pass, then the P.V pass.  A thread reads its own bias row
-// (Mp contiguous bf16) twice; the rows of a warp lie hg*Mp*2 bytes apart,
-// so each load touches 32 sectors and the next 15 loads of a thread hit
-// them in L1.  8-channel heads stay on the CUDA cores, as in K4.
+// Bound on an H100: as K4's packed form (csrc/dscf_rows.cu), whose device
+// code it runs (dscf_attend_packed_mma, csrc/dscf.cuh): bytes (the bias, 2
+// bytes a score); the exp, the true division and the rounding of each
+// score set the pace.  Design: one block, a warpgroup, per (bg, head) and
+// 64 query pixels, K and V staged once as bf16 rows; four tiles of 16
+// query pixels, the keys split over the four warps; each lane reads its
+// scores' bias pairs (4 bytes) straight from the query's contiguous row, a
+// warp load 8 rows x 16 bytes, the other half of each sector taken by the
+// next n-tile's load.  Past 1024 keys: one thread a query pixel
+// (dscf_attend<true>), the PR 8 design.
 #include "dscf.cuh"
 
 using namespace port;
@@ -32,16 +31,20 @@ using namespace port;
 namespace {
 
 constexpr int HC = kDscfHeadChannels;
+constexpr int kBlockQueries = 64;  // query pixels a block takes: four tiles
+constexpr int kKeyLanes = 128;     // Mp is a multiple of the TPU's lane width
+constexpr int kMaxTiles = 32;      // n-tiles a warp at most: Mp <= 1024
 
+// Past kMaxTiles: one thread a query pixel (dscf_attend<true>), K and V as
+// f32 in shared memory, the PR 8 design.
 __global__ void __launch_bounds__(kThreads)
-dscf_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, const bf16* __restrict__ bias,
-                      bf16* __restrict__ out, int hg, int HW, int Mp, float scale) {
-  extern __shared__ __align__(16) float kv_s[];
-  float* K_s = kv_s;
-  float* V_s = kv_s + Mp * HC;
-  const int bg = blockIdx.y / hg, e = blockIdx.y % hg;
-  const int GC = hg * HC;
+dscf_attention_thread_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                             const bf16* __restrict__ v, const bf16* __restrict__ bias,
+                             bf16* __restrict__ out, int hg, int HW, int Mp, float scale) {
+  extern __shared__ __align__(16) float kvf_s[];
+  float* K_s = kvf_s;
+  float* V_s = kvf_s + Mp * HC;
+  const int bg = blockIdx.y / hg, e = blockIdx.y % hg, GC = hg * HC;
   stage_head_kv(k + (size_t)bg * Mp * GC + e * HC, v + (size_t)bg * Mp * GC + e * HC, Mp,
                 GC, K_s, V_s);
   const int p = blockIdx.x * kThreads + threadIdx.x;
@@ -55,17 +58,83 @@ dscf_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int d = 0; d < HC; ++d) op[d] = __float2bfloat16(acc[d]);
 }
 
+// K and V rows (bf16, key order; rows past Mp zero) of 4 warps x 8 NT keys.
+template <int NT>
+__global__ void __launch_bounds__(kMmaThreads, NT <= 20 ? 4 : 2)
+dscf_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v, const bf16* __restrict__ bias,
+                      bf16* __restrict__ out, int hg, int HW, int Mp, float scale) {
+  constexpr int kRows = kMmaWarps * 8 * NT;
+  extern __shared__ __align__(16) uint4 kv_s[];
+  __shared__ PackedRed red;
+  uint4* K_s = kv_s;
+  uint4* V_s = kv_s + kRows;
+  const int bg = blockIdx.y / hg, e = blockIdx.y % hg, GC = hg * HC;
+  const bf16* kb = k + (size_t)bg * Mp * GC + e * HC;
+  const bf16* vb = v + (size_t)bg * Mp * GC + e * HC;
+  for (int j = threadIdx.x; j < kRows; j += kMmaThreads) {
+    const bool real = j < Mp;
+    K_s[j] = real ? __ldg(reinterpret_cast<const uint4*>(kb + (size_t)j * GC)) : uint4{};
+    V_s[j] = real ? __ldg(reinterpret_cast<const uint4*>(vb + (size_t)j * GC)) : uint4{};
+  }
+  __syncthreads();
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  const int key0 = warp * 8 * NT;
+  const int p_begin = blockIdx.x * kBlockQueries, n = min(kBlockQueries, HW - p_begin);
+  for (int p0 = p_begin; p0 < p_begin + n; p0 += kTileRows) {
+    const int rows = min(kTileRows, p_begin + n - p0);
+    const size_t r0 = (size_t)bg * HW + p0 + min(g, rows - 1);
+    const size_t r1 = (size_t)bg * HW + p0 + min(g + 8, rows - 1);
+    const unsigned qa0 = scaled_query_pair(q + r0 * GC + e * HC, t, scale);
+    const unsigned qa1 = scaled_query_pair(q + r1 * GC + e * HC, t, scale);
+    const bf16* b0 = bias + (r0 * hg + e) * Mp + key0 + 2 * t;
+    const bf16* b1 = bias + (r1 * hg + e) * Mp + key0 + 2 * t;
+    float o[4];
+    dscf_attend_packed_mma<NT>(qa0, qa1, K_s + key0, V_s + key0, [&](int nt, float* b) {
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int key = key0 + 8 * (nt + i) + 2 * t;  // past Mp: -inf
+        const unsigned w0 = key < Mp ? __ldg(reinterpret_cast<const unsigned*>(b0 + 8 * (nt + i)))
+                                     : 0xff80ff80u;
+        const unsigned w1 = key < Mp ? __ldg(reinterpret_cast<const unsigned*>(b1 + 8 * (nt + i)))
+                                     : 0xff80ff80u;
+        b[4 * i] = bf16_lo(w0);
+        b[4 * i + 1] = bf16_hi(w0);
+        b[4 * i + 2] = bf16_lo(w1);
+        b[4 * i + 3] = bf16_hi(w1);
+      }
+    }, red, o);
+    store_tile(o, red, out + ((size_t)bg * HW + p0) * GC + e * HC, GC, rows);
+  }
+}
+
 }  // namespace
 
 extern "C" int dscf_attention(const void* q, const void* k, const void* v, const void* bias,
                               void* out, int BG, int hg, int HW, int Mp, float scale,
                               void* stream) {
-  const size_t smem = (size_t)2 * Mp * HC * sizeof(float);
-  cudaFuncSetAttribute(dscf_attention_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                       (int)smem);
-  dim3 grid((HW + kThreads - 1) / kThreads, BG * hg);
-  dscf_attention_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)bias, (bf16*)out, hg,
-      HW, Mp, scale);
-  return (int)cudaGetLastError();
+  auto st = static_cast<cudaStream_t>(stream);
+  if (Mp % kKeyLanes) return (int)cudaErrorInvalidValue;
+  if (Mp > 32 * kMaxTiles) {
+    const size_t smem = (size_t)2 * Mp * HC * sizeof(float);
+    if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
+    cudaFuncSetAttribute(dscf_attention_thread_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    dim3 grid((HW + kThreads - 1) / kThreads, BG * hg);
+    dscf_attention_thread_kernel<<<grid, kThreads, smem, st>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)bias, (bf16*)out, hg,
+        HW, Mp, scale);
+    return (int)cudaGetLastError();
+  }
+  return WarpTiles<4, 8, 12, 16, 20, 24, 28, kMaxTiles>::with(Mp / 32, [&](auto nt) {
+    constexpr int NT = decltype(nt)::value;
+    auto kernel = dscf_attention_kernel<NT>;
+    const size_t smem = (size_t)2 * kMmaWarps * 8 * NT * sizeof(uint4);
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    dim3 grid((HW + kBlockQueries - 1) / kBlockQueries, BG * hg);
+    kernel<<<grid, kMmaThreads, smem, st>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)bias, (bf16*)out, hg,
+        HW, Mp, scale);
+    return (int)cudaGetLastError();
+  });
 }

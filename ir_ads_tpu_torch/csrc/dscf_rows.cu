@@ -12,19 +12,31 @@
 //   packed=0  _dscf_rows_kernel: the unnormalised exp(s - max) rounded to
 //             bf16, P.V summed in f32, divided by den, rounded once
 //             (level 3).
-// Both are dscf_attend<Packed> in csrc/dscf.cuh, which K16 and K17 share.
 // Padded keys (M <= j < Mp) are masked with -1e9 on the TPU; here they are
 // simply not visited, which gives the same result (exp(-1e9 - max) is 0 in
 // f32).
 //
-// Bound on an H100: bytes (the (BG, hg, h, M, w) bf16 bias is the only large
-// input: 2 bytes per score against ~35 flop per score).  Design: one block
-// per (bg, head) and 256 query pixels; the head's K and V (M x 8 each)
-// are staged in shared memory as f32 and read as warp-wide broadcasts; one
-// thread per query pixel runs an online max/sum pass and then the P.V pass,
-// reading the bias along the query column, so both passes coalesce.  The
-// products are 8-wide dot products on the CUDA cores: with 8 channels per
-// head they are too thin for the tensor cores to pay.
+// Bound on an H100: bytes (the (BG, hg, h, M, w) bf16 bias is the only
+// large input, 2 bytes a score).  What sets the pace is the work a score
+// takes beside its two dots: exp, a true division, the bf16 rounding.
+//
+// packed=1, M <= 1024 (dscf_attend_packed_mma, csrc/dscf.cuh): the score
+// dot and P.V on the tensor cores (mma.sync), a warpgroup for 16 query
+// pixels, the keys split over its four warps, every f32 score held in
+// registers until the final max and den.  Persistent blocks, one (bg,
+// head) each, stage its K and V once and walk its tiles of 16 consecutive
+// query pixels.  A tile's bias is an M x 16 box of the (bg, head)'s (h, M,
+// w) slab, the keys at a stride of w: it comes into shared memory by
+// 16-byte cp.async copies of 8 pixels (32 contiguous bytes a key row),
+// double-buffered so that the next tile's box is in flight during this
+// one, and ldmatrix.trans reads it transposed into the score layout, the
+// row halves swizzled against bank conflicts.
+//
+// packed=0, and packed=1 past 1024 keys (dscf_attend, whose unpacked form
+// K16 shares and must stay bit-equal to K3 followed by it): one block per
+// (bg, head) and 256 query pixels, K and V staged as f32; one thread per
+// query pixel walks the keys for the max and den, then for P.V, reading
+// the bias along the query column, so every pass coalesces.
 #include "dscf.cuh"
 
 using namespace port;
@@ -32,6 +44,7 @@ using namespace port;
 namespace {
 
 constexpr int HC = kDscfHeadChannels;
+constexpr int kMaxTiles = 32;  // n-tiles a warp at most: M <= 1024 on the tensor cores
 
 template <bool Packed>
 __global__ void __launch_bounds__(kThreads)
@@ -59,9 +72,106 @@ dscf_rows_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   for (int d = 0; d < HC; ++d) op[d] = __float2bfloat16(acc[d]);
 }
 
+// A tile's bias box: key rows of the 16 query pixels' bf16 (32 bytes), the
+// two 16-byte halves swapped in rows 4-7 of every 8, so that ldmatrix's
+// eight row reads of one half meet no bank twice.
+__device__ __forceinline__ int box_at(int j, int t) {
+  return j * kTileRows + 8 * ((t >> 3) ^ ((j >> 2) & 1)) + (t & 7);
+}
+
+// The box of the tile at query pixel p0 of one (bg, head)'s slab (h, M, w):
+// bias of pixel min(p0 + t, HW - 1) and key j.  w % 8 == 0 (Swin-B's levels
+// 0-2): 16-byte cp.async copies of 8 pixels, which then lie in one image
+// row; w % 4 == 0: 8-byte copies; else 16-bit loads and stores.  All
+// threads of the block call it.
+__device__ __forceinline__ void stage_box(const bf16* __restrict__ slab, bf16* box, int p0,
+                                          int HW, int w, int M) {
+  auto src = [&](int j, int p) { return slab + ((size_t)(p / w) * M + j) * w + p % w; };
+  if (w % 8 == 0) {
+    for (int idx = threadIdx.x; idx < M * 2; idx += kMmaThreads) {
+      const int j = idx >> 1, t = 8 * (idx & 1);
+      cp_async16(box + box_at(j, t), src(j, min(p0 + t, HW - 8)));
+    }
+  } else if (w % 4 == 0) {
+    for (int idx = threadIdx.x; idx < M * 4; idx += kMmaThreads) {
+      const int j = idx >> 2, t = 4 * (idx & 3);
+      cp_async8(box + box_at(j, t), src(j, min(p0 + t, HW - 4)));
+    }
+  } else {
+    for (int idx = threadIdx.x; idx < M * kTileRows; idx += kMmaThreads) {
+      const int j = idx / kTileRows, t = idx % kTileRows;
+      box[box_at(j, t)] = *src(j, min(p0 + t, HW - 1));
+    }
+  }
+}
+
+template <int NT>
+__global__ void __launch_bounds__(kMmaThreads, NT <= 20 ? 3 : 2)
+dscf_rows_packed_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                        const bf16* __restrict__ v, const bf16* __restrict__ bias,
+                        bf16* __restrict__ out, int hg, int h, int w, int M, int Mp,
+                        float scale) {
+  constexpr int kRows = kMmaWarps * 8 * NT;  // keys padded to the warps' n-tiles
+  constexpr int kBoxElems = kRows * kTileRows;
+  extern __shared__ __align__(16) uint4 kvb_s[];
+  __shared__ PackedRed red;
+  uint4* K_s = kvb_s;
+  uint4* V_s = kvb_s + kRows;
+  bf16* boxes = reinterpret_cast<bf16*>(V_s + kRows);
+  const int bgh = blockIdx.y, bg = bgh / hg, e = bgh % hg;
+  const int HW = h * w, GC = hg * HC;
+  const int tiles = (HW + kTileRows - 1) / kTileRows;
+  const bf16* slab = bias + (size_t)bgh * h * M * w;
+  int tile = blockIdx.x;
+  stage_box(slab, boxes, tile * kTileRows, HW, w, M);
+  cp_async_commit();
+  const bf16* kb = k + (size_t)bg * Mp * GC + e * HC;
+  const bf16* vb = v + (size_t)bg * Mp * GC + e * HC;
+  for (int j = threadIdx.x; j < kRows; j += kMmaThreads) {
+    const bool real = j < M;
+    K_s[j] = real ? __ldg(reinterpret_cast<const uint4*>(kb + (size_t)j * GC)) : uint4{};
+    V_s[j] = real ? __ldg(reinterpret_cast<const uint4*>(vb + (size_t)j * GC)) : uint4{};
+  }
+  for (int idx = threadIdx.x; idx < (kRows - M) * kTileRows; idx += kMmaThreads) {
+    const int j = M + idx / kTileRows, t = idx % kTileRows;  // padded keys: bias -inf
+    boxes[box_at(j, t)] = boxes[kBoxElems + box_at(j, t)] = __float2bfloat16(-INFINITY);
+  }
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  const int key0 = warp * 8 * NT;
+  for (int n = 0; tile < tiles; ++n, tile += gridDim.x) {
+    cp_async_wait_all();  // this tile's box has landed (this thread's copies)
+    __syncthreads();      // ... every thread's, K and V too; the other box is free
+    if (tile + gridDim.x < tiles) {  // the next tile's box, in flight during this one
+      stage_box(slab, boxes + ((n + 1) & 1) * kBoxElems, (tile + gridDim.x) * kTileRows, HW,
+                w, M);
+      cp_async_commit();
+    }
+    const bf16* box = boxes + (n & 1) * kBoxElems;
+    const int p0 = tile * kTileRows, rows = min(kTileRows, HW - p0);
+    const size_t r0 = (size_t)bg * HW + p0 + min(g, rows - 1);
+    const size_t r1 = (size_t)bg * HW + p0 + min(g + 8, rows - 1);
+    const unsigned qa0 = scaled_query_pair(q + r0 * GC + e * HC, t, scale);
+    const unsigned qa1 = scaled_query_pair(q + r1 * GC + e * HC, t, scale);
+    float o[4];
+    dscf_attend_packed_mma<NT>(qa0, qa1, K_s + key0, V_s + key0, [&](int nt, float* b) {
+      // matrix m of the ldmatrix: n-tile nt + m / 2, query half m % 2
+      const int m = lane >> 3, j = key0 + 8 * (nt + (m >> 1)) + (lane & 7);
+      unsigned r[4];
+      ldsm_x4_t(r, box + j * kTileRows + 8 * ((m & 1) ^ ((j >> 2) & 1)));
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        b[2 * i] = bf16_lo(r[i]);
+        b[2 * i + 1] = bf16_hi(r[i]);
+      }
+    }, red, o);
+    store_tile(o, red, out + ((size_t)bg * HW + p0) * GC + e * HC, GC, rows);
+  }
+}
+
 template <bool Packed>
-int launch(const void* q, const void* k, const void* v, const void* bias, void* out,
-           int BG, int hg, int h, int w, int M, int Mp, float scale, cudaStream_t stream) {
+int launch_thread(const void* q, const void* k, const void* v, const void* bias, void* out,
+                  int BG, int hg, int h, int w, int M, int Mp, float scale,
+                  cudaStream_t stream) {
   const size_t smem = (size_t)2 * M * HC * sizeof(float);
   cudaFuncSetAttribute(dscf_rows_kernel<Packed>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -72,6 +182,29 @@ int launch(const void* q, const void* k, const void* v, const void* bias, void* 
   return (int)cudaGetLastError();
 }
 
+int launch_packed_mma(const void* q, const void* k, const void* v, const void* bias,
+                      void* out, int BG, int hg, int h, int w, int M, int Mp, float scale,
+                      cudaStream_t stream) {
+  return WarpTiles<4, 8, 12, 16, 20, 24, 28, kMaxTiles>::with((M + 31) / 32, [&](auto nt) {
+    constexpr int NT = decltype(nt)::value;
+    auto kernel = dscf_rows_packed_kernel<NT>;
+    const size_t smem = (size_t)kMmaWarps * 8 * NT * (2 * sizeof(uint4) + 2 * kTileRows * sizeof(bf16));
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    // persistent blocks: as many as are resident at once, spread over the
+    // (bg, head) planes, each walking its plane's tiles
+    int dev = 0, sms = 0, per_sm = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kMmaThreads, smem);
+    const int planes = BG * hg, tiles = (h * w + kTileRows - 1) / kTileRows;
+    const int per_plane = std::min(tiles, std::max(1, sms * std::max(per_sm, 1) / planes));
+    kernel<<<dim3(per_plane, planes), kMmaThreads, smem, stream>>>(
+        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)bias, (bf16*)out, hg,
+        h, w, M, Mp, scale);
+    return (int)cudaGetLastError();
+  });
+}
+
 }  // namespace
 
 extern "C" int dscf_rows_attention(const void* q, const void* k, const void* v,
@@ -79,6 +212,8 @@ extern "C" int dscf_rows_attention(const void* q, const void* k, const void* v,
                                    int h, int w, int M, int Mp, float scale,
                                    int packed, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  return packed ? launch<true>(q, k, v, bias, out, BG, hg, h, w, M, Mp, scale, s)
-                : launch<false>(q, k, v, bias, out, BG, hg, h, w, M, Mp, scale, s);
+  if (!packed) return launch_thread<false>(q, k, v, bias, out, BG, hg, h, w, M, Mp, scale, s);
+  if (M > 32 * kMaxTiles)  // too many keys for the tensor-core design
+    return launch_thread<true>(q, k, v, bias, out, BG, hg, h, w, M, Mp, scale, s);
+  return launch_packed_mma(q, k, v, bias, out, BG, hg, h, w, M, Mp, scale, s);
 }

@@ -24,7 +24,7 @@ from ir_ads_tpu_torch.detection.transformer import (
     MLP, NORM_EPS, DINOTransformer, layer_norm, top_k,
 )
 from ir_ads_tpu_torch.models.backbones.resnet import ARCHS, ResNet
-from ir_ads_tpu_torch.ops.layers import FlaxBatchNorm2d, GroupNorm, resize_bilinear
+from ir_ads_tpu_torch.ops.layers import FlaxBatchNorm2d, GroupNorm, conv2d, resize_bilinear
 
 PIXEL_MEAN = np.asarray([123.675, 116.280, 103.530], np.float32)
 PIXEL_STD = np.asarray([58.395, 57.120, 57.375], np.float32)
@@ -35,6 +35,13 @@ def _nchw(fn, x: torch.Tensor) -> torch.Tensor:
     return fn(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
 
 
+def seg_map(m: nn.Sequential, x: torch.Tensor) -> torch.Tensor:
+    """``mapping_fpn_features_for_seg`` (conv, BatchNorm, ReLU, conv) on
+    NCHW, its convolutions as flax's (``ops.layers.conv2d``)."""
+    conv1, bn, _, conv2 = m
+    return conv2d(F.relu(bn(conv2d(x, conv1))), conv2)
+
+
 class _ConvGN(nn.Module):
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1):
         super().__init__()
@@ -42,7 +49,7 @@ class _ConvGN(nn.Module):
         self.gn = GroupNorm(32, cout, eps=NORM_EPS)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.gn(self.conv(x))
+        return self.gn(conv2d(x, self.conv))
 
 
 class ChannelMapper(nn.Module):
@@ -127,7 +134,8 @@ class DINODetector(nn.Module):
             start += h * w
             seg_feats.append(resize_bilinear(lvl, (h0, w0), align_corners=True))
         seg = torch.cat(seg_feats, dim=-1)  # (B, h0, w0, levels * C)
-        seg = self.post_layernorm(_nchw(self.mapping_fpn_features_for_seg, seg) + seg)
+        seg = self.post_layernorm(
+            _nchw(lambda t: seg_map(self.mapping_fpn_features_for_seg, t), seg) + seg)
         seg_flat = seg.reshape(b, h0 * w0, -1)
 
         def mask_logits(head, states):

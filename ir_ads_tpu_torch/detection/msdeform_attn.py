@@ -18,13 +18,16 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ir_ads_tpu_torch.ops.layers import with_bias
 from ir_ads_tpu_torch.ops.msdeform import ms_deform_attn
 
 
 def dense(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
-    """``lin`` in its parameters' dtype: an input of another dtype is cast to
-    it, as a flax layer with ``dtype`` set casts its input."""
-    return F.linear(x.to(lin.weight.dtype), lin.weight, lin.bias)
+    """``lin`` as flax's ``nn.Dense`` computes it in its parameters' dtype: an
+    input of another dtype is cast to it, as a flax layer with ``dtype`` set
+    casts its input, and the bias is added to the rounded product
+    (``ops.layers.with_bias``)."""
+    return with_bias(F.linear(x.to(lin.weight.dtype), lin.weight), lin.bias)
 
 
 def offset_bias_init(num_heads: int, num_levels: int, num_points: int) -> np.ndarray:

@@ -21,7 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ir_ads_tpu_torch.detection.msdeform_attn import MSDeformAttention, dense
-from ir_ads_tpu_torch.ops.layers import LayerNorm, q_scale
+from ir_ads_tpu_torch.ops.layers import LayerNorm, q_scale, with_bias
 
 NORM_EPS = 1e-6  # flax's LayerNorm default, which the JAX modules keep
 
@@ -175,7 +175,7 @@ class MultiheadAttention(nn.Module):
         w, bias = self.attn.in_proj_weight, self.attn.in_proj_bias
 
         def split(t, i):
-            t = F.linear(t.to(w.dtype), w[i * c:(i + 1) * c], bias[i * c:(i + 1) * c])
+            t = with_bias(F.linear(t.to(w.dtype), w[i * c:(i + 1) * c]), bias[i * c:(i + 1) * c])
             return t.reshape(b, -1, self.num_heads, hd).transpose(1, 2)
 
         qh, kh, vh = split(q, 0), split(k, 1), split(value, 2)

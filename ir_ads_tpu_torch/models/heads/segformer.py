@@ -30,7 +30,7 @@ from torch import nn
 
 from ir_ads_tpu_torch.ops.int8 import PREFIX, int8_linear, int8_weight, set_int8_weight
 from ir_ads_tpu_torch.ops.layers import (
-    FlaxBatchNorm2d, conv2d, dropout, resize_bilinear,
+    FlaxBatchNorm2d, conv2d, dropout, resize_bilinear, with_bias,
 )
 
 
@@ -92,7 +92,7 @@ class SegFormerHead(nn.Module):
                 y = int8_linear(feat, w_q, s_w).to(feat.dtype) + bc
             else:
                 wc, bc = self._composed(i)
-                y = F.linear(feat, wc.to(feat.dtype), bc.to(feat.dtype))
+                y = with_bias(F.linear(feat, wc.to(feat.dtype)), bc.to(feat.dtype))
             if i > 0:
                 y = resize_bilinear(y, (h, w), align_corners=False)
             acc = y if acc is None else acc + y

@@ -15,8 +15,10 @@ differently in bf16; ``packed`` chooses between them as the reference's
 
 In f32 the two agree to an ulp; in bf16 about 40 % of the outputs differ by
 a bf16 ulp.  The CUDA source is csrc/dscf_rows.cu (both forms; the device
-code is csrc/dscf.cuh's ``dscf_attend``, which K16 and K17 share); its
-header states the bound and the design.
+code is csrc/dscf.cuh's: the packed form's ``dscf_attend_packed_mma``, a
+warpgroup for 16 query pixels on the tensor cores, which K17 shares, and
+the unpacked form's ``dscf_attend``, a thread a query pixel, which K16
+shares); its header states the bound and the design.
 
 Layouts: q (BG, h*w, GC), k and v (BG, Mp, GC) with Mp >= M (rows past M are
 padding and never attended), bias (BG, hg, h, M, w); head e of a group holds

@@ -80,19 +80,48 @@ class GroupNorm(nn.GroupNorm):
                             self.eps).to(x.dtype)
 
 
+def with_bias(y: torch.Tensor, bias: Optional[torch.Tensor], dim: int = -1) -> torch.Tensor:
+    """``y + bias`` as flax's ``nn.Dense`` and ``nn.Conv`` add it: to the
+    product ``y`` already rounded to its dtype, then rounded again (``y =
+    dot(x, k); y += b``), where ``F.linear(x, w, b)`` rounds once.  In bf16
+    the two part in about 30 % of the outputs by an ulp; in f32 only by f32
+    rounding.  ``dim``: y's channel axis.
+
+    Every bias-carrying product of the port whose reference is a flax layer
+    adds its bias here: ``linear``, ``pointwise`` and ``conv2d`` (the Swin
+    module path's qkv and proj, the FFN, the adapters, MPG, the DSCF's
+    projections, fuse_q and offset convolutions, SegFormer's linear_pred),
+    ``PatchEmbed``'s xla path (``xp @ wk2 + bias``), SegFormer's composed
+    projections (``feat @ wc + bc``) and the detector's dense layers, q/k/v
+    projections and convolutions.  Sites whose reference rounds once keep
+    one rounding: the plain versions of the kernels whose Pallas kernels add
+    the bias in f32 before their one rounding (K1's qkv and proj, K2, K5,
+    K10-K15, K19), and the int8 products and ``PatchEmbed``'s xla2, which
+    round the product themselves before their bias, as their references
+    do."""
+    if bias is None:
+        return y
+    trailing = y.ndim - 1 - dim % y.ndim  # axes after the channel axis
+    return y + bias.reshape(-1, *[1] * trailing)
+
+
 def linear(x: torch.Tensor, lin: nn.Linear) -> torch.Tensor:
-    return F.linear(x, cast(lin.weight, x), cast(lin.bias, x))
+    """``lin`` as flax's ``nn.Dense`` computes it (``with_bias``), its
+    parameters cast at use."""
+    return with_bias(F.linear(x, cast(lin.weight, x)), cast(lin.bias, x))
 
 
 def conv2d(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
-    """``conv`` on an NCHW map, its parameters cast at use."""
-    return F.conv2d(x, cast(conv.weight, x), cast(conv.bias, x), conv.stride,
-                    conv.padding, conv.dilation, conv.groups)
+    """``conv`` on an NCHW map as flax's ``nn.Conv`` computes it
+    (``with_bias``), its parameters cast at use."""
+    y = F.conv2d(x, cast(conv.weight, x), None, conv.stride, conv.padding, conv.dilation,
+                 conv.groups)
+    return with_bias(y, cast(conv.bias, x), dim=1)
 
 
 def pointwise(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
-    """A 1x1 conv on channels-last x, as a linear map."""
-    return F.linear(x, cast(conv.weight.flatten(1), x), cast(conv.bias, x))
+    """A 1x1 conv on channels-last x, as a linear map (``with_bias``)."""
+    return with_bias(F.linear(x, cast(conv.weight.flatten(1), x)), cast(conv.bias, x))
 
 
 def drop_path(x: torch.Tensor, rate: float, training: bool,
@@ -215,7 +244,8 @@ class PatchEmbed(nn.Module):
         if impl == "xla2":
             return layer_norm(self._row_sums(x, wk), self.norm)
         xp = patchify_flat(x, p, c)
-        return layer_norm(F.linear(xp, cast(wk, xp), cast(self.projection.bias, xp)), self.norm)
+        y = with_bias(F.linear(xp, cast(wk, xp)), cast(self.projection.bias, xp))
+        return layer_norm(y, self.norm)
 
     def _row_sums(self, x: torch.Tensor, wk: torch.Tensor) -> torch.Tensor:
         """The reference's xla2: for each of the p patch rows a strided

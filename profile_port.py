@@ -6,8 +6,11 @@ one step of its trainer, under torch.profiler.
                             [--dispatch r5|r4|r4i8|r2|r1|xla|v7_01|v5|map|
                                         dscf_pallas4|dscf_pallas|dscf_pallas2]
                             [--flat [--patch-embed xla|xla2|pallas]]
+                            [--requests N]
     python3 profile_port.py --train [--seed 0] [--batch 4]
     python3 profile_port.py --det [--seed 0]
+    python3 profile_port.py --dscf [--seed 0]
+    (each also takes --port-dir DIR)
 
 Serving: builds the full-size predictor (Swin-B CMNeXt, 480x640 RGB-D, flip,
 bf16, weights from --seed) under the given kernel dispatch (r5, the default,
@@ -16,7 +19,9 @@ variants v7_01, v5 and map, or the DSCF variants dscf_pallas4, dscf_pallas
 and dscf_pallas2), serves one warm-up request, then one profiled request,
 and sums its port kernels' device time by kernel (K1-K20) with their
 launches.  With --flat the frames enter the model as flat (B, H, W*3) rows
-and --patch-embed chooses the patch embedding's path (pallas: K19).
+and --patch-embed chooses the patch embedding's path (pallas: K19).  With
+--requests N it first times N requests on the host clock, each ended by a
+synchronize, and prints their p50.
 Training (--train): builds the full-size trainer (the ``train`` dispatch, f32
 masters, bf16 compute, the shipped adapter-only AdamW recipe), takes two
 warm-up steps, then profiles one step in three parts: forward with the loss,
@@ -27,6 +32,13 @@ request of one 800x1216 image, then profiles one request in two parts: the
 model, and the post-processing (mask-scored ranking, top-k, NMS); before
 that, one unprofiled request's timeline is split by module (backbone, neck,
 encoder, decoder, the seg map and mask heads) with CUDA events around each.
+DSCF attention (--dscf): K4's packed form at DSCF levels 0-3 (bias as K3
+writes it, contiguous) and K17 at levels 0 and 3 (the packed bias as K18's
+layout pads it), 4 images, each timed with CUDA events over 20 launches
+through its wrapper, beside one SDPA call with the bias as its float mask.
+--port-dir DIR imports the port package from DIR, another checkout (the
+parent commit unpacked with ``git archive``), so that two commits can be
+run in turns on one card.
 Prints, for each part, its wall time, the summed device time of its kernels,
 the device idle share (1 - busy / wall; kernels run on one stream, so their
 sum is the busy time), and device time by kernel, the port's own kernels
@@ -37,7 +49,10 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import re
+import subprocess
+import sys
 import time
 
 import torch
@@ -50,7 +65,8 @@ BY_KERNEL = {
     "K1 rows": ("ln_qkv_kernel", "proj_add_kernel"),
     "K2": ("block_tail_kernel",),
     "K5": ("v6_ln_qkv_kernel", "v6_attn_kernel", "proj_tail_kernel"),
-    "K3": ("rpe_rows_kernel",), "K4": ("dscf_rows_kernel",), "K6": ("rpe_packed_kernel",),
+    "K3": ("rpe_rows_kernel",), "K4": ("dscf_rows_kernel", "dscf_rows_packed_kernel"),
+    "K6": ("rpe_packed_kernel",),
     "K7": ("window_attn_bwd_kernel",), "K8": ("dscf_rows_bwd_kernel",),
     "K9": ("msdeform_kernel",),
     "K10 rows": ("ln_quant_qkv_kernel", "quant_proj_add_kernel"),
@@ -81,9 +97,9 @@ def device_us(evt) -> float:
     raise AttributeError("profiler event has no device time")
 
 
-def profiled(fn):
+def profiled(fn, top=25):
     """Run ``fn`` under the profiler up to a synchronize; returns its result
-    and the part's summary."""
+    and the part's summary (the ``top`` device kernels by time)."""
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t = time.perf_counter()
         out = fn()
@@ -93,10 +109,12 @@ def profiled(fn):
     for evt in prof.key_averages():
         us = device_us(evt)
         # kernels and copies only: a record_function range mirrored on the
-        # device (AdamW's "Optimizer.step") spans its kernels and is no work
+        # device (AdamW's "Optimizer.step#AdamW.step") spans its kernels and
+        # is no work; a kernel's own name may hold a '#' too, in a lambda
+        # ("{lambda(int)#1}", PyTorch's broadcasting elementwise kernels)
         if (us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA
                 and not getattr(evt, "is_user_annotation", False)
-                and "#" not in evt.key):
+                and not re.search(r"#(?!\d+\})", evt.key)):
             rows.append((evt.key, us / 1e3, evt.count))
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
@@ -109,7 +127,7 @@ def profiled(fn):
                                     launches=max(r[2] for r in mine))
     return out, dict(wall_ms=wall_ms, device_busy_ms=busy, idle_share=1 - busy / wall_ms,
                      port_kernels_ms=port, by_kernel=by_kernel,
-                     top=[{"name": n[:120], "ms": ms, "count": c} for n, ms, c in rows[:25]])
+                     top=[{"name": n[:120], "ms": ms, "count": c} for n, ms, c in rows[:top]])
 
 
 def show(what: str, part: dict) -> None:
@@ -135,12 +153,73 @@ def profile_request(args) -> dict:
                               dtype=torch.uint8) for _ in range(2))
     pred(rgb, dep)
     torch.cuda.synchronize()
-    _, part = profiled(lambda: pred(rgb, dep))
+    lat = []
+    for _ in range(args.requests):
+        t = time.perf_counter()
+        pred(rgb, dep)
+        torch.cuda.synchronize()
+        lat.append((time.perf_counter() - t) * 1e3)
+    p50 = sorted(lat)[len(lat) // 2] if lat else None
+    _, part = profiled(lambda: pred(rgb, dep), args.top)
     flat = f" on flat frames, patch embedding {args.patch_embed}" if args.flat else ""
     show(f"{torch.cuda.get_device_name(0)}; {args.dispatch}{flat}; request of "
          f"{args.batch} frames", part)
+    if lat:
+        print(f"p50 of {len(lat)} requests: {p50:.2f} ms ({args.batch / p50 * 1e3:.2f} "
+              f"frames/s); each: " + ", ".join(f"{v:.2f}" for v in lat))
     return dict(part, dispatch=args.dispatch, flat_input=args.flat,
-                patch_embed=args.patch_embed)
+                patch_embed=args.patch_embed, p50_ms=p50, latencies_ms=lat)
+
+
+def _events_ms(fn, iters=20, warmup=3) -> float:
+    for _ in range(warmup):
+        fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def time_dscf(args) -> dict:
+    """K4's packed form and K17 at phase 3's shapes, beside SDPA."""
+    import torch.nn.functional as F
+
+    from ir_ads_tpu_torch.ops import dscf_attention as k17
+    from ir_ads_tpu_torch.ops import dscf_rows as k4
+
+    g = torch.Generator(device="cuda").manual_seed(args.seed)
+    rand = lambda *shape: torch.randn(*shape, generator=g, device="cuda")  # noqa: E731
+    scale, hg, m, mp, images = 8 ** -0.5, 2, 600, 640, 4
+    rows = []
+    for name, levels in (("K4 packed", (0, 1, 2, 3)), ("K17", (0, 3))):
+        for level in levels:
+            h, w, bg = 120 >> level, 160 >> level, images << level
+            q = rand(bg, h * w, 16).bfloat16()
+            kv = [rand(bg, m, 16).bfloat16() for _ in range(2)]
+            bias = (0.33 * rand(bg, hg, h, m, w)).bfloat16()  # K3's spread
+            mask = bias.permute(0, 1, 2, 4, 3).reshape(bg, hg, h * w, m)
+            if name == "K17":
+                kv = [F.pad(t, (0, 0, 0, mp - m)) for t in kv]
+                mask = F.pad(mask, (0, mp - m), value=k17.NEG_INF)
+                bias = mask.transpose(1, 2).reshape(bg, h * w, hg * mp).contiguous()
+                run = lambda: k17.dscf_attention(q, *kv, bias, scale, hg)  # noqa: E731
+            else:
+                run = lambda: k4.dscf_rows_attention(q, *kv, bias, scale, hg, True)  # noqa: E731
+            heads = [t.reshape(bg, -1, hg, 8).transpose(1, 2) for t in (q, *kv)]
+            mask = mask.contiguous()
+            sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                *heads, attn_mask=mask, scale=scale)
+            ms, sdpa_ms = _events_ms(run), _events_ms(sdpa)
+            rows.append(dict(kernel=name, level=level, plane=f"{h}x{w}", bg=bg, ms=ms,
+                             sdpa_ms=sdpa_ms))
+            print(f"{name} level {level} ({h}x{w}, BG {bg}): {ms:.4f} ms, SDPA "
+                  f"{sdpa_ms:.4f} ms", flush=True)
+            del q, kv, bias, mask, heads
+            torch.cuda.empty_cache()
+    return dict(device=torch.cuda.get_device_name(0), dscf=rows)
 
 
 def profile_step(args) -> dict:
@@ -162,10 +241,10 @@ def profile_step(args) -> dict:
     batch = tr.batch(rgb, dte, label)
     tr.optimizer.zero_grad(set_to_none=True)
     (loss, _), fwd = profiled(lambda: compute_loss(
-        tr.model, batch, tr.loss_fn, tr.generator, tr.ignore_label))
-    _, bwd = profiled(loss.backward)
+        tr.model, batch, tr.loss_fn, tr.generator, tr.ignore_label), args.top)
+    _, bwd = profiled(loss.backward, args.top)
     set_lr(tr.optimizer, tr.schedule(tr.steps))
-    _, upd = profiled(tr.optimizer.step)
+    _, upd = profiled(tr.optimizer.step, args.top)
     peak = torch.cuda.max_memory_allocated() / 2**30
     card = f"{torch.cuda.get_device_name(0)}; train; step of {args.batch} frames"
     for what, part in (("forward + loss", fwd), ("backward", bwd), ("optimizer", upd)):
@@ -229,8 +308,8 @@ def profile_detection(args) -> dict:
           + ", ".join(f"{k} {v:.2f}" for k, v in by_module.items()) + f"; request {total:.2f}")
     torch.cuda.reset_peak_memory_stats()
     with torch.no_grad():
-        out, model = profiled(lambda: pred.model(image, want_masks=True))
-        _, post = profiled(lambda: pred.postprocess(out))
+        out, model = profiled(lambda: pred.model(image, want_masks=True), args.top)
+        _, post = profiled(lambda: pred.postprocess(out), args.top)
     peak = torch.cuda.max_memory_allocated() / 2**30
     for what, part in (("model", model), ("post-processing", post)):
         show(f"{card}; {what}", part)
@@ -261,12 +340,28 @@ def main():
                     help="profile one training step instead of one request")
     ap.add_argument("--det", action="store_true",
                     help="profile one detection request instead")
+    ap.add_argument("--dscf", action="store_true",
+                    help="time K4's packed form and K17 beside SDPA instead")
+    ap.add_argument("--requests", type=int, default=0,
+                    help="serving: first time this many requests and print their p50")
+    ap.add_argument("--port-dir", default=None,
+                    help="import the port package from this checkout instead")
+    ap.add_argument("--top", type=int, default=25, help="device kernels to list by time")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("profile_port: CUDA is not available")
+    if args.port_dir:
+        sys.path.insert(0, os.path.abspath(args.port_dir))
+    import ir_ads_tpu_torch
+
+    print(f"port package: {os.path.dirname(ir_ads_tpu_torch.__file__)}; "
+          + subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                            "--format=csv,noheader"], capture_output=True,
+                           text=True).stdout.strip(), flush=True)
     if args.batch is None:
         args.batch = 4 if args.train else 2
-    run = profile_detection if args.det else profile_step if args.train else profile_request
+    run = (time_dscf if args.dscf else profile_detection if args.det
+           else profile_step if args.train else profile_request)
     print(json.dumps(run(args)))
 
 

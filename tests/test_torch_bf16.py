@@ -9,9 +9,11 @@ parameters f32 (``serve.cast_model_``) and computes as flax does
 (``ops.layers``).  BN running means are drawn around +-3, as trained ones
 can be, where rounding them to bf16 moves the output most.  Measured on this
 file's inputs, the tiny CMNeXt under r5 at 64x112 lies 5.390e-3 from JAX
-bf16 (jitted) with every parameter rounded (the earlier rule) and 3.180e-3
-with flax's rule (bar 4.2e-3); from JAX f32, 4.523e-3 and 2.290e-3, where
-JAX bf16 lies 2.662e-3 from it (bar 1.25x that).  The detector's test is
+bf16 (jitted) with every parameter rounded (the earlier rule), 3.180e-3
+with flax's rule (bar 4.2e-3) and 1.355e-3 once every flax Dense and Conv
+site also adds its bias to the rounded product (``ops.layers.with_bias``);
+from JAX f32, 4.523e-3, 2.290e-3 and 2.482e-3, where JAX bf16 lies 2.662e-3
+from it (bar 1.25x that).  The detector's test is
 tests/test_torch_det_bf16.py.
 
 The DSCF guard: JAX runs its rows kernels (pallas3) only where the 2n

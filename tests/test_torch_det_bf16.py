@@ -8,8 +8,10 @@ the GroupNorms, the LayerNorms, the mask head's BN) and computes as flax
 does (``ops.layers``).  BN running means are drawn around +-3, as trained
 ones can be.  Measured on this file's inputs, relative norm distance from
 JAX bf16 (op by op) with every parameter rounded (the earlier rule) / with
-flax's rule: encoder memory 2.142e-2 / 1.118e-2 (bar 1.6e-2), proposal
-scores 1.101e-2 / 6.315e-3 (bar 8.5e-3).
+flax's rule / with the biases also added to the rounded products as flax
+adds them (``ops.layers.with_bias``): encoder memory 2.142e-2 / 1.118e-2 /
+1.016e-2 (bar 1.6e-2), proposal scores 1.101e-2 / 6.315e-3 / 4.999e-3 (bar
+8.5e-3).
 """
 
 import jax

@@ -6,9 +6,9 @@ the predictor, against the JAX package on the CPU.
     not (tests/test_flat_input.py:17-27), in f32 and bf16.
   * ``xla2`` (one product per patch row, summed in f32) is the reference's
     ``xla2`` and ``xla`` bit for bit in bf16, and the port's ``xla`` to f32
-    rounding in f32.  In bf16 the port's ``xla`` is its NHWC path, which
-    adds the projection bias before its one rounding where flax rounds the
-    product first (ROADMAP Queue 3): the test prints how far (``-s``).
+    rounding in f32; the port's ``xla`` (its NHWC path, the bias added to
+    the rounded product as flax adds it) is the reference's ``xla`` bit for
+    bit in bf16.
   * K19's plain version against ``pallas_patch_embed`` (interpret mode) in
     bf16 with LayerNorm parameters away from 1 and 0, which the kernel
     rounds to bf16 and the XLA form keeps f32; the XLA form misses.
@@ -96,8 +96,8 @@ def test_xla2_is_the_reference_xla2(monkeypatch, dtype):
     if dtype == "bfloat16":
         np.testing.assert_array_equal(want["xla2"], want["xla"])
         np.testing.assert_array_equal(got, want["xla2"])
-        print(f"bf16: the port's xla path (bias added before its one rounding) differs "
-              f"from the reference's in {float((xla != want['xla']).mean()):.4f} of outputs")
+        # the bias added to the rounded product, as flax (ops.layers.with_bias)
+        np.testing.assert_array_equal(xla, want["xla"])
     else:
         for other in (want["xla2"], want["xla"], xla):
             np.testing.assert_allclose(got, other, atol=1e-6, rtol=1e-6)
