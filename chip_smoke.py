@@ -19,15 +19,16 @@ Phases, each of which raises on failure:
      (K1, un-roll and crop, K2; pad and roll, K1, un-roll and crop;
      partition, K12, reverse); the DSCF variants' kernels: K18 (the pallas2
      bias, f32 form) and K17 (the pallas / pallas2 attention, on K18's
-     packed bias) at levels 0 and 3, K16 (pallas4) at levels 0 and 2, bit
+     packed bias) at levels 0 and 3, K16 (pallas4) at levels 0-2, bit
      for bit against K3 followed by K4 with packed=False (and not against
      K4's packed form), K4's packed form at levels 0-2 and its unpacked
-     form at level 3, each also held to a share of differing outputs
+     form at levels 0-3, each also held to a share of differing outputs
      (planted faults: K3's rounding for K18, padded bias columns 0 for K17,
      the packed form for K16 and K4's unpacked form, the rpe bias dropped
-     for K4's packed form); K4's packed form and K17 over the shape
-     envelope (the tiny configurations' planes, odd widths, more keys than
-     the tensor-core design takes);
+     for K4's packed form); K4's two forms, K17 and K16 over the shape
+     envelope (the tiny configurations' planes, odd widths, tiles over
+     several image rows, more keys than the tensor-core design takes; K16
+     also bit for bit against K3 followed by K4 unpacked);
      K19 (the flat patch embedding) on one stream of a request's flat
      frames (planted fault: the XLA form, whose LayerNorm scale and bias
      stay f32; F.conv2d then F.layer_norm timed for the record) and K20
@@ -914,37 +915,64 @@ def check_dscf_attention(g, b, level):
 # (64x128 and 64x80 frames: 16x32 ... 2x4 and 16x20 ... 2x3 maps, odd and
 # even widths), planes whose width is not a multiple of 8 or of 4, and key
 # counts past the tensor-core design (more than 1024, where both take the
-# thread-per-query design) up to K17's largest (Mp 3584).
+# thread-per-query design) up to K17's largest (Mp 3584).  K16's shapes lie
+# in the reference's band domain (band_rows): the tiny planes, tiles over
+# two and more image rows (w = 10, 5, 8 with h * w not a multiple of 16), a
+# few keys (M = 50) and past 1024.
 PACKED_ENVELOPE_K4 = ((16, 32, 64), (8, 16, 32), (4, 8, 16), (2, 4, 8), (16, 20, 40),
                       (4, 5, 10), (2, 3, 6), (4, 10, 600), (7, 9, 50), (5, 8, 2100))
 PACKED_ENVELOPE_K17 = ((77, 128), (33, 384), (20, 896), (20, 3584))
+ENVELOPE_K16 = ((16, 32, 64), (4, 8, 16), (2, 4, 8), (12, 10, 600), (8, 5, 50), (7, 8, 50),
+                (5, 8, 2100))
 
 
 def check_packed_envelope(g):
-    """K4's packed form and K17 at the shapes of PACKED_ENVELOPE_*, 2 groups
-    of 2 heads, against their plain versions: K4's bar and the differing
-    share (ROUNDING_SHARE)."""
+    """K4's two forms, K17 and K16 at the shapes of PACKED_ENVELOPE_* and
+    ENVELOPE_K16, 2 groups of 2 heads, against their plain versions: K4's
+    bar and the differing share (ROUNDING_SHARE); K16 also bit for bit
+    against K3 followed by K4 unpacked on the same inputs (the table
+    (2, 2, 2h - 1, 2w - 1), as the model sizes it)."""
     from ir_ads_tpu_torch.ops import dscf_attention as k17
+    from ir_ads_tpu_torch.ops import dscf_fused as k16
     from ir_ads_tpu_torch.ops import dscf_rows as k4
+    from ir_ads_tpu_torch.ops import dscf_rpe as k3
 
     scale, hg, bg = 8 ** -0.5, 2, 2
-    cases = [(f"K4 packed {h}x{w} M={m}", lambda h=h, w=w, m=m: (
-        *(_rand(g, bg, n, 16) for n in (h * w, m, m)),
-        _rand(g, bg, hg, h, m, w, std=0.5)), k4.dscf_rows_attention, k4.dscf_rows_reference,
-        (scale, hg, True)) for h, w, m in PACKED_ENVELOPE_K4]
+    cases = [(f"K4 {'packed' if packed else 'unpacked'} {h}x{w} M={m}",
+              lambda h=h, w=w, m=m: (*(_rand(g, bg, n, 16) for n in (h * w, m, m)),
+                                     _rand(g, bg, hg, h, m, w, std=0.5)),
+              k4.dscf_rows_attention, k4.dscf_rows_reference, (scale, hg, packed), None)
+             for packed in (True, False) for h, w, m in PACKED_ENVELOPE_K4]
     cases += [(f"K17 HW={hw} Mp={mp}", lambda hw=hw, mp=mp: (
         *(_rand(g, bg, n, 16) for n in (hw, mp, mp)),
         _rand(g, bg, hw, hg * mp, std=0.5)), k17.dscf_attention,
-        k17.dscf_attention_reference, (scale, hg)) for hw, mp in PACKED_ENVELOPE_K17]
-    for what, make, run, plain, rest in cases:
+        k17.dscf_attention_reference, (scale, hg), None) for hw, mp in PACKED_ENVELOPE_K17]
+
+    def two_kernels(q, k, v, pos, table, h, w, scale, hg):
+        bias = k3.rpe_bias_rows(pos, table, h, w, q.dtype)
+        return k4.dscf_rows_attention(q, k, v, bias, scale, hg, False)
+
+    cases += [(f"K16 {h}x{w} M={m}", lambda h=h, w=w, m=m: (
+        *(_rand(g, bg, n, 16) for n in (h * w, m, m)),
+        torch.rand(bg, m, 2, generator=g, device="cuda") * 2 - 1,
+        _rand(g, 2, hg, 2 * h - 1, 2 * w - 1, std=0.5, dtype=torch.float32)),
+        k16.dscf_fused_attention, k16.dscf_fused_reference, (h, w, scale, hg), two_kernels)
+        for h, w, m in ENVELOPE_K16]
+    for what, make, run, plain, rest, composed in cases:
         args = make()
         got, want = run(*args, *rest), plain(*args, *rest)
         torch.cuda.synchronize()
         err = (got.float() - want.float()).abs()
         share = float((got != want).float().mean())
         ok = bool((err <= 1e-2 + 2e-2 * want.float().abs()).all()) and share <= ROUNDING_SHARE
+        differ = ""
+        if composed is not None:
+            n_differ = int((got != composed(*args, *rest)).sum())
+            differ = f"; against K3 then K4 unpacked: {n_differ} differ"
+            ok = ok and not n_differ
         print(f"  envelope        {what:<34} max_abs_err {float(err.max()):.3e} differ "
-              f"{share:.4f} (tol atol 0.01 + rtol 0.02, share {ROUNDING_SHARE})", flush=True)
+              f"{share:.4f} (tol atol 0.01 + rtol 0.02, share {ROUNDING_SHARE}){differ}",
+              flush=True)
         if not ok:
             fail(f"{what} disagrees with its plain version")
 
@@ -1410,12 +1438,14 @@ def phase_kernels(seed: int, images: int):
         *(functools.partial(check_window_attention_map, g, images, h, w, c, heads, shift)
           for h, w, c, heads in STAGES for shift in (0, 6)),
         # the DSCF variants: K18 (pallas2) and K17 (pallas, pallas2) at levels
-        # 0 and 3, K16 (pallas4) at levels 0 and 2, and K4's unpacked form
-        # at level 3 (r4, r4i8, r2, v5, map)
+        # 0 and 3, K16 (pallas4) at levels 0-2; K4's unpacked form at level 3
+        # (r4, r4i8, r2, v5, map) and at levels 0-2, where K16 is held
+        # against K3 followed by it
         *(functools.partial(check_rpe_jmajor, g, images, level) for level in (0, 3)),
         *(functools.partial(check_dscf_attention, g, images, level) for level in (0, 3)),
-        *(functools.partial(check_dscf_fused, g, images, level) for level in (0, 2)),
-        functools.partial(check_rows, g, images, 3, packed=False),
+        *(functools.partial(check_dscf_fused, g, images, level) for level in (0, 1, 2)),
+        *(functools.partial(check_rows, g, images, level, packed=False)
+          for level in (0, 1, 2, 3)),
         # the flat r5 path: K19 on one stream of a request; K20 (v1, which
         # no model path runs) at the four stages, shifted and not, and once
         # under autograd

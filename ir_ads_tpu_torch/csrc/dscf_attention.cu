@@ -15,7 +15,7 @@
 // is 0 in f32).
 //
 // Bound on an H100: as K4's packed form (csrc/dscf_rows.cu), whose device
-// code it runs (dscf_attend_packed_mma, csrc/dscf.cuh): bytes (the bias, 2
+// code it runs (dscf_attend_mma<true>, csrc/dscf.cuh): bytes (the bias, 2
 // bytes a score); the exp, the true division and the rounding of each
 // score set the pace.  Design: one block, a warpgroup, per (bg, head) and
 // 64 query pixels, K and V staged once as bf16 rows; four tiles of 16
@@ -23,7 +23,7 @@
 // scores' bias pairs (4 bytes) straight from the query's contiguous row, a
 // warp load 8 rows x 16 bytes, the other half of each sector taken by the
 // next n-tile's load.  Past 1024 keys: one thread a query pixel
-// (dscf_attend<true>), the PR 8 design.
+// (dscf_attend<true>).
 #include "dscf.cuh"
 
 using namespace port;
@@ -36,7 +36,7 @@ constexpr int kKeyLanes = 128;     // Mp is a multiple of the TPU's lane width
 constexpr int kMaxTiles = 32;      // n-tiles a warp at most: Mp <= 1024
 
 // Past kMaxTiles: one thread a query pixel (dscf_attend<true>), K and V as
-// f32 in shared memory, the PR 8 design.
+// f32 in shared memory.
 __global__ void __launch_bounds__(kThreads)
 dscf_attention_thread_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                              const bf16* __restrict__ v, const bf16* __restrict__ bias,
@@ -70,13 +70,8 @@ dscf_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   uint4* K_s = kv_s;
   uint4* V_s = kv_s + kRows;
   const int bg = blockIdx.y / hg, e = blockIdx.y % hg, GC = hg * HC;
-  const bf16* kb = k + (size_t)bg * Mp * GC + e * HC;
-  const bf16* vb = v + (size_t)bg * Mp * GC + e * HC;
-  for (int j = threadIdx.x; j < kRows; j += kMmaThreads) {
-    const bool real = j < Mp;
-    K_s[j] = real ? __ldg(reinterpret_cast<const uint4*>(kb + (size_t)j * GC)) : uint4{};
-    V_s[j] = real ? __ldg(reinterpret_cast<const uint4*>(vb + (size_t)j * GC)) : uint4{};
-  }
+  stage_kv_rows(k + (size_t)bg * Mp * GC + e * HC, v + (size_t)bg * Mp * GC + e * HC, Mp, GC,
+                kRows, K_s, V_s);
   __syncthreads();
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
   const int key0 = warp * 8 * NT;
@@ -90,7 +85,7 @@ dscf_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const bf16* b0 = bias + (r0 * hg + e) * Mp + key0 + 2 * t;
     const bf16* b1 = bias + (r1 * hg + e) * Mp + key0 + 2 * t;
     float o[4];
-    dscf_attend_packed_mma<NT>(qa0, qa1, K_s + key0, V_s + key0, [&](int nt, float* b) {
+    dscf_attend_mma<true, NT>(qa0, qa1, K_s + key0, V_s + key0, [&](int nt, float* b) {
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
         const int key = key0 + 8 * (nt + i) + 2 * t;  // past Mp: -inf
@@ -104,7 +99,7 @@ dscf_attention_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         b[4 * i + 3] = bf16_hi(w1);
       }
     }, red, o);
-    store_tile(o, red, out + ((size_t)bg * HW + p0) * GC + e * HC, GC, rows);
+    store_tile<true>(o, red, out + ((size_t)bg * HW + p0) * GC + e * HC, GC, rows);
   }
 }
 
@@ -130,7 +125,7 @@ extern "C" int dscf_attention(const void* q, const void* k, const void* v, const
     constexpr int NT = decltype(nt)::value;
     auto kernel = dscf_attention_kernel<NT>;
     const size_t smem = (size_t)2 * kMmaWarps * 8 * NT * sizeof(uint4);
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    blocks_per_device(kernel, smem, kMmaThreads);  // allows its dynamic shared memory
     dim3 grid((HW + kBlockQueries - 1) / kBlockQueries, BG * hg);
     kernel<<<grid, kMmaThreads, smem, st>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)bias, (bf16*)out, hg,

@@ -18,25 +18,30 @@
 //
 // Bound on an H100: bytes (the (BG, hg, h, M, w) bf16 bias is the only
 // large input, 2 bytes a score).  What sets the pace is the work a score
-// takes beside its two dots: exp, a true division, the bf16 rounding.
+// takes beside its two dots: exp, the bf16 rounding and, in the packed
+// form, a true division.
 //
-// packed=1, M <= 1024 (dscf_attend_packed_mma, csrc/dscf.cuh): the score
-// dot and P.V on the tensor cores (mma.sync), a warpgroup for 16 query
-// pixels, the keys split over its four warps, every f32 score held in
-// registers until the final max and den.  Persistent blocks, one (bg,
-// head) each, stage its K and V once and walk its tiles of 16 consecutive
-// query pixels.  A tile's bias is an M x 16 box of the (bg, head)'s (h, M,
-// w) slab, the keys at a stride of w: it comes into shared memory by
-// 16-byte cp.async copies of 8 pixels (32 contiguous bytes a key row),
-// double-buffered so that the next tile's box is in flight during this
-// one, and ldmatrix.trans reads it transposed into the score layout, the
-// row halves swizzled against bank conflicts.
+// M <= 1024, both forms (dscf_attend_mma, csrc/dscf.cuh): the score dot
+// and P.V on the tensor cores (mma.sync), a warpgroup for 16 query pixels,
+// the keys split over its four warps, every f32 score held in registers
+// until the final max and den; the form sets the A operand of P.V (the
+// normalised p or the unnormalised e) and whether the sum is divided by den
+// after it.  Persistent blocks, one (bg, head) each, stage its K and V once
+// and walk its tiles of 16 consecutive query pixels.  A tile's bias is an M
+// x 16 box of the (bg, head)'s (h, M, w) slab, the keys at a stride of w:
+// it comes into shared memory by 16-byte cp.async copies of 8 pixels (32
+// contiguous bytes a key row; 8-byte copies where w % 8 != 0, as at level
+// 3's w = 20), double-buffered so that the next tile's box is in flight
+// during this one, and ldmatrix.trans reads it transposed into the score
+// layout, the row halves swizzled against bank conflicts.  K16 runs the
+// unpacked form's device code on a bias it samples itself and must stay
+// bit-equal to K3 followed by this kernel.
 //
-// packed=0, and packed=1 past 1024 keys (dscf_attend, whose unpacked form
-// K16 shares and must stay bit-equal to K3 followed by it): one block per
-// (bg, head) and 256 query pixels, K and V staged as f32; one thread per
-// query pixel walks the keys for the max and den, then for P.V, reading
-// the bias along the query column, so every pass coalesces.
+// Past 1024 keys, both forms (dscf_attend, whose unpacked form K16 also
+// runs there): one block per (bg, head) and 256 query pixels, K and V
+// staged as f32; one thread per query pixel walks the keys for the max and
+// den, then for P.V, reading the bias along the query column, so every
+// pass coalesces.
 #include "dscf.cuh"
 
 using namespace port;
@@ -105,12 +110,12 @@ __device__ __forceinline__ void stage_box(const bf16* __restrict__ slab, bf16* b
   }
 }
 
-template <int NT>
+template <bool Packed, int NT>
 __global__ void __launch_bounds__(kMmaThreads, NT <= 20 ? 3 : 2)
-dscf_rows_packed_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                        const bf16* __restrict__ v, const bf16* __restrict__ bias,
-                        bf16* __restrict__ out, int hg, int h, int w, int M, int Mp,
-                        float scale) {
+dscf_rows_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                     const bf16* __restrict__ v, const bf16* __restrict__ bias,
+                     bf16* __restrict__ out, int hg, int h, int w, int M, int Mp,
+                     float scale) {
   constexpr int kRows = kMmaWarps * 8 * NT;  // keys padded to the warps' n-tiles
   constexpr int kBoxElems = kRows * kTileRows;
   extern __shared__ __align__(16) uint4 kvb_s[];
@@ -125,13 +130,8 @@ dscf_rows_packed_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   int tile = blockIdx.x;
   stage_box(slab, boxes, tile * kTileRows, HW, w, M);
   cp_async_commit();
-  const bf16* kb = k + (size_t)bg * Mp * GC + e * HC;
-  const bf16* vb = v + (size_t)bg * Mp * GC + e * HC;
-  for (int j = threadIdx.x; j < kRows; j += kMmaThreads) {
-    const bool real = j < M;
-    K_s[j] = real ? __ldg(reinterpret_cast<const uint4*>(kb + (size_t)j * GC)) : uint4{};
-    V_s[j] = real ? __ldg(reinterpret_cast<const uint4*>(vb + (size_t)j * GC)) : uint4{};
-  }
+  stage_kv_rows(k + (size_t)bg * Mp * GC + e * HC, v + (size_t)bg * Mp * GC + e * HC, M, GC,
+                kRows, K_s, V_s);
   for (int idx = threadIdx.x; idx < (kRows - M) * kTileRows; idx += kMmaThreads) {
     const int j = M + idx / kTileRows, t = idx % kTileRows;  // padded keys: bias -inf
     boxes[box_at(j, t)] = boxes[kBoxElems + box_at(j, t)] = __float2bfloat16(-INFINITY);
@@ -153,7 +153,7 @@ dscf_rows_packed_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const unsigned qa0 = scaled_query_pair(q + r0 * GC + e * HC, t, scale);
     const unsigned qa1 = scaled_query_pair(q + r1 * GC + e * HC, t, scale);
     float o[4];
-    dscf_attend_packed_mma<NT>(qa0, qa1, K_s + key0, V_s + key0, [&](int nt, float* b) {
+    dscf_attend_mma<Packed, NT>(qa0, qa1, K_s + key0, V_s + key0, [&](int nt, float* b) {
       // matrix m of the ldmatrix: n-tile nt + m / 2, query half m % 2
       const int m = lane >> 3, j = key0 + 8 * (nt + (m >> 1)) + (lane & 7);
       unsigned r[4];
@@ -164,7 +164,7 @@ dscf_rows_packed_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         b[2 * i + 1] = bf16_hi(r[i]);
       }
     }, red, o);
-    store_tile(o, red, out + ((size_t)bg * HW + p0) * GC + e * HC, GC, rows);
+    store_tile<Packed>(o, red, out + ((size_t)bg * HW + p0) * GC + e * HC, GC, rows);
   }
 }
 
@@ -182,25 +182,17 @@ int launch_thread(const void* q, const void* k, const void* v, const void* bias,
   return (int)cudaGetLastError();
 }
 
-int launch_packed_mma(const void* q, const void* k, const void* v, const void* bias,
-                      void* out, int BG, int hg, int h, int w, int M, int Mp, float scale,
-                      cudaStream_t stream) {
+template <bool Packed>
+int launch_mma(const void* q, const void* k, const void* v, const void* bias, void* out,
+               int BG, int hg, int h, int w, int M, int Mp, float scale, cudaStream_t stream) {
   return WarpTiles<4, 8, 12, 16, 20, 24, 28, kMaxTiles>::with((M + 31) / 32, [&](auto nt) {
     constexpr int NT = decltype(nt)::value;
-    auto kernel = dscf_rows_packed_kernel<NT>;
+    auto kernel = dscf_rows_mma_kernel<Packed, NT>;
     const size_t smem = (size_t)kMmaWarps * 8 * NT * (2 * sizeof(uint4) + 2 * kTileRows * sizeof(bf16));
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    // persistent blocks: as many as are resident at once, spread over the
-    // (bg, head) planes, each walking its plane's tiles
-    int dev = 0, sms = 0, per_sm = 0;
-    cudaGetDevice(&dev);
-    cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kMmaThreads, smem);
-    const int planes = BG * hg, tiles = (h * w + kTileRows - 1) / kTileRows;
-    const int per_plane = std::min(tiles, std::max(1, sms * std::max(per_sm, 1) / planes));
-    kernel<<<dim3(per_plane, planes), kMmaThreads, smem, stream>>>(
-        (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)bias, (bf16*)out, hg,
-        h, w, M, Mp, scale);
+    const dim3 grid = plane_grid(kernel, smem, BG * hg, (h * w + kTileRows - 1) / kTileRows);
+    kernel<<<grid, kMmaThreads, smem, stream>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
+                                                (const bf16*)bias, (bf16*)out, hg, h, w, M, Mp,
+                                                scale);
     return (int)cudaGetLastError();
   });
 }
@@ -212,8 +204,9 @@ extern "C" int dscf_rows_attention(const void* q, const void* k, const void* v,
                                    int h, int w, int M, int Mp, float scale,
                                    int packed, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (!packed) return launch_thread<false>(q, k, v, bias, out, BG, hg, h, w, M, Mp, scale, s);
   if (M > 32 * kMaxTiles)  // too many keys for the tensor-core design
-    return launch_thread<true>(q, k, v, bias, out, BG, hg, h, w, M, Mp, scale, s);
-  return launch_packed_mma(q, k, v, bias, out, BG, hg, h, w, M, Mp, scale, s);
+    return packed ? launch_thread<true>(q, k, v, bias, out, BG, hg, h, w, M, Mp, scale, s)
+                  : launch_thread<false>(q, k, v, bias, out, BG, hg, h, w, M, Mp, scale, s);
+  return packed ? launch_mma<true>(q, k, v, bias, out, BG, hg, h, w, M, Mp, scale, s)
+                : launch_mma<false>(q, k, v, bias, out, BG, hg, h, w, M, Mp, scale, s);
 }

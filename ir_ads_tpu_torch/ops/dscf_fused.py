@@ -4,7 +4,11 @@ in the unpacked rows form.  No bias is stored.
 
 Replaces ir_ads_tpu/ops/pallas_dscf.py:_dscf_fused_kernel (launched by
 ``pallas_dscf_attention_fused``; twin ``dscf_fused_reference``).  The CUDA
-source is csrc/dscf_fused.cu; its header states the bound and the design.
+source is csrc/dscf_fused.cu; its header states the bound and the design:
+up to 1024 keys, K4's unpacked attention on the tensor cores
+(``dscf_attend_mma``), each (query pixel, key) bias sampled once where its
+score sits, from a bf16 table and per-key and per-row parts staged in
+shared memory; past 1024 keys, a thread a query pixel, as K4 there.
 
 The TPU kernel builds a band's bias in VMEM with ``_rpe_rows_kernel``'s
 hat-weight products and rounding points, rounds it to the store dtype and
@@ -124,4 +128,7 @@ def dscf_fused_attention(
     """Returns (BG, h*w, GC) in q's dtype."""
     if h < 2 or w < 2:
         raise ValueError(f"dscf_fused_attention: query plane {h}x{w} needs h, w >= 2")
-    return _FusedAttention.apply(q, k, v, pos.float(), table.float(), h, w, scale, hg)
+    pos, table = pos.float(), table.float()
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, pos, table)):
+        return _FusedAttention.apply(q, k, v, pos, table, h, w, scale, hg)
+    return _forward(q, k, v, pos, table, h, w, scale, hg)

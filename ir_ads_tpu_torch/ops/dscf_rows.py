@@ -14,11 +14,17 @@ differently in bf16; ``packed`` chooses between them as the reference's
                 in f32, divided by ``den``, then rounded once.
 
 In f32 the two agree to an ulp; in bf16 about 40 % of the outputs differ by
-a bf16 ulp.  The CUDA source is csrc/dscf_rows.cu (both forms; the device
-code is csrc/dscf.cuh's: the packed form's ``dscf_attend_packed_mma``, a
-warpgroup for 16 query pixels on the tensor cores, which K17 shares, and
-the unpacked form's ``dscf_attend``, a thread a query pixel, which K16
-shares); its header states the bound and the design.
+a bf16 ulp.  The CUDA source is csrc/dscf_rows.cu; its header states the
+bound and the design.  Up to 1024 keys both forms run csrc/dscf.cuh's
+``dscf_attend_mma``: a warpgroup for 16 query pixels on the tensor cores,
+every score computed once and held in registers until the final max, den
+the f32 sum of the unrounded ``exp(s - max)`` over each warp's keys, then
+over the warps in order; the packed form divides each weight before P.V,
+the unpacked one rounds the weights as they are and divides the summed P.V
+after.  K17 shares the packed form's code and K16 the unpacked form's.
+Past 1024 keys both run ``dscf_attend``, a thread a query pixel.  Against
+the plain version only the f32 sums' order differs, which flips a bf16
+rounding now and then.
 
 Layouts: q (BG, h*w, GC), k and v (BG, Mp, GC) with Mp >= M (rows past M are
 padding and never attended), bias (BG, hg, h, M, w); head e of a group holds
@@ -120,5 +126,9 @@ def dscf_rows_attention(
 ) -> torch.Tensor:
     """``packed``: the Pallas kernel whose rounding to compute (module
     docstring); the reference's DAttentionMM takes the packed one at levels
-    0-2 and the unpacked one at level 3."""
-    return _RowsAttention.apply(q, k, v, bias, scale, hg, packed)
+    0-2 and the unpacked one at level 3.  Autograd records the call only
+    where an input needs a gradient: its bookkeeping costs host time of the
+    order of the kernel's own at level 3."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v, bias)):
+        return _RowsAttention.apply(q, k, v, bias, scale, hg, packed)
+    return _forward(q, k, v, bias, scale, hg, packed)

@@ -40,13 +40,15 @@ def up(t: torch.Tensor) -> torch.Tensor:
     return t if t.dtype == torch.float64 else t.float()
 
 
+@functools.lru_cache(maxsize=None)
 def q_scale(scale: float, dtype: torch.dtype) -> float:
     """The attention scale as the reference multiplies q by it: JAX casts
     the Python scalar of ``(q * scale).astype(q.dtype)`` to q's dtype first,
     so in bf16 the scale is rounded to bf16 (8 ** -0.5 -> 0.353515625);
     f32 keeps it.  Every forward attention kernel and its plain version
     takes the scale through here; the backward kernels keep the exact one,
-    as the reference's do."""
+    as the reference's do.  Cached: a wrapper asks at every launch, and a
+    tensor costs microseconds of host time, as much as a small kernel."""
     return float(torch.tensor(scale, dtype=dtype))
 
 

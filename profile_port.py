@@ -32,10 +32,13 @@ request of one 800x1216 image, then profiles one request in two parts: the
 model, and the post-processing (mask-scored ranking, top-k, NMS); before
 that, one unprofiled request's timeline is split by module (backbone, neck,
 encoder, decoder, the seg map and mask heads) with CUDA events around each.
-DSCF attention (--dscf): K4's packed form at DSCF levels 0-3 (bias as K3
-writes it, contiguous) and K17 at levels 0 and 3 (the packed bias as K18's
-layout pads it), 4 images, each timed with CUDA events over 20 launches
-through its wrapper, beside one SDPA call with the bias as its float mask.
+DSCF attention (--dscf): K4's two forms at DSCF levels 0-3 (bias as K3
+writes it, contiguous), K17 at levels 0 and 3 (the packed bias as K18's
+layout pads it) and K16 at levels 0-2, 4 images, each timed with CUDA
+events over 20 launches through its wrapper (ms; the host's time per call
+bounds it for the smallest) and by the profiler's device time of its
+kernels (device_ms), beside one SDPA call with the bias as its float mask;
+K16 also beside K3 followed by K4's unpacked form.
 --port-dir DIR imports the port package from DIR, another checkout (the
 parent commit unpacked with ``git archive``), so that two commits can be
 run in turns on one card.
@@ -59,13 +62,16 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 # device kernel names of each port kernel (window_attn_kernel is K1's and
-# K10's: a dispatch runs one of them)
+# K10's: a dispatch runs one of them; dscf_rows_packed_kernel is K4's
+# tensor-core kernel in checkouts where only the packed form ran on it, for
+# --port-dir)
 BY_KERNEL = {
     "K1/K10 attention": ("window_attn_kernel",),
     "K1 rows": ("ln_qkv_kernel", "proj_add_kernel"),
     "K2": ("block_tail_kernel",),
     "K5": ("v6_ln_qkv_kernel", "v6_attn_kernel", "proj_tail_kernel"),
-    "K3": ("rpe_rows_kernel",), "K4": ("dscf_rows_kernel", "dscf_rows_packed_kernel"),
+    "K3": ("rpe_rows_kernel",),
+    "K4": ("dscf_rows_kernel", "dscf_rows_mma_kernel", "dscf_rows_packed_kernel"),
     "K6": ("rpe_packed_kernel",),
     "K7": ("window_attn_bwd_kernel",), "K8": ("dscf_rows_bwd_kernel",),
     "K9": ("msdeform_kernel",),
@@ -75,7 +81,7 @@ BY_KERNEL = {
     "K13": ("v7_ln_qkv_kernel", "v7_attn_kernel", "v7_proj_tail_kernel"),
     "K14": ("v5_ln_qkv_kernel", "v5_attn_kernel", "v5_proj_add_kernel"),
     "K15": ("window_attention_map_kernel",),
-    "K16": ("dscf_fused_kernel",), "K17": ("dscf_attention_kernel",),
+    "K16": ("dscf_fused_kernel", "dscf_fused_mma_kernel"), "K17": ("dscf_attention_kernel",),
     "K18": ("rpe_jmajor_kernel",), "K19": ("patch_embed_kernel",),
     "K20": ("window_attention_v1_kernel",),
 }
@@ -183,41 +189,73 @@ def _events_ms(fn, iters=20, warmup=3) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _device_ms(fn, iters=20) -> float:
+    """Device time of ``fn``'s kernels per call, from the profiler: free of
+    the host time that bounds _events_ms for a kernel of a few dozen us."""
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    return sum(device_us(e) for e in prof.key_averages()
+               if e.device_type == torch.autograd.DeviceType.CUDA) / iters / 1e3
+
+
 def time_dscf(args) -> dict:
-    """K4's packed form and K17 at phase 3's shapes, beside SDPA."""
+    """K4's two forms at DSCF levels 0-3, K17 at levels 0 and 3 and K16 at
+    levels 0-2, at phase 3's shapes, beside SDPA; K16 also beside K3
+    followed by K4's unpacked form, the two kernels it fuses."""
     import torch.nn.functional as F
 
     from ir_ads_tpu_torch.ops import dscf_attention as k17
+    from ir_ads_tpu_torch.ops import dscf_fused as k16
     from ir_ads_tpu_torch.ops import dscf_rows as k4
+    from ir_ads_tpu_torch.ops import dscf_rpe as k3
 
     g = torch.Generator(device="cuda").manual_seed(args.seed)
     rand = lambda *shape: torch.randn(*shape, generator=g, device="cuda")  # noqa: E731
-    scale, hg, m, mp, images = 8 ** -0.5, 2, 600, 640, 4
+    scale, hg, m, mp, images, bf = 8 ** -0.5, 2, 600, 640, 4, torch.bfloat16
     rows = []
-    for name, levels in (("K4 packed", (0, 1, 2, 3)), ("K17", (0, 3))):
+    for name, levels in (("K4 packed", (0, 1, 2, 3)), ("K4 unpacked", (0, 1, 2, 3)),
+                         ("K17", (0, 3)), ("K16", (0, 1, 2))):
         for level in levels:
             h, w, bg = 120 >> level, 160 >> level, images << level
-            q = rand(bg, h * w, 16).bfloat16()
-            kv = [rand(bg, m, 16).bfloat16() for _ in range(2)]
-            bias = (0.33 * rand(bg, hg, h, m, w)).bfloat16()  # K3's spread
+            q = rand(bg, h * w, 16).to(bf)
+            kv = [rand(bg, m, 16).to(bf) for _ in range(2)]
+            pos = torch.rand(bg, m, 2, generator=g, device="cuda") * 2 - 1
+            table = 0.5 * rand(1 << level, hg, 119, 159)
+            if name == "K16":  # K3's bias, as the two kernels K16 fuses meet in it
+                bias = k3.rpe_bias_rows(pos, table, h, w, bf)
+            else:
+                bias = (0.33 * rand(bg, hg, h, m, w)).to(bf)  # K3's spread
             mask = bias.permute(0, 1, 2, 4, 3).reshape(bg, hg, h * w, m)
+            extra = {}
             if name == "K17":
                 kv = [F.pad(t, (0, 0, 0, mp - m)) for t in kv]
                 mask = F.pad(mask, (0, mp - m), value=k17.NEG_INF)
                 bias = mask.transpose(1, 2).reshape(bg, h * w, hg * mp).contiguous()
                 run = lambda: k17.dscf_attention(q, *kv, bias, scale, hg)  # noqa: E731
+            elif name == "K16":
+                run = lambda: k16.dscf_fused_attention(  # noqa: E731
+                    q, *kv, pos, table, h, w, scale, hg)
+                k3_k4 = lambda: k4.dscf_rows_attention(  # noqa: E731
+                    q, *kv, k3.rpe_bias_rows(pos, table, h, w, bf), scale, hg, False)
+                extra = dict(k3_k4_ms=_events_ms(k3_k4), k3_k4_device_ms=_device_ms(k3_k4))
             else:
-                run = lambda: k4.dscf_rows_attention(q, *kv, bias, scale, hg, True)  # noqa: E731
+                run = lambda: k4.dscf_rows_attention(  # noqa: E731
+                    q, *kv, bias, scale, hg, name == "K4 packed")
             heads = [t.reshape(bg, -1, hg, 8).transpose(1, 2) for t in (q, *kv)]
             mask = mask.contiguous()
             sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 *heads, attn_mask=mask, scale=scale)
             ms, sdpa_ms = _events_ms(run), _events_ms(sdpa)
-            rows.append(dict(kernel=name, level=level, plane=f"{h}x{w}", bg=bg, ms=ms,
-                             sdpa_ms=sdpa_ms))
-            print(f"{name} level {level} ({h}x{w}, BG {bg}): {ms:.4f} ms, SDPA "
-                  f"{sdpa_ms:.4f} ms", flush=True)
-            del q, kv, bias, mask, heads
+            times = dict(ms=ms, device_ms=_device_ms(run), sdpa_ms=sdpa_ms,
+                         sdpa_device_ms=_device_ms(sdpa), **extra)
+            rows.append(dict(kernel=name, level=level, plane=f"{h}x{w}", bg=bg, **times))
+            print(f"{name} level {level} ({h}x{w}, BG {bg}): "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in times.items()), flush=True)
+            del q, kv, bias, mask, heads, pos, table
             torch.cuda.empty_cache()
     return dict(device=torch.cuda.get_device_name(0), dscf=rows)
 
@@ -341,7 +379,7 @@ def main():
     ap.add_argument("--det", action="store_true",
                     help="profile one detection request instead")
     ap.add_argument("--dscf", action="store_true",
-                    help="time K4's packed form and K17 beside SDPA instead")
+                    help="time K4's two forms, K16 and K17 beside SDPA instead")
     ap.add_argument("--requests", type=int, default=0,
                     help="serving: first time this many requests and print their p50")
     ap.add_argument("--port-dir", default=None,
