@@ -18,7 +18,10 @@ Phases, each of which raises on failure:
      and K15 bit for bit against the compositions of kernels they replace
      (K1, un-roll and crop, K2; pad and roll, K1, un-roll and crop;
      partition, K12, reverse); the DSCF variants' kernels: K18 (the pallas2
-     bias, f32 form) and K17 (the pallas / pallas2 attention, on K18's
+     bias, f32 form) at levels 0-3 on random positions and on positions
+     with a third of their coordinates at -1, also bit for bit against
+     ``rpe_bias_jmajor_ordered`` (its own sequence of roundings in torch
+     elementwise ops), K17 (the pallas / pallas2 attention, on K18's
      packed bias) at levels 0 and 3, K16 (pallas4) at levels 0-2, bit
      for bit against K3 followed by K4 with packed=False (and not against
      K4's packed form), K4's packed form at levels 0-2 and its unpacked
@@ -33,9 +36,13 @@ Phases, each of which raises on failure:
      frames (planted fault: the XLA form, whose LayerNorm scale and bias
      stay f32; F.conv2d then F.layer_norm timed for the record) and K20
      (the v1 window attention, which no model path runs) at the four
-     stages, shifted and not (planted faults: the region mask left out, the
-     twin's form that rounds q * bf16(scale)), and once under autograd (its
-     gradients, the twin's vjp, against the twin's); then, for the record,
+     stages, shifted and not, on the tensor cores (planted faults: the
+     region mask left out, the twin's form that rounds q * bf16(scale)),
+     outside the tensor-core design's shapes in bf16 (d = 64) and in f32,
+     where it takes the thread design, and once under autograd (its
+     gradients, the twin's vjp, against the twin's; K12's and K20's autograd
+     cases time torch.autograd.grad through SDPA as their library call);
+     then, for the record,
      the share of K1's outputs at stage 0 and K4's at level 0 that the
      parent commit's f32 attention scale moves;
      print the errors against the stated tolerances and the kernel's, the
@@ -510,6 +517,32 @@ def _sdpa_with_region(qkv, bias, region, scale, heads):
     return lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale)
 
 
+def _sdpa_grad(heads_of, bias, region, scale, dout, leaves):
+    """The library call of an autograd case: ``torch.autograd.grad`` of
+    ``leaves`` (q, k and v, or the qkv they are views of, and the bias)
+    through one scaled_dot_product_attention whose float mask is the bias
+    (cast to q's dtype, so that its gradient flows) plus the -1e9 region
+    mask (built outside the timing).  ``heads_of`` gives (q, k, v) of the
+    leaves' copies; dout is the output's gradient, (B nW, heads, N, d)."""
+    region_mask = None
+    if region is not None:
+        neq = (region[:, :, None] != region[:, None, :]).repeat(dout.shape[0] // region.shape[0],
+                                                                1, 1)
+        region_mask = torch.where(neq, -1e9, 0.0).to(dout.dtype)[:, None]
+
+    def run():
+        ins = [t.detach().requires_grad_() for t in leaves]
+        q, k, v = heads_of(ins)
+        mask = ins[-1].to(q.dtype)[None]
+        if region_mask is not None:
+            mask = mask + region_mask
+        out = F.scaled_dot_product_attention(q, k, v, attn_mask=mask.expand(
+            q.shape[0], -1, -1, -1), scale=scale)
+        return torch.autograd.grad(out, ins, dout)
+
+    return run
+
+
 def check_window_attention_qkv(g, b, h_real, w_real, c, heads, shift):
     """K12 at one stage's r2 / r1 shape (4 tiles: 560, 140, 48, 16
     windows).  Planted fault: on a shifted case the region mask left out,
@@ -563,7 +596,10 @@ def check_window_attention_qkv_grad(g, b, h_real, w_real, c, heads, shift):
         run=lambda: through(k12.window_attention_qkv, region),
         plain=lambda: through(k12.window_attention_qkv_reference, region),
         faulted=lambda: through(k12.window_attention_qkv_reference, None),
-        fault="vjp without the region mask", base=None, library=None,
+        fault="vjp without the region mask", base=None,
+        library=_sdpa_grad(lambda ins: _split_heads(ins[0], heads), bias, region, scale,
+                           dout.reshape(bn, n, heads, c // heads).transpose(1, 2),
+                           (qkv, bias)),
         outputs=["out", "dqkv", "dbias"],
         # the output as above; the backward is the plain version's own vjp,
         # recomputed from the same inputs: equal but for the order of its
@@ -715,11 +751,17 @@ def check_window_attention_map(g, b, h, w, c, heads, shift):
     )
 
 
-def _dscf_inputs(g, b, level):
+def _dscf_inputs(g, b, level, clamped=False):
+    """A DSCF level's query plane, groups and keys, the keys' positions
+    uniform in [-1, 1] (with ``clamped``, each coordinate -1 with
+    probability 1/3: the served model clamps 22-33 % of them there) and the
+    rpe table."""
     h, w = 120 >> level, 160 >> level
     groups = 1 << level
     bg, hg, m = b * groups, 2, 600
     pos = (torch.rand(bg, m, 2, generator=g, device="cuda") * 2 - 1)
+    if clamped:
+        pos = torch.where(torch.rand(bg, m, 2, generator=g, device="cuda") < 1 / 3, -1.0, pos)
     table = _rand(g, groups, hg, 119, 159, std=0.5, dtype=torch.float32)
     return h, w, groups, bg, hg, m, pos, table
 
@@ -842,25 +884,32 @@ def _rpe_library(h, w, groups, bg, pos, table):
     return lambda: F.grid_sample(tb, grid, mode="bilinear", align_corners=True)
 
 
-def check_rpe_jmajor(g, b, level):
+def check_rpe_jmajor(g, b, level, clamped=False):
     """K18 (the pallas2 bias, ``_rpe_kernel``'s f32 form).  Bar: one bf16
     ulp (rtol 2^-7), or 1e-5 where a sum cancels to about 0 (the terms are
     about 1: one side may get 0 exactly, the other an f32 remainder), and at
     most 1 % of the outputs differing: both sides round an f32 sum of two
     products once, and the plain version's cuBLAS dots may fuse a
     multiply-add where the kernel rounds the product.  Planted fault: K3's
-    form (bf16 hat weights, table and u)."""
+    form (bf16 hat weights, table and u).  And bit for bit (the bf16 bits)
+    against ``rpe_bias_jmajor_ordered``, the kernel's own sequence of
+    roundings in torch elementwise ops."""
     from ir_ads_tpu_torch.ops import dscf_rpe_jmajor as k18
     from ir_ads_tpu_torch.ops.dscf_rpe import rpe_bias_bf16
 
-    h, w, groups, bg, hg, m, pos, table = _dscf_inputs(g, b, level)
+    h, w, groups, bg, hg, m, pos, table = _dscf_inputs(g, b, level, clamped)
     out_elems = bg * hg * m * h * w
+    bf = torch.bfloat16
     return dict(
-        name="dscf_rpe_jmajor", case=f"level {level} plane {h}x{w} BG={bg}",
-        run=lambda: k18.rpe_bias_jmajor(pos, table, h, w, torch.bfloat16),
-        plain=lambda: k18.rpe_bias_jmajor_reference(pos, table, h, w, torch.bfloat16),
-        faulted=lambda: rpe_bias_bf16(pos, table, h, w, "bemhw").to(torch.bfloat16),
+        name="dscf_rpe_jmajor",
+        case=f"level {level} plane {h}x{w} BG={bg}" + (" clamped" if clamped else ""),
+        run=lambda: k18.rpe_bias_jmajor(pos, table, h, w, bf),
+        plain=lambda: k18.rpe_bias_jmajor_reference(pos, table, h, w, bf),
+        faulted=lambda: rpe_bias_bf16(pos, table, h, w, "bemhw").to(bf),
         fault="K3's form (bf16 hat weights, table and u)", base=None,
+        composition=(lambda out: out.view(torch.int16),
+                     lambda: k18.rpe_bias_jmajor_ordered(pos, table, h, w, bf).view(torch.int16),
+                     "rpe_bias_jmajor_ordered (bits)"),
         library=_rpe_library(h, w, groups, bg, pos, table),
         atol=1e-5, rtol=2.0 ** -7, share_tol=JMAJOR_SHARE,
         bytes=nbytes(pos, table) + out_elems * 2, flops=out_elems * 20,
@@ -1076,19 +1125,53 @@ def check_window_attention_v1(g, b, h_real, w_real, c, heads, shift):
         faulted = lambda: k20.window_attention_v1_twin(  # noqa: E731
             q, k, v, bias, region, scale)
     n = qkv.shape[1]
+    design = "tensor cores" if k20.tensor_core_design(q.dtype, n, c // heads) else "threads"
     return dict(
-        name="window_attention_v1", case=f"C={c} {bn} windows shift {shift}",
+        name="window_attention_v1", case=f"C={c} {bn} windows shift {shift} ({design})",
         run=lambda: k20.window_attention_v1(q, k, v, bias, region, scale),
         plain=lambda: k20.window_attention_v1_reference(q, k, v, bias, region, scale),
         faulted=faulted, fault=fault, base=None,
         library=_sdpa_with_region(qkv, bias, region, scale, heads),
-        # the same rounding points (q * scale kept f32, the probabilities,
-        # the output), f32 sums of another order: a rounding may flip by one
-        # ulp (measured: none did).  The twin's form, which rounds q *
-        # bf16(scale), puts about a third of the outputs an ulp away
+        # the same rounding points (q * scale kept f32, as three bf16 parts
+        # on the tensor cores, the probabilities, the output), f32 sums of
+        # another order: a rounding may flip by one ulp.  The twin's form,
+        # which rounds q * bf16(scale), puts about a third of the outputs an
+        # ulp away
         atol=1e-2, rtol=2e-2, share_tol=ROUNDING_SHARE,
         bytes=nbytes(q, k, v, bias, region) + nbytes(q), flops=4 * bn * n * n * c,
         rate=BF16_TENSOR_FLOPS,
+    )
+
+
+def check_window_attention_v1_envelope(g, b, dtype, d):
+    """K20 outside the tensor-core design's shapes, which then takes the
+    thread design: stage 2's shifted windows (48 of 144 tokens) at 512
+    channels in f32 with d = 32, or in bf16 with d = 64 (8 heads).  Planted
+    fault: the region mask dropped.  Bars: bf16 as the stage cases; f32 to
+    f32 rounding (the sums' order), without a share of differing outputs,
+    which f32 sums of another order move."""
+    from ir_ads_tpu_torch.ops import window_attention_v1 as k20
+
+    c, heads = 512, 512 // d
+    qkv, bias, region, scale, bn = _window_qkv_inputs(g, b, 30, 40, c, heads, 6)
+    qkv = qkv.to(dtype)
+    q, k, v = (t.contiguous() for t in _split_heads(qkv, heads))
+    n = qkv.shape[1]
+    if k20.tensor_core_design(dtype, n, d):
+        fail(f"K20's envelope case {dtype} d={d} lies inside the tensor-core design")
+    bf = dtype == torch.bfloat16
+    return dict(
+        name="window_attention_v1",
+        case=f"envelope {str(dtype)[6:]} d={d} {bn} windows shift 6 (threads)",
+        run=lambda: k20.window_attention_v1(q, k, v, bias, region, scale),
+        plain=lambda: k20.window_attention_v1_reference(q, k, v, bias, region, scale),
+        faulted=lambda: k20.window_attention_v1_reference(q, k, v, bias, None, scale),
+        fault="region mask dropped", base=None,
+        library=_sdpa_with_region(qkv, bias, region, scale, heads),
+        atol=1e-2 if bf else 1e-5, rtol=2e-2 if bf else 1e-5,
+        **(dict(share_tol=ROUNDING_SHARE) if bf else {}),
+        bytes=nbytes(q, k, v, bias, region) + nbytes(q), flops=4 * bn * n * n * c,
+        rate=BF16_TENSOR_FLOPS if bf else F32_FLOPS,
     )
 
 
@@ -1123,7 +1206,8 @@ def check_window_attention_v1_grad(g, b, h_real, w_real, c, heads, shift):
                               region),
         faulted=lambda: through(k20.window_attention_v1_reference,
                                 k20.window_attention_v1_twin, None),
-        fault="vjp without the region mask", base=None, library=None,
+        fault="vjp without the region mask", base=None,
+        library=_sdpa_grad(lambda ins: ins[:3], bias, region, scale, dout, (q, k, v, bias)),
         outputs=["out", "dq", "dk", "dv", "dbias"],
         # the output as above; the backward is the twin's own vjp, recomputed
         # from the same inputs: equal but for the order of its f32 sums
@@ -1441,7 +1525,8 @@ def phase_kernels(seed: int, images: int):
         # 0 and 3, K16 (pallas4) at levels 0-2; K4's unpacked form at level 3
         # (r4, r4i8, r2, v5, map) and at levels 0-2, where K16 is held
         # against K3 followed by it
-        *(functools.partial(check_rpe_jmajor, g, images, level) for level in (0, 3)),
+        *(functools.partial(check_rpe_jmajor, g, images, level, clamped)
+          for clamped in (False, True) for level in (0, 1, 2, 3)),
         *(functools.partial(check_dscf_attention, g, images, level) for level in (0, 3)),
         *(functools.partial(check_dscf_fused, g, images, level) for level in (0, 1, 2)),
         *(functools.partial(check_rows, g, images, level, packed=False)
@@ -1452,6 +1537,8 @@ def phase_kernels(seed: int, images: int):
         functools.partial(check_patch_embed, g, images),
         *(functools.partial(check_window_attention_v1, g, images, h, w, c, heads, shift)
           for h, w, c, heads in STAGES for shift in (0, 6)),
+        functools.partial(check_window_attention_v1_envelope, g, images, torch.bfloat16, 64),
+        functools.partial(check_window_attention_v1_envelope, g, images, torch.float32, 32),
         lambda: check_window_attention_v1_grad(g, images, 30, 40, 512, 16, 6),
     ]
     rows = [hold(make()) for make in cases]

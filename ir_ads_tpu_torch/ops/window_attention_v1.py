@@ -18,6 +18,12 @@ probabilities cast to v's dtype, P.V summed in f32 and rounded once.
 
 ``window_attention_v1`` launches the kernel for CUDA tensors and runs
 ``window_attention_v1_reference``, the plain version, only for CPU tensors.
+The kernel has two designs, chosen by dtype and shape alone
+(``tensor_core_design``): bf16 with d = 16 or 32 and N <= 144 (every Swin
+window up to 12 x 12 at 32 channels a head) runs on the tensor cores, q *
+scale carried exactly as three bf16 parts; f32, and bf16 with another d or
+a larger N, run the thread design (f32 products on the CUDA cores).  A
+shape that neither takes raises.
 ``fused_window_attention`` is differentiable in q, k, v and the bias: its
 backward is the vjp of the twin (``window_attention`` under the dense -1e9
 region mask), as the JAX package's ``_fused_bwd`` takes ``jax.vjp`` of
@@ -35,7 +41,7 @@ from ir_ads_tpu_torch.ops.window_attention import window_attention
 from ir_ads_tpu_torch.ops.window_attention_qkv import region_mask
 
 KERNEL = CudaKernel(
-    "window_attention_v1", "window_attention_v1", [VOIDP] * 6 + [INT] * 6 + [FLOAT],
+    "window_attention_v1", "window_attention_v1", [VOIDP] * 6 + [INT] * 7 + [FLOAT],
     replaces="ir_ads_tpu/ops/pallas_swin.py:44",
 )
 SMEM_MAX = 232448  # bytes of shared memory a block may have on an H100
@@ -61,9 +67,20 @@ def window_attention_v1_twin(q, k, v, bias, region, scale):
     return window_attention(q, k, v, bias, mask, scale)
 
 
+MMA_HEAD_DIMS = (16, 32)  # the tensor-core design's d
+MMA_MAX_TOKENS = 144      # and its N: a lane holds N / 2 scores in registers
+
+
+def tensor_core_design(dtype: torch.dtype, n: int, d: int) -> bool:
+    """Whether the kernel takes the tensor-core design for (dtype, N, d):
+    bf16, d in MMA_HEAD_DIMS and N <= MMA_MAX_TOKENS; otherwise the thread
+    design."""
+    return dtype == torch.bfloat16 and d in MMA_HEAD_DIMS and n <= MMA_MAX_TOKENS
+
+
 def _smem_bytes(n: int, d: int) -> int:
-    """csrc/window_attention_v1.cu's shared memory: q^T and k^T (d, N4), v
-    (N, d) and the scores (N, N4 + 1), f32; N4 = N rounded up to 4."""
+    """The thread design's shared memory: q^T and k^T (d, N4), v (N, d) and
+    the scores (N, N4 + 1), f32; N4 = N rounded up to 4."""
     n4 = -(-n // 4) * 4
     return 4 * (2 * d * n4 + n * d + n * (n4 + 1))
 
@@ -87,8 +104,9 @@ def window_attention_v1(
     check_cuda("window_attention_v1", bias, dtype=torch.float32)
     bn, heads, n, d = q.shape
     nw = 1 if region is None else region.shape[0]
+    mma = tensor_core_design(q.dtype, n, d)
     if (k.shape != q.shape or v.shape != q.shape or bias.shape != (heads, n, n)
-            or d % 4 or bn % nw or _smem_bytes(n, d) > SMEM_MAX):
+            or bn % nw or (not mma and (d % 4 or _smem_bytes(n, d) > SMEM_MAX))):
         raise ValueError(f"window_attention_v1: unsupported shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)} bias {tuple(bias.shape)} "
                          f"windows per image {nw}")
@@ -97,7 +115,7 @@ def window_attention_v1(
     out = torch.empty_like(q)
     KERNEL.call(ptr(q), ptr(k), ptr(v), ptr(bias),
                 ptr(region) if region is not None else None, ptr(out),
-                bn, heads, n, d, nw, int(q.dtype == torch.bfloat16), float(scale))
+                bn, heads, n, d, nw, int(q.dtype == torch.bfloat16), int(mma), float(scale))
     return out
 
 

@@ -10,6 +10,7 @@ one step of its trainer, under torch.profiler.
     python3 profile_port.py --train [--seed 0] [--batch 4]
     python3 profile_port.py --det [--seed 0]
     python3 profile_port.py --dscf [--seed 0]
+    python3 profile_port.py --jmajor-v1 [--seed 0]
     (each also takes --port-dir DIR)
 
 Serving: builds the full-size predictor (Swin-B CMNeXt, 480x640 RGB-D, flip,
@@ -39,6 +40,11 @@ events over 20 launches through its wrapper (ms; the host's time per call
 bounds it for the smallest) and by the profiler's device time of its
 kernels (device_ms), beside one SDPA call with the bias as its float mask;
 K16 also beside K3 followed by K4's unpacked form.
+K18 and K20 (--jmajor-v1): K18 at DSCF levels 0-3 on random positions and
+on positions with a third of their coordinates at -1 (as the served model
+clamps them), beside F.grid_sample, and K20 at the four Swin stages of 4
+tiles, shifted and not, beside SDPA with the bias and region mask as its
+float mask, each by CUDA events and by the profiler's device time.
 --port-dir DIR imports the port package from DIR, another checkout (the
 parent commit unpacked with ``git archive``), so that two commits can be
 run in turns on one card.
@@ -83,7 +89,7 @@ BY_KERNEL = {
     "K15": ("window_attention_map_kernel",),
     "K16": ("dscf_fused_kernel", "dscf_fused_mma_kernel"), "K17": ("dscf_attention_kernel",),
     "K18": ("rpe_jmajor_kernel",), "K19": ("patch_embed_kernel",),
-    "K20": ("window_attention_v1_kernel",),
+    "K20": ("window_attention_v1_kernel", "window_attention_v1_mma_kernel"),
 }
 PORT_KERNELS = tuple(n for names in BY_KERNEL.values() for n in names)
 
@@ -260,6 +266,71 @@ def time_dscf(args) -> dict:
     return dict(device=torch.cuda.get_device_name(0), dscf=rows)
 
 
+def time_jmajor_v1(args) -> dict:
+    """K18 at levels 0-3 (random and clamped positions) beside F.grid_sample,
+    K20 at the four stages (shifted and not) beside SDPA, at phase 3's
+    shapes (4 images)."""
+    import torch.nn.functional as F
+
+    from ir_ads_tpu_torch.ops import dscf_rpe_jmajor as k18
+    from ir_ads_tpu_torch.ops import window_attention_v1 as k20
+    from ir_ads_tpu_torch.ops.window_attention import shift_region_ids_on
+
+    g = torch.Generator(device="cuda").manual_seed(args.seed)
+    images, hg, m, bf = 4, 2, 600, torch.bfloat16
+    rows = []
+
+    def record(what, run, library, **info):
+        times = dict(ms=_events_ms(run), device_ms=_device_ms(run),
+                     library_ms=_events_ms(library), library_device_ms=_device_ms(library))
+        rows.append(dict(kernel=what, **info, **times))
+        print(f"{what} {info}: " + ", ".join(f"{k} {v:.4f}" for k, v in times.items()),
+              flush=True)
+
+    for clamped in (False, True):
+        for level in range(4):
+            h, w, groups = 120 >> level, 160 >> level, 1 << level
+            bg = images * groups
+            pos = torch.rand(bg, m, 2, generator=g, device="cuda") * 2 - 1
+            if clamped:
+                pos = torch.where(torch.rand(bg, m, 2, generator=g, device="cuda") < 1 / 3,
+                                  -1.0, pos)
+            table = 0.5 * torch.randn(groups, hg, 119, 159, generator=g, device="cuda")
+            qy = torch.arange(h, device="cuda") / (h - 1) * 2 - 1
+            qx = torch.arange(w, device="cuda") / (w - 1) * 2 - 1
+            qg = torch.stack(torch.meshgrid(qy, qx, indexing="ij"), -1).reshape(1, 1, h * w, 2)
+            grid = ((qg - pos[:, :, None]) * 0.5)[..., (1, 0)].contiguous()
+            tb = table[torch.arange(bg, device="cuda") % groups].contiguous()
+            record("K18", lambda: k18.rpe_bias_jmajor(pos, table, h, w, bf),
+                   lambda: F.grid_sample(tb, grid, mode="bilinear", align_corners=True),
+                   level=level, plane=f"{h}x{w}", bg=bg, clamped=clamped)
+            del pos, table, grid, tb
+            torch.cuda.empty_cache()
+    ws, n = 12, 144
+    for hr, wr, c, heads in ((120, 160, 128, 4), (60, 80, 256, 8), (30, 40, 512, 16),
+                             (15, 20, 1024, 32)):
+        hp, wp = -(-hr // ws) * ws, -(-wr // ws) * ws
+        bn, d = images * (hp // ws) * (wp // ws), c // heads
+        for shift in (0, 6):
+            q, k, v = (torch.randn(bn, heads, n, d, generator=g, device="cuda").to(bf)
+                       for _ in range(3))
+            bias = torch.randn(heads, n, n, generator=g, device="cuda")
+            region = shift_region_ids_on(hp, wp, ws, shift, q.device) if shift else None
+            mask = bias.to(bf)[None]
+            if region is not None:
+                neq = (region[:, :, None] != region[:, None, :]).repeat(bn // region.shape[0],
+                                                                        1, 1)
+                mask = mask + torch.where(neq, -1e9, 0.0).to(bf)[:, None]
+            mask = mask.expand(bn, -1, -1, -1)
+            scale = d ** -0.5
+            record("K20", lambda: k20.window_attention_v1(q, k, v, bias, region, scale),
+                   lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale),
+                   stage_c=c, windows=bn, shift=shift)
+            del q, k, v, bias, mask
+            torch.cuda.empty_cache()
+    return dict(device=torch.cuda.get_device_name(0), kernels=rows)
+
+
 def profile_step(args) -> dict:
     from ir_ads_tpu_torch.train import SemSegTrainer
     from ir_ads_tpu_torch.training.optim import set_lr
@@ -380,6 +451,8 @@ def main():
                     help="profile one detection request instead")
     ap.add_argument("--dscf", action="store_true",
                     help="time K4's two forms, K16 and K17 beside SDPA instead")
+    ap.add_argument("--jmajor-v1", action="store_true",
+                    help="time K18 beside F.grid_sample and K20 beside SDPA instead")
     ap.add_argument("--requests", type=int, default=0,
                     help="serving: first time this many requests and print their p50")
     ap.add_argument("--port-dir", default=None,
@@ -398,7 +471,8 @@ def main():
                            text=True).stdout.strip(), flush=True)
     if args.batch is None:
         args.batch = 4 if args.train else 2
-    run = (time_dscf if args.dscf else profile_detection if args.det
+    run = (time_dscf if args.dscf else time_jmajor_v1 if args.jmajor_v1
+           else profile_detection if args.det
            else profile_step if args.train else profile_request)
     print(json.dumps(run(args)))
 
