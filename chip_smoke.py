@@ -565,11 +565,11 @@ def check_window_attention_qkv(g, b, h_real, w_real, c, heads, shift):
         plain=lambda: k12.window_attention_qkv_reference(qkv, bias, region, scale, heads),
         faulted=faulted, fault=fault, base=None,
         library=_sdpa_with_region(qkv, bias, region, scale, heads),
-        # K1's attention template: the same rounding points (q * scale, the
-        # probabilities, the output), f32 sums of another order, so a
-        # rounding can flip by one bf16 ulp (2^-8) inside and on the output;
-        # atol for outputs that cancel to near zero
-        atol=1e-2, rtol=2e-2,
+        # the plain version's rounding points (q * scale, the probabilities,
+        # the output), f32 sums of another order, so a rounding can flip by
+        # one bf16 ulp (2^-8) inside and on the output; atol for outputs that
+        # cancel to near zero; and at most ROUNDING_SHARE of the outputs apart
+        atol=1e-2, rtol=2e-2, share_tol=ROUNDING_SHARE,
         bytes=nbytes(qkv, bias, region) + nbytes(qkv) // 3, flops=4 * bn * n * n * c,
         rate=BF16_TENSOR_FLOPS,
     )
@@ -744,8 +744,8 @@ def check_window_attention_map(g, b, h, w, c, heads, shift):
             window_partition(qkv, ws), bias, region, scale, heads), ws, hp, wp),
             "window partition, K12, window reverse"),
         library=library,
-        # K12's bar (the same device code on another layout)
-        atol=1e-2, rtol=2e-2,
+        # K12's bars (the same device code on another layout)
+        atol=1e-2, rtol=2e-2, share_tol=ROUNDING_SHARE,
         bytes=nbytes(qkv, bias, region) + nbytes(qkv) // 3,
         flops=4 * b * nh * nw * n * n * c, rate=BF16_TENSOR_FLOPS,
     )
@@ -1342,7 +1342,9 @@ def check_rows_bwd(g, b, level):
     k = _rand(g, bg, m, gc)
     v = _rand(g, bg, m, gc)
     dout = _rand(g, bg, h * w, gc)
-    bias = k3.rpe_bias_rows_reference(pos, table, h, w, torch.bfloat16)
+    # contiguous, as K3 writes it on the main path (the wrapper would copy a
+    # strided view, 0.29 ms at level 0, inside the kernel's timing)
+    bias = k3.rpe_bias_rows_reference(pos, table, h, w, torch.bfloat16).contiguous()
     scale = 8 ** -0.5
     run = lambda: k8.dscf_rows_bwd(q, k, v, bias, dout, scale, hg)  # noqa: E731
     plain = lambda: k8.dscf_rows_bwd_reference(q, k, v, bias, dout, scale, hg)  # noqa: E731
@@ -1369,7 +1371,7 @@ def check_rows_bwd(g, b, level):
         run=run, plain=plain, faulted=faulted, fault="dbias scaled by scale",
         base=None, library=library, outputs=["dq", "dk", "dv", "dbias"],
         atol=[0.05, 0.01, 0.01, 1e-3], rtol=[2e-2, 2e-2, 2e-2, 1e-3],
-        atol_of_rms=True,
+        atol_of_rms=True, share_report=("dq",),
         bytes=nbytes(q, k, v, bias, dout) + nbytes(q) + 2 * nbytes(k) * 2 + scores * 4,
         flops=scores * 80, rate=BF16_TENSOR_FLOPS,
     )
@@ -1485,7 +1487,7 @@ def phase_kernels(seed: int, images: int):
         lambda: check_rpe_packed(g, images, 3),
         # the training path: K1 again at stages 2-3; K7 at the four stages as
         # the adapter recipe runs it (attention parameters frozen: no ow, no
-        # dbias) and once with every gradient wanted; K8 at levels 0 and 2
+        # dbias) and once with every gradient wanted; K8 at levels 0-2
         lambda: check_window_block(g, TRAIN_BATCH, 30, 40, 512, 16, 6,
                                    "region mask dropped"),
         lambda: check_window_block(g, TRAIN_BATCH, 15, 20, 1024, 32, 6,
@@ -1495,8 +1497,7 @@ def phase_kernels(seed: int, images: int):
         lambda: check_window_attn_bwd(g, TRAIN_BATCH, 30, 40, 512, 16, 6, False, False),
         lambda: check_window_attn_bwd(g, TRAIN_BATCH, 15, 20, 1024, 32, 6, False, False),
         lambda: check_window_attn_bwd(g, TRAIN_BATCH, 60, 80, 256, 8, 6, True, True),
-        lambda: check_rows_bwd(g, TRAIN_BATCH, 0),
-        lambda: check_rows_bwd(g, TRAIN_BATCH, 2),
+        *(functools.partial(check_rows_bwd, g, TRAIN_BATCH, level) for level in (0, 1, 2)),
         # the detection path: K9 as the encoder's self-attention and the
         # decoder's cross-attention run it (bf16), and once each in f32
         lambda: check_msdeform(g, s_det, torch.bfloat16, "no -0.5"),
@@ -1579,6 +1580,7 @@ def hold(case):
     of_rms = case.pop("atol_of_rms", False)
     rel_tol = case.pop("rel_tol", REL_TOL)
     share_tol = case.pop("share_tol", None)
+    share_report = case.pop("share_report", ())
     as_list = lambda v: list(v) if isinstance(v, (list, tuple)) else [v]  # noqa: E731
     atols, rtols = as_list(case["atol"]), as_list(case["rtol"])
     got, want = as_list(run()), as_list(plain())
@@ -1594,7 +1596,11 @@ def hold(case):
         r, fr = _rel(gt, wt, base), _rel(bd, wt, base)
         sh, fsh = float((gt != wt).float().mean()), float((bd != wt).float().mean())
         parts.append(f"{name} max_abs_err {float(err.max()):.3e} rel {r:.3e}"
-                     + (f" differ {sh:.4f}" if share_tol is not None else ""))
+                     + (f" differ {sh:.4f}" if share_tol is not None else "")
+                     + (f" differ {sh:.4f} (ROUNDING_SHARE {ROUNDING_SHARE}, reported)"
+                        if name in share_report else ""))
+        if name in share_report:
+            case[f"{name}_share"] = sh
         max_err, rel, fault_rel = max(max_err, float(err.max())), max(rel, r), max(fault_rel, fr)
         share, fault_share = max(share, sh), max(fault_share, fsh)
         del err, tol
@@ -3154,7 +3160,8 @@ def kernel_table(rows, launches, launches_i8, module_launches, train_launches, d
             cases=[{key: c[key] for key in (
                 "case", "max_abs_err", "rel_err", "fault", "fault_rel_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms", "composition_ms",
-                "share", "fault_share", "composition_differ", "not_composition_differ")
+                "share", "fault_share", "composition_differ", "not_composition_differ",
+                "dq_share")
                 if key in c}
                    for c in cases],
         ))

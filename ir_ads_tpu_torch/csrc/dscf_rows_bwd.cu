@@ -9,164 +9,337 @@
 // Replaces ir_ads_tpu/ops/pallas_dscf.py:_dscf_rows_bwd_kernel (launched by
 // pallas_dscf_rows_bwd).  Rounding points are that kernel's: scores are
 // (k.q) * scale + bias in f32 (q is NOT rounded after scaling, unlike the
-// forward), f32 softmax P; pc = bf16(P) feeds dV += pc * dO; dP = v.dO;
-// dS = P * (dP - sum_j dP_j P_j) in f32; dbias = dS; bf16(dS * scale) feeds
-// dq += dSc * k and dK += dSc * q.  Keys M <= j < Mp (masked with -1e9 on
-// the TPU, probability exactly 0) are not visited; their dk and dv rows
-// stay at the zeros the caller wrote.
-//
-// The TPU kernel packs (row, head) slots block-diagonally for its matrix
-// unit and carries dk, dv in a revisited output block over the row tiles.
-// Here, as in K4: one block per (bg, head) and 256 query pixels, the head's
-// K and V (M x 8 each) staged in shared memory as f32, one thread per query
-// pixel, 8-wide dot products on the CUDA cores (8-channel heads give the
-// tensor cores nothing to hold).  Two passes over the keys:
-//   1. online max, sum and sum_j e_j dP_j (rescaled as the max moves);
-//   2. P_j, dS_j -> the dbias store, dq in registers, and the (dK_j, dV_j)
-//      contributions, summed over the warp's 32 pixels with a halving
-//      butterfly (16 shuffles for 16 values) and added to per-block sums in
-//      shared memory.
-// The block's sums then go to dk, dv with f32 atomic adds.  The order of
-// those adds (shared and global) changes from run to run, so dk and dv
-// differ between runs in their last f32 bits; dq and dbias do not.
+// forward), f32 softmax P = e / den (a true division); pc = bf16(P) feeds
+// dV += pc * dO; dP = v.dO; dS = P * (dP - sum_j dP_j P_j) in f32; dbias =
+// dS; bf16(dS * scale) feeds dq += dSc * k and dK += dSc * q.  Keys M <= j <
+// Mp (masked with -1e9 on the TPU, probability exactly 0) add nothing;
+// their dk and dv rows stay at the zeros the caller wrote.
 //
 // Bound on an H100: bytes, by the f32 dbias store (4 bytes per score) and
-// the bf16 bias read (2 bytes), against ~70 flop per score.  Consecutive
-// threads run along w, so the bias reads and the dbias stores coalesce.
-#include "common.cuh"
+// the bf16 bias read (2 bytes), against ~80 flop per score.
+//
+// Design: the four products on the tensor cores, key-major as the TPU
+// kernel's sT.  A block of 4 warps takes a tile of 64 query pixels of one
+// (bg, head) plane; the warps split the plane's keys by 16-key m-tiles
+// (warp w takes m-tiles w, w + 4, ...), with the head's K and V staged in
+// shared memory as bf16 rows of 8 channels.  Per (m-tile, 8-pixel n-tile):
+//   S^T  = K q^T   and  dP^T = V dO^T: mma.sync m16n8k8, each score an f32
+//        sum of 8 exact products, scaled and biased in f32;
+//   dV  += pc^T dO and  dK  += dSc^T q: the C fragments of two n-tiles,
+//        rounded to bf16, are the A operand of mma.sync m16n8k16 over 16
+//        pixels, dO and q by ldmatrix.trans; summed in registers over the
+//        tile's 64 pixels, then added once a tile to the block's dK, dV in
+//        shared memory, where each key row has one owner warp;
+//   dq  += dSc K: the same bf16 dSc, transposed in registers (movmatrix),
+//        by K through ldmatrix.trans; summed over the warp's keys in
+//        registers, then over the 4 warps in warp order through shared
+//        memory, and rounded once.
+// Two passes over the keys: the first gives each pixel's max, den = sum_j
+// exp(s_j - max) and sum_j exp(s_j - max) dP_j, online score by score (one
+// exp a score), merged across the 8 lanes that share a pixel column by
+// shuffles and across the warps in warp order; the second recomputes S and
+// dP and takes the gradients.  dbias leaves as float2 stores of a pixel
+// pair, 8 key rows of 32 contiguous bytes a warp instruction; the bias is
+// read as bf16 pairs in the same layout, the next m-tile's while this one
+// is computed.  Blocks are persistent: each takes a contiguous range of the
+// (plane, tile) units, so the card is evenly loaded whatever the plane
+// count, and adds its dK, dV sums to dk, dv with f32 atomics when its plane
+// changes and at its end.  The order of those adds changes from run to run,
+// so dk and dv differ between runs in their last f32 bits; dq and dbias do
+// not.  Needs w % 8 == 0 (an n-tile is 8 pixels of one image row).
+#include <cfloat>
+
+#include "dscf.cuh"
 
 using namespace port;
 
 namespace {
 
-constexpr int HC = 8;  // channels per DSCF head at every level of Swin-B
+constexpr int HC = kDscfHeadChannels;
+constexpr int kBwdWarps = 4;
+constexpr int kBwdThreads = 32 * kBwdWarps;
+constexpr int kTile = 64;        // query pixels a tile
+constexpr int kNT = kTile / 8;   // 8-pixel n-tiles a tile
+constexpr unsigned kAll = 0xffffffffu;
+constexpr unsigned kNegInfPair = 0xff80ff80u;  // two bf16 -inf
 
-// Sum each of 16 per-lane values over the warp; lane l ends with the total
-// of value l >> 1 in vals[0].
-template <int HALF>
-__device__ __forceinline__ void halve(float (&vals)[16], int lane) {
-  // lanes with bit 2*HALF set keep the upper HALF values, the others the
-  // lower; each adds its partner's copy of what it keeps
-  const bool upper = lane & (2 * HALF);
-#pragma unroll
-  for (int i = 0; i < HALF; ++i) {
-    const float send = upper ? vals[i] : vals[i + HALF];
-    const float keep = upper ? vals[i + HALF] : vals[i];
-    vals[i] = keep + __shfl_xor_sync(0xffffffffu, send, 2 * HALF);
+__device__ __forceinline__ unsigned transpose8x8(unsigned x) {
+  unsigned y;
+  asm volatile("movmatrix.sync.aligned.m8n8.trans.b16 %0, %1;\n" : "=r"(y) : "r"(x));
+  return y;
+}
+
+// A pixel column's softmax statistics over some keys: max, den = sum
+// exp(s - max), acc = sum exp(s - max) dP.
+struct Stats {
+  float mx = -FLT_MAX, den = 0.0f, acc = 0.0f;
+  // one more key, with one exp: against the larger of the two maxima.
+  // Branch-free (selects), so that the compiler can interleave a lane's 16
+  // independent columns
+  __device__ __forceinline__ void add(float s, float dp) {
+    const float hi = fmaxf(mx, s), ex = expf(__fsub_rn(fminf(mx, s), hi));
+    const bool up = s > mx;
+    den = __fmaf_rn(den, up ? ex : 1.0f, up ? 1.0f : ex);  // den * ex + 1, or den + ex
+    const float rescaled = __fmaf_rn(acc, ex, dp), added = __fmaf_rn(ex, dp, acc);
+    acc = up ? rescaled : added;
+    mx = hi;
   }
+  __device__ __forceinline__ void merge(float m2, float d2, float a2) {
+    const float hi = fmaxf(mx, m2);
+    const float f1 = expf(__fsub_rn(mx, hi)), f2 = expf(__fsub_rn(m2, hi));
+    den = __fmaf_rn(den, f1, __fmul_rn(d2, f2));
+    acc = __fmaf_rn(acc, f1, __fmul_rn(a2, f2));
+    mx = hi;
+  }
+};
+
+// e / den rounded to nearest for 0 <= e <= 1 <= den, y = RN(1 / den),
+// branch-free: div_rn_by, which is __fdiv_rn's quotient for e >= 2^-64;
+// below, e is scaled by 2^64 first and the quotient back (both exact), so
+// the quotient is __fdiv_rn's wherever it is normal (>= 2^-126); a
+// subnormal one may sit one subnormal step (2^-149) from it.
+__device__ __forceinline__ float quotient(float e, float den, float y) {
+  const bool tiny = e < 0x1p-64f;
+  const float q = div_rn_by(tiny ? __fmul_rn(e, 0x1p64f) : e, den, y);
+  return tiny ? __fmul_rn(q, 0x1p-64f) : q;
 }
 
-__device__ __forceinline__ void warp_sum16(float (&vals)[16]) {
-  const int lane = threadIdx.x % 32;
-  halve<8>(vals, lane);
-  halve<4>(vals, lane);
-  halve<2>(vals, lane);
-  halve<1>(vals, lane);
-  vals[0] += __shfl_xor_sync(0xffffffffu, vals[0], 1);
+struct Smem {  // the block's shared memory past K, V and dK | dV
+  uint4 q[kTile], dout[kTile];
+  float mx[kBwdWarps][kTile], den[kBwdWarps][kTile], acc[kBwdWarps][kTile];
+  float4 stats[kTile];  // per pixel: max, den, RN(1 / den), sum_j dP_j P_j
+  float dq[kBwdWarps][kTile][HC];
+};
+
+inline size_t smem_bytes(int M) {
+  const int Mk = (M + 15) / 16 * 16;
+  return (size_t)Mk * (2 * sizeof(uint4) + 2 * HC * sizeof(float)) + sizeof(Smem);
 }
 
-__global__ void __launch_bounds__(kThreads)
+// The bias pairs of one key m-tile (rows j0 + g and j0 + g + 8, pixels 2t,
+// 2t + 1 of each n-tile): -inf past M, 0 on n-tiles past the plane's pixels.
+__device__ __forceinline__ void load_bias(unsigned (&b)[kNT][2], const bf16* __restrict__ bp,
+                                          const int (&off)[kNT], int live, int j0, int g, int M,
+                                          int w) {
+#pragma unroll
+  for (int n = 0; n < kNT; ++n)
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int j = j0 + g + 8 * r;
+      b[n][r] = n >= live ? 0u
+                : j >= M  ? kNegInfPair
+                          : __ldg(reinterpret_cast<const unsigned*>(bp + off[n] + j * w));
+    }
+}
+
+__global__ void __launch_bounds__(kBwdThreads, 3)
 dscf_rows_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ bias,
                      const bf16* __restrict__ dout, bf16* __restrict__ dq,
                      float* __restrict__ dk, float* __restrict__ dv,
-                     float* __restrict__ dbias, int hg, int h, int w, int M,
+                     float* __restrict__ dbias, int BG, int hg, int h, int w, int M,
                      int Mp, float scale) {
-  extern __shared__ __align__(16) float kv_s[];
-  float* K_s = kv_s;
-  float* V_s = K_s + M * HC;
-  float* dKV_s = V_s + M * HC;  // (M, 16): dK row j | dV row j
-  const int bg = blockIdx.y / hg, e = blockIdx.y % hg;
-  const int HW = h * w, GC = hg * HC;
-  const bf16* kb = k + (size_t)bg * Mp * GC + e * HC;
-  const bf16* vb = v + (size_t)bg * Mp * GC + e * HC;
-  for (int idx = threadIdx.x; idx < M * HC; idx += kThreads) {
-    const int j = idx / HC, d = idx % HC;
-    K_s[idx] = __bfloat162float(kb[(size_t)j * GC + d]);
-    V_s[idx] = __bfloat162float(vb[(size_t)j * GC + d]);
-  }
-  for (int idx = threadIdx.x; idx < M * 2 * HC; idx += kThreads) dKV_s[idx] = 0.0f;
-  __syncthreads();
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int Mt = (M + 15) / 16, Mk = 16 * Mt;
+  uint4* K_s = reinterpret_cast<uint4*>(smem);
+  uint4* V_s = K_s + Mk;
+  float* dKV_s = reinterpret_cast<float*>(V_s + Mk);  // (Mk, 16): dK row j | dV row j
+  Smem& sm = *reinterpret_cast<Smem*>(dKV_s + Mk * 2 * HC);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
+  const int HW = h * w, GC = hg * HC, T = (HW + kTile - 1) / kTile;
+  const long long units = (long long)BG * hg * T;
+  const long long u0 = units * blockIdx.x / gridDim.x;
+  const long long u1 = units * (blockIdx.x + 1) / gridDim.x;
 
-  const int p = blockIdx.x * kThreads + threadIdx.x;
-  const bool live = p < HW;  // dead threads still take part in the shuffles
-  const int pc_ = live ? p : HW - 1;
-  const int r = pc_ / w, c = pc_ % w;
-  float qs[HC], go[HC];
-  const size_t qo = ((size_t)bg * HW + pc_) * GC + e * HC;
-#pragma unroll
-  for (int d = 0; d < HC; ++d) {
-    qs[d] = live ? __bfloat162float(q[qo + d]) : 0.0f;
-    go[d] = live ? __bfloat162float(dout[qo + d]) : 0.0f;
-  }
-  const size_t bo = (((size_t)bg * hg + e) * h + r) * M * w + c;
-  const bf16* bp = bias + bo;
-
-  auto score = [&](int j) {
-    const float* kj = K_s + j * HC;
-    float s = 0.0f;
-#pragma unroll
-    for (int d = 0; d < HC; ++d) s += qs[d] * kj[d];
-    return s * scale + __bfloat162float(bp[(size_t)j * w]);
-  };
-  auto dprob = [&](int j) {
-    const float* vj = V_s + j * HC;
-    float s = 0.0f;
-#pragma unroll
-    for (int d = 0; d < HC; ++d) s += go[d] * vj[d];
-    return s;
+  for (int idx = tid; idx < Mk * 2 * HC; idx += kBwdThreads) dKV_s[idx] = 0.0f;
+  // adds the block's dK, dV of plane pl to dk, dv and zeroes them
+  auto flush = [&](int pl) {
+    __syncthreads();
+    const int bg = pl / hg, e = pl % hg;
+    float* dkb = dk + (size_t)bg * Mp * GC + e * HC;
+    float* dvb = dv + (size_t)bg * Mp * GC + e * HC;
+    for (int idx = tid; idx < M * 2 * HC; idx += kBwdThreads) {
+      const int j = idx / (2 * HC), d = idx % (2 * HC);
+      atomicAdd(d < HC ? dkb + (size_t)j * GC + d : dvb + (size_t)j * GC + d - HC, dKV_s[idx]);
+      dKV_s[idx] = 0.0f;
+    }
   };
 
-  float mx = -INFINITY, l = 0.0f, acc = 0.0f;  // acc = sum_j e_j dP_j
-  for (int j = 0; j < M; ++j) {
-    const float s = score(j), dp = dprob(j);
-    if (s > mx) {
-      const float f = expf(mx - s);
-      l = l * f + 1.0f;
-      acc = acc * f + dp;
-      mx = s;
-    } else {
-      const float ej = expf(s - mx);
-      l += ej;
-      acc += ej * dp;
+  int plane = -1;
+  for (long long u = u0; u < u1; ++u) {
+    const int pl = (int)(u / T), p0 = (int)(u % T) * kTile;
+    const int bg = pl / hg, e = pl % hg;
+    if (pl != plane) {
+      if (plane >= 0) flush(plane);
+      plane = pl;
+      const size_t kv = (size_t)bg * Mp * GC + e * HC;
+      stage_kv_rows(k + kv, v + kv, M, GC, Mk, K_s, V_s);
     }
-  }
-  const float rs = acc / l;
+    {  // this tile's q and dO rows, zero past the plane's pixels
+      const int p = p0 + tid % kTile;
+      const bf16* src = (tid < kTile ? q : dout) + ((size_t)bg * HW + p) * GC + e * HC;
+      (tid < kTile ? sm.q : sm.dout)[tid % kTile] =
+          p < HW ? __ldg(reinterpret_cast<const uint4*>(src)) : uint4{};
+    }
+    // n-tile n is pixels p0 + 8n .. + 7, in one image row; off[n]: its
+    // pixel pair's offset in the plane's (h, M, w) bias at key 0
+    const int live = min(kNT, (HW - p0) / 8);
+    int off[kNT];
+#pragma unroll
+    for (int n = 0; n < kNT; ++n) {
+      const int p = min(p0 + 8 * n, HW - 8);
+      off[n] = (p / w) * M * w + p % w + 2 * t;
+    }
+    const size_t plane_off = (size_t)pl * h * M * w;
+    const bf16* bp = bias + plane_off;
+    float* dbp = dbias + plane_off;
+    __syncthreads();
 
-  float dqa[HC];
+    // the B operands of S^T and dP^T: q and dO rows of each n-tile
+    unsigned qb[kNT], ob[kNT];
 #pragma unroll
-  for (int d = 0; d < HC; ++d) dqa[d] = 0.0f;
-  float* dbp = dbias + bo;
-  const int lane = threadIdx.x % 32;
-  for (int j = 0; j < M; ++j) {
-    const float pj = expf(score(j) - mx) / l;
-    const float ds = pj * (dprob(j) - rs);
-    if (live) dbp[(size_t)j * w] = ds;
-    const float dsc = round_bf16(ds * scale);
-    const float pcj = round_bf16(pj);
-    const float* kj = K_s + j * HC;
-    float vals[16];
-#pragma unroll
-    for (int d = 0; d < HC; ++d) {
-      dqa[d] += dsc * kj[d];
-      vals[d] = dsc * qs[d];       // dK_j
-      vals[HC + d] = pcj * go[d];  // dV_j
+    for (int n = 0; n < kNT; n += 4) {
+      unsigned r[4];
+      ldsm_x4(r, sm.q + 8 * n + lane);
+      qb[n] = r[0], qb[n + 1] = r[1], qb[n + 2] = r[2], qb[n + 3] = r[3];
+      ldsm_x4(r, sm.dout + 8 * n + lane);
+      ob[n] = r[0], ob[n + 1] = r[1], ob[n + 2] = r[2], ob[n + 3] = r[3];
     }
-    warp_sum16(vals);
-    if ((lane & 1) == 0) atomicAdd(dKV_s + j * 2 * HC + (lane >> 1), vals[0]);
-  }
-  if (live) {
+
+    // pass 1: per pixel column (n, 2t + x) over this lane's keys
+    Stats col[kNT][2];
+    unsigned bnext[kNT][2];
+    if (warp < Mt) load_bias(bnext, bp, off, live, 16 * warp, g, M, w);
+    for (int mt = warp; mt < Mt; mt += kBwdWarps) {
+      const int j0 = 16 * mt;
+      unsigned bcur[kNT][2];
 #pragma unroll
-    for (int d = 0; d < HC; ++d) dq[qo + d] = __float2bfloat16(dqa[d]);
+      for (int n = 0; n < kNT; ++n) bcur[n][0] = bnext[n][0], bcur[n][1] = bnext[n][1];
+      if (mt + kBwdWarps < Mt) load_bias(bnext, bp, off, live, j0 + 16 * kBwdWarps, g, M, w);
+      unsigned kv[4];
+      ldsm_x4(kv, (lane < 16 ? K_s : V_s) + j0 + (lane & 15));
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+        float c[4] = {0.0f, 0.0f, 0.0f, 0.0f}, d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+        mma_k8(c, kv[0], kv[1], qb[n]);
+        mma_k8(d, kv[2], kv[3], ob[n]);
+        const float b[4] = {bf16_lo(bcur[n][0]), bf16_hi(bcur[n][0]), bf16_lo(bcur[n][1]),
+                            bf16_hi(bcur[n][1])};
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+          col[n][i & 1].add(__fadd_rn(__fmul_rn(c[i], scale), b[i]), d[i]);
+      }
+    }
+    // across the 8 lanes of a column, then the warps through shared memory
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int x = 0; x < 2; ++x) {
+        Stats& st = col[n][x];
+#pragma unroll
+        for (int o = 4; o <= 16; o <<= 1)
+          st.merge(__shfl_xor_sync(kAll, st.mx, o), __shfl_xor_sync(kAll, st.den, o),
+                   __shfl_xor_sync(kAll, st.acc, o));
+        if (g == 0) {
+          const int p = 8 * n + 2 * t + x;
+          sm.mx[warp][p] = st.mx, sm.den[warp][p] = st.den, sm.acc[warp][p] = st.acc;
+        }
+      }
+    __syncthreads();
+    if (tid < kTile) {
+      Stats st;
+      st.mx = sm.mx[0][tid], st.den = sm.den[0][tid], st.acc = sm.acc[0][tid];
+      for (int wp = 1; wp < kBwdWarps; ++wp)
+        st.merge(sm.mx[wp][tid], sm.den[wp][tid], sm.acc[wp][tid]);
+      sm.stats[tid] = make_float4(st.mx, st.den, __frcp_rn(st.den), __fdiv_rn(st.acc, st.den));
+    }
+    __syncthreads();
+
+    // pass 2: the gradients
+    float dqa[kNT / 2][4] = {};
+    if (warp < Mt) load_bias(bnext, bp, off, live, 16 * warp, g, M, w);
+    for (int mt = warp; mt < Mt; mt += kBwdWarps) {
+      const int j0 = 16 * mt;
+      unsigned bcur[kNT][2];
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) bcur[n][0] = bnext[n][0], bcur[n][1] = bnext[n][1];
+      if (mt + kBwdWarps < Mt) load_bias(bnext, bp, off, live, j0 + 16 * kBwdWarps, g, M, w);
+      unsigned kv[4], kt[2];
+      ldsm_x4(kv, (lane < 16 ? K_s : V_s) + j0 + (lane & 15));
+      ldsm_x2_t(kt, K_s + j0 + (lane & 15));
+      const bool key0 = j0 + g < M, key1 = j0 + g + 8 < M;
+      float dka[4] = {0.0f, 0.0f, 0.0f, 0.0f}, dva[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int m2 = 0; m2 < kNT / 2; ++m2) {
+        // A fragments over 16 pixels: [0], [2] key row g, [1], [3] g + 8
+        unsigned pca[4], dsa[4];
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const int n = 2 * m2 + x;
+          float c[4] = {0.0f, 0.0f, 0.0f, 0.0f}, d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+          mma_k8(c, kv[0], kv[1], qb[n]);
+          mma_k8(d, kv[2], kv[3], ob[n]);
+          const float b[4] = {bf16_lo(bcur[n][0]), bf16_hi(bcur[n][0]), bf16_lo(bcur[n][1]),
+                              bf16_hi(bcur[n][1])};
+          const float4 st[2] = {sm.stats[8 * n + 2 * t], sm.stats[8 * n + 2 * t + 1]};
+          float p[4], ds[4];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float4& s4 = st[i & 1];
+            const float s = __fadd_rn(__fmul_rn(c[i], scale), b[i]);
+            const float ex = expf(__fsub_rn(s, s4.x));
+            p[i] = quotient(ex, s4.y, s4.z);
+            ds[i] = __fmul_rn(p[i], __fsub_rn(d[i], s4.w));
+          }
+          if (n < live) {
+            float* at = dbp + off[n] + j0 * w + g * w;
+            if (key0) *reinterpret_cast<float2*>(at) = make_float2(ds[0], ds[1]);
+            if (key1) *reinterpret_cast<float2*>(at + 8 * w) = make_float2(ds[2], ds[3]);
+          }
+          pca[2 * x] = bf16x2_rn(p[0], p[1]);
+          pca[2 * x + 1] = bf16x2_rn(p[2], p[3]);
+          dsa[2 * x] = bf16x2_rn(__fmul_rn(ds[0], scale), __fmul_rn(ds[1], scale));
+          dsa[2 * x + 1] = bf16x2_rn(__fmul_rn(ds[2], scale), __fmul_rn(ds[3], scale));
+        }
+        unsigned ot[2], qt[2];
+        ldsm_x2_t(ot, sm.dout + 16 * m2 + (lane & 15));
+        ldsm_x2_t(qt, sm.q + 16 * m2 + (lane & 15));
+        mma_k16(dva, pca, ot[0], ot[1]);
+        mma_k16(dka, dsa, qt[0], qt[1]);
+        // dSc as pixels x keys: each 8 x 8 block transposed in registers
+        const unsigned a[4] = {transpose8x8(dsa[0]), transpose8x8(dsa[2]), transpose8x8(dsa[1]),
+                               transpose8x8(dsa[3])};
+        mma_k16(dqa[m2], a, kt[0], kt[1]);
+      }
+      // rows j0 + g and j0 + g + 8 are this warp's alone
+      float* r0 = dKV_s + (j0 + g) * 2 * HC + 2 * t;
+      float* r1 = r0 + 8 * 2 * HC;
+      r0[0] += dka[0], r0[1] += dka[1], r1[0] += dka[2], r1[1] += dka[3];
+      r0[HC] += dva[0], r0[HC + 1] += dva[1], r1[HC] += dva[2], r1[HC + 1] += dva[3];
+    }
+
+    // dq: the warps' parts in warp order, rounded once
+#pragma unroll
+    for (int m2 = 0; m2 < kNT / 2; ++m2) {
+      float* r0 = sm.dq[warp][16 * m2 + g] + 2 * t;
+      float* r1 = sm.dq[warp][16 * m2 + g + 8] + 2 * t;
+      r0[0] = dqa[m2][0], r0[1] = dqa[m2][1], r1[0] = dqa[m2][2], r1[1] = dqa[m2][3];
+    }
+    __syncthreads();
+    {
+      const int px = tid / 2, c0 = 4 * (tid % 2);
+      float sum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+#pragma unroll
+      for (int wp = 0; wp < kBwdWarps; ++wp)
+#pragma unroll
+        for (int i = 0; i < 4; ++i) sum[i] = __fadd_rn(sum[i], sm.dq[wp][px][c0 + i]);
+      if (p0 + px < HW) {
+        const uint2 packed = {bf16x2_rn(sum[0], sum[1]), bf16x2_rn(sum[2], sum[3])};
+        *reinterpret_cast<uint2*>(dq + ((size_t)bg * HW + p0 + px) * GC + e * HC + c0) = packed;
+      }
+    }
   }
-  __syncthreads();
-  float* dkb = dk + (size_t)bg * Mp * GC + e * HC;
-  float* dvb = dv + (size_t)bg * Mp * GC + e * HC;
-  for (int idx = threadIdx.x; idx < M * 2 * HC; idx += kThreads) {
-    const int j = idx / (2 * HC), d = idx % (2 * HC);
-    float* dst = d < HC ? dkb + (size_t)j * GC + d : dvb + (size_t)j * GC + d - HC;
-    atomicAdd(dst, dKV_s[idx]);
-  }
+  if (plane >= 0) flush(plane);
 }
 
 }  // namespace
@@ -176,14 +349,14 @@ extern "C" int dscf_rows_bwd(const void* q, const void* k, const void* v,
                              void* dk, void* dv, void* dbias, int BG, int hg,
                              int h, int w, int M, int Mp, float scale,
                              void* stream) {
-  const size_t smem = (size_t)4 * M * HC * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      dscf_rows_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid((h * w + kThreads - 1) / kThreads, BG * hg);
-  dscf_rows_bwd_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  const size_t smem = smem_bytes(M);
+  if (w % 8 || smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
+  const int blocks = blocks_per_device(dscf_rows_bwd_kernel, smem, kBwdThreads);
+  const long long units = (long long)BG * hg * ((h * w + kTile - 1) / kTile);
+  const int grid = (int)std::min<long long>(units, blocks);
+  dscf_rows_bwd_kernel<<<grid, kBwdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)bias,
-      (const bf16*)dout, (bf16*)dq, (float*)dk, (float*)dv, (float*)dbias, hg, h,
+      (const bf16*)dout, (bf16*)dq, (float*)dk, (float*)dv, (float*)dbias, BG, hg, h,
       w, M, Mp, scale);
   return (int)cudaGetLastError();
 }

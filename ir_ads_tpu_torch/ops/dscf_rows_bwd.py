@@ -5,9 +5,13 @@ the bias kernel's backward with no transpose).
 
 Replaces ir_ads_tpu/ops/pallas_dscf.py:_dscf_rows_bwd_kernel (launched by
 ``pallas_dscf_rows_bwd``).  The CUDA source is csrc/dscf_rows_bwd.cu; its
-header states the rounding points, the bound and the design.  As in K7, the
+header states the rounding points, the bound and the design (the four
+products on the tensor cores, key-major, 64-pixel tiles).  As in K7, the
 backward does not round ``q * scale``; keys past M have probability 0 and
-get zero dk, dv.
+get zero dk, dv.  The kernel takes image rows of whole 8-pixel n-tiles (w %
+8 == 0: 160, 80, 40 and 20 at the four DSCF levels of a 480x640 tile) and
+up to MAX_KEYS keys (K, V and the block's dK, dV sums live in shared
+memory).
 
 ``dscf_rows_bwd`` launches the kernel for CUDA tensors and runs
 ``dscf_rows_bwd_reference``, the plain version (the explicit formula), only
@@ -30,6 +34,7 @@ KERNEL = CudaKernel(
     replaces="ir_ads_tpu/ops/pallas_dscf.py:681",
 )
 HEAD_CHANNELS = 8  # the kernel's channels per head (every Swin-B DSCF level)
+MAX_KEYS = 2272    # 96 bytes of shared memory a key, 14 KB a block besides
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -79,8 +84,9 @@ def dscf_rows_bwd(
         return dscf_rows_bwd_reference(q, k, v, bias, dout, scale, hg)
     q, k, v, bias, dout = (t.contiguous() for t in (q, k, v, bias, dout))
     check_cuda("dscf_rows_bwd", q, k, v, bias, dout)
-    if gc != hg * HEAD_CHANNELS:
-        raise ValueError(f"dscf_rows_bwd: needs {HEAD_CHANNELS} channels per head")
+    if gc != hg * HEAD_CHANNELS or w % 8 or m > MAX_KEYS:
+        raise ValueError(f"dscf_rows_bwd: needs {HEAD_CHANNELS} channels per head, w % 8 == 0 "
+                         f"and at most {MAX_KEYS} keys; got {q.shape} {bias.shape}")
     dq = torch.empty_like(q)
     dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)

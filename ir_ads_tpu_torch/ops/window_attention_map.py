@@ -7,14 +7,16 @@ Replaces ir_ads_tpu/ops/pallas_swin.py:_attn_kernel_v3 (launched by
 path's ``WindowMSA(attn_impl="pallas_map")`` runs between its qkv and proj
 linears.  The CUDA entry point ``window_attention_map`` lives in
 csrc/window_attention_qkv.cu beside K12's; its header states the bound and
-the design.
+the two designs, which K15 chooses as K12 does (``tensor_core_design``) and
+runs on the map's rows.
 
 ``window_attention_map`` launches the kernel for CUDA tensors and runs
 ``window_attention_map_reference``, the plain version (``_map_reference``:
 ``window_partition``, K12's plain version, ``window_reverse``), only for CPU
 tensors.  It is differentiable in ``qkv`` and ``bias``: its backward is the
 vjp of the plain version, as the JAX package's ``_fused_map_bwd`` takes
-``jax.vjp`` of ``_map_reference``.
+``jax.vjp`` of ``_map_reference``.  Autograd records the call only where an
+input needs a gradient.
 """
 
 from __future__ import annotations
@@ -26,10 +28,12 @@ import torch
 from ir_ads_tpu_torch.ops.cuda_lib import FLOAT, INT, VOIDP, CudaKernel, check_cuda, ptr
 from ir_ads_tpu_torch.ops.layers import q_scale
 from ir_ads_tpu_torch.ops.window_attention import window_partition, window_reverse
-from ir_ads_tpu_torch.ops.window_attention_qkv import window_attention_qkv_reference
+from ir_ads_tpu_torch.ops.window_attention_qkv import (
+    first_design_fits, tensor_core_design, window_attention_qkv_reference,
+)
 
 KERNEL = CudaKernel(
-    "window_attention_map", "window_attention_map", [VOIDP] * 4 + [INT] * 6 + [FLOAT],
+    "window_attention_map", "window_attention_map", [VOIDP] * 4 + [INT] * 7 + [FLOAT],
     replaces="ir_ads_tpu/ops/pallas_swin.py:814", unit="window_attention_qkv",
 )
 
@@ -51,7 +55,8 @@ def _forward(qkv, bias, region, scale, heads, ws):
     b, hp, wp, c3 = qkv.shape
     c = c3 // 3
     n, nw = ws * ws, (hp // ws) * (wp // ws)
-    if (hp % ws or wp % ws or n % 16 or c % heads or (c // heads) % 16
+    mma = c % heads == 0 and tensor_core_design(qkv.dtype, n, c // heads)
+    if (hp % ws or wp % ws or c % heads or not (mma or first_design_fits(n, c // heads))
             or (region is not None and tuple(region.shape) != (nw, n))):
         raise ValueError(f"window_attention_map: unsupported shape {tuple(qkv.shape)} "
                          f"heads={heads} ws={ws}")
@@ -59,7 +64,7 @@ def _forward(qkv, bias, region, scale, heads, ws):
         region = region.to(device=qkv.device, dtype=torch.int32).contiguous()
     out = torch.empty((b, hp, wp, c), dtype=qkv.dtype, device=qkv.device)
     KERNEL.call(ptr(qkv), ptr(bias), ptr(region) if region is not None else None,
-                ptr(out), b, hp, wp, c, heads, ws, q_scale(scale, qkv.dtype))
+                ptr(out), b, hp, wp, c, heads, ws, int(mma), q_scale(scale, qkv.dtype))
     return out
 
 
@@ -95,4 +100,6 @@ def window_attention_map(
     ws: int,
 ) -> torch.Tensor:
     """Returns (B, Hp, Wp, C) in qkv's dtype."""
-    return _WindowAttentionMap.apply(qkv, bias, region, scale, heads, ws)
+    if torch.is_grad_enabled() and (qkv.requires_grad or bias.requires_grad):
+        return _WindowAttentionMap.apply(qkv, bias, region, scale, heads, ws)
+    return _forward(qkv, bias, region, scale, heads, ws)

@@ -9,9 +9,15 @@ csrc/window_attention_qkv.cu; its header states the bound and the design.
 ``window_attention_qkv`` launches the kernel for CUDA tensors and runs
 ``window_attention_qkv_reference``, the plain version (``_qkv_reference``:
 ``window_attention`` with a -1e9 mask where the region ids of a pair
-differ), only for CPU tensors.  It is differentiable in ``qkv`` and
-``bias``: its backward is the vjp of the plain version, as the JAX
-package's ``_fused_qkv_bwd`` takes ``jax.vjp`` of ``_qkv_reference``.
+differ), only for CPU tensors.  The kernel has two designs, chosen by shape
+alone (``tensor_core_design``, which K15 and K20 share): d = C / heads of 16
+or 32 and N <= 144 (every Swin-B stage) run on the tensor cores, other
+widths the first design (``window_block.cuh``'s attention, which needs N
+and d multiples of 16).  It is differentiable in ``qkv`` and ``bias``: its
+backward is the vjp of the plain version, as the JAX package's
+``_fused_qkv_bwd`` takes ``jax.vjp`` of ``_qkv_reference``.  Autograd
+records the call only where an input needs a gradient (its bookkeeping
+costs host time of the order of the kernel's own at stage 3).
 """
 
 from __future__ import annotations
@@ -26,9 +32,24 @@ from ir_ads_tpu_torch.ops.layers import q_scale
 from ir_ads_tpu_torch.ops.window_attention import window_attention
 
 KERNEL = CudaKernel(
-    "window_attention_qkv", "window_attention_qkv", [VOIDP] * 4 + [INT] * 5 + [FLOAT],
+    "window_attention_qkv", "window_attention_qkv", [VOIDP] * 4 + [INT] * 6 + [FLOAT],
     replaces="ir_ads_tpu/ops/pallas_swin.py:201",
 )
+MMA_HEAD_DIMS = (16, 32)  # the tensor-core design's d
+MMA_MAX_TOKENS = 144      # and its N: a lane holds N / 2 scores in registers
+
+
+def tensor_core_design(dtype: torch.dtype, n: int, d: int) -> bool:
+    """Whether K12, K15 and K20 take their tensor-core design for (dtype, N,
+    d): bf16, d in MMA_HEAD_DIMS and N <= MMA_MAX_TOKENS; otherwise their
+    first design."""
+    return dtype == torch.bfloat16 and d in MMA_HEAD_DIMS and n <= MMA_MAX_TOKENS
+
+
+def first_design_fits(n: int, d: int) -> bool:
+    """Whether ``window_block.cuh``'s attention (K12's and K15's first
+    design) takes N tokens of d channels: WMMA tiles of 16 in both."""
+    return n % 16 == 0 and d % 16 == 0
 
 
 def region_mask(region: torch.Tensor, value: float) -> torch.Tensor:
@@ -63,14 +84,16 @@ def _forward(qkv, bias, region, scale, heads):
     c = c3 // 3
     ws = math.isqrt(n)
     nw = 1 if region is None else region.shape[0]
-    if ws * ws != n or n % 16 or c % heads or (c // heads) % 16 or bn % nw:
+    mma = c % heads == 0 and tensor_core_design(qkv.dtype, n, c // heads)
+    if (ws * ws != n or c % heads or bn % nw
+            or not (mma or first_design_fits(n, c // heads))):
         raise ValueError(f"window_attention_qkv: unsupported shape {tuple(qkv.shape)} "
                          f"heads={heads} windows per image {nw}")
     if region is not None:
         region = region.to(device=qkv.device, dtype=torch.int32).contiguous()
     out = torch.empty((bn, n, c), dtype=qkv.dtype, device=qkv.device)
     KERNEL.call(ptr(qkv), ptr(bias), ptr(region) if region is not None else None,
-                ptr(out), bn, c, heads, ws, nw, q_scale(scale, qkv.dtype))
+                ptr(out), bn, c, heads, ws, nw, int(mma), q_scale(scale, qkv.dtype))
     return out
 
 
@@ -105,4 +128,6 @@ def window_attention_qkv(
     heads: int,
 ) -> torch.Tensor:
     """Returns (B*nW, N, C) in qkv's dtype."""
-    return _WindowAttentionQKV.apply(qkv, bias, region, scale, heads)
+    if torch.is_grad_enabled() and (qkv.requires_grad or bias.requires_grad):
+        return _WindowAttentionQKV.apply(qkv, bias, region, scale, heads)
+    return _forward(qkv, bias, region, scale, heads)

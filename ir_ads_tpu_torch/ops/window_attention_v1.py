@@ -19,7 +19,8 @@ probabilities cast to v's dtype, P.V summed in f32 and rounded once.
 ``window_attention_v1`` launches the kernel for CUDA tensors and runs
 ``window_attention_v1_reference``, the plain version, only for CPU tensors.
 The kernel has two designs, chosen by dtype and shape alone
-(``tensor_core_design``): bf16 with d = 16 or 32 and N <= 144 (every Swin
+(``window_attention_qkv.tensor_core_design``, K12's and K15's choice too):
+bf16 with d = 16 or 32 and N <= 144 (every Swin
 window up to 12 x 12 at 32 channels a head) runs on the tensor cores, q *
 scale carried exactly as three bf16 parts; f32, and bf16 with another d or
 a larger N, run the thread design (f32 products on the CUDA cores).  A
@@ -38,7 +39,7 @@ import torch
 
 from ir_ads_tpu_torch.ops.cuda_lib import FLOAT, INT, VOIDP, CudaKernel, check_cuda, ptr, up
 from ir_ads_tpu_torch.ops.window_attention import window_attention
-from ir_ads_tpu_torch.ops.window_attention_qkv import region_mask
+from ir_ads_tpu_torch.ops.window_attention_qkv import region_mask, tensor_core_design
 
 KERNEL = CudaKernel(
     "window_attention_v1", "window_attention_v1", [VOIDP] * 6 + [INT] * 7 + [FLOAT],
@@ -65,17 +66,6 @@ def window_attention_v1_twin(q, k, v, bias, region, scale):
     rounded to q's dtype) under the dense -1e9 region mask."""
     mask = None if region is None else region_mask(region, -1e9)
     return window_attention(q, k, v, bias, mask, scale)
-
-
-MMA_HEAD_DIMS = (16, 32)  # the tensor-core design's d
-MMA_MAX_TOKENS = 144      # and its N: a lane holds N / 2 scores in registers
-
-
-def tensor_core_design(dtype: torch.dtype, n: int, d: int) -> bool:
-    """Whether the kernel takes the tensor-core design for (dtype, N, d):
-    bf16, d in MMA_HEAD_DIMS and N <= MMA_MAX_TOKENS; otherwise the thread
-    design."""
-    return dtype == torch.bfloat16 and d in MMA_HEAD_DIMS and n <= MMA_MAX_TOKENS
 
 
 def _smem_bytes(n: int, d: int) -> int:

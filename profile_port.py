@@ -11,6 +11,9 @@ one step of its trainer, under torch.profiler.
     python3 profile_port.py --det [--seed 0]
     python3 profile_port.py --dscf [--seed 0]
     python3 profile_port.py --jmajor-v1 [--seed 0]
+    python3 profile_port.py --qkv-map-bwd [--seed 0]
+    python3 profile_port.py --logits r5,r4,...,r5_flat --logits-dir DIR [--seed 0]
+    python3 profile_port.py --same-logits DIR_A DIR_B
     (each also takes --port-dir DIR)
 
 Serving: builds the full-size predictor (Swin-B CMNeXt, 480x640 RGB-D, flip,
@@ -45,6 +48,19 @@ on positions with a third of their coordinates at -1 (as the served model
 clamps them), beside F.grid_sample, and K20 at the four Swin stages of 4
 tiles, shifted and not, beside SDPA with the bias and region mask as its
 float mask, each by CUDA events and by the profiler's device time.
+K12, K15 and K8 (--qkv-map-bwd): K12 and K15 at the four Swin stages of 4
+tiles, shifted and not, beside SDPA with the bias and region mask as its
+float mask (K15's with the window partition and reverse copies it needs),
+and K8 at DSCF levels 0-2 of a training batch of 4 beside
+``torch.autograd.grad`` through SDPA, each by CUDA events and by the
+profiler's device time.
+Logits (--logits LIST --logits-dir DIR): one request of --batch frames from
+--seed under each dispatch of the comma-separated LIST (a name ending in
+_flat: that dispatch on flat frames with the XLA patch embedding), each
+predictor built from --seed; the logits go to DIR/<name>.pt.  --same-logits
+A B counts, for each name in both, the logits of A and B that differ: run
+the first with --port-dir on the parent, then on the change, to show which
+paths a change leaves bit for bit as they were.
 --port-dir DIR imports the port package from DIR, another checkout (the
 parent commit unpacked with ``git archive``), so that two commits can be
 run in turns on one card.
@@ -83,10 +99,10 @@ BY_KERNEL = {
     "K9": ("msdeform_kernel",),
     "K10 rows": ("ln_quant_qkv_kernel", "quant_proj_add_kernel"),
     "K11": ("block_tail_int8_kernel",),
-    "K12": ("window_attention_qkv_kernel",),
+    "K12": ("window_attention_qkv_kernel", "window_qkv_mma_kernel"),
     "K13": ("v7_ln_qkv_kernel", "v7_attn_kernel", "v7_proj_tail_kernel"),
     "K14": ("v5_ln_qkv_kernel", "v5_attn_kernel", "v5_proj_add_kernel"),
-    "K15": ("window_attention_map_kernel",),
+    "K15": ("window_attention_map_kernel", "window_map_mma_kernel"),
     "K16": ("dscf_fused_kernel", "dscf_fused_mma_kernel"), "K17": ("dscf_attention_kernel",),
     "K18": ("rpe_jmajor_kernel",), "K19": ("patch_embed_kernel",),
     "K20": ("window_attention_v1_kernel", "window_attention_v1_mma_kernel"),
@@ -331,6 +347,115 @@ def time_jmajor_v1(args) -> dict:
     return dict(device=torch.cuda.get_device_name(0), kernels=rows)
 
 
+def time_qkv_map_bwd(args) -> dict:
+    """K12 and K15 at the four stages (shifted and not) beside SDPA, and K8
+    at DSCF levels 0-2 beside autograd.grad through SDPA, at phase 3's
+    shapes (4 images; K8 a training batch of 4)."""
+    import torch.nn.functional as F
+
+    from ir_ads_tpu_torch.ops import dscf_rows_bwd as k8
+    from ir_ads_tpu_torch.ops import window_attention_map as k15
+    from ir_ads_tpu_torch.ops import window_attention_qkv as k12
+    from ir_ads_tpu_torch.ops.window_attention import (
+        shift_region_ids_on, window_partition, window_reverse,
+    )
+
+    g = torch.Generator(device="cuda").manual_seed(args.seed)
+    rand = lambda *shape: torch.randn(*shape, generator=g, device="cuda")  # noqa: E731
+    images, bf, ws, n = 4, torch.bfloat16, 12, 144
+    rows = []
+
+    def record(what, run, library, **info):
+        times = dict(ms=_events_ms(run), device_ms=_device_ms(run),
+                     library_ms=_events_ms(library), library_device_ms=_device_ms(library))
+        rows.append(dict(kernel=what, **info, **times))
+        print(f"{what} {info}: " + ", ".join(f"{k} {v:.4f}" for k, v in times.items()),
+              flush=True)
+
+    for hr, wr, c, heads in ((120, 160, 128, 4), (60, 80, 256, 8), (30, 40, 512, 16),
+                             (15, 20, 1024, 32)):
+        hp, wp = -(-hr // ws) * ws, -(-wr // ws) * ws
+        bn, scale = images * (hp // ws) * (wp // ws), (c // heads) ** -0.5
+        for shift in (0, 6):
+            qkv = rand(images, hp, wp, 3 * c).to(bf)
+            wins = window_partition(qkv, ws).contiguous()
+            bias = rand(heads, n, n)
+            region = shift_region_ids_on(hp, wp, ws, shift, qkv.device) if shift else None
+            mask = bias.to(bf)[None]
+            if region is not None:
+                neq = (region[:, :, None] != region[:, None, :]).repeat(images, 1, 1)
+                mask = mask + torch.where(neq, -1e9, 0.0).to(bf)[:, None]
+            mask = mask.expand(bn, -1, -1, -1)
+            split = lambda t: [t[..., i * c:(i + 1) * c].reshape(  # noqa: E731
+                t.shape[0], n, heads, c // heads).transpose(1, 2) for i in range(3)]
+            sdpa = lambda t: F.scaled_dot_product_attention(  # noqa: E731
+                *split(t), attn_mask=mask, scale=scale)
+            record("K12", lambda: k12.window_attention_qkv(wins, bias, region, scale, heads),
+                   lambda: sdpa(wins), stage_c=c, windows=bn, shift=shift)
+            record("K15", lambda: k15.window_attention_map(qkv, bias, region, scale, heads, ws),
+                   lambda: window_reverse(sdpa(window_partition(qkv, ws)).transpose(1, 2)
+                                          .reshape(bn, n, c), ws, hp, wp),
+                   stage_c=c, map=f"{hp}x{wp}", shift=shift)
+            del qkv, wins, bias, mask
+            torch.cuda.empty_cache()
+    hg, m, scale = 2, 600, 8 ** -0.5
+    for level in range(3):
+        h, w, bg = 120 >> level, 160 >> level, images << level
+        q, k, v, dout = (rand(bg, rows_, 16).to(bf) for rows_ in (h * w, m, m, h * w))
+        bias = (0.33 * rand(bg, hg, h, m, w)).to(bf)  # K3's spread
+        heads_of = lambda t, rows_: t.reshape(bg, rows_, hg, 8).transpose(1, 2)  # noqa: E731
+        leaves = [heads_of(q, h * w).detach().requires_grad_(),
+                  heads_of(k, m).detach().requires_grad_(),
+                  heads_of(v, m).detach().requires_grad_(),
+                  bias.permute(0, 1, 2, 4, 3).reshape(bg, hg, h * w, m).contiguous()
+                  .requires_grad_()]
+        out = F.scaled_dot_product_attention(*leaves[:3], attn_mask=leaves[3], scale=scale)
+        do = heads_of(dout, h * w)
+        record("K8", lambda: k8.dscf_rows_bwd(q, k, v, bias, dout, scale, hg),
+               lambda: torch.autograd.grad(out, leaves, do, retain_graph=True),
+               level=level, plane=f"{h}x{w}", bg=bg)
+        del q, k, v, dout, bias, leaves, out, do
+        torch.cuda.empty_cache()
+    return dict(device=torch.cuda.get_device_name(0), kernels=rows)
+
+
+def save_logits(args) -> dict:
+    """One request's logits under each dispatch of --logits, into
+    --logits-dir."""
+    from ir_ads_tpu_torch.serve import SemSegPredictor
+
+    os.makedirs(args.logits_dir, exist_ok=True)
+    g = torch.Generator().manual_seed(args.seed + 1)
+    rgb, dep = (torch.randint(0, 256, (args.batch, 480, 640, 3), generator=g,
+                              dtype=torch.uint8) for _ in range(2))
+    saved = {}
+    for name in args.logits.split(","):
+        flat = name.endswith("_flat")
+        pred = SemSegPredictor(device="cuda", seed=args.seed,
+                               dispatch=name[:-len("_flat")] if flat else name, flat_input=flat)
+        logits, _ = pred(rgb, dep)
+        path = os.path.join(args.logits_dir, f"{name}.pt")
+        torch.save(logits.cpu(), path)
+        saved[name] = dict(path=path, shape=list(logits.shape),
+                           finite=bool(torch.isfinite(logits).all()))
+        print(f"{name}: logits {tuple(logits.shape)} -> {path}", flush=True)
+        del pred, logits
+        torch.cuda.empty_cache()
+    return dict(device=torch.cuda.get_device_name(0), logits=saved)
+
+
+def same_logits(dir_a: str, dir_b: str) -> dict:
+    """For each name saved in both directories, how many logits differ."""
+    names = sorted(f[:-3] for f in os.listdir(dir_a)
+                   if f.endswith(".pt") and os.path.exists(os.path.join(dir_b, f)))
+    out = {}
+    for name in names:
+        a, b = (torch.load(os.path.join(d, f"{name}.pt")) for d in (dir_a, dir_b))
+        out[name] = dict(differ=int((a != b).sum()), of=a.numel())
+        print(f"{name}: {out[name]['differ']} of {a.numel()} logits differ", flush=True)
+    return dict(a=dir_a, b=dir_b, logits=out)
+
+
 def profile_step(args) -> dict:
     from ir_ads_tpu_torch.train import SemSegTrainer
     from ir_ads_tpu_torch.training.optim import set_lr
@@ -453,12 +578,23 @@ def main():
                     help="time K4's two forms, K16 and K17 beside SDPA instead")
     ap.add_argument("--jmajor-v1", action="store_true",
                     help="time K18 beside F.grid_sample and K20 beside SDPA instead")
+    ap.add_argument("--qkv-map-bwd", action="store_true",
+                    help="time K12 and K15 beside SDPA and K8 beside autograd.grad instead")
+    ap.add_argument("--logits", default=None,
+                    help="comma-separated dispatches whose logits to save instead")
+    ap.add_argument("--logits-dir", default="output/logits",
+                    help="where --logits saves them")
+    ap.add_argument("--same-logits", nargs=2, default=None, metavar=("A", "B"),
+                    help="count the logits that differ between two --logits-dir")
     ap.add_argument("--requests", type=int, default=0,
                     help="serving: first time this many requests and print their p50")
     ap.add_argument("--port-dir", default=None,
                     help="import the port package from this checkout instead")
     ap.add_argument("--top", type=int, default=25, help="device kernels to list by time")
     args = ap.parse_args()
+    if args.same_logits:
+        print(json.dumps(same_logits(*args.same_logits)))
+        return
     if not torch.cuda.is_available():
         raise SystemExit("profile_port: CUDA is not available")
     if args.port_dir:
@@ -472,6 +608,7 @@ def main():
     if args.batch is None:
         args.batch = 4 if args.train else 2
     run = (time_dscf if args.dscf else time_jmajor_v1 if args.jmajor_v1
+           else time_qkv_map_bwd if args.qkv_map_bwd else save_logits if args.logits
            else profile_detection if args.det
            else profile_step if args.train else profile_request)
     print(json.dumps(run(args)))
