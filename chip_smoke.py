@@ -12,14 +12,17 @@ Phases, each of which raises on failure:
      v7_01, v5 and map, training, detection) give it (K12 also under
      autograd: its output and the gradients its backward, the plain
      version's vjp, gives), element by element and on what the kernel adds
-     (the branch, for the residual kernels); K3 and K6 bit for bit; show
+     (the branch, for the residual kernels); K3 (levels 0-3) and K6 (level
+     3) bit for bit, each also on positions with a third of their
+     coordinates clamped to -1 or +1 and on positions where the kernel
+     searches the four taps of an axis (K3 at level 0); show
      that a planted fault in the plain version fails the same bar (for K3
      and K6 the all-f32 form that rounds only the output); hold K13, K14
      and K15 bit for bit against the compositions of kernels they replace
      (K1, un-roll and crop, K2; pad and roll, K1, un-roll and crop;
      partition, K12, reverse); the DSCF variants' kernels: K18 (the pallas2
      bias, f32 form) at levels 0-3 on random positions and on positions
-     with a third of their coordinates at -1, also bit for bit against
+     with a third of their coordinates at -1 or +1, also bit for bit against
      ``rpe_bias_jmajor_ordered`` (its own sequence of roundings in torch
      elementwise ops), K17 (the pallas / pallas2 attention, on K18's
      packed bias) at levels 0 and 3, K16 (pallas4) at levels 0-2, bit
@@ -751,25 +754,49 @@ def check_window_attention_map(g, b, h, w, c, heads, shift):
     )
 
 
-def _dscf_inputs(g, b, level, clamped=False):
+def _dscf_inputs(g, b, level, clamped=False, searched=False):
     """A DSCF level's query plane, groups and keys, the keys' positions
     uniform in [-1, 1] (with ``clamped``, each coordinate -1 with
-    probability 1/3: the served model clamps 22-33 % of them there) and the
-    rpe table."""
+    probability 1/6 and +1 with probability 1/6: the served model clamps
+    22-33 % of them there, and the sample then reaches the table's first
+    and last rows and columns; with ``searched``, 16 keys' y coordinates
+    and 16 others' x coordinates where K3's and K6's kernels search the
+    four taps of that axis, ``dscf_rpe.searching_coordinates``) and the rpe
+    table."""
+    from ir_ads_tpu_torch.ops.dscf_rpe import hat_slopes, searching_coordinates
+
     h, w = 120 >> level, 160 >> level
     groups = 1 << level
     bg, hg, m = b * groups, 2, 600
     pos = (torch.rand(bg, m, 2, generator=g, device="cuda") * 2 - 1)
     if clamped:
-        pos = torch.where(torch.rand(bg, m, 2, generator=g, device="cuda") < 1 / 3, -1.0, pos)
+        at = torch.rand(bg, m, 2, generator=g, device="cuda")
+        pos = torch.where(at < 1 / 6, -1.0, torch.where(at < 1 / 3, 1.0, pos))
+    if searched:
+        ay, ax = hat_slopes(119, 159, h, w)
+        for axis, (size, slope, n) in enumerate(((119, ay, h), (159, ax, w))):
+            hits = torch.from_numpy(searching_coordinates(size, slope, n, 16)).cuda()
+            pos[0, 16 * axis:16 * axis + len(hits), axis] = hits
     table = _rand(g, groups, hg, 119, 159, std=0.5, dtype=torch.float32)
     return h, w, groups, bg, hg, m, pos, table
 
 
-def check_rpe(g, b, level):
+def _variant(clamped, searched):
+    return (" clamped" if clamped else "") + (" searched" if searched else "")
+
+
+def check_rpe(g, b, level, clamped=False, searched=False):
+    """K3 (the rows bias, ``_rpe_rows_kernel``'s bf16 form).  Bar: bit for
+    bit (atol 0): the kernel rounds the hat weights (computed in the TPU
+    kernel's f32 order, no FMA), the table and u to bf16 where the plain
+    version does, and each sum has at most two non-zero terms, each an
+    exact bf16 x bf16 product, or where an outer tap has a weight searches
+    the four taps as the dense product's non-zero terms (``searched``
+    reaches that path).  Planted fault: the all-f32 form, which rounds only
+    the output."""
     from ir_ads_tpu_torch.ops import dscf_rpe as k3
 
-    h, w, groups, bg, hg, m, pos, table = _dscf_inputs(g, b, level)
+    h, w, groups, bg, hg, m, pos, table = _dscf_inputs(g, b, level, clamped, searched)
     out_elems = bg * hg * h * m * w
 
     # the library call: the same bilinear samples through F.grid_sample, in
@@ -784,34 +811,32 @@ def check_rpe(g, b, level):
         return F.grid_sample(tb, grid, mode="bilinear", align_corners=True)
 
     return dict(
-        name="dscf_rpe", case=f"level {level} plane {h}x{w} BG={bg}",
+        name="dscf_rpe", case=f"level {level} plane {h}x{w} BG={bg}" + _variant(clamped, searched),
         run=lambda: k3.rpe_bias_rows(pos, table, h, w, torch.bfloat16),
         plain=lambda: k3.rpe_bias_rows_reference(pos, table, h, w, torch.bfloat16),
         faulted=lambda: k3.rpe_bias_f32(pos, table, h, w, "behmw").to(torch.bfloat16),
         fault="the all-f32 form (no bf16 rounding inside)", base=None,
-        # bit-equal: the kernel rounds the hat weights (computed in the TPU
-        # kernel's f32 order, no FMA), the table and u to bf16 where the
-        # plain version does, and each sum has at most two non-zero terms,
-        # each an exact bf16 x bf16 product
         library=library, atol=0.0, rtol=0.0, rel_tol=0.0,
         bytes=nbytes(pos, table) + out_elems * 2, flops=out_elems * 20,
         rate=F32_FLOPS,
     )
 
 
-def check_rpe_packed(g, b, level):
+def check_rpe_packed(g, b, level, clamped=False, searched=False):
+    """K6 (the packed bias, ``_rpe_packed_kernel``): K3's function, bar and
+    planted fault (see check_rpe)."""
     from ir_ads_tpu_torch.ops import dscf_rpe_packed as k6
 
-    h, w, groups, bg, hg, m, pos, table = _dscf_inputs(g, b, level)
+    h, w, groups, bg, hg, m, pos, table = _dscf_inputs(g, b, level, clamped, searched)
     out_elems = bg * hg * m * h * w
     return dict(
-        name="dscf_rpe_packed", case=f"level {level} plane {h}x{w} BG={bg}",
+        name="dscf_rpe_packed",
+        case=f"level {level} plane {h}x{w} BG={bg}" + _variant(clamped, searched),
         run=lambda: k6.rpe_bias_packed(pos, table, h, w, torch.bfloat16),
         plain=lambda: k6.rpe_bias_packed_reference(pos, table, h, w, torch.bfloat16),
         faulted=lambda: k6.rpe_bias_f32(pos, table, h, w, "bemhw").flatten(3).to(
             torch.bfloat16),
         fault="the all-f32 form (no bf16 rounding inside)", base=None,
-        # K3's function and bar (see check_rpe): bit-equal
         library=_rpe_library(h, w, groups, bg, pos, table),
         atol=0.0, rtol=0.0, rel_tol=0.0,
         bytes=nbytes(pos, table) + out_elems * 2, flops=out_elems * 20,
@@ -1481,10 +1506,16 @@ def phase_kernels(seed: int, images: int):
                                       "adapter dropped"),
         lambda: check_window_block_v6(g, images, 30, 40, 512, 16, 6,
                                       "streams swapped", streams=2),
-        lambda: check_rpe(g, images, 0),
-        lambda: check_rpe(g, images, 2),
+        # K3 at levels 0-2 (r5) and 3 (r4, r4i8, r2, v5, map), and on clamped
+        # positions and positions that take the four-tap search at level 0;
+        # K6 at level 3, also on clamped and searched positions
+        *(functools.partial(check_rpe, g, images, level) for level in (0, 1, 2, 3)),
+        functools.partial(check_rpe, g, images, 0, clamped=True),
+        functools.partial(check_rpe, g, images, 0, searched=True),
         *(functools.partial(check_rows, g, images, level) for level in (0, 1, 2)),
         lambda: check_rpe_packed(g, images, 3),
+        functools.partial(check_rpe_packed, g, images, 3, clamped=True),
+        functools.partial(check_rpe_packed, g, images, 3, searched=True),
         # the training path: K1 again at stages 2-3; K7 at the four stages as
         # the adapter recipe runs it (attention parameters frozen: no ow, no
         # dbias) and once with every gradient wanted; K8 at levels 0-2

@@ -12,9 +12,10 @@
 // rounding points, then runs the unpacked rows attention on it.  Nothing of
 // that size fits 227 KB of shared memory, and nothing needs to: each score's
 // bias is sampled where the score is (csrc/dscf.cuh's rpe_key, rpe_row and
-// rpe_pixel, the parts of K3's rpe_sample: bf16 hat weights in the order
-// (ay*r - s) + by, the bf16 table, a bf16 u, the bias rounded to bf16 and
-// widened), and the attention is K4's unpacked form.  Both are the device
+// rpe_pixel, which composes rpe_col, rpe_u, rpe_two_tap and rpe_search, the
+// parts K3 calls: bf16 hat weights in the order (ay*r - s) + by, the bf16
+// table, a bf16 u, the bias rounded to bf16 and widened), and the attention
+// is K4's unpacked form.  Both are the device
 // code K3 and K4 run, with every operation written out, so K16 is bit-equal
 // to K3 followed by K4 with packed=0, and no bias reaches device memory.
 // The reference's band (rows dividing h with rows * w a multiple of 8) is a

@@ -4,7 +4,8 @@ displacement between every query pixel and every deformable key.
 
 Replaces ir_ads_tpu/ops/pallas_dscf_rpe.py:_rpe_rows_kernel (launched by
 ``dscf_rpe_bias_rows_pallas``; twin ``dscf_rpe_bias_rows_reference``).  The
-CUDA source is csrc/dscf_rpe.cu; its header states the bound and the design.
+CUDA source is csrc/dscf_rpe.cu; its header states the bound, the design
+and its domain (the table plane staged in shared memory: ``plane_smem``).
 BG = B * G is group-minor: row bg uses table group bg % G.
 
 ``rpe_bias_rows`` launches the kernel for CUDA tensors and runs
@@ -26,6 +27,9 @@ runs: plain PyTorch with the reference's rounding points, no kernel.
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from ir_ads_tpu_torch.ops.cuda_lib import FLOAT, INT, VOIDP, CudaKernel, check_cuda, ptr
@@ -34,6 +38,26 @@ KERNEL = CudaKernel(
     "dscf_rpe", "dscf_rpe_rows", [VOIDP] * 3 + [INT] * 8 + [FLOAT] * 2,
     replaces="ir_ads_tpu/ops/pallas_dscf_rpe.py:182",
 )
+SMEM_MAX = 232448  # bytes of shared memory a block may have on an H100
+
+
+def plane_smem(s1: int, s2: int, h: int, bf16_pairs: bool) -> int:
+    """The least shared memory csrc/dscf_rpe.cu's block of K3, K6 (the table
+    plane as bf16 pairs with a zero row and column past its last:
+    ``bf16_pairs``) or K18 (the f32 plane) takes: the plane aligned to 128
+    bytes, one key's y-tap records (h rounded up to 8 rows; 8 bytes a row
+    for K3 and K6, 16 for K18), and 16 warps' 8 x 32 bf16 staging tiles."""
+    table = (s1 + 1) * s2 * 4 if bf16_pairs else s1 * s2 * 4
+    keys = -(-h // 8) * 8 * (8 if bf16_pairs else 16)
+    return -(-table // 128) * 128 + -(-keys // 128) * 128 + 16 * 8 * 32 * 2
+
+
+def check_plane(name: str, s1: int, s2: int, h: int, bf16_pairs: bool) -> None:
+    """Raises where the table plane does not fit a block's shared memory."""
+    need = plane_smem(s1, s2, h, bf16_pairs)
+    if need > SMEM_MAX:
+        raise ValueError(f"{name}: a {s1}x{s2} table needs {need} bytes of shared memory, "
+                         f"over {SMEM_MAX}")
 
 
 def rpe_bias_f32(pos, table, h, w, order):
@@ -62,6 +86,41 @@ def hat_slopes(s1, s2, h, w):
     as the TPU kernels take them (a Python double rounded once)."""
     return (float(torch.tensor((s1 - 1.0) / (2.0 * (h - 1.0)), dtype=torch.float32)),
             float(torch.tensor((s2 - 1.0) / (2.0 * (w - 1.0)), dtype=torch.float32)))
+
+
+@functools.lru_cache(maxsize=None)
+def slopes(s1, s2, h, w):
+    """``hat_slopes`` once for each shape: its two small tensors cost host
+    time at every launch, as much as a bias kernel takes at level 3."""
+    return hat_slopes(s1, s2, h, w)
+
+
+def searching_coordinates(size, slope, n_query, want):
+    """Up to ``want`` position coordinates in [-1, 1] at which the CUDA
+    kernels of K3 and K6 search the four taps of an axis (table extent
+    ``size``, hat slope ``slope``, ``n_query`` query rows or columns) for
+    some query index i: the index (slope * i + b) rounded, just below an
+    integer N, rounds up to it, and the first tap's distance in the f32
+    order (slope * i - (N - 1)) + b comes out under 1, so that its bf16
+    weight is not 0.  Found by a scan in f32 around b = N - slope * i, as
+    the kernels compute b = ((0.5 - 0.5 p) * 0.5) * (size - 1) from p.  The
+    tests and chip_smoke.py feed them to the kernels to reach that path."""
+    f = np.float32
+    found = []
+    for i in range(1, n_query):
+        ai = f(slope) * f(i)
+        for big in range(int(ai) + 1, int(ai) + size - 1):
+            p0 = f(1.0 - 4.0 * (big - float(ai)) / (size - 1))
+            p = (p0.view(np.int32) + np.arange(-4096, 4097, dtype=np.int32)).view(f)
+            p = p[(p >= -1) & (p <= 1)]
+            b = ((f(0.5) - f(0.5) * p) * f(0.5)) * f(size - 1)
+            xf = np.floor(ai + b)
+            d0 = (ai - (xf - f(1.0))) + b
+            d3 = (ai - (xf + f(2.0))) + b
+            found.extend(p[(np.abs(d0) < 1) | (np.abs(d3) < 1)][:1].tolist())
+            if len(found) >= want:
+                return np.array(found, np.float32)
+    return np.array(found, np.float32)
 
 
 def rpe_bias_bf16(pos, table, h, w, order):
@@ -130,9 +189,10 @@ def _rows_forward(pos, table, h, w, out_dtype):
         raise ValueError("rpe_bias_rows: the CUDA kernel stores bf16")
     bg, m, _ = pos.shape
     g, hg, s1, s2 = table.shape
+    check_plane("rpe_bias_rows", s1, s2, h, bf16_pairs=True)
     out = torch.empty((bg, hg, h, m, w), dtype=out_dtype, device=pos.device)
     KERNEL.call(ptr(pos), ptr(table), ptr(out), bg, g, hg, h, m, w, s1, s2,
-                *hat_slopes(s1, s2, h, w))
+                *slopes(s1, s2, h, w))
     return out
 
 
@@ -146,8 +206,16 @@ def rpe_bias_rows(
     """Returns the bias (BG, hg, h, M, w) in ``out_dtype``."""
     if h < 2 or w < 2:
         raise ValueError(f"rpe_bias_rows: query plane {h}x{w} needs h, w >= 2")
-    return RpeBias.apply(pos.float(), table.float(), h, w, out_dtype, "behmw",
-                         _rows_forward)
+    return with_grad(pos, table, h, w, out_dtype, "behmw", _rows_forward)
+
+
+def with_grad(pos, table, h, w, out_dtype, order, build):
+    """``build``'s bias, recorded through ``RpeBias`` only where a gradient
+    is wanted: the Function's bookkeeping costs host time at every launch."""
+    pos, table = pos.float(), table.float()
+    if torch.is_grad_enabled() and (pos.requires_grad or table.requires_grad):
+        return RpeBias.apply(pos, table, h, w, out_dtype, order, build)
+    return build(pos, table, h, w, out_dtype)  # no graph to record
 
 
 def rpe_bias_xla(

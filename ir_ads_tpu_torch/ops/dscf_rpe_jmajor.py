@@ -33,18 +33,17 @@ twin.
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from ir_ads_tpu_torch.ops.cuda_lib import FLOAT, INT, VOIDP, CudaKernel, check_cuda, ptr
-from ir_ads_tpu_torch.ops.dscf_rpe import RpeBias, hat_slopes, rpe_bias_f32
+from ir_ads_tpu_torch.ops.dscf_rpe import (
+    check_plane, hat_slopes, rpe_bias_f32, slopes, with_grad,
+)
 
 KERNEL = CudaKernel(
     "dscf_rpe_jmajor", "dscf_rpe_jmajor", [VOIDP] * 3 + [INT] * 8 + [FLOAT] * 2,
     replaces="ir_ads_tpu/ops/pallas_dscf_rpe.py:75", unit="dscf_rpe",
 )
-SMEM_MAX = 232448  # bytes of shared memory a block may have on an H100
 
 
 def rpe_bias_jmajor_reference(pos, table, h, w, out_dtype):
@@ -102,13 +101,6 @@ def rpe_bias_jmajor_ordered(pos, table, h, w, out_dtype, chunk_elems=1 << 23):
     return torch.cat(out, dim=2)
 
 
-def _smem_bytes(s1: int, s2: int) -> int:
-    """csrc/dscf_rpe.cu's shared memory for K18: the f32 table plane
-    (aligned to 128 bytes), then for each of the 16 warps a 16-byte y-tap
-    record for each of 32 rows and an 8 x 32 bf16 staging tile."""
-    return -(-s1 * s2 * 4 // 128) * 128 + 16 * 32 * 16 + 16 * 8 * 32 * 2
-
-
 def _jmajor_forward(pos, table, h, w, out_dtype):
     pos, table = pos.contiguous(), table.contiguous()
     if pos.device.type == "cpu":
@@ -118,20 +110,11 @@ def _jmajor_forward(pos, table, h, w, out_dtype):
         raise ValueError("rpe_bias_jmajor: the CUDA kernel stores bf16")
     bg, m, _ = pos.shape
     g, hg, s1, s2 = table.shape
-    if _smem_bytes(s1, s2) > SMEM_MAX:
-        raise ValueError(f"rpe_bias_jmajor: a {s1}x{s2} table needs {_smem_bytes(s1, s2)} "
-                         f"bytes of shared memory, over {SMEM_MAX}")
+    check_plane("rpe_bias_jmajor", s1, s2, h, bf16_pairs=False)
     out = torch.empty((bg, hg, m, h, w), dtype=out_dtype, device=pos.device)
     KERNEL.call(ptr(pos), ptr(table), ptr(out), bg, g, hg, h, m, w, s1, s2,
-                *_slopes(s1, s2, h, w))
+                *slopes(s1, s2, h, w))
     return out
-
-
-@functools.lru_cache(maxsize=None)
-def _slopes(s1, s2, h, w):
-    """``hat_slopes`` once for each shape: its two small tensors cost host
-    time at every launch, as much as the kernel takes at level 3."""
-    return hat_slopes(s1, s2, h, w)
 
 
 def rpe_bias_jmajor(
@@ -144,7 +127,4 @@ def rpe_bias_jmajor(
     """Returns the bias (BG, hg, M, h, w) in ``out_dtype``."""
     if h < 2 or w < 2:
         raise ValueError(f"rpe_bias_jmajor: query plane {h}x{w} needs h, w >= 2")
-    pos, table = pos.float(), table.float()
-    if torch.is_grad_enabled() and (pos.requires_grad or table.requires_grad):
-        return RpeBias.apply(pos, table, h, w, out_dtype, "bemhw", _jmajor_forward)
-    return _jmajor_forward(pos, table, h, w, out_dtype)  # no graph to record
+    return with_grad(pos, table, h, w, out_dtype, "bemhw", _jmajor_forward)

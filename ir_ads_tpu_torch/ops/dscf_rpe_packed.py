@@ -6,8 +6,8 @@ its (B, heads, h*w, M) scores.
 Replaces ir_ads_tpu/ops/pallas_dscf_rpe.py:_rpe_packed_kernel (launched by
 ``dscf_rpe_bias_packed_pallas``; twin ``dscf_rpe_bias_packed_reference``).
 The CUDA entry point ``dscf_rpe_packed`` lives in csrc/dscf_rpe.cu beside
-K3's and shares its sampling routine; the header states the bound and the
-design.  BG = B * G is group-minor: row bg uses table group bg % G.
+K3's and K18's and runs their kernel template in K3's rounding and K18's
+layout; the header states the bound and the design.  BG = B * G is group-minor: row bg uses table group bg % G.
 
 ``rpe_bias_packed`` launches the kernel for CUDA tensors and runs
 ``rpe_bias_packed_reference``, the plain version, only for CPU tensors: in
@@ -15,7 +15,7 @@ bf16 K3's ``rpe_bias_bf16`` (the TPU kernel's rounding points, which the
 CUDA kernel computes bit for bit), in f32 the twin's hat-weight products.
 ``rpe_bias_packed`` is differentiable in
 ``pos`` and ``table`` through ``dscf_rpe.RpeBias`` (a recompute through
-``rpe_bias_f32`` under autograd).
+``rpe_bias_f32`` under autograd), recorded only where a gradient is wanted.
 """
 
 from __future__ import annotations
@@ -23,7 +23,9 @@ from __future__ import annotations
 import torch
 
 from ir_ads_tpu_torch.ops.cuda_lib import FLOAT, INT, VOIDP, CudaKernel, check_cuda, ptr
-from ir_ads_tpu_torch.ops.dscf_rpe import RpeBias, hat_slopes, rpe_bias_bf16, rpe_bias_f32
+from ir_ads_tpu_torch.ops.dscf_rpe import (
+    check_plane, rpe_bias_bf16, rpe_bias_f32, slopes, with_grad,
+)
 
 KERNEL = CudaKernel(
     "dscf_rpe_packed", "dscf_rpe_packed", [VOIDP] * 3 + [INT] * 8 + [FLOAT] * 2,
@@ -48,9 +50,10 @@ def _packed_forward(pos, table, h, w, out_dtype):
         raise ValueError("rpe_bias_packed: the CUDA kernel stores bf16")
     bg, m, _ = pos.shape
     g, hg, s1, s2 = table.shape
+    check_plane("rpe_bias_packed", s1, s2, h, bf16_pairs=True)
     out = torch.empty((bg, hg, m, h * w), dtype=out_dtype, device=pos.device)
     KERNEL.call(ptr(pos), ptr(table), ptr(out), bg, g, hg, h, m, w, s1, s2,
-                *hat_slopes(s1, s2, h, w))
+                *slopes(s1, s2, h, w))
     return out
 
 
@@ -64,5 +67,4 @@ def rpe_bias_packed(
     """Returns the bias (BG, hg, M, h*w) in ``out_dtype``."""
     if h < 2 or w < 2:
         raise ValueError(f"rpe_bias_packed: query plane {h}x{w} needs h, w >= 2")
-    return RpeBias.apply(pos.float(), table.float(), h, w, out_dtype, "bemhw",
-                         _packed_forward)
+    return with_grad(pos, table, h, w, out_dtype, "bemhw", _packed_forward)

@@ -11,6 +11,7 @@ one step of its trainer, under torch.profiler.
     python3 profile_port.py --det [--seed 0]
     python3 profile_port.py --dscf [--seed 0]
     python3 profile_port.py --jmajor-v1 [--seed 0]
+    python3 profile_port.py --rpe [--seed 0]
     python3 profile_port.py --qkv-map-bwd [--seed 0]
     python3 profile_port.py --logits r5,r4,...,r5_flat --logits-dir DIR [--seed 0]
     python3 profile_port.py --same-logits DIR_A DIR_B
@@ -48,6 +49,10 @@ on positions with a third of their coordinates at -1 (as the served model
 clamps them), beside F.grid_sample, and K20 at the four Swin stages of 4
 tiles, shifted and not, beside SDPA with the bias and region mask as its
 float mask, each by CUDA events and by the profiler's device time.
+K3 and K6 (--rpe): K3 at DSCF levels 0-3 and K6 at level 3, on random
+positions and on positions with a third of their coordinates at -1 or +1,
+beside F.grid_sample in the layout each writes, each by CUDA events and by
+the profiler's device time; with --port-dir in turns with the parent.
 K12, K15 and K8 (--qkv-map-bwd): K12 and K15 at the four Swin stages of 4
 tiles, shifted and not, beside SDPA with the bias and region mask as its
 float mask (K15's with the window partition and reverse copies it needs),
@@ -85,16 +90,18 @@ from torch.profiler import ProfilerActivity, profile
 
 # device kernel names of each port kernel (window_attn_kernel is K1's and
 # K10's: a dispatch runs one of them; dscf_rows_packed_kernel is K4's
-# tensor-core kernel in checkouts where only the packed form ran on it, for
-# --port-dir)
+# tensor-core kernel in checkouts where only the packed form ran on it, and
+# rpe_rows_kernel, rpe_packed_kernel and rpe_jmajor_kernel K3's, K6's and
+# K18's before they shared rpe_plane_kernel, for --port-dir).  A name with
+# template arguments (K3, K6, K18: one template) matches those instances.
 BY_KERNEL = {
     "K1/K10 attention": ("window_attn_kernel",),
     "K1 rows": ("ln_qkv_kernel", "proj_add_kernel"),
     "K2": ("block_tail_kernel",),
     "K5": ("v6_ln_qkv_kernel", "v6_attn_kernel", "proj_tail_kernel"),
-    "K3": ("rpe_rows_kernel",),
+    "K3": ("rpe_rows_kernel", "rpe_plane_kernel<Bf16Form, true"),
     "K4": ("dscf_rows_kernel", "dscf_rows_mma_kernel", "dscf_rows_packed_kernel"),
-    "K6": ("rpe_packed_kernel",),
+    "K6": ("rpe_packed_kernel", "rpe_plane_kernel<Bf16Form, false"),
     "K7": ("window_attn_bwd_kernel",), "K8": ("dscf_rows_bwd_kernel",),
     "K9": ("msdeform_kernel",),
     "K10 rows": ("ln_quant_qkv_kernel", "quant_proj_add_kernel"),
@@ -104,7 +111,7 @@ BY_KERNEL = {
     "K14": ("v5_ln_qkv_kernel", "v5_attn_kernel", "v5_proj_add_kernel"),
     "K15": ("window_attention_map_kernel", "window_map_mma_kernel"),
     "K16": ("dscf_fused_kernel", "dscf_fused_mma_kernel"), "K17": ("dscf_attention_kernel",),
-    "K18": ("rpe_jmajor_kernel",), "K19": ("patch_embed_kernel",),
+    "K18": ("rpe_jmajor_kernel", "rpe_plane_kernel<F32Form"), "K19": ("patch_embed_kernel",),
     "K20": ("window_attention_v1_kernel", "window_attention_v1_mma_kernel"),
 }
 PORT_KERNELS = tuple(n for names in BY_KERNEL.values() for n in names)
@@ -113,7 +120,17 @@ PORT_KERNELS = tuple(n for names in BY_KERNEL.values() for n in names)
 def _is(name: str, kernel: str) -> bool:
     """``name`` (a profiler key: a demangled or mangled C++ signature) is the
     device kernel ``kernel`` or an instance of it (a template such as K4's
-    two forms), not one whose name contains it."""
+    two forms), not one whose name contains it; ``kernel<A, b`` is the
+    instances whose template arguments start with the class A (in any
+    namespace) and the bools b."""
+    if "<" in kernel:
+        fn, args = kernel.rstrip(">").split("<")
+        cls, *flags = [a.strip() for a in args.split(",")]
+        demangled = (rf"(?<![A-Za-z0-9_]){fn}<([^<>,]*::)?{cls}"
+                     + "".join(rf", {f}" for f in flags) + r"[,>]")
+        mangled = (rf"{len(fn)}{fn}I\w*?{len(cls)}{cls}E"
+                   + "".join(f"Lb{int(f == 'true')}E" for f in flags))
+        return re.search(f"{demangled}|{mangled}", name) is not None
     return re.search(rf"(?<![A-Za-z0-9_]){kernel}(<[^>]*>)?\(|{len(kernel)}{kernel}[EI]",
                      name) is not None
 
@@ -343,6 +360,51 @@ def time_jmajor_v1(args) -> dict:
                    lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask, scale=scale),
                    stage_c=c, windows=bn, shift=shift)
             del q, k, v, bias, mask
+            torch.cuda.empty_cache()
+    return dict(device=torch.cuda.get_device_name(0), kernels=rows)
+
+
+def time_rpe(args) -> dict:
+    """K3 at levels 0-3 and K6 at level 3, at phase 3's shapes (4 images),
+    on random positions and on positions with a third of their coordinates
+    clamped to -1 or +1, beside F.grid_sample in the layout each writes, by
+    CUDA events and by the profiler's device time."""
+    import torch.nn.functional as F
+
+    from ir_ads_tpu_torch.ops import dscf_rpe as k3
+    from ir_ads_tpu_torch.ops import dscf_rpe_packed as k6
+
+    g = torch.Generator(device="cuda").manual_seed(args.seed)
+    images, hg, m, bf = 4, 2, 600, torch.bfloat16
+    rows = []
+    for name, level in (("K3", 0), ("K3", 1), ("K3", 2), ("K3", 3), ("K6", 3)):
+        for clamped in (False, True):
+            h, w, groups = 120 >> level, 160 >> level, 1 << level
+            bg = images * groups
+            pos = torch.rand(bg, m, 2, generator=g, device="cuda") * 2 - 1
+            if clamped:
+                at = torch.rand(bg, m, 2, generator=g, device="cuda")
+                pos = torch.where(at < 1 / 6, -1.0, torch.where(at < 1 / 3, 1.0, pos))
+            table = 0.5 * torch.randn(groups, hg, 119, 159, generator=g, device="cuda")
+            qy = torch.arange(h, device="cuda") / (h - 1) * 2 - 1
+            qx = torch.arange(w, device="cuda") / (w - 1) * 2 - 1
+            qg = torch.stack(torch.meshgrid(qy, qx, indexing="ij"), -1)
+            # K3's rows layout against (BG, hg, HW, M), K6's against (BG, hg, M, HW)
+            grid = ((qg.reshape(1, h * w, 1, 2) - pos[:, None]) if name == "K3"
+                    else (qg.reshape(1, 1, h * w, 2) - pos[:, :, None]))
+            grid = (grid * 0.5)[..., (1, 0)].contiguous()
+            tb = table[torch.arange(bg, device="cuda") % groups].contiguous()
+            fn = k3.rpe_bias_rows if name == "K3" else k6.rpe_bias_packed
+            run = lambda: fn(pos, table, h, w, bf)  # noqa: E731
+            library = lambda: F.grid_sample(  # noqa: E731
+                tb, grid, mode="bilinear", align_corners=True)
+            times = dict(ms=_events_ms(run), device_ms=_device_ms(run),
+                         library_ms=_events_ms(library), library_device_ms=_device_ms(library))
+            rows.append(dict(kernel=name, level=level, plane=f"{h}x{w}", bg=bg,
+                             clamped=clamped, **times))
+            print(f"{name} level {level} ({h}x{w}, BG {bg}){' clamped' if clamped else ''}: "
+                  + ", ".join(f"{k} {v:.4f}" for k, v in times.items()), flush=True)
+            del pos, table, grid, tb
             torch.cuda.empty_cache()
     return dict(device=torch.cuda.get_device_name(0), kernels=rows)
 
@@ -578,6 +640,8 @@ def main():
                     help="time K4's two forms, K16 and K17 beside SDPA instead")
     ap.add_argument("--jmajor-v1", action="store_true",
                     help="time K18 beside F.grid_sample and K20 beside SDPA instead")
+    ap.add_argument("--rpe", action="store_true",
+                    help="time K3 (levels 0-3) and K6 (level 3) beside F.grid_sample instead")
     ap.add_argument("--qkv-map-bwd", action="store_true",
                     help="time K12 and K15 beside SDPA and K8 beside autograd.grad instead")
     ap.add_argument("--logits", default=None,
@@ -608,6 +672,7 @@ def main():
     if args.batch is None:
         args.batch = 4 if args.train else 2
     run = (time_dscf if args.dscf else time_jmajor_v1 if args.jmajor_v1
+           else time_rpe if args.rpe
            else time_qkv_map_bwd if args.qkv_map_bwd else save_logits if args.logits
            else profile_detection if args.det
            else profile_step if args.train else profile_request)
