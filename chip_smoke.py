@@ -45,7 +45,10 @@ Phases, each of which raises on failure:
      where it takes the thread design, and once under autograd (its
      gradients, the twin's vjp, against the twin's; K12's and K20's autograd
      cases time torch.autograd.grad through SDPA as their library call);
-     then, for the record,
+     K5 at stages 2 and 3 also by launch of its nine (the profiler's
+     device time), each GEMM beside torch.matmul at its (M, N, K); K7 at
+     the four stages on the tensor cores and once at d = 16 on its first
+     design; then, for the record,
      the share of K1's outputs at stage 0 and K4's at level 0 that the
      parent commit's f32 attention scale moves;
      print the errors against the stated tolerances and the kernel's, the
@@ -318,16 +321,66 @@ def check_window_block_v6(g, b, h, w, c, heads, shift, fault, streams=1):
         adapter_scale=bad_scale)
     t = b * h * w  # qkv, proj, FFN and adapter of the real tokens; each
     flops = t * (24 * c * c + 4 * c * ca + 4 * n * c)  # real query sees N keys
+    hid = tail[2].shape[0]
     return dict(
         name="swin_block_v6",
         case=f"C={c} map {h}x{w} shift {shift}" + (f" S={streams}" if streams > 1 else ""),
         run=run, plain=plain, faulted=faulted, fault=fault, base=x,
+        per_launch=lambda: k5_launch_times(g, run, t, c, ca, hid, streams),
         # as K1 + K2: the same rounding points (y kept in f32 by both), f32
         # sums of another order -> bf16 flips of an ulp or two
         library=None, atol=3e-2, rtol=2e-2,
         bytes=nbytes(x, *attn, region, *tail) + nbytes(x), flops=flops,
         rate=BF16_TENSOR_FLOPS,
     )
+
+
+def k5_launch_times(g, run, t, c, ca, hidden, streams, iters=10):
+    """K5's time per launch of its sequence (the profiler's device time over
+    ``iters`` calls of ``run``) and, beside each GEMM, one ``torch.matmul``
+    of the same (M, N, K) in bf16 (batched over the adapter's streams) as a
+    yardstick for the GEMM alone.  Returns one dict a launch."""
+    from torch.profiler import ProfilerActivity, profile
+
+    ts = t // streams
+    launches = (  # label, device kernel name, the product's (batches, M, N, K)
+        ("LN1", "v6_ln1_kernel", None), ("qkv GEMM", "QkvOut", (1, t, 3 * c, c)),
+        ("attention", "v6_attn_kernel", None), ("proj GEMM", "ProjOut", (1, t, c, c)),
+        ("adapter up GEMM", "AdapterUp", (streams, ts, ca, c)),
+        ("adapter down GEMM", "AdapterDown", (streams, ts, c, ca)),
+        ("LN2", "v6_ln2_kernel", None), ("fc1 GEMM", "Fc1Out", (1, t, hidden, c)),
+        ("fc2 GEMM", "Fc2Out", (1, t, c, hidden)))
+    run()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            run()
+        torch.cuda.synchronize()
+    device = {}
+    for evt in prof.key_averages():
+        us = next((float(getattr(evt, a)) for a in ("self_device_time_total",
+                                                    "self_cuda_time_total")
+                   if hasattr(evt, a)), 0.0)
+        for label, name, _ in launches:
+            if name in evt.key:
+                device[label] = device.get(label, 0.0) + us / iters / 1e3
+    out = []
+    for label, name, mnk in launches:
+        row = dict(launch=label, kernel=name, ms=device.get(label))
+        if mnk is not None:
+            z, m, n, k = mnk
+            a, w = _rand(g, z, m, k).squeeze(0), _rand(g, z, k, n).squeeze(0)
+            row.update(mnk=[m, n, k], batches=z,
+                       matmul_ms=time_ms(lambda: torch.matmul(a, w), iters=20))
+            del a, w
+        out.append(row)
+    print("    K5 per launch (profiler device time; torch.matmul at the GEMM's (M, N, K)): "
+          + "; ".join(f"{r['launch']} "
+                      + ("not measured" if r["ms"] is None else f"{r['ms']:.4f} ms")
+                      + (f" (matmul {r['mnk']}{' x%d' % r['batches'] if r['batches'] > 1 else ''}"
+                         f" {r['matmul_ms']:.4f} ms)" if "mnk" in r else "")
+                      for r in out), flush=True)
+    return out
 
 
 def check_block_tail(g, rows, c):
@@ -1528,6 +1581,8 @@ def phase_kernels(seed: int, images: int):
         lambda: check_window_attn_bwd(g, TRAIN_BATCH, 30, 40, 512, 16, 6, False, False),
         lambda: check_window_attn_bwd(g, TRAIN_BATCH, 15, 20, 1024, 32, 6, False, False),
         lambda: check_window_attn_bwd(g, TRAIN_BATCH, 60, 80, 256, 8, 6, True, True),
+        # and once outside the tensor-core design (d = 16): its first design
+        lambda: check_window_attn_bwd(g, TRAIN_BATCH, 60, 80, 256, 16, 6, False, False),
         *(functools.partial(check_rows_bwd, g, TRAIN_BATCH, level) for level in (0, 1, 2)),
         # the detection path: K9 as the encoder's self-attention and the
         # decoder's cross-attention run it (bf16), and once each in f32
@@ -1608,6 +1663,7 @@ def hold(case):
     run, plain, library = case.pop("run"), case.pop("plain"), case.pop("library")
     faulted, base = case.pop("faulted"), case.pop("base")
     names = case.pop("outputs", ["out"])
+    per_launch = case.pop("per_launch", None)
     of_rms = case.pop("atol_of_rms", False)
     rel_tol = case.pop("rel_tol", REL_TOL)
     share_tol = case.pop("share_tol", None)
@@ -1686,7 +1742,9 @@ def hold(case):
                composition_ms=composed_ms)
     if share_tol is not None:
         row.update(share=share, fault_share=fault_share, share_tol=share_tol)
-    del run, plain, library, faulted, base, case, also, composition, not_composition
+    if per_launch is not None:
+        row["launch_ms"] = per_launch()
+    del run, plain, library, faulted, base, case, also, composition, not_composition, per_launch
     torch.cuda.empty_cache()
     return row
 
@@ -3192,7 +3250,7 @@ def kernel_table(rows, launches, launches_i8, module_launches, train_launches, d
                 "case", "max_abs_err", "rel_err", "fault", "fault_rel_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms", "composition_ms",
                 "share", "fault_share", "composition_differ", "not_composition_differ",
-                "dq_share")
+                "dq_share", "launch_ms")
                 if key in c}
                    for c in cases],
         ))

@@ -1,11 +1,12 @@
 // Shared device helpers for the port's hand-written Hopper kernels.
 //
-// tile_gemm is the one matrix-product routine the kernels use: a block of
-// 256 threads (8 warps) multiplies a bf16 activation tile that already sits in
-// shared memory by a slice of a weight matrix streamed from device memory,
-// with WMMA (mma.sync 16x16x16, bf16 operands, f32 accumulation).  It is the
-// simple form of a Hopper GEMM: no TMA, no wgmma, one staging buffer.  Faster
-// forms are later work; this one is correct for every shape the slice uses.
+// tile_gemm is the matrix-product routine of the fused row kernels (K1, K2,
+// K11's adapter, K13, K14): a block of 256 threads (8 warps)
+// multiplies a bf16 activation tile that already sits in shared memory by a
+// slice of a weight matrix streamed from device memory, with WMMA (mma.sync
+// 16x16x16, bf16 operands, f32 accumulation), one staging buffer and two
+// barriers a 64-deep step.  K5's products run on gemm_mma.cuh's pipelined
+// GEMM instead, which sums in tile_gemm's order.
 #pragma once
 
 #include <cuda_bf16.h>

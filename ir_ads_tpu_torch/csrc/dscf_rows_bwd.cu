@@ -93,17 +93,6 @@ struct Stats {
   }
 };
 
-// e / den rounded to nearest for 0 <= e <= 1 <= den, y = RN(1 / den),
-// branch-free: div_rn_by, which is __fdiv_rn's quotient for e >= 2^-64;
-// below, e is scaled by 2^64 first and the quotient back (both exact), so
-// the quotient is __fdiv_rn's wherever it is normal (>= 2^-126); a
-// subnormal one may sit one subnormal step (2^-149) from it.
-__device__ __forceinline__ float quotient(float e, float den, float y) {
-  const bool tiny = e < 0x1p-64f;
-  const float q = div_rn_by(tiny ? __fmul_rn(e, 0x1p64f) : e, den, y);
-  return tiny ? __fmul_rn(q, 0x1p-64f) : q;
-}
-
 struct Smem {  // the block's shared memory past K, V and dK | dV
   uint4 q[kTile], dout[kTile];
   float mx[kBwdWarps][kTile], den[kBwdWarps][kTile], acc[kBwdWarps][kTile];

@@ -1,5 +1,5 @@
-// Device code shared by the two kernels that compute the Swin block tail,
-// K2 (block_tail.cu) and K5 (swin_block_v6.cu):
+// Device code shared by the two kernels that compute the Swin block tail
+// on a row tile, K2 (block_tail.cu) and K13 (swin_block_v7.cu):
 //   out = y + FFN(LN2 y) + adapter_scale * Adapter(y)
 // on a tile of bm rows held in shared memory.  Both steps accumulate into a
 // (bm, C) f32 tile acc_s; the FFN's 4C-wide hidden never leaves shared

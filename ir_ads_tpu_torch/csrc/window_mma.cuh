@@ -30,7 +30,7 @@
 // k and v rows are zero, padded bias columns -inf (their probabilities
 // exactly 0, as the Pallas kernels' -1e9 keys), padded rows are not stored.
 // The output leaves through the warp's q rows in shared memory as 16-byte
-// stores.  The mma.sync helpers are csrc/dscf.cuh's.
+// stores.  The mma.sync helpers are csrc/mma.cuh's.
 #pragma once
 
 #include "dscf.cuh"

@@ -7,9 +7,11 @@ with the window padding, the cyclic shift and the crop inside the kernel.
 
 Replaces ir_ads_tpu/ops/pallas_swin.py:_attn_kernel_v6 (launched by
 ``pallas_window_block_v6``).  The CUDA source is csrc/swin_block_v6.cu; its
-header states the bound and the design.  Parameters are K1's plus K2's, in
-torch Linear layout (out, in), rounded to the compute dtype as on the TPU;
-the rel-pos bias stays f32.  Adapter weights may carry a leading stream axis
+header states the bound and the design: nine launches, the six products on
+csrc/gemm_mma.cuh's pipelined GEMM with each step's arithmetic as its
+epilogue.  The wrapper allocates their intermediates on x's device.
+Parameters are K1's plus K2's, in torch Linear layout (out, in), rounded to
+the compute dtype as on the TPU; the rel-pos bias stays f32.  Adapter weights may carry a leading stream axis
 (S, ...): sample b then uses stream b // (B / S).
 
 The plain version follows the TPU kernel, not its XLA twin
@@ -34,7 +36,7 @@ from ir_ads_tpu_torch.ops.layers import q_scale
 from ir_ads_tpu_torch.ops.swin_block import window_attention_reference
 
 KERNEL = CudaKernel(
-    "swin_block_v6", "swin_block_v6", [VOIDP] * 22 + [INT] * 10 + [FLOAT] * 3,
+    "swin_block_v6", "swin_block_v6", [VOIDP] * 28 + [INT] * 10 + [FLOAT] * 3,
     replaces="ir_ads_tpu/ops/pallas_swin.py:1505",
 )
 
@@ -113,20 +115,25 @@ def window_block_v6(
     aw1 = tail[6]
     streams = aw1.shape[0] if aw1.ndim == 3 else 1
     ca = aw1.shape[-2]
-    bm = min(max(16384 // c, 16), 64)  # csrc/common.cuh rows_per_block
-    if (n % 16 or d % 16 or c % 64 or c > 1024 or bm % 16 or hidden % 64
-            or ca > 64 or b % streams):
+    # the attention launch takes WMMA tiles of 16 tokens and channels; the
+    # GEMM's epilogues write output pairs
+    if n % 16 or d % 16 or c % 2 or hidden % 2 or ca % 2 or b % streams:
         raise ValueError(
             f"window_block_v6: unsupported shape C={c} heads={heads} ws={ws} "
             f"hidden={hidden} Ca={ca} B={b} streams={streams}")
     if region is not None:
         region = region.to(device=x.device, dtype=torch.int32).contiguous()
-    qkv = torch.empty((b * h * w, 3 * c), dtype=cdt, device=x.device)
-    att = torch.empty((b * h * w, c), dtype=cdt, device=x.device)
+    rows = b * h * w
+    empty = lambda width, dtype=cdt: torch.empty(  # noqa: E731
+        (rows, width), dtype=dtype, device=x.device)
+    # LN1's (then LN2's) output, qkv, the attention output, y in f32 and
+    # bf16, the adapter's hidden and f32 output, the FFN hidden
+    scratch = (empty(c), empty(3 * c), empty(c), empty(c, torch.float32), empty(c),
+               empty(ca), empty(c, torch.float32), empty(hidden))
     out = torch.empty_like(x)
     KERNEL.call(
         ptr(x), *(ptr(t) for t in attn), ptr(region) if region is not None else None,
-        *(ptr(t) for t in tail), ptr(qkv), ptr(att), ptr(out),
+        *(ptr(t) for t in tail), *(ptr(t) for t in scratch), ptr(out),
         b, h, w, c, heads, ws, shift, hidden, ca, streams,
         q_scale(scale, cdt), float(eps), float(adapter_scale),
     )

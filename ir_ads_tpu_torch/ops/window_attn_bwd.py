@@ -7,9 +7,12 @@ out-projection's weight gradient) and the rel-pos bias gradient ``dbias``
 Replaces ir_ads_tpu/ops/pallas_swin.py:_attn_bwd_kernel (launched by
 ``pallas_window_attention_bwd``).  The CUDA source is
 csrc/window_attn_bwd.cu; its header states the rounding points, the bound
-and the design.  The backward does not round ``q * scale`` as the forward
-does, so in bf16 its recomputed probabilities are not bit-equal to the
-forward's; the port follows the backward kernel.
+and the two designs, which the wrapper chooses by shape alone
+(``tensor_core_design``): d = C / heads of 32 and N = 144 (every Swin-B
+stage) run on the tensor cores, other shapes the first design.  The
+backward does not round ``q * scale`` as the forward does, so in bf16 its
+recomputed probabilities are not bit-equal to the forward's; the port
+follows the backward kernel.
 
 ``window_attention_bwd`` launches the kernel for CUDA tensors and runs
 ``window_attention_bwd_reference``, the plain version (the explicit
@@ -27,10 +30,17 @@ from ir_ads_tpu_torch.ops.cuda_lib import (
 )
 
 KERNEL = CudaKernel(
-    "window_attn_bwd", "window_attn_bwd", [VOIDP] * 7 + [INT] * 5 + [FLOAT],
+    "window_attn_bwd", "window_attn_bwd", [VOIDP] * 7 + [INT] * 6 + [FLOAT],
     replaces="ir_ads_tpu/ops/pallas_swin.py:2518",
 )
 SMEM_LIMIT = 232448  # bytes of shared memory one block may use on an H100
+MMA_HEAD_DIM, MMA_TOKENS = 32, 144  # the tensor-core design's d and N
+
+
+def tensor_core_design(n: int, d: int) -> bool:
+    """Whether K7 takes its tensor-core design for N tokens of d channels a
+    head; otherwise its first design."""
+    return d == MMA_HEAD_DIM and n == MMA_TOKENS
 
 Grads = Tuple[torch.Tensor, Optional[torch.Tensor], Optional[torch.Tensor]]
 
@@ -92,8 +102,9 @@ def window_attention_bwd(
     check_cuda("window_attention_bwd", qkvw, dow)
     check_cuda("window_attention_bwd", bias, dtype=torch.float32)
     d = c // heads
+    tensor_cores = tensor_core_design(n, d)
     smem = 4 * n * (d + 8) * 2 + 2 * n * (n + 4) * 4 + 8 * 16 * 20 * 4 + 384
-    if n % 16 or d % 16 or c % 8 or smem > SMEM_LIMIT:
+    if not tensor_cores and (n % 16 or d % 16 or c % 8 or smem > SMEM_LIMIT):
         raise ValueError(f"window_attention_bwd: unsupported shape N={n} C={c} heads={heads}")
     nw = bn
     if region is not None:
@@ -104,5 +115,5 @@ def window_attention_bwd(
     dbias = torch.zeros_like(bias) if want_dbias else None
     opt = lambda t: ptr(t) if t is not None else None  # noqa: E731
     KERNEL.call(ptr(qkvw), ptr(dow), ptr(bias), opt(region), ptr(dqkv), opt(ow),
-                opt(dbias), bn, nw, n, c, heads, float(scale))
+                opt(dbias), bn, nw, n, c, heads, int(tensor_cores), float(scale))
     return dqkv, ow, dbias

@@ -23,14 +23,14 @@ r4, the w8a8 r4i8, the module-path sets r2, r1 and xla, the block
 variants v7_01, v5 and map, or the DSCF variants dscf_pallas4, dscf_pallas
 and dscf_pallas2), serves one warm-up request, then one profiled request,
 and sums its port kernels' device time by kernel (K1-K20) with their
-launches.  With --flat the frames enter the model as flat (B, H, W*3) rows
+launches, and K5's by launch of its sequence.  With --flat the frames enter the model as flat (B, H, W*3) rows
 and --patch-embed chooses the patch embedding's path (pallas: K19).  With
 --requests N it first times N requests on the host clock, each ended by a
 synchronize, and prints their p50.
 Training (--train): builds the full-size trainer (the ``train`` dispatch, f32
 masters, bf16 compute, the shipped adapter-only AdamW recipe), takes two
 warm-up steps, then profiles one step in three parts: forward with the loss,
-backward, optimizer update.
+backward, optimizer update; and K7's share of the step's device time.
 Detection (--det): builds the full-size detector (DINO-R50 deformable-mask,
 6 + 6 layers, 2000 queries, bf16, weights from --seed), serves one warm-up
 request of one 800x1216 image, then profiles one request in two parts: the
@@ -98,11 +98,14 @@ BY_KERNEL = {
     "K1/K10 attention": ("window_attn_kernel",),
     "K1 rows": ("ln_qkv_kernel", "proj_add_kernel"),
     "K2": ("block_tail_kernel",),
-    "K5": ("v6_ln_qkv_kernel", "v6_attn_kernel", "proj_tail_kernel"),
+    "K5": ("v6_ln1_kernel", "gemm_kernel<QkvOut", "v6_attn_kernel", "gemm_kernel<ProjOut",
+           "gemm_kernel<AdapterUp", "gemm_kernel<AdapterDown", "v6_ln2_kernel",
+           "gemm_kernel<Fc1Out", "gemm_kernel<Fc2Out", "v6_ln_qkv_kernel", "proj_tail_kernel"),
     "K3": ("rpe_rows_kernel", "rpe_plane_kernel<Bf16Form, true"),
     "K4": ("dscf_rows_kernel", "dscf_rows_mma_kernel", "dscf_rows_packed_kernel"),
     "K6": ("rpe_packed_kernel", "rpe_plane_kernel<Bf16Form, false"),
-    "K7": ("window_attn_bwd_kernel",), "K8": ("dscf_rows_bwd_kernel",),
+    "K7": ("window_attn_bwd_kernel", "window_attn_bwd_mma_kernel"),
+    "K8": ("dscf_rows_bwd_kernel",),
     "K9": ("msdeform_kernel",),
     "K10 rows": ("ln_quant_qkv_kernel", "quant_proj_add_kernel"),
     "K11": ("block_tail_int8_kernel",),
@@ -115,6 +118,17 @@ BY_KERNEL = {
     "K20": ("window_attention_v1_kernel", "window_attention_v1_mma_kernel"),
 }
 PORT_KERNELS = tuple(n for names in BY_KERNEL.values() for n in names)
+# K5 by launch: its nine (LN1, the GEMMs by epilogue, the attention, LN2),
+# and the two product launches of the earlier fused form (--port-dir)
+K5_BY_LAUNCH = {
+    "LN1": ("v6_ln1_kernel",), "qkv GEMM": ("gemm_kernel<QkvOut",),
+    "attention": ("v6_attn_kernel",), "proj GEMM": ("gemm_kernel<ProjOut",),
+    "adapter up GEMM": ("gemm_kernel<AdapterUp",),
+    "adapter down GEMM": ("gemm_kernel<AdapterDown",), "LN2": ("v6_ln2_kernel",),
+    "fc1 GEMM": ("gemm_kernel<Fc1Out",), "fc2 GEMM": ("gemm_kernel<Fc2Out",),
+    "LN1 + qkv (fused form)": ("v6_ln_qkv_kernel",),
+    "proj + tail (fused form)": ("proj_tail_kernel",),
+}
 
 
 def _is(name: str, kernel: str) -> bool:
@@ -164,14 +178,21 @@ def profiled(fn, top=25):
     rows.sort(key=lambda r: -r[1])
     busy = sum(r[1] for r in rows)
     port = sum(r[1] for r in rows if any(_is(r[0], k) for k in PORT_KERNELS))
-    by_kernel = {}
-    for label, names in BY_KERNEL.items():
-        mine = [r for r in rows if any(_is(r[0], k) for k in names)]
-        if mine:
-            by_kernel[label] = dict(ms=sum(r[1] for r in mine),
-                                    launches=max(r[2] for r in mine))
+    def by(labels, count):
+        """Device time and launches by label: a port kernel's launches are
+        the most of any of its device kernels (K1 runs two a call), a K5
+        launch's the sum over its instances (a GEMM's two tiles)."""
+        found = {}
+        for label, names in labels.items():
+            mine = [r for r in rows if any(_is(r[0], k) for k in names)]
+            if mine:
+                found[label] = dict(ms=sum(r[1] for r in mine),
+                                    launches=count(r[2] for r in mine))
+        return found
+
     return out, dict(wall_ms=wall_ms, device_busy_ms=busy, idle_share=1 - busy / wall_ms,
-                     port_kernels_ms=port, by_kernel=by_kernel,
+                     port_kernels_ms=port, by_kernel=by(BY_KERNEL, max),
+                     k5_by_launch=by(K5_BY_LAUNCH, sum),
                      top=[{"name": n[:120], "ms": ms, "count": c} for n, ms, c in rows[:top]])
 
 
@@ -183,6 +204,10 @@ def show(what: str, part: dict) -> None:
     print("  port kernels: " + "; ".join(
         f"{k} {v['ms']:.3f} ms in {v['launches']} launches "
         f"({v['ms'] / v['launches']:.4f} ms each)" for k, v in part["by_kernel"].items()))
+    if part["k5_by_launch"]:
+        print("  K5 by launch: " + "; ".join(
+            f"{k} {v['ms']:.3f} ms in {v['launches']} ({v['ms'] / v['launches']:.4f} ms each)"
+            for k, v in part["k5_by_launch"].items()))
     for row in part["top"]:
         mark = "*" if any(_is(row["name"], k) for k in PORT_KERNELS) else " "
         print(f" {mark} {row['ms']:9.3f} ms  x{row['count']:<5d} {row['name'][:100]}")
@@ -549,9 +574,12 @@ def profile_step(args) -> dict:
     wall = sum(p["wall_ms"] for p in (fwd, bwd, upd))
     print(f"{card}: wall {wall:.2f} ms (profiler on), device busy {busy:.2f} ms, "
           f"idle share {1 - busy / wall:.3f}, peak memory {peak:.2f} GiB")
+    k7 = bwd["by_kernel"].get("K7", dict(ms=0.0, launches=0))
+    print(f"{card}: K7 {k7['ms']:.3f} ms in {k7['launches']} launches, "
+          f"{k7['ms'] / busy:.3f} of the step's device busy time")
     return dict(dispatch="train", batch=args.batch, wall_ms=wall, device_busy_ms=busy,
                 idle_share=1 - busy / wall, peak_memory_gib=peak, forward=fwd,
-                backward=bwd, optimizer=upd)
+                backward=bwd, optimizer=upd, k7_ms=k7["ms"], k7_share=k7["ms"] / busy)
 
 
 def profile_detection(args) -> dict:
