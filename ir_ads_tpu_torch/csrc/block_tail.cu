@@ -7,78 +7,76 @@
 //
 // Bound on an H100: operations.  Per row it does about 16C^2 flops and must
 // move 4C bytes (x in, out, bf16): 4C flop per byte, 512 at C = 128, above
-// the card's ~295 flop/byte bf16 ridge (chip_smoke.py's count).  Design: one
-// block per tile of bm rows.  The (bm, C) f32 output accumulator and the
-// (bm, C) bf16 activation tile live in shared memory; the 4C-wide hidden is
-// produced and consumed 64 columns at a time (one WMMA product with a slice
-// of W1, GELU, then a WMMA product with the matching slice of W2 that
-// accumulates into the output tile), so it never reaches device memory.
-// Every weight is streamed once per row tile (from L2 for all but the first
-// tiles).  The adapter and FFN steps are shared with K5 (tail.cuh).
-#include "tail.cuh"
+// the card's ~295 flop/byte bf16 ridge (chip_smoke.py's count).
+//
+// Design: five launches, each a grid over all the rows, the four products
+// on gemm_mma.cuh's pipelined GEMM with the step's arithmetic as its
+// epilogue (a fused row kernel would stream all of W1, W2 and the adapter
+// weights again for every row tile):
+//   TailAdapterUp    GEMM of x with Wa1 (N = Ca): bf16(relu(acc + ab1));
+//   TailAdapterDown  GEMM with Wa2 (K = Ca, rounded up to 16 with zeros):
+//                    adapter_scale * (acc + ab2) + b2 in f32, the FFN's init;
+//   tail_ln2_kernel  LN2 of x to bf16 (layer_norm_rows, one warp a row);
+//   TailFc1          GEMM with W1: bf16(gelu_tanh(acc + b1));
+//   TailOut          GEMM with W2 over the whole hidden (K = 4C) from the
+//                    adapter's f32 output: out = bf16(x + acc).
+// This is the order of the earlier fused form (tail.cuh's adapter_into,
+// then ffn_accumulate adding 64 hidden columns at a time into the adapter's
+// output): each epilogue is its expression and gemm_mma.cuh sums each
+// output as tile_gemm did, so K2 keeps that form's bits, and K5's tail
+// (swin_block_v6.cu) runs the same launches on its f32 residual.  The
+// adapter's hidden (N, Ca), its f32 output (N, C), the LN output (N, C)
+// and the FFN hidden (N, 4C: 79 MB at stage 0 of 4 images) make one round
+// trip through device memory; the wrapper allocates them.  tail.cuh keeps
+// the fused steps for K13.
+#include "gemm_epilogues.cuh"
 
 using namespace port;
 
 namespace {
 
+constexpr int kLnRows = kWarps;  // rows a block of the LN launch: one a warp
+
+// K2's epilogues, named apart from K5's on the r5 path (gemm_epilogues.cuh)
+struct TailAdapterUp : AdapterUp {};
+struct TailAdapterDown : AdapterDown {};
+struct TailFc1 : Fc1Out {};
+
 __global__ void __launch_bounds__(kThreads)
-block_tail_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
-                  const bf16* __restrict__ b, const bf16* __restrict__ w1,
-                  const bf16* __restrict__ b1, const bf16* __restrict__ w2,
-                  const bf16* __restrict__ b2, const bf16* __restrict__ aw1,
-                  const bf16* __restrict__ ab1, const bf16* __restrict__ aw2,
-                  const bf16* __restrict__ ab2, bf16* __restrict__ out, int T,
-                  int C, int H, int Ca, float eps, float adapter_scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const int bm = rows_per_block(C);
-  const int lda = C + 8, ldacc = C + 4;
-  unsigned char* p = smem;
-  bf16* A_s = reinterpret_cast<bf16*>(p);
-  p += align128((size_t)bm * lda * 2);
-  float* acc_s = reinterpret_cast<float*>(p);
-  p += align128((size_t)bm * ldacc * 4);
-  const TailScratch t = tail_scratch(p, bm);
-  const int row0 = blockIdx.x * bm;
-
-  // adapter branch on x itself: acc = adapter_scale * (relu(x Wa1 + ab1) Wa2 + ab2) + b2
-  for (int idx = threadIdx.x; idx < bm * C; idx += kThreads) {
-    const int r = idx / C, c = idx % C, row = row0 + r;
-    A_s[r * lda + c] = row < T ? x[(size_t)row * C + c] : __float2bfloat16(0.0f);
-  }
-  adapter_into(acc_s, ldacc, A_s, lda, t, bm, C, Ca, aw1, ab1, aw2, ab2, b2,
-               adapter_scale);
-
-  // LN2 -> A_s, then the FFN 64 hidden columns at a time, accumulated
-  layer_norm_rows(A_s, lda, x, row0, bm, T, C, g, b, eps,
+tail_ln2_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
+                const bf16* __restrict__ b, bf16* __restrict__ xn, int T, int C, float eps) {
+  const int row0 = blockIdx.x * kLnRows;
+  layer_norm_rows(xn + (size_t)row0 * C, C, x, row0, min(kLnRows, T - row0), T, C, g, b, eps,
                   [](int) { return false; });
-  ffn_accumulate(acc_s, ldacc, A_s, lda, t, bm, C, H, w1, b1, w2);
-
-  for (int idx = threadIdx.x; idx < bm * C; idx += kThreads) {
-    const int r = idx / C, c = idx % C, row = row0 + r;
-    if (row < T) {
-      const size_t o = (size_t)row * C + c;
-      out[o] = __float2bfloat16(__bfloat162float(x[o]) + acc_s[r * ldacc + c]);
-    }
-  }
 }
 
 }  // namespace
 
+// x, out (T, C) bf16; the parameters bf16 in torch Linear layout (w1 (H,
+// C), w2 (C, H), aw1 (Ca, C), aw2 (C, Ca)); the intermediates: ah (T, Ca)
+// bf16, init (T, C) f32, xn (T, C) bf16, hid (T, H) bf16.  C, H and Ca even.
 extern "C" int block_tail(const void* x, const void* ln_g, const void* ln_b,
                           const void* w1, const void* b1, const void* w2,
                           const void* b2, const void* aw1, const void* ab1,
-                          const void* aw2, const void* ab2, void* out, int T,
-                          int C, int H, int Ca, float eps, float adapter_scale,
-                          void* stream) {
-  const int bm = rows_per_block(C);
-  const size_t smem = align128((size_t)bm * (C + 8) * 2) +
-                      align128((size_t)bm * (C + 4) * 4) + tail_scratch_bytes(bm);
-  cudaFuncSetAttribute(block_tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  block_tail_kernel<<<(T + bm - 1) / bm, kThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-      (const bf16*)x, (const bf16*)ln_g, (const bf16*)ln_b, (const bf16*)w1,
-      (const bf16*)b1, (const bf16*)w2, (const bf16*)b2, (const bf16*)aw1,
-      (const bf16*)ab1, (const bf16*)aw2, (const bf16*)ab2, (bf16*)out, T, C,
-      H, Ca, eps, adapter_scale);
-  return (int)cudaGetLastError();
+                          const void* aw2, const void* ab2, void* ah, void* init,
+                          void* xn, void* hid, void* out, int T, int C, int H, int Ca,
+                          float eps, float adapter_scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int e = gemm(gemm_args(x, C, 0, aw1, C, 0, T, Ca, C), 1,
+               TailAdapterUp{{(const bf16*)ab1, (bf16*)ah, Ca, T}}, st);
+  if (e) return e;
+  e = gemm(gemm_args(ah, Ca, 0, aw2, Ca, 0, T, C, Ca), 1,
+           TailAdapterDown{{(const bf16*)ab2, (const bf16*)b2, (float*)init, C, T,
+                            adapter_scale}},
+           st);
+  if (e) return e;
+  tail_ln2_kernel<<<(T + kLnRows - 1) / kLnRows, kThreads, 0, st>>>(
+      (const bf16*)x, (const bf16*)ln_g, (const bf16*)ln_b, (bf16*)xn, T, C, eps);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  e = gemm(gemm_args(xn, C, 0, w1, C, 0, T, H, C), 1,
+           TailFc1{{(const bf16*)b1, (bf16*)hid, H}}, st);
+  if (e) return e;
+  return gemm(gemm_args(hid, H, 0, w2, H, 0, T, C, H, (const float*)init, C), 1,
+              TailOut{(const bf16*)x, (bf16*)out, C}, st);
 }

@@ -3,7 +3,9 @@
 // A (M x K) bf16 row-major in device memory, W (N x K) bf16 in torch Linear
 // layout (out, in), C_init (M x N) f32 or none; batched over gridDim.z
 // (batch z offsets A, W and C_init by their batch strides and is handed to
-// the epilogue).  K5 (swin_block_v6.cu) runs its six products on it.
+// the epilogue).  K1 (swin_block.cu), K2 (block_tail.cu) and K5
+// (swin_block_v6.cu) run their products on it, with the epilogues of
+// gemm_epilogues.cuh.
 //
 // Order of the sums: each output is one f32 accumulator in registers,
 // starting from C_init (or +0) and taking the 16-deep mma.sync m16n8k16

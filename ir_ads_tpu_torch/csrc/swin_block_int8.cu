@@ -16,19 +16,23 @@
 // 4 * 144 * C bf16 ones (scores, P.V) against 4C bytes moved (x in, y out).
 // At the card's rates the bf16 attention takes 1.1x the int8 products' time
 // at C = 128 and 0.14x at C = 1024; the bytes bound by a hair at C = 128,
-// the operations at the wider stages (chip_smoke.py's count).  Design: K1's
-// three launches with the two row kernels in s8:
+// the operations at the wider stages (chip_smoke.py's count).  Design: three
+// launches, the two row kernels in s8 and K1's attention between them:
 //   ln_quant_qkv      rows of the map: LN1 in f32 -> bf16 tile -> per-row s8
 //                     -> mma.sync s8 product with Wqkv (igemm.cuh) -> qkv
 //                     (bf16) to device memory;
-//   window_attn       one block per (window, head): K1's attention kernel
-//                     (window_block.cuh);
+//   attention         K1's: on the tensor-core shapes (the wrapper's
+//                     tensor_core_design) int8_attn_mma_kernel,
+//                     window_mma.cuh's head kernel on the map in place
+//                     (MapRows); elsewhere window_attn_kernel, the first
+//                     design (window_block.cuh);
 //   quant_proj_add    rows: attention output -> per-row s8 -> s8 product
 //                     with Wproj -> dequantize, + bias + residual x -> y.
 // As in K1, qkv and the attention output make one round trip through device
 // memory; fusing them away is later work.
 #include "igemm.cuh"
 #include "window_block.cuh"
+#include "window_mma.cuh"
 
 using namespace port;
 
@@ -130,6 +134,16 @@ quant_proj_add_kernel(const bf16* __restrict__ att, const bf16* __restrict__ x,
   }
 }
 
+// The attention on the tensor cores: K1's (swin_block.cu), window_mma.cuh's
+// head kernel on the map in place.
+template <int NT, int D>
+__global__ void __launch_bounds__(WindowMma<NT, D>::Threads, 1)
+int8_attn_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
+                     const int* __restrict__ region, bf16* __restrict__ att, int B, int Hp,
+                     int Wp, int C, int ws, float scale) {
+  map_head<NT, D>(qkv, bias, region, att, B, Hp, Wp, C, ws, scale);
+}
+
 }  // namespace
 
 extern "C" int swin_window_block_int8(
@@ -137,7 +151,7 @@ extern "C" int swin_window_block_int8(
     const void* sqkv, const void* bqkv, const void* wproj, const void* sproj,
     const void* bproj, const void* bias, const void* region, void* qkv, void* att,
     void* y, int B, int Hp, int Wp, int C, int heads, int ws, int h_real,
-    int w_real, int shift, float scale, float eps, void* stream) {
+    int w_real, int shift, int tensor_cores, float scale, float eps, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int T = B * Hp * Wp;
   const int bm = rows_per_block(C);
@@ -155,16 +169,26 @@ extern "C" int swin_window_block_int8(
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const size_t as = window_attention_smem(ws * ws, C / heads);
-  err = cudaFuncSetAttribute(window_attn_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)as);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(B * (Hp / ws) * (Wp / ws), heads);
-  window_attn_kernel<<<grid, kThreads, as, st>>>(
-      (const bf16*)qkv, (const float*)bias, (const int*)region, (bf16*)att, Hp,
-      Wp, C, heads, ws, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const int BN = B * (Hp / ws) * (Wp / ws);
+  if (tensor_cores) {
+    const int e = launch_mma(ws * ws, C / heads, [&](auto nt, auto dd) {
+      constexpr int NT = decltype(nt)::value, D = decltype(dd)::value;
+      return launch_heads<NT, D>(int8_attn_mma_kernel<NT, D>, BN, heads, st,
+                                 (const bf16*)qkv, (const float*)bias, (const int*)region,
+                                 (bf16*)att, B, Hp, Wp, C, ws, scale);
+    });
+    if (e) return e;
+  } else {
+    const size_t as = window_attention_smem(ws * ws, C / heads);
+    err = cudaFuncSetAttribute(window_attn_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)as);
+    if (err != cudaSuccess) return (int)err;
+    window_attn_kernel<<<dim3(BN, heads), kThreads, as, st>>>(
+        (const bf16*)qkv, (const float*)bias, (const int*)region, (bf16*)att, Hp,
+        Wp, C, heads, ws, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
 
   quant_proj_add_kernel<<<(T + bm - 1) / bm, kThreads, rs, st>>>(
       (const bf16*)att, (const bf16*)x, (const int8_t*)wproj, (const float*)sproj,

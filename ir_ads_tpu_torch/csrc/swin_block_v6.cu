@@ -28,11 +28,17 @@
 // fused tail would stream all of W1 and W2 again for every row tile):
 //   v6_ln1_kernel  LN1 of the real rows to bf16 (layer_norm_rows)
 //   QkvOut         GEMM with Wqkv: qkv = bf16(acc + bqkv)
-//   v6_attn_kernel one block per (window of the rolled padded map, head);
-//                  token i of a window reads the qkv row of the real
-//                  position it rolls from, or the bias row where that
-//                  position is padding, and writes its output only where it
-//                  is real: pad, roll and crop are index arithmetic
+//   attention      the windows of the rolled padded map: token i of a
+//                  window reads the qkv row of the real position it rolls
+//                  from, or the bias row where that position is padding,
+//                  and writes its output only where it is real: pad, roll
+//                  and crop are index arithmetic.  On the tensor-core
+//                  shapes (the wrapper's tensor_core_design: d 16 or 32, N
+//                  <= 144, every Swin-B stage) v6_attn_mma_kernel,
+//                  window_mma.cuh's persistent head kernel on its
+//                  RealMapTokens policy; elsewhere v6_attn_kernel, the
+//                  first design (window_block.cuh's
+//                  real_map_window_attention, one block a (window, head))
 //   ProjOut        GEMM with Wproj: y = x + (acc + bproj) in f32, and
 //                  bf16(y), the adapter's input
 //   AdapterUp      GEMM with Wa1 (N = Ca): bf16(relu(acc + ab1))
@@ -50,13 +56,13 @@
 // attention output, y in f32 and bf16, the adapter's hidden and output,
 // the FFN hidden: about 50 MB at stage 2 of 4 images) make one round trip
 // through device memory; the wrapper allocates them.  Registers (ptxas):
-// the LN launches 32, no shared memory; the attention 74, with 160 KB of
-// shared memory at N = 144, d = 32 (one block an SM); the GEMMs
-// gemm_mma.cuh's.
-#include <cstdint>
-
-#include "gemm_mma.cuh"
+// the LN launches 32, no shared memory; the attention window_mma.cuh's
+// (158 KB of shared memory at N = 144, d = 32); the GEMMs gemm_mma.cuh's.
+// The epilogues but ProjOut are gemm_epilogues.cuh's, shared with K1 and
+// K2.
+#include "gemm_epilogues.cuh"
 #include "window_block.cuh"
+#include "window_mma.cuh"
 
 using namespace port;
 
@@ -89,22 +95,39 @@ v6_attn_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ bqkv,
                             ws, shift, scale);
 }
 
-__device__ __forceinline__ void store_bf16x2(bf16* p, float v0, float v1) {
-  *reinterpret_cast<__nv_bfloat162*>(p) = __nv_bfloat162(__float2bfloat16(v0),
-                                                         __float2bfloat16(v1));
+template <int NT, int D>
+__global__ void __launch_bounds__(WindowMma<NT, D>::Threads, 1)
+v6_attn_mma_kernel(const bf16* __restrict__ qkv, const bf16* __restrict__ bqkv,
+                   const float* __restrict__ bias, const int* __restrict__ region,
+                   bf16* __restrict__ att, int B, int H, int W, int C, int ws, int shift,
+                   float scale) {
+  real_map_head<NT, D>(qkv, bqkv, bias, region, att, B, H, W, C, ws, shift, scale);
 }
 
-// The epilogues, each the fused kernel's expression (header).
-struct QkvOut {  // ln_qkv_rows (window_block.cuh)
-  const bf16* bias;
-  bf16* qkv;
-  int ld;
-  __device__ void operator()(int, int r, int c, float v0, float v1) const {
-    store_bf16x2(qkv + (size_t)r * ld + c, v0 + __bfloat162float(bias[c]),
-                 v1 + __bfloat162float(bias[c + 1]));
-  }
-};
+// The attention launch: qkv (B H W, 3C) and att (B H W, C) of the real map.
+int attn_launch(const void* qkv, const void* bqkv, const void* bias, const void* region,
+                void* att, int B, int H, int W, int C, int heads, int ws, int shift,
+                int tensor_cores, float scale, cudaStream_t st) {
+  const int nW = ((H + ws - 1) / ws) * ((W + ws - 1) / ws);
+  if (tensor_cores)
+    return launch_mma(ws * ws, C / heads, [&](auto nt, auto dd) {
+      constexpr int NT = decltype(nt)::value, D = decltype(dd)::value;
+      return launch_heads<NT, D>(v6_attn_mma_kernel<NT, D>, B * nW, heads, st,
+                                 (const bf16*)qkv, (const bf16*)bqkv, (const float*)bias,
+                                 (const int*)region, (bf16*)att, B, H, W, C, ws, shift, scale);
+    });
+  const size_t as = window_attention_smem(ws * ws, C / heads);
+  const cudaError_t err =
+      cudaFuncSetAttribute(v6_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)as);
+  if (err != cudaSuccess) return (int)err;
+  v6_attn_kernel<<<dim3(B * nW, heads), kThreads, as, st>>>(
+      (const bf16*)qkv, (const bf16*)bqkv, (const float*)bias, (const int*)region, (bf16*)att,
+      H, W, C, heads, ws, shift, scale);
+  return (int)cudaGetLastError();
+}
 
+// K5's own epilogue: y = x + (acc + bproj) in f32, and bf16(y), the
+// adapter's input (the other epilogues are gemm_epilogues.cuh's).
 struct ProjOut {
   const bf16* x;
   const bf16* bias;
@@ -119,66 +142,6 @@ struct ProjOut {
     store_bf16x2(yb + i, y0, y1);
   }
 };
-
-struct AdapterUp {  // adapter_into's hidden (tail.cuh); stream z's rows and bias
-  const bf16* ab1;
-  bf16* hidden;
-  int Ca, Ts;
-  __device__ void operator()(int z, int r, int c, float v0, float v1) const {
-    const bf16* b = ab1 + (size_t)z * Ca;
-    store_bf16x2(hidden + ((size_t)z * Ts + r) * Ca + c,
-                 fmaxf(v0 + __bfloat162float(b[c]), 0.0f),
-                 fmaxf(v1 + __bfloat162float(b[c + 1]), 0.0f));
-  }
-};
-
-struct AdapterDown {  // adapter_into's output, b2 folded in
-  const bf16* ab2;
-  const bf16* b2;
-  float* out;
-  int C, Ts;
-  float adapter_scale;
-  __device__ void operator()(int z, int r, int c, float v0, float v1) const {
-    const bf16* b = ab2 + (size_t)z * C;
-    const float o0 = adapter_scale * (v0 + __bfloat162float(b[c])) + __bfloat162float(b2[c]);
-    const float o1 =
-        adapter_scale * (v1 + __bfloat162float(b[c + 1])) + __bfloat162float(b2[c + 1]);
-    *reinterpret_cast<float2*>(out + ((size_t)z * Ts + r) * C + c) = make_float2(o0, o1);
-  }
-};
-
-struct Fc1Out {  // ffn_accumulate's hidden
-  const bf16* b1;
-  bf16* hidden;
-  int H;
-  __device__ void operator()(int, int r, int c, float v0, float v1) const {
-    store_bf16x2(hidden + (size_t)r * H + c, gelu_tanh(v0 + __bfloat162float(b1[c])),
-                 gelu_tanh(v1 + __bfloat162float(b1[c + 1])));
-  }
-};
-
-struct Fc2Out {  // the fused kernel's last store
-  const float* y;
-  bf16* out;
-  int C;
-  __device__ void operator()(int, int r, int c, float v0, float v1) const {
-    const size_t i = (size_t)r * C + c;
-    const float2 yy = *reinterpret_cast<const float2*>(y + i);
-    store_bf16x2(out + i, yy.x + v0, yy.y + v1);
-  }
-};
-
-// Whether p and the strides allow 16-byte pieces.
-bool vec16(const void* p, long long ld, long long z) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && ld % 8 == 0 && z % 8 == 0;
-}
-
-GemmArgs gemm_args(const void* A, int lda, long long a_z, const void* W, int ldw,
-                   long long w_z, int M, int N, int K, const float* init = nullptr,
-                   int ldc = 0, long long c_z = 0) {
-  return GemmArgs{(const bf16*)A, (const bf16*)W, init, a_z, w_z, c_z, lda, ldw, ldc,
-                  M, N, K, vec16(A, lda, a_z), vec16(W, ldw, w_z)};
-}
 
 }  // namespace
 
@@ -196,8 +159,8 @@ extern "C" int swin_block_v6(
     const void* ab1, const void* aw2, const void* ab2, void* xn, void* qkv,
     void* att, void* y, void* yb, void* ah, void* tail_init, void* hid,
     void* out, int B, int H, int W, int C, int heads, int ws, int shift,
-    int hidden, int Ca, int S, float scale, float eps, float adapter_scale,
-    void* stream) {
+    int hidden, int Ca, int S, int tensor_cores, float scale, float eps,
+    float adapter_scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int T = B * H * W, Ts = T / S, ln_grid = (T + kLnRows - 1) / kLnRows;
   v6_ln1_kernel<<<ln_grid, kThreads, 0, st>>>((const bf16*)x, (const bf16*)ln_g,
@@ -208,14 +171,9 @@ extern "C" int swin_block_v6(
                QkvOut{(const bf16*)bqkv, (bf16*)qkv, 3 * C}, st);
   if (e) return e;
 
-  const size_t as = window_attention_smem(ws * ws, C / heads);
-  cudaFuncSetAttribute(v6_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)as);
-  const int nW = ((H + ws - 1) / ws) * ((W + ws - 1) / ws);
-  v6_attn_kernel<<<dim3(B * nW, heads), kThreads, as, st>>>(
-      (const bf16*)qkv, (const bf16*)bqkv, (const float*)bias,
-      (const int*)region, (bf16*)att, H, W, C, heads, ws, shift, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  e = attn_launch(qkv, bqkv, bias, region, att, B, H, W, C, heads, ws, shift, tensor_cores,
+                  scale, st);
+  if (e) return e;
 
   e = gemm(gemm_args(att, C, 0, wproj, C, 0, T, C, C), 1,
            ProjOut{(const bf16*)x, (const bf16*)bproj, (float*)y, (bf16*)yb, C}, st);

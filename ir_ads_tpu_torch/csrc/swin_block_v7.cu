@@ -20,21 +20,28 @@
 // P.V, adapter) against 4C bytes of x and out; at C = 128 that is over 800
 // flop per byte, past the card's 295 (chip_smoke.py's count).
 //
-// Design: three launches of one source over K1's and K2's device code
-// (window_block.cuh, tail.cuh):
+// Design: three launches of one source over the fused row steps of K1's
+// and K2's earlier form (window_block.cuh, tail.cuh) and K1's attention:
 //   v7_ln_qkv     rows of the map: LN1 (zeroed at padding) -> WMMA product
-//                 with Wqkv -> qkv rows (bf16) in device memory (K1's);
-//   v7_attn       one block per (window, head), the map read and written in
-//                 place (K1's);
+//                 with Wqkv -> qkv rows (bf16) in device memory;
+//   v7_attn       K1's attention, the map read and written in place: on the
+//                 tensor-core shapes (the wrapper's tensor_core_design)
+//                 v7_attn_mma_kernel, window_mma.cuh's head kernel on
+//                 MapRows; elsewhere v7_attn_kernel, the first design (one
+//                 block a (window, head));
 //   v7_proj_tail  rows of one stream: attention tile -> WMMA product with
 //                 Wproj -> y = round(x + proj + b) into a bf16 tile in
 //                 shared memory, then K2's steps on that tile (adapter on y,
 //                 LN2 of y, the FFN walked 64 hidden columns at a time)
 //                 -> out.
 // Against K1 + K2, y never makes its round trip through device memory; the
-// qkv and attention maps still do (the TPU kernel keeps them in VMEM).
+// qkv and attention maps still do (the TPU kernel keeps them in VMEM).  The
+// row kernels stay on tile_gemm, whose order of the sums K1's and K2's GEMMs
+// (gemm_mma.cuh) keep: K13 is K1 -> un-roll, crop -> K2 bit for bit, which
+// chip_smoke.py holds.
 #include "tail.cuh"
 #include "window_block.cuh"
+#include "window_mma.cuh"
 
 using namespace port;
 
@@ -58,6 +65,14 @@ v7_attn_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
   extern __shared__ __align__(128) unsigned char smem[];
   map_window_attention(smem, qkv, bias, region, att, Hp, Wp, C, heads, ws,
                        scale);
+}
+
+template <int NT, int D>
+__global__ void __launch_bounds__(WindowMma<NT, D>::Threads, 1)
+v7_attn_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
+                   const int* __restrict__ region, bf16* __restrict__ att, int B, int Hp,
+                   int Wp, int C, int ws, float scale) {
+  map_head<NT, D>(qkv, bias, region, att, B, Hp, Wp, C, ws, scale);
 }
 
 size_t proj_tail_smem(int C) {
@@ -147,8 +162,8 @@ extern "C" int swin_block_v7(
     const void* b1, const void* w2, const void* b2, const void* aw1,
     const void* ab1, const void* aw2, const void* ab2, void* qkv, void* att,
     void* out, int B, int Hp, int Wp, int C, int heads, int ws, int h_real,
-    int w_real, int shift, int hidden, int Ca, int S, float scale, float eps,
-    float adapter_scale, void* stream) {
+    int w_real, int shift, int hidden, int Ca, int S, int tensor_cores, float scale,
+    float eps, float adapter_scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int T = B * Hp * Wp;
   const int bm = rows_per_block(C);
@@ -160,13 +175,24 @@ extern "C" int swin_block_v7(
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
 
-  const size_t as = window_attention_smem(ws * ws, C / heads);
-  cudaFuncSetAttribute(v7_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)as);
-  v7_attn_kernel<<<dim3(B * (Hp / ws) * (Wp / ws), heads), kThreads, as, st>>>(
-      (const bf16*)qkv, (const float*)bias, (const int*)region, (bf16*)att, Hp,
-      Wp, C, heads, ws, scale);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  const int BN = B * (Hp / ws) * (Wp / ws);
+  if (tensor_cores) {
+    const int e = launch_mma(ws * ws, C / heads, [&](auto nt, auto dd) {
+      constexpr int NT = decltype(nt)::value, D = decltype(dd)::value;
+      return launch_heads<NT, D>(v7_attn_mma_kernel<NT, D>, BN, heads, st,
+                                 (const bf16*)qkv, (const float*)bias, (const int*)region,
+                                 (bf16*)att, B, Hp, Wp, C, ws, scale);
+    });
+    if (e) return e;
+  } else {
+    const size_t as = window_attention_smem(ws * ws, C / heads);
+    cudaFuncSetAttribute(v7_attn_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)as);
+    v7_attn_kernel<<<dim3(BN, heads), kThreads, as, st>>>(
+        (const bf16*)qkv, (const float*)bias, (const int*)region, (bf16*)att, Hp,
+        Wp, C, heads, ws, scale);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
 
   const size_t ts = proj_tail_smem(C);
   cudaFuncSetAttribute(v7_proj_tail_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ts);

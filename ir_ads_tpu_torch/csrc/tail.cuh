@@ -1,5 +1,6 @@
-// Device code shared by the two kernels that compute the Swin block tail
-// on a row tile, K2 (block_tail.cu) and K13 (swin_block_v7.cu):
+// Device code of the Swin block tail on a row tile, K13's
+// (swin_block_v7.cu), and K2's (block_tail.cu) before its products moved
+// to gemm_mma.cuh in the same order (gemm_epilogues.cuh):
 //   out = y + FFN(LN2 y) + adapter_scale * Adapter(y)
 // on a tile of bm rows held in shared memory.  Both steps accumulate into a
 // (bm, C) f32 tile acc_s; the FFN's 4C-wide hidden never leaves shared

@@ -12,11 +12,12 @@
 // pair differ; the (nW, N) region ids are tiled over the images (window w
 // of the batch uses row w % nW).  q * scale is rounded to bf16, the softmax
 // is f32, the probabilities are rounded to bf16 and P.V is summed in f32
-// and rounded once: window_block.cuh's window_attention, which K1, K5 and
-// K10 run on their own layouts.  K15 reads and writes the map in place:
-// token i of window (b, wy, wx) is map row (b*Hp + wy*ws + i/ws)*Wp +
-// wx*ws + i%ws (map_window_attention, K1's attention launch), so the TPU
-// kernel's VMEM partition and reverse are index arithmetic here.  K15's
+// and rounded once: the rounding points of window_block.cuh's
+// window_attention.  K15 reads and writes the map in place: token i of
+// window (b, wy, wx) is map row (b*Hp + wy*ws + i/ws)*Wp + wx*ws + i%ws
+// (window_mma.cuh's MapRows, on which the attention launches of K1, K10 and
+// K13 run too), so the TPU kernel's VMEM partition and reverse are index
+// arithmetic here.  K15's
 // output is K12's on the partitioned map, reversed, bit for bit.
 //
 // Bound on an H100: bytes.  Per window it reads 3C x N and writes C x N
@@ -37,8 +38,8 @@
 // cp.async pieces of its 3C-wide row, double-buffered; scores, softmax
 // and P.V stay in registers, mma.sync m16n8k16 with bf16(q * scale) as
 // one operand.  K12 and K15 instantiate the same device code on two
-// Tokens policies (windowed rows; the map's rows by the index arithmetic
-// above), so K15 stays K12 on the partitioned map, reversed, bit for bit.
+// Tokens policies (window_mma.cuh's WindowRows and MapRows), so K15 stays
+// K12 on the partitioned map, reversed, bit for bit.
 // The softmax sum runs in another order than window_block.cuh's (the C
 // fragments' order, then across the quad, against a lane-strided sum and
 // a warp butterfly), so an output can sit one bf16 ulp from the first
@@ -84,37 +85,6 @@ window_attention_map_kernel(const bf16* __restrict__ qkv,
                        scale);
 }
 
-// Token rows of qkv (3C wide) and of the output (C wide), head h's slices;
-// rows(win, i) is the row of token i of window win.
-template <int D, typename Rows>
-struct QkvTokens {
-  const bf16* qkv;
-  bf16* o;
-  int C, h;
-  Rows rows;
-  __device__ const bf16* in(int which, int win, int i) const {
-    return qkv + rows(win, i) * (3 * C) + which * C + h * D;
-  }
-  __device__ bf16* out(int win, int i) const { return o + rows(win, i) * C + h * D; }
-};
-
-// Windowed rows (BN, N, 3C) -> (BN, N, C).
-struct WindowRows {
-  int N;
-  __device__ size_t operator()(int win, int i) const { return (size_t)win * N + i; }
-};
-
-// The map (B, Hp, Wp, 3C) -> (B, Hp, Wp, C): window win = b * nW + wy * nww
-// + wx, token i at map row (b * Hp + wy * ws + i / ws) * Wp + wx * ws + i % ws.
-struct MapRows {
-  int Hp, Wp, ws, nww, nW;
-  __device__ size_t operator()(int win, int i) const {
-    const int img = win / nW, w = win % nW;
-    const int r = (w / nww) * ws + i / ws, c = (w % nww) * ws + i % ws;
-    return ((size_t)img * Hp + r) * Wp + c;
-  }
-};
-
 template <int NT, int D>
 __global__ void __launch_bounds__(WindowMma<NT, D>::Threads, 1)
 window_qkv_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
@@ -129,21 +99,7 @@ __global__ void __launch_bounds__(WindowMma<NT, D>::Threads, 1)
 window_map_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
                       const int* __restrict__ region, bf16* __restrict__ out, int B, int Hp,
                       int Wp, int C, int ws, float scale) {
-  const int nww = Wp / ws, nW = (Hp / ws) * nww;
-  const QkvTokens<D, MapRows> tok{qkv, out, C, (int)blockIdx.y,
-                                  MapRows{Hp, Wp, ws, nww, nW}};
-  window_mma_head<NT, D, false>(tok, bias, region, B * nW, ws * ws, nW, scale);
-}
-
-// Launches kernel<NT, D> for the (N, d) of the call: d 16 or 32, N <= 144.
-template <typename Launch>
-int launch_mma(int N, int d, Launch launch) {
-  auto with_d = [&](auto dd) {
-    return WindowTiles::with((N + 7) / 8, [&](auto nt) { return launch(nt, dd); });
-  };
-  if (d == 32) return with_d(std::integral_constant<int, 32>{});
-  if (d == 16) return with_d(std::integral_constant<int, 16>{});
-  return (int)cudaErrorInvalidValue;
+  map_head<NT, D>(qkv, bias, region, out, B, Hp, Wp, C, ws, scale);
 }
 
 }  // namespace

@@ -1,21 +1,29 @@
-// Device code shared by the Swin block kernels: K1 (swin_block.cu, the
-// half-block on the padded, rolled map), K5 (swin_block_v6.cu, the whole
-// block on the real map), K10 (its int8 variant), K12 and K15
-// (window_attention_qkv.cu, attention on windowed and on map-layout qkv),
-// K13 (swin_block_v7.cu, K1's half-block and K2's tail in one pass) and K14
-// (swin_block_full.cu, K1's half-block on the real map):
+// Device code shared by the Swin block kernels (window attention with the
+// rel-pos bias and the shift-region mask, LN1 + qkv rows, proj rows):
 //   ln_qkv_rows       rows of a map: LN1 in f32 -> bf16 tile in shared
-//                     memory -> WMMA product with Wqkv -> qkv (bf16) rows;
+//                     memory -> WMMA product with Wqkv (tile_gemm) -> qkv
+//                     (bf16) rows: K13 (swin_block_v7.cu) and K14
+//                     (swin_block_full.cu);
+//   proj_add_rows     rows: attention output tile -> WMMA product with
+//                     Wproj -> + bias + residual x -> y: K14.
+//   K1 (swin_block.cu) ran both until its products moved to gemm_mma.cuh,
+//   whose epilogues (gemm_epilogues.cuh) are these expressions: K13's and
+//   K14's bit-equal compositions with K1 hold the two forms to one order.
 //   window_attention  one (window, head): scores, rel-pos bias, region mask,
 //                     softmax and P.V in shared memory, all WMMA.  Where the
 //                     window's tokens come from and where its output goes is
 //                     the caller's:
 //     map_window_attention       reads and writes a padded, rolled map in
-//                                place (K1, K10, K13, K15);
+//                                place (window_attn_kernel: K1, K10; K13,
+//                                K15);
 //     real_map_window_attention  folds pad, roll and crop into the indices
-//                                of the real map (K5, K14);
-//   proj_add_rows     rows: attention output tile -> WMMA product with
-//                     Wproj -> + bias + residual x -> y (K1, K14).
+//                                of the real map (K5, K14).
+//   This is the FIRST DESIGN of every attention launch, taken by shape
+//   alone: on the tensor-core shapes (window_attention_qkv.py's
+//   tensor_core_design, d 16 or 32 and N <= 144: every Swin-B stage) K1,
+//   K5, K10 and K12-K15 run window_mma.cuh's persistent head kernel, and
+//   no Swin-B shape reaches window_attention (K12 runs it on windowed rows
+//   as its own first design).
 #pragma once
 
 #include "common.cuh"
@@ -237,8 +245,9 @@ __device__ void real_map_window_attention(unsigned char* smem,
 }
 
 // One block per (window of one image, head) of the padded, rolled map: the
-// attention launch of K1 and of its int8 variant K10.  Defined in every
-// source that includes this header; only those two launch it.
+// first design of the attention launch of K1 and of its int8 variant K10,
+// outside the tensor-core shapes.  Defined in every source that includes
+// this header; only those two launch it.
 __global__ void __launch_bounds__(kThreads)
 window_attn_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
                    const int* __restrict__ region, bf16* __restrict__ att,

@@ -1,16 +1,20 @@
 // Window attention on the tensor cores, one persistent block a head: K20
-// (window_attention_v1.cu, q, k, v apart) and K12 and K15
-// (window_attention_qkv.cu, unsplit qkv rows of windows and of the map).
-// The three differ in two things only:
+// (window_attention_v1.cu, q, k, v apart), K12 and K15
+// (window_attention_qkv.cu, unsplit qkv rows of windows and of the map),
+// and the attention launches of the Swin block kernels: K1, K10 and K13 on
+// the padded, rolled map (MapRows, K15's policy), K5 and K14 on the real
+// map (RealMapTokens).  They differ in two things only:
 //   * where a window's tokens are: a Tokens policy gives the q, k and v
-//     rows of token i of window `win` for the block's head, and its output
-//     row (d contiguous bf16 each, 16-byte aligned);
+//     rows of token i of window `win` for the block's head, its output row
+//     (d contiguous bf16 each, 16-byte aligned), and whether that output is
+//     stored (keep: false only for RealMapTokens' padding);
 //   * the form (Exact):
 //       true   K20, the Pallas v1 kernel: qs = f32(q) * scale unrounded,
 //              carried as three bf16 parts, p = e / sum as __fdiv_rn;
-//       false  K12, K15, the Pallas v2 / v3 kernels and window_block.cuh's
-//              window_attention: qs = bf16(q * scale), one bf16 operand,
-//              p = e * (1 / sum), the reciprocal rounded once.
+//       false  the others, the Pallas v2 / v3 / v4-v7 kernels and
+//              window_block.cuh's window_attention: qs = bf16(q * scale),
+//              one bf16 operand, p = e * (1 / sum), the reciprocal rounded
+//              once.
 // Scores are f32 in the mma.sync order, the f32 bias is added, -1e9 where
 // the region ids of a pair differ; the softmax is f32 (exp(s - max), the sum
 // in the C fragments' order, then across the quad), p is rounded to bf16 and
@@ -235,7 +239,7 @@ __device__ __forceinline__ void attend_rows(bf16* Qs, const bf16* Ks, const bf16
 #pragma unroll
   for (int idx = lane; idx < 16 * CH; idx += 32) {
     const int row = row0 + idx / CH, ch = idx % CH;
-    if (row < N)
+    if (row < N && tok.keep(win, row))
       *reinterpret_cast<uint4*>(tok.out(win, row) + ch * 8) =
           *reinterpret_cast<const uint4*>(Qs + row * LDQ + ch * 8);
   }
@@ -308,5 +312,127 @@ inline dim3 head_grid(Kernel kernel, size_t smem, int threads, int BN, int heads
 
 // The n-tile counts instantiated: N <= 16, 32, 64, 96 and 144 (12 x 12).
 using WindowTiles = WarpTiles<2, 4, 8, 12, 18>;
+
+// Calls launch(nt, dd) with the n-tile count and head dimension of a call
+// (std::integral_constant each): d 16 or 32, N <= 144; else
+// cudaErrorInvalidValue.
+template <typename Launch>
+int launch_mma(int N, int d, Launch launch) {
+  auto with_d = [&](auto dd) {
+    return WindowTiles::with((N + 7) / 8, [&](auto nt) { return launch(nt, dd); });
+  };
+  if (d == 32) return with_d(std::integral_constant<int, 32>{});
+  if (d == 16) return with_d(std::integral_constant<int, 16>{});
+  return (int)cudaErrorInvalidValue;
+}
+
+// Launches a kernel<NT, D> that runs window_mma_head over BN windows and
+// `heads` heads, its grid from head_grid.
+template <int NT, int D, typename Kernel, typename... Args>
+inline int launch_heads(Kernel kernel, int BN, int heads, cudaStream_t st, Args... args) {
+  using L = WindowMma<NT, D>;
+  kernel<<<head_grid(kernel, L::Bytes, L::Threads, BN, heads), L::Threads, L::Bytes, st>>>(
+      args...);
+  return (int)cudaGetLastError();
+}
+
+// ---- Token policies: in(which, win, i) gives the q (0), k (1) or v (2)
+// slice of token i of window win for the block's head, out(win, i) its
+// output slice, keep(win, i) whether that output is stored.
+
+// Token rows of qkv (3C wide) and of the output (C wide), head h's slices;
+// rows(win, i) is the row of token i of window win.  Every output is kept.
+template <int D, typename Rows>
+struct QkvTokens {
+  const bf16* qkv;
+  bf16* o;
+  int C, h;
+  Rows rows;
+  __device__ const bf16* in(int which, int win, int i) const {
+    return qkv + rows(win, i) * (3 * C) + which * C + h * D;
+  }
+  __device__ bf16* out(int win, int i) const { return o + rows(win, i) * C + h * D; }
+  __device__ bool keep(int, int) const { return true; }
+};
+
+// Windowed rows (BN, N, 3C) -> (BN, N, C): K12.
+struct WindowRows {
+  int N;
+  __device__ size_t operator()(int win, int i) const { return (size_t)win * N + i; }
+};
+
+// The padded, rolled map (B, Hp, Wp, 3C) -> (B, Hp, Wp, C), in place: window
+// win = b * nW + wy * nww + wx, token i at map row (b * Hp + wy * ws + i /
+// ws) * Wp + wx * ws + i % ws.  K15, and the attention of K1, K10 and K13.
+struct MapRows {
+  int Hp, Wp, ws, nww, nW;
+  __device__ size_t operator()(int win, int i) const {
+    const int img = win / nW, w = win % nW;
+    const int r = (w / nww) * ws + i / ws, c = (w % nww) * ws + i % ws;
+    return ((size_t)img * Hp + r) * Wp + c;
+  }
+};
+
+// The REAL map (B, H, W, 3C) -> (B, H, W, C) in the windows of its padded
+// (Hp, Wp) map rolled by `shift`: token i of window win = b * nW + wy * nww
+// + wx holds position ((wy * ws + i / ws + shift) % Hp, (wx * ws + i % ws +
+// shift) % Wp) of the padded map.  Where that position is real, its q, k and
+// v are the qkv row there and its output is stored there; where it is
+// padding, they are the slices of the bias row bqkv (the qkv of a zero LN
+// output, bit for bit) and its output is dropped.  Pad, roll and crop are
+// index arithmetic: the attention of K5 and K14.  chip_smoke.py holds it
+// through K14, bit for bit against pad, roll, K1 (whose attention is this
+// head kernel on MapRows), un-roll and crop at the four Swin-B stages.
+template <int D>
+struct RealMapTokens {
+  const bf16* qkv;
+  const bf16* bqkv;
+  bf16* o;
+  int C, h, H, W, Hp, Wp, ws, nww, nW, shift;
+  // the real map's row of token i of window win, or -1 where it is padding
+  __device__ long long real(int win, int i) const {
+    const int img = win / nW, w = win % nW;
+    const int r = ((w / nww) * ws + i / ws + shift) % Hp;
+    const int c = ((w % nww) * ws + i % ws + shift) % Wp;
+    return (r < H && c < W) ? ((long long)img * H + r) * W + c : -1;
+  }
+  __device__ const bf16* in(int which, int win, int i) const {
+    const long long t = real(win, i);
+    return (t < 0 ? bqkv : qkv + t * (3 * C)) + which * C + h * D;
+  }
+  __device__ bf16* out(int win, int i) const { return o + real(win, i) * C + h * D; }
+  __device__ bool keep(int win, int i) const { return real(win, i) >= 0; }
+};
+
+// Head blockIdx.y of the padded, rolled (B, Hp, Wp) map's qkv rows, in
+// place (MapRows), in the rounded form.  bias (heads, N, N) f32, region
+// (nW, N) int32 or null.
+template <int NT, int D>
+__device__ __forceinline__ void map_head(const bf16* __restrict__ qkv,
+                                         const float* __restrict__ bias,
+                                         const int* __restrict__ region, bf16* __restrict__ out,
+                                         int B, int Hp, int Wp, int C, int ws, float scale) {
+  const int nww = Wp / ws, nW = (Hp / ws) * nww;
+  const QkvTokens<D, MapRows> tok{qkv, out, C, (int)blockIdx.y,
+                                  MapRows{Hp, Wp, ws, nww, nW}};
+  window_mma_head<NT, D, false>(tok, bias, region, B * nW, ws * ws, nW, scale);
+}
+
+// Head blockIdx.y of the real (B, H, W) map's qkv rows in the windows of
+// its padded map rolled by `shift` (RealMapTokens), in the rounded form.
+// region (nW, N) int32 of the padded map, or null.
+template <int NT, int D>
+__device__ __forceinline__ void real_map_head(const bf16* __restrict__ qkv,
+                                              const bf16* __restrict__ bqkv,
+                                              const float* __restrict__ bias,
+                                              const int* __restrict__ region,
+                                              bf16* __restrict__ out, int B, int H, int W, int C,
+                                              int ws, int shift, float scale) {
+  const int Hp = (H + ws - 1) / ws * ws, Wp = (W + ws - 1) / ws * ws;
+  const int nww = Wp / ws, nW = (Hp / ws) * nww;
+  const RealMapTokens<D> tok{qkv, bqkv, out, C, (int)blockIdx.y, H, W, Hp, Wp, ws, nww, nW,
+                             shift};
+  window_mma_head<NT, D, false>(tok, bias, region, B * nW, ws * ws, nW, scale);
+}
 
 }  // namespace port

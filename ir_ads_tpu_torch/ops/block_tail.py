@@ -3,9 +3,13 @@
 
 Replaces ir_ads_tpu/ops/pallas_mlp.py:_tail_kernel (launched by
 ``fused_block_tail_pallas``; twin ``block_tail_reference``).  The CUDA source
-is csrc/block_tail.cu; its header states the bound and the design.  Weights
-are in torch Linear layout (out, in) and, as on the TPU, every parameter is
-rounded to the compute dtype before use.
+is csrc/block_tail.cu; its header states the bound and the design: five
+launches (the adapter's two products, LN2, the FFN's two products), the
+products on csrc/gemm_mma.cuh with the fused form's expressions as
+epilogues, in its order.  The wrapper allocates the intermediates (the FFN
+hidden, N x 4C bf16, is the largest).  Weights are in torch Linear layout
+(out, in) and, as on the TPU, every parameter is rounded to the compute
+dtype before use.
 
 ``block_tail`` launches the kernel for CUDA tensors and runs
 ``block_tail_reference``, the plain version, only for CPU tensors.
@@ -21,7 +25,7 @@ from ir_ads_tpu_torch.ops.cuda_lib import (
 )
 
 KERNEL = CudaKernel(
-    "block_tail", "block_tail", [VOIDP] * 12 + [INT] * 4 + [FLOAT] * 2,
+    "block_tail", "block_tail", [VOIDP] * 16 + [INT] * 4 + [FLOAT] * 2,
     replaces="ir_ads_tpu/ops/pallas_mlp.py:35",
 )
 
@@ -71,11 +75,17 @@ def block_tail(
     check_cuda("block_tail", x, *params)
     n, c = x.shape
     hidden, ca = params[2].shape[0], params[6].shape[0]
-    if c % 64 or hidden % 64 or ca > 64:
+    # the GEMMs' epilogues write output pairs
+    if c % 2 or hidden % 2 or ca % 2:
         raise ValueError(f"block_tail: unsupported widths C={c} H={hidden} Ca={ca}")
+    empty = lambda width, dtype=cdt: torch.empty(  # noqa: E731
+        (n, width), dtype=dtype, device=x.device)
+    # the adapter's hidden and f32 output (the W2 GEMM's init), LN2's
+    # output, the FFN hidden
+    scratch = (empty(ca), empty(c, torch.float32), empty(c), empty(hidden))
     out = torch.empty_like(x)
     KERNEL.call(
-        ptr(x), *(ptr(t) for t in params), ptr(out), n, c, hidden, ca,
-        float(eps), float(adapter_scale),
+        ptr(x), *(ptr(t) for t in params), *(ptr(t) for t in scratch), ptr(out),
+        n, c, hidden, ca, float(eps), float(adapter_scale),
     )
     return out

@@ -3,8 +3,12 @@ the padded, cyclically rolled (B, Hp, Wp, C) map.
 
 Replaces ir_ads_tpu/ops/pallas_swin.py:_attn_kernel_v4 (launched by
 ``pallas_window_block``; twin ``_block_reference``).  The CUDA source is
-csrc/swin_block.cu; its header states the bound and the design.  Weights are
-in torch Linear layout (out, in).  As on the TPU, the LN and projection
+csrc/swin_block.cu; its header states the bound and the design: four
+launches (LN1; the qkv and proj products on csrc/gemm_mma.cuh with the
+fused form's expressions as epilogues; the window attention between them on
+csrc/window_mma.cuh's tensor-core head kernel where ``tensor_core_design``
+holds, else on its first design, by shape alone).  The wrapper allocates
+the intermediates.  Weights are in torch Linear layout (out, in).  As on the TPU, the LN and projection
 parameters are rounded to the compute dtype and the rel-pos bias stays f32.
 
 ``window_block`` launches the kernel for CUDA tensors and runs
@@ -30,6 +34,7 @@ from ir_ads_tpu_torch.ops.cuda_lib import (
 from ir_ads_tpu_torch.ops.layers import q_scale
 from ir_ads_tpu_torch.ops.window_attn_bwd import window_attention_bwd
 from ir_ads_tpu_torch.ops.window_attention import window_partition, window_reverse
+from ir_ads_tpu_torch.ops.window_attention_qkv import tensor_core_design
 # W-MSA of a (B, Hp, Wp, 3C) qkv map as the TPU kernels round it: K15's plain
 # version, K12's on the map's windows; K1's, K5's, K10's and K14's plain
 # versions attend through it
@@ -38,7 +43,7 @@ from ir_ads_tpu_torch.ops.window_attention_map import (
 )
 
 KERNEL = CudaKernel(
-    "swin_block", "swin_window_block", [VOIDP] * 12 + [INT] * 9 + [FLOAT] * 2,
+    "swin_block", "swin_window_block", [VOIDP] * 13 + [INT] * 10 + [FLOAT] * 2,
     replaces="ir_ads_tpu/ops/pallas_swin.py:1003",
 )
 
@@ -91,18 +96,22 @@ def _forward(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, region, scale,
     check_cuda("window_block", x, ln_w, ln_b, wqkv, bqkv, wproj, bproj)
     check_cuda("window_block", bias, dtype=torch.float32)
     n, d = ws * ws, c // heads
-    if n % 16 or d % 16 or c % 64 or hp % ws or wp % ws:
+    mma = c % heads == 0 and tensor_core_design(cdt, n, d)
+    # the attention's first design takes WMMA tiles of 16 tokens and
+    # channels; its tensor-core design and the GEMMs' pieces, 16-byte rows
+    if not (mma or (n % 16 == 0 and d % 16 == 0)) or c % 8 or hp % ws or wp % ws:
         raise ValueError(f"window_block: unsupported shape C={c} heads={heads} ws={ws}")
     if region is not None:
         region = region.to(device=x.device, dtype=torch.int32).contiguous()
+    xn = torch.empty_like(x)
     qkv = torch.empty((b, hp, wp, 3 * c), dtype=cdt, device=x.device)
     att = torch.empty((b, hp, wp, c), dtype=cdt, device=x.device)
     y = torch.empty_like(x)
     KERNEL.call(
         ptr(x), ptr(ln_w), ptr(ln_b), ptr(wqkv), ptr(bqkv), ptr(wproj),
         ptr(bproj), ptr(bias), ptr(region) if region is not None else None,
-        ptr(qkv), ptr(att), ptr(y), b, hp, wp, c, heads, ws, h_real, w_real,
-        shift, q_scale(scale, cdt), float(eps),
+        ptr(xn), ptr(qkv), ptr(att), ptr(y), b, hp, wp, c, heads, ws, h_real, w_real,
+        shift, int(mma), q_scale(scale, cdt), float(eps),
     )
     return y
 

@@ -29,9 +29,10 @@ from ir_ads_tpu_torch.ops.cuda_lib import (
 )
 from ir_ads_tpu_torch.ops.layers import q_scale
 from ir_ads_tpu_torch.ops.swin_block import window_attention_reference
+from ir_ads_tpu_torch.ops.window_attention_qkv import tensor_core_design
 
 KERNEL = CudaKernel(
-    "swin_block_full", "swin_block_full", [VOIDP] * 12 + [INT] * 7 + [FLOAT] * 2,
+    "swin_block_full", "swin_block_full", [VOIDP] * 12 + [INT] * 8 + [FLOAT] * 2,
     replaces="ir_ads_tpu/ops/pallas_swin.py:1415",
 )
 
@@ -88,16 +89,21 @@ def window_block_full(
     check_cuda("window_block_full", bias, dtype=torch.float32)
     b, h, w, c = x.shape
     n, d = ws * ws, c // heads
-    if n % 16 or d % 16 or c % 64:
+    mma = c % heads == 0 and tensor_core_design(cdt, n, d)
+    # the row kernels take 64-column tiles; the attention's first design
+    # WMMA tiles of 16 tokens and channels
+    if not (mma or (n % 16 == 0 and d % 16 == 0)) or c % 64:
         raise ValueError(f"window_block_full: unsupported shape C={c} heads={heads} ws={ws}")
     if region is not None:
         region = region.to(device=x.device, dtype=torch.int32).contiguous()
+    if mma and ptr(bqkv) % 16:  # the padding's q, k and v are read from it
+        bqkv = bqkv.clone()
     qkv = torch.empty((b * h * w, 3 * c), dtype=cdt, device=x.device)
     att = torch.empty((b * h * w, c), dtype=cdt, device=x.device)
     y = torch.empty_like(x)
     KERNEL.call(
         ptr(x), ptr(ln_w), ptr(ln_b), ptr(wqkv), ptr(bqkv), ptr(wproj), ptr(bproj),
         ptr(bias), ptr(region) if region is not None else None, ptr(qkv), ptr(att), ptr(y),
-        b, h, w, c, heads, ws, shift, q_scale(scale, cdt), float(eps),
+        b, h, w, c, heads, ws, shift, int(mma), q_scale(scale, cdt), float(eps),
     )
     return y

@@ -27,10 +27,11 @@ from ir_ads_tpu_torch.ops.cuda_lib import (
 from ir_ads_tpu_torch.ops.int8 import int8_linear, layer_norm_rows
 from ir_ads_tpu_torch.ops.layers import q_scale
 from ir_ads_tpu_torch.ops.swin_block import pad_mask, window_attention_reference
+from ir_ads_tpu_torch.ops.window_attention_qkv import tensor_core_design
 
 KERNEL = CudaKernel(
     "swin_block_int8", "swin_window_block_int8",
-    [VOIDP] * 14 + [INT] * 9 + [FLOAT] * 2,
+    [VOIDP] * 14 + [INT] * 10 + [FLOAT] * 2,
     replaces="ir_ads_tpu/ops/pallas_swin.py:1108",
 )
 
@@ -95,7 +96,8 @@ def window_block_int8(
     check_cuda("window_block_int8", wqkv_q, wproj_q, dtype=torch.int8)
     check_cuda("window_block_int8", sqkv, sproj, bias, dtype=torch.float32)
     n, d = ws * ws, c // heads
-    if n % 16 or d % 16 or c % 64 or hp % ws or wp % ws:
+    mma = c % heads == 0 and tensor_core_design(cdt, n, d)
+    if not (mma or (n % 16 == 0 and d % 16 == 0)) or c % 64 or hp % ws or wp % ws:
         raise ValueError(f"window_block_int8: unsupported shape C={c} heads={heads} ws={ws}")
     if region is not None:
         region = region.to(device=x.device, dtype=torch.int32).contiguous()
@@ -106,6 +108,6 @@ def window_block_int8(
         ptr(x), ptr(ln_w), ptr(ln_b), ptr(wqkv_q), ptr(sqkv), ptr(bqkv), ptr(wproj_q),
         ptr(sproj), ptr(bproj), ptr(bias), ptr(region) if region is not None else None,
         ptr(qkv), ptr(att), ptr(y), b, hp, wp, c, heads, ws, h_real, w_real, shift,
-        q_scale(scale, cdt), float(eps),
+        int(mma), q_scale(scale, cdt), float(eps),
     )
     return y

@@ -32,9 +32,10 @@ from ir_ads_tpu_torch.ops.cuda_lib import (
 )
 from ir_ads_tpu_torch.ops.layers import q_scale
 from ir_ads_tpu_torch.ops.swin_block import window_block_reference
+from ir_ads_tpu_torch.ops.window_attention_qkv import tensor_core_design
 
 KERNEL = CudaKernel(
-    "swin_block_v7", "swin_block_v7", [VOIDP] * 22 + [INT] * 12 + [FLOAT] * 3,
+    "swin_block_v7", "swin_block_v7", [VOIDP] * 22 + [INT] * 13 + [FLOAT] * 3,
     replaces="ir_ads_tpu/ops/pallas_swin.py:2179",
 )
 
@@ -97,8 +98,9 @@ def window_block_v7(
     aw1 = tail[6]
     streams = aw1.shape[0] if aw1.ndim == 3 else 1
     ca = aw1.shape[-2]
-    if (n % 16 or d % 16 or c % 64 or c > 1024 or hidden % 64 or ca > 64
-            or hp % ws or wp % ws or b % streams):
+    mma = c % heads == 0 and tensor_core_design(cdt, n, d)
+    if (not (mma or (n % 16 == 0 and d % 16 == 0)) or c % 64 or c > 1024 or hidden % 64
+            or ca > 64 or hp % ws or wp % ws or b % streams):
         raise ValueError(
             f"window_block_v7: unsupported shape C={c} heads={heads} ws={ws} "
             f"hidden={hidden} Ca={ca} B={b} streams={streams}")
@@ -110,7 +112,7 @@ def window_block_v7(
     KERNEL.call(
         ptr(x), *(ptr(t) for t in attn), ptr(region) if region is not None else None,
         *(ptr(t) for t in tail), ptr(qkv), ptr(att), ptr(out),
-        b, hp, wp, c, heads, ws, h_real, w_real, shift, hidden, ca, streams,
+        b, hp, wp, c, heads, ws, h_real, w_real, shift, hidden, ca, streams, int(mma),
         q_scale(scale, cdt), float(eps), float(adapter_scale),
     )
     return out

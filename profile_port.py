@@ -13,6 +13,7 @@ one step of its trainer, under torch.profiler.
     python3 profile_port.py --jmajor-v1 [--seed 0]
     python3 profile_port.py --rpe [--seed 0]
     python3 profile_port.py --qkv-map-bwd [--seed 0]
+    python3 profile_port.py --shares [--seed 0]
     python3 profile_port.py --logits r5,r4,...,r5_flat --logits-dir DIR [--seed 0]
     python3 profile_port.py --same-logits DIR_A DIR_B
     (each also takes --port-dir DIR)
@@ -23,7 +24,7 @@ r4, the w8a8 r4i8, the module-path sets r2, r1 and xla, the block
 variants v7_01, v5 and map, or the DSCF variants dscf_pallas4, dscf_pallas
 and dscf_pallas2), serves one warm-up request, then one profiled request,
 and sums its port kernels' device time by kernel (K1-K20) with their
-launches, and K5's by launch of its sequence.  With --flat the frames enter the model as flat (B, H, W*3) rows
+launches, and K1's, K2's and K5's by launch of their sequences.  With --flat the frames enter the model as flat (B, H, W*3) rows
 and --patch-embed chooses the patch embedding's path (pallas: K19).  With
 --requests N it first times N requests on the host clock, each ended by a
 synchronize, and prints their p50.
@@ -59,6 +60,12 @@ float mask (K15's with the window partition and reverse copies it needs),
 and K8 at DSCF levels 0-2 of a training batch of 4 beside
 ``torch.autograd.grad`` through SDPA, each by CUDA events and by the
 profiler's device time.
+Shares (--shares): the Swin block kernels K1, K2, K5, K10, K13 and K14 on
+``chip_smoke.py``'s phase-3 inputs (4 images; K1 and K10 at the four
+stages, K2 and K14 at the four, K5 at stages 2-3, K13 at stages 0-1): the
+share of outputs that differ from the plain version, the distance on what
+the kernel adds, and the kernel's time by CUDA events; with --port-dir on
+another checkout's kernels, the inputs drawn alike.
 Logits (--logits LIST --logits-dir DIR): one request of --batch frames from
 --seed under each dispatch of the comma-separated LIST (a name ending in
 _flat: that dispatch on flat frames with the XLA patch embedding), each
@@ -88,19 +95,26 @@ import time
 import torch
 from torch.profiler import ProfilerActivity, profile
 
-# device kernel names of each port kernel (window_attn_kernel is K1's and
-# K10's: a dispatch runs one of them; dscf_rows_packed_kernel is K4's
+# device kernel names of each port kernel (window_attn_kernel, the first
+# design of K1's and K10's attention, is both's: a dispatch runs one of
+# them; ln_qkv_kernel, proj_add_kernel and block_tail_kernel are K1's and
+# K2's fused launches before their products moved to gemm_mma.cuh, for
+# --port-dir; dscf_rows_packed_kernel is K4's
 # tensor-core kernel in checkouts where only the packed form ran on it, and
 # rpe_rows_kernel, rpe_packed_kernel and rpe_jmajor_kernel K3's, K6's and
 # K18's before they shared rpe_plane_kernel, for --port-dir).  A name with
 # template arguments (K3, K6, K18: one template) matches those instances.
 BY_KERNEL = {
+    "K1": ("swin_ln1_kernel", "gemm_kernel<SwinQkvOut", "swin_attn_mma_kernel",
+           "gemm_kernel<SwinProjAdd"),
     "K1/K10 attention": ("window_attn_kernel",),
     "K1 rows": ("ln_qkv_kernel", "proj_add_kernel"),
-    "K2": ("block_tail_kernel",),
-    "K5": ("v6_ln1_kernel", "gemm_kernel<QkvOut", "v6_attn_kernel", "gemm_kernel<ProjOut",
-           "gemm_kernel<AdapterUp", "gemm_kernel<AdapterDown", "v6_ln2_kernel",
-           "gemm_kernel<Fc1Out", "gemm_kernel<Fc2Out", "v6_ln_qkv_kernel", "proj_tail_kernel"),
+    "K2": ("block_tail_kernel", "gemm_kernel<TailAdapterUp", "gemm_kernel<TailAdapterDown",
+           "tail_ln2_kernel", "gemm_kernel<TailFc1", "gemm_kernel<TailOut"),
+    "K5": ("v6_ln1_kernel", "gemm_kernel<QkvOut", "v6_attn_kernel", "v6_attn_mma_kernel",
+           "gemm_kernel<ProjOut", "gemm_kernel<AdapterUp", "gemm_kernel<AdapterDown",
+           "v6_ln2_kernel", "gemm_kernel<Fc1Out", "gemm_kernel<Fc2Out", "v6_ln_qkv_kernel",
+           "proj_tail_kernel"),
     "K3": ("rpe_rows_kernel", "rpe_plane_kernel<Bf16Form, true"),
     "K4": ("dscf_rows_kernel", "dscf_rows_mma_kernel", "dscf_rows_packed_kernel"),
     "K6": ("rpe_packed_kernel", "rpe_plane_kernel<Bf16Form, false"),
@@ -108,26 +122,38 @@ BY_KERNEL = {
     "K8": ("dscf_rows_bwd_kernel",),
     "K9": ("msdeform_kernel",),
     "K10 rows": ("ln_quant_qkv_kernel", "quant_proj_add_kernel"),
+    "K10 attention": ("int8_attn_mma_kernel",),
     "K11": ("block_tail_int8_kernel",),
     "K12": ("window_attention_qkv_kernel", "window_qkv_mma_kernel"),
-    "K13": ("v7_ln_qkv_kernel", "v7_attn_kernel", "v7_proj_tail_kernel"),
-    "K14": ("v5_ln_qkv_kernel", "v5_attn_kernel", "v5_proj_add_kernel"),
+    "K13": ("v7_ln_qkv_kernel", "v7_attn_kernel", "v7_attn_mma_kernel", "v7_proj_tail_kernel"),
+    "K14": ("v5_ln_qkv_kernel", "v5_attn_kernel", "v5_attn_mma_kernel", "v5_proj_add_kernel"),
     "K15": ("window_attention_map_kernel", "window_map_mma_kernel"),
     "K16": ("dscf_fused_kernel", "dscf_fused_mma_kernel"), "K17": ("dscf_attention_kernel",),
     "K18": ("rpe_jmajor_kernel", "rpe_plane_kernel<F32Form"), "K19": ("patch_embed_kernel",),
     "K20": ("window_attention_v1_kernel", "window_attention_v1_mma_kernel"),
 }
 PORT_KERNELS = tuple(n for names in BY_KERNEL.values() for n in names)
-# K5 by launch: its nine (LN1, the GEMMs by epilogue, the attention, LN2),
-# and the two product launches of the earlier fused form (--port-dir)
-K5_BY_LAUNCH = {
-    "LN1": ("v6_ln1_kernel",), "qkv GEMM": ("gemm_kernel<QkvOut",),
-    "attention": ("v6_attn_kernel",), "proj GEMM": ("gemm_kernel<ProjOut",),
-    "adapter up GEMM": ("gemm_kernel<AdapterUp",),
-    "adapter down GEMM": ("gemm_kernel<AdapterDown",), "LN2": ("v6_ln2_kernel",),
-    "fc1 GEMM": ("gemm_kernel<Fc1Out",), "fc2 GEMM": ("gemm_kernel<Fc2Out",),
-    "LN1 + qkv (fused form)": ("v6_ln_qkv_kernel",),
-    "proj + tail (fused form)": ("proj_tail_kernel",),
+# K1, K2 and K5 by launch: K1's four, K2's five and K5's nine (the LNs, the
+# GEMMs by epilogue, the attention), and the product launches of their
+# earlier fused forms (--port-dir)
+BY_LAUNCH = {
+    "K1": {"LN1": ("swin_ln1_kernel",), "qkv GEMM": ("gemm_kernel<SwinQkvOut",),
+           "attention": ("swin_attn_mma_kernel", "window_attn_kernel"),
+           "proj GEMM": ("gemm_kernel<SwinProjAdd",),
+           "LN1 + qkv (fused form)": ("ln_qkv_kernel",),
+           "proj (fused form)": ("proj_add_kernel",)},
+    "K2": {"adapter up GEMM": ("gemm_kernel<TailAdapterUp",),
+           "adapter down GEMM": ("gemm_kernel<TailAdapterDown",), "LN2": ("tail_ln2_kernel",),
+           "fc1 GEMM": ("gemm_kernel<TailFc1",), "fc2 GEMM": ("gemm_kernel<TailOut",),
+           "fused form": ("block_tail_kernel",)},
+    "K5": {"LN1": ("v6_ln1_kernel",), "qkv GEMM": ("gemm_kernel<QkvOut",),
+           "attention": ("v6_attn_mma_kernel", "v6_attn_kernel"),
+           "proj GEMM": ("gemm_kernel<ProjOut",),
+           "adapter up GEMM": ("gemm_kernel<AdapterUp",),
+           "adapter down GEMM": ("gemm_kernel<AdapterDown",), "LN2": ("v6_ln2_kernel",),
+           "fc1 GEMM": ("gemm_kernel<Fc1Out",), "fc2 GEMM": ("gemm_kernel<Fc2Out",),
+           "LN1 + qkv (fused form)": ("v6_ln_qkv_kernel",),
+           "proj + tail (fused form)": ("proj_tail_kernel",)},
 }
 
 
@@ -192,7 +218,7 @@ def profiled(fn, top=25):
 
     return out, dict(wall_ms=wall_ms, device_busy_ms=busy, idle_share=1 - busy / wall_ms,
                      port_kernels_ms=port, by_kernel=by(BY_KERNEL, max),
-                     k5_by_launch=by(K5_BY_LAUNCH, sum),
+                     by_launch={k: by(labels, sum) for k, labels in BY_LAUNCH.items()},
                      top=[{"name": n[:120], "ms": ms, "count": c} for n, ms, c in rows[:top]])
 
 
@@ -204,10 +230,11 @@ def show(what: str, part: dict) -> None:
     print("  port kernels: " + "; ".join(
         f"{k} {v['ms']:.3f} ms in {v['launches']} launches "
         f"({v['ms'] / v['launches']:.4f} ms each)" for k, v in part["by_kernel"].items()))
-    if part["k5_by_launch"]:
-        print("  K5 by launch: " + "; ".join(
-            f"{k} {v['ms']:.3f} ms in {v['launches']} ({v['ms'] / v['launches']:.4f} ms each)"
-            for k, v in part["k5_by_launch"].items()))
+    for kernel, launches in part["by_launch"].items():
+        if launches:
+            print(f"  {kernel} by launch: " + "; ".join(
+                f"{k} {v['ms']:.3f} ms in {v['launches']} "
+                f"({v['ms'] / v['launches']:.4f} ms each)" for k, v in launches.items()))
     for row in part["top"]:
         mark = "*" if any(_is(row["name"], k) for k in PORT_KERNELS) else " "
         print(f" {mark} {row['ms']:9.3f} ms  x{row['count']:<5d} {row['name'][:100]}")
@@ -432,6 +459,48 @@ def time_rpe(args) -> dict:
             del pos, table, grid, tb
             torch.cuda.empty_cache()
     return dict(device=torch.cuda.get_device_name(0), kernels=rows)
+
+
+def swin_shares(args) -> dict:
+    """The share of each Swin block kernel's outputs apart from its plain
+    version (module docstring, --shares)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", os.path.join(os.path.dirname(os.path.abspath(__file__)), "chip_smoke.py"))
+    c = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(c)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    g = torch.Generator(device="cuda").manual_seed(args.seed)
+    s, b = c.STAGES, 4
+    cases = [
+        *(("K1", lambda h=h, w=w, ch=ch, hd=hd: c.check_window_block(
+            g, b, h, w, ch, hd, 6, "region mask dropped")) for h, w, ch, hd in s),
+        *(("K2", lambda h=h, w=w, ch=ch: c.check_block_tail(g, b * h * w, ch))
+          for h, w, ch, _ in s),
+        *(("K5", lambda h=h, w=w, ch=ch, hd=hd: c.check_window_block_v6(
+            g, b, h, w, ch, hd, 6, "adapter dropped")) for h, w, ch, hd in s[2:]),
+        *(("K10", lambda i=i, h=h, w=w, ch=ch, hd=hd: c.check_window_block_int8(
+            g, b, h, w, ch, hd, 6 * (i != 1))) for i, (h, w, ch, hd) in enumerate(s)),
+        *(("K13", lambda h=h, w=w, ch=ch, hd=hd, sh=sh: c.check_window_block_v7(
+            g, b, h, w, ch, hd, sh)) for h, w, ch, hd in s[:2] for sh in (0, 6)),
+        *(("K14", lambda h=h, w=w, ch=ch, hd=hd, sh=sh: c.check_window_block_full(
+            g, b, h, w, ch, hd, sh)) for h, w, ch, hd in s for sh in (0, 6)),
+    ]
+    rows = []
+    for kernel, make in cases:
+        case = make()
+        got, want = case["run"](), case["plain"]()
+        torch.cuda.synchronize()
+        row = dict(kernel=kernel, case=case["case"], share=float((got != want).float().mean()),
+                   rel=c._rel(got, want, case["base"]), ms=c.time_ms(case["run"]))
+        print(f"{kernel:4s} {row['case']:<38} outputs apart {row['share']:.5f}, "
+              f"rel {row['rel']:.3e}, kernel {row['ms']:.4f} ms", flush=True)
+        rows.append(row)
+        del got, want, case
+        torch.cuda.empty_cache()
+    return dict(device=torch.cuda.get_device_name(0), cases=rows)
 
 
 def time_qkv_map_bwd(args) -> dict:
@@ -672,6 +741,8 @@ def main():
                     help="time K3 (levels 0-3) and K6 (level 3) beside F.grid_sample instead")
     ap.add_argument("--qkv-map-bwd", action="store_true",
                     help="time K12 and K15 beside SDPA and K8 beside autograd.grad instead")
+    ap.add_argument("--shares", action="store_true",
+                    help="print the Swin block kernels' shares of outputs apart instead")
     ap.add_argument("--logits", default=None,
                     help="comma-separated dispatches whose logits to save instead")
     ap.add_argument("--logits-dir", default="output/logits",
@@ -702,6 +773,7 @@ def main():
     run = (time_dscf if args.dscf else time_jmajor_v1 if args.jmajor_v1
            else time_rpe if args.rpe
            else time_qkv_map_bwd if args.qkv_map_bwd else save_logits if args.logits
+           else swin_shares if args.shares
            else profile_detection if args.det
            else profile_step if args.train else profile_request)
     print(json.dumps(run(args)))
