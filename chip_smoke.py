@@ -47,7 +47,14 @@ Phases, each of which raises on failure:
      cases time torch.autograd.grad through SDPA as their library call);
      K1 (stages 0-3), K2 (stages 0-1) and K5 (stages 2-3) also by launch
      of their sequences (four, five and nine; the profiler's device time),
-     each GEMM beside torch.matmul at its (M, N, K); K1, K5, K10, K13 and
+     each GEMM beside torch.matmul at its (M, N, K); K10 and K11 (stages
+     0-3) by launch of theirs (five and six), each s8 GEMM beside
+     torch._int_mm at its (M, N, K); their s8 GEMM (csrc/igemm.cuh) at each
+     of the sixteen products of the four stages, its raw s32 output equal to
+     torch._int_mm's bit for bit (planted fault: the last 32 of k dropped);
+     K11's two W1 passes against the f32 hidden of the same helper written
+     out: the row max, the scale and the codes bit for bit (planted fault:
+     the max of one 64-column chunk); K1, K5, K10, K13 and
      K14 each held to a share of differing outputs of its own
      (SWIN_SHARE: their plain versions' cuBLAS order sets it), and each
      once at d = 64, outside the tensor-core design, on its attention's
@@ -396,20 +403,33 @@ def launch_times(g, run, kernel, launches, iters=10):
     out = []
     for label, names, mnk in launches:
         row = dict(launch=label, kernel=names[0], ms=device.get(label))
-        if mnk is not None:
+        if mnk is not None and mnk[-1] == "s8":
+            _, m, n, k, _ = mnk
+            a, w = _s8(g, m, k), _s8(g, n, k)
+            row.update(mnk=[m, n, k], batches=1,
+                       int_mm_ms=time_ms(lambda: torch._int_mm(a, w.t()), iters=20))
+            del a, w
+        elif mnk is not None:
             z, m, n, k = mnk
             a, w = _rand(g, z, m, k).squeeze(0), _rand(g, z, k, n).squeeze(0)
             row.update(mnk=[m, n, k], batches=z,
                        matmul_ms=time_ms(lambda: torch.matmul(a, w), iters=20))
             del a, w
         out.append(row)
-    print(f"    {kernel} per launch (profiler device time; torch.matmul at the GEMM's "
-          "(M, N, K)): "
+
+    def yardstick(r):
+        if "int_mm_ms" in r:
+            return f" (_int_mm {r['mnk']} {r['int_mm_ms']:.4f} ms)"
+        if "mnk" in r:
+            return (f" (matmul {r['mnk']}{' x%d' % r['batches'] if r['batches'] > 1 else ''}"
+                    f" {r['matmul_ms']:.4f} ms)")
+        return ""
+
+    print(f"    {kernel} per launch (profiler device time; torch.matmul at a bf16 GEMM's, "
+          "torch._int_mm at an s8 GEMM's (M, N, K)): "
           + "; ".join(f"{r['launch']} "
                       + ("not measured" if r["ms"] is None else f"{r['ms']:.4f} ms")
-                      + (f" (matmul {r['mnk']}{' x%d' % r['batches'] if r['batches'] > 1 else ''}"
-                         f" {r['matmul_ms']:.4f} ms)" if "mnk" in r else "")
-                      for r in out), flush=True)
+                      + yardstick(r) for r in out), flush=True)
     return out
 
 
@@ -525,13 +545,20 @@ def check_window_block_int8(g, b, h_real, w_real, c, heads, shift, peaked=False)
                                       bias, *rest)
 
     t = b * hp * wp
+    run = lambda: k10.window_block_int8(x, *args, *rest)  # noqa: E731
+    launches = (  # label, device kernel names, the product's (batches, M, N, K[, "s8"])
+        ("LN1 + s8 rows", ("k10_ln1_kernel",), None),
+        ("qkv s8 GEMM", ("K10QkvOut",), (1, t, 3 * c, c, "s8")),
+        ("attention", ("int8_attn_mma_kernel", "window_attn_kernel"), None),
+        ("attention s8 rows", ("k10_att_quant_kernel",), None),
+        ("proj s8 GEMM", ("K10ProjAdd",), (1, t, c, c, "s8")))
     return dict(
         name="swin_block_int8",
         case=f"stage C={c} map {hp}x{wp} shift {shift}" + (" one-hot" if peaked else "")
         + _design(c, heads),
-        run=lambda: k10.window_block_int8(x, *args, *rest),
-        plain=lambda: k10.window_block_int8_reference(x, *args, *rest),
+        run=run, plain=lambda: k10.window_block_int8_reference(x, *args, *rest),
         faulted=floated if peaked else per_tensor,
+        per_launch=None if peaked else lambda: launch_times(g, run, "K10", launches),
         fault=("the float half-block (K1's function)" if peaked
                else "activations scaled per tensor, not per row"), base=x,
         # elementwise: two bf16 ulps, and one code step of the proj product;
@@ -556,10 +583,18 @@ def check_block_tail_int8(g, rows, c):
                _rand(g, c, std=0.02))
     args = (*ln, *quantize_weight(w1), b1, *quantize_weight(w2), b2, *adapter)
     bad = (*ln, *_per_tensor(w1), b1, *_per_tensor(w2), b2, *adapter)
+    run = lambda: k11.block_tail_int8(x, *args)  # noqa: E731
+    launches = (  # label, device kernel names, the product's (batches, M, N, K[, "s8"])
+        ("LN2 + s8 rows", ("tail8_ln2_kernel",), None),
+        ("adapter up GEMM", ("Tail8AdapterUp",), (1, rows, ca, c)),
+        ("adapter down GEMM", ("Tail8AdapterDown",), (1, rows, c, ca)),
+        ("W1 s8 GEMM, max pass", ("Tail8Fc1Max",), (1, rows, hid, c, "s8")),
+        ("W1 s8 GEMM, quantize pass", ("Tail8Fc1Quant",), (1, rows, hid, c, "s8")),
+        ("W2 s8 GEMM", ("Tail8Fc2",), (1, rows, c, hid, "s8")))
     return dict(
         name="block_tail_int8", case=f"C={c} rows {rows}",
-        run=lambda: k11.block_tail_int8(x, *args),
-        plain=lambda: k11.block_tail_int8_reference(x, *args),
+        run=run, plain=lambda: k11.block_tail_int8_reference(x, *args),
+        per_launch=lambda: launch_times(g, run, "K11", launches),
         faulted=lambda: k11.block_tail_int8_reference(x, *bad),
         fault="weights scaled per tensor, not per channel", base=x,
         # as K10: two bf16 ulps, and one code step of the fc2 product
@@ -567,6 +602,86 @@ def check_block_tail_int8(g, rows, c):
         bytes=nbytes(x, *args) + nbytes(x),
         flops=(rows * 16 * c * c, rows * 4 * c * ca), rate=(INT8_TENSOR_OPS, BF16_TENSOR_FLOPS),
     )
+
+
+def _s8(g, *shape):
+    """Uniform s8 codes in [-127, 127], as the kernels' quantization makes."""
+    return torch.randint(-127, 128, shape, generator=g, device="cuda", dtype=torch.int8)
+
+
+def check_igemm(g, name, what, m, n, k):
+    """The s8 GEMM of K10 and K11 (csrc/igemm.cuh, through its raw s32
+    epilogue) at one of their products' (M, N, K), held equal to
+    torch._int_mm bit for bit: an s8 product summed in s32 is exact in any
+    order.  The planted fault drops the last 32 of the depth (one wgmma k
+    step)."""
+    from ir_ads_tpu_torch.ops.block_tail_int8 import igemm_s32
+
+    a, w = _s8(g, m, k), _s8(g, n, k)
+    int_mm = lambda: torch._int_mm(a, w.t())  # noqa: E731
+    return dict(
+        name=name, case=f"s8 GEMM {what} ({m}, {n}, {k}) = _int_mm",
+        run=lambda: igemm_s32(a, w), plain=int_mm, library=int_mm,
+        faulted=lambda: igemm_s32(a, w, k - 32), fault="the last 32 of k dropped", base=None,
+        atol=0.0, rtol=0.0, rel_tol=0.0, share_tol=0.0,
+        bytes=nbytes(a, w) + 4 * m * n, flops=2 * m * n * k, rate=INT8_TENSOR_OPS,
+    )
+
+
+def igemm_cases(g, images):
+    """check_igemm at every s8 product of the r4i8 path's four stages: K10's
+    qkv and proj on the padded map, K11's W1 and W2 on the real tokens."""
+    cases = []
+    for h, w, c, _ in STAGES:
+        t10, t11 = images * -(-h // 12) * 12 * -(-w // 12) * 12, images * h * w
+        cases += [functools.partial(check_igemm, g, "swin_block_int8", "qkv", t10, 3 * c, c),
+                  functools.partial(check_igemm, g, "swin_block_int8", "proj", t10, c, c),
+                  functools.partial(check_igemm, g, "block_tail_int8", "W1", t11, 4 * c, c),
+                  functools.partial(check_igemm, g, "block_tail_int8", "W2", t11, c, 4 * c)]
+    return cases
+
+
+def check_tail_hidden(g, rows, c):
+    """K11's two W1 passes compute the f32 hidden with one helper
+    (csrc/block_tail_int8.cu's tail_hidden); the check entry also writes
+    that hidden out.  The max pass's row max (atomicMax on the int bits)
+    must equal amax |h| bit for bit, the scale fmax(max, 1e-12) / 127, and
+    the quantize pass's codes rn(h / scale): then the two passes computed
+    the same hidden.  The planted fault, the scale from one 64-column chunk
+    of the row, must give other codes."""
+    from ir_ads_tpu_torch.ops import block_tail_int8 as k11
+    from ir_ads_tpu_torch.ops.int8 import quantize_weight
+
+    hid = 4 * c
+    x = _rand(g, rows, c)
+    ln = (_rand(g, c, std=0.05, mean=1.0), _rand(g, c, std=0.05))
+    w1_q, s1 = quantize_weight(_channel_scaled(g, hid, c))
+    b1 = _rand(g, hid, std=0.02)
+    _, _, rowmax, hq, sh, h = k11.block_tail_int8_hidden(x, *ln, w1_q, s1, b1)
+    torch.cuda.synchronize()
+
+    def codes(s):
+        return torch.clamp(torch.round(h / s[:, None]), -127, 127).to(torch.int8)
+
+    # true divisions by tensors (a tensor over a Python number is taken as a
+    # product with its reciprocal)
+    q127 = torch.full((rows,), 127.0, device="cuda")
+    amax = h.abs().amax(dim=1)
+    scale = torch.clamp(amax, min=1e-12) / q127
+    chunk = torch.clamp(h[:, :64].abs().amax(dim=1), min=1e-12) / q127
+    n_max, n_scale = int((rowmax != amax).sum()), int((sh != scale).sum())
+    n_codes, n_fault = int((hq != codes(scale)).sum()), int((hq != codes(chunk)).sum())
+    print(f"  block_tail_int8 C={c} rows {rows}: the W1 passes against their hidden written "
+          f"out: row max {n_max}, scale {n_scale} of {rows} apart, codes {n_codes} of "
+          f"{hq.numel()} apart (planted fault, the max of one 64-column chunk: {n_fault})",
+          flush=True)
+    if n_max or n_scale or n_codes:
+        fail(f"block_tail_int8 C={c}: the max and quantize passes disagree with their hidden")
+    if not n_fault:
+        fail(f"block_tail_int8 C={c}: the hidden check cannot see a chunk's max")
+    return dict(name="block_tail_int8", case=f"W1 passes against their hidden, C={c} rows {rows}",
+                max_abs_err=0.0, rowmax_differ=n_max, scale_differ=n_scale,
+                codes_differ=n_codes, fault_codes_differ=n_fault)
 
 
 def _window_qkv_inputs(g, b, h_real, w_real, c, heads, shift):
@@ -1647,8 +1762,10 @@ def phase_kernels(seed: int, images: int):
         lambda: check_msdeform(g, DET_QUERIES, torch.bfloat16, "zeros padding lost"),
         lambda: check_msdeform(g, s_det, torch.float32, "zeros padding lost"),
         lambda: check_msdeform(g, DET_QUERIES, torch.float32, "no -0.5"),
-        # the r4i8 path: K10 and K11 at the four stages
+        # the r4i8 path: K10 and K11 at the four stages, then their s8 GEMM
+        # at each product's shape
         *int8_cases(g, images),
+        *igemm_cases(g, images),
         # the r2 and r1 paths: K12 at the four stages, shifted and not, and
         # once under autograd
         *(functools.partial(check_window_attention_qkv, g, images, h, w, c, heads, shift)
@@ -1696,6 +1813,7 @@ def phase_kernels(seed: int, images: int):
         functools.partial(check_window_block_full, g, images, 30, 40, 512, 8, 6),
     ]
     rows = [hold(make()) for make in cases]
+    rows += [check_tail_hidden(g, images * h * w, c) for h, w, c, _ in STAGES]
     check_packed_envelope(g)
     return rows
 
@@ -3317,10 +3435,15 @@ def kernel_table(rows, launches, launches_i8, module_launches, train_launches, d
                 "case", "max_abs_err", "rel_err", "fault", "fault_rel_err", "ms",
                 "plain_ms", "bound_ms", "bound_by", "library_ms", "composition_ms",
                 "share", "fault_share", "composition_differ", "not_composition_differ",
-                "dq_share", "launch_ms")
+                "dq_share", "launch_ms", "rowmax_differ", "scale_differ", "codes_differ",
+                "fault_codes_differ")
                 if key in c}
                    for c in cases],
         ))
+        # the device kernels of a sequence timed by launch (K1, K2, K5, K10, K11)
+        names = [ln["kernel"] for c in cases for ln in c.get("launch_ms", ())]
+        if names:
+            out[-1]["device_kernels"] = sorted(set(names))
     return out
 
 

@@ -13,192 +13,246 @@
 // the adapter) against 4C bytes moved (x in, out, bf16): 4C operations per
 // byte, 512 at C = 128, below the int8 ridge (1979 Tops / 3.35 TB/s = 591),
 // so the bytes bound at C = 128 and the operations at the wider stages
-// (chip_smoke.py's count).  Design: one block per tile of
-// bm = min(64, 32768 / 4C) rows.  K2 walks the hidden 64 columns at a time;
-// this kernel cannot, since the second quantization needs the max of the
-// complete f32 hidden row before any of its columns is rounded.  Of the three
-// ways out (keep the f32 hidden of a row tile in shared memory, compute the
-// first product twice, or pass the hidden through device memory) it keeps
-// the hidden in shared memory: 128 KB at every stage (64 rows at C = 128
-// down to 8 at C = 1024, where the tensor-core tile of 16 rows is half
-// zeros), which costs neither the first product again (1.5x the operations)
-// nor 32C bytes a row of device-memory traffic (8x the bound's).  Steps:
-//   LN2 -> bf16 tile -> per-row s8 (xq);
-//   s8 product with W1, 64 hidden columns at a time -> GELU -> f32 hidden;
-//   per-row max over the 4C columns -> s8 hidden (hq);
-//   s8 product with W2 over the full depth 4C -> ffn tile (f32);
-//   bf16 adapter (common.cuh's tile_gemm) -> out = (x + ffn) + 0.5 a.
-// The shared memory of the f32 hidden is reused by the last two steps.
+// (chip_smoke.py's count).
+//
+// Design: six launches, each a grid over all the rows, the s8 products on
+// igemm.cuh's TMA and wgmma GEMM over the whole map (a fused row kernel
+// streams all of W1 and W2 again for every row tile), the adapter's bf16
+// products on gemm_mma.cuh:
+//   tail8_ln2_kernel  LN2 of x to bf16, then per-row s8 (xq, sx): the rows
+//                     code of the fused form (layer_norm_rows,
+//                     quantize_rows), one warp a row; zeroes the row-max
+//                     buffer;
+//   Tail8AdapterUp    GEMM of x with Wa1 (N = Ca): bf16(relu(acc + ab1));
+//   Tail8AdapterDown  GEMM with Wa2 (K = Ca, a ragged 16-deep step of
+//                     zeros at Ca = 8): a = acc + ab2 in f32;
+//   Tail8Fc1Max       s8 GEMM with W1, max pass: the row max of |hidden|,
+//                     hidden = gelu_tanh((acc * sx) * s1 + b1), by atomicMax
+//                     on the int bits of the non-negative floats (exact and
+//                     order free);
+//   Tail8Fc1Quant     s8 GEMM with W1 again, quantize pass: the same hidden
+//                     (one helper, tail_hidden) -> hq = rn(h / sh) in s8,
+//                     sh = max(rowmax, 1e-12) / 127;
+//   Tail8Fc2          s8 GEMM with W2 over the whole hidden (K = 4C):
+//                     out = bf16((x + (acc * sh) * s2 + b2) + 0.5 a).
+// Why W1 twice: the second quantization needs the max of the whole 4C-wide
+// f32 hidden row before any of its columns is rounded.  Storing that row
+// moves 8 x 4C bytes a row (315 MB at Swin-B stage 0, about 94 us at 3.35
+// TB/s); computing it again costs 8C^2 int8 operations a row (10 G at
+// stage 0, about 5 us at 1979 Tops).  The s8 hidden (4C bytes a row) makes
+// one round trip; keeping it on chip between W1 and W2 is later work.
+//
+// Bits: each epilogue is the fused form's expression (block_tail_int8.cu
+// before its products moved to igemm.cuh), the s8 sums are exact in any
+// order, the row max is exact in any order, and gemm_mma.cuh sums the
+// adapter as tile_gemm did (as for K2's adapter), so the output is the
+// fused form's bit for bit.  The wrapper allocates the intermediates.
+#include "gemm_epilogues.cuh"
 #include "igemm.cuh"
 
 using namespace port;
 
 namespace {
 
-// Rows of a tile (valid rows; the product tiles round them up to 16).
-__host__ __device__ inline int tail_rows(int H) {
-  int bm = 32768 / H;  // the f32 hidden of a tile fills 128 KB
-  if (bm > 64) bm = 64;
-  if (bm < 1) bm = 1;
-  return bm;
-}
+constexpr int kLnRows = kWarps;  // rows a block of the LN launch: one a warp
 
-__host__ __device__ inline int mma_rows(int bm) { return (bm + 15) / 16 * 16; }
-
-struct Smem {
-  float* hid;  // [bm][H] f32 hidden; later the ffn tile, x tile and adapter
-  int8_t* hq;  // [mp][H + 16]
-  int8_t* xq;  // [mp][C + 16]
-  int* I_s;    // [mp][kLdI]
-  int8_t* W_s; // [64][kLdWs]
-  float* sx;   // [mp]
-  float* sh;   // [mp]
-  // carved from hid once hq is built
-  float* ffn;  // [bm][C + 4]
-  bf16* A_s;   // [mp][C + 8]
-  float* F_s;  // [mp][kLdF]
-  bf16* H_s;   // [mp][kBN + 8]
-  bf16* Wb_s;  // [kBN][kBK]
-  size_t bytes;
-};
-
-__host__ __device__ inline Smem carve(unsigned char* base, int C, int H) {
-  const int bm = tail_rows(H), mp = mma_rows(bm);
-  Smem s;
-  size_t off = 0;
-  auto take = [&](size_t n) {
-    unsigned char* p = base + off;
-    off += align128(n);
-    return p;
-  };
-  s.hid = reinterpret_cast<float*>(take((size_t)bm * H * 4));
-  s.hq = reinterpret_cast<int8_t*>(take((size_t)mp * (H + 16)));
-  s.xq = reinterpret_cast<int8_t*>(take((size_t)mp * (C + 16)));
-  s.I_s = reinterpret_cast<int*>(take((size_t)mp * kLdI * 4));
-  s.W_s = reinterpret_cast<int8_t*>(take((size_t)kBN * kLdWs));
-  s.sx = reinterpret_cast<float*>(take((size_t)mp * 4));
-  s.sh = reinterpret_cast<float*>(take((size_t)mp * 4));
-  s.bytes = off;
-  unsigned char* p = reinterpret_cast<unsigned char*>(s.hid);
-  s.ffn = reinterpret_cast<float*>(p);
-  p += align128((size_t)bm * (C + 4) * 4);
-  s.A_s = reinterpret_cast<bf16*>(p);
-  p += align128((size_t)mp * (C + 8) * 2);
-  s.F_s = reinterpret_cast<float*>(p);
-  p += align128((size_t)mp * kLdF * 4);
-  s.H_s = reinterpret_cast<bf16*>(p);
-  p += align128((size_t)mp * (kBN + 8) * 2);
-  s.Wb_s = reinterpret_cast<bf16*>(p);
-  return s;
-}
-
-// Bytes of the tile's second life (ffn, x tile, adapter scratch), which
-// must fit in the hidden's bm * H * 4.
-inline size_t reuse_bytes(int C, int H) {
-  const int bm = tail_rows(H), mp = mma_rows(bm);
-  return align128((size_t)bm * (C + 4) * 4) + align128((size_t)mp * (C + 8) * 2) +
-         align128((size_t)mp * kLdF * 4) + align128((size_t)mp * (kBN + 8) * 2) +
-         (size_t)kBN * kBK * 2;
+// The f32 hidden of one output of W1: both W1 passes (and the check entry
+// below) take it from here, so they compute it with the same instructions.
+__device__ __forceinline__ float tail_hidden(int acc, float sx, float s1, float b1) {
+  return gelu_tanh(dequant(acc, sx, s1, b1));
 }
 
 __global__ void __launch_bounds__(kThreads)
-block_tail_int8_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
-                       const bf16* __restrict__ b, const int8_t* __restrict__ w1,
-                       const float* __restrict__ s1, const bf16* __restrict__ b1,
-                       const int8_t* __restrict__ w2, const float* __restrict__ s2,
-                       const bf16* __restrict__ b2, const bf16* __restrict__ aw1,
-                       const bf16* __restrict__ ab1, const bf16* __restrict__ aw2,
-                       const bf16* __restrict__ ab2, bf16* __restrict__ out,
-                       int T, int C, int H, int Ca, float eps,
-                       float adapter_scale) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const Smem s = carve(smem, C, H);
-  const int bm = tail_rows(H), mp = mma_rows(bm);
-  const int row0 = blockIdx.x * bm;
-  const int valid = min(bm, T - row0);
-  const int ldx = C + 16, ldh = H + 16;
-
-  // LN2 rounded to bf16 (staged in the hidden's space), then s8 per row
-  bf16* ln_s = reinterpret_cast<bf16*>(s.hid);
-  layer_norm_rows(ln_s, C + 8, x, row0, mp, row0 + valid, C, g, b, eps,
-                  [](int) { return false; });
+tail8_ln2_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
+                 const bf16* __restrict__ b, int8_t* __restrict__ xq, float* __restrict__ sx,
+                 float* __restrict__ rowmax, int T, int C, float eps) {
+  extern __shared__ __align__(16) unsigned char ln_smem[];
+  bf16* ln_s = reinterpret_cast<bf16*>(ln_smem);
+  const int row0 = blockIdx.x * kLnRows, valid = min(kLnRows, T - row0);
+  layer_norm_rows(ln_s, C + 8, x, row0, valid, T, C, g, b, eps, [](int) { return false; });
   __syncthreads();
-  quantize_rows(s.xq, ldx, s.sx, ln_s, C + 8, mp, valid, C);
+  quantize_rows(xq + (size_t)row0 * C, C, sx + row0, ln_s, C + 8, valid, C);
+  if (threadIdx.x < valid) rowmax[row0 + threadIdx.x] = 0.0f;
+}
 
-  // hidden = gelu((xq W1^T) * sx * s1 + b1) in f32, 64 columns at a time
-  for (int j0 = 0; j0 < H; j0 += kBN) {
-    tile_igemm(s.I_s, kLdI, s.xq, ldx, mp, w1 + (size_t)j0 * C, C, kBN, C, s.W_s);
-    for (int idx = threadIdx.x; idx < bm * kBN; idx += kThreads) {
-      const int r = idx / kBN, col = idx % kBN;
-      s.hid[(size_t)r * H + j0 + col] = gelu_tanh(dequant(
-          s.I_s[r * kLdI + col], s.sx[r], s1[j0 + col], __bfloat162float(b1[j0 + col])));
-    }
+// a = acc + ab2 in f32: the fused form's adapter output.
+struct Tail8AdapterDown {
+  const bf16* ab2;
+  float* a;
+  int C;
+  __device__ void operator()(int, int r, int c, float v0, float v1) const {
+    *reinterpret_cast<float2*>(a + (size_t)r * C + c) =
+        make_float2(__fadd_rn(v0, __bfloat162float(ab2[c])),
+                    __fadd_rn(v1, __bfloat162float(ab2[c + 1])));
   }
-  __syncthreads();
-  quantize_rows(s.hq, ldh, s.sh, s.hid, H, mp, bm, H);
+};
+struct Tail8AdapterUp : AdapterUp {};
 
-  // ffn = (hq W2^T) * sh * s2 + b2, over the full depth H
-  for (int n0 = 0; n0 < C; n0 += kBN) {
-    tile_igemm(s.I_s, kLdI, s.hq, ldh, mp, w2 + (size_t)n0 * H, H, kBN, H, s.W_s);
-    for (int idx = threadIdx.x; idx < bm * kBN; idx += kThreads) {
-      const int r = idx / kBN, col = idx % kBN;
-      s.ffn[r * (C + 4) + n0 + col] = dequant(
-          s.I_s[r * kLdI + col], s.sh[r], s2[n0 + col], __bfloat162float(b2[n0 + col]));
-    }
-  }
+// The W1 epilogues' row: the scale of xq's row.
+struct Fc1Row {
+  float sx;
+};
 
-  // adapter on x itself, in bf16: a = relu(x Wa1^T + ab1) Wa2^T + ab2
-  const int lda = C + 8, ldhh = kBN + 8;
-  for (int idx = threadIdx.x; idx < mp * C; idx += kThreads) {
-    const int r = idx / C, c = idx % C;
-    s.A_s[r * lda + c] = r < valid ? x[(size_t)(row0 + r) * C + c] : __float2bfloat16(0.0f);
+struct Tail8Fc1Max {
+  static constexpr bool kRowMax = true;
+  const float* sx;
+  const float* s1;
+  const bf16* b1;
+  float* rowmax;
+  __device__ Fc1Row row(int r) const { return {sx[r]}; }
+  __device__ ScaleBias col(int c) const { return scale_bias(s1, b1, c); }
+  __device__ float2 value(Fc1Row r, ScaleBias c, int a0, int a1) const {
+    return make_float2(tail_hidden(a0, r.sx, c.s0, c.b0), tail_hidden(a1, r.sx, c.s1, c.b1));
   }
-  tile_gemm(s.F_s, kLdF, s.A_s, lda, mp, aw1, C, Ca, C, C, s.Wb_s, false);
-  for (int idx = threadIdx.x; idx < mp * kBN; idx += kThreads) {
-    const int r = idx / kBN, col = idx % kBN;
-    const float v = col < Ca ? fmaxf(s.F_s[r * kLdF + col] + __bfloat162float(ab1[col]), 0.0f)
-                             : 0.0f;
-    s.H_s[r * ldhh + col] = __float2bfloat16(v);
+  // m >= 0: the int bits order as the floats
+  __device__ void reduce(int r, float m) const {
+    atomicMax(reinterpret_cast<int*>(rowmax + r), __float_as_int(m));
   }
-  const int Ka = (Ca + 15) / 16 * 16;
-  for (int n0 = 0; n0 < C; n0 += kBN) {
-    tile_gemm(s.F_s, kLdF, s.H_s, ldhh, mp, aw2 + (size_t)n0 * Ca, Ca, kBN, Ca, Ka,
-              s.Wb_s, false);
-    for (int idx = threadIdx.x; idx < bm * kBN; idx += kThreads) {
-      const int r = idx / kBN, col = idx % kBN;
-      if (r < valid) {
-        const size_t o = (size_t)(row0 + r) * C + n0 + col;
-        const float a = __fadd_rn(s.F_s[r * kLdF + col], __bfloat162float(ab2[n0 + col]));
-        out[o] = __float2bfloat16(
-            __fadd_rn(__fadd_rn(__bfloat162float(x[o]), s.ffn[r * (C + 4) + n0 + col]),
-                      __fmul_rn(adapter_scale, a)));
-      }
-    }
+};
+
+struct Tail8Fc1Quant {
+  static constexpr bool kRowMax = false;
+  struct Row {
+    float sx, s;  // xq's scale, the hidden's
+  };
+  const float* sx;
+  const float* s1;
+  const bf16* b1;
+  const float* rowmax;
+  int8_t* hq;
+  float* sh;
+  int H;
+  __device__ Row row(int r) const { return {sx[r], fmaxf(rowmax[r], 1e-12f) / 127.0f}; }
+  __device__ ScaleBias col(int c) const { return scale_bias(s1, b1, c); }
+  __device__ void operator()(Row r, ScaleBias c, int i, int j, int a0, int a1) const {
+    char2 q;
+    q.x = quantize_code(tail_hidden(a0, r.sx, c.s0, c.b0), r.s);
+    q.y = quantize_code(tail_hidden(a1, r.sx, c.s1, c.b1), r.s);
+    *reinterpret_cast<char2*>(hq + (size_t)i * H + j) = q;
+    if (j == 0) sh[i] = r.s;
   }
+};
+
+struct Tail8Fc2 {
+  static constexpr bool kRowMax = false;
+  struct Row {
+    float sh;
+  };
+  const bf16* x;
+  const float* sh;
+  const float* s2;
+  const bf16* b2;
+  const float* a;
+  bf16* out;
+  int C;
+  float adapter_scale;
+  __device__ Row row(int r) const { return {sh[r]}; }
+  __device__ ScaleBias col(int c) const { return scale_bias(s2, b2, c); }
+  __device__ void operator()(Row r, ScaleBias c, int i, int j, int a0, int a1) const {
+    const size_t o = (size_t)i * C + j;
+    const float2 av = *reinterpret_cast<const float2*>(a + o);  // the wrapper's buffer
+    store_bf16x2(out + o,
+                 __fadd_rn(__fadd_rn(__bfloat162float(x[o]), dequant(a0, r.sh, c.s0, c.b0)),
+                           __fmul_rn(adapter_scale, av.x)),
+                 __fadd_rn(__fadd_rn(__bfloat162float(x[o + 1]), dequant(a1, r.sh, c.s1, c.b1)),
+                           __fmul_rn(adapter_scale, av.y)));
+  }
+};
+
+// The f32 hidden itself (the check entry's).
+struct Tail8Fc1Hidden {
+  static constexpr bool kRowMax = false;
+  const float* sx;
+  const float* s1;
+  const bf16* b1;
+  float* h;
+  int H;
+  __device__ Fc1Row row(int r) const { return {sx[r]}; }
+  __device__ ScaleBias col(int c) const { return scale_bias(s1, b1, c); }
+  __device__ void operator()(Fc1Row r, ScaleBias c, int i, int j, int a0, int a1) const {
+    *reinterpret_cast<float2*>(h + (size_t)i * H + j) =
+        make_float2(tail_hidden(a0, r.sx, c.s0, c.b0), tail_hidden(a1, r.sx, c.s1, c.b1));
+  }
+};
+
+int ln2_launch(const void* x, const void* ln_g, const void* ln_b, void* xq, void* sx,
+               void* rowmax, int T, int C, float eps, cudaStream_t st) {
+  tail8_ln2_kernel<<<(T + kLnRows - 1) / kLnRows, kThreads, kLnRows * (C + 8) * 2, st>>>(
+      (const bf16*)x, (const bf16*)ln_g, (const bf16*)ln_b, (int8_t*)xq, (float*)sx,
+      (float*)rowmax, T, C, eps);
+  return (int)cudaGetLastError();
+}
+
+int fc1_launches(const void* w1, const void* s1, const void* b1, const void* xq,
+                 const void* sx, void* rowmax, void* hq, void* sh, int T, int C, int H,
+                 cudaStream_t st) {
+  int e = igemm(xq, C, w1, C, T, H, C,
+                Tail8Fc1Max{(const float*)sx, (const float*)s1, (const bf16*)b1,
+                            (float*)rowmax},
+                st);
+  if (e) return e;
+  return igemm(xq, C, w1, C, T, H, C,
+               Tail8Fc1Quant{(const float*)sx, (const float*)s1, (const bf16*)b1,
+                             (const float*)rowmax, (int8_t*)hq, (float*)sh, H},
+               st);
 }
 
 }  // namespace
 
+// x, out (T, C) bf16; ln_g, ln_b, b1 (H), b2 (C), the adapter's weights and
+// biases bf16 in torch Linear layout; w1 (H, C) and w2 (C, H) s8 with f32
+// scales s1 (H) and s2 (C); the intermediates: xq (T, C) s8, sx, rowmax,
+// sh (T) f32, ah (T, Ca) bf16, a (T, C) f32, hq (T, H) s8.  C and H
+// multiples of 16, Ca even.
 extern "C" int block_tail_int8(const void* x, const void* ln_g, const void* ln_b,
                                const void* w1, const void* s1, const void* b1,
                                const void* w2, const void* s2, const void* b2,
                                const void* aw1, const void* ab1, const void* aw2,
-                               const void* ab2, void* out, int T, int C, int H,
-                               int Ca, float eps, float adapter_scale,
-                               void* stream) {
-  const int bm = tail_rows(H);
-  const size_t smem = carve(nullptr, C, H).bytes;
-  if (reuse_bytes(C, H) > (size_t)bm * H * 4 ||
-      (size_t)mma_rows(bm) * (C + 8) * 2 > (size_t)bm * H * 4)
-    return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      block_tail_int8_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  block_tail_int8_kernel<<<(T + bm - 1) / bm, kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(
-      (const bf16*)x, (const bf16*)ln_g, (const bf16*)ln_b, (const int8_t*)w1,
-      (const float*)s1, (const bf16*)b1, (const int8_t*)w2, (const float*)s2,
-      (const bf16*)b2, (const bf16*)aw1, (const bf16*)ab1, (const bf16*)aw2,
-      (const bf16*)ab2, (bf16*)out, T, C, H, Ca, eps, adapter_scale);
-  return (int)cudaGetLastError();
+                               const void* ab2, void* xq, void* sx, void* rowmax, void* ah,
+                               void* a, void* hq, void* sh, void* out, int T, int C, int H,
+                               int Ca, float eps, float adapter_scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int e = ln2_launch(x, ln_g, ln_b, xq, sx, rowmax, T, C, eps, st);
+  if (e) return e;
+  e = gemm(gemm_args(x, C, 0, aw1, C, 0, T, Ca, C), 1,
+           Tail8AdapterUp{{(const bf16*)ab1, (bf16*)ah, Ca, T}}, st);
+  if (e) return e;
+  e = gemm(gemm_args(ah, Ca, 0, aw2, Ca, 0, T, C, Ca), 1,
+           Tail8AdapterDown{(const bf16*)ab2, (float*)a, C}, st);
+  if (e) return e;
+  e = fc1_launches(w1, s1, b1, xq, sx, rowmax, hq, sh, T, C, H, st);
+  if (e) return e;
+  return igemm(hq, H, w2, H, T, C, H,
+               Tail8Fc2{(const bf16*)x, (const float*)sh, (const float*)s2, (const bf16*)b2,
+                        (const float*)a, (bf16*)out, C, adapter_scale},
+               st);
+}
+
+// The check of the two W1 passes on the card (chip_smoke.py): LN2, the max
+// and quantize passes as block_tail_int8 runs them, and the f32 hidden of
+// the same helper written out (hid, (T, H) f32), from which the row max and
+// the codes are computed again.
+extern "C" int block_tail_int8_hidden(const void* x, const void* ln_g, const void* ln_b,
+                                      const void* w1, const void* s1, const void* b1,
+                                      void* xq, void* sx, void* rowmax, void* hq, void* sh,
+                                      void* hid, int T, int C, int H, float eps,
+                                      void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  int e = ln2_launch(x, ln_g, ln_b, xq, sx, rowmax, T, C, eps, st);
+  if (e) return e;
+  e = fc1_launches(w1, s1, b1, xq, sx, rowmax, hq, sh, T, C, H, st);
+  if (e) return e;
+  return igemm(xq, C, w1, C, T, H, C,
+               Tail8Fc1Hidden{(const float*)sx, (const float*)s1, (const bf16*)b1,
+                              (float*)hid, H},
+               st);
+}
+
+// The s8 GEMM's raw s32 output, out (M, N) = a (M, K) . w (N, K)^T, the
+// rows of a and w ld bytes apart (chip_smoke.py holds it against
+// torch._int_mm; with K < ld the last k are dropped, its planted fault).
+extern "C" int igemm_s32(const void* a, const void* w, void* out, int M, int N, int K, int ld,
+                         void* stream) {
+  return igemm(a, ld, w, ld, M, N, K, S32Out{(int*)out, N},
+               static_cast<cudaStream_t>(stream));
 }

@@ -1,12 +1,13 @@
 // Shared device helpers for the port's hand-written Hopper kernels.
 //
-// tile_gemm is the matrix-product routine of the fused row kernels (K11's
-// adapter, K13, K14): a block of 256 threads (8 warps)
+// tile_gemm is the matrix-product routine of the fused row kernels (K13,
+// K14): a block of 256 threads (8 warps)
 // multiplies a bf16 activation tile that already sits in shared memory by a
 // slice of a weight matrix streamed from device memory, with WMMA (mma.sync
 // 16x16x16, bf16 operands, f32 accumulation), one staging buffer and two
-// barriers a 64-deep step.  K1's, K2's and K5's products run on
-// gemm_mma.cuh's pipelined GEMM instead, which sums in tile_gemm's order.
+// barriers a 64-deep step.  K1's, K2's and K5's products, and K11's
+// adapter, run on gemm_mma.cuh's pipelined GEMM instead, which sums in
+// tile_gemm's order; K10's and K11's s8 products on igemm.cuh.
 #pragma once
 
 #include <cuda_bf16.h>

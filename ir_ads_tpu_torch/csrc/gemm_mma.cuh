@@ -5,7 +5,7 @@
 // (batch z offsets A, W and C_init by their batch strides and is handed to
 // the epilogue).  K1 (swin_block.cu), K2 (block_tail.cu) and K5
 // (swin_block_v6.cu) run their products on it, with the epilogues of
-// gemm_epilogues.cuh.
+// gemm_epilogues.cuh, and K11 (block_tail_int8.cu) its bf16 adapter.
 //
 // Order of the sums: each output is one f32 accumulator in registers,
 // starting from C_init (or +0) and taking the 16-deep mma.sync m16n8k16

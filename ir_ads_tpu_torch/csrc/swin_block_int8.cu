@@ -16,20 +16,32 @@
 // 4 * 144 * C bf16 ones (scores, P.V) against 4C bytes moved (x in, y out).
 // At the card's rates the bf16 attention takes 1.1x the int8 products' time
 // at C = 128 and 0.14x at C = 1024; the bytes bound by a hair at C = 128,
-// the operations at the wider stages (chip_smoke.py's count).  Design: three
-// launches, the two row kernels in s8 and K1's attention between them:
-//   ln_quant_qkv      rows of the map: LN1 in f32 -> bf16 tile -> per-row s8
-//                     -> mma.sync s8 product with Wqkv (igemm.cuh) -> qkv
-//                     (bf16) to device memory;
+// the operations at the wider stages (chip_smoke.py's count).
+//
+// Design: five launches, each a grid over the whole map, the two s8
+// products on igemm.cuh's TMA and wgmma GEMM (a fused row kernel streams
+// all of Wqkv and Wproj again for every row tile):
+//   k10_ln1_kernel    LN1 of the map's rows (f32 statistics, zero at
+//                     padding) to bf16, then per-row s8 (xq, sx): the rows
+//                     code of the fused form (layer_norm_rows,
+//                     quantize_rows), one warp a row;
+//   K10QkvOut         s8 GEMM with Wqkv: qkv = bf16((acc * sx) * sqkv +
+//                     bqkv);
 //   attention         K1's: on the tensor-core shapes (the wrapper's
 //                     tensor_core_design) int8_attn_mma_kernel,
 //                     window_mma.cuh's head kernel on the map in place
 //                     (MapRows); elsewhere window_attn_kernel, the first
 //                     design (window_block.cuh);
-//   quant_proj_add    rows: attention output -> per-row s8 -> s8 product
-//                     with Wproj -> dequantize, + bias + residual x -> y.
-// As in K1, qkv and the attention output make one round trip through device
-// memory; fusing them away is later work.
+//   k10_att_quant_kernel  per-row s8 of the attention output (aq, sa), one
+//                     warp a row;
+//   K10ProjAdd        s8 GEMM with Wproj: y = bf16(x + ((acc * sa) * sp +
+//                     bp)).
+// Bits: each epilogue is the fused rows' expression (this file before its
+// products moved to igemm.cuh) and the s8 sums are exact in any order, so
+// K10 keeps those kernels' bits.  The s8 rows, their scales, qkv and the
+// attention output make one round trip through device memory; the wrapper
+// allocates them.
+#include "gemm_epilogues.cuh"
 #include "igemm.cuh"
 #include "window_block.cuh"
 #include "window_mma.cuh"
@@ -38,101 +50,71 @@ using namespace port;
 
 namespace {
 
-__host__ __device__ inline size_t rows_smem_int8(int C) {
-  const int bm = rows_per_block(C);
-  return align128((size_t)bm * (C + 8) * 2) + align128((size_t)bm * (C + 16)) +
-         align128((size_t)bm * kLdI * 4) + align128((size_t)kBN * kLdWs) +
-         align128((size_t)bm * 4);
-}
-
-struct RowSmem {
-  bf16* A_s;    // [bm][C + 8] bf16 rows (LN1 output or attention output)
-  int8_t* q_s;  // [bm][C + 16] their s8
-  int* I_s;     // [bm][kLdI]
-  int8_t* W_s;  // [64][kLdWs]
-  float* sc;    // [bm] row scales
-};
-
-__device__ inline RowSmem row_smem(unsigned char* p, int C) {
-  const int bm = rows_per_block(C);
-  RowSmem s;
-  s.A_s = reinterpret_cast<bf16*>(p);
-  p += align128((size_t)bm * (C + 8) * 2);
-  s.q_s = reinterpret_cast<int8_t*>(p);
-  p += align128((size_t)bm * (C + 16));
-  s.I_s = reinterpret_cast<int*>(p);
-  p += align128((size_t)bm * kLdI * 4);
-  s.W_s = reinterpret_cast<int8_t*>(p);
-  p += align128((size_t)kBN * kLdWs);
-  s.sc = reinterpret_cast<float*>(p);
-  return s;
-}
+constexpr int kLnRows = kWarps;  // rows a block of the row launches: one a warp
 
 __global__ void __launch_bounds__(kThreads)
-ln_quant_qkv_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
-                    const bf16* __restrict__ b, const int8_t* __restrict__ wqkv,
-                    const float* __restrict__ sqkv, const bf16* __restrict__ bqkv,
-                    bf16* __restrict__ qkv, int T, int Hp, int Wp, int C,
-                    int h_real, int w_real, int shift, float eps) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const RowSmem s = row_smem(smem, C);
-  const int bm = rows_per_block(C);
-  const int row0 = blockIdx.x * bm;
-  const int valid = min(bm, T - row0);
+k10_ln1_kernel(const bf16* __restrict__ x, const bf16* __restrict__ g,
+               const bf16* __restrict__ b, int8_t* __restrict__ xq, float* __restrict__ sx,
+               int T, int Hp, int Wp, int C, int h_real, int w_real, int shift, float eps) {
+  extern __shared__ __align__(16) unsigned char ln_smem[];
+  bf16* ln_s = reinterpret_cast<bf16*>(ln_smem);
+  const int row0 = blockIdx.x * kLnRows, valid = min(kLnRows, T - row0);
   const bool padded = h_real != Hp || w_real != Wp;
-  layer_norm_rows(s.A_s, C + 8, x, row0, bm, T, C, g, b, eps, [=](int row) {
+  layer_norm_rows(ln_s, C + 8, x, row0, valid, T, C, g, b, eps, [=](int row) {
     if (!padded) return false;
     const int pix = row % (Hp * Wp);
     const int r = pix / Wp, c = pix % Wp;
     return (r + shift) % Hp >= h_real || (c + shift) % Wp >= w_real;
   });
   __syncthreads();
-  quantize_rows(s.q_s, C + 16, s.sc, s.A_s, C + 8, bm, valid, C);
-  const int C3 = 3 * C;
-  for (int n0 = 0; n0 < C3; n0 += kBN) {
-    tile_igemm(s.I_s, kLdI, s.q_s, C + 16, bm, wqkv + (size_t)n0 * C, C, kBN, C, s.W_s);
-    for (int idx = threadIdx.x; idx < bm * kBN; idx += kThreads) {
-      const int r = idx / kBN, col = idx % kBN;
-      if (r < valid)
-        qkv[(size_t)(row0 + r) * C3 + n0 + col] = __float2bfloat16(dequant(
-            s.I_s[r * kLdI + col], s.sc[r], sqkv[n0 + col],
-            __bfloat162float(bqkv[n0 + col])));
-    }
-  }
+  quantize_rows(xq + (size_t)row0 * C, C, sx + row0, ln_s, C + 8, valid, C);
 }
 
 __global__ void __launch_bounds__(kThreads)
-quant_proj_add_kernel(const bf16* __restrict__ att, const bf16* __restrict__ x,
-                      const int8_t* __restrict__ wproj,
-                      const float* __restrict__ sproj,
-                      const bf16* __restrict__ bproj, bf16* __restrict__ y, int T,
-                      int C) {
-  extern __shared__ __align__(128) unsigned char smem[];
-  const RowSmem s = row_smem(smem, C);
-  const int bm = rows_per_block(C);
-  const int row0 = blockIdx.x * bm;
-  const int valid = min(bm, T - row0);
-  for (int idx = threadIdx.x; idx < bm * C; idx += kThreads) {
-    const int r = idx / C, c = idx % C;
-    s.A_s[r * (C + 8) + c] =
-        r < valid ? att[(size_t)(row0 + r) * C + c] : __float2bfloat16(0.0f);
-  }
-  __syncthreads();
-  quantize_rows(s.q_s, C + 16, s.sc, s.A_s, C + 8, bm, valid, C);
-  for (int n0 = 0; n0 < C; n0 += kBN) {
-    tile_igemm(s.I_s, kLdI, s.q_s, C + 16, bm, wproj + (size_t)n0 * C, C, kBN, C, s.W_s);
-    for (int idx = threadIdx.x; idx < bm * kBN; idx += kThreads) {
-      const int r = idx / kBN, col = idx % kBN;
-      if (r < valid) {
-        const size_t o = (size_t)(row0 + r) * C + n0 + col;
-        y[o] = __float2bfloat16(__fadd_rn(
-            __bfloat162float(x[o]),
-            dequant(s.I_s[r * kLdI + col], s.sc[r], sproj[n0 + col],
-                    __bfloat162float(bproj[n0 + col]))));
-      }
-    }
-  }
+k10_att_quant_kernel(const bf16* __restrict__ att, int8_t* __restrict__ aq,
+                     float* __restrict__ sa, int T, int C) {
+  const int row0 = blockIdx.x * kLnRows, valid = min(kLnRows, T - row0);
+  quantize_rows(aq + (size_t)row0 * C, C, sa + row0, att + (size_t)row0 * C, C, valid, C);
 }
+
+// The rows' scale, the row of both epilogues.
+struct RowScale {
+  float s;
+};
+
+// qkv = bf16((acc * sx) * sqkv + bqkv)
+struct K10QkvOut {
+  static constexpr bool kRowMax = false;
+  const float* sx;
+  const float* sqkv;
+  const bf16* bqkv;
+  bf16* qkv;
+  int ld;
+  __device__ RowScale row(int r) const { return {sx[r]}; }
+  __device__ ScaleBias col(int c) const { return scale_bias(sqkv, bqkv, c); }
+  __device__ void operator()(RowScale r, ScaleBias c, int i, int j, int a0, int a1) const {
+    store_bf16x2(qkv + (size_t)i * ld + j, dequant(a0, r.s, c.s0, c.b0),
+                 dequant(a1, r.s, c.s1, c.b1));
+  }
+};
+
+// y = bf16(x + ((acc * sa) * sproj + bproj)), rounded once
+struct K10ProjAdd {
+  static constexpr bool kRowMax = false;
+  const float* sa;
+  const float* sproj;
+  const bf16* bproj;
+  const bf16* x;
+  bf16* y;
+  int C;
+  __device__ RowScale row(int r) const { return {sa[r]}; }
+  __device__ ScaleBias col(int c) const { return scale_bias(sproj, bproj, c); }
+  __device__ void operator()(RowScale r, ScaleBias c, int i, int j, int a0, int a1) const {
+    const size_t o = (size_t)i * C + j;
+    store_bf16x2(y + o, __fadd_rn(__bfloat162float(x[o]), dequant(a0, r.s, c.s0, c.b0)),
+                 __fadd_rn(__bfloat162float(x[o + 1]), dequant(a1, r.s, c.s1, c.b1)));
+  }
+};
 
 // The attention on the tensor cores: K1's (swin_block.cu), window_mma.cuh's
 // head kernel on the map in place.
@@ -146,32 +128,36 @@ int8_attn_mma_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bia
 
 }  // namespace
 
+// x, y (B, Hp, Wp, C) bf16, the padded map rolled by `shift`; ln_g, ln_b,
+// bqkv, bproj bf16; wqkv (3C, C) and wproj (C, C) s8 with f32 scales sqkv
+// and sproj; bias (heads, N, N) f32, region (nW, N) int32 or null when
+// unshifted; the intermediates over the T = B Hp Wp rows: xq, aq (T, C) s8,
+// sx, sa (T) f32, qkv (T, 3C) and att (T, C) bf16.  C a multiple of 16.
+// tensor_cores = 1 takes the attention's tensor-core design, 0 its first.
 extern "C" int swin_window_block_int8(
     const void* x, const void* ln_g, const void* ln_b, const void* wqkv,
     const void* sqkv, const void* bqkv, const void* wproj, const void* sproj,
-    const void* bproj, const void* bias, const void* region, void* qkv, void* att,
-    void* y, int B, int Hp, int Wp, int C, int heads, int ws, int h_real,
-    int w_real, int shift, int tensor_cores, float scale, float eps, void* stream) {
+    const void* bproj, const void* bias, const void* region, void* xq, void* sx, void* qkv,
+    void* att, void* aq, void* sa, void* y, int B, int Hp, int Wp, int C, int heads, int ws,
+    int h_real, int w_real, int shift, int tensor_cores, float scale, float eps,
+    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const int T = B * Hp * Wp;
-  const int bm = rows_per_block(C);
-  const size_t rs = rows_smem_int8(C);
-  cudaError_t err = cudaFuncSetAttribute(
-      ln_quant_qkv_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)rs);
+  const int row_blocks = (T + kLnRows - 1) / kLnRows;
+  k10_ln1_kernel<<<row_blocks, kThreads, kLnRows * (C + 8) * 2, st>>>(
+      (const bf16*)x, (const bf16*)ln_g, (const bf16*)ln_b, (int8_t*)xq, (float*)sx, T, Hp,
+      Wp, C, h_real, w_real, shift, eps);
+  cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(quant_proj_add_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)rs);
-  if (err != cudaSuccess) return (int)err;
-  ln_quant_qkv_kernel<<<(T + bm - 1) / bm, kThreads, rs, st>>>(
-      (const bf16*)x, (const bf16*)ln_g, (const bf16*)ln_b, (const int8_t*)wqkv,
-      (const float*)sqkv, (const bf16*)bqkv, (bf16*)qkv, T, Hp, Wp, C, h_real,
-      w_real, shift, eps);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  int e = igemm(xq, C, wqkv, C, T, 3 * C, C,
+                K10QkvOut{(const float*)sx, (const float*)sqkv, (const bf16*)bqkv, (bf16*)qkv,
+                          3 * C},
+                st);
+  if (e) return e;
 
   const int BN = B * (Hp / ws) * (Wp / ws);
   if (tensor_cores) {
-    const int e = launch_mma(ws * ws, C / heads, [&](auto nt, auto dd) {
+    e = launch_mma(ws * ws, C / heads, [&](auto nt, auto dd) {
       constexpr int NT = decltype(nt)::value, D = decltype(dd)::value;
       return launch_heads<NT, D>(int8_attn_mma_kernel<NT, D>, BN, heads, st,
                                  (const bf16*)qkv, (const float*)bias, (const int*)region,
@@ -190,8 +176,12 @@ extern "C" int swin_window_block_int8(
     if (err != cudaSuccess) return (int)err;
   }
 
-  quant_proj_add_kernel<<<(T + bm - 1) / bm, kThreads, rs, st>>>(
-      (const bf16*)att, (const bf16*)x, (const int8_t*)wproj, (const float*)sproj,
-      (const bf16*)bproj, (bf16*)y, T, C);
-  return (int)cudaGetLastError();
+  k10_att_quant_kernel<<<row_blocks, kThreads, 0, st>>>((const bf16*)att, (int8_t*)aq,
+                                                         (float*)sa, T, C);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  return igemm(aq, C, wproj, C, T, C, C,
+               K10ProjAdd{(const float*)sa, (const float*)sproj, (const bf16*)bproj,
+                          (const bf16*)x, (bf16*)y, C},
+               st);
 }

@@ -3,7 +3,11 @@ qkv_w8a8(LN1 x))), on the padded, cyclically rolled (B, Hp, Wp, C) map.
 
 Replaces ir_ads_tpu/ops/pallas_swin.py:_attn_kernel_v4_int8 (launched by
 ``pallas_window_block`` under ``IR_ADS_INT8``).  The CUDA source is
-csrc/swin_block_int8.cu; its header states the bound and the design.  The
+csrc/swin_block_int8.cu; its header states the bound and the design: five
+launches (LN1 with the per-row s8 of its output, the qkv product, K1's
+attention, the per-row s8 of the attention output, the proj product), the
+s8 products on csrc/igemm.cuh's TMA and wgmma GEMM with the fused rows'
+expressions as epilogues: their bits.  The
 qkv and proj weights arrive quantized per output channel
 (``ops.int8.quantize_weight`` of the float weights, (out, in) layout: s8 and
 an f32 scale each); LN and bias parameters are rounded to the compute dtype
@@ -31,7 +35,7 @@ from ir_ads_tpu_torch.ops.window_attention_qkv import tensor_core_design
 
 KERNEL = CudaKernel(
     "swin_block_int8", "swin_window_block_int8",
-    [VOIDP] * 14 + [INT] * 10 + [FLOAT] * 2,
+    [VOIDP] * 18 + [INT] * 10 + [FLOAT] * 2,
     replaces="ir_ads_tpu/ops/pallas_swin.py:1108",
 )
 
@@ -97,17 +101,22 @@ def window_block_int8(
     check_cuda("window_block_int8", sqkv, sproj, bias, dtype=torch.float32)
     n, d = ws * ws, c // heads
     mma = c % heads == 0 and tensor_core_design(cdt, n, d)
-    if not (mma or (n % 16 == 0 and d % 16 == 0)) or c % 64 or hp % ws or wp % ws:
+    # TMA's row strides are multiples of 16 bytes
+    if not (mma or (n % 16 == 0 and d % 16 == 0)) or c % 16 or hp % ws or wp % ws:
         raise ValueError(f"window_block_int8: unsupported shape C={c} heads={heads} ws={ws}")
     if region is not None:
         region = region.to(device=x.device, dtype=torch.int32).contiguous()
-    qkv = torch.empty((b, hp, wp, 3 * c), dtype=cdt, device=x.device)
-    att = torch.empty((b, hp, wp, c), dtype=cdt, device=x.device)
+    t = b * hp * wp
+    empty = lambda *shape, dtype=torch.float32: torch.empty(  # noqa: E731
+        shape, dtype=dtype, device=x.device)
+    # xq, sx, qkv, the attention output, its s8 rows and scales
+    scratch = (empty(t, c, dtype=torch.int8), empty(t), empty(t, 3 * c, dtype=cdt),
+               empty(t, c, dtype=cdt), empty(t, c, dtype=torch.int8), empty(t))
     y = torch.empty_like(x)
     KERNEL.call(
         ptr(x), ptr(ln_w), ptr(ln_b), ptr(wqkv_q), ptr(sqkv), ptr(bqkv), ptr(wproj_q),
         ptr(sproj), ptr(bproj), ptr(bias), ptr(region) if region is not None else None,
-        ptr(qkv), ptr(att), ptr(y), b, hp, wp, c, heads, ws, h_real, w_real, shift,
+        *(ptr(s) for s in scratch), ptr(y), b, hp, wp, c, heads, ws, h_real, w_real, shift,
         int(mma), q_scale(scale, cdt), float(eps),
     )
     return y

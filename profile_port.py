@@ -24,7 +24,8 @@ r4, the w8a8 r4i8, the module-path sets r2, r1 and xla, the block
 variants v7_01, v5 and map, or the DSCF variants dscf_pallas4, dscf_pallas
 and dscf_pallas2), serves one warm-up request, then one profiled request,
 and sums its port kernels' device time by kernel (K1-K20) with their
-launches, and K1's, K2's and K5's by launch of their sequences.  With --flat the frames enter the model as flat (B, H, W*3) rows
+launches, and K1's, K2's, K5's, K10's and K11's by launch of their
+sequences.  With --flat the frames enter the model as flat (B, H, W*3) rows
 and --patch-embed chooses the patch embedding's path (pallas: K19).  With
 --requests N it first times N requests on the host clock, each ended by a
 synchronize, and prints their p50.
@@ -121,9 +122,12 @@ BY_KERNEL = {
     "K7": ("window_attn_bwd_kernel", "window_attn_bwd_mma_kernel"),
     "K8": ("dscf_rows_bwd_kernel",),
     "K9": ("msdeform_kernel",),
-    "K10 rows": ("ln_quant_qkv_kernel", "quant_proj_add_kernel"),
+    "K10 rows": ("k10_ln1_kernel", "igemm_kernel<K10QkvOut", "k10_att_quant_kernel",
+                 "igemm_kernel<K10ProjAdd", "ln_quant_qkv_kernel", "quant_proj_add_kernel"),
     "K10 attention": ("int8_attn_mma_kernel",),
-    "K11": ("block_tail_int8_kernel",),
+    "K11": ("tail8_ln2_kernel", "gemm_kernel<Tail8AdapterUp", "gemm_kernel<Tail8AdapterDown",
+            "igemm_kernel<Tail8Fc1Max", "igemm_kernel<Tail8Fc1Quant", "igemm_kernel<Tail8Fc2",
+            "block_tail_int8_kernel"),
     "K12": ("window_attention_qkv_kernel", "window_qkv_mma_kernel"),
     "K13": ("v7_ln_qkv_kernel", "v7_attn_kernel", "v7_attn_mma_kernel", "v7_proj_tail_kernel"),
     "K14": ("v5_ln_qkv_kernel", "v5_attn_kernel", "v5_attn_mma_kernel", "v5_proj_add_kernel"),
@@ -133,9 +137,9 @@ BY_KERNEL = {
     "K20": ("window_attention_v1_kernel", "window_attention_v1_mma_kernel"),
 }
 PORT_KERNELS = tuple(n for names in BY_KERNEL.values() for n in names)
-# K1, K2 and K5 by launch: K1's four, K2's five and K5's nine (the LNs, the
-# GEMMs by epilogue, the attention), and the product launches of their
-# earlier fused forms (--port-dir)
+# K1, K2, K5, K10 and K11 by launch: K1's four, K2's five, K5's nine, K10's
+# five and K11's six (the LNs, the GEMMs by epilogue, the attention), and
+# the launches of their earlier fused forms (--port-dir)
 BY_LAUNCH = {
     "K1": {"LN1": ("swin_ln1_kernel",), "qkv GEMM": ("gemm_kernel<SwinQkvOut",),
            "attention": ("swin_attn_mma_kernel", "window_attn_kernel"),
@@ -154,6 +158,18 @@ BY_LAUNCH = {
            "fc1 GEMM": ("gemm_kernel<Fc1Out",), "fc2 GEMM": ("gemm_kernel<Fc2Out",),
            "LN1 + qkv (fused form)": ("v6_ln_qkv_kernel",),
            "proj + tail (fused form)": ("proj_tail_kernel",)},
+    "K10": {"LN1 + s8 rows": ("k10_ln1_kernel",), "qkv s8 GEMM": ("igemm_kernel<K10QkvOut",),
+            "attention": ("int8_attn_mma_kernel", "window_attn_kernel"),
+            "attention s8 rows": ("k10_att_quant_kernel",),
+            "proj s8 GEMM": ("igemm_kernel<K10ProjAdd",),
+            "LN1 + qkv (fused form)": ("ln_quant_qkv_kernel",),
+            "proj (fused form)": ("quant_proj_add_kernel",)},
+    "K11": {"LN2 + s8 rows": ("tail8_ln2_kernel",),
+            "adapter up GEMM": ("gemm_kernel<Tail8AdapterUp",),
+            "adapter down GEMM": ("gemm_kernel<Tail8AdapterDown",),
+            "W1 s8 GEMM, max pass": ("igemm_kernel<Tail8Fc1Max",),
+            "W1 s8 GEMM, quantize pass": ("igemm_kernel<Tail8Fc1Quant",),
+            "W2 s8 GEMM": ("igemm_kernel<Tail8Fc2",), "fused form": ("block_tail_int8_kernel",)},
 }
 
 

@@ -58,3 +58,12 @@ def test_binding_matches_the_c_signature(mod):
     k = mod.KERNEL
     declared = [_kind(t) for t in k.argtypes] + ["ptr"]  # the stream, appended by call()
     assert declared == _c_parameters(k.source.read_text(), k.fn)
+
+
+@pytest.mark.parametrize("kernel", [block_tail_int8.HIDDEN, block_tail_int8.IGEMM],
+                         ids=lambda k: k.name)
+def test_check_entries_match_the_c_signature(kernel):
+    """The entries of K11's source that chip_smoke.py's checks call: the W1
+    passes with their hidden written out, the s8 GEMM's raw output."""
+    declared = [_kind(t) for t in kernel.argtypes] + ["ptr"]
+    assert declared == _c_parameters(kernel.source.read_text(), kernel.fn)
