@@ -45,9 +45,10 @@ Phases, each of which raises on failure:
      where it takes the thread design, and once under autograd (its
      gradients, the twin's vjp, against the twin's; K12's and K20's autograd
      cases time torch.autograd.grad through SDPA as their library call);
-     K1 (stages 0-3), K2 (stages 0-1) and K5 (stages 2-3) also by launch
-     of their sequences (four, five and nine; the profiler's device time),
-     each GEMM beside torch.matmul at its (M, N, K); K10 and K11 (stages
+     K1 (stages 0-3), K2 (stages 0-1), K5 (stages 2-3), K13 (stages 0-1)
+     and K14 (stages 0-3) also by launch of their sequences (four, five,
+     nine, nine and four; the profiler's device time), each GEMM beside
+     torch.matmul at its (M, N, K); K10 and K11 (stages
      0-3) by launch of theirs (five and six), each s8 GEMM beside
      torch._int_mm at its (M, N, K); their s8 GEMM (csrc/igemm.cuh) at each
      of the sixteen products of the four stages, its raw s32 output equal to
@@ -374,8 +375,8 @@ def check_window_block_v6(g, b, h, w, c, heads, shift, fault, streams=1):
 
 
 def launch_times(g, run, kernel, launches, iters=10):
-    """The time per launch of a kernel's sequence (K1, K2, K5: the
-    profiler's device time over ``iters`` calls of ``run``) and, beside each
+    """The time per launch of a kernel's sequence (K1, K2, K5, K13, K14:
+    the profiler's device time over ``iters`` calls of ``run``) and, beside each
     GEMM, one ``torch.matmul`` of the same (M, N, K) in bf16 (batched over
     the adapter's streams) as a yardstick for the GEMM alone.  ``launches``
     holds (label, device kernel names, (batches, M, N, K) or None); a name
@@ -854,16 +855,26 @@ def check_window_block_v7(g, b, h, w, c, heads, shift, streams=1):
             for i in range(streams)]).reshape(b, h, w, c)
 
     t = b * hp * wp  # every position of the padded map runs the whole block
+    hid, ts = tail[2].shape[0], t // streams
+    run = lambda: k13.window_block_v7(xm, attn, tail, region, *geo)  # noqa: E731
+    launches = (  # label, device kernel names, the product's (batches, M, N, K)
+        ("LN1", ("v7_ln1_kernel",), None), ("qkv GEMM", ("V7QkvOut",), (1, t, 3 * c, c)),
+        ("attention", ("v7_attn_mma_kernel", "v7_attn_kernel"), None),
+        ("proj GEMM", ("V7ProjAdd",), (1, t, c, c)),
+        ("adapter up GEMM", ("V7AdapterUp",), (streams, ts, ca, c)),
+        ("adapter down GEMM", ("V7AdapterDown",), (streams, ts, c, ca)),
+        ("LN2", ("v7_ln2_kernel",), None), ("fc1 GEMM", ("V7Fc1Out",), (1, t, hid, c)),
+        ("fc2 GEMM", ("V7Fc2Out",), (1, t, c, hid)))
     return dict(
         name="swin_block_v7",
         case=f"C={c} map {hp}x{wp} shift {shift}" + (f" S={streams}" if streams > 1 else "")
         + _design(c, heads),
-        run=lambda: k13.window_block_v7(xm, attn, tail, region, *geo),
-        plain=lambda: k13.window_block_v7_reference(xm, attn, tail, region, *geo),
+        run=run, plain=lambda: k13.window_block_v7_reference(xm, attn, tail, region, *geo),
         faulted=lambda: k13.window_block_v7_reference(xm, bad_attn, tail, bad_region, *geo),
         fault=fault, base=xm,
         composition=(lambda out: unroll_and_crop(out, h, w, shift), composed,
                      "K1, un-roll and crop, K2"),
+        per_launch=lambda: launch_times(g, run, "K13", launches),
         # K1's then K2's: the same rounding points, f32 sums of another order;
         # the share of outputs apart is held to SWIN_SHARE
         library=None, atol=3e-2, rtol=2e-2, share_tol=SWIN_SHARE["swin_block_v7"],
@@ -893,9 +904,15 @@ def check_window_block_full(g, b, h, w, c, heads, shift):
         fault = "roll left out, mask kept"
     else:
         fault, bad_attn = "rel-pos bias dropped", attn[:6] + (torch.zeros_like(attn[6]),)
+    t = b * h * w  # the real rows enter the GEMMs
+    run = lambda: k14.window_block_full(x, *attn, region, scale, heads, ws, shift)  # noqa: E731
+    launches = (  # label, device kernel names, the product's (batches, M, N, K)
+        ("LN1", ("v5_ln1_kernel",), None), ("qkv GEMM", ("FullQkvOut",), (1, t, 3 * c, c)),
+        ("attention", ("v5_attn_mma_kernel", "v5_attn_kernel"), None),
+        ("proj GEMM", ("FullProjAdd",), (1, t, c, c)))
     return dict(
         name="swin_block_full", case=f"C={c} map {h}x{w} shift {shift}" + _design(c, heads),
-        run=lambda: k14.window_block_full(x, *attn, region, scale, heads, ws, shift),
+        run=run,
         plain=lambda: k14.window_block_full_reference(x, *attn, region, scale, heads, ws, shift),
         faulted=lambda: k14.window_block_full_reference(x, *bad_attn, region, scale, heads, ws,
                                                         bad_shift),
@@ -903,13 +920,14 @@ def check_window_block_full(g, b, h, w, c, heads, shift):
         composition=(lambda out: out, lambda: unroll_and_crop(k1.window_block(
             pad_and_roll(x, ws, shift).contiguous(), *attn, region, scale, heads, ws, h, w,
             shift), h, w, shift), "pad and roll, K1, un-roll and crop"),
+        per_launch=lambda: launch_times(g, run, "K14", launches),
         # K1's bars: the same rounding points, f32 sums of another order; the
         # share of outputs apart is held to SWIN_SHARE
         library=None, atol=3e-2, rtol=2e-2, share_tol=SWIN_SHARE["swin_block_full"],
         bytes=nbytes(x, *attn, region) + nbytes(x),
         # qkv and proj of the real tokens; every query of the padded map
         # attends to its window
-        flops=b * h * w * 8 * c * c + b * hp * wp * 4 * n * c, rate=BF16_TENSOR_FLOPS,
+        flops=t * 8 * c * c + b * hp * wp * 4 * n * c, rate=BF16_TENSOR_FLOPS,
     )
 
 
@@ -3440,7 +3458,8 @@ def kernel_table(rows, launches, launches_i8, module_launches, train_launches, d
                 if key in c}
                    for c in cases],
         ))
-        # the device kernels of a sequence timed by launch (K1, K2, K5, K10, K11)
+        # the device kernels of a sequence timed by launch (K1, K2, K5, K10, K11,
+        # K13, K14)
         names = [ln["kernel"] for c in cases for ln in c.get("launch_ms", ())]
         if names:
             out[-1]["device_kernels"] = sorted(set(names))

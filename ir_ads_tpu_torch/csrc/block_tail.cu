@@ -20,15 +20,14 @@
 //   TailFc1          GEMM with W1: bf16(gelu_tanh(acc + b1));
 //   TailOut          GEMM with W2 over the whole hidden (K = 4C) from the
 //                    adapter's f32 output: out = bf16(x + acc).
-// This is the order of the earlier fused form (tail.cuh's adapter_into,
-// then ffn_accumulate adding 64 hidden columns at a time into the adapter's
-// output): each epilogue is its expression and gemm_mma.cuh sums each
-// output as tile_gemm did, so K2 keeps that form's bits, and K5's tail
-// (swin_block_v6.cu) runs the same launches on its f32 residual.  The
-// adapter's hidden (N, Ca), its f32 output (N, C), the LN output (N, C)
-// and the FFN hidden (N, 4C: 79 MB at stage 0 of 4 images) make one round
-// trip through device memory; the wrapper allocates them.  tail.cuh keeps
-// the fused steps for K13.
+// This is the order of the earlier fused form (the adapter into an f32
+// tile, then the FFN adding 64 hidden columns at a time into it): each
+// epilogue is its expression and gemm_mma.cuh sums each output in its
+// order, so K2 kept that form's bits; K5's tail (swin_block_v6.cu) runs the
+// same launches on its f32 residual, and K13's (swin_block_v7.cu) on its
+// bf16 y.  The adapter's hidden (N, Ca), its f32 output (N, C), the LN
+// output (N, C) and the FFN hidden (N, 4C: 79 MB at stage 0 of 4 images)
+// make one round trip through device memory; the wrapper allocates them.
 #include "gemm_epilogues.cuh"
 
 using namespace port;

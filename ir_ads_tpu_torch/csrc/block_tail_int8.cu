@@ -45,7 +45,7 @@
 // Bits: each epilogue is the fused form's expression (block_tail_int8.cu
 // before its products moved to igemm.cuh), the s8 sums are exact in any
 // order, the row max is exact in any order, and gemm_mma.cuh sums the
-// adapter as tile_gemm did (as for K2's adapter), so the output is the
+// adapter in the fused form's order (as K2's adapter), so the output is the
 // fused form's bit for bit.  The wrapper allocates the intermediates.
 #include "gemm_epilogues.cuh"
 #include "igemm.cuh"

@@ -1,10 +1,11 @@
 // The epilogues of the Swin block GEMMs on gemm_mma.cuh, shared by K1
-// (swin_block.cu), K2 (block_tail.cu) and K5 (swin_block_v6.cu), and the
-// helper that fills a GemmArgs.  Each epilogue is the expression of the
-// fused row kernel whose product it took over (window_block.cuh's
-// ln_qkv_rows and proj_add_rows, tail.cuh's adapter_into and
-// ffn_accumulate), written in the same order, so that with gemm_mma.cuh's
-// order of the sums the output keeps that kernel's bits.
+// (swin_block.cu), K2 (block_tail.cu), K5 (swin_block_v6.cu), K13
+// (swin_block_v7.cu) and K14 (swin_block_full.cu), and the helper that
+// fills a GemmArgs.  Each epilogue is the expression of the fused row
+// kernels whose products it took over, written in the same order, so that
+// with gemm_mma.cuh's order of the sums every kernel that runs it computes
+// the same bits: K13 and K14 are held bit for bit against compositions
+// with K1 and K2.
 //
 // A source that runs one of these epilogues beside another kernel's on the
 // same path derives a struct of its own name from it (struct SwinQkvOut :
@@ -23,7 +24,7 @@ __device__ __forceinline__ void store_bf16x2(bf16* p, float v0, float v1) {
                                                          __float2bfloat16(v1));
 }
 
-// qkv = bf16(acc + bqkv): ln_qkv_rows (window_block.cuh).
+// qkv = bf16(acc + bqkv): K1, K5, K13, K14.
 struct QkvOut {
   const bf16* bias;
   bf16* qkv;
@@ -34,8 +35,8 @@ struct QkvOut {
   }
 };
 
-// y = bf16((x + acc) + bproj), x first: proj_add_rows (window_block.cuh).
-// K5's ProjOut adds x + (acc + bproj), another order.
+// y = bf16((x + acc) + bproj), x first: K1, K13, K14.  K5's ProjOut adds
+// x + (acc + bproj), another order.
 struct ProjAddOut {
   const bf16* x;
   const bf16* bias;
@@ -48,8 +49,8 @@ struct ProjAddOut {
   }
 };
 
-// hidden = bf16(relu(acc + ab1)): adapter_into's hidden (tail.cuh); batch z
-// is stream z, with its own rows (Ts a stream) and bias.
+// hidden = bf16(relu(acc + ab1)), the adapter's hidden; batch z is stream
+// z, with its own rows (Ts a stream) and bias.
 struct AdapterUp {
   const bf16* ab1;
   bf16* hidden;
@@ -62,7 +63,7 @@ struct AdapterUp {
   }
 };
 
-// adapter_scale * (acc + ab2) + b2 in f32: adapter_into's output, the FFN's
+// adapter_scale * (acc + ab2) + b2 in f32: the adapter's output, the FFN's
 // output bias b2 folded in; the W2 GEMM's init.
 struct AdapterDown {
   const bf16* ab2;
@@ -79,7 +80,7 @@ struct AdapterDown {
   }
 };
 
-// hidden = bf16(gelu_tanh(acc + b1)): ffn_accumulate's hidden (tail.cuh).
+// hidden = bf16(gelu_tanh(acc + b1)): the FFN's hidden.
 struct Fc1Out {
   const bf16* b1;
   bf16* hidden;
@@ -102,8 +103,7 @@ struct Fc2Out {
   }
 };
 
-// out = bf16(x + acc), x the bf16 residual: K2's last store (block_tail.cu's
-// fused form).
+// out = bf16(x + acc), x the bf16 residual: K2's and K13's last store.
 struct TailOut {
   const bf16* x;
   bf16* out;

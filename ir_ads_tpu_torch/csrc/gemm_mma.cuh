@@ -3,19 +3,22 @@
 // A (M x K) bf16 row-major in device memory, W (N x K) bf16 in torch Linear
 // layout (out, in), C_init (M x N) f32 or none; batched over gridDim.z
 // (batch z offsets A, W and C_init by their batch strides and is handed to
-// the epilogue).  K1 (swin_block.cu), K2 (block_tail.cu) and K5
-// (swin_block_v6.cu) run their products on it, with the epilogues of
-// gemm_epilogues.cuh, and K11 (block_tail_int8.cu) its bf16 adapter.
+// the epilogue).  K1 (swin_block.cu), K2 (block_tail.cu), K5
+// (swin_block_v6.cu), K13 (swin_block_v7.cu) and K14 (swin_block_full.cu)
+// run their products on it, with the epilogues of gemm_epilogues.cuh, and
+// K11 (block_tail_int8.cu) its bf16 adapter.
 //
-// Order of the sums: each output is one f32 accumulator in registers,
-// starting from C_init (or +0) and taking the 16-deep mma.sync m16n8k16
-// steps of k in ascending order, with no split of k and no reordered
-// reduction.  tile_gemm (common.cuh) sums in that order too (a WMMA
-// 16x16x16 bf16 step is two of the same HMMA instructions), so a product
-// moved from tile_gemm to this GEMM keeps its bits wherever the epilogue
-// is written as the same expression and compiled with the same flags.
-// Past the valid rows of A and W and past K, the operands read as zero;
-// k steps past K rounded up to 16 are not taken.
+// Order of the sums, the one these kernels share: each output is one f32
+// accumulator in registers, starting from C_init (or +0) and taking the
+// 16-deep mma.sync m16n8k16 steps of k in ascending order, with no split
+// of k and no reordered reduction; the tile (Big or Small) changes
+// nothing.  It is the order of the WMMA row kernels these products ran on
+// before (a 16x16x16 bf16 step is two of the same HMMA instructions), so
+// they kept those kernels' bits; and a kernel whose epilogue is another's
+// expression, compiled with the same flags, gives that kernel's bits (K13
+// and K14 against their compositions with K1 and K2).  Past the valid rows
+// of A and W and past K, the operands read as zero; k steps past K rounded
+// up to 16 are not taken.
 //
 // Design: a block takes a BM x BN output tile, its warps (2 x WGN) each a
 // (BM / 2) x (BN / WGN) sub-tile of f32 accumulators in registers.  A and W

@@ -27,13 +27,12 @@
 //                    K15's); elsewhere window_attn_kernel, the first design
 //                    (window_block.cuh, one block a (window, head));
 //   SwinProjAdd      GEMM with Wproj: y = bf16((x + acc) + bproj).
-// The epilogues are the expressions of the earlier fused row kernels
-// (window_block.cuh's ln_qkv_rows and proj_add_rows, on tile_gemm), and
-// gemm_mma.cuh sums each output in tile_gemm's order, so the products keep
-// those kernels' bits; K13 and K14, whose rows still run the fused kernels,
-// are held bit for bit against compositions with K1 (chip_smoke.py).  The
-// attention's row sums run in window_mma.cuh's order, not the first
-// design's: an output can sit one bf16 ulp from it.  The LN output, qkv
+// The epilogues are the expressions of the earlier fused row kernels, and
+// gemm_mma.cuh sums each output in their order, so the products kept those
+// kernels' bits; K13 and K14 run the same launches (their epilogues under
+// names of their own) and are held bit for bit against compositions with
+// K1 (chip_smoke.py).  The attention's row sums run in window_mma.cuh's
+// order, not the first design's: an output can sit one bf16 ulp from it.  The LN output, qkv
 // and the attention output make one round trip through device memory; the
 // wrapper allocates them.
 #include "gemm_epilogues.cuh"

@@ -50,9 +50,9 @@
 //                  adapter's f32 output: out = bf16(y + acc).
 // Stacked adapters are the adapter GEMMs' batch (gridDim.z = S, rows of
 // stream s reading its own weights).  Every epilogue is the expression the
-// earlier fused form (v6_ln_qkv_kernel and proj_tail_kernel on tile_gemm)
-// wrote, and every product sums as tile_gemm did (gemm_mma.cuh), so K5's
-// output is that form's bit for bit.  The intermediates (LN outputs, qkv,
+// earlier fused form (v6_ln_qkv_kernel and proj_tail_kernel on WMMA row
+// tiles) wrote, and every product sums in that form's order (gemm_mma.cuh),
+// so K5's output is that form's bit for bit.  The intermediates (LN outputs, qkv,
 // attention output, y in f32 and bf16, the adapter's hidden and output,
 // the FFN hidden: about 50 MB at stage 2 of 4 images) make one round trip
 // through device memory; the wrapper allocates them.  Registers (ptxas):

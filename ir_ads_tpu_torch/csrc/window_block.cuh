@@ -1,14 +1,5 @@
-// Device code shared by the Swin block kernels (window attention with the
-// rel-pos bias and the shift-region mask, LN1 + qkv rows, proj rows):
-//   ln_qkv_rows       rows of a map: LN1 in f32 -> bf16 tile in shared
-//                     memory -> WMMA product with Wqkv (tile_gemm) -> qkv
-//                     (bf16) rows: K13 (swin_block_v7.cu) and K14
-//                     (swin_block_full.cu);
-//   proj_add_rows     rows: attention output tile -> WMMA product with
-//                     Wproj -> + bias + residual x -> y: K14.
-//   K1 (swin_block.cu) ran both until its products moved to gemm_mma.cuh,
-//   whose epilogues (gemm_epilogues.cuh) are these expressions: K13's and
-//   K14's bit-equal compositions with K1 hold the two forms to one order.
+// Device code shared by the Swin block kernels: the window attention with
+// the rel-pos bias and the shift-region mask.
 //   window_attention  one (window, head): scores, rel-pos bias, region mask,
 //                     softmax and P.V in shared memory, all WMMA.  Where the
 //                     window's tokens come from and where its output goes is
@@ -23,59 +14,13 @@
 //   tensor_core_design, d 16 or 32 and N <= 144: every Swin-B stage) K1,
 //   K5, K10 and K12-K15 run window_mma.cuh's persistent head kernel, and
 //   no Swin-B shape reaches window_attention (K12 runs it on windowed rows
-//   as its own first design).
+//   as its own first design).  The Swin blocks' row products run on
+//   gemm_mma.cuh with the epilogues of gemm_epilogues.cuh.
 #pragma once
 
 #include "common.cuh"
 
 namespace port {
-
-// qkv[row] = round(LN1(x[row]) @ Wqkv^T + bqkv) for T rows of a (B, Hp, Wp)
-// map.  When (h_real, w_real) != (Hp, Wp), the map is padded and rolled by
-// `shift`: LN1 output is zeroed at positions that are padding of the
-// original map, so their qkv row is bqkv.  One block per tile of
-// rows_per_block(C) rows; smem holds rows_smem(C).
-__device__ void ln_qkv_rows(unsigned char* smem, const bf16* __restrict__ x,
-                            const bf16* __restrict__ g,
-                            const bf16* __restrict__ b,
-                            const bf16* __restrict__ wqkv,
-                            const bf16* __restrict__ bqkv,
-                            bf16* __restrict__ qkv, int T, int Hp, int Wp,
-                            int C, int h_real, int w_real, int shift,
-                            float eps) {
-  const int bm = rows_per_block(C);
-  const int lda = C + 8;
-  bf16* A_s = reinterpret_cast<bf16*>(smem);
-  float* F_s = reinterpret_cast<float*>(smem + align128((size_t)bm * lda * 2));
-  bf16* W_s = reinterpret_cast<bf16*>(
-      reinterpret_cast<unsigned char*>(F_s) + align128((size_t)bm * kLdF * 4));
-  const int row0 = blockIdx.x * bm;
-  const bool padded = h_real != Hp || w_real != Wp;
-  layer_norm_rows(A_s, lda, x, row0, bm, T, C, g, b, eps, [=](int row) {
-    if (!padded) return false;
-    const int pix = row % (Hp * Wp);
-    const int r = pix / Wp, c = pix % Wp;
-    return (r + shift) % Hp >= h_real || (c + shift) % Wp >= w_real;
-  });
-  const int C3 = 3 * C;
-  for (int n0 = 0; n0 < C3; n0 += kBN) {
-    tile_gemm(F_s, kLdF, A_s, lda, bm, wqkv + (size_t)n0 * C, C, kBN, C, C,
-              W_s, false);
-    for (int idx = threadIdx.x; idx < bm * kBN; idx += kThreads) {
-      const int r = idx / kBN, col = idx % kBN, row = row0 + r;
-      if (row < T)
-        qkv[(size_t)row * C3 + n0 + col] = __float2bfloat16(
-            F_s[r * kLdF + col] + __bfloat162float(bqkv[n0 + col]));
-    }
-  }
-}
-
-// Shared memory of the row kernels (ln_qkv_rows and K1's proj_add_kernel).
-inline size_t rows_smem(int C) {
-  const int bm = rows_per_block(C);
-  return align128((size_t)bm * (C + 8) * 2) + align128((size_t)bm * kLdF * 4) +
-         (size_t)kBN * kBK * 2;
-}
 
 inline size_t window_attention_smem(int N, int d) {
   return align128((size_t)3 * N * (d + 8) * 2) + align128((size_t)N * (N + 4) * 4) +
@@ -255,39 +200,6 @@ window_attn_kernel(const bf16* __restrict__ qkv, const float* __restrict__ bias,
   extern __shared__ __align__(128) unsigned char smem[];
   map_window_attention(smem, qkv, bias, region, att, Hp, Wp, C, heads, ws,
                        scale);
-}
-
-// y[row] = round(x[row] + (att[row] @ Wproj^T) + bproj) for a tile of
-// rows_per_block(C) of T rows (the tile's: blockIdx.x); x and y are bf16,
-// the sum f32 and rounded once.  smem holds rows_smem(C).
-__device__ void proj_add_rows(unsigned char* smem, const bf16* __restrict__ att,
-                              const bf16* __restrict__ x,
-                              const bf16* __restrict__ wproj,
-                              const bf16* __restrict__ bproj,
-                              bf16* __restrict__ y, int T, int C) {
-  const int bm = rows_per_block(C);
-  const int lda = C + 8;
-  bf16* A_s = reinterpret_cast<bf16*>(smem);
-  float* F_s = reinterpret_cast<float*>(smem + align128((size_t)bm * lda * 2));
-  bf16* W_s = reinterpret_cast<bf16*>(
-      reinterpret_cast<unsigned char*>(F_s) + align128((size_t)bm * kLdF * 4));
-  const int row0 = blockIdx.x * bm;
-  for (int idx = threadIdx.x; idx < bm * C; idx += kThreads) {
-    const int r = idx / C, c = idx % C, row = row0 + r;
-    A_s[r * lda + c] = row < T ? att[(size_t)row * C + c] : __float2bfloat16(0.0f);
-  }
-  for (int n0 = 0; n0 < C; n0 += kBN) {
-    tile_gemm(F_s, kLdF, A_s, lda, bm, wproj + (size_t)n0 * C, C, kBN, C, C,
-              W_s, false);
-    for (int idx = threadIdx.x; idx < bm * kBN; idx += kThreads) {
-      const int r = idx / kBN, col = idx % kBN, row = row0 + r;
-      if (row < T) {
-        const size_t o = (size_t)row * C + n0 + col;
-        y[o] = __float2bfloat16(__bfloat162float(x[o]) + F_s[r * kLdF + col] +
-                                __bfloat162float(bproj[n0 + col]));
-      }
-    }
-  }
 }
 
 }  // namespace port

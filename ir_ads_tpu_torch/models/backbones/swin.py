@@ -40,7 +40,7 @@ kernel configurations, chosen by explicit arguments (``DISPATCH``):
   v7_01, v5 and map (the JAX package's opt-in Swin block variants, as
      ``IR_ADS_SWIN_ATTN`` selects them): v7_01 is r5 with the banded whole
      block (K13, ops/swin_block_v7.py: K1's half-block and K2's tail in one
-     pass, on the padded, rolled map) at stages 0-1 (``dev/sweep_env.py``'s
+     call, on the padded, rolled map) at stages 0-1 (``dev/sweep_env.py``'s
      variant of that name); v5 is r4 with the whole-map half-block (K14,
      ops/swin_block_full.py: pad, roll and crop inside) in place of K1; map
      is r2 with the attention on the qkv map (K15, ops/window_attention_map.py:

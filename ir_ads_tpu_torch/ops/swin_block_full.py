@@ -5,9 +5,12 @@ shift and the crop inside the kernel.
 Replaces ir_ads_tpu/ops/pallas_swin.py:_attn_kernel_v5 (launched by
 ``pallas_window_block_full``; twin ``_block_full_reference``).  The CUDA
 source is csrc/swin_block_full.cu; its header states the bound and the
-design.  Weights are in torch Linear layout (out, in); as on the TPU, the LN
-and projection parameters are rounded to the compute dtype and the rel-pos
-bias stays f32.
+design: K1's four launches (LN1; the qkv and proj GEMMs on
+csrc/gemm_mma.cuh; the window attention between them) on the real map's
+rows, the pad, the roll and the crop in the attention's indices.  The
+wrapper allocates the intermediates.  Weights are in torch Linear layout
+(out, in); as on the TPU, the LN and projection parameters are rounded to
+the compute dtype and the rel-pos bias stays f32.
 
 ``window_block_full`` launches the kernel for CUDA tensors and runs
 ``window_block_full_reference``, the plain version (the twin: LN1 before
@@ -32,7 +35,7 @@ from ir_ads_tpu_torch.ops.swin_block import window_attention_reference
 from ir_ads_tpu_torch.ops.window_attention_qkv import tensor_core_design
 
 KERNEL = CudaKernel(
-    "swin_block_full", "swin_block_full", [VOIDP] * 12 + [INT] * 8 + [FLOAT] * 2,
+    "swin_block_full", "swin_block_full", [VOIDP] * 13 + [INT] * 8 + [FLOAT] * 2,
     replaces="ir_ads_tpu/ops/pallas_swin.py:1415",
 )
 
@@ -90,20 +93,23 @@ def window_block_full(
     b, h, w, c = x.shape
     n, d = ws * ws, c // heads
     mma = c % heads == 0 and tensor_core_design(cdt, n, d)
-    # the row kernels take 64-column tiles; the attention's first design
-    # WMMA tiles of 16 tokens and channels
-    if not (mma or (n % 16 == 0 and d % 16 == 0)) or c % 64:
+    # K1's shapes: the attention's first design takes WMMA tiles of 16
+    # tokens and channels; its tensor-core design and the GEMMs' pieces,
+    # 16-byte rows
+    if not (mma or (n % 16 == 0 and d % 16 == 0)) or c % 8:
         raise ValueError(f"window_block_full: unsupported shape C={c} heads={heads} ws={ws}")
     if region is not None:
         region = region.to(device=x.device, dtype=torch.int32).contiguous()
     if mma and ptr(bqkv) % 16:  # the padding's q, k and v are read from it
         bqkv = bqkv.clone()
-    qkv = torch.empty((b * h * w, 3 * c), dtype=cdt, device=x.device)
-    att = torch.empty((b * h * w, c), dtype=cdt, device=x.device)
+    # LN1's output, qkv and the attention output over the real rows
+    scratch = (torch.empty_like(x), torch.empty((b * h * w, 3 * c), dtype=cdt, device=x.device),
+               torch.empty_like(x))
     y = torch.empty_like(x)
     KERNEL.call(
         ptr(x), ptr(ln_w), ptr(ln_b), ptr(wqkv), ptr(bqkv), ptr(wproj), ptr(bproj),
-        ptr(bias), ptr(region) if region is not None else None, ptr(qkv), ptr(att), ptr(y),
+        ptr(bias), ptr(region) if region is not None else None, *(ptr(t) for t in scratch),
+        ptr(y),
         b, h, w, c, heads, ws, shift, int(mma), q_scale(scale, cdt), float(eps),
     )
     return y

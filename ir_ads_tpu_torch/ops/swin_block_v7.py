@@ -4,12 +4,15 @@ map,
     y   = round(x + proj(W-MSA(qkv(LN1 x))))
     out = round(y + FFN(LN2 y) + 0.5 * Adapter(y)),
 
-the tail on every position, in rolled coordinates: K1 then K2 in one pass.
+the tail on every position, in rolled coordinates: K1 then K2 without the
+un-roll and the crop between them.
 
 Replaces ir_ads_tpu/ops/pallas_swin.py:_attn_kernel_v7 (launched by
 ``pallas_window_block_v7``; twin ``_block_v7_reference``).  The CUDA source
-is csrc/swin_block_v7.cu; its header states the bound and the design.
-Parameters are K1's plus K2's, in torch Linear layout (out, in), rounded to
+is csrc/swin_block_v7.cu; its header states the bound and the design: K1's
+four launches, then K2's five on the block's y (the products on
+csrc/gemm_mma.cuh, the adapter's batched over the streams).  The wrapper
+allocates the intermediates.  Parameters are K1's plus K2's, in torch Linear layout (out, in), rounded to
 the compute dtype as on the TPU; the rel-pos bias stays f32.  Adapter
 weights may carry a leading stream axis (S, ...): image b then uses stream
 b // (B / S).  The pad, the roll, the un-roll and the crop are the caller's.
@@ -35,7 +38,7 @@ from ir_ads_tpu_torch.ops.swin_block import window_block_reference
 from ir_ads_tpu_torch.ops.window_attention_qkv import tensor_core_design
 
 KERNEL = CudaKernel(
-    "swin_block_v7", "swin_block_v7", [VOIDP] * 22 + [INT] * 13 + [FLOAT] * 3,
+    "swin_block_v7", "swin_block_v7", [VOIDP] * 27 + [INT] * 13 + [FLOAT] * 3,
     replaces="ir_ads_tpu/ops/pallas_swin.py:2179",
 )
 
@@ -99,19 +102,26 @@ def window_block_v7(
     streams = aw1.shape[0] if aw1.ndim == 3 else 1
     ca = aw1.shape[-2]
     mma = c % heads == 0 and tensor_core_design(cdt, n, d)
-    if (not (mma or (n % 16 == 0 and d % 16 == 0)) or c % 64 or c > 1024 or hidden % 64
-            or ca > 64 or hp % ws or wp % ws or b % streams):
+    # K1's shapes (the attention's first design: WMMA tiles of 16 tokens
+    # and channels; its tensor-core design and the GEMMs' pieces: 16-byte
+    # rows) and K2's (the GEMMs' epilogues write output pairs)
+    if (not (mma or (n % 16 == 0 and d % 16 == 0)) or c % 8 or hidden % 2 or ca % 2
+            or hp % ws or wp % ws or b % streams):
         raise ValueError(
             f"window_block_v7: unsupported shape C={c} heads={heads} ws={ws} "
             f"hidden={hidden} Ca={ca} B={b} streams={streams}")
     if region is not None:
         region = region.to(device=x.device, dtype=torch.int32).contiguous()
-    qkv = torch.empty((b * hp * wp, 3 * c), dtype=cdt, device=x.device)
-    att = torch.empty((b * hp * wp, c), dtype=cdt, device=x.device)
+    empty = lambda width, dtype=cdt: torch.empty(  # noqa: E731
+        (b * hp * wp, width), dtype=dtype, device=x.device)
+    # LN1's (then LN2's) output, qkv, the attention output, y, the adapter's
+    # hidden and f32 output (the W2 GEMM's init), the FFN hidden
+    scratch = (empty(c), empty(3 * c), empty(c), empty(c), empty(ca),
+               empty(c, torch.float32), empty(hidden))
     out = torch.empty_like(x)
     KERNEL.call(
         ptr(x), *(ptr(t) for t in attn), ptr(region) if region is not None else None,
-        *(ptr(t) for t in tail), ptr(qkv), ptr(att), ptr(out),
+        *(ptr(t) for t in tail), *(ptr(t) for t in scratch), ptr(out),
         b, hp, wp, c, heads, ws, h_real, w_real, shift, hidden, ca, streams, int(mma),
         q_scale(scale, cdt), float(eps), float(adapter_scale),
     )

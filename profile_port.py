@@ -24,8 +24,8 @@ r4, the w8a8 r4i8, the module-path sets r2, r1 and xla, the block
 variants v7_01, v5 and map, or the DSCF variants dscf_pallas4, dscf_pallas
 and dscf_pallas2), serves one warm-up request, then one profiled request,
 and sums its port kernels' device time by kernel (K1-K20) with their
-launches, and K1's, K2's, K5's, K10's and K11's by launch of their
-sequences.  With --flat the frames enter the model as flat (B, H, W*3) rows
+launches, and K1's, K2's, K5's, K10's, K11's, K13's and K14's by launch of
+their sequences.  With --flat the frames enter the model as flat (B, H, W*3) rows
 and --patch-embed chooses the patch embedding's path (pallas: K19).  With
 --requests N it first times N requests on the host clock, each ended by a
 synchronize, and prints their p50.
@@ -99,8 +99,9 @@ from torch.profiler import ProfilerActivity, profile
 # device kernel names of each port kernel (window_attn_kernel, the first
 # design of K1's and K10's attention, is both's: a dispatch runs one of
 # them; ln_qkv_kernel, proj_add_kernel and block_tail_kernel are K1's and
-# K2's fused launches before their products moved to gemm_mma.cuh, for
-# --port-dir; dscf_rows_packed_kernel is K4's
+# K2's fused launches before their products moved to gemm_mma.cuh, and
+# v7_ln_qkv_kernel, v7_proj_tail_kernel, v5_ln_qkv_kernel and
+# v5_proj_add_kernel K13's and K14's, for --port-dir; dscf_rows_packed_kernel is K4's
 # tensor-core kernel in checkouts where only the packed form ran on it, and
 # rpe_rows_kernel, rpe_packed_kernel and rpe_jmajor_kernel K3's, K6's and
 # K18's before they shared rpe_plane_kernel, for --port-dir).  A name with
@@ -129,17 +130,22 @@ BY_KERNEL = {
             "igemm_kernel<Tail8Fc1Max", "igemm_kernel<Tail8Fc1Quant", "igemm_kernel<Tail8Fc2",
             "block_tail_int8_kernel"),
     "K12": ("window_attention_qkv_kernel", "window_qkv_mma_kernel"),
-    "K13": ("v7_ln_qkv_kernel", "v7_attn_kernel", "v7_attn_mma_kernel", "v7_proj_tail_kernel"),
-    "K14": ("v5_ln_qkv_kernel", "v5_attn_kernel", "v5_attn_mma_kernel", "v5_proj_add_kernel"),
+    "K13": ("v7_ln1_kernel", "gemm_kernel<V7QkvOut", "v7_attn_kernel", "v7_attn_mma_kernel",
+            "gemm_kernel<V7ProjAdd", "gemm_kernel<V7AdapterUp", "gemm_kernel<V7AdapterDown",
+            "v7_ln2_kernel", "gemm_kernel<V7Fc1Out", "gemm_kernel<V7Fc2Out", "v7_ln_qkv_kernel",
+            "v7_proj_tail_kernel"),
+    "K14": ("v5_ln1_kernel", "gemm_kernel<FullQkvOut", "v5_attn_kernel", "v5_attn_mma_kernel",
+            "gemm_kernel<FullProjAdd", "v5_ln_qkv_kernel", "v5_proj_add_kernel"),
     "K15": ("window_attention_map_kernel", "window_map_mma_kernel"),
     "K16": ("dscf_fused_kernel", "dscf_fused_mma_kernel"), "K17": ("dscf_attention_kernel",),
     "K18": ("rpe_jmajor_kernel", "rpe_plane_kernel<F32Form"), "K19": ("patch_embed_kernel",),
     "K20": ("window_attention_v1_kernel", "window_attention_v1_mma_kernel"),
 }
 PORT_KERNELS = tuple(n for names in BY_KERNEL.values() for n in names)
-# K1, K2, K5, K10 and K11 by launch: K1's four, K2's five, K5's nine, K10's
-# five and K11's six (the LNs, the GEMMs by epilogue, the attention), and
-# the launches of their earlier fused forms (--port-dir)
+# K1, K2, K5, K10, K11, K13 and K14 by launch: K1's four, K2's five, K5's
+# nine, K10's five, K11's six, K13's nine and K14's four (the LNs, the GEMMs
+# by epilogue, the attention), and the launches of their earlier fused
+# forms (--port-dir)
 BY_LAUNCH = {
     "K1": {"LN1": ("swin_ln1_kernel",), "qkv GEMM": ("gemm_kernel<SwinQkvOut",),
            "attention": ("swin_attn_mma_kernel", "window_attn_kernel"),
@@ -170,6 +176,19 @@ BY_LAUNCH = {
             "W1 s8 GEMM, max pass": ("igemm_kernel<Tail8Fc1Max",),
             "W1 s8 GEMM, quantize pass": ("igemm_kernel<Tail8Fc1Quant",),
             "W2 s8 GEMM": ("igemm_kernel<Tail8Fc2",), "fused form": ("block_tail_int8_kernel",)},
+    "K13": {"LN1": ("v7_ln1_kernel",), "qkv GEMM": ("gemm_kernel<V7QkvOut",),
+            "attention": ("v7_attn_mma_kernel", "v7_attn_kernel"),
+            "proj GEMM": ("gemm_kernel<V7ProjAdd",),
+            "adapter up GEMM": ("gemm_kernel<V7AdapterUp",),
+            "adapter down GEMM": ("gemm_kernel<V7AdapterDown",), "LN2": ("v7_ln2_kernel",),
+            "fc1 GEMM": ("gemm_kernel<V7Fc1Out",), "fc2 GEMM": ("gemm_kernel<V7Fc2Out",),
+            "LN1 + qkv (fused form)": ("v7_ln_qkv_kernel",),
+            "proj + tail (fused form)": ("v7_proj_tail_kernel",)},
+    "K14": {"LN1": ("v5_ln1_kernel",), "qkv GEMM": ("gemm_kernel<FullQkvOut",),
+            "attention": ("v5_attn_mma_kernel", "v5_attn_kernel"),
+            "proj GEMM": ("gemm_kernel<FullProjAdd",),
+            "LN1 + qkv (fused form)": ("v5_ln_qkv_kernel",),
+            "proj (fused form)": ("v5_proj_add_kernel",)},
 }
 
 

@@ -7,13 +7,13 @@ folded in, writes the f32 init of the W2 GEMM), LN2 of x, the W1 GEMM with
 the tanh GELU as its epilogue, and one W2 GEMM over the whole hidden from
 that init, out = bf16(x + acc) (csrc/gemm_mma.cuh, each product one f32
 accumulator per output taking the 16-deep steps of k in ascending order
-from its init, the steps past K rounded up to 16 not taken).  ``gemm``
-below models that: one step is the exact sum of 16 products of bf16 values
-rounded to f32 (stand-in for the tensor cores' own sum), added to the
-accumulator.
+from its init, the steps past K rounded up to 16 not taken), modelled by
+tests/test_torch_swin_block_gemm.py's ``gemm``: one step is the exact sum
+of 16 products of bf16 values rounded to f32 (stand-in for the tensor
+cores' own sum), added to the accumulator.
 
-The earlier fused launch (csrc/tail.cuh, which K13 still runs) made the
-adapter's output into an f32 tile, then walked the hidden 64 columns at a
+The earlier fused launch (its tail steps later K13's, until it too moved to
+these launches) made the adapter's output into an f32 tile, then walked the hidden 64 columns at a
 time, adding each chunk's W2 products to that tile 16 deep at a time.
 First, the sequence gives that order's bits, at C = 128, where the
 adapter's width Ca = C / 16 = 8 is below one 16-deep step (the zero-filled
@@ -33,26 +33,16 @@ import torch.nn.functional as F
 from ir_ads_tpu.ops.pallas_mlp import fused_block_tail_pallas
 from ir_ads_tpu_torch.ops.block_tail import block_tail_reference
 from ir_ads_tpu_torch.utils.jax_params import from_flax
+from test_torch_swin_block_gemm import gemm
 
 BF16 = torch.bfloat16
 CHUNK = 64  # the fused form's hidden columns a step
 
 
-def gemm(a, w, init=None):
-    """init + a w^T (a (M, K), w (N, K) bf16) in 16-deep steps of k."""
-    k16 = -(-a.shape[-1] // 16) * 16
-    a64 = F.pad(a.double(), (0, k16 - a.shape[-1]))
-    w64 = F.pad(w.double(), (0, k16 - w.shape[-1]))
-    acc = torch.zeros(a.shape[0], w.shape[0]) if init is None else init.clone()
-    for k0 in range(0, k16, 16):
-        acc = acc + (a64[:, k0:k0 + 16] @ w64[:, k0:k0 + 16].t()).float()
-    return acc
-
-
 def adapter_init(x, aw1, ab1, aw2, ab2, b2, adapter_scale):
     """adapter_scale * (relu(x Wa1^T + ab1) Wa2^T + ab2) + b2 in f32, the
-    hidden rounded to bf16: both forms' (tail.cuh's adapter_into, the
-    adapter GEMMs' epilogues)."""
+    hidden rounded to bf16: both forms' (the fused tail's adapter step,
+    the adapter GEMMs' epilogues)."""
     hid = torch.relu(gemm(x, aw1) + ab1.float()).to(BF16)
     return adapter_scale * (gemm(hid, aw2) + ab2.float()) + b2.float()
 

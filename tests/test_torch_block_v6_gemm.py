@@ -7,7 +7,7 @@ Wproj, the adapter's two weights, W1 and W2 (csrc/gemm_mma.cuh), LN2
 between them.  Each product is one f32 accumulator per output taking the
 16-deep steps of k in ascending order from its init (0, or for W2 the
 adapter's f32 output), the steps past K rounded up to 16 not taken.
-``gemm`` below models that: one step is the exact sum of 16 products of
+tests/test_torch_swin_block_gemm.py's ``gemm`` models that: one step is the exact sum of 16 products of
 bf16 values rounded to f32 (stand-in for the tensor cores' own sum),
 added to the accumulator.
 
@@ -32,20 +32,10 @@ from ir_ads_tpu.ops.pallas_swin import pallas_window_block_v6
 from ir_ads_tpu_torch.ops.swin_block import window_attention_reference
 from ir_ads_tpu_torch.ops.swin_block_v6 import window_block_v6_reference
 from ir_ads_tpu_torch.ops.window_attention import shift_region_ids
+from test_torch_swin_block_gemm import gemm
 
 BF16 = torch.bfloat16
 CHUNK = 64  # the fused form's hidden columns a step
-
-
-def gemm(a, w, init=None):
-    """init + a w^T (a (M, K), w (N, K) bf16) in 16-deep steps of k."""
-    k16 = -(-a.shape[-1] // 16) * 16
-    a64 = F.pad(a.double(), (0, k16 - a.shape[-1]))
-    w64 = F.pad(w.double(), (0, k16 - w.shape[-1]))
-    acc = torch.zeros(a.shape[0], w.shape[0]) if init is None else init.clone()
-    for k0 in range(0, k16, 16):
-        acc = acc + (a64[:, k0:k0 + 16] @ w64[:, k0:k0 + 16].t()).float()
-    return acc
 
 
 def gelu_tanh(x):

@@ -7,10 +7,11 @@ padding), the qkv GEMM with the epilogue bf16(acc + bqkv), the window
 attention, and the proj GEMM with the epilogue bf16((x + acc) + bproj), x
 first (csrc/gemm_mma.cuh, each product one f32 accumulator per output
 taking the 16-deep steps of k in ascending order, modelled by ``gemm``:
-one step is the exact sum of 16 products of bf16 values rounded to f32).
-The earlier fused row kernels (csrc/window_block.cuh's ln_qkv_rows and
-proj_add_rows, which K13 and K14 still run) computed the same products on
-tiles of ``rows_per_block(C)`` rows, 64 output columns at a time.
+one step is the exact sum of 16 products of bf16 values rounded to f32;
+the K2, K5, K13 and K14 sequence tests import it).  The earlier fused row
+kernels, which K13 and K14 ran too until they moved to these launches,
+computed the same products on tiles of ``rows_per_block(C)`` rows, 64
+output columns at a time.
 
 First, the sequence gives the fused rows' bits on a padded, shifted map
 whose row count no row tile divides.  K5's proj epilogue, x + (acc +
