@@ -107,16 +107,19 @@ def ms_deform_attn(
     if value.dtype not in (torch.bfloat16, torch.float32) or weights.dtype != value.dtype:
         raise ValueError(f"ms_deform_attn: value {value.dtype} and weights "
                          f"{weights.dtype} must both be bf16 or both f32")
-    if d > 32 or n_levels > 8 or n_levels != len(spatial_shapes):
-        raise ValueError(f"ms_deform_attn: the CUDA kernel takes head_dim <= 32 and "
-                         f"at most 8 levels, got {d} and {n_levels}")
+    if d > 32 or d % 2 or n_levels > 8 or n_levels != len(spatial_shapes):
+        raise ValueError(f"ms_deform_attn: the CUDA kernel takes an even head_dim <= 32 "
+                         f"and at most 8 levels, got {d} and {n_levels}")
     if sum(h * w for h, w in spatial_shapes) != s:
         raise ValueError("ms_deform_attn: spatial_shapes do not add up to the value length")
     if weights.shape != (b, lq, heads, n_levels, n_points) or not weights.is_cuda \
             or not locations.is_cuda:
         raise ValueError("ms_deform_attn: weights / locations shape or device mismatch")
-    value, weights = value.contiguous(), weights.contiguous()
-    locations = locations.float().contiguous()
+    # the kernel reads channel pairs and locations as 4- and 8-byte words
+    value, weights, locations = (
+        t if t.is_contiguous() and t.data_ptr() % 8 == 0
+        else t.clone(memory_format=torch.contiguous_format)
+        for t in (value, weights, locations.float()))
     out = torch.empty((b, lq, heads * d), dtype=value.dtype, device=value.device)
     shapes = (INT * (2 * n_levels))(*[int(v) for hw in spatial_shapes for v in hw])
     KERNEL.call(ptr(value), ptr(locations), ptr(weights), ptr(out), shapes,

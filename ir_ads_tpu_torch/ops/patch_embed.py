@@ -71,9 +71,15 @@ def _forward(x, wk2, bias, ln_w, ln_b, p, c, eps):
     if x.device.type == "cpu":
         return patch_embed_reference(x, wk2, bias, ln_w, ln_b, p, c, eps)
     cdt = x.dtype
-    x = x.contiguous()
-    wk2, bias, ln_w, ln_b = (t.to(cdt).contiguous() for t in (wk2, bias, ln_w, ln_b))
-    check_cuda("patch_embed", x, wk2, bias, ln_w, ln_b)
+    # the kernel copies each pixel's patch rows in 8-byte pieces
+    if not x.is_contiguous() or x.data_ptr() % 8:
+        x = x.clone(memory_format=torch.contiguous_format)
+    # the LayerNorm's parameters go in f32, as the module holds them: the
+    # kernel rounds them to bf16 as it stages them
+    wk2, bias = (t.to(cdt).contiguous() for t in (wk2, bias))
+    ln_w, ln_b = (t.float().contiguous() for t in (ln_w, ln_b))
+    check_cuda("patch_embed", x, wk2, bias)
+    check_cuda("patch_embed", ln_w, ln_b, dtype=torch.float32)
     if (p, c, e) != (PATCH, CHANNELS, EMBED):
         raise ValueError(f"patch_embed: the kernel takes p={PATCH}, c={CHANNELS}, "
                          f"E={EMBED}, not p={p}, c={c}, E={e}")
@@ -117,4 +123,7 @@ def patch_embed(
     eps: float = 1e-5,
 ) -> torch.Tensor:
     """Returns (B, H/p, W/p, E) in x's dtype."""
-    return _PatchEmbed.apply(x, wk2, bias, ln_w, ln_b, p, c, eps)
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, wk2, bias, ln_w, ln_b)):
+        return _PatchEmbed.apply(x, wk2, bias, ln_w, ln_b, p, c, eps)
+    return _forward(x, wk2, bias, ln_w, ln_b, p, c, eps)

@@ -14,7 +14,9 @@ one step of its trainer, under torch.profiler.
     python3 profile_port.py --rpe [--seed 0]
     python3 profile_port.py --qkv-map-bwd [--seed 0]
     python3 profile_port.py --shares [--seed 0]
-    python3 profile_port.py --logits r5,r4,...,r5_flat --logits-dir DIR [--seed 0]
+    python3 profile_port.py --k9-k19 [--logits-dir DIR] [--seed 0]
+    python3 profile_port.py --logits r5,r4,...,r5_flat,r5_flat_pallas,det --logits-dir DIR
+                            [--seed 0]
     python3 profile_port.py --same-logits DIR_A DIR_B
     (each also takes --port-dir DIR)
 
@@ -38,7 +40,9 @@ Detection (--det): builds the full-size detector (DINO-R50 deformable-mask,
 request of one 800x1216 image, then profiles one request in two parts: the
 model, and the post-processing (mask-scored ranking, top-k, NMS); before
 that, one unprofiled request's timeline is split by module (backbone, neck,
-encoder, decoder, the seg map and mask heads) with CUDA events around each.
+encoder, decoder, the seg map and mask heads) with CUDA events around each;
+after it, one more profiled request gives K9's device time by launch, the
+encoder's six and the decoder's six.
 DSCF attention (--dscf): K4's two forms at DSCF levels 0-3 (bias as K3
 writes it, contiguous), K17 at levels 0 and 3 (the packed bias as K18's
 layout pads it) and K16 at levels 0-2, 4 images, each timed with CUDA
@@ -67,13 +71,22 @@ stages, K2 and K14 at the four, K5 at stages 2-3, K13 at stages 0-1): the
 share of outputs that differ from the plain version, the distance on what
 the kernel adds, and the kernel's time by CUDA events; with --port-dir on
 another checkout's kernels, the inputs drawn alike.
+K9 and K19 (--k9-k19): K9 at phase 3's four cases (encoder and decoder
+shapes, bf16 and f32) and K19 at its one, each held against its plain
+version as phase 3 holds it (chip_smoke.hold: errors, planted fault, CUDA
+event times beside the grid_sample and conv2d + layer_norm forms), with the
+profiler's device time; the outputs go to DIR/<case>.pt for --same-logits.
 Logits (--logits LIST --logits-dir DIR): one request of --batch frames from
---seed under each dispatch of the comma-separated LIST (a name ending in
-_flat: that dispatch on flat frames with the XLA patch embedding), each
-predictor built from --seed; the logits go to DIR/<name>.pt.  --same-logits
-A B counts, for each name in both, the logits of A and B that differ: run
-the first with --port-dir on the parent, then on the change, to show which
-paths a change leaves bit for bit as they were.
+--seed under each dispatch of the comma-separated LIST (<dispatch>_flat:
+that dispatch on flat frames with the XLA patch embedding;
+<dispatch>_flat_pallas: with K19), each predictor built from --seed; the
+logits go to DIR/<name>.pt.  ``det``: one seeded 800x1216 detection
+request's raw outputs (encoder memory, encoder scores, selected tokens, the
+last layer's class logits and boxes) as one file.  --same-logits A B
+counts, for each name in both (each tensor of a saved dict), the elements
+of A and B that differ: run the first with --port-dir on the parent, then
+on the change, to show which paths a change leaves bit for bit as they
+were.
 --port-dir DIR imports the port package from DIR, another checkout (the
 parent commit unpacked with ``git archive``), so that two commits can be
 run in turns on one card.
@@ -104,8 +117,10 @@ from torch.profiler import ProfilerActivity, profile
 # v5_proj_add_kernel K13's and K14's, for --port-dir; dscf_rows_packed_kernel is K4's
 # tensor-core kernel in checkouts where only the packed form ran on it, and
 # rpe_rows_kernel, rpe_packed_kernel and rpe_jmajor_kernel K3's, K6's and
-# K18's before they shared rpe_plane_kernel, for --port-dir).  A name with
-# template arguments (K3, K6, K18: one template) matches those instances.
+# K18's before they shared rpe_plane_kernel, for --port-dir; msdeform_kernel
+# and patch_embed_kernel are K9's and K19's first designs, for --port-dir).
+# A name with template arguments (K3, K6, K18: one template) matches those
+# instances.
 BY_KERNEL = {
     "K1": ("swin_ln1_kernel", "gemm_kernel<SwinQkvOut", "swin_attn_mma_kernel",
            "gemm_kernel<SwinProjAdd"),
@@ -122,7 +137,7 @@ BY_KERNEL = {
     "K6": ("rpe_packed_kernel", "rpe_plane_kernel<Bf16Form, false"),
     "K7": ("window_attn_bwd_kernel", "window_attn_bwd_mma_kernel"),
     "K8": ("dscf_rows_bwd_kernel",),
-    "K9": ("msdeform_kernel",),
+    "K9": ("msdeform_kernel", "msdeform_pairs_kernel"),
     "K10 rows": ("k10_ln1_kernel", "igemm_kernel<K10QkvOut", "k10_att_quant_kernel",
                  "igemm_kernel<K10ProjAdd", "ln_quant_qkv_kernel", "quant_proj_add_kernel"),
     "K10 attention": ("int8_attn_mma_kernel",),
@@ -138,7 +153,8 @@ BY_KERNEL = {
             "gemm_kernel<FullProjAdd", "v5_ln_qkv_kernel", "v5_proj_add_kernel"),
     "K15": ("window_attention_map_kernel", "window_map_mma_kernel"),
     "K16": ("dscf_fused_kernel", "dscf_fused_mma_kernel"), "K17": ("dscf_attention_kernel",),
-    "K18": ("rpe_jmajor_kernel", "rpe_plane_kernel<F32Form"), "K19": ("patch_embed_kernel",),
+    "K18": ("rpe_jmajor_kernel", "rpe_plane_kernel<F32Form"),
+    "K19": ("patch_embed_kernel", "patch_embed_mma_kernel"),
     "K20": ("window_attention_v1_kernel", "window_attention_v1_mma_kernel"),
 }
 PORT_KERNELS = tuple(n for names in BY_KERNEL.values() for n in names)
@@ -496,9 +512,8 @@ def time_rpe(args) -> dict:
     return dict(device=torch.cuda.get_device_name(0), kernels=rows)
 
 
-def swin_shares(args) -> dict:
-    """The share of each Swin block kernel's outputs apart from its plain
-    version (module docstring, --shares)."""
+def _chip_smoke():
+    """chip_smoke.py as a module (its phase-3 cases), products in full f32."""
     import importlib.util
 
     spec = importlib.util.spec_from_file_location(
@@ -506,7 +521,15 @@ def swin_shares(args) -> dict:
     c = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(c)
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     torch.set_float32_matmul_precision("highest")
+    return c
+
+
+def swin_shares(args) -> dict:
+    """The share of each Swin block kernel's outputs apart from its plain
+    version (module docstring, --shares)."""
+    c = _chip_smoke()
     g = torch.Generator(device="cuda").manual_seed(args.seed)
     s, b = c.STAGES, 4
     cases = [
@@ -536,6 +559,38 @@ def swin_shares(args) -> dict:
         del got, want, case
         torch.cuda.empty_cache()
     return dict(device=torch.cuda.get_device_name(0), cases=rows)
+
+
+def time_k9_k19(args) -> dict:
+    """K9 at phase 3's four cases and K19 at its one (--k9-k19): each held
+    against its plain version by chip_smoke.hold (errors, planted fault,
+    times by CUDA events beside the grid_sample and conv2d + layer_norm
+    forms), its device time by the profiler, and its output saved to
+    --logits-dir for --same-logits."""
+    c = _chip_smoke()
+    g = torch.Generator(device="cuda").manual_seed(args.seed)
+    s_det, bf, f32 = sum(h * w for h, w in c.DET_LEVELS), torch.bfloat16, torch.float32
+    os.makedirs(args.logits_dir, exist_ok=True)
+    cases = [
+        ("k9_encoder_bf16", lambda: c.check_msdeform(g, s_det, bf, "no -0.5")),
+        ("k9_decoder_bf16", lambda: c.check_msdeform(g, c.DET_QUERIES, bf, "zeros padding lost")),
+        ("k9_encoder_f32", lambda: c.check_msdeform(g, s_det, f32, "zeros padding lost")),
+        ("k9_decoder_f32", lambda: c.check_msdeform(g, c.DET_QUERIES, f32, "no -0.5")),
+        ("k19", lambda: c.check_patch_embed(g, 4)),
+    ]
+    rows = []
+    for name, make in cases:
+        case = make()
+        run = case["run"]
+        torch.save(run().cpu(), os.path.join(args.logits_dir, f"{name}.pt"))
+        device_ms = _device_ms(run)
+        row = c.hold(case)
+        rows.append(dict(case=name, device_ms=device_ms, **{
+            k: row[k] for k in ("ms", "plain_ms", "bound_ms", "max_abs_err", "rel_err")}))
+        print(f"{name}: device {device_ms:.4f} ms", flush=True)
+        del case, run, row
+        torch.cuda.empty_cache()
+    return dict(device=torch.cuda.get_device_name(0), kernels=rows)
 
 
 def time_qkv_map_bwd(args) -> dict:
@@ -610,9 +665,36 @@ def time_qkv_map_bwd(args) -> dict:
     return dict(device=torch.cuda.get_device_name(0), kernels=rows)
 
 
+def _det_request(seed: int):
+    """The seeded detector and its one 800x1216 image (--det, --logits det)."""
+    from ir_ads_tpu_torch.serve import DetPredictor
+
+    pred = DetPredictor(device="cuda", seed=seed)
+    g = torch.Generator().manual_seed(seed + 3)
+    image = torch.randint(0, 256, (1, 800, 1216, 3), generator=g, dtype=torch.uint8).cuda()
+    return pred, image
+
+
+def det_outputs(seed: int) -> dict:
+    """One detection request's raw outputs: the encoder memory and proposal
+    scores, the selected tokens, the last decoder layer's class logits and
+    boxes (read by a forward hook on the transformer)."""
+    pred, image = _det_request(seed)
+    seen = {}
+    hook = pred.model.transformer.register_forward_hook(lambda mod, a, out: seen.update(out))
+    try:
+        with torch.no_grad():
+            pred.model(image, want_masks=False)
+    finally:
+        hook.remove()
+    return dict(memory=seen["memory"], enc_scores=seen["enc_scores"],
+                topk_idx=seen["topk_idx"], logits=seen["pred_logits"][-1],
+                boxes=seen["pred_boxes"][-1])
+
+
 def save_logits(args) -> dict:
     """One request's logits under each dispatch of --logits, into
-    --logits-dir."""
+    --logits-dir; ``det``: one detection request's raw outputs."""
     from ir_ads_tpu_torch.serve import SemSegPredictor
 
     os.makedirs(args.logits_dir, exist_ok=True)
@@ -621,11 +703,25 @@ def save_logits(args) -> dict:
                               dtype=torch.uint8) for _ in range(2))
     saved = {}
     for name in args.logits.split(","):
-        flat = name.endswith("_flat")
-        pred = SemSegPredictor(device="cuda", seed=args.seed,
-                               dispatch=name[:-len("_flat")] if flat else name, flat_input=flat)
-        logits, _ = pred(rgb, dep)
         path = os.path.join(args.logits_dir, f"{name}.pt")
+        if name == "det":
+            outs = det_outputs(args.seed)
+            torch.save({k: v.cpu() for k, v in outs.items()}, path)
+            saved[name] = dict(path=path, shapes={k: list(v.shape) for k, v in outs.items()},
+                               finite=all(bool(torch.isfinite(v.float()).all())
+                                          for v in outs.values()))
+            print(f"det: {', '.join(f'{k} {tuple(v.shape)}' for k, v in outs.items())} "
+                  f"-> {path}", flush=True)
+            del outs
+            torch.cuda.empty_cache()
+            continue
+        # <dispatch>_flat: flat frames, the XLA patch embedding;
+        # <dispatch>_flat_pallas: flat frames through K19
+        base, _, embed = name.partition("_flat")
+        flat = name != base
+        pred = SemSegPredictor(device="cuda", seed=args.seed, dispatch=base, flat_input=flat,
+                               patch_embed="pallas" if embed == "_pallas" else "xla")
+        logits, _ = pred(rgb, dep)
         torch.save(logits.cpu(), path)
         saved[name] = dict(path=path, shape=list(logits.shape),
                            finite=bool(torch.isfinite(logits).all()))
@@ -636,14 +732,26 @@ def save_logits(args) -> dict:
 
 
 def same_logits(dir_a: str, dir_b: str) -> dict:
-    """For each name saved in both directories, how many logits differ."""
+    """For each name saved in both directories, how many elements differ
+    (for a saved dict of tensors, key by key), and for floats that differ
+    the largest difference and the mean difference over A's mean size."""
     names = sorted(f[:-3] for f in os.listdir(dir_a)
                    if f.endswith(".pt") and os.path.exists(os.path.join(dir_b, f)))
     out = {}
     for name in names:
         a, b = (torch.load(os.path.join(d, f"{name}.pt")) for d in (dir_a, dir_b))
-        out[name] = dict(differ=int((a != b).sum()), of=a.numel())
-        print(f"{name}: {out[name]['differ']} of {a.numel()} logits differ", flush=True)
+        pairs = ({f"{name}.{k}": (a[k], b[k]) for k in a} if isinstance(a, dict)
+                 else {name: (a, b)})
+        for key, (x, y) in pairs.items():
+            out[key] = dict(differ=int((x != y).sum()), of=x.numel())
+            far = ""
+            if out[key]["differ"] and x.is_floating_point():
+                d = (x.float() - y.float()).abs()
+                out[key].update(max_abs=float(d.max()),
+                                rel_mean=float(d.mean() / x.float().abs().mean()))
+                far = (f" (max |diff| {out[key]['max_abs']:.3e}, mean |diff| / mean |A| "
+                       f"{out[key]['rel_mean']:.3e})")
+            print(f"{key}: {out[key]['differ']} of {x.numel()} elements differ{far}", flush=True)
     return dict(a=dir_a, b=dir_b, logits=out)
 
 
@@ -686,12 +794,21 @@ def profile_step(args) -> dict:
                 backward=bwd, optimizer=upd, k7_ms=k7["ms"], k7_share=k7["ms"] / busy)
 
 
-def profile_detection(args) -> dict:
-    from ir_ads_tpu_torch.serve import DetPredictor
+def launch_ms(fn, names) -> list:
+    """Device time (ms) of each launch of the device kernels ``names`` in
+    one profiled call of ``fn``, in the order they ran."""
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    runs = [e for e in prof.events()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and any(_is(e.key, k) for k in names)]
+    runs.sort(key=lambda e: e.time_range.start)
+    return [e.time_range.elapsed_us() / 1e3 for e in runs]
 
-    pred = DetPredictor(device="cuda", seed=args.seed)
-    g = torch.Generator().manual_seed(args.seed + 3)
-    image = torch.randint(0, 256, (1, 800, 1216, 3), generator=g, dtype=torch.uint8).cuda()
+
+def profile_detection(args) -> dict:
+    pred, image = _det_request(args.seed)
     pred(image)
     torch.cuda.synchronize()
     card = f"{torch.cuda.get_device_name(0)}; detection; request of 1 image 800x1216"
@@ -747,9 +864,18 @@ def profile_detection(args) -> dict:
     print(f"{card}: wall {wall:.2f} ms (profiler on), device busy {busy:.2f} ms, "
           f"idle share {1 - busy / wall:.3f}, K9 {model['port_kernels_ms']:.2f} ms "
           f"({model['port_kernels_ms'] / busy:.3f} of busy), peak memory {peak:.2f} GiB")
+    # K9 by launch: the encoder's self-attentions run first, then the
+    # decoder's cross-attentions
+    with torch.no_grad():
+        k9 = launch_ms(lambda: pred.model(image, want_masks=True), BY_KERNEL["K9"])
+    n_enc = len(m.transformer.encoder.layers)
+    enc, dec = k9[:n_enc], k9[n_enc:]
+    print(f"{card}: K9 by launch, ms: encoder ({len(enc)}) {sum(enc):.3f} = "
+          + " / ".join(f"{t:.4f}" for t in enc) + f"; decoder ({len(dec)}) {sum(dec):.3f} = "
+          + " / ".join(f"{t:.4f}" for t in dec))
     return dict(wall_ms=wall, device_busy_ms=busy, idle_share=1 - busy / wall,
                 peak_memory_gib=peak, model=model, postprocess=post, by_module_ms=by_module,
-                request_ms_no_profiler=total)
+                request_ms_no_profiler=total, k9_encoder_ms=enc, k9_decoder_ms=dec)
 
 
 def main():
@@ -778,8 +904,12 @@ def main():
                     help="time K12 and K15 beside SDPA and K8 beside autograd.grad instead")
     ap.add_argument("--shares", action="store_true",
                     help="print the Swin block kernels' shares of outputs apart instead")
+    ap.add_argument("--k9-k19", action="store_true",
+                    help="hold and time K9 and K19 at phase 3's cases, saving their outputs")
     ap.add_argument("--logits", default=None,
-                    help="comma-separated dispatches whose logits to save instead")
+                    help="comma-separated dispatches whose logits to save instead "
+                         "(<dispatch>_flat, <dispatch>_flat_pallas: flat frames; det: "
+                         "a detection request's raw outputs)")
     ap.add_argument("--logits-dir", default="output/logits",
                     help="where --logits saves them")
     ap.add_argument("--same-logits", nargs=2, default=None, metavar=("A", "B"),
@@ -808,7 +938,7 @@ def main():
     run = (time_dscf if args.dscf else time_jmajor_v1 if args.jmajor_v1
            else time_rpe if args.rpe
            else time_qkv_map_bwd if args.qkv_map_bwd else save_logits if args.logits
-           else swin_shares if args.shares
+           else swin_shares if args.shares else time_k9_k19 if args.k9_k19
            else profile_detection if args.det
            else profile_step if args.train else profile_request)
     print(json.dumps(run(args)))
