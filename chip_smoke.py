@@ -151,7 +151,28 @@ Phases, each of which raises on failure:
      memory; and, with no bar, how far the parent's f32 attention scale
      moves the encoder memory and the proposal scores (K9 attends there:
      they do not move) and the last decoder layer's class logits and boxes
-     (the decoder's self-attention scales q).
+     (the decoder's self-attention scales q);
+  7. evaluate: ``ir_ads_tpu_torch.val_mm.main`` on the card with a config
+     dict (``eval_config``: configs/nyu_rgbd.yaml's EVAL section, MSF at
+     the six scales 0.5-1.75 with flip, batch 1, the Swin-B CMNeXt in bf16
+     under r5, on the Synthetic dataset at 480x640 with 40 classes, 4 val
+     images, weights from --seed; no image, YAML or checkpoint reader is
+     reached).  Each call of the eval forward is counted: its input shape,
+     the launches of each kernel (K1 8, K2 8 and K5 40 at every scale; K3
+     and K4 3 at scales 0.5-1.0 and 0 at 1.25-1.75, where 2n % 8 != 0; K6 2
+     at 1.25, where level 2's 38x50 plane takes it too, else 1:
+     ``EVAL_LAUNCHES``, also against ``expected_launches`` at each scale's
+     size) and finite logits.  On one image every launch of the six kernels
+     at all six scales is held against its plain version on its own inputs
+     with phase 3's bars (the distance on what it adds, each element within
+     atol x rms + rtol, and a share apart: K1 and K5 their ``SWIN_SHARE``, K4
+     ``ROUNDING_SHARE``, K3 and K6 bit for bit), each kernel's planted fault
+     failing them over the image's launches; that image's MSF probabilities against the all-plain path
+     (``EVAL_PROB_TOL``), where a K5 without its shift-region mask must
+     fail.  Then single-scale and sliding (a 384x384 tile, overlap 1/3,
+     flip: 8 tiles an image) once each, with the same checks on launches
+     and finiteness.  Prints mIoU, ms per image and images/s (p50 over the
+     images after the first), peak memory and the card line.
 The line before the last is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``.  Nothing of JAX is imported.
 """
@@ -163,6 +184,7 @@ import functools
 import json
 import math
 import subprocess
+import sys
 import time
 
 import torch
@@ -2001,14 +2023,14 @@ DSCF_BRANCH_KERNELS = {"pallas3": ("dscf_rpe", "dscf_rows"), "pallas4": ("dscf_f
                        "pallas2": ("dscf_rpe_jmajor", "dscf_attention"), "xla": ()}
 
 
-def expected_launches(model):
-    """Launches of each kernel in one forward of a 480x640 tile, from the
-    model's dispatch: every block of a stage runs K1 + K2 (pallas4), K10 +
+def expected_launches(model, image=IMAGE):
+    """Launches of each kernel in one forward of an ``image`` tile (480x640
+    unless given; both sides multiples of 32), from the model's dispatch: every block of a stage runs K1 + K2 (pallas4), K10 +
     K11 (pallas4 under int8), K5 (pallas6), K13 (pallas7), K14 + K2
     (pallas5), or its module path and K2 (pallas: with K12; pallas_map: with
     K15; xla: with no attention kernel); every DSCF level the kernels of the
-    branch it takes for the n = 15 x 20 offsets a field of every level here
-    (2n % 8 == 0): K3 + K4 (pallas3), K16 (pallas4), K17 (pallas), K18 +
+    branch it takes for the n = (H/32) x (W/32) offsets a field of every
+    level (15 x 20 at 480x640, where 2n % 8 == 0): K3 + K4 (pallas3), K16 (pallas4), K17 (pallas), K18 +
     K17 (pallas2), or the einsum attention, its bias by K6 where the
     dispatch takes the packed kernel for a plane of at most 2048 pixels; the
     two streams run in turn; K19 embeds each stream's flat frames where the
@@ -2028,11 +2050,11 @@ def expected_launches(model):
                      else per_block[blk.attn_impl])
             for k in names:
                 n[k] += 2
-    offsets = (IMAGE[0] // 32) * (IMAGE[1] // 32)
+    offsets = (image[0] // 32) * (image[1] // 32)
     for level, dm in enumerate(model.backbone.DeformMPGBlocks):
         da = dm.deform_atten
         names = DSCF_BRANCH_KERNELS[da.branch(offsets)]
-        if not names and da.bias_kernel(IMAGE[0] // 4 >> level, IMAGE[1] // 4 >> level):
+        if not names and da.bias_kernel(image[0] // 4 >> level, image[1] // 4 >> level):
             names = ("dscf_rpe_packed",)
         for k in names:
             n[k] += 1
@@ -3422,12 +3444,339 @@ def phase_detect(seed: int, requests: int, card_line: str):
                           parent_f32_scale=parent_scale)
 
 
-def kernel_table(rows, launches, launches_i8, module_launches, train_launches, det_launches):
+# --------------------------------------------------------------------------
+# phase 7: evaluate through the port's val_mm entry point
+# --------------------------------------------------------------------------
+
+EVAL_IMAGES = 4
+EVAL_SCALES = (0.5, 0.75, 1.0, 1.25, 1.5, 1.75)  # configs/nyu_rgbd.yaml EVAL.MSF.SCALES
+SLIDING_TILE = (384, 384)  # configs/deepcrack_rgb.yaml's EVAL.SLIDING tile
+# Launches per forward of one MSF scale under r5 (a batch of 2: the image and
+# its flip), from the maps each scale gives (480x640 scaled, each side
+# rounded up to a multiple of 32): K1 + K2 at the 4 blocks of stages 0-1 and
+# K5 at the 20 of stages 2-3, both streams; the DSCF has 2n = 160, 360, 600
+# keys at scales 0.5-1.0 (2n % 8 == 0: K3 + K4 at levels 0-2) and 950, 1380,
+# 1890 at 1.25-1.75 (the einsum at every level); K6 gives the einsum's bias
+# on planes of at most 2048 pixels: level 3 at every scale, level 2 (38x50)
+# at 1.25 too, while level 2 at 1.5 (46x60) takes the XLA form.
+EVAL_LAUNCHES = {
+    **{s: {**R5_BLOCK_LAUNCHES, "dscf_rpe": 3, "dscf_rows": 3, "dscf_rpe_packed": 1}
+       for s in (0.5, 0.75, 1.0)},
+    1.25: {**R5_BLOCK_LAUNCHES, "dscf_rpe_packed": 2},
+    1.5: {**R5_BLOCK_LAUNCHES, "dscf_rpe_packed": 1},
+    1.75: {**R5_BLOCK_LAUNCHES, "dscf_rpe_packed": 1},
+}
+# The MSF probabilities (the sum over six scales and two flips of f32
+# softmaxes, 0 to 12 a class) of one image, the kernel path against the
+# all-plain path on the card: the bar is LOGIT_TOL's kind, set from the
+# readings of an H100 80GB HBM3 at 700 W.  Kernel path: mean |diff| / mean
+# |ref| 1.824e-3, max |diff| / max |ref| 8.05e-3, labels agree 0.9875 (the
+# trunk's bf16 flips, as in phase 4).  K5 without its shift-region mask:
+# 3.297e-2, 0.115, 0.7727.  The bars sit between, each about 5x the kernel
+# path's reading and under the fault's.
+EVAL_PROB_TOL = dict(rel_mean=1e-2, rel_max=4e-2, label_agree=0.97)
+
+
+def eval_config(mode: str) -> dict:
+    """configs/nyu_rgbd.yaml's EVAL section (480x640, batch 1, MSF at six
+    scales with flip) and model (Swin-B CMNeXt, bf16), written out here so
+    that no YAML reader is needed, on the Synthetic dataset at 480x640 with
+    40 classes, ``EVAL_IMAGES`` val images; ``mode`` "msf", "single-scale"
+    or "sliding" (configs/deepcrack_rgb.yaml's EVAL.SLIDING: a 384x384 tile,
+    overlap 1/3, flip)."""
+    from ir_ads_tpu_torch.utils.config import DEFAULTS, _merge
+
+    return _merge(DEFAULTS, {
+        "DATASET": {"NAME": "Synthetic", "ROOT": "", "IGNORE_LABEL": 255,
+                    "MODALS": ["img", "depth"],
+                    "KWARGS": {"image_size": list(IMAGE), "num_classes": NUM_CLASSES,
+                               "length": EVAL_IMAGES}},
+        "TRAIN": {"AMP": True},
+        "EVAL": {"MODEL_PATH": "", "IMAGE_SIZE": list(IMAGE), "BATCH_SIZE": 1,
+                 "MSF": {"ENABLE": mode == "msf", "FLIP": True,
+                         "SCALES": list(EVAL_SCALES)},
+                 "SLIDING": {"ENABLE": mode == "sliding", "TILE_SIZE": list(SLIDING_TILE),
+                             "OVERLAP": 1.0 / 3.0, "FLIP": True}},
+    })
+
+
+def _counted_eval(seed: int, mode: str):
+    """``val_mm.main`` on the card with every launch count at 0 first; its
+    eval forward wrapped to record, per call, the input's shape, each
+    kernel's launches and whether the logits are finite.  Returns (the
+    entry point's result, the calls, the launches, the model)."""
+    from ir_ads_tpu_torch import val_mm
+    from ir_ads_tpu_torch.evaluation import semseg_eval
+
+    calls, seen = [], {}
+
+    def counting(model, device_norm=False):
+        seen["model"] = model
+        forward = semseg_eval.make_forward_fn(model, device_norm)
+
+        def run(rgb, dte):
+            before = {k.name: k.launches for k in kernels}
+            out = forward(rgb, dte)
+            calls.append((tuple(rgb.shape), {k.name: k.launches - before[k.name]
+                                             for k in kernels if k.launches > before[k.name]},
+                          torch.isfinite(out).all()))
+            return out
+        return run
+
+    val_mm.make_forward_fn = counting
+    torch.cuda.reset_peak_memory_stats()
+    kernels = _reset_launches()
+    try:
+        result = val_mm.main(eval_config(mode), device="cuda", dispatch="r5", seed=seed)
+    finally:
+        val_mm.make_forward_fn = semseg_eval.make_forward_fn
+    launches = {k.name: k.launches for k in kernels}
+    return result, calls, launches, seen["model"]
+
+
+def _check_calls(calls, model, want_shapes, what):
+    """Each call's launches against the dispatch's for its input size, and
+    its logits finite; returns the launches summed over the calls."""
+    if [c[0] for c in calls] != want_shapes:
+        fail(f"{what}: the eval forward took {[c[0] for c in calls]}, not {want_shapes}")
+    total = {}
+    for shape, got, finite in calls:
+        want = {k: v for k, v in expected_launches(model, shape[1:3]).items() if v}
+        if got != want:
+            fail(f"{what}: a forward of {shape} launched {got}, expected {want}")
+        if not bool(finite):
+            fail(f"{what}: non-finite logits at {shape}")
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+    return total
+
+
+def _eval_launch_checks():
+    """(kernel, the name through which the backbone calls its wrapper, the
+    plain version behind the wrapper's roundings, the planted fault, the
+    share bar or None, whether the kernel adds to its first input, the
+    element bar (atol, rtol)) for the six kernels of r5's eval forward, with
+    phase 3's bars: the distance on what the kernel adds (REL_TOL), each
+    element within atol x rms(plain) + rtol |plain|, and the share apart: K1
+    and K5 their SWIN_SHARE limits, K4 ROUNDING_SHARE, K3 and K6 bit for
+    bit, K2 none.  Phase 3 draws unit-scale inputs, where atol x rms is its
+    atol; the served activations are not unit-scale (the residual stream
+    grows through the stages), so the absolute part scales with the
+    output's rms, as phase 3's gradient cases hold theirs (``atol_of_rms``):
+    with a plain atol, K5's launches at the MSF scales reach 1.75 times the
+    bar on outputs near zero beside large ones, one-ulp flips of the
+    trunk's f32 sums (an H100 80GB HBM3 at 700 W)."""
+    from ir_ads_tpu_torch.ops import dscf_rows as k4
+    from ir_ads_tpu_torch.ops import dscf_rpe as k3
+    from ir_ads_tpu_torch.ops import dscf_rpe_packed as k6
+    from ir_ads_tpu_torch.ops.block_tail import block_tail_reference
+    from ir_ads_tpu_torch.ops.swin_block_v6 import window_block_v6_reference
+
+    def tail(x, *p, adapter_scale=0.5):
+        return block_tail_reference(x, *(t.to(x.dtype) for t in p), adapter_scale=adapter_scale)
+
+    def v6(x, attn, tail_p, region, *rest, adapter_scale=0.5):
+        attn = tuple(t.to(x.dtype) for t in attn[:6]) + (attn[6].float(),)
+        return window_block_v6_reference(x, attn, tuple(t.to(x.dtype) for t in tail_p),
+                                         region, *rest, adapter_scale=adapter_scale)
+
+    def no_bias(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, *rest):
+        return _block_forward_plain(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj,
+                                    torch.zeros_like(bias), *rest)
+
+    def rows(pos, table, h, w, dt):
+        return k3.rpe_bias_rows_reference(pos.float(), table.float(), h, w, dt)
+
+    def packed(pos, table, h, w, dt):
+        return k6.rpe_bias_packed_reference(pos.float(), table.float(), h, w, dt)
+
+    def rows_f32(pos, table, h, w, dt):
+        return k3.rpe_bias_f32(pos.float(), table.float(), h, w, "behmw").to(dt)
+
+    def packed_f32(pos, table, h, w, dt):
+        return k3.rpe_bias_f32(pos.float(), table.float(), h, w, "bemhw").flatten(3).to(dt)
+
+    def attend_no_bias(q, k, v, bias, *rest):
+        return k4.dscf_rows_reference(q, k, v, torch.zeros_like(bias), *rest)
+
+    return [
+        ("swin_block", "window_block", _block_forward_plain, no_bias,
+         SWIN_SHARE["swin_block"], True, (3e-2, 2e-2)),
+        ("block_tail", "block_tail", tail, functools.partial(tail, adapter_scale=0.0),
+         None, True, (3e-2, 2e-2)),
+        ("swin_block_v6", "window_block_v6", v6, functools.partial(v6, adapter_scale=0.0),
+         SWIN_SHARE["swin_block_v6"], True, (3e-2, 2e-2)),
+        ("dscf_rpe", "rpe_bias_rows", rows, rows_f32, 0.0, False, (0.0, 0.0)),
+        ("dscf_rows", "dscf_rows_attention", k4.dscf_rows_reference, attend_no_bias,
+         ROUNDING_SHARE, False, (1e-2, 2e-2)),
+        ("dscf_rpe_packed", "rpe_bias_packed", packed, packed_f32, 0.0, False, (0.0, 0.0)),
+    ]
+
+
+EVAL_FAULTS = dict(swin_block="rel-pos bias dropped", block_tail="adapter dropped",
+                   swin_block_v6="adapter dropped", dscf_rpe="the all-f32 form",
+                   dscf_rows="rpe bias dropped", dscf_rpe_packed="the all-f32 form")
+
+
+def _held_msf(forward, rgb, dte):
+    """One image's MSF with each launch of the six kernels held against its
+    plain version and its planted fault on its own inputs; returns the log
+    [(scale, kernel, shape, rel, share, fault rel, fault share, size, the
+    largest |got - plain| / (atol x rms(plain) + rtol |plain|))]."""
+    from ir_ads_tpu_torch.evaluation.semseg_eval import msf_logits
+    from ir_ads_tpu_torch.models.backbones import swin
+
+    log, saved, scale = [], {}, {}
+    checks = _eval_launch_checks()
+    for name, attr, plain, faulted, _, residual, (atol, rtol) in checks:
+        saved[attr] = kernel = getattr(swin, attr)
+
+        def run(*args, name=name, kernel=kernel, plain=plain, faulted=faulted,
+                residual=residual, atol=atol, rtol=rtol):
+            got = kernel(*args)
+            want, bad = plain(*args), faulted(*args)
+            base = args[0] if residual else None
+            err = (got.float() - want.float()).abs()
+            elem = (float((err / (atol * _rms(want) + rtol * want.float().abs())).max())
+                    if atol else (math.inf if bool(err.max() > 0) else 0.0))
+            log.append((scale["s"], name, tuple(got.shape), _rel(got, want, base),
+                        float((got != want).float().mean()), _rel(bad, want, base),
+                        float((bad != want).float().mean()), got.numel(), elem))
+            return got
+
+        setattr(swin, attr, run)
+    sizes = iter(EVAL_SCALES)
+
+    def scaled(r, d):
+        scale["s"] = next(sizes)
+        return forward(r, d)
+
+    try:
+        msf_logits(scaled, rgb, dte, EVAL_SCALES)
+        torch.cuda.synchronize()
+    finally:
+        for attr, f in saved.items():
+            setattr(swin, attr, f)
+    bars = {c[0]: c[4] for c in checks}
+    for name in bars:
+        mine = [e for e in log if e[1] == name]
+        worst = max(mine, key=lambda e: e[3])
+        share = max(e[4] for e in mine)
+        size = sum(e[7] for e in mine)
+        fault_share = sum(e[6] * e[7] for e in mine) / size
+        fault_rel = max(e[5] for e in mine)
+        rel_tol = 0.0 if bars[name] == 0.0 else REL_TOL
+        elem = max(e[8] for e in mine)
+        print(f"  {name}: {len(mine)} launches at scales "
+              f"{sorted({e[0] for e in mine})}: worst rel {worst[3]:.3e} (scale {worst[0]}, "
+              f"{worst[2]}; tol {rel_tol}), largest share apart {share:.4f} (tol "
+              f"{bars[name]}), largest element error over its bar {elem:.3f} (tol 1); "
+              f"planted fault '{EVAL_FAULTS[name]}': worst rel {fault_rel:.3e}, share "
+              f"{fault_share:.4f}", flush=True)
+        bad = [e for e in mine if e[3] > rel_tol or e[8] > 1.0
+               or (bars[name] is not None and e[4] > bars[name])]
+        if bad:
+            fail(f"{len(bad)} {name} launches of the MSF image disagree with their plain "
+                 f"versions, first at scale {bad[0][0]} {bad[0][2]}")
+        if fault_rel <= rel_tol and (bars[name] is None or fault_share <= bars[name]):
+            fail(f"the planted fault of {name} passes its bar over the MSF image")
+    return log
+
+
+def phase_eval(seed: int, card_line: str):
+    """Phase 7 (module docstring).  Returns (launches summed over the three
+    modes' runs, the record)."""
+    from ir_ads_tpu_torch.evaluation.semseg_eval import align32, make_forward_fn, msf_logits
+    from ir_ads_tpu_torch.data.datasets import Synthetic
+    from ir_ads_tpu_torch.data.augmentations import get_val_augmentation
+
+    record, total = {}, {}
+    for mode in ("msf", "single-scale", "sliding"):
+        result, calls, launches, model = _counted_eval(seed, mode)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if mode == "msf":
+            per_image = [(2, align32(s * IMAGE[0]), align32(s * IMAGE[1]), 3)
+                         for s in EVAL_SCALES]
+            for s, shape in zip(EVAL_SCALES, per_image):
+                want = {k: v for k, v in expected_launches(model, shape[1:3]).items() if v}
+                if want != EVAL_LAUNCHES[s]:
+                    fail(f"scale {s}: r5 gives {want} launches, not {EVAL_LAUNCHES[s]}")
+            shapes = per_image * EVAL_IMAGES
+        elif mode == "sliding":
+            shapes = [(8, *SLIDING_TILE, 3)] * EVAL_IMAGES  # 2 x 2 tiles, flip
+        else:
+            shapes = [(1, *IMAGE, 3)] * EVAL_IMAGES
+        summed = _check_calls(calls, model, shapes, mode)
+        if {k: v for k, v in launches.items() if v} != summed:
+            fail(f"{mode}: the kernels launched {launches}, the forwards {summed}")
+        lat = [t * 1e3 for t in result["latency_s"]]
+        p50 = _p50(lat[1:])  # the first image warms up
+        print(f"  {mode}: {EVAL_IMAGES} images of 480x640 RGB-D, mIoU {result['miou']} mF1 "
+              f"{result['mf1']} mAcc {result['macc']} (random weights, 40 classes); ms per "
+              f"image {['%.1f' % v for v in lat]}, p50 after the first {p50:.1f}, "
+              f"{1e3 / p50:.3f} images/s; peak memory {peak:.2f} GiB [{card_line}]",
+              flush=True)
+        print(f"  launches on the {mode} path ({EVAL_IMAGES} images): "
+              f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+        record[mode] = dict(miou=result["miou"], mf1=result["mf1"], macc=result["macc"],
+                            latency_ms=lat, p50_ms=p50, images_per_s=1e3 / p50,
+                            peak_memory_gib=peak, launches=launches)
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        if mode != "msf":
+            del model
+            torch.cuda.empty_cache()
+            continue
+
+        # one image: every launch held, then the probabilities end to end
+        ds = Synthetic("", "val", get_val_augmentation(IMAGE), ["img", "depth"],
+                       length=EVAL_IMAGES, image_size=IMAGE, num_classes=NUM_CLASSES)
+        sample, _ = ds[0]
+        rgb = torch.from_numpy(sample["img"])[None].cuda()
+        dte = torch.from_numpy(sample["depth"])[None].cuda()
+        forward = make_forward_fn(model)
+        log = _held_msf(forward, rgb, dte)
+        got = msf_logits(forward, rgb, dte, EVAL_SCALES)
+        restore = _plain_path()
+        try:
+            want = msf_logits(forward, rgb, dte, EVAL_SCALES)
+        finally:
+            restore()
+        ok = _compare(got, got.argmax(-1), want, want.argmax(-1), "MSF probabilities",
+                      EVAL_PROB_TOL)
+        restore = _plain_path(window_block_v6=_window_block_v6_no_region)
+        try:
+            bad = msf_logits(forward, rgb, dte, EVAL_SCALES)
+        finally:
+            restore()
+        seen = not _compare(bad, bad.argmax(-1), want, want.argmax(-1),
+                            "planted fault (K5 without the shift-region mask)", EVAL_PROB_TOL)
+        agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+        record["msf"].update(
+            launches_held=len(log), label_agree_vs_plain=agree,
+            prob_rel_mean=float((got - want).abs().mean() / want.abs().mean()),
+            prob_rel_max=float((got - want).abs().max() / want.abs().max()))
+        if not ok:
+            fail("the MSF probabilities disagree with the all-plain path")
+        if not seen:
+            fail("a K5 without its shift-region mask passes the MSF probability bar")
+        del model, forward, got, want, bad
+        torch.cuda.empty_cache()
+    # the eval path reads no image file, config file or checkpoint here
+    reached = [m for m in ("PIL", "cv2", "yaml", "msgpack") if m in sys.modules]
+    if reached:
+        fail(f"the eval phase imported {reached}")
+    return total, record
+
+
+def kernel_table(rows, launches, launches_i8, module_launches, train_launches, det_launches,
+                 eval_launches):
     """One entry per kernel; ``launches`` sums the main paths' runs (the
     serving requests under r5, r4i8, r2, r1, xla, v7_01, v5, map,
     dscf_pallas4, dscf_pallas and dscf_pallas2, r5 on flat frames with the
-    XLA patch embedding and with K19, the training steps and the detection
-    requests, each counted from 0; K20 runs on none of them)."""
+    XLA patch embedding and with K19, the training steps, the detection
+    requests and the three eval modes' images, each counted from 0; K20 runs
+    on none of them)."""
     from ir_ads_tpu_torch.ops.cuda_lib import PKG
 
     out = []
@@ -3440,11 +3789,13 @@ def kernel_table(rows, launches, launches_i8, module_launches, train_launches, d
             source=str(k.source.relative_to(PKG.parent)),
             replaces=k.replaces,
             launches=(launches[k.name] + launches_i8[k.name] + train_launches[k.name]
-                      + det_launches[k.name] + sum(m[k.name] for m in module_launches.values())),
+                      + det_launches[k.name] + eval_launches.get(k.name, 0)
+                      + sum(m[k.name] for m in module_launches.values())),
             launches_serve=launches[k.name], launches_serve_r4i8=launches_i8[k.name],
             **{f"launches_serve_{d}": m[k.name] for d, m in module_launches.items()},
             launches_train=train_launches[k.name],
             launches_detect=det_launches[k.name],
+            launches_eval=eval_launches.get(k.name, 0),
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=first["ms"], plain_ms=first["plain_ms"],
             bound_ms=first["bound_ms"], bound_by=first["bound_by"],
@@ -3505,11 +3856,13 @@ def main():
     train_launches, train = phase_train(args.seed, card_line)
     print("phase 6: detection", flush=True)
     det_launches, detect = phase_detect(args.seed, args.requests, card_line)
+    print("phase 7: evaluate", flush=True)
+    eval_launches, evaluate = phase_eval(args.seed, card_line)
 
     print(json.dumps({"kernels": kernel_table(rows, launches, launches_i8, module_launches,
-                                              train_launches, det_launches),
-                      "serve": serve, "train": train, "detect": detect, "repair": repair,
-                      "card": card_line}))
+                                              train_launches, det_launches, eval_launches),
+                      "serve": serve, "train": train, "detect": detect, "evaluate": evaluate,
+                      "repair": repair, "card": card_line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

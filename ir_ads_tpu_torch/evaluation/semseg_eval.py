@@ -1,22 +1,115 @@
-"""Sliding-window semantic-segmentation predictor with flip ensembling.
+"""Segmentation evaluation: the eval forward, single-scale, multi-scale +
+flip (MSF) and sliding-window prediction, and the loop over batches.
+Counterpart of ir_ads_tpu/evaluation/semseg_eval.py (the spatially sharded
+forward is multi-device and not ported).
 
-Counterpart of ``make_sliding_window_fn(..., fuse=True)`` in
-ir_ads_tpu/evaluation/semseg_eval.py: every tile of every image goes through
-one batched forward, the horizontal flip doubles the batch, and when the
-model returns the heads' native low-resolution logits the flip ensemble is
-summed at that resolution and upsampled once (exact by linearity, see
-tests/test_eval_lowres.py).  Overlapping tiles are averaged.
+``make_forward_fn`` runs the backbone and the fused head only, which is
+what the JAX eval forward computes once XLA drops the two unused heads.
+
+``make_sliding_window_fn``: every tile of every image goes through one
+batched forward, the horizontal flip doubles the batch, and when the model
+returns the heads' native low-resolution logits the flip ensemble is summed
+at that resolution in the model's dtype and upsampled once in f32 (exact by
+linearity, see tests/test_eval_lowres.py).  Overlapping tiles are averaged.
+Its numbers are those of both JAX forms, ``fuse=True`` and the split form
+``val_mm.py`` runs.
+
+``msf_logits`` keeps the JAX function's two-stage resize of head-native
+logits (align_corners=False up to the scaled size, then align_corners=True
+to the full size, each in the logits' dtype), then an f32 softmax; the flip
+is batch doubling, its probabilities summed after the softmax.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, List, Tuple
+import time
+from typing import Callable, Iterable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ir_ads_tpu_torch.data.augmentations import device_normalize
 from ir_ads_tpu_torch.ops.layers import resize_bilinear
+
+MSF_SCALES = (0.5, 0.75, 1.0, 1.25, 1.5, 1.75)
+
+
+def make_forward_fn(model, device_norm: bool = False) -> Callable:
+    """(rgb, dte) -> fused-head logits of the eval-mode CMNeXt ``model``,
+    with no autograd; the inputs are cast to the model's compute dtype (its
+    patch projection's).  ``device_norm``: the inputs are (B, H, W, 3) uint8
+    batches on the device, normalised there (pairs with
+    ``augmentations.get_val_augmentation_device_norm``)."""
+    dtype = model.backbone.patch_embed.projection.weight.dtype
+
+    def forward(rgb: torch.Tensor, dte: torch.Tensor) -> torch.Tensor:
+        if device_norm:
+            rgb, dte = device_normalize(rgb, "img"), device_normalize(dte, "depth")
+        with torch.no_grad():
+            return model.forward_fused(rgb.to(dtype), dte.to(dtype))
+
+    return forward
+
+
+def align32(v: float) -> int:
+    return int(math.ceil(v / 32.0)) * 32
+
+
+def msf_logits(forward: Callable, rgb: torch.Tensor, dte: torch.Tensor,
+               scales: Sequence[float] = MSF_SCALES, flip: bool = True) -> torch.Tensor:
+    """Multi-scale (+ flip) ensembled class probabilities (B, H, W, K), f32:
+    at each scale the inputs resized (align_corners=True) to the scaled size
+    rounded up to a multiple of 32, the flip as a doubled batch through one
+    forward, the logits resized to the full size and softmaxed in f32, and
+    the probabilities summed over scales and flips."""
+    b, h, w = rgb.shape[:3]
+    acc = None
+    for s in scales:
+        nh, nw = align32(s * h), align32(s * w)
+        srgb = resize_bilinear(rgb, (nh, nw), align_corners=True)
+        sdte = resize_bilinear(dte, (nh, nw), align_corners=True)
+        if flip:
+            srgb = torch.cat([srgb, srgb.flip(2)])
+            sdte = torch.cat([sdte, sdte.flip(2)])
+        logits = forward(srgb, sdte)
+        if flip:
+            logits = torch.cat([logits[:b], logits[b:].flip(2)])
+        if logits.shape[1:3] != (nh, nw):
+            # head-native logits: the model's own upsample to the scaled
+            # size first, then the MSF resize; one resize would differ
+            logits = resize_bilinear(logits, (nh, nw), align_corners=False)
+        logits = resize_bilinear(logits, (h, w), align_corners=True)
+        probs = torch.softmax(logits.float(), dim=-1)
+        if flip:
+            probs = probs[:b] + probs[b:]
+        acc = probs if acc is None else acc + probs
+    return acc
+
+
+def evaluate(forward: Callable, batches: Iterable, metrics, msf: bool = False,
+             scales: Sequence[float] = MSF_SCALES, flip: bool = True,
+             timings: Optional[List[float]] = None):
+    """Update ``metrics`` over (rgb, dte, label) batches: MSF probabilities,
+    or the single-scale forward's (its head-native logits upsampled to the
+    input's size first, as the model's own upsample does).  With
+    ``timings`` each batch's seconds, up to a device synchronize, are
+    appended to it."""
+    for rgb, dte, label in batches:
+        t0 = time.perf_counter()
+        if msf:
+            probs = msf_logits(forward, rgb, dte, scales, flip)
+        else:
+            logits = forward(rgb, dte)
+            if logits.shape[1:3] != rgb.shape[1:3]:
+                logits = resize_bilinear(logits, rgb.shape[1:3], align_corners=False)
+            probs = torch.softmax(logits.float(), dim=-1)
+        metrics.update(probs.argmax(dim=-1), label)
+        if timings is not None:
+            if probs.is_cuda:
+                torch.cuda.synchronize()
+            timings.append(time.perf_counter() - t0)
+    return metrics
 
 
 def tile_grid(size: int, tile: int, stride: int) -> List[int]:

@@ -3,7 +3,9 @@ rgb-only, dte-only).  Counterpart of ir_ads_tpu/models/cmnext.py.
 
 ``upsample_logits=False`` returns the heads' native H/4 logits, so that an
 ensembling predictor can sum before one bilinear upsample (exact by
-linearity), as the JAX eval path does.  ``dispatch`` names the backbone's
+linearity), as the JAX eval path does.  ``forward_fused`` runs the backbone
+and the fused head only, the eval forward (evaluation/semseg_eval.py
+``make_forward_fn``).  ``dispatch`` names the backbone's
 kernel configuration (``swin.DISPATCH``): ``"r5"``, the default, ``"r4"``,
 ``"r4i8"`` (w8a8: backbone and heads; call ``ops.int8.quantize_int8_`` once
 the weights are loaded), the module-path sets ``"r2"``, ``"r1"`` and
@@ -72,8 +74,18 @@ class CMNeXt(nn.Module):
             self.decode_head_rgb(feats_rgb, drop, generator),
             self.decode_head_dte(feats_dte, drop, generator),
         )
-        if self.upsample_logits:
-            flat = x_rgb.ndim == 3
-            size = (x_rgb.shape[1], x_rgb.shape[2] // 3) if flat else x_rgb.shape[1:3]
-            ys = tuple(resize_bilinear(y, size, align_corners=False) for y in ys)
-        return ys
+        return tuple(self._upsample(y, x_rgb) for y in ys)
+
+    def forward_fused(self, x_rgb: torch.Tensor, x_dte: torch.Tensor) -> torch.Tensor:
+        """``forward(...)[0]`` in eval, without the rgb and dte heads: what
+        the JAX eval forward computes once XLA drops the unused heads."""
+        feats = self.backbone(x_rgb, x_dte)[0]
+        return self._upsample(self.decode_head(feats, 0.0, None), x_rgb)
+
+    def _upsample(self, y: torch.Tensor, x_rgb: torch.Tensor) -> torch.Tensor:
+        """The head-native logits, or (``upsample_logits``) the input's size."""
+        if not self.upsample_logits:
+            return y
+        flat = x_rgb.ndim == 3
+        size = (x_rgb.shape[1], x_rgb.shape[2] // 3) if flat else x_rgb.shape[1:3]
+        return resize_bilinear(y, size, align_corners=False)

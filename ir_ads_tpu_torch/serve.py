@@ -32,15 +32,11 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
+from ir_ads_tpu_torch.data.augmentations import IMAGENET_MEAN, IMAGENET_STD
 from ir_ads_tpu_torch.detection.dino import DINODetector, nms_topk
-from ir_ads_tpu_torch.evaluation.semseg_eval import make_sliding_window_fn
+from ir_ads_tpu_torch.evaluation.semseg_eval import make_forward_fn, make_sliding_window_fn
 from ir_ads_tpu_torch.models.backbones.resnet import FrozenBatchNorm2d
-from ir_ads_tpu_torch.models.cmnext import CMNeXt
-from ir_ads_tpu_torch.ops.int8 import PREFIX, quantize_int8_
-
-# ImageNet statistics (ir_ads_tpu/data/augmentations.py)
-IMAGENET_MEAN = np.asarray([0.485, 0.456, 0.406], np.float32)
-IMAGENET_STD = np.asarray([0.229, 0.224, 0.225], np.float32)
+from ir_ads_tpu_torch.ops.int8 import PREFIX
 
 # tensors read in f32 whatever the compute dtype: the rel-pos bias tables the
 # TPU kernels take in f32, and the detector's pixel statistics
@@ -117,12 +113,26 @@ def cast_model_(model: torch.nn.Module, dtype: torch.dtype) -> None:
                 setattr(mod, name, buf.to(dtype))
 
 
+def weights_from(model_path: str) -> dict:
+    """A JAX checkpoint (weights.msgpack, or its directory) as the port's
+    state_dict."""
+    from ir_ads_tpu_torch.utils.checkpoint import load_weights
+    from ir_ads_tpu_torch.utils.jax_params import from_flax
+
+    return from_flax(load_weights(model_path))
+
+
 class SemSegPredictor:
     """Sliding-window flip-ensembled CMNeXt predictor.
 
     ``predictor(rgb, depth)`` takes (B, H, W, 3) uint8 or [0, 255] float
     frames (depth as a 3-channel image) and returns (logits (B, H, W, K)
-    f32, labels (B, H, W) int64).
+    f32, labels (B, H, W) int64).  Weights: ``state_dict`` (the port's
+    names, e.g. ``utils.jax_params.from_flax`` of a JAX tree), else
+    ``model_path`` (a JAX checkpoint's weights.msgpack, or its directory,
+    read by ``utils.checkpoint.load_weights``), else drawn from ``seed``.
+    The model runs the backbone and the fused head only
+    (``semseg_eval.make_forward_fn``, the eval forward ``val_mm`` runs).
     """
 
     def __init__(
@@ -137,7 +147,11 @@ class SemSegPredictor:
         dispatch: str = "r5",
         flat_input: bool = False,
         patch_embed: str = "xla",
+        state_dict: Optional[dict] = None,
+        model_path: str = "",
     ):
+        from ir_ads_tpu_torch.models import build_model
+
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("SemSegPredictor: CUDA is not available "
@@ -147,17 +161,18 @@ class SemSegPredictor:
                              "pass flat_input=True")
         self.dtype = dtype
         self.flat_input = flat_input
-        model = CMNeXt(num_classes=num_classes, backbone_kwargs=backbone_kwargs,
-                       head_dims=head_dims, upsample_logits=False,
-                       dispatch=dispatch, patch_embed=patch_embed)
-        init_random_(model, seed)  # no checkpoint in the repository yet
-        quantize_int8_(model, dtype)  # the int8 sites of an int8 dispatch, from f32
-        cast_model_(model, dtype)
-        self.model = model.to(self.device).eval()
+        if state_dict is None and model_path:
+            state_dict = weights_from(model_path)
+        # the int8 sites of an int8 dispatch are quantized from f32, then cast
+        model = build_model("CMNeXt", "SwinTransformer-B", num_classes, dtype,
+                            backbone_kwargs, dispatch, state_dict, seed,
+                            head_dims=head_dims, upsample_logits=False,
+                            patch_embed=patch_embed)
+        self.model = model.to(self.device)
         self.mean = torch.as_tensor(IMAGENET_MEAN, device=self.device)
         self.std = torch.as_tensor(IMAGENET_STD, device=self.device)
         self._predict = make_sliding_window_fn(
-            lambda r, d: self.model(r, d)[0], image_size, image_size,
+            make_forward_fn(self.model), image_size, image_size,
             num_classes, overlap=1.0 / 3.0, flip=True,
         )
 

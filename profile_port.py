@@ -9,6 +9,7 @@ one step of its trainer, under torch.profiler.
                             [--requests N]
     python3 profile_port.py --train [--seed 0] [--batch 4]
     python3 profile_port.py --det [--seed 0]
+    python3 profile_port.py --eval [--seed 0]
     python3 profile_port.py --dscf [--seed 0]
     python3 profile_port.py --jmajor-v1 [--seed 0]
     python3 profile_port.py --rpe [--seed 0]
@@ -43,6 +44,13 @@ that, one unprofiled request's timeline is split by module (backbone, neck,
 encoder, decoder, the seg map and mask heads) with CUDA events around each;
 after it, one more profiled request gives K9's device time by launch, the
 encoder's six and the decoder's six.
+Evaluation (--eval): builds the model as ``ir_ads_tpu_torch.val_mm`` does
+for ``chip_smoke.py``'s phase 7 (configs/nyu_rgbd.yaml's EVAL: Swin-B
+CMNeXt, bf16, r5, 40 classes, weights from --seed), runs one warm-up MSF
+image (480x640 RGB-D, six scales, flip), then profiles one MSF image scale
+by scale (the resize, the forward of the image and its flip, the two
+resizes and the softmax) and whole: device time by port kernel at each
+scale, busy time and idle share.
 DSCF attention (--dscf): K4's two forms at DSCF levels 0-3 (bias as K3
 writes it, contiguous), K17 at levels 0 and 3 (the packed bias as K18's
 layout pads it) and K16 at levels 0-2, 4 images, each timed with CUDA
@@ -755,6 +763,33 @@ def same_logits(dir_a: str, dir_b: str) -> dict:
     return dict(a=dir_a, b=dir_b, logits=out)
 
 
+def profile_eval(args) -> dict:
+    from ir_ads_tpu_torch.evaluation.semseg_eval import align32, make_forward_fn, msf_logits
+    from ir_ads_tpu_torch.val_mm import build_eval_model
+
+    smoke = _chip_smoke()
+    cfg = smoke.eval_config("msf")
+    model = build_eval_model(cfg, smoke.NUM_CLASSES, "cuda", "r5", args.seed)
+    forward = make_forward_fn(model)
+    g = torch.Generator().manual_seed(args.seed + 1)
+    rgb = torch.randn((1, *smoke.IMAGE, 3), generator=g).cuda()
+    dte = torch.rand((1, *smoke.IMAGE, 3), generator=g).cuda()
+    scales = smoke.EVAL_SCALES
+    msf_logits(forward, rgb, dte, scales)
+    torch.cuda.synchronize()
+    out = {}
+    for s in scales:
+        size = (align32(s * smoke.IMAGE[0]), align32(s * smoke.IMAGE[1]))
+        _, part = profiled(lambda: msf_logits(forward, rgb, dte, (s,)), args.top)
+        show(f"{torch.cuda.get_device_name(0)}; r5 MSF scale {s} ({size[0]}x{size[1]}, "
+             f"image and flip)", part)
+        out[str(s)] = part
+    _, part = profiled(lambda: msf_logits(forward, rgb, dte, scales), args.top)
+    show(f"{torch.cuda.get_device_name(0)}; r5 MSF image, six scales with flip", part)
+    out["image"] = part
+    return dict(out, peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
 def profile_step(args) -> dict:
     from ir_ads_tpu_torch.train import SemSegTrainer
     from ir_ads_tpu_torch.training.optim import set_lr
@@ -892,6 +927,8 @@ def main():
                     help="the patch embedding's flat path (pallas: K19; needs --flat)")
     ap.add_argument("--train", action="store_true",
                     help="profile one training step instead of one request")
+    ap.add_argument("--eval", action="store_true",
+                    help="one MSF image of the eval entry point, scale by scale")
     ap.add_argument("--det", action="store_true",
                     help="profile one detection request instead")
     ap.add_argument("--dscf", action="store_true",
@@ -939,7 +976,7 @@ def main():
            else time_rpe if args.rpe
            else time_qkv_map_bwd if args.qkv_map_bwd else save_logits if args.logits
            else swin_shares if args.shares else time_k9_k19 if args.k9_k19
-           else profile_detection if args.det
+           else profile_detection if args.det else profile_eval if args.eval
            else profile_step if args.train else profile_request)
     print(json.dumps(run(args)))
 
