@@ -172,7 +172,28 @@ Phases, each of which raises on failure:
      fail.  Then single-scale and sliding (a 384x384 tile, overlap 1/3,
      flip: 8 tiles an image) once each, with the same checks on launches
      and finiteness.  Prints mIoU, ms per image and images/s (p50 over the
-     images after the first), peak memory and the card line.
+     images after the first), peak memory and the card line;
+  8. train_mm: ``ir_ads_tpu_torch.train_mm.main`` on the card with
+     ir_ads_tpu_torch/configs/nyu_rgbd_synthetic_train.yaml (the Swin-B
+     CMNeXt at 480x640, batch 4, bf16 compute on f32 masters, adapter-only
+     AdamW, the recipe's dropout, drop-path and modality mask, Synthetic
+     with 8 train and 2 val images, 2 epochs, weights from --seed; this
+     phase reads the YAML file and writes checkpoints, so it comes after
+     phase 7's check that nothing of the kind was imported): every epoch's
+     loss and the gate's mIoU finite, every step's launches
+     ``TRAIN_LAUNCHES``, each gate r5's single-scale launches for its two
+     images, best/ and latest/ written, latest/ read back by
+     ``load_weights`` + ``from_flax`` bit-equal to the live state dict.  Then
+     the run resumed from latest/ for a third epoch, from the stored epoch
+     and step: its one resumed step's update of the trainable parameters
+     against that of an uninterrupted run (``RESUME_TOL``: a second
+     uninterrupted run is the noise; a resume with fresh AdamW moments must
+     fail).  Then one step with ``BACKBONE_KWARGS.drop_rate`` 0.1: K12 48
+     launches in place of K1's, no K7; its gradients against the all-plain
+     path drawing the same masks at ``GRAD_TOL`` (K12 without its region
+     mask at stage 3 must fail).  Prints epoch seconds, the p50 step,
+     images/s, the gates' seconds, the checkpoints' bytes and write seconds
+     and the host's milliseconds for a train batch beside the card line.
 The line before the last is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``.  Nothing of JAX is imported.
 """
@@ -183,6 +204,8 @@ import argparse
 import functools
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
 import time
@@ -2891,10 +2914,13 @@ def _train_wrappers():
     """Kernel name -> (module, the name through which the differentiable
     wrapper reaches the kernel, the plain version to put there)."""
     from ir_ads_tpu_torch.ops import (
-        dscf_rows, dscf_rows_bwd, dscf_rpe, dscf_rpe_packed, swin_block, window_attn_bwd,
+        dscf_rows, dscf_rows_bwd, dscf_rpe, dscf_rpe_packed, swin_block, window_attention_qkv,
+        window_attn_bwd,
     )
 
     return {
+        "window_attention_qkv": (window_attention_qkv, "_forward",
+                                 window_attention_qkv.window_attention_qkv_reference),
         "swin_block": (swin_block, "_forward", _block_forward_plain),
         "dscf_rpe": (dscf_rpe, "_rows_forward", dscf_rpe.rpe_bias_rows_reference),
         "dscf_rows": (dscf_rows, "_forward", dscf_rows.dscf_rows_reference),
@@ -3769,14 +3795,358 @@ def phase_eval(seed: int, card_line: str):
     return total, record
 
 
+# --------------------------------------------------------------------------
+# phase 8: train through the port's train_mm entry point
+# --------------------------------------------------------------------------
+
+TRAIN_MM_CONFIG = "ir_ads_tpu_torch/configs/nyu_rgbd_synthetic_train.yaml"
+# one training step with BACKBONE_KWARGS.drop_rate > 0: K12 in place of K1 at
+# the 24 blocks of both streams (its backward is the plain version's vjp:
+# no K7), the DSCF as under drop_rate 0
+DROP_LAUNCHES = {**dict.fromkeys(TRAIN_LAUNCHES, 0), "window_attention_qkv": 48,
+                 "dscf_rpe": 3, "dscf_rows": 3, "dscf_rows_bwd": 3, "dscf_rpe_packed": 1}
+# The resume bar.  A run resumed from latest/ after epoch 2 takes its fifth
+# step; two uninterrupted runs of the same config take theirs.  Each run's
+# fifth update (its trainable parameters after the step less before it) is
+# compared with the first uninterrupted run's, ||u - u_B|| / ||u_B||.  The
+# card's runs are not bit-equal (the upsample backward sums with atomics):
+# their parameters drift apart over four steps by 0.545 of an update, so
+# the bar holds the update, and the second uninterrupted run sets the
+# noise.  Readings on an H100 80GB HBM3 at 700 W (my card run): the second
+# uninterrupted run 0.2025, the resumed run 0.1994, the planted fault (a
+# resume with fresh AdamW moments) 1.730.  The bar is 3x the noise and
+# 2.9x under the fault.
+RESUME_TOL = dict(rel=0.6)
+
+
+class _Stop(Exception):
+    """Ends a driven run after a given number of steps (not a failure)."""
+
+
+def train_mm_config(**sections) -> dict:
+    """The card's training config, ``sections`` merged over it."""
+    from ir_ads_tpu_torch.utils.config import _merge, load_config
+
+    return _merge(load_config(TRAIN_MM_CONFIG), sections)
+
+
+def _driven_train_mm(cfg, save_dir, seed, stop_at=None):
+    """``train_mm.main`` on the card with every launch count at 0 first; each
+    step's launches and milliseconds (to a synchronize on each side) and
+    each gate's launches recorded; with ``stop_at``, the run ends before the
+    step of that index.  Returns (the result or None, steps, gates, the
+    launches, the ``TrainState``, the trainable parameters before each
+    step)."""
+    from ir_ads_tpu_torch import train_mm
+    from ir_ads_tpu_torch.training.train_state import TrainState
+
+    steps, gates, seen, before_step = [], [], {}, {}
+    take = TrainState.train_step
+    gate = train_mm.eval_gate
+
+    def step(self, batch):
+        seen["state"] = self
+        if stop_at is not None and self.step == stop_at:
+            raise _Stop
+        before_step[self.step] = _trainable(self)
+        before = {k.name: k.launches for k in kernels}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = take(self, batch)
+        torch.cuda.synchronize()
+        steps.append((self.step - 1, {k.name: k.launches - before[k.name] for k in kernels},
+                      (time.perf_counter() - t) * 1e3))
+        return out
+
+    def counted_gate(*args, **kw):
+        before = {k.name: k.launches for k in kernels}
+        miou = gate(*args, **kw)
+        gates.append({k.name: k.launches - before[k.name] for k in kernels
+                      if k.launches > before[k.name]})
+        return miou
+
+    TrainState.train_step, train_mm.eval_gate = step, counted_gate
+    kernels = _reset_launches()
+    result = None
+    try:
+        result = train_mm.main(cfg, save_dir, device="cuda", seed=seed)
+    except _Stop:
+        pass
+    finally:
+        TrainState.train_step, train_mm.eval_gate = take, gate
+    launches = {k.name: k.launches for k in kernels}
+    state = result["state"] if result else seen["state"]
+    return result, steps, gates, launches, state, before_step
+
+
+def _trainable(state):
+    return torch.cat([p.detach().flatten().float()
+                      for p in state.model.parameters() if p.requires_grad])
+
+
+def _drop_grad_run(seed, cfg, batch):
+    """The state of ``cfg`` (drop_rate > 0) and a function that runs one
+    forward and backward on ``batch`` with the train path swapped as
+    ``_swap_train_path`` says, each run drawing from the same step's
+    generator, and returns the loss and each parameter group's gradient."""
+    from ir_ads_tpu_torch.train import build_model_and_state
+    from ir_ads_tpu_torch.training.train_state import compute_loss
+
+    state = build_model_and_state(cfg, NUM_CLASSES, iters_per_epoch=2, device="cuda",
+                                  seed=seed)
+    params = dict(state.model.named_parameters())
+    data = state.batch(*batch)
+
+    def run(plain=(), **replaced):
+        restore = _swap_train_path(plain, **replaced)
+        try:
+            state.model.train()
+            state.optimizer.zero_grad(set_to_none=True)
+            loss, _ = compute_loss(state.model, data, state.loss_fn, state.generator(),
+                                   state.ignore_label)
+            loss.backward()
+            torch.cuda.synchronize()
+        finally:
+            restore()
+        groups = {}
+        for name, p in params.items():
+            if p.requires_grad:
+                groups.setdefault(_grad_group(name), []).append(p.grad.flatten().float())
+        grads = {k: torch.cat(v) for k, v in groups.items()}
+        if not all(bool(torch.isfinite(v).all()) for v in grads.values()):
+            fail("non-finite gradients on the drop_rate path")
+        return float(loss.detach()), grads
+
+    return state, data, run
+
+
+def _qkv_f32_inside(qkv, bias, region, scale, heads):
+    """K12's plain version as the control: no rounding inside."""
+    from ir_ads_tpu_torch.ops.window_attention_qkv import window_attention_qkv_reference
+
+    return window_attention_qkv_reference(qkv.float(), bias.float(), region, scale,
+                                          heads).to(qkv.dtype)
+
+
+def _qkv_no_region_at_stage3(qkv, bias, region, scale, heads):
+    """K12's plain version with a planted fault: no shift-region mask at
+    stage 3 (C = 1024) alone."""
+    from ir_ads_tpu_torch.ops.window_attention_qkv import window_attention_qkv_reference
+
+    keep = qkv.shape[-1] != 3 * 1024
+    return window_attention_qkv_reference(qkv, bias, region if keep else None, scale, heads)
+
+
+def phase_drop_rate(seed: int, card_line: str):
+    """One training step of the card's config with drop_rate 0.1 (every other
+    stochastic piece of the recipe on): the gradients of the kernel path
+    (K12 at every block, K3, K4, K6 forward, K8 backward) against the
+    all-plain path drawing the same masks, at GRAD_TOL (loss; each group no
+    further than noise_ratio times the control, the plain path with f32
+    inside K12 and K4); K12 without its region mask at stage 3 must fail;
+    then the step itself, its launches counted.  Returns (the launches, the
+    record)."""
+    cfg = train_mm_config(MODEL={"BACKBONE_KWARGS": {"drop_rate": 0.1}})
+    batch = _train_batches(seed, TRAIN_BATCH, 1)[0]
+    state, data, run = _drop_grad_run(seed, cfg, batch)
+    plain = FORWARD + BACKWARD + ("window_attention_qkv",)
+    loss_k, grads_k = run()
+    loss_p, grads_p = run(plain)
+    loss_c, grads_c = run(plain, window_attention_qkv=_qkv_f32_inside, **CONTROL)
+    noise = group_rel(grads_c, grads_p)
+
+    def bar(grads, what):
+        rels = group_rel(grads, grads_p)
+        ratio = {k: rels[k] / noise[k] for k in rels}
+        worst = max(ratio, key=ratio.get)
+        print(f"  drop_rate 0.1, {what} vs all plain versions: gradient ||diff|| / ||ref|| "
+              f"over {len(rels)} parameter groups, worst against the control "
+              f"{ratio[worst]:.3f} x ({worst}: {rels[worst]:.3e}, control "
+              f"{noise[worst]:.3e}; tol {GRAD_TOL['noise_ratio']} x)", flush=True)
+        return rels, ratio[worst] <= GRAD_TOL["noise_ratio"]
+
+    dloss = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"  drop_rate 0.1, kernel path vs all plain versions: loss {loss_k:.6f} vs "
+          f"{loss_p:.6f} (rel {dloss:.2e}, tol {GRAD_TOL['loss']}; control {loss_c:.6f})",
+          flush=True)
+    if dloss > GRAD_TOL["loss"]:
+        fail("drop_rate 0.1: the loss on the kernel path disagrees with the plain path")
+    rels, ok = bar(grads_k, "kernel path")
+    if not ok:
+        fail("drop_rate 0.1: the kernel path's gradients are further from the plain "
+             "path's than a change of rounding explains")
+    fault = run(plain, window_attention_qkv=_qkv_no_region_at_stage3)[1]
+    if bar(fault, "planted fault (K12 without the shift-region mask at stage 3)")[1]:
+        fail("a K12 without its shift-region mask at stage 3 passes the drop_rate bar")
+    del grads_k, grads_p, grads_c, fault
+    kernels = _reset_launches()
+    m = state.train_step(data)
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels}
+    if launches != DROP_LAUNCHES:
+        fail(f"a drop_rate 0.1 step launched {launches}, expected {DROP_LAUNCHES}")
+    if not all(bool(torch.isfinite(v)) for v in m.values()):
+        fail(f"drop_rate 0.1: non-finite loss {m}")
+    print(f"  drop_rate 0.1: one step, loss {float(m['loss']):.4f}, launches "
+          f"{ {k: v for k, v in launches.items() if v} } [{card_line}]", flush=True)
+    del state, data, run
+    torch.cuda.empty_cache()
+    return launches, dict(loss_rel=dloss, group_rel=rels, control_rel=noise)
+
+
+def _host_batch_ms(cfg):
+    """The host's ms for a train batch from the loader (its threads at work,
+    mean over an epoch) and for one sample in one thread (mean of the
+    epoch's samples): what the device waits for if the loader falls behind."""
+    from ir_ads_tpu_torch.data.augmentations import get_train_augmentation
+    from ir_ads_tpu_torch.data.datasets import dataset_kwargs, get_dataset
+    from ir_ads_tpu_torch.data.loader import DataLoader
+
+    ds_cfg = cfg["DATASET"]
+    ds = get_dataset(ds_cfg["NAME"])(
+        ds_cfg["ROOT"], "train", get_train_augmentation(cfg["TRAIN"]["IMAGE_SIZE"]),
+        ds_cfg["MODALS"], **dataset_kwargs(ds_cfg, "train"))
+    loader = DataLoader(ds, cfg["TRAIN"]["BATCH_SIZE"], shuffle=True)
+    t = time.perf_counter()
+    n = sum(1 for _ in loader)
+    per_batch = (time.perf_counter() - t) * 1e3 / n
+    t = time.perf_counter()
+    for i in range(len(ds)):
+        ds[i]
+    return per_batch, (time.perf_counter() - t) * 1e3 / len(ds)
+
+
+def phase_train_mm(seed: int, card_line: str):
+    """Phase 8 (module docstring).  Returns (the launches of the driven run
+    and of the drop_rate step, the record)."""
+    import tempfile
+
+    from ir_ads_tpu_torch.utils.checkpoint import load_weights
+    from ir_ads_tpu_torch.utils.jax_params import from_flax
+
+    cfg = train_mm_config()
+    n_val = cfg["DATASET"]["VAL_KWARGS"]["length"]
+    batch = cfg["TRAIN"]["BATCH_SIZE"]
+    tmp = tempfile.mkdtemp(prefix="train_mm_")
+    try:
+        result, steps, gates, launches, state, _ = _driven_train_mm(cfg, f"{tmp}/a", seed)
+        epochs = result["epochs"]
+        for e in epochs:
+            if not (math.isfinite(e["loss"]) and e["miou"] is not None
+                    and math.isfinite(e["miou"])):
+                fail(f"train_mm epoch {e['epoch']}: loss {e['loss']}, mIoU {e['miou']}")
+        for i, got, _ in steps:
+            if got != TRAIN_LAUNCHES:
+                fail(f"train_mm step {i} launched {got}, expected {TRAIN_LAUNCHES}")
+        want_gate = {k: v * n_val for k, v in EVAL_LAUNCHES[1.0].items()}
+        if len(gates) != len(epochs) or any(g != want_gate for g in gates):
+            fail(f"train_mm's gates launched {gates}, expected {want_gate} each")
+        for sub in ("best", "latest"):
+            for f in ("weights.msgpack", "train_state.msgpack", "manifest.json"):
+                if not os.path.isfile(f"{tmp}/a/{sub}/{f}"):
+                    fail(f"train_mm wrote no {sub}/{f}")
+        live = state.model.state_dict()
+        back = from_flax(load_weights(f"{tmp}/a/latest"))
+        if set(back) != set(live) or not all(torch.equal(back[k], t.cpu())
+                                             for k, t in live.items()):
+            fail("latest/ does not read back as the live state dict bit for bit")
+        ms = [t for _, _, t in steps]
+        p50 = _p50(ms[1:])  # the first step warms up
+        record = dict(
+            epochs=epochs, step_ms=ms, p50_step_ms=p50, images_per_s=batch * 1e3 / p50,
+            gate_seconds=[e["gate_seconds"] for e in epochs],
+            checkpoint_bytes=[e["checkpoint_bytes"] for e in epochs],
+            checkpoint_seconds=[e["checkpoint_seconds"] for e in epochs],
+            best_miou=result["best_miou"])
+        print(f"  train_mm: {len(epochs)} epochs of {epochs[0]['steps']} steps x {batch} "
+              f"frames {IMAGE[0]}x{IMAGE[1]}, losses {['%.4f' % e['loss'] for e in epochs]}, "
+              f"gate mIoU {[e['miou'] for e in epochs]} (random weights, 40 classes); epoch s "
+              f"{['%.2f' % e['seconds'] for e in epochs]} [{card_line}]", flush=True)
+        print(f"  train_mm: step ms {['%.1f' % v for v in ms]}, p50 after the first "
+              f"{p50:.1f}, {batch * 1e3 / p50:.2f} images/s; gate s "
+              f"{['%.2f' % e['gate_seconds'] for e in epochs]} ({n_val} images, "
+              f"single-scale, r5) [{card_line}]", flush=True)
+        print(f"  train_mm: checkpoints {[e['checkpoint_bytes'] for e in epochs]} bytes an "
+              f"epoch (best/ and latest/), written in "
+              f"{['%.2f' % e['checkpoint_seconds'] for e in epochs]} s [{card_line}]",
+              flush=True)
+        print(f"  launches on the train_mm path: { {k: v for k, v in launches.items() if v} }",
+              flush=True)
+        with open(f"{tmp}/a/latest/manifest.json") as f:
+            stored = json.load(f)
+        record["host_batch_ms"], record["host_sample_ms"] = _host_batch_ms(cfg)
+        size = "x".join(map(str, cfg["DATASET"]["KWARGS"]["image_size"]))
+        print(f"  host: a batch of {batch} train samples (Synthetic {size} RGB-D through the "
+              f"train augmentation, collated) {record['host_batch_ms']:.1f} ms with the "
+              f"loader's threads, one sample {record['host_sample_ms']:.1f} ms in one thread, "
+              f"against a step's p50 {p50:.1f} ms [{card_line}]", flush=True)
+        del state, live, back, result
+
+        # resume: a third epoch from latest/, against uninterrupted runs
+        cfg3 = train_mm_config(TRAIN={"EPOCHS": 3})
+        n = stored["epoch"] * epochs[0]["steps"]  # the stored step: the fifth is the next
+        updates = {}
+        for name in ("B", "C"):
+            _, _, _, _, st, before = _driven_train_mm(cfg3, f"{tmp}/{name}", seed, n + 1)
+            updates[name] = _trainable(st) - before[n]
+            del st, before
+        from ir_ads_tpu_torch import train_mm
+
+        load = train_mm.load_checkpoint
+
+        def fresh_moments(directory, state):
+            manifest = load(directory, state)
+            state.optimizer.state.clear()
+            return manifest
+
+        resumed = {}
+        for name, loader in (("resumed", load), ("fault", fresh_moments)):
+            train_mm.load_checkpoint = loader
+            try:
+                res = _driven_train_mm(train_mm_config(TRAIN={"EPOCHS": 3},
+                                                       MODEL={"RESUME": f"{tmp}/a/latest"}),
+                                       f"{tmp}/{name}", seed, n + 1)
+            finally:
+                train_mm.load_checkpoint = load
+            first = res[1][0][0]
+            if first != n:
+                fail(f"the {name} run took step {first} first, not the stored step {n}")
+            resumed[name] = _trainable(res[4]) - res[5][n]
+            del res
+        ref = updates["B"]
+        rel = {name: float((u - ref).norm() / ref.norm())
+               for name, u in (("uninterrupted C", updates["C"]),
+                               ("resumed", resumed["resumed"]),
+                               ("fault: fresh AdamW moments", resumed["fault"]))}
+        print(f"  resume at epoch {stored['epoch']}, step {n}: the step's update of the "
+              f"trainable parameters against uninterrupted run B's, ||u - u_B|| / ||u_B||: "
+              + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+              + f" (tol {RESUME_TOL['rel']}) [{card_line}]", flush=True)
+        if rel["resumed"] > RESUME_TOL["rel"]:
+            fail("the resumed run's step disagrees with the uninterrupted runs'")
+        if rel["fault: fresh AdamW moments"] <= RESUME_TOL["rel"]:
+            fail("a resume with fresh AdamW moments passes the resume bar")
+        record["resume_rel"] = rel
+        del updates, resumed, ref
+        torch.cuda.empty_cache()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+    kernels_drop, drop = phase_drop_rate(seed, card_line)
+    record["drop_rate"] = drop
+    total = {k: launches[k] + kernels_drop[k] for k in launches}
+    return total, record
+
+
 def kernel_table(rows, launches, launches_i8, module_launches, train_launches, det_launches,
-                 eval_launches):
+                 eval_launches, train_mm_launches):
     """One entry per kernel; ``launches`` sums the main paths' runs (the
     serving requests under r5, r4i8, r2, r1, xla, v7_01, v5, map,
     dscf_pallas4, dscf_pallas and dscf_pallas2, r5 on flat frames with the
     XLA patch embedding and with K19, the training steps, the detection
-    requests and the three eval modes' images, each counted from 0; K20 runs
-    on none of them)."""
+    requests, the three eval modes' images, and the training entry point's
+    run with its gates and its drop_rate step, each counted from 0; K20
+    runs on none of them)."""
     from ir_ads_tpu_torch.ops.cuda_lib import PKG
 
     out = []
@@ -3790,12 +4160,14 @@ def kernel_table(rows, launches, launches_i8, module_launches, train_launches, d
             replaces=k.replaces,
             launches=(launches[k.name] + launches_i8[k.name] + train_launches[k.name]
                       + det_launches[k.name] + eval_launches.get(k.name, 0)
+                      + train_mm_launches[k.name]
                       + sum(m[k.name] for m in module_launches.values())),
             launches_serve=launches[k.name], launches_serve_r4i8=launches_i8[k.name],
             **{f"launches_serve_{d}": m[k.name] for d, m in module_launches.items()},
             launches_train=train_launches[k.name],
             launches_detect=det_launches[k.name],
             launches_eval=eval_launches.get(k.name, 0),
+            launches_train_mm=train_mm_launches[k.name],
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=first["ms"], plain_ms=first["plain_ms"],
             bound_ms=first["bound_ms"], bound_by=first["bound_by"],
@@ -3858,11 +4230,14 @@ def main():
     det_launches, detect = phase_detect(args.seed, args.requests, card_line)
     print("phase 7: evaluate", flush=True)
     eval_launches, evaluate = phase_eval(args.seed, card_line)
+    print("phase 8: train_mm", flush=True)
+    train_mm_launches, train_mm = phase_train_mm(args.seed, card_line)
 
     print(json.dumps({"kernels": kernel_table(rows, launches, launches_i8, module_launches,
-                                              train_launches, det_launches, eval_launches),
+                                              train_launches, det_launches, eval_launches,
+                                              train_mm_launches),
                       "serve": serve, "train": train, "detect": detect, "evaluate": evaluate,
-                      "repair": repair, "card": card_line}))
+                      "train_mm": train_mm, "repair": repair, "card": card_line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

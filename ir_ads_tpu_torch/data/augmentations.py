@@ -1,12 +1,19 @@
-"""Host-side eval transforms (numpy; PIL only where a resize resamples).
+"""Host-side transforms (numpy; PIL only where a resize resamples).
 
-Counterpart of the eval half of ir_ads_tpu/data/augmentations.py: samples
-are dicts of modality name -> HWC uint8 array plus 'mask' -> HW int array;
+Counterpart of ir_ads_tpu/data/augmentations.py: samples are dicts of
+modality name -> HWC uint8 array plus 'mask' -> HW int array.  Eval:
 ``Resize`` scales the short side to the target and aligns both sides up to
 a multiple of 32; ``Normalize`` gives 'img' the ImageNet statistics and the
-other modalities a plain /255.  ``device_normalize`` is the same
-normalisation for uint8 batches already on the device.  The random training
-transforms are not ported yet.
+other modalities a plain /255; ``device_normalize`` is the same
+normalisation for uint8 batches already on the device.  Train
+(``get_train_augmentation``): colour jitter and blur on 'img' only, a
+horizontal flip and a random resized crop of every modality and the mask,
+each drawing from the ``np.random.Generator`` it is handed, in the JAX
+package's order of draws, so that the same generator gives the same sample
+bit for bit.  The datasets seed that generator from ``hash((index,
+split))`` (``datasets.SegDataset.__getitem__``), as the reference does: a
+process draws the same augmentation for a sample in every epoch, and the
+draw follows ``PYTHONHASHSEED``.
 """
 
 from __future__ import annotations
@@ -80,6 +87,100 @@ class Resize:
         return sample
 
 
+class RandomResizedCrop:
+    """A random scale in [lo, hi], resize, a random crop, and a bottom-right
+    pad (image 0, mask ``seg_fill``) where the resized map is smaller than
+    the crop.  The resize and the crop are one PIL ``resize(box=...)`` of
+    the crop's window, the reference's fused form."""
+
+    def __init__(self, size, scale=(0.5, 2.0), seg_fill=255):
+        self.size = tuple(size)
+        self.scale = scale
+        self.seg_fill = seg_fill
+
+    def __call__(self, sample: Sample, rng) -> Sample:
+        h, w = sample["img"].shape[:2]
+        th, tw = self.size
+        ratio = rng.random() * (self.scale[1] - self.scale[0]) + self.scale[0]
+        scale = (int(th * ratio), int(tw * 4 * ratio))
+        factor = min(max(scale) / max(h, w), min(scale) / min(h, w))
+        nh, nw = int(h * factor + 0.5), int(w * factor + 0.5)
+        y1 = int(rng.integers(0, max(nh - th, 0) + 1))
+        x1 = int(rng.integers(0, max(nw - tw, 0) + 1))
+        ch, cw = min(th, nh - y1), min(tw, nw - x1)
+        box = (x1 * w / nw, y1 * h / nh, (x1 + cw) * w / nw, (y1 + ch) * h / nh)
+        sample = {k: _resize(v, (ch, cw), nearest=(k == "mask"), box=box)
+                  for k, v in sample.items()}
+        if (ch, cw) == (th, tw):
+            return sample
+        pads = ((0, th - ch), (0, tw - cw))
+        return {k: np.pad(v, pads if v.ndim == 2 else pads + ((0, 0),),
+                          constant_values=self.seg_fill if k == "mask" else 0)
+                for k, v in sample.items()}
+
+
+class RandomHorizontalFlip:
+    def __init__(self, p=0.5):
+        self.p = p
+
+    def __call__(self, sample: Sample, rng) -> Sample:
+        if rng.random() < self.p:
+            return {k: np.ascontiguousarray(v[:, ::-1]) for k, v in sample.items()}
+        return sample
+
+
+def _to_gray(img: np.ndarray) -> np.ndarray:
+    return (0.2989 * img[..., 0] + 0.587 * img[..., 1] + 0.114 * img[..., 2]).astype(
+        np.float32)
+
+
+class RandomColorJitter:
+    """Brightness, contrast and saturation, each a factor uniform in [0.5,
+    1.5] when the transform fires; every factor and the mean gray are f32
+    scalars, so that the image stays f32 (a float64 scalar would widen it
+    and move bits)."""
+
+    def __init__(self, p=0.5):
+        self.p = p
+
+    def __call__(self, sample: Sample, rng) -> Sample:
+        if rng.random() >= self.p:
+            return sample
+        img = sample["img"].astype(np.float32)
+        b = np.float32(rng.uniform(0.5, 1.5))
+        img = np.clip(img * b, 0, 255)
+        c = np.float32(rng.uniform(0.5, 1.5))
+        mean_gray = np.float32(_to_gray(img).mean())
+        img = np.clip(c * img + (1 - c) * mean_gray, 0, 255)
+        s = np.float32(rng.uniform(0.5, 1.5))
+        img = np.clip(s * img + (1 - s) * _to_gray(img)[..., None], 0, 255)
+        return {**sample, "img": img.astype(np.uint8)}
+
+
+class RandomGaussianBlur:
+    """A separable Gaussian of ``kernel_size`` taps (sigma from the size, as
+    OpenCV's default), reflect padding, as sums of shifted slices."""
+
+    def __init__(self, kernel_size=3, p=0.5):
+        self.k = kernel_size if isinstance(kernel_size, int) else kernel_size[0]
+        self.p = p
+        sigma = 0.3 * ((self.k - 1) * 0.5 - 1) + 0.8
+        xs = np.arange(self.k) - (self.k - 1) / 2.0
+        kern = np.exp(-(xs ** 2) / (2 * sigma ** 2))
+        self.kern = (kern / kern.sum()).astype(np.float32)
+
+    def __call__(self, sample: Sample, rng) -> Sample:
+        if rng.random() >= self.p:
+            return sample
+        img = sample["img"].astype(np.float32)
+        r = self.k // 2
+        p = np.pad(img, ((r, r), (0, 0), (0, 0)), mode="reflect")
+        img = sum(self.kern[t] * p[t:t + img.shape[0]] for t in range(self.k))
+        p = np.pad(img, ((0, 0), (r, r), (0, 0)), mode="reflect")
+        img = sum(self.kern[t] * p[:, t:t + img.shape[1]] for t in range(self.k))
+        return {**sample, "img": np.clip(img, 0, 255).astype(np.uint8)}
+
+
 class Normalize:
     """img -> /255 and the ImageNet statistics; other modalities -> /255;
     the mask untouched."""
@@ -98,6 +199,17 @@ class Normalize:
             else:
                 out[k] = v.astype(np.float32) / 255.0
         return out
+
+
+def get_train_augmentation(size: Sequence[int], seg_fill: int = 255) -> Compose:
+    """The training pipeline, in the reference's order."""
+    return Compose([
+        RandomColorJitter(p=0.2),
+        RandomHorizontalFlip(p=0.5),
+        RandomGaussianBlur(3, p=0.2),
+        RandomResizedCrop(size, scale=(0.5, 2.0), seg_fill=seg_fill),
+        Normalize(),
+    ])
 
 
 def get_val_augmentation(size: Sequence[int]) -> Compose:

@@ -415,6 +415,17 @@ DATASETS = {
 }
 
 
+def dataset_kwargs(ds_cfg: Dict, split: str) -> Dict:
+    """The config's constructor keywords for ``split``: ``DATASET.KWARGS``
+    (``Synthetic``'s ``image_size``, ``num_classes``, ``length``), with
+    ``DATASET.VAL_KWARGS`` over them for the val split.  Both are the
+    port's keys; the JAX package's drivers construct the datasets bare."""
+    kw = dict(ds_cfg.get("KWARGS") or {})
+    if split == "val":
+        kw.update(ds_cfg.get("VAL_KWARGS") or {})
+    return kw
+
+
 def get_dataset(name: str):
     if name not in DATASETS:
         raise ValueError(f"Unknown dataset {name!r}; available: {sorted(DATASETS)}")

@@ -1,7 +1,9 @@
 """Host input pipeline: a pool of workers fetches samples by index while
 the device computes, two batches ahead, and collates them into numpy
-batches.  Counterpart of ir_ads_tpu/data/loader.py's ``DataLoader`` (the
-mesh prefetch is a multi-device feature and is not ported).
+batches.  Counterpart of ir_ads_tpu/data/loader.py's ``DataLoader``;
+``prefetch_to_device`` is its ``prefetch_to_mesh`` on one device: the
+batches go to the card from pinned host memory on a copy stream of their
+own, up to two ahead of the step that uses them.
 
 Batch order, shuffling (numpy ``default_rng(seed + epoch)``) and
 ``drop_last`` are the JAX package's, so that both packages see the same
@@ -17,6 +19,7 @@ import itertools
 from typing import Dict, Iterator, List, Tuple
 
 import numpy as np
+import torch
 
 # process workers each hold their own dataset and fetch items by index
 _WORKER_DS = None
@@ -99,3 +102,36 @@ class DataLoader:
                 yield _collate([f.result() for f in done], modals)
             while pending:
                 yield _collate([f.result() for f in pending.popleft()], modals)
+
+
+def prefetch_to_device(iterator, device, size: int = 2) -> Iterator[Tuple[torch.Tensor, ...]]:
+    """The numpy batches of ``iterator`` as tensors on ``device``, ``size``
+    batches in flight.  On a CUDA device each array is copied into pinned
+    host memory and sent with a ``non_blocking`` copy on a side stream; the
+    step's stream waits for that copy when the batch is handed over, so the
+    copy overlaps the step before it.  On the CPU the arrays are wrapped."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        for batch in iterator:
+            yield tuple(torch.from_numpy(a) for a in batch)
+        return
+    stream = torch.cuda.Stream(device)
+    queue = collections.deque()
+
+    def enqueue(n):
+        for batch in itertools.islice(iterator, n):
+            with torch.cuda.stream(stream):
+                # the host allocator keeps a pinned block until its copy is done
+                moved = tuple(torch.from_numpy(a).pin_memory().to(device, non_blocking=True)
+                              for a in batch)
+                queue.append((moved, stream.record_event()))
+
+    enqueue(size)
+    while queue:
+        batch, copied = queue.popleft()
+        current = torch.cuda.current_stream(device)
+        current.wait_event(copied)
+        for t in batch:
+            t.record_stream(current)  # the step's stream uses memory the side stream made
+        yield batch
+        enqueue(1)

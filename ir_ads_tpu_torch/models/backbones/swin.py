@@ -27,7 +27,12 @@ kernel configurations, chosen by explicit arguments (``DISPATCH``):
      reconstruction, ``x + drop_path(K1(x) - x)``; the block tail as modules
      under autograd (LN2, FFN with drop-path, 0.5 * Adapter with dropout);
      DSCF as r5, K4 differentiable through K8 (ops/dscf_rows_bwd.py) and the
-     bias kernels through their f32 twin.
+     bias kernels through their f32 twin.  With ``drop_rate > 0``, in train
+     mode, every block takes the module attention path with K12 instead of
+     K1 (K12's backward is its plain version's vjp), the dropout after the
+     proj linear and inside the FFN, as the JAX package turns its
+     half-block kernels into its v2 kernel there (a fused half-block holds
+     no dropout); in eval mode such a model runs K1.
   r2 (the bench's "production r2"), r1 (its round-1 set) and xla (its plain
      set): the module path of every block, LN1 -> ``ShiftWindowMSA`` (pad,
      roll, window partition, ``WindowMSA``: qkv linear, attention, proj
@@ -197,13 +202,14 @@ class WindowMSA(nn.Module):
 
     def forward(self, x: torch.Tensor, attn_impl: str,
                 mask: Optional[torch.Tensor] = None,
-                region: Optional[torch.Tensor] = None) -> torch.Tensor:
+                region: Optional[torch.Tensor] = None, proj_drop: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         """x: (B*nW, N, C) windows, or the (B, Hp, Wp, C) map under
         ``"pallas_map"``.  ``"pallas"``: K12 on the unsplit qkv with the
         region ids (None when unshifted, where the reference's zero region
         masks nothing); ``"pallas_map"``: K15 on the qkv map, likewise;
-        ``"xla"``: ``window_attention`` with the dense ``mask``.  Returns x's
-        shape."""
+        ``"xla"``: ``window_attention`` with the dense ``mask``.  Dropout of
+        rate ``proj_drop`` after the proj linear.  Returns x's shape."""
         c = x.shape[-1]
         heads = self.num_heads
         scale = (c // heads) ** -0.5
@@ -220,7 +226,7 @@ class WindowMSA(nn.Module):
             q, k, v = (qkv[:, :, i].transpose(1, 2) for i in range(3))
             out = window_attention(q, k, v, bias, mask, scale)
             out = out.transpose(1, 2).reshape(bn, n, c)
-        return linear(out, self.proj)
+        return dropout(linear(out, self.proj), proj_drop, proj_drop > 0.0, generator)
 
 
 class ShiftWindowMSA(nn.Module):
@@ -233,7 +239,8 @@ class ShiftWindowMSA(nn.Module):
         self.window_size, self.shift = window_size, shift
         self.w_msa = WindowMSA(dim, num_heads, window_size)
 
-    def forward(self, x: torch.Tensor, attn_impl: str) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, attn_impl: str, proj_drop: float = 0.0,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h, w = x.shape[1:3]
         ws, shift = self.window_size, self.shift
         x = pad_and_roll(x, ws, shift)  # after LN1: pad tokens are zeros, their qkv is bqkv
@@ -244,8 +251,9 @@ class ShiftWindowMSA(nn.Module):
         elif shift:
             region = shift_region_ids_on(hp, wp, ws, shift, x.device)
         if attn_impl == "pallas_map":
-            return unroll_and_crop(self.w_msa(x, attn_impl, None, region), h, w, shift)
-        wins = self.w_msa(window_partition(x, ws), attn_impl, mask, region)
+            return unroll_and_crop(self.w_msa(x, attn_impl, None, region, proj_drop, generator),
+                                   h, w, shift)
+        wins = self.w_msa(window_partition(x, ws), attn_impl, mask, region, proj_drop, generator)
         return unroll_and_crop(window_reverse(wins, ws, hp, wp), h, w, shift)
 
 
@@ -272,6 +280,10 @@ class SwinBlockAdapter(nn.Module):
     Adapter(y), by K2 (``ffn_impl="fused"``) or as modules under autograd
     (``"module"``, the training tail: drop-path on the attention and FFN
     branches and dropout inside the adapter while ``training``).
+    Under the train dispatch with ``drop_rate > 0``, in train mode: the
+    module path with K12 (y = x + drop_path(ShiftWindowMSA(LN1 x)), dropout
+    after the proj linear) and the training tail with dropout inside its
+    FFN.
     ``pallas5``: y by K14 on the real map (pad, roll and crop inside), then
     K2.  ``pallas6``: the whole block by K5 on the real map.  ``pallas7``:
     the whole block by K13 on the padded, rolled map (K1's half-block, then
@@ -285,7 +297,7 @@ class SwinBlockAdapter(nn.Module):
 
     def __init__(self, dim, num_heads, ffn_dim, window_size, shift,
                  adapter_ratio=0.0625, attn_impl="pallas4", ffn_impl="fused",
-                 drop_path_rate=0.0, adapter_drop=0.1, int8=False):
+                 drop_path_rate=0.0, adapter_drop=0.1, int8=False, drop_rate=0.0):
         super().__init__()
         _require(attn_impl, SWIN_ATTN, "attn_impl")
         _require(ffn_impl, FFN_IMPL, "ffn_impl")
@@ -294,12 +306,15 @@ class SwinBlockAdapter(nn.Module):
         if int8 and (attn_impl, ffn_impl) != ("pallas4", "fused"):
             raise NotImplementedError("int8 runs the pallas4 half-block and the fused tail only")
         if attn_impl in MODULE_ATTN and ffn_impl != "fused":
-            raise NotImplementedError("the module attention path runs with the fused tail only")
+            raise NotImplementedError("the module attention path runs with the fused tail, "
+                                      "or with the module tail where the train dispatch "
+                                      "switches to it (drop_rate > 0)")
         self.attn_impl = attn_impl
         self.ffn_impl = ffn_impl
         self.int8 = bool(int8)
         self.drop_path_rate = float(drop_path_rate)
         self.adapter_drop = float(adapter_drop)
+        self.drop_rate = float(drop_rate)
         self.num_heads = num_heads
         self.window_size = window_size
         self.shift = window_size // 2 if shift else 0
@@ -336,7 +351,14 @@ class SwinBlockAdapter(nn.Module):
                                   self._tail_params(ad), self._region(h, w, x.device),
                                   *geo, h, w, shift)
             return unroll_and_crop(out, h, w, shift)
-        if self.attn_impl in MODULE_ATTN:
+        rate = self.drop_path_rate if self.training else 0.0
+        drop = self.drop_rate if self.training and self.ffn_impl == "module" else 0.0
+        if drop > 0.0:
+            # the JAX package's switch of pallas4-7 to v2 in train mode
+            # (a fused half-block holds no dropout): K12, dropout after proj
+            branch = self.attn(layer_norm(x, self.norm1), "pallas", drop, generator)
+            y = drop_path(branch, rate, True, generator) + x
+        elif self.attn_impl in MODULE_ATTN:
             y = self.attn(layer_norm(x, self.norm1), self.attn_impl) + x
         elif self.attn_impl == "pallas5":
             # pad, roll and crop are index arithmetic inside K14
@@ -354,12 +376,11 @@ class SwinBlockAdapter(nn.Module):
         if self.ffn_impl == "fused":
             out = block_tail(y.contiguous().reshape(-1, c), *self._tail_params(ad))
             return out.reshape(b, h, w, c)
-        rate = self.drop_path_rate if self.training else 0.0
-        if rate > 0.0:
+        if rate > 0.0 and drop == 0.0:
             # K1 fused the residual: recover the branch and drop it per sample
             y = x + drop_path(y - x, rate, True, generator)
         adapter_x = 0.5 * ad(y, self.adapter_drop if self.training else 0.0, generator)
-        out = self.ffn(layer_norm(y, self.norm2), y, rate, generator)
+        out = self.ffn(layer_norm(y, self.norm2), y, rate, generator, drop)
         return out + adapter_x
 
     def _rel_pos_bias(self) -> torch.Tensor:
@@ -416,7 +437,8 @@ class SwinStage(nn.Module):
 
     def __init__(self, dim, depth, num_heads, window_size, downsample,
                  adapter_ratio=0.0625, mlp_ratio=4.0, attn_impl="pallas4",
-                 ffn_impl="fused", drop_path_rates=None, adapter_drop=0.1, int8=False):
+                 ffn_impl="fused", drop_path_rates=None, adapter_drop=0.1, int8=False,
+                 drop_rate=0.0):
         super().__init__()
         rates = [0.0] * depth if drop_path_rates is None else list(drop_path_rates)
         self.blocks = nn.ModuleList(
@@ -424,7 +446,7 @@ class SwinStage(nn.Module):
                              shift=j % 2 == 1, adapter_ratio=adapter_ratio,
                              attn_impl=attn_impl, ffn_impl=ffn_impl,
                              drop_path_rate=rates[j], adapter_drop=adapter_drop,
-                             int8=int8)
+                             int8=int8, drop_rate=drop_rate)
             for j in range(depth)
         )
         self.downsample = PatchMerging(dim, 2 * dim) if downsample else None
@@ -761,8 +783,10 @@ class SwinTransformer(nn.Module):
     W*3) rows; ``patch_embed`` chooses the flat path of both streams'
     ``PatchEmbed`` (``"xla"``, ``"xla2"``, or ``"pallas"``: K19, flat input
     only).
-    ``drop_path_rate`` (spread linearly over the blocks), ``adapter_drop``
-    and ``mmst_mask`` act only under the ``train`` dispatch, in train mode."""
+    ``drop_path_rate`` (spread linearly over the blocks), ``adapter_drop``,
+    ``drop_rate`` (the blocks' dropout: after the attention's proj linear
+    and inside the FFN) and ``mmst_mask`` act only under the ``train``
+    dispatch, in train mode."""
 
     def __init__(
         self,
@@ -772,6 +796,7 @@ class SwinTransformer(nn.Module):
         window_size: int = 12,
         patch_size: int = 4,
         mlp_ratio: float = 4.0,
+        drop_rate: float = 0.0,
         drop_path_rate: float = 0.3,
         mapa_ratio: float = 0.125,
         adapter_ratio: float = 0.0625,
@@ -806,7 +831,8 @@ class SwinTransformer(nn.Module):
         self.stages = nn.ModuleList(
             SwinStage(dims[i], depths[i], num_heads[i], window_size, i < nl - 1,
                       adapter_ratio, mlp_ratio, attn_impl[i], ffn_impl,
-                      dpr[sum(depths[:i]):sum(depths[:i + 1])], adapter_drop, int8)
+                      dpr[sum(depths[:i]):sum(depths[:i + 1])], adapter_drop, int8,
+                      drop_rate)
             for i in range(nl)
         )
         self.MPGBlocks = nn.ModuleList(MPGBlock(d, mapa_ratio) for d in dims)

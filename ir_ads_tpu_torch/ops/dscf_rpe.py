@@ -60,6 +60,15 @@ def check_plane(name: str, s1: int, s2: int, h: int, bf16_pairs: bool) -> None:
                          f"over {SMEM_MAX}")
 
 
+def per_image(table: torch.Tensor, bg: int) -> torch.Tensor:
+    """The (G, ...) table for each of the BG = B * G image groups, group
+    b % G for row b: a broadcast, whose backward is a sum over the images
+    in a fixed order (an index gather's backward accumulates in an order
+    that varies from run to run, on the CPU too)."""
+    g = table.shape[0]
+    return table[None].expand(bg // g, *table.shape).reshape(bg, *table.shape[1:])
+
+
 def rpe_bias_f32(pos, table, h, w, order):
     """The bias in f32 by separable hat-weight products, with the output
     axes in ``order`` over (b, e, m, h, w) = (BG, hg, M, h, w)."""
@@ -76,7 +85,7 @@ def rpe_bias_f32(pos, table, h, w, order):
     ix = ax * ar(w)[None, None, :] + bx[..., None]  # (BG, M, w)
     wy = torch.clamp(1.0 - (iy[..., None] - ar(s1)).abs(), min=0.0)  # (BG,M,h,S1)
     wx = torch.clamp(1.0 - (ix[..., None] - ar(s2)).abs(), min=0.0)  # (BG,M,w,S2)
-    tb = table.float()[torch.arange(bg, device=dev) % g]  # (BG, hg, S1, S2)
+    tb = per_image(table.float(), bg)  # (BG, hg, S1, S2)
     u = torch.einsum("best,bmwt->bmesw", tb, wx)
     return torch.einsum(f"bmhs,bmesw->{order}", wy, u)
 
@@ -246,7 +255,7 @@ def rpe_bias_xla(
                      min=0.0).to(store)  # (BG, M, h, S1)
     wx = torch.clamp(1.0 - (ix[..., None] - torch.arange(s2, dtype=f32, device=dev)).abs(),
                      min=0.0).to(store)  # (BG, M, w, S2)
-    tb = table.to(store)[torch.arange(bg, device=dev) % g]  # (BG, hg, S1, S2)
+    tb = per_image(table.to(store), bg)  # (BG, hg, S1, S2)
     # products of store-dtype operands, summed in f32 and rounded once: a
     # bf16 product on the card and on the CPU accumulates in f32
     u = torch.einsum("best,bmwt->bmwse", tb, wx)  # (BG, M, w, S1, hg)

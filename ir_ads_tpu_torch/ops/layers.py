@@ -182,10 +182,14 @@ class FFN(nn.Module):
 
     def forward(self, x: torch.Tensor, identity: torch.Tensor,
                 drop_path_rate: float = 0.0,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        """identity + drop_path(fc2(gelu(fc1 x))): the JAX ``Mlp`` with
-        ``add_identity`` (its ``drop_rate`` is 0 in every recipe)."""
-        h = linear(gelu(linear(x, self.layers[0][0])), self.layers[1])
+                generator: Optional[torch.Generator] = None,
+                drop_rate: float = 0.0) -> torch.Tensor:
+        """identity + drop_path(drop(fc2(drop(gelu(fc1 x))))): the JAX ``Mlp``
+        with ``add_identity``; ``drop_rate``'s dropout after the activation
+        and after fc2, in train mode."""
+        on = self.training and drop_rate > 0.0
+        h = dropout(gelu(linear(x, self.layers[0][0])), drop_rate, on, generator)
+        h = dropout(linear(h, self.layers[1]), drop_rate, on, generator)
         return identity + drop_path(h, drop_path_rate, self.training, generator)
 
 

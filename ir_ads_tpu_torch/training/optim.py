@@ -10,12 +10,19 @@ backward reads ``needs_input_grad`` to skip what only those gradients need.
 
 A schedule is a function of the step, counted from 0: the first update uses
 ``schedule(0)``.
+
+``grad_clip_norm`` clips as optax's ``clip_by_global_norm`` does inside the
+JAX package's mask: the global norm is taken over the optimizer's
+(trainable) parameters only, and where it reaches the bound each gradient
+becomes ``(g / norm) * max_norm``, in that order and with no epsilon
+(``torch.nn.utils.clip_grad_norm_`` scales by ``max_norm / (norm + 1e-6)``,
+another function).
 """
 
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Iterable, Tuple
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import torch
 from torch import nn
@@ -101,26 +108,50 @@ def _groups(model: nn.Module, weight_decay: float) -> Tuple[dict, dict]:
             dict(params=[p for p in params if p.ndim <= 1], weight_decay=0.0))
 
 
+def clip_by_global_norm_(params: Iterable[torch.Tensor], max_norm: float) -> None:
+    """optax's ``clip_by_global_norm`` on the ``.grad`` of ``params``, in
+    place and without a host read: ``g`` where the global norm is below
+    ``max_norm``, else ``(g / norm) * max_norm``."""
+    grads = [p.grad for p in params if p.grad is not None]
+    if not grads:
+        return
+    norm = torch.sqrt(sum(torch.sum(g * g) for g in grads))
+    below = norm < max_norm
+    for g in grads:
+        g.copy_(torch.where(below, g, (g / norm.to(g.dtype)) * max_norm))
+
+
 def get_optimizer(
     name: str,
     model: nn.Module,
     schedule: Schedule,
     weight_decay: float = 0.01,
     train_type: str = "all",
+    grad_clip_norm: Optional[float] = None,
 ) -> torch.optim.Optimizer:
     """AdamW (b1 0.9, b2 0.999, eps 1e-8, decoupled decay on ndim > 1) or SGD
     (momentum 0.9, decay added to every gradient) over the parameters that
     ``train_type`` leaves trainable; ``freeze_`` is applied first.  The
-    learning rate is ``schedule(0)`` until ``set_lr`` moves it."""
+    learning rate is ``schedule(0)`` until ``set_lr`` moves it.  With
+    ``grad_clip_norm`` every ``step`` first clips the gradients of those
+    parameters (``clip_by_global_norm_``)."""
     freeze_(model, train_type)
     lr = schedule(0)
     if name == "adamw":
-        return torch.optim.AdamW(_groups(model, weight_decay), lr=lr,
-                                 betas=(0.9, 0.999), eps=1e-8)
-    if name == "sgd":
+        opt = torch.optim.AdamW(_groups(model, weight_decay), lr=lr,
+                                betas=(0.9, 0.999), eps=1e-8)
+    elif name == "sgd":
         params = [p for p in model.parameters() if p.requires_grad]
-        return torch.optim.SGD(params, lr=lr, momentum=0.9, weight_decay=weight_decay)
-    raise ValueError(f"Unknown optimizer {name!r}")
+        opt = torch.optim.SGD(params, lr=lr, momentum=0.9, weight_decay=weight_decay)
+    else:
+        raise ValueError(f"Unknown optimizer {name!r}")
+    if grad_clip_norm is not None:
+        def clip(optimizer, args, kwargs):
+            clip_by_global_norm_([p for g in optimizer.param_groups for p in g["params"]],
+                                 grad_clip_norm)
+
+        opt.register_step_pre_hook(clip)
+    return opt
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:

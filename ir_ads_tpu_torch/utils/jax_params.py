@@ -20,6 +20,14 @@ mapping: a flax gradient tree or an updated parameter tree given as
 ``batch_stats`` by its buffer names, so a training step is compared name by
 name.
 
+``to_flax(state_dict)`` is ``from_flax``'s inverse: the port's state_dict
+(or any dict keyed by its parameter and statistic names) back as the flax
+``{"params", "batch_stats"}`` tree of numpy arrays, the deep stages'
+blocks restacked over pairs, f32 tensors written as f32;
+``from_flax(to_flax(sd))`` gives ``sd`` back bit for bit and
+``to_flax(from_flax(v))`` gives ``v``.  Each name is checked by mapping
+its flax path forward again.
+
 ``dino_from_flax(variables)`` does the same for the detection stack's
 ``DINODetector`` (``ir_ads_tpu_torch.detection.dino``): the inverse of
 ``import_dino_state_dict``, from either parameter layout of the flax
@@ -122,6 +130,97 @@ def from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
         if name.endswith("running_var"):
             sd[name[: -len("running_var")] + "num_batches_tracked"] = torch.tensor(0)
     return sd
+
+
+# port name -> flax path, applied in order to the dotted name (the inverse of
+# ``_RENAME`` and ``_module_name``); ``to_flax`` checks each result by mapping
+# it forward again
+_INVERSE = (
+    (r"\.projection\.", ".proj."),
+    (r"MLP_RGB_Adapter", "adapter_rgb"),
+    (r"MLP_DTE_Adapter", "adapter_dte"),
+    (r"ffn\.layers\.0\.0\.", "ffn.Dense_0."),
+    (r"ffn\.layers\.1\.", "ffn.Dense_1."),
+    (r"(conv_offset_[xy])\.0\.", r"\1.dw."),
+    (r"(conv_offset_[xy])\.1\.norm\.", r"\1.LayerNorm_0."),
+    (r"(conv_offset_[xy])\.3\.", r"\1.pw."),
+    (r"fuse_q\.conv\.0\.", "fuse_q_conv."),
+    (r"fuse_q\.conv\.1\.", "fuse_q_bn."),
+    (r"get_sample_weight\.0\.", "sample_weight_fc1."),
+    (r"get_sample_weight\.2\.", "sample_weight_fc2."),
+    (r"linear_fuse\.conv\.", "linear_fuse."),
+    (r"linear_fuse\.bn\.", "fuse_bn."),
+    (r"(linear_c\d+)\.proj\.", r"\1."),
+    (r"(stages|blocks)\.(\d+)", r"\1_\2"),
+    (r"DeformMPGBlocks\.(\d+)", r"deform_mpg_\1"),
+    (r"MPGBlocks\.(\d+)", r"mpg_\1"),
+)
+_BUFFERS = ("relative_position_index", "num_batches_tracked")  # not in the flax tree
+
+
+def _port_name(path: Tuple[str, ...]) -> str:
+    """The port's name of the flax leaf at ``path`` (``from_flax``'s map)."""
+    names = [_module_name(seg, path[j - 1] if j else "") for j, seg in enumerate(path[:-1])]
+    names.append(_RENAME.get(path[-1], _LEAF.get(path[-1], path[-1])))
+    return ".".join(names)
+
+
+def _flax_leaf(name: str, arr: np.ndarray) -> Tuple[str, Tuple[str, ...], np.ndarray]:
+    """(collection, flax path, array in flax's layout) of one port entry."""
+    module, leaf = name.rsplit(".", 1)
+    dotted = module + "."
+    for pattern, repl in _INVERSE:
+        dotted = re.sub(pattern, repl, dotted)
+    if leaf == "relative_position_bias_table":
+        leaf = "rel_pos_bias_table"
+    coll = "params"
+    if leaf in ("running_mean", "running_var"):
+        coll, leaf = "batch_stats", leaf[len("running_"):]
+    elif leaf == "weight":
+        leaf = "kernel" if arr.ndim in (2, 4) else "scale"
+    if leaf == "kernel":
+        arr = arr.T if arr.ndim == 2 else arr.transpose(2, 3, 1, 0)
+    path = tuple(dotted.rstrip(".").split(".")) + (leaf,)
+    if _port_name(path) != name:
+        raise ValueError(f"to_flax: {name} maps to {'/'.join(path)}, which from_flax "
+                         f"names {_port_name(path)}")
+    return coll, path, arr
+
+
+def to_flax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Dict]:
+    """The port's state_dict -> flax variables (nested dicts of numpy
+    arrays, f32 for f32 tensors; the buffers flax does not hold are
+    dropped).  A stage of depth >= 4 and even is stacked over block pairs,
+    as the JAX SwinStage scans it (``stages_i/pairs/block{0,1}``)."""
+    depth: Dict[str, int] = {}
+    for name in state_dict:
+        m = re.match(r"(.*stages\.\d+)\.blocks\.(\d+)\.", name)
+        if m:
+            depth[m.group(1)] = max(depth.get(m.group(1), 0), int(m.group(2)) + 1)
+    out: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
+    stacked: Dict[Tuple[str, ...], Dict[int, np.ndarray]] = {}
+    for name, t in state_dict.items():
+        if name.rsplit(".", 1)[-1] in _BUFFERS:
+            continue
+        t = t.detach().cpu()
+        coll, path, arr = _flax_leaf(name, (t.float() if t.dtype == torch.bfloat16 else t).numpy())
+        m = re.match(r"(.*stages\.\d+)\.blocks\.(\d+)\.", name)
+        if m and depth[m.group(1)] >= 4 and depth[m.group(1)] % 2 == 0:
+            j = int(m.group(2))
+            i = path.index(f"blocks_{j}")
+            key = (coll,) + path[:i] + ("pairs", f"block{j % 2}") + path[i + 1:]
+            stacked.setdefault(key, {})[j // 2] = arr
+            continue
+        _put(out[coll], path, np.array(arr, order="C"))
+    for key, parts in stacked.items():
+        _put(out[key[0]], key[1:], np.stack([parts[p] for p in range(len(parts))]))
+    return out
+
+
+def _put(tree: Dict, path: Tuple[str, ...], value) -> None:
+    for seg in path[:-1]:
+        tree = tree.setdefault(seg, {})
+    tree[path[-1]] = value
 
 
 # --------------------------------------------------------------------------

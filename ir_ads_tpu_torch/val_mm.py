@@ -13,7 +13,8 @@ val split from a decode-once ``RawCache`` with the normalisation on the
 device.  ``TRAIN.AMP`` chooses bf16 (the default) or f32.
 
 Beyond the JAX val_mm.py: ``DATASET.KWARGS`` goes to the dataset's constructor
-(``Synthetic``'s ``image_size``, ``num_classes``, ``length``); ``--workers``
+(``Synthetic``'s ``image_size``, ``num_classes``, ``length``), with
+``DATASET.VAL_KWARGS`` over it (``datasets.dataset_kwargs``); ``--workers``
 chooses the loader's threads or processes.  ``EVAL.SPATIAL_SHARD`` is
 multi-device and not ported.
 
@@ -35,7 +36,7 @@ from ir_ads_tpu_torch.data.augmentations import (
     get_val_augmentation, get_val_augmentation_device_norm,
 )
 from ir_ads_tpu_torch.data.cache import RawCache
-from ir_ads_tpu_torch.data.datasets import get_dataset
+from ir_ads_tpu_torch.data.datasets import dataset_kwargs, get_dataset
 from ir_ads_tpu_torch.data.loader import DataLoader
 from ir_ads_tpu_torch.evaluation.semseg_eval import (
     evaluate, make_forward_fn, make_sliding_window_fn,
@@ -46,10 +47,12 @@ from ir_ads_tpu_torch.utils.config import load_config
 from ir_ads_tpu_torch.utils.logging import get_logger
 
 def build_eval_model(cfg: Dict, num_classes: int, device: str = "cuda",
-                     dispatch: str = "r5", seed: int = 0):
+                     dispatch: str = "r5", seed: int = 0,
+                     state_dict: Optional[Dict[str, torch.Tensor]] = None):
     """The config's model on ``device`` in eval mode: bf16 unless
-    ``TRAIN.AMP`` is false, head-native logits, weights from
-    ``EVAL.MODEL_PATH`` or drawn from ``seed``."""
+    ``TRAIN.AMP`` is false, head-native logits, weights from ``state_dict``
+    (the training driver's gate), else from ``EVAL.MODEL_PATH``, else drawn
+    from ``seed``."""
     from ir_ads_tpu_torch.serve import weights_from
 
     device = torch.device(device)
@@ -59,9 +62,11 @@ def build_eval_model(cfg: Dict, num_classes: int, device: str = "cuda",
     model_cfg = cfg["MODEL"]
     dtype = torch.bfloat16 if cfg["TRAIN"].get("AMP", True) else None
     path = cfg["EVAL"].get("MODEL_PATH", "")
+    if state_dict is None and path:
+        state_dict = weights_from(path)
     model = build_model(model_cfg.get("NAME", "CMNeXt"), model_cfg["BACKBONE"], num_classes,
-                        dtype, model_cfg.get("BACKBONE_KWARGS"), dispatch,
-                        weights_from(path) if path else None, seed, upsample_logits=False)
+                        dtype, model_cfg.get("BACKBONE_KWARGS"), dispatch, state_dict, seed,
+                        upsample_logits=False)
     return model.to(device)
 
 
@@ -69,7 +74,7 @@ def _val_dataset(cfg: Dict):
     eval_cfg, ds_cfg = cfg["EVAL"], cfg["DATASET"]
     transform = get_val_augmentation(eval_cfg["IMAGE_SIZE"])
     dataset = get_dataset(ds_cfg["NAME"])(ds_cfg["ROOT"], "val", transform, ds_cfg["MODALS"],
-                                          **(ds_cfg.get("KWARGS") or {}))
+                                          **dataset_kwargs(ds_cfg, "val"))
     cache_dir = eval_cfg.get("CACHE_DIR", "")
     if not cache_dir:
         return dataset, False
