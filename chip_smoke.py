@@ -193,7 +193,31 @@ Phases, each of which raises on failure:
      path drawing the same masks at ``GRAD_TOL`` (K12 without its region
      mask at stage 3 must fail).  Prints epoch seconds, the p50 step,
      images/s, the gates' seconds, the checkpoints' bytes and write seconds
-     and the host's milliseconds for a train batch beside the card line.
+     and the host's milliseconds for a train batch beside the card line;
+  9. Swin-L and dual_batch.  The Swin-L CMNeXt (embed 192, heads
+     6/12/24/48, DSCF heads of 12 channels) at full width and depth:
+     ``SemSegPredictor(backbone="SwinTransformer-L")`` serves --requests
+     requests of --batch 480x640 frames under r5 (launches per request
+     ``R5_LAUNCHES``: K1 8, K2 8, K5 40, K3 3, K4 3 at 12 channels a head,
+     K6 1), every launch of K1-K6 in one request held against its plain
+     version on its own inputs (``_held_launches``, phase 7's bars), the
+     logits against the all-plain path (``LOGIT_TOL``; K5 without its
+     region mask must fail).  One training step with remat at batch 4
+     (``SWIN_L_TRAIN_LAUNCHES``: K1 96, 48 forward and 48 recomputed, K7
+     48, K3 3, K4 3, K8 3 at 12 channels, K6 1): K7 and K8 against their
+     plain versions behind the same forward (``GRAD_TOL``'s bwd_group_rel;
+     K8 with a scaled dbias must fail), the loss and every group's gradient
+     against the all-plain path at phase 5's control bar (K1 without its
+     region mask at stage 3 must fail); with the recipe's dropout,
+     drop-path and modality mask, the remat step against the step without
+     remat drawing the same masks (``REMAT_TOL``; the recomputation
+     drawing from the generator where the forward left it must fail),
+     peak memory with and without remat, and two timed recipe steps.  The
+     Swin-B CMNeXt with ``dual_batch``: r5 requests (``DUAL_LAUNCHES``: K1
+     4, K2 8, K5 20, K3 3, K4 3, K6 1), logits against r5's streams in turn
+     (bit for bit, else ``LOGIT_TOL``), and one dual training step (K1 24,
+     K7 24) against the streams-in-turn step at phase 5's control bar.
+     Prints p50 ms, frames/s and images/s beside the card line.
 The line before the last is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``.  Nothing of JAX is imported.
 """
@@ -1144,24 +1168,26 @@ SWIN_SHARE = dict(swin_block=0.04, swin_block_v6=0.30, swin_block_int8=0.07,
 JMAJOR_SHARE = 0.01  # K18's (check_rpe_jmajor)
 
 
-def check_rows(g, b, level, packed=True):
+def check_rows(g, b, level, packed=True, hc=8):
+    """K4 at one DSCF level's serving shape, heads of ``hc`` channels (8:
+    Swin-B, 12: Swin-L)."""
     from ir_ads_tpu_torch.ops import dscf_rows as k4
     from ir_ads_tpu_torch.ops import dscf_rpe as k3
 
     h, w, groups, bg, hg, m, pos, table = _dscf_inputs(g, b, level)
-    gc = 16
+    gc = hg * hc
     q = _rand(g, bg, h * w, gc)
     k = _rand(g, bg, m, gc)
     v = _rand(g, bg, m, gc)
     # contiguous, as K3 writes it on the main path (the wrapper would copy
     # a strided view, 0.28 ms at level 0, inside the kernel's timing)
     bias = k3.rpe_bias_rows_reference(pos, table, h, w, torch.bfloat16).contiguous()
-    scale = 8 ** -0.5
-    qh = q.reshape(bg, h * w, hg, 8).transpose(1, 2)
-    kh = k.reshape(bg, m, hg, 8).transpose(1, 2)
-    vh = v.reshape(bg, m, hg, 8).transpose(1, 2)
+    scale = hc ** -0.5
+    qh = q.reshape(bg, h * w, hg, hc).transpose(1, 2)
+    kh = k.reshape(bg, m, hg, hc).transpose(1, 2)
+    vh = v.reshape(bg, m, hg, hc).transpose(1, 2)
     mask = bias.permute(0, 1, 2, 4, 3).reshape(bg, hg, h * w, m).contiguous()
-    flops = 4 * 8 * bg * hg * h * w * m
+    flops = 4 * hc * bg * hg * h * w * m
     if packed:
         fault = "rpe bias dropped"
         faulted = lambda: k4.dscf_rows_reference(  # noqa: E731
@@ -1171,7 +1197,8 @@ def check_rows(g, b, level, packed=True):
         faulted = lambda: k4.dscf_rows_reference(q, k, v, bias, scale, hg, True)  # noqa: E731
     return dict(
         name="dscf_rows",
-        case=f"level {level} plane {h}x{w} BG={bg}" + ("" if packed else " unpacked"),
+        case=f"level {level} plane {h}x{w} BG={bg}" + ("" if packed else " unpacked")
+        + ("" if hc == 8 else f" hc={hc}"),
         run=lambda: k4.dscf_rows_attention(q, k, v, bias, scale, hg, packed),
         plain=lambda: k4.dscf_rows_reference(q, k, v, bias, scale, hg, packed),
         faulted=faulted, fault=fault, base=None,
@@ -1639,8 +1666,9 @@ def check_window_attn_bwd(g, b, h_real, w_real, c, heads, shift, want_ow, want_d
     )
 
 
-def check_rows_bwd(g, b, level):
-    """K8 at one DSCF level's training shape.  dq is a bf16 rounding of an
+def check_rows_bwd(g, b, level, hc=8):
+    """K8 at one DSCF level's training shape, heads of ``hc`` channels (8:
+    Swin-B, 12: Swin-L).  dq is a bf16 rounding of an
     f32 sum over 600 keys of bf16(dS * scale) products (rtol two ulps, atol
     5 % of rms); dk and dv are f32 sums over every query pixel of products
     of bf16-rounded factors whose rounding can flip (1 % of rms, rtol two
@@ -1650,7 +1678,7 @@ def check_rows_bwd(g, b, level):
     from ir_ads_tpu_torch.ops import dscf_rpe as k3
 
     h, w, groups, bg, hg, m, pos, table = _dscf_inputs(g, b, level)
-    gc = 16
+    gc = hg * hc
     q = _rand(g, bg, h * w, gc)
     k = _rand(g, bg, m, gc)
     v = _rand(g, bg, m, gc)
@@ -1658,7 +1686,7 @@ def check_rows_bwd(g, b, level):
     # contiguous, as K3 writes it on the main path (the wrapper would copy a
     # strided view, 0.29 ms at level 0, inside the kernel's timing)
     bias = k3.rpe_bias_rows_reference(pos, table, h, w, torch.bfloat16).contiguous()
-    scale = 8 ** -0.5
+    scale = hc ** -0.5
     run = lambda: k8.dscf_rows_bwd(q, k, v, bias, dout, scale, hg)  # noqa: E731
     plain = lambda: k8.dscf_rows_bwd_reference(q, k, v, bias, dout, scale, hg)  # noqa: E731
 
@@ -1666,7 +1694,7 @@ def check_rows_bwd(g, b, level):
         dq, dk, dv, dbias = plain()
         return dq, dk, dv, dbias * scale
 
-    heads_of = lambda t, n: t.reshape(bg, n, hg, 8).transpose(1, 2)  # noqa: E731
+    heads_of = lambda t, n: t.reshape(bg, n, hg, hc).transpose(1, 2)  # noqa: E731
     leaves = [heads_of(q, h * w).detach().requires_grad_(),
               heads_of(k, m).detach().requires_grad_(),
               heads_of(v, m).detach().requires_grad_(),
@@ -1680,13 +1708,14 @@ def check_rows_bwd(g, b, level):
 
     scores = bg * hg * h * w * m
     return dict(
-        name="dscf_rows_bwd", case=f"level {level} plane {h}x{w} BG={bg}",
+        name="dscf_rows_bwd",
+        case=f"level {level} plane {h}x{w} BG={bg}" + ("" if hc == 8 else f" hc={hc}"),
         run=run, plain=plain, faulted=faulted, fault="dbias scaled by scale",
         base=None, library=library, outputs=["dq", "dk", "dv", "dbias"],
         atol=[0.05, 0.01, 0.01, 1e-3], rtol=[2e-2, 2e-2, 2e-2, 1e-3],
         atol_of_rms=True, share_report=("dq",),
         bytes=nbytes(q, k, v, bias, dout) + nbytes(q) + 2 * nbytes(k) * 2 + scores * 4,
-        flops=scores * 80, rate=BF16_TENSOR_FLOPS,
+        flops=scores * (8 * hc + 16), rate=BF16_TENSOR_FLOPS,
     )
 
 
@@ -1819,6 +1848,11 @@ def phase_kernels(seed: int, images: int):
         # and once outside the tensor-core design (d = 16): its first design
         lambda: check_window_attn_bwd(g, TRAIN_BATCH, 60, 80, 256, 16, 6, False, False),
         *(functools.partial(check_rows_bwd, g, TRAIN_BATCH, level) for level in (0, 1, 2)),
+        # the Swin-L paths (phase 9): K4 and K8 at 12 channels a head at DSCF
+        # levels 0-2 (K4 packed there), K4's unpacked form at levels 0-3
+        *(functools.partial(check_rows, g, images, level, True, 12) for level in (0, 1, 2)),
+        *(functools.partial(check_rows, g, images, level, False, 12) for level in (0, 1, 2, 3)),
+        *(functools.partial(check_rows_bwd, g, TRAIN_BATCH, level, 12) for level in (0, 1, 2)),
         # the detection path: K9 as the encoder's self-attention and the
         # decoder's cross-attention run it (bf16), and once each in f32
         lambda: check_msdeform(g, s_det, torch.bfloat16, "no -0.5"),
@@ -2056,8 +2090,10 @@ def expected_launches(model, image=IMAGE):
     level (15 x 20 at 480x640, where 2n % 8 == 0): K3 + K4 (pallas3), K16 (pallas4), K17 (pallas), K18 +
     K17 (pallas2), or the einsum attention, its bias by K6 where the
     dispatch takes the packed kernel for a plane of at most 2048 pixels; the
-    two streams run in turn; K19 embeds each stream's flat frames where the
-    model's patch embedding takes it (``patch_embed="pallas"``)."""
+    two streams run in turn, or under ``dual_batch`` through one launch a
+    block but K2's and K11's, which run once a stream; K19 embeds each
+    stream's flat frames where the model's patch embedding takes it
+    (``patch_embed="pallas"``)."""
     n = dict.fromkeys((m.KERNEL.name for m in _ops_modules()), 0)
     for k in ("window_attn_bwd", "dscf_rows_bwd", "msdeform"):
         del n[k]
@@ -2067,12 +2103,13 @@ def expected_launches(model, image=IMAGE):
                  "pallas7": ("swin_block_v7",), "pallas5": ("swin_block_full", "block_tail"),
                  "pallas": ("window_attention_qkv", "block_tail"),
                  "pallas_map": ("window_attention_map", "block_tail"), "xla": ("block_tail",)}
+    once = model.backbone.dual_batch
     for stage in model.backbone.stages:
         for blk in stage.blocks:
             names = (("swin_block_int8", "block_tail_int8") if blk.int8
                      else per_block[blk.attn_impl])
             for k in names:
-                n[k] += 2
+                n[k] += 1 if once and k not in ("block_tail", "block_tail_int8") else 2
     offsets = (image[0] // 32) * (image[1] // 32)
     for level, dm in enumerate(model.backbone.DeformMPGBlocks):
         da = dm.deform_atten
@@ -2241,6 +2278,13 @@ def _served(pred, frames, requests, batch, want_per_request, what):
     return lat, outs, launches
 
 
+def _request_frames(seed, requests, batch):
+    """The served requests' uint8 RGB and depth frames, from the seed."""
+    g = torch.Generator().manual_seed(seed + 1)
+    return [tuple(torch.randint(0, 256, (batch, *IMAGE, 3), generator=g, dtype=torch.uint8)
+                  for _ in range(2)) for _ in range(requests)]
+
+
 def phase_serve(seed: int, requests: int, batch: int, card_line: str):
     from ir_ads_tpu_torch.serve import SemSegPredictor
 
@@ -2250,12 +2294,7 @@ def phase_serve(seed: int, requests: int, batch: int, card_line: str):
     n_params = sum(p.numel() for p in pred.model.parameters())
     print(f"  model: Swin-B CMNeXt, {n_params / 1e6:.1f} M parameters, bf16, "
           f"r5 dispatch, built in {time.time() - t0:.1f} s", flush=True)
-    g = torch.Generator().manual_seed(seed + 1)
-    frames = [
-        (torch.randint(0, 256, (batch, *IMAGE, 3), generator=g, dtype=torch.uint8),
-         torch.randint(0, 256, (batch, *IMAGE, 3), generator=g, dtype=torch.uint8))
-        for _ in range(requests)
-    ]
+    frames = _request_frames(seed, requests, batch)
     lat, outs, launches = _served(pred, frames, requests, batch, R5_LAUNCHES, "r5")
 
     want = _plain_request(pred, frames)
@@ -3026,17 +3065,24 @@ def _reset_launches():
     return kernels
 
 
-def gradient_run(seed: int, dtype, batch):
-    """A trainer with every stochastic rate at 0 and a function that runs one
-    forward and backward on ``batch`` with the train path swapped as
-    ``_swap_train_path`` says, and returns the loss and the gradient of every
-    parameter group as one f32 vector."""
+def gradient_run(seed: int, dtype, batch, backbone="SwinTransformer-B", rates=False,
+                 **backbone_kwargs):
+    """A trainer with every stochastic rate at 0 (with ``rates``, the
+    recipe's) and a function that runs one forward and backward on
+    ``batch`` with the train path swapped as ``_swap_train_path`` says, and
+    returns the loss and the gradient of every parameter group as one f32
+    vector.  Each run draws from the same generator, the next step's."""
     from ir_ads_tpu_torch.train import SemSegTrainer
     from ir_ads_tpu_torch.training.train_state import compute_loss
 
-    tr = SemSegTrainer(device="cuda", dtype=dtype, seed=seed, num_classes=NUM_CLASSES,
-                       head_drop=0.0, mmst_mask=False,
-                       backbone_kwargs=dict(drop_path_rate=0.0, adapter_drop=0.0))
+    if rates:
+        tr = SemSegTrainer(device="cuda", dtype=dtype, seed=seed, num_classes=NUM_CLASSES,
+                           backbone=backbone, backbone_kwargs=backbone_kwargs)
+    else:
+        tr = SemSegTrainer(device="cuda", dtype=dtype, seed=seed, num_classes=NUM_CLASSES,
+                           head_drop=0.0, mmst_mask=False, backbone=backbone,
+                           backbone_kwargs=dict(drop_path_rate=0.0, adapter_drop=0.0,
+                                                **backbone_kwargs))
     params = dict(tr.model.named_parameters())
     data = tr.batch(*batch)
 
@@ -3644,41 +3690,37 @@ EVAL_FAULTS = dict(swin_block="rel-pos bias dropped", block_tail="adapter droppe
                    dscf_rows="rpe bias dropped", dscf_rpe_packed="the all-f32 form")
 
 
-def _held_msf(forward, rgb, dte):
-    """One image's MSF with each launch of the six kernels held against its
-    plain version and its planted fault on its own inputs; returns the log
-    [(scale, kernel, shape, rel, share, fault rel, fault share, size, the
-    largest |got - plain| / (atol x rms(plain) + rtol |plain|))]."""
-    from ir_ads_tpu_torch.evaluation.semseg_eval import msf_logits
+def _held_launches(run, what, tag):
+    """Run ``run()`` with each launch of the six kernels of r5's forward held
+    against its plain version and its planted fault on its own inputs
+    (``_eval_launch_checks``' bars); ``tag()`` names the launch's place
+    (an MSF scale, a request).  Fails if a launch misses its bar or a
+    fault passes it over all of them.  Returns the log [(tag, kernel,
+    shape, rel, share, fault rel, fault share, size, the largest |got -
+    plain| / (atol x rms(plain) + rtol |plain|))]."""
     from ir_ads_tpu_torch.models.backbones import swin
 
-    log, saved, scale = [], {}, {}
+    log, saved = [], {}
     checks = _eval_launch_checks()
     for name, attr, plain, faulted, _, residual, (atol, rtol) in checks:
         saved[attr] = kernel = getattr(swin, attr)
 
-        def run(*args, name=name, kernel=kernel, plain=plain, faulted=faulted,
-                residual=residual, atol=atol, rtol=rtol):
+        def held(*args, name=name, kernel=kernel, plain=plain, faulted=faulted,
+                 residual=residual, atol=atol, rtol=rtol):
             got = kernel(*args)
             want, bad = plain(*args), faulted(*args)
             base = args[0] if residual else None
             err = (got.float() - want.float()).abs()
             elem = (float((err / (atol * _rms(want) + rtol * want.float().abs())).max())
                     if atol else (math.inf if bool(err.max() > 0) else 0.0))
-            log.append((scale["s"], name, tuple(got.shape), _rel(got, want, base),
+            log.append((tag(), name, tuple(got.shape), _rel(got, want, base),
                         float((got != want).float().mean()), _rel(bad, want, base),
                         float((bad != want).float().mean()), got.numel(), elem))
             return got
 
-        setattr(swin, attr, run)
-    sizes = iter(EVAL_SCALES)
-
-    def scaled(r, d):
-        scale["s"] = next(sizes)
-        return forward(r, d)
-
+        setattr(swin, attr, held)
     try:
-        msf_logits(scaled, rgb, dte, EVAL_SCALES)
+        run()
         torch.cuda.synchronize()
     finally:
         for attr, f in saved.items():
@@ -3686,6 +3728,8 @@ def _held_msf(forward, rgb, dte):
     bars = {c[0]: c[4] for c in checks}
     for name in bars:
         mine = [e for e in log if e[1] == name]
+        if not mine:
+            fail(f"{name} did not launch in {what}")
         worst = max(mine, key=lambda e: e[3])
         share = max(e[4] for e in mine)
         size = sum(e[7] for e in mine)
@@ -3693,8 +3737,10 @@ def _held_msf(forward, rgb, dte):
         fault_rel = max(e[5] for e in mine)
         rel_tol = 0.0 if bars[name] == 0.0 else REL_TOL
         elem = max(e[8] for e in mine)
-        print(f"  {name}: {len(mine)} launches at scales "
-              f"{sorted({e[0] for e in mine})}: worst rel {worst[3]:.3e} (scale {worst[0]}, "
+        tags = sorted({e[0] for e in mine}, key=str)
+        print(f"  {name}: {len(mine)} launches in {what}" + (f" at {tags}" if tags != [None]
+                                                              else "")
+              + f": worst rel {worst[3]:.3e} ({worst[0]}, "
               f"{worst[2]}; tol {rel_tol}), largest share apart {share:.4f} (tol "
               f"{bars[name]}), largest element error over its bar {elem:.3f} (tol 1); "
               f"planted fault '{EVAL_FAULTS[name]}': worst rel {fault_rel:.3e}, share "
@@ -3702,11 +3748,27 @@ def _held_msf(forward, rgb, dte):
         bad = [e for e in mine if e[3] > rel_tol or e[8] > 1.0
                or (bars[name] is not None and e[4] > bars[name])]
         if bad:
-            fail(f"{len(bad)} {name} launches of the MSF image disagree with their plain "
-                 f"versions, first at scale {bad[0][0]} {bad[0][2]}")
+            fail(f"{len(bad)} {name} launches of {what} disagree with their plain "
+                 f"versions, first at {bad[0][0]} {bad[0][2]}")
         if fault_rel <= rel_tol and (bars[name] is None or fault_share <= bars[name]):
-            fail(f"the planted fault of {name} passes its bar over the MSF image")
+            fail(f"the planted fault of {name} passes its bar over {what}")
     return log
+
+
+def _held_msf(forward, rgb, dte):
+    """One image's MSF with each launch of the six kernels held against its
+    plain version and its planted fault on its own inputs
+    (``_held_launches``, tagged by scale)."""
+    from ir_ads_tpu_torch.evaluation.semseg_eval import msf_logits
+
+    sizes, scale = iter(EVAL_SCALES), {}
+
+    def scaled(r, d):
+        scale["s"] = next(sizes)
+        return forward(r, d)
+
+    return _held_launches(lambda: msf_logits(scaled, rgb, dte, EVAL_SCALES),
+                          "the MSF image", lambda: scale["s"])
 
 
 def phase_eval(seed: int, card_line: str):
@@ -4137,16 +4199,281 @@ def phase_train_mm(seed: int, card_line: str):
     total = {k: launches[k] + kernels_drop[k] for k in launches}
     return total, record
 
+# --------------------------------------------------------------------------
+# phase 9: Swin-L (serving, training with remat) and dual_batch
+# --------------------------------------------------------------------------
+
+SWIN_L = "SwinTransformer-L"
+# remat: every block's forward runs again in the backward (48 + 48 K1)
+SWIN_L_TRAIN_LAUNCHES = {**TRAIN_LAUNCHES, "swin_block": 96}
+# dual_batch: K1 and K5 once a block on both streams, K2 once a stream
+DUAL_LAUNCHES = {"swin_block": 4, "block_tail": 8, "swin_block_v6": 20, "dscf_rpe": 3,
+                 "dscf_rows": 3, "dscf_rpe_packed": 1}
+DUAL_TRAIN_LAUNCHES = {**TRAIN_LAUNCHES, "swin_block": 24, "window_attn_bwd": 24}
+# The remat step against the step without remat, the same masks drawn: the
+# forwards are the same functions on the same inputs, so only the backward's
+# run-to-run order (PyTorch's atomics, K8's dk and dv; about 1 % of a
+# group's norm, phase 5) parts them; GRAD_TOL's bwd_group_rel.  A
+# recomputation that draws new masks moves the blocks' gradients by the
+# masks' share.
+REMAT_TOL = dict(group_rel=GRAD_TOL["bwd_group_rel"])
+
+
+def _add(total, launches):
+    for k, v in launches.items():
+        total[k] = total.get(k, 0) + v
+
+
+def _control_bar(grads, grads_p, noise, what):
+    """Every group's gradient no further from ``grads_p`` than
+    ``noise_ratio`` times the control is (phase 5's forward bar)."""
+    rels = group_rel(grads, grads_p)
+    ratio = {k: rels[k] / noise[k] for k in rels}
+    worst = max(ratio, key=ratio.get)
+    print(f"  {what}: gradient ||diff|| / ||ref|| over {len(rels)} parameter groups, "
+          f"worst against the control {ratio[worst]:.3f} x ({worst}: {rels[worst]:.3e}, "
+          f"control {noise[worst]:.3e}; tol {GRAD_TOL['noise_ratio']} x)", flush=True)
+    return ratio, ratio[worst] <= GRAD_TOL["noise_ratio"]
+
+
+def phase_swin_l_serve(seed, frames, requests, batch, card_line):
+    from ir_ads_tpu_torch.serve import SemSegPredictor
+
+    t0 = time.time()
+    pred = SemSegPredictor(device="cuda", seed=seed, num_classes=NUM_CLASSES,
+                           image_size=IMAGE, backbone=SWIN_L)
+    n_params = sum(p.numel() for p in pred.model.parameters())
+    print(f"  model: Swin-L CMNeXt, {n_params / 1e6:.1f} M parameters, bf16, r5 dispatch, "
+          f"built in {time.time() - t0:.1f} s", flush=True)
+    lat, outs, launches = _served(pred, frames, requests, batch, R5_LAUNCHES, "Swin-L r5")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    held = _held_launches(lambda: pred(*frames[0]), "one Swin-L request", lambda: None)
+    want = _plain_request(pred, frames)
+    if not _compare(*outs[0], *want, "Swin-L kernel path", LOGIT_TOL):
+        fail("the Swin-L kernel path disagrees with the plain path end to end")
+    if _compare(*_plain_request(pred, frames, window_block_v6=_window_block_v6_no_region),
+                *want, "Swin-L planted fault (K5 without the shift-region mask)", LOGIT_TOL):
+        fail("a K5 without its shift-region mask passes the Swin-L end-to-end bar")
+    p50 = _p50(lat)
+    print(f"  Swin-L r5: {requests} requests x {batch} frames 480x640 RGB-D, flip, latency "
+          f"ms {['%.1f' % v for v in lat]} p50 {p50:.1f}, {batch * 1e3 / p50:.2f} frames/s, "
+          f"peak memory {peak:.2f} GiB [{card_line}]", flush=True)
+    print(f"  launches on the Swin-L r5 path ({requests} requests): {launches}", flush=True)
+    record = dict(params_m=n_params / 1e6, latency_ms=lat, p50_ms=p50,
+                  frames_per_s=batch * 1e3 / p50, peak_memory_gib=peak,
+                  launches_held=len(held))
+    del pred, outs, want
+    torch.cuda.empty_cache()
+    return launches, record
+
+
+def phase_swin_l_train(seed, card_line):
+    from ir_ads_tpu_torch.models.backbones import swin
+
+    batches = _train_batches(seed, TRAIN_BATCH, 3)
+    record, total = {}, {}
+    t0 = time.time()
+    tr, run = gradient_run(seed, torch.bfloat16, batches[0], backbone=SWIN_L)
+    n_all = sum(p.numel() for p in tr.model.parameters())
+    n_train = sum(p.numel() for p in tr.model.parameters() if p.requires_grad)
+    print(f"  model: Swin-L CMNeXt under the train dispatch, remat on every block, "
+          f"{n_train / 1e6:.2f} M of {n_all / 1e6:.1f} M parameters trainable, built in "
+          f"{time.time() - t0:.1f} s", flush=True)
+    kernels = _reset_launches()
+    loss_k, grads_k = run()
+    once = {k.name: k.launches for k in kernels}
+    if once != SWIN_L_TRAIN_LAUNCHES:
+        fail(f"a Swin-L forward and backward launched {once}, expected {SWIN_L_TRAIN_LAUNCHES}")
+    _add(total, once)
+
+    # backward kernels: K7 and K8 (12 channels a head) behind the same forward
+    _, grads_pb = run(BACKWARD)
+    for what, grads in (("kernel path", grads_k),
+                        ("planted fault (K8 with dbias scaled by scale)",
+                         run(BACKWARD, dscf_rows_bwd=_rows_bwd_scaled_dbias)[1])):
+        rels = group_rel(grads, grads_pb)
+        worst = max(rels, key=rels.get)
+        ok = rels[worst] <= GRAD_TOL["bwd_group_rel"]
+        print(f"  Swin-L {what} vs the plain K7 and K8 behind the same forward: worst group "
+              f"{rels[worst]:.3e} ({worst}; tol {GRAD_TOL['bwd_group_rel']})", flush=True)
+        if what == "kernel path":
+            record["backward_worst_rel"] = rels[worst]
+            if not ok:
+                fail("K7 or K8 disagrees with its plain version inside the Swin-L step")
+        elif ok:
+            fail("a K8 whose dbias is scaled passes the Swin-L gradient bar")
+    del grads_pb
+
+    # forward kernels through the step: the all-plain path and the control
+    loss_p, grads_p = run(FORWARD + BACKWARD)
+    loss_c, grads_c = run(FORWARD + BACKWARD, **CONTROL)
+    noise = group_rel(grads_c, grads_p)
+    dloss = abs(loss_k - loss_p) / abs(loss_p)
+    print(f"  Swin-L kernel path vs all plain versions: loss {loss_k:.6f} vs {loss_p:.6f} "
+          f"(rel {dloss:.2e}, tol {GRAD_TOL['loss']}; control {loss_c:.6f})", flush=True)
+    if dloss > GRAD_TOL["loss"]:
+        fail("the Swin-L training loss on the kernel path disagrees with the plain path")
+    ratio, ok = _control_bar(grads_k, grads_p, noise, "Swin-L kernel path vs all plain "
+                             "versions")
+    if not ok:
+        fail("the Swin-L kernel path's gradients are further from the plain path's than a "
+             "change of rounding explains")
+    stage3_fault = functools.partial(_block_forward_plain, no_region_at=(1536,))
+    if _control_bar(run(FORWARD + BACKWARD, swin_block=stage3_fault)[1], grads_p, noise,
+                    "Swin-L planted fault (K1 without the region mask at stage 3)")[1]:
+        fail("a K1 without its shift-region mask at stage 3 passes the Swin-L gradient bar")
+    record.update(loss_rel=dloss, worst_vs_control=max(ratio.values()))
+    del tr, run, grads_k, grads_p, grads_c
+    torch.cuda.empty_cache()
+
+    # remat replays the masks: the recipe's rates, the same generator
+    tr, run = gradient_run(seed, torch.bfloat16, batches[0], backbone=SWIN_L, rates=True)
+    stages = tr.model.backbone.stages
+    peaks, grads = {}, {}
+    for remat in (True, False):
+        for s_ in stages:
+            s_.use_remat = remat
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        grads[remat] = run()[1]
+        peaks[remat] = torch.cuda.max_memory_allocated() / 2**30
+    for s_ in stages:
+        s_.use_remat = True
+    replay = swin.ReplayedDraws.__call__
+    swin.ReplayedDraws.__call__ = lambda self: self.generator
+    try:
+        grads["fault"] = run()[1]
+    finally:
+        swin.ReplayedDraws.__call__ = replay
+    rels = {}
+    for what, key in (("remat", True), ("planted fault (the draws not replayed)", "fault")):
+        r = group_rel(grads[key], grads[False])
+        worst = max(r, key=r.get)
+        rels[key] = r[worst]
+        print(f"  Swin-L recipe step, {what} vs no remat, the same masks: worst group "
+              f"{r[worst]:.3e} ({worst}), median {sorted(r.values())[len(r) // 2]:.3e} (tol "
+              f"{REMAT_TOL['group_rel']})", flush=True)
+    if rels[True] > REMAT_TOL["group_rel"]:
+        fail("the Swin-L step with remat disagrees with the step without it")
+    if rels["fault"] <= REMAT_TOL["group_rel"]:
+        fail("a recomputation that does not replay the draws passes the remat bar")
+    print(f"  Swin-L forward and backward at batch {TRAIN_BATCH}: peak memory "
+          f"{peaks[True]:.2f} GiB with remat, {peaks[False]:.2f} GiB without [{card_line}]",
+          flush=True)
+    record.update(remat_worst_rel=rels[True], fault_worst_rel=rels["fault"],
+                  peak_memory_gib_remat=peaks[True], peak_memory_gib_no_remat=peaks[False])
+    del grads
+
+    # the recipe's steps, timed
+    tr.step(*batches[0])  # warm-up (allocator, cuBLAS handles, AdamW state)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    kernels = _reset_launches()
+    ms, metrics = [], []
+    for b in batches[1:]:
+        t = time.perf_counter()
+        metrics.append(tr.step(*b))
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+    launches = {k.name: k.launches for k in kernels}
+    if launches != {k: v * len(ms) for k, v in SWIN_L_TRAIN_LAUNCHES.items()}:
+        fail(f"{len(ms)} Swin-L recipe steps launched {launches}")
+    _add(total, launches)
+    if not all(math.isfinite(v) for m in metrics for v in m.values()):
+        fail(f"non-finite Swin-L loss {metrics}")
+    p50 = _p50(ms)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    print(f"  Swin-L recipe: {len(ms)} steps x {TRAIN_BATCH} frames 480x640 RGB-D after a "
+          f"warm-up step, loss {['%.4f' % m['loss'] for m in metrics]}, step ms "
+          f"{['%.1f' % v for v in ms]} p50 {p50:.1f}, {TRAIN_BATCH * 1e3 / p50:.2f} images/s, "
+          f"peak memory {peak:.2f} GiB [{card_line}]", flush=True)
+    record.update(step_ms=ms, p50_ms=p50, images_per_s=TRAIN_BATCH * 1e3 / p50,
+                  peak_memory_gib=peak, losses=metrics)
+    del tr, run
+    torch.cuda.empty_cache()
+    return total, record
+
+
+def phase_dual(seed, frames, requests, batch, card_line):
+    from ir_ads_tpu_torch.serve import SemSegPredictor
+
+    total, record = {}, {}
+    dual = SemSegPredictor(device="cuda", seed=seed, num_classes=NUM_CLASSES,
+                           image_size=IMAGE, backbone_kwargs=dict(dual_batch=True))
+    lat_d, outs_d, launches = _served(dual, frames, requests, batch, DUAL_LAUNCHES, "dual r5")
+    _add(total, launches)
+    turns = SemSegPredictor(device="cuda", seed=seed, num_classes=NUM_CLASSES,
+                            image_size=IMAGE)
+    _warm_up(turns, frames)
+    lat_t, outs_t = _serve(turns, frames)
+    lat_d2, _ = _serve(dual, frames)  # in turns: dual, r5, dual
+    differ = int((outs_d[0][0] != outs_t[0][0]).sum())
+    print(f"  dual r5 logits vs r5's (streams in turn), the same weights and frames: "
+          f"{differ} of {outs_t[0][0].numel()} elements differ", flush=True)
+    if differ and not _compare(*outs_d[0], *outs_t[0], "dual r5 vs r5", LOGIT_TOL):
+        fail("the dual r5 logits disagree with r5's")
+    p50_d, p50_t = _p50(lat_d + lat_d2), _p50(lat_t)
+    print(f"  Swin-B dual r5: latency ms {['%.1f' % v for v in lat_d + lat_d2]} p50 "
+          f"{p50_d:.1f}, {batch * 1e3 / p50_d:.2f} frames/s; r5 in between: p50 {p50_t:.1f}, "
+          f"{batch * 1e3 / p50_t:.2f} frames/s [{card_line}]", flush=True)
+    print(f"  launches on the dual r5 path ({requests} requests): {launches}", flush=True)
+    record.update(logits_differ=differ, p50_ms=p50_d, frames_per_s=batch * 1e3 / p50_d,
+                  r5_p50_ms=p50_t, r5_frames_per_s=batch * 1e3 / p50_t)
+    del dual, turns, outs_d, outs_t
+    torch.cuda.empty_cache()
+
+    # one dual training step against the streams-in-turn step
+    batches = _train_batches(seed, TRAIN_BATCH, 1)
+    tr, run = gradient_run(seed, torch.bfloat16, batches[0], dual_batch=True)
+    kernels = _reset_launches()
+    loss_d, grads_d = run()
+    once = {k.name: k.launches for k in kernels}
+    if once != DUAL_TRAIN_LAUNCHES:
+        fail(f"a dual forward and backward launched {once}, expected {DUAL_TRAIN_LAUNCHES}")
+    _add(total, once)
+    loss_p, grads_p = run(FORWARD + BACKWARD)
+    _, grads_c = run(FORWARD + BACKWARD, **CONTROL)
+    noise = group_rel(grads_c, grads_p)
+    del tr, run, grads_c
+    torch.cuda.empty_cache()
+    tr, run = gradient_run(seed, torch.bfloat16, batches[0])
+    loss_t, grads_t = run()
+    del tr, run
+    torch.cuda.empty_cache()
+    dloss = abs(loss_t - loss_d) / abs(loss_d)
+    print(f"  dual step vs the streams-in-turn step: loss {loss_t:.6f} vs {loss_d:.6f} (rel "
+          f"{dloss:.2e}, tol {GRAD_TOL['loss']})", flush=True)
+    ratio, ok = _control_bar(grads_t, grads_d, noise,
+                             "streams-in-turn kernel path vs the dual kernel path")
+    if dloss > GRAD_TOL["loss"] or not ok:
+        fail("the dual training step disagrees with the streams-in-turn step")
+    record.update(train_loss_rel=dloss, train_worst_vs_control=max(ratio.values()))
+    return total, record
+
+
+def phase_swin_l_dual(seed, requests, batch, card_line):
+    """Phase 9 (module docstring).  Returns (the launches of its driven
+    paths, summed, the record)."""
+    frames = _request_frames(seed, requests, batch)
+    total = {}
+    launches, serve_l = phase_swin_l_serve(seed, frames, requests, batch, card_line)
+    _add(total, launches)
+    launches, train_l = phase_swin_l_train(seed, card_line)
+    _add(total, launches)
+    launches, dual = phase_dual(seed, frames, requests, batch, card_line)
+    _add(total, launches)
+    return total, dict(swin_l_serve=serve_l, swin_l_train=train_l, dual=dual)
+
 
 def kernel_table(rows, launches, launches_i8, module_launches, train_launches, det_launches,
-                 eval_launches, train_mm_launches):
+                 eval_launches, train_mm_launches, phase9_launches):
     """One entry per kernel; ``launches`` sums the main paths' runs (the
     serving requests under r5, r4i8, r2, r1, xla, v7_01, v5, map,
     dscf_pallas4, dscf_pallas and dscf_pallas2, r5 on flat frames with the
     XLA patch embedding and with K19, the training steps, the detection
-    requests, the three eval modes' images, and the training entry point's
-    run with its gates and its drop_rate step, each counted from 0; K20
-    runs on none of them)."""
+    requests, the three eval modes' images, the training entry point's
+    run with its gates and its drop_rate step, and phase 9's Swin-L and
+    dual paths, each counted from 0; K20 runs on none of them)."""
     from ir_ads_tpu_torch.ops.cuda_lib import PKG
 
     out = []
@@ -4160,7 +4487,7 @@ def kernel_table(rows, launches, launches_i8, module_launches, train_launches, d
             replaces=k.replaces,
             launches=(launches[k.name] + launches_i8[k.name] + train_launches[k.name]
                       + det_launches[k.name] + eval_launches.get(k.name, 0)
-                      + train_mm_launches[k.name]
+                      + train_mm_launches[k.name] + phase9_launches.get(k.name, 0)
                       + sum(m[k.name] for m in module_launches.values())),
             launches_serve=launches[k.name], launches_serve_r4i8=launches_i8[k.name],
             **{f"launches_serve_{d}": m[k.name] for d, m in module_launches.items()},
@@ -4168,6 +4495,7 @@ def kernel_table(rows, launches, launches_i8, module_launches, train_launches, d
             launches_detect=det_launches[k.name],
             launches_eval=eval_launches.get(k.name, 0),
             launches_train_mm=train_mm_launches[k.name],
+            launches_swin_l_dual=phase9_launches.get(k.name, 0),
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=first["ms"], plain_ms=first["plain_ms"],
             bound_ms=first["bound_ms"], bound_by=first["bound_by"],
@@ -4232,12 +4560,16 @@ def main():
     eval_launches, evaluate = phase_eval(args.seed, card_line)
     print("phase 8: train_mm", flush=True)
     train_mm_launches, train_mm = phase_train_mm(args.seed, card_line)
+    print("phase 9: Swin-L and dual_batch", flush=True)
+    phase9_launches, swin_l_dual = phase_swin_l_dual(args.seed, args.requests, args.batch,
+                                                     card_line)
 
     print(json.dumps({"kernels": kernel_table(rows, launches, launches_i8, module_launches,
                                               train_launches, det_launches, eval_launches,
-                                              train_mm_launches),
+                                              train_mm_launches, phase9_launches),
                       "serve": serve, "train": train, "detect": detect, "evaluate": evaluate,
-                      "train_mm": train_mm, "repair": repair, "card": card_line}))
+                      "train_mm": train_mm, "swin_l_dual": swin_l_dual, "repair": repair,
+                      "card": card_line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -42,16 +42,22 @@
 // staged as f32; one thread per query pixel walks the keys for the max and
 // den, then for P.V, reading the bias along the query column, so every
 // pass coalesces.
+//
+// A head has 8 channels (every Swin-B level) or 12 (every Swin-L level):
+// the kernels are templates of the width (hc).  At 12, K and V are staged
+// as two planes of 8-channel rows, the second's channels 12-15 zero in
+// shared memory (never in device memory): the score is two m16n8k8
+// products into one f32 accumulator and P.V one m16n8k16 product a plane,
+// so the rounding points stay the plain version's.
 #include "dscf.cuh"
 
 using namespace port;
 
 namespace {
 
-constexpr int HC = kDscfHeadChannels;
 constexpr int kMaxTiles = 32;  // n-tiles a warp at most: M <= 1024 on the tensor cores
 
-template <bool Packed>
+template <bool Packed, int HC>
 __global__ void __launch_bounds__(kThreads)
 dscf_rows_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const bf16* __restrict__ bias,
@@ -62,15 +68,15 @@ dscf_rows_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* V_s = kv_s + M * HC;
   const int bg = blockIdx.y / hg, e = blockIdx.y % hg;
   const int HW = h * w, GC = hg * HC;
-  stage_head_kv(k + (size_t)bg * Mp * GC + e * HC, v + (size_t)bg * Mp * GC + e * HC, M,
-                GC, K_s, V_s);
+  stage_head_kv<HC>(k + (size_t)bg * Mp * GC + e * HC, v + (size_t)bg * Mp * GC + e * HC, M,
+                    GC, K_s, V_s);
   const int p = blockIdx.x * kThreads + threadIdx.x;
   if (p >= HW) return;
   const int r = p / w, c = p % w;
   float qs[HC], acc[HC];
-  scaled_query(q + ((size_t)bg * HW + p) * GC + e * HC, scale, qs);
+  scaled_query<HC>(q + ((size_t)bg * HW + p) * GC + e * HC, scale, qs);
   const bf16* bp = bias + (((size_t)bg * hg + e) * h + r) * M * w + c;
-  dscf_attend<Packed>(qs, K_s, V_s, M,
+  dscf_attend<Packed, HC>(qs, K_s, V_s, M,
                       [&](int j) { return __bfloat162float(bp[(size_t)j * w]); }, acc);
   bf16* op = out + ((size_t)bg * HW + p) * GC + e * HC;
 #pragma unroll
@@ -110,19 +116,20 @@ __device__ __forceinline__ void stage_box(const bf16* __restrict__ slab, bf16* b
   }
 }
 
-template <bool Packed, int NT>
+template <bool Packed, int NT, int HC>
 __global__ void __launch_bounds__(kMmaThreads, NT <= 20 ? 3 : 2)
 dscf_rows_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ bias,
                      bf16* __restrict__ out, int hg, int h, int w, int M, int Mp,
                      float scale) {
+  constexpr int P = kHeadPlanes<HC>;
   constexpr int kRows = kMmaWarps * 8 * NT;  // keys padded to the warps' n-tiles
   constexpr int kBoxElems = kRows * kTileRows;
   extern __shared__ __align__(16) uint4 kvb_s[];
-  __shared__ PackedRed red;
-  uint4* K_s = kvb_s;
-  uint4* V_s = kvb_s + kRows;
-  bf16* boxes = reinterpret_cast<bf16*>(V_s + kRows);
+  __shared__ PackedRedT<HC> red;
+  uint4* K_s = kvb_s;  // P planes of kRows rows each, then V's
+  uint4* V_s = kvb_s + P * kRows;
+  bf16* boxes = reinterpret_cast<bf16*>(V_s + P * kRows);
   const int bgh = blockIdx.y, bg = bgh / hg, e = bgh % hg;
   const int HW = h * w, GC = hg * HC;
   const int tiles = (HW + kTileRows - 1) / kTileRows;
@@ -130,8 +137,8 @@ dscf_rows_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   int tile = blockIdx.x;
   stage_box(slab, boxes, tile * kTileRows, HW, w, M);
   cp_async_commit();
-  stage_kv_rows(k + (size_t)bg * Mp * GC + e * HC, v + (size_t)bg * Mp * GC + e * HC, M, GC,
-                kRows, K_s, V_s);
+  stage_kv_rows<HC>(k + (size_t)bg * Mp * GC + e * HC, v + (size_t)bg * Mp * GC + e * HC, M,
+                    GC, kRows, K_s, V_s);
   for (int idx = threadIdx.x; idx < (kRows - M) * kTileRows; idx += kMmaThreads) {
     const int j = M + idx / kTileRows, t = idx % kTileRows;  // padded keys: bias -inf
     boxes[box_at(j, t)] = boxes[kBoxElems + box_at(j, t)] = __float2bfloat16(-INFINITY);
@@ -150,10 +157,16 @@ dscf_rows_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const int p0 = tile * kTileRows, rows = min(kTileRows, HW - p0);
     const size_t r0 = (size_t)bg * HW + p0 + min(g, rows - 1);
     const size_t r1 = (size_t)bg * HW + p0 + min(g + 8, rows - 1);
-    const unsigned qa0 = scaled_query_pair(q + r0 * GC + e * HC, t, scale);
-    const unsigned qa1 = scaled_query_pair(q + r1 * GC + e * HC, t, scale);
-    float o[4];
-    dscf_attend_mma<Packed, NT>(qa0, qa1, K_s + key0, V_s + key0, [&](int nt, float* b) {
+    const bf16* q0 = q + r0 * GC + e * HC;
+    const bf16* q1 = q + r1 * GC + e * HC;
+    const unsigned qa0 = scaled_query_pair(q0, t, scale);
+    const unsigned qa1 = scaled_query_pair(q1, t, scale);
+    // the second plane's channels 8 + 2t, 9 + 2t, zero past the head
+    const bool hi = P > 1 && 8 + 2 * t < HC;
+    const unsigned qa2 = hi ? scaled_query_pair(q0 + 8, t, scale) : 0u;
+    const unsigned qa3 = hi ? scaled_query_pair(q1 + 8, t, scale) : 0u;
+    float o[4 * P];
+    dscf_attend_mma<Packed, NT, HC>(qa0, qa1, K_s + key0, V_s + key0, [&](int nt, float* b) {
       // matrix m of the ldmatrix: n-tile nt + m / 2, query half m % 2
       const int m = lane >> 3, j = key0 + 8 * (nt + (m >> 1)) + (lane & 7);
       unsigned r[4];
@@ -163,32 +176,33 @@ dscf_rows_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         b[2 * i] = bf16_lo(r[i]);
         b[2 * i + 1] = bf16_hi(r[i]);
       }
-    }, red, o);
-    store_tile<Packed>(o, red, out + ((size_t)bg * HW + p0) * GC + e * HC, GC, rows);
+    }, red, o, qa2, qa3);
+    store_tile<Packed, HC>(o, red, out + ((size_t)bg * HW + p0) * GC + e * HC, GC, rows);
   }
 }
 
-template <bool Packed>
+template <bool Packed, int HC>
 int launch_thread(const void* q, const void* k, const void* v, const void* bias, void* out,
                   int BG, int hg, int h, int w, int M, int Mp, float scale,
                   cudaStream_t stream) {
   const size_t smem = (size_t)2 * M * HC * sizeof(float);
-  cudaFuncSetAttribute(dscf_rows_kernel<Packed>,
+  cudaFuncSetAttribute(dscf_rows_kernel<Packed, HC>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   dim3 grid((h * w + kThreads - 1) / kThreads, BG * hg);
-  dscf_rows_kernel<Packed><<<grid, kThreads, smem, stream>>>(
+  dscf_rows_kernel<Packed, HC><<<grid, kThreads, smem, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)bias,
       (bf16*)out, hg, h, w, M, Mp, scale);
   return (int)cudaGetLastError();
 }
 
-template <bool Packed>
+template <bool Packed, int HC>
 int launch_mma(const void* q, const void* k, const void* v, const void* bias, void* out,
                int BG, int hg, int h, int w, int M, int Mp, float scale, cudaStream_t stream) {
   return WarpTiles<4, 8, 12, 16, 20, 24, 28, kMaxTiles>::with((M + 31) / 32, [&](auto nt) {
     constexpr int NT = decltype(nt)::value;
-    auto kernel = dscf_rows_mma_kernel<Packed, NT>;
-    const size_t smem = (size_t)kMmaWarps * 8 * NT * (2 * sizeof(uint4) + 2 * kTileRows * sizeof(bf16));
+    auto kernel = dscf_rows_mma_kernel<Packed, NT, HC>;
+    const size_t smem = (size_t)kMmaWarps * 8 * NT *
+                        (2 * kHeadPlanes<HC> * sizeof(uint4) + 2 * kTileRows * sizeof(bf16));
     const dim3 grid = plane_grid(kernel, smem, BG * hg, (h * w + kTileRows - 1) / kTileRows);
     kernel<<<grid, kMmaThreads, smem, stream>>>((const bf16*)q, (const bf16*)k, (const bf16*)v,
                                                 (const bf16*)bias, (bf16*)out, hg, h, w, M, Mp,
@@ -197,16 +211,25 @@ int launch_mma(const void* q, const void* k, const void* v, const void* bias, vo
   });
 }
 
+template <int HC>
+int launch(const void* q, const void* k, const void* v, const void* bias, void* out, int BG,
+           int hg, int h, int w, int M, int Mp, float scale, int packed, cudaStream_t s) {
+  if (M > 32 * kMaxTiles)  // too many keys for the tensor-core design
+    return packed ? launch_thread<true, HC>(q, k, v, bias, out, BG, hg, h, w, M, Mp, scale, s)
+                  : launch_thread<false, HC>(q, k, v, bias, out, BG, hg, h, w, M, Mp, scale, s);
+  return packed ? launch_mma<true, HC>(q, k, v, bias, out, BG, hg, h, w, M, Mp, scale, s)
+                : launch_mma<false, HC>(q, k, v, bias, out, BG, hg, h, w, M, Mp, scale, s);
+}
+
 }  // namespace
 
+// hc: channels per head, 8 or 12.
 extern "C" int dscf_rows_attention(const void* q, const void* k, const void* v,
                                    const void* bias, void* out, int BG, int hg,
                                    int h, int w, int M, int Mp, float scale,
-                                   int packed, void* stream) {
+                                   int packed, int hc, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (M > 32 * kMaxTiles)  // too many keys for the tensor-core design
-    return packed ? launch_thread<true>(q, k, v, bias, out, BG, hg, h, w, M, Mp, scale, s)
-                  : launch_thread<false>(q, k, v, bias, out, BG, hg, h, w, M, Mp, scale, s);
-  return packed ? launch_mma<true>(q, k, v, bias, out, BG, hg, h, w, M, Mp, scale, s)
-                : launch_mma<false>(q, k, v, bias, out, BG, hg, h, w, M, Mp, scale, s);
+  if (hc == 8) return launch<8>(q, k, v, bias, out, BG, hg, h, w, M, Mp, scale, packed, s);
+  if (hc == 12) return launch<12>(q, k, v, bias, out, BG, hg, h, w, M, Mp, scale, packed, s);
+  return (int)cudaErrorInvalidValue;
 }

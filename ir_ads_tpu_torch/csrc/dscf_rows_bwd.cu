@@ -47,6 +47,14 @@
 // changes and at its end.  The order of those adds changes from run to run,
 // so dk and dv differ between runs in their last f32 bits; dq and dbias do
 // not.  Needs w % 8 == 0 (an n-tile is 8 pixels of one image row).
+//
+// A head has 8 channels (Swin-B) or 12 (Swin-L), the template parameter
+// HC.  At 12, K, V, q and dO are staged in shared memory as two planes of
+// 8-channel rows, the second's channels 12-15 zero (never in device
+// memory): S^T and dP^T are two m16n8k8 products into one f32 accumulator,
+// and dV, dK and dq one m16n8k16 product a plane of 8 output channels,
+// whose columns past the head are dropped.  At 8 channels (one plane) no
+// second-plane load or product is compiled.
 #include <cfloat>
 
 #include "dscf.cuh"
@@ -55,7 +63,6 @@ using namespace port;
 
 namespace {
 
-constexpr int HC = kDscfHeadChannels;
 constexpr int kBwdWarps = 4;
 constexpr int kBwdThreads = 32 * kBwdWarps;
 constexpr int kTile = 64;        // query pixels a tile
@@ -93,16 +100,19 @@ struct Stats {
   }
 };
 
+template <int HC>
 struct Smem {  // the block's shared memory past K, V and dK | dV
-  uint4 q[kTile], dout[kTile];
+  uint4 q[kHeadPlanes<HC>][kTile], dout[kHeadPlanes<HC>][kTile];
   float mx[kBwdWarps][kTile], den[kBwdWarps][kTile], acc[kBwdWarps][kTile];
   float4 stats[kTile];  // per pixel: max, den, RN(1 / den), sum_j dP_j P_j
   float dq[kBwdWarps][kTile][HC];
 };
 
-inline size_t smem_bytes(int M) {
+template <int HC>
+size_t smem_bytes(int M) {
   const int Mk = (M + 15) / 16 * 16;
-  return (size_t)Mk * (2 * sizeof(uint4) + 2 * HC * sizeof(float)) + sizeof(Smem);
+  return (size_t)Mk * (2 * kHeadPlanes<HC> * sizeof(uint4) + 2 * HC * sizeof(float)) +
+         sizeof(Smem<HC>);
 }
 
 // The bias pairs of one key m-tile (rows j0 + g and j0 + g + 8, pixels 2t,
@@ -121,19 +131,21 @@ __device__ __forceinline__ void load_bias(unsigned (&b)[kNT][2], const bf16* __r
     }
 }
 
-__global__ void __launch_bounds__(kBwdThreads, 3)
+template <int HC>
+__global__ void __launch_bounds__(kBwdThreads, HC == 8 ? 3 : 2)
 dscf_rows_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const bf16* __restrict__ bias,
                      const bf16* __restrict__ dout, bf16* __restrict__ dq,
                      float* __restrict__ dk, float* __restrict__ dv,
                      float* __restrict__ dbias, int BG, int hg, int h, int w, int M,
                      int Mp, float scale) {
+  constexpr int P = kHeadPlanes<HC>;
   extern __shared__ __align__(16) unsigned char smem[];
   const int Mt = (M + 15) / 16, Mk = 16 * Mt;
-  uint4* K_s = reinterpret_cast<uint4*>(smem);
-  uint4* V_s = K_s + Mk;
-  float* dKV_s = reinterpret_cast<float*>(V_s + Mk);  // (Mk, 16): dK row j | dV row j
-  Smem& sm = *reinterpret_cast<Smem*>(dKV_s + Mk * 2 * HC);
+  uint4* K_s = reinterpret_cast<uint4*>(smem);  // P planes of Mk rows each, then V's
+  uint4* V_s = K_s + P * Mk;
+  float* dKV_s = reinterpret_cast<float*>(V_s + P * Mk);  // (Mk, 2 HC): dK row j | dV row j
+  Smem<HC>& sm = *reinterpret_cast<Smem<HC>*>(dKV_s + Mk * 2 * HC);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32, g = lane >> 2, t = lane & 3;
   const int HW = h * w, GC = hg * HC, T = (HW + kTile - 1) / kTile;
   const long long units = (long long)BG * hg * T;
@@ -162,13 +174,13 @@ dscf_rows_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       if (plane >= 0) flush(plane);
       plane = pl;
       const size_t kv = (size_t)bg * Mp * GC + e * HC;
-      stage_kv_rows(k + kv, v + kv, M, GC, Mk, K_s, V_s);
+      stage_kv_rows<HC>(k + kv, v + kv, M, GC, Mk, K_s, V_s);
     }
     {  // this tile's q and dO rows, zero past the plane's pixels
       const int p = p0 + tid % kTile;
       const bf16* src = (tid < kTile ? q : dout) + ((size_t)bg * HW + p) * GC + e * HC;
-      (tid < kTile ? sm.q : sm.dout)[tid % kTile] =
-          p < HW ? __ldg(reinterpret_cast<const uint4*>(src)) : uint4{};
+      load_head_row<HC>(src, p < HW, (tid < kTile ? sm.q[0] : sm.dout[0]) + tid % kTile,
+                        kTile);
     }
     // n-tile n is pixels p0 + 8n .. + 7, in one image row; off[n]: its
     // pixel pair's offset in the plane's (h, M, w) bias at key 0
@@ -185,15 +197,26 @@ dscf_rows_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
 
     // the B operands of S^T and dP^T: q and dO rows of each n-tile
-    unsigned qb[kNT], ob[kNT];
+    unsigned qb[P][kNT], ob[P][kNT];
 #pragma unroll
-    for (int n = 0; n < kNT; n += 4) {
-      unsigned r[4];
-      ldsm_x4(r, sm.q + 8 * n + lane);
-      qb[n] = r[0], qb[n + 1] = r[1], qb[n + 2] = r[2], qb[n + 3] = r[3];
-      ldsm_x4(r, sm.dout + 8 * n + lane);
-      ob[n] = r[0], ob[n + 1] = r[1], ob[n + 2] = r[2], ob[n + 3] = r[3];
-    }
+    for (int cp = 0; cp < P; ++cp)
+#pragma unroll
+      for (int n = 0; n < kNT; n += 4) {
+        unsigned r[4];
+        ldsm_x4(r, sm.q[cp] + 8 * n + lane);
+        qb[cp][n] = r[0], qb[cp][n + 1] = r[1], qb[cp][n + 2] = r[2], qb[cp][n + 3] = r[3];
+        ldsm_x4(r, sm.dout[cp] + 8 * n + lane);
+        ob[cp][n] = r[0], ob[cp][n + 1] = r[1], ob[cp][n + 2] = r[2], ob[cp][n + 3] = r[3];
+      }
+    // S^T and dP^T of one n-tile from the planes' A fragments (kv[cp]: K
+    // rows, then V rows, of the m-tile), one accumulator each
+    auto scores = [&](const unsigned (&kv)[P][4], int n, float (&c)[4], float (&d)[4]) {
+#pragma unroll
+      for (int cp = 0; cp < P; ++cp) {
+        mma_k8(c, kv[cp][0], kv[cp][1], qb[cp][n]);
+        mma_k8(d, kv[cp][2], kv[cp][3], ob[cp][n]);
+      }
+    };
 
     // pass 1: per pixel column (n, 2t + x) over this lane's keys
     Stats col[kNT][2];
@@ -205,13 +228,14 @@ dscf_rows_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int n = 0; n < kNT; ++n) bcur[n][0] = bnext[n][0], bcur[n][1] = bnext[n][1];
       if (mt + kBwdWarps < Mt) load_bias(bnext, bp, off, live, j0 + 16 * kBwdWarps, g, M, w);
-      unsigned kv[4];
-      ldsm_x4(kv, (lane < 16 ? K_s : V_s) + j0 + (lane & 15));
+      unsigned kv[P][4];
+#pragma unroll
+      for (int cp = 0; cp < P; ++cp)
+        ldsm_x4(kv[cp], (lane < 16 ? K_s : V_s) + cp * Mk + j0 + (lane & 15));
 #pragma unroll
       for (int n = 0; n < kNT; ++n) {
         float c[4] = {0.0f, 0.0f, 0.0f, 0.0f}, d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-        mma_k8(c, kv[0], kv[1], qb[n]);
-        mma_k8(d, kv[2], kv[3], ob[n]);
+        scores(kv, n, c, d);
         const float b[4] = {bf16_lo(bcur[n][0]), bf16_hi(bcur[n][0]), bf16_lo(bcur[n][1]),
                             bf16_hi(bcur[n][1])};
 #pragma unroll
@@ -245,7 +269,7 @@ dscf_rows_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     __syncthreads();
 
     // pass 2: the gradients
-    float dqa[kNT / 2][4] = {};
+    float dqa[kNT / 2][P][4] = {};
     if (warp < Mt) load_bias(bnext, bp, off, live, 16 * warp, g, M, w);
     for (int mt = warp; mt < Mt; mt += kBwdWarps) {
       const int j0 = 16 * mt;
@@ -253,11 +277,14 @@ dscf_rows_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 #pragma unroll
       for (int n = 0; n < kNT; ++n) bcur[n][0] = bnext[n][0], bcur[n][1] = bnext[n][1];
       if (mt + kBwdWarps < Mt) load_bias(bnext, bp, off, live, j0 + 16 * kBwdWarps, g, M, w);
-      unsigned kv[4], kt[2];
-      ldsm_x4(kv, (lane < 16 ? K_s : V_s) + j0 + (lane & 15));
-      ldsm_x2_t(kt, K_s + j0 + (lane & 15));
+      unsigned kv[P][4], kt[P][2];
+#pragma unroll
+      for (int cp = 0; cp < P; ++cp) {
+        ldsm_x4(kv[cp], (lane < 16 ? K_s : V_s) + cp * Mk + j0 + (lane & 15));
+        ldsm_x2_t(kt[cp], K_s + cp * Mk + j0 + (lane & 15));
+      }
       const bool key0 = j0 + g < M, key1 = j0 + g + 8 < M;
-      float dka[4] = {0.0f, 0.0f, 0.0f, 0.0f}, dva[4] = {0.0f, 0.0f, 0.0f, 0.0f};
+      float dka[P][4] = {}, dva[P][4] = {};
 #pragma unroll
       for (int m2 = 0; m2 < kNT / 2; ++m2) {
         // A fragments over 16 pixels: [0], [2] key row g, [1], [3] g + 8
@@ -266,8 +293,7 @@ dscf_rows_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
         for (int x = 0; x < 2; ++x) {
           const int n = 2 * m2 + x;
           float c[4] = {0.0f, 0.0f, 0.0f, 0.0f}, d[4] = {0.0f, 0.0f, 0.0f, 0.0f};
-          mma_k8(c, kv[0], kv[1], qb[n]);
-          mma_k8(d, kv[2], kv[3], ob[n]);
+          scores(kv, n, c, d);
           const float b[4] = {bf16_lo(bcur[n][0]), bf16_hi(bcur[n][0]), bf16_lo(bcur[n][1]),
                               bf16_hi(bcur[n][1])};
           const float4 st[2] = {sm.stats[8 * n + 2 * t], sm.stats[8 * n + 2 * t + 1]};
@@ -290,33 +316,49 @@ dscf_rows_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           dsa[2 * x] = bf16x2_rn(__fmul_rn(ds[0], scale), __fmul_rn(ds[1], scale));
           dsa[2 * x + 1] = bf16x2_rn(__fmul_rn(ds[2], scale), __fmul_rn(ds[3], scale));
         }
-        unsigned ot[2], qt[2];
-        ldsm_x2_t(ot, sm.dout + 16 * m2 + (lane & 15));
-        ldsm_x2_t(qt, sm.q + 16 * m2 + (lane & 15));
-        mma_k16(dva, pca, ot[0], ot[1]);
-        mma_k16(dka, dsa, qt[0], qt[1]);
         // dSc as pixels x keys: each 8 x 8 block transposed in registers
         const unsigned a[4] = {transpose8x8(dsa[0]), transpose8x8(dsa[2]), transpose8x8(dsa[1]),
                                transpose8x8(dsa[3])};
-        mma_k16(dqa[m2], a, kt[0], kt[1]);
+#pragma unroll
+        for (int cp = 0; cp < P; ++cp) {
+          unsigned ot[2], qt[2];
+          ldsm_x2_t(ot, sm.dout[cp] + 16 * m2 + (lane & 15));
+          ldsm_x2_t(qt, sm.q[cp] + 16 * m2 + (lane & 15));
+          mma_k16(dva[cp], pca, ot[0], ot[1]);
+          mma_k16(dka[cp], dsa, qt[0], qt[1]);
+          mma_k16(dqa[m2][cp], a, kt[cp][0], kt[cp][1]);
+        }
       }
-      // rows j0 + g and j0 + g + 8 are this warp's alone
-      float* r0 = dKV_s + (j0 + g) * 2 * HC + 2 * t;
-      float* r1 = r0 + 8 * 2 * HC;
-      r0[0] += dka[0], r0[1] += dka[1], r1[0] += dka[2], r1[1] += dka[3];
-      r0[HC] += dva[0], r0[HC + 1] += dva[1], r1[HC] += dva[2], r1[HC + 1] += dva[3];
+      // rows j0 + g and j0 + g + 8 are this warp's alone; a plane's
+      // channels past the head (12-15) are dropped
+#pragma unroll
+      for (int cp = 0; cp < P; ++cp) {
+        const int ch = 8 * cp + 2 * t;
+        if (ch >= HC) continue;
+        float* r0 = dKV_s + (j0 + g) * 2 * HC + ch;
+        float* r1 = r0 + 8 * 2 * HC;
+        r0[0] += dka[cp][0], r0[1] += dka[cp][1], r1[0] += dka[cp][2], r1[1] += dka[cp][3];
+        r0[HC] += dva[cp][0], r0[HC + 1] += dva[cp][1], r1[HC] += dva[cp][2],
+            r1[HC + 1] += dva[cp][3];
+      }
     }
 
     // dq: the warps' parts in warp order, rounded once
 #pragma unroll
-    for (int m2 = 0; m2 < kNT / 2; ++m2) {
-      float* r0 = sm.dq[warp][16 * m2 + g] + 2 * t;
-      float* r1 = sm.dq[warp][16 * m2 + g + 8] + 2 * t;
-      r0[0] = dqa[m2][0], r0[1] = dqa[m2][1], r1[0] = dqa[m2][2], r1[1] = dqa[m2][3];
-    }
+    for (int m2 = 0; m2 < kNT / 2; ++m2)
+#pragma unroll
+      for (int cp = 0; cp < P; ++cp) {
+        const int ch = 8 * cp + 2 * t;
+        if (ch >= HC) continue;
+        float* r0 = sm.dq[warp][16 * m2 + g] + ch;
+        float* r1 = sm.dq[warp][16 * m2 + g + 8] + ch;
+        r0[0] = dqa[m2][cp][0], r0[1] = dqa[m2][cp][1], r1[0] = dqa[m2][cp][2],
+        r1[1] = dqa[m2][cp][3];
+      }
     __syncthreads();
-    {
-      const int px = tid / 2, c0 = 4 * (tid % 2);
+    // four channels of one pixel a thread: px = idx / (HC / 4)
+    for (int idx = tid; idx < kTile * (HC / 4); idx += kBwdThreads) {
+      const int px = idx / (HC / 4), c0 = 4 * (idx % (HC / 4));
       float sum[4] = {0.0f, 0.0f, 0.0f, 0.0f};
 #pragma unroll
       for (int wp = 0; wp < kBwdWarps; ++wp)
@@ -331,21 +373,34 @@ dscf_rows_bwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   if (plane >= 0) flush(plane);
 }
 
-}  // namespace
-
-extern "C" int dscf_rows_bwd(const void* q, const void* k, const void* v,
-                             const void* bias, const void* dout, void* dq,
-                             void* dk, void* dv, void* dbias, int BG, int hg,
-                             int h, int w, int M, int Mp, float scale,
-                             void* stream) {
-  const size_t smem = smem_bytes(M);
+template <int HC>
+int launch(const void* q, const void* k, const void* v, const void* bias, const void* dout,
+           void* dq, void* dk, void* dv, void* dbias, int BG, int hg, int h, int w, int M,
+           int Mp, float scale, cudaStream_t stream) {
+  const size_t smem = smem_bytes<HC>(M);
   if (w % 8 || smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
-  const int blocks = blocks_per_device(dscf_rows_bwd_kernel, smem, kBwdThreads);
+  const int blocks = blocks_per_device(dscf_rows_bwd_kernel<HC>, smem, kBwdThreads);
   const long long units = (long long)BG * hg * ((h * w + kTile - 1) / kTile);
   const int grid = (int)std::min<long long>(units, blocks);
-  dscf_rows_bwd_kernel<<<grid, kBwdThreads, smem, static_cast<cudaStream_t>(stream)>>>(
+  dscf_rows_bwd_kernel<HC><<<grid, kBwdThreads, smem, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)bias,
       (const bf16*)dout, (bf16*)dq, (float*)dk, (float*)dv, (float*)dbias, BG, hg, h,
       w, M, Mp, scale);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// hc: channels per head, 8 or 12.
+extern "C" int dscf_rows_bwd(const void* q, const void* k, const void* v,
+                             const void* bias, const void* dout, void* dq,
+                             void* dk, void* dv, void* dbias, int BG, int hg,
+                             int h, int w, int M, int Mp, float scale, int hc,
+                             void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
+  if (hc == 8)
+    return launch<8>(q, k, v, bias, dout, dq, dk, dv, dbias, BG, hg, h, w, M, Mp, scale, s);
+  if (hc == 12)
+    return launch<12>(q, k, v, bias, dout, dq, dk, dv, dbias, BG, hg, h, w, M, Mp, scale, s);
+  return (int)cudaErrorInvalidValue;
 }

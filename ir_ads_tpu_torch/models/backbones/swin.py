@@ -72,6 +72,23 @@ numbers in any mode.  Under ``train`` the stochastic pieces (MMST modality
 mask, drop-path, adapter dropout) are on while ``module.training`` is set
 and draw from the ``generator`` handed to ``forward``.
 
+``use_remat`` (on for Swin-L, as the JAX package forces it there) runs
+every Swin block of the train dispatch under
+``torch.utils.checkpoint.checkpoint``: its activations are dropped after
+the forward and the block runs again in the backward.  The second run must
+draw the masks the first drew, and ``checkpoint`` restores only the
+default CPU and CUDA generators, not the explicit one the port draws from;
+so a block's generator state is noted as it starts and its recomputation
+draws from a copy set to that state (``ReplayedDraws``), leaving the
+step's generator where the forward left it.  Eval dispatches ignore it.
+
+``dual_batch`` runs both streams through each stage in one call, the
+batch concatenated (rgb first), as the JAX package's sub-mode ``"dual"``:
+the attention on the 2B batch; K2 and K11 once a half with that half's
+adapter; K5 and K13 once with the two adapters stacked (S = 2); the
+module tail with the adapter split by half.  MPG, the norms and the DSCF
+stay per stream.
+
 Parameters may be kept in f32 while the activations are bf16: every module
 casts its parameters at use (``layers.cast``), as flax does, and the kernel
 wrappers round theirs on entry.
@@ -90,6 +107,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ir_ads_tpu_torch.ops.block_tail import block_tail
 from ir_ads_tpu_torch.ops.block_tail_int8 import block_tail_int8
@@ -293,7 +311,9 @@ class SwinBlockAdapter(nn.Module):
     ``xla`` (with the fused tail only): the module path, y = h + x with h =
     ShiftWindowMSA(LN1 x) rounded at the proj output and the residual a
     rounded add (K1 instead keeps the residual in f32), then K2.  pallas5,
-    pallas6 and pallas7 are eval kernels, as the fused tail is."""
+    pallas6 and pallas7 are eval kernels, as the fused tail is.
+    ``sub_mode``: "rgb" or "dte" (the stream's adapter), or "dual" (the
+    batch holds the rgb stream, then the dte stream: the module docstring)."""
 
     def __init__(self, dim, num_heads, ffn_dim, window_size, shift,
                  adapter_ratio=0.0625, attn_impl="pallas4", ffn_impl="fused",
@@ -337,18 +357,18 @@ class SwinBlockAdapter(nn.Module):
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         b, h, w, c = x.shape
         ws, shift = self.window_size, self.shift
-        ad = self.MLP_RGB_Adapter if sub_mode == "rgb" else self.MLP_DTE_Adapter
-        f1, f2 = self.ffn.layers[0][0], self.ffn.layers[1]
+        _require(sub_mode, ("rgb", "dte", "dual"), "sub_mode")
+        dual = sub_mode == "dual"
         geo = ((c // self.num_heads) ** -0.5, self.num_heads, ws)
         if self.attn_impl == "pallas6":
             # pad, roll and crop are index arithmetic inside K5
-            return window_block_v6(x, self._attn_params(), self._tail_params(ad),
+            return window_block_v6(x, self._attn_params(), self._tail_params(sub_mode),
                                    self._region(h, w, x.device), *geo, shift)
         if self.attn_impl == "pallas7":
             # pad and roll, K13, un-roll and crop: the tail runs in rolled
             # coordinates, exact at every real position (it is per token)
             out = window_block_v7(pad_and_roll(x, ws, shift), self._attn_params(),
-                                  self._tail_params(ad), self._region(h, w, x.device),
+                                  self._tail_params(sub_mode), self._region(h, w, x.device),
                                   *geo, h, w, shift)
             return unroll_and_crop(out, h, w, shift)
         rate = self.drop_path_rate if self.training else 0.0
@@ -366,22 +386,43 @@ class SwinBlockAdapter(nn.Module):
                                   *geo, shift)
         else:
             y = self._half_block(x)
-        if self.int8:
-            out = block_tail_int8(
-                y.contiguous().reshape(-1, c), self.norm2.weight, self.norm2.bias,
-                *int8_weight(self, "fc1"), f1.bias, *int8_weight(self, "fc2"), f2.bias,
-                ad.D_fc1.weight, ad.D_fc1.bias, ad.D_fc2.weight, ad.D_fc2.bias,
-            )
-            return out.reshape(b, h, w, c)
         if self.ffn_impl == "fused":
-            out = block_tail(y.contiguous().reshape(-1, c), *self._tail_params(ad))
+            rows = y.contiguous().reshape(-1, c)
+            if dual:  # K2 (K11 under int8) once a stream, on its half of the rows
+                n = rows.shape[0] // 2
+                out = torch.cat([self._fused_tail(rows[:n], "rgb"),
+                                 self._fused_tail(rows[n:], "dte")])
+            else:
+                out = self._fused_tail(rows, sub_mode)
             return out.reshape(b, h, w, c)
         if rate > 0.0 and drop == 0.0:
             # K1 fused the residual: recover the branch and drop it per sample
             y = x + drop_path(y - x, rate, True, generator)
-        adapter_x = 0.5 * ad(y, self.adapter_drop if self.training else 0.0, generator)
+        ad_drop = self.adapter_drop if self.training else 0.0
+        if dual:  # the adapter split by half: rgb first
+            half = b // 2
+            adapter_x = 0.5 * torch.cat([
+                self.MLP_RGB_Adapter(y[:half], ad_drop, generator),
+                self.MLP_DTE_Adapter(y[half:], ad_drop, generator)])
+        else:
+            adapter_x = 0.5 * self._adapter(sub_mode)(y, ad_drop, generator)
         out = self.ffn(layer_norm(y, self.norm2), y, rate, generator, drop)
         return out + adapter_x
+
+    def _adapter(self, stream: str) -> "Adapter":
+        return self.MLP_RGB_Adapter if stream == "rgb" else self.MLP_DTE_Adapter
+
+    def _fused_tail(self, rows: torch.Tensor, stream: str) -> torch.Tensor:
+        """K2 (K11 under int8) on (N, C) rows of one stream."""
+        if not self.int8:
+            return block_tail(rows, *self._tail_params(stream))
+        f1, f2 = self.ffn.layers[0][0], self.ffn.layers[1]
+        ad = self._adapter(stream)
+        return block_tail_int8(
+            rows, self.norm2.weight, self.norm2.bias,
+            *int8_weight(self, "fc1"), f1.bias, *int8_weight(self, "fc2"), f2.bias,
+            ad.D_fc1.weight, ad.D_fc1.bias, ad.D_fc2.weight, ad.D_fc2.bias,
+        )
 
     def _rel_pos_bias(self) -> torch.Tensor:
         msa = self.attn.w_msa
@@ -395,12 +436,19 @@ class SwinBlockAdapter(nn.Module):
         return (self.norm1.weight, self.norm1.bias, msa.qkv.weight, msa.qkv.bias,
                 msa.proj.weight, msa.proj.bias, self._rel_pos_bias())
 
-    def _tail_params(self, ad: Adapter) -> Tuple[torch.Tensor, ...]:
+    def _tail_params(self, sub_mode: str) -> Tuple[torch.Tensor, ...]:
         """LN2, FFN and the stream's adapter, in the order the tail kernels
-        take them."""
+        take them; under "dual" the two adapters stacked, rgb first (K5's
+        and K13's S = 2)."""
         f1, f2 = self.ffn.layers[0][0], self.ffn.layers[1]
+        ad = lambda a: (a.D_fc1.weight, a.D_fc1.bias, a.D_fc2.weight, a.D_fc2.bias)  # noqa: E731
+        if sub_mode == "dual":
+            adapter = tuple(torch.stack(pair) for pair in zip(ad(self.MLP_RGB_Adapter),
+                                                              ad(self.MLP_DTE_Adapter)))
+        else:
+            adapter = ad(self._adapter(sub_mode))
         return (self.norm2.weight, self.norm2.bias, f1.weight, f1.bias, f2.weight, f2.bias,
-                ad.D_fc1.weight, ad.D_fc1.bias, ad.D_fc2.weight, ad.D_fc2.bias)
+                *adapter)
 
     def _region(self, h: int, w: int, device) -> Optional[torch.Tensor]:
         """Shift-region ids of the h x w map padded to whole windows, or None
@@ -430,16 +478,46 @@ class SwinBlockAdapter(nn.Module):
         return unroll_and_crop(y, h, w, shift)
 
 
+class ReplayedDraws:
+    """The generator of one checkpointed block.  Called at the block's
+    first run, it notes ``generator``'s state and hands it out, so the
+    forward draws from it and advances it; called again (the recomputation
+    in the backward), it hands out a new generator set to the noted state,
+    which draws the same masks in the same order.  None stays None."""
+
+    def __init__(self, generator: Optional[torch.Generator]):
+        self.generator, self.state = generator, None
+
+    def __call__(self) -> Optional[torch.Generator]:
+        if self.generator is None:
+            return None
+        if self.state is None:
+            self.state = self.generator.get_state()
+            return self.generator
+        replay = torch.Generator(device=self.generator.device)
+        replay.set_state(self.state)
+        return replay
+
+
+def _run_block(blk: "SwinBlockAdapter", x: torch.Tensor, sub_mode: str,
+               draws: ReplayedDraws) -> torch.Tensor:
+    return blk(x, sub_mode, draws())
+
+
 class SwinStage(nn.Module):
     """Blocks (W-MSA, SW-MSA alternating) plus optional patch merging.  The
     JAX package scans deep stages over stacked block pairs; here the blocks
-    are a plain list."""
+    are a plain list.  ``use_remat``: under the train dispatch, with
+    gradients on, each block runs under ``checkpoint`` with its draws
+    replayed (``ReplayedDraws``); the JAX package remats a scanned stage by
+    block pair, which recomputes the same blocks."""
 
     def __init__(self, dim, depth, num_heads, window_size, downsample,
                  adapter_ratio=0.0625, mlp_ratio=4.0, attn_impl="pallas4",
                  ffn_impl="fused", drop_path_rates=None, adapter_drop=0.1, int8=False,
-                 drop_rate=0.0):
+                 drop_rate=0.0, use_remat=False):
         super().__init__()
+        self.use_remat = bool(use_remat) and ffn_impl == "module"  # the train dispatch
         rates = [0.0] * depth if drop_path_rates is None else list(drop_path_rates)
         self.blocks = nn.ModuleList(
             SwinBlockAdapter(dim, num_heads, int(mlp_ratio * dim), window_size,
@@ -453,8 +531,13 @@ class SwinStage(nn.Module):
 
     def forward(self, x: torch.Tensor, sub_mode: str,
                 generator: Optional[torch.Generator] = None):
+        remat = self.use_remat and torch.is_grad_enabled()
         for blk in self.blocks:
-            x = blk(x, sub_mode, generator)
+            if remat:
+                x = checkpoint(_run_block, blk, x, sub_mode, ReplayedDraws(generator),
+                               use_reentrant=False)
+            else:
+                x = blk(x, sub_mode, generator)
         out = x
         if self.downsample is not None:
             x = self.downsample(x)
@@ -777,7 +860,8 @@ def apply_modality_mask(
 class SwinTransformer(nn.Module):
     """Dual-stream Swin backbone; returns three 4-level NHWC pyramids
     (fused, rgb, dte).  Defaults are Swin-B (embed 128, depths 2/2/18/2,
-    heads 4/8/16/32, window 12) under the ``r5`` dispatch; ``attn_impl``,
+    heads 4/8/16/32, window 12) under the ``r5`` dispatch (``swin_l``: embed
+    192, heads 6/12/24/48, ``use_remat``); ``attn_impl``,
     ``dscf_attn``, ``ffn_impl``, ``int8`` and ``rpe3`` take one of the
     ``DISPATCH`` entries.  The inputs are (B, H, W, 3) frames or flat (B, H,
     W*3) rows; ``patch_embed`` chooses the flat path of both streams'
@@ -786,7 +870,8 @@ class SwinTransformer(nn.Module):
     ``drop_path_rate`` (spread linearly over the blocks), ``adapter_drop``,
     ``drop_rate`` (the blocks' dropout: after the attention's proj linear
     and inside the FFN) and ``mmst_mask`` act only under the ``train``
-    dispatch, in train mode."""
+    dispatch, in train mode.  ``use_remat`` and ``dual_batch``: the module
+    docstring."""
 
     def __init__(
         self,
@@ -813,10 +898,10 @@ class SwinTransformer(nn.Module):
         int8: bool = False,
         rpe3: str = DISPATCH["r5"][4],
         patch_embed: str = "xla",
+        use_remat: bool = False,
     ):
         super().__init__()
-        if dual_batch:
-            raise NotImplementedError("dual_batch=True: the port runs the streams in turn")
+        self.dual_batch = bool(dual_batch)
         _require((tuple(attn_impl), tuple(dscf_attn), ffn_impl, bool(int8), rpe3),
                  tuple(DISPATCH.values()), "(attn_impl, dscf_attn, ffn_impl, int8, rpe3)")
         nl = len(depths)
@@ -832,7 +917,7 @@ class SwinTransformer(nn.Module):
             SwinStage(dims[i], depths[i], num_heads[i], window_size, i < nl - 1,
                       adapter_ratio, mlp_ratio, attn_impl[i], ffn_impl,
                       dpr[sum(depths[:i]):sum(depths[:i + 1])], adapter_drop, int8,
-                      drop_rate)
+                      drop_rate, use_remat)
             for i in range(nl)
         )
         self.MPGBlocks = nn.ModuleList(MPGBlock(d, mapa_ratio) for d in dims)
@@ -857,8 +942,14 @@ class SwinTransformer(nn.Module):
             prompt_rgb, prompt_dte = self.MPGBlocks[i](x_rgb, x_dte)
             x_rgb = x_rgb + prompt_rgb
             x_dte = x_dte + prompt_dte
-            x_rgb, rgb_out = stage(x_rgb, "rgb", generator)
-            x_dte, dte_out = stage(x_dte, "dte", generator)
+            if self.dual_batch:  # one stage call on the streams concatenated
+                b = x_rgb.shape[0]
+                both, both_out = stage(torch.cat([x_rgb, x_dte]), "dual", generator)
+                x_rgb, x_dte = both[:b], both[b:]
+                rgb_out, dte_out = both_out[:b], both_out[b:]
+            else:
+                x_rgb, rgb_out = stage(x_rgb, "rgb", generator)
+                x_dte, dte_out = stage(x_dte, "dte", generator)
             rgb_out = layer_norm(rgb_out, getattr(self, f"norm{i}"))
             dte_out = layer_norm(dte_out, getattr(self, f"extra_norm{i}"))
             fused = self.DeformMPGBlocks[i](rgb_out, dte_out)
@@ -869,4 +960,13 @@ class SwinTransformer(nn.Module):
 
 
 def swin_b(**kw) -> SwinTransformer:
+    return SwinTransformer(**kw)
+
+
+def swin_l(**kw) -> SwinTransformer:
+    """Swin-L: embed 192, heads 6/12/24/48 (d = 32), remat on; its DSCF
+    levels have 24 * 2^i channels over 2 * 2^i heads, 12 channels a head."""
+    kw.setdefault("embed_dim", 192)
+    kw.setdefault("num_heads", (6, 12, 24, 48))
+    kw.setdefault("use_remat", True)
     return SwinTransformer(**kw)

@@ -16,7 +16,10 @@ in train mode, the MMST modality mask, drop-path, adapter dropout and the
 heads' dropout (``head_drop``) draw from ``forward``'s ``generator``.
 The inputs may be flat (B, H, W*3) rows, the bench's feed: ``patch_embed``
 then chooses the patch embedding's path (``"xla"``, ``"xla2"`` or
-``"pallas"``, K19).
+``"pallas"``, K19).  ``backbone`` is ``"SwinTransformer-B"`` or
+``"SwinTransformer-L"``; as in the JAX package, ``use_remat`` is forced on
+for ``-L`` (it acts under ``"train"`` only), and ``backbone_kwargs`` may set
+it and ``dual_batch`` (models/backbones/swin.py).
 """
 
 from __future__ import annotations
@@ -26,11 +29,11 @@ from typing import Optional, Tuple
 import torch
 from torch import nn
 
-from ir_ads_tpu_torch.models.backbones.swin import DISPATCH, swin_b
+from ir_ads_tpu_torch.models.backbones.swin import DISPATCH, swin_b, swin_l
 from ir_ads_tpu_torch.models.heads.segformer import SegFormerHead
 from ir_ads_tpu_torch.ops.layers import resize_bilinear
 
-BACKBONES = {"SwinTransformer-B": swin_b}
+BACKBONES = {"SwinTransformer-B": swin_b, "SwinTransformer-L": swin_l}
 
 
 class CMNeXt(nn.Module):
@@ -45,6 +48,7 @@ class CMNeXt(nn.Module):
         head_drop: float = 0.1,
         mmst_mask: bool = True,
         patch_embed: str = "xla",
+        use_remat: bool = False,
     ):
         super().__init__()
         if backbone not in BACKBONES:
@@ -52,10 +56,12 @@ class CMNeXt(nn.Module):
         if dispatch not in DISPATCH:
             raise NotImplementedError(f"dispatch {dispatch!r}: the port has {list(DISPATCH)}")
         attn_impl, dscf_attn, ffn_impl, int8, rpe3 = DISPATCH[dispatch]
+        kwargs = dict(backbone_kwargs or {})
+        kwargs["use_remat"] = bool(use_remat or kwargs.get("use_remat", False)
+                                   or backbone.endswith("-L"))
         self.backbone = BACKBONES[backbone](
             attn_impl=attn_impl, dscf_attn=dscf_attn, ffn_impl=ffn_impl, int8=int8,
-            rpe3=rpe3, mmst_mask=mmst_mask, patch_embed=patch_embed,
-            **(backbone_kwargs or {}))
+            rpe3=rpe3, mmst_mask=mmst_mask, patch_embed=patch_embed, **kwargs)
         dims = self.backbone.num_features
         self.decode_head = SegFormerHead(dims, head_dims[0], num_classes, int8)
         self.decode_head_rgb = SegFormerHead(dims, head_dims[1], num_classes, int8)

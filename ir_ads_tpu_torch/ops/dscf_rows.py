@@ -28,7 +28,11 @@ rounding now and then.
 
 Layouts: q (BG, h*w, GC), k and v (BG, Mp, GC) with Mp >= M (rows past M are
 padding and never attended), bias (BG, hg, h, M, w); head e of a group holds
-channels [e*hc, (e+1)*hc).
+channels [e*hc, (e+1)*hc).  The kernel takes hc = 8 (every Swin-B DSCF
+level) and hc = 12 (every Swin-L level): a 12-channel head is staged in
+shared memory as two planes of 8 channels, the last four zero, so that the
+score and P.V products keep the 8-channel design's steps and its rounding
+points.
 
 ``dscf_rows_attention`` launches the kernel for CUDA tensors and runs
 ``dscf_rows_reference``, the plain version, only for CPU tensors.  It is
@@ -45,10 +49,10 @@ from ir_ads_tpu_torch.ops.cuda_lib import (
     FLOAT, INT, VOIDP, CudaKernel, check_cuda, ptr, up,
 )
 from ir_ads_tpu_torch.ops.layers import q_scale
-from ir_ads_tpu_torch.ops.dscf_rows_bwd import HEAD_CHANNELS, dscf_rows_bwd
+from ir_ads_tpu_torch.ops.dscf_rows_bwd import ROWS_HEAD_CHANNELS, dscf_rows_bwd
 
 KERNEL = CudaKernel(
-    "dscf_rows", "dscf_rows_attention", [VOIDP] * 5 + [INT] * 6 + [FLOAT, INT],
+    "dscf_rows", "dscf_rows_attention", [VOIDP] * 5 + [INT] * 6 + [FLOAT, INT, INT],
     replaces="ir_ads_tpu/ops/pallas_dscf.py:190",
 )
 
@@ -91,11 +95,13 @@ def _forward(q, k, v, bias, scale, hg, packed):
         return dscf_rows_reference(q, k, v, bias, scale, hg, packed)
     q, k, v, bias = (t.contiguous() for t in (q, k, v, bias))
     check_cuda("dscf_rows_attention", q, k, v, bias)
-    if gc != hg * HEAD_CHANNELS:
-        raise ValueError(f"dscf_rows_attention: needs {HEAD_CHANNELS} channels per head")
+    hc = gc // hg
+    if gc != hg * hc or hc not in ROWS_HEAD_CHANNELS:
+        raise ValueError(f"dscf_rows_attention: needs {ROWS_HEAD_CHANNELS} channels per head; "
+                         f"got {gc} over {hg} heads")
     out = torch.empty_like(q)
     KERNEL.call(ptr(q), ptr(k), ptr(v), ptr(bias), ptr(out), bg, hg, h, w, m,
-                mp, q_scale(scale, q.dtype), int(bool(packed)))
+                mp, q_scale(scale, q.dtype), int(bool(packed)), hc)
     return out
 
 

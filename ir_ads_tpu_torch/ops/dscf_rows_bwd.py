@@ -8,9 +8,10 @@ Replaces ir_ads_tpu/ops/pallas_dscf.py:_dscf_rows_bwd_kernel (launched by
 header states the rounding points, the bound and the design (the four
 products on the tensor cores, key-major, 64-pixel tiles).  As in K7, the
 backward does not round ``q * scale``; keys past M have probability 0 and
-get zero dk, dv.  The kernel takes image rows of whole 8-pixel n-tiles (w %
-8 == 0: 160, 80, 40 and 20 at the four DSCF levels of a 480x640 tile) and
-up to MAX_KEYS keys (K, V and the block's dK, dV sums live in shared
+get zero dk, dv.  The kernel takes heads of 8 channels (every Swin-B DSCF
+level) or 12 (every Swin-L level), image rows of whole 8-pixel n-tiles (w
+% 8 == 0: 160, 80, 40 and 20 at the four DSCF levels of a 480x640 tile) and
+up to MAX_KEYS[hc] keys (K, V and the block's dK, dV sums live in shared
 memory).
 
 ``dscf_rows_bwd`` launches the kernel for CUDA tensors and runs
@@ -30,11 +31,14 @@ from ir_ads_tpu_torch.ops.cuda_lib import (
 )
 
 KERNEL = CudaKernel(
-    "dscf_rows_bwd", "dscf_rows_bwd", [VOIDP] * 9 + [INT] * 6 + [FLOAT],
+    "dscf_rows_bwd", "dscf_rows_bwd", [VOIDP] * 9 + [INT] * 6 + [FLOAT, INT],
     replaces="ir_ads_tpu/ops/pallas_dscf.py:681",
 )
-HEAD_CHANNELS = 8  # the kernel's channels per head (every Swin-B DSCF level)
-MAX_KEYS = 2272    # 96 bytes of shared memory a key, 14 KB a block besides
+HEAD_CHANNELS = 8  # K16's and K17's channels per head (every Swin-B DSCF level)
+ROWS_HEAD_CHANNELS = (8, 12)  # K4's and K8's: Swin-B's and Swin-L's
+# of the 227 KB of shared memory a block may take: 96 bytes a key and 14 KB
+# besides at 8 channels, 160 bytes and 20 KB at 12 (keys in steps of 16)
+MAX_KEYS = {8: 2272, 12: 1312}
 
 Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
@@ -84,13 +88,15 @@ def dscf_rows_bwd(
         return dscf_rows_bwd_reference(q, k, v, bias, dout, scale, hg)
     q, k, v, bias, dout = (t.contiguous() for t in (q, k, v, bias, dout))
     check_cuda("dscf_rows_bwd", q, k, v, bias, dout)
-    if gc != hg * HEAD_CHANNELS or w % 8 or m > MAX_KEYS:
-        raise ValueError(f"dscf_rows_bwd: needs {HEAD_CHANNELS} channels per head, w % 8 == 0 "
-                         f"and at most {MAX_KEYS} keys; got {q.shape} {bias.shape}")
+    hc = gc // hg
+    if gc != hg * hc or hc not in ROWS_HEAD_CHANNELS or w % 8 or m > MAX_KEYS[hc]:
+        raise ValueError(f"dscf_rows_bwd: needs {ROWS_HEAD_CHANNELS} channels per head, "
+                         f"w % 8 == 0 and at most MAX_KEYS[hc] keys ({MAX_KEYS}); got "
+                         f"{q.shape} {bias.shape} with {hg} heads")
     dq = torch.empty_like(q)
     dk = torch.zeros(k.shape, dtype=torch.float32, device=q.device)
     dv = torch.zeros(v.shape, dtype=torch.float32, device=q.device)
     dbias = torch.empty(bias.shape, dtype=torch.float32, device=q.device)
     KERNEL.call(ptr(q), ptr(k), ptr(v), ptr(bias), ptr(dout), ptr(dq), ptr(dk),
-                ptr(dv), ptr(dbias), bg, hg, h, w, m, mp, float(scale))
+                ptr(dv), ptr(dbias), bg, hg, h, w, m, mp, float(scale), hc)
     return dq, dk, dv, dbias

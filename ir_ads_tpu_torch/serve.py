@@ -133,6 +133,8 @@ class SemSegPredictor:
     read by ``utils.checkpoint.load_weights``), else drawn from ``seed``.
     The model runs the backbone and the fused head only
     (``semseg_eval.make_forward_fn``, the eval forward ``val_mm`` runs).
+    ``backbone``: ``"SwinTransformer-B"`` or ``"SwinTransformer-L"``;
+    ``backbone_kwargs`` may set ``dual_batch``.
     """
 
     def __init__(
@@ -149,6 +151,7 @@ class SemSegPredictor:
         patch_embed: str = "xla",
         state_dict: Optional[dict] = None,
         model_path: str = "",
+        backbone: str = "SwinTransformer-B",
     ):
         from ir_ads_tpu_torch.models import build_model
 
@@ -164,7 +167,7 @@ class SemSegPredictor:
         if state_dict is None and model_path:
             state_dict = weights_from(model_path)
         # the int8 sites of an int8 dispatch are quantized from f32, then cast
-        model = build_model("CMNeXt", "SwinTransformer-B", num_classes, dtype,
+        model = build_model("CMNeXt", backbone, num_classes, dtype,
                             backbone_kwargs, dispatch, state_dict, seed,
                             head_dims=head_dims, upsample_logits=False,
                             patch_embed=patch_embed)

@@ -92,7 +92,8 @@ class SemSegTrainer:
     step n draw from a generator seeded from ``(seed, n)``; weights are drawn
     from ``seed`` too (the repository holds no checkpoint) unless
     ``state_dict`` is given.  ``dtype`` is the compute dtype; parameters
-    stay f32."""
+    stay f32.  ``backbone``: ``"SwinTransformer-B"`` or
+    ``"SwinTransformer-L"`` (block remat on, as the JAX package runs it)."""
 
     def __init__(
         self,
@@ -105,11 +106,13 @@ class SemSegTrainer:
         head_drop: float = 0.1,
         mmst_mask: bool = True,
         state_dict: Optional[Dict[str, torch.Tensor]] = None,
+        backbone: str = "SwinTransformer-B",
     ):
         from ir_ads_tpu_torch.serve import init_random_
 
         device = _require_device(device, "SemSegTrainer")
-        model = CMNeXt(num_classes=num_classes, backbone_kwargs=backbone_kwargs,
+        model = CMNeXt(backbone=backbone, num_classes=num_classes,
+                       backbone_kwargs=backbone_kwargs,
                        head_dims=head_dims, upsample_logits=True, dispatch="train",
                        head_drop=head_drop, mmst_mask=mmst_mask)
         if state_dict is None:

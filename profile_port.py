@@ -6,8 +6,9 @@ one step of its trainer, under torch.profiler.
                             [--dispatch r5|r4|r4i8|r2|r1|xla|v7_01|v5|map|
                                         dscf_pallas4|dscf_pallas|dscf_pallas2]
                             [--flat [--patch-embed xla|xla2|pallas]]
-                            [--requests N]
-    python3 profile_port.py --train [--seed 0] [--batch 4]
+                            [--requests N] [--backbone SwinTransformer-L] [--dual]
+    python3 profile_port.py --train [--seed 0] [--batch 4] [--backbone SwinTransformer-L]
+                            [--dual]
     python3 profile_port.py --det [--seed 0]
     python3 profile_port.py --eval [--seed 0]
     python3 profile_port.py --dscf [--seed 0]
@@ -21,8 +22,10 @@ one step of its trainer, under torch.profiler.
     python3 profile_port.py --same-logits DIR_A DIR_B
     (each also takes --port-dir DIR)
 
-Serving: builds the full-size predictor (Swin-B CMNeXt, 480x640 RGB-D, flip,
-bf16, weights from --seed) under the given kernel dispatch (r5, the default,
+Serving: builds the full-size predictor (Swin-B CMNeXt, or with --backbone
+SwinTransformer-L the Swin-L one; --dual: both streams through each stage
+in one call, ``dual_batch``; 480x640 RGB-D, flip, bf16, weights from
+--seed) under the given kernel dispatch (r5, the default,
 r4, the w8a8 r4i8, the module-path sets r2, r1 and xla, the block
 variants v7_01, v5 and map, or the DSCF variants dscf_pallas4, dscf_pallas
 and dscf_pallas2), serves one warm-up request, then one profiled request,
@@ -33,7 +36,8 @@ and --patch-embed chooses the patch embedding's path (pallas: K19).  With
 --requests N it first times N requests on the host clock, each ended by a
 synchronize, and prints their p50.
 Training (--train): builds the full-size trainer (the ``train`` dispatch, f32
-masters, bf16 compute, the shipped adapter-only AdamW recipe), takes two
+masters, bf16 compute, the shipped adapter-only AdamW recipe; --backbone and
+--dual as for serving, Swin-L with remat on every block), takes two
 warm-up steps, then profiles one step in three parts: forward with the loss,
 backward, optimizer update; and K7's share of the step's device time.
 Detection (--det): builds the full-size detector (DINO-R50 deformable-mask,
@@ -303,7 +307,8 @@ def profile_request(args) -> dict:
     from ir_ads_tpu_torch.serve import SemSegPredictor
 
     pred = SemSegPredictor(device="cuda", seed=args.seed, dispatch=args.dispatch,
-                           flat_input=args.flat, patch_embed=args.patch_embed)
+                           flat_input=args.flat, patch_embed=args.patch_embed,
+                           **_model_kw(args))
     g = torch.Generator().manual_seed(args.seed + 1)
     rgb, dep = (torch.randint(0, 256, (args.batch, 480, 640, 3), generator=g,
                               dtype=torch.uint8) for _ in range(2))
@@ -318,13 +323,27 @@ def profile_request(args) -> dict:
     p50 = sorted(lat)[len(lat) // 2] if lat else None
     _, part = profiled(lambda: pred(rgb, dep), args.top)
     flat = f" on flat frames, patch embedding {args.patch_embed}" if args.flat else ""
-    show(f"{torch.cuda.get_device_name(0)}; {args.dispatch}{flat}; request of "
-         f"{args.batch} frames", part)
+    show(f"{torch.cuda.get_device_name(0)}; {_model_name(args)}; {args.dispatch}{flat}; "
+         f"request of {args.batch} frames", part)
     if lat:
         print(f"p50 of {len(lat)} requests: {p50:.2f} ms ({args.batch / p50 * 1e3:.2f} "
               f"frames/s); each: " + ", ".join(f"{v:.2f}" for v in lat))
     return dict(part, dispatch=args.dispatch, flat_input=args.flat,
-                patch_embed=args.patch_embed, p50_ms=p50, latencies_ms=lat)
+                patch_embed=args.patch_embed, backbone=args.backbone, dual_batch=args.dual,
+                p50_ms=p50, latencies_ms=lat)
+
+
+def _model_kw(args) -> dict:
+    """--backbone and --dual as the entry points' arguments (none for the
+    defaults, which an older checkout's entry points take too)."""
+    kw = {} if args.backbone == "SwinTransformer-B" else dict(backbone=args.backbone)
+    if args.dual:
+        kw["backbone_kwargs"] = dict(dual_batch=True)
+    return kw
+
+
+def _model_name(args) -> str:
+    return args.backbone.replace("SwinTransformer", "Swin") + (" dual" if args.dual else "")
 
 
 def _events_ms(fn, iters=20, warmup=3) -> float:
@@ -795,7 +814,7 @@ def profile_step(args) -> dict:
     from ir_ads_tpu_torch.training.optim import set_lr
     from ir_ads_tpu_torch.training.train_state import compute_loss
 
-    tr = SemSegTrainer(device="cuda", seed=args.seed)
+    tr = SemSegTrainer(device="cuda", seed=args.seed, **_model_kw(args))
     g = torch.Generator().manual_seed(args.seed + 2)
     rgb = torch.randn(args.batch, 480, 640, 3, generator=g)
     dte = torch.rand(args.batch, 480, 640, 3, generator=g)
@@ -814,7 +833,8 @@ def profile_step(args) -> dict:
     set_lr(tr.optimizer, tr.schedule(tr.steps))
     _, upd = profiled(tr.optimizer.step, args.top)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    card = f"{torch.cuda.get_device_name(0)}; train; step of {args.batch} frames"
+    card = (f"{torch.cuda.get_device_name(0)}; {_model_name(args)}; train; step of "
+            f"{args.batch} frames")
     for what, part in (("forward + loss", fwd), ("backward", bwd), ("optimizer", upd)):
         show(f"{card}; {what}", part)
     busy = sum(p["device_busy_ms"] for p in (fwd, bwd, upd))
@@ -824,7 +844,8 @@ def profile_step(args) -> dict:
     k7 = bwd["by_kernel"].get("K7", dict(ms=0.0, launches=0))
     print(f"{card}: K7 {k7['ms']:.3f} ms in {k7['launches']} launches, "
           f"{k7['ms'] / busy:.3f} of the step's device busy time")
-    return dict(dispatch="train", batch=args.batch, wall_ms=wall, device_busy_ms=busy,
+    return dict(dispatch="train", backbone=args.backbone, dual_batch=args.dual,
+                batch=args.batch, wall_ms=wall, device_busy_ms=busy,
                 idle_share=1 - busy / wall, peak_memory_gib=peak, forward=fwd,
                 backward=bwd, optimizer=upd, k7_ms=k7["ms"], k7_share=k7["ms"] / busy)
 
@@ -921,6 +942,11 @@ def main():
     ap.add_argument("--dispatch", default="r5",
                     choices=("r5", "r4", "r4i8", "r2", "r1", "xla", "v7_01", "v5", "map",
                              "dscf_pallas4", "dscf_pallas", "dscf_pallas2"))
+    ap.add_argument("--backbone", default="SwinTransformer-B",
+                    choices=("SwinTransformer-B", "SwinTransformer-L"),
+                    help="serving and --train: the CMNeXt's backbone")
+    ap.add_argument("--dual", action="store_true",
+                    help="serving and --train: both streams through each stage in one call")
     ap.add_argument("--flat", action="store_true",
                     help="serve flat (B, H, W*3) frames, as the bench feeds them")
     ap.add_argument("--patch-embed", default="xla", choices=("xla", "xla2", "pallas"),

@@ -144,8 +144,10 @@ def test_only_the_r5_and_r4_dispatches_are_accepted():
         tswin.DAttentionMM(32, 4, 2, 4, attn_impl="auto")
     with pytest.raises(NotImplementedError):
         tswin.DAttentionMM(32, 4, 2, 4, rpe3="auto")
-    with pytest.raises(NotImplementedError):
-        tswin.SwinTransformer(dual_batch=True)
+    # both streams in one stage call (the JAX package's sub-mode "dual")
+    assert tswin.SwinTransformer(**SMALL, dual_batch=True).dual_batch
+    with pytest.raises(NotImplementedError):  # a stream the block has no adapter for
+        tswin.SwinBlockAdapter(32, 2, 128, 4, shift=False)(torch.zeros(1, 4, 4, 32), "depth")
 
 
 def test_pallas6_block_takes_the_real_map_with_no_pad_roll_or_crop():
