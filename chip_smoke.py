@@ -13,7 +13,8 @@ Phases, each of which raises on failure:
      autograd: its output and the gradients its backward, the plain
      version's vjp, gives), element by element and on what the kernel adds
      (the branch, for the residual kernels); K3 (levels 0-3) and K6 (level
-     3) bit for bit, each also on positions with a third of their
+     3, and level 2's 30x40 plane, the legacy CMNeXt's stage 2) bit for
+     bit, each also on positions with a third of their
      coordinates clamped to -1 or +1 and on positions where the kernel
      searches the four taps of an axis (K3 at level 0); show
      that a planted fault in the plain version fails the same bar (for K3
@@ -217,7 +218,27 @@ Phases, each of which raises on failure:
      4, K2 8, K5 20, K3 3, K4 3, K6 1), logits against r5's streams in turn
      (bit for bit, else ``LOGIT_TOL``), and one dual training step (K1 24,
      K7 24) against the streams-in-turn step at phase 5's control bar.
-     Prints p50 ms, frames/s and images/s beside the card line.
+     Prints p50 ms, frames/s and images/s beside the card line;
+ 10. the legacy family at full width (``models.CMNeXtLegacy``, weights from
+     --seed, bf16, r5).  CMNeXt-B2 (the MiT dual stream: embed
+     64/128/320/512, depths 3/4/6/3, the einsum DSCF at every stage) behind
+     ``SemSegPredictor(backbone="CMNeXt-B2")``: --requests requests of
+     --batch 480x640 frames, tile = image, overlap 1/3, flip; launches per
+     request ``LEGACY_LAUNCHES`` (K6 2: stages 2-3, 30x40 and 15x20; no
+     other kernel); every K6 launch of one request bit for bit against its
+     plain version (``_held_launches``; the all-f32 form must fail); the
+     logits against the all-plain path at ``LOGIT_TOL`` and bit for bit (K6
+     sampling at (x, y) and K6's all-f32 form must fail; their
+     ``LOGIT_TOL`` readings printed); p50, frames/s, peak
+     memory, and one request under the profiler: wall, device busy time,
+     idle share.  CMX-B2 the same way, with no kernel launched.  For both,
+     one frame's f32 logits on the card against the same model's on the
+     host CPU (the xla dispatch: K6 stores bf16 only) at the CPU tests'
+     atol 2e-3 / rtol 1e-3.  Then ``val_mm.main`` on
+     ir_ads_tpu_torch/configs/nyu_rgbd_synthetic_cmnext_b2.yaml (2 of its
+     Synthetic images: MSF at six scales with flip), each eval forward's
+     launches against ``expected_launches`` at its size, images/s, peak
+     memory beside the reckoned size of stage 0's f32 scores at scale 1.75.
 The line before the last is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``.  Nothing of JAX is imported.
 """
@@ -1833,6 +1854,10 @@ def phase_kernels(seed: int, images: int):
         lambda: check_rpe_packed(g, images, 3),
         functools.partial(check_rpe_packed, g, images, 3, clamped=True),
         functools.partial(check_rpe_packed, g, images, 3, searched=True),
+        # K6 at the legacy CMNeXt's stage 2 (phase 10): the 30x40 plane of
+        # 4 groups, where w >= 32 takes the kernel's other store path
+        *(functools.partial(check_rpe_packed, g, images, 2, clamped, searched)
+          for clamped, searched in ((False, False), (True, False), (False, True))),
         # the training path: K1 again at stages 2-3; K7 at the four stages as
         # the adapter recipe runs it (attention parameters frozen: no ow, no
         # dbias) and once with every gradient wanted; K8 at levels 0-2
@@ -2097,6 +2122,8 @@ def expected_launches(model, image=IMAGE):
     n = dict.fromkeys((m.KERNEL.name for m in _ops_modules()), 0)
     for k in ("window_attn_bwd", "dscf_rows_bwd", "msdeform"):
         del n[k]
+    if not hasattr(model.backbone, "stages"):
+        return _legacy_launches(model, image, n)
     if model.backbone.patch_embed.impl == "pallas":  # K19, one launch a stream
         n["patch_embed"] += 2
     per_block = {"pallas6": ("swin_block_v6",), "pallas4": ("swin_block", "block_tail"),
@@ -2118,6 +2145,20 @@ def expected_launches(model, image=IMAGE):
             names = ("dscf_rpe_packed",)
         for k in names:
             n[k] += 1
+    return n
+
+
+def _legacy_launches(model, image, n):
+    """``expected_launches`` of a legacy model: no Swin block; the MiT's
+    einsum DSCF at every stage, its bias by K6 on the stage's plane (the
+    image / 4 halved by each later patch embedding, rounding up) where the
+    dispatch takes the packed kernel for at most 2048 pixels; CMX none."""
+    h, w = -(-image[0] // 4), -(-image[1] // 4)
+    for i, dm in enumerate(getattr(model.backbone, "DeformMPGBlocks", ())):
+        if i:
+            h, w = -(-h // 2), -(-w // 2)
+        if dm.deform_atten.bias_kernel(h, w):
+            n["dscf_rpe_packed"] += 1
     return n
 
 
@@ -3572,11 +3613,12 @@ def eval_config(mode: str) -> dict:
     })
 
 
-def _counted_eval(seed: int, mode: str):
-    """``val_mm.main`` on the card with every launch count at 0 first; its
-    eval forward wrapped to record, per call, the input's shape, each
-    kernel's launches and whether the logits are finite.  Returns (the
-    entry point's result, the calls, the launches, the model)."""
+def _counted_eval(seed: int, mode: str, cfg=None):
+    """``val_mm.main`` on the card (the ``eval_config`` of ``mode``, or
+    ``cfg``) with every launch count at 0 first; its eval forward wrapped to
+    record, per call, the input's shape, each kernel's launches and whether
+    the logits are finite.  Returns (the entry point's result, the calls,
+    the launches, the model)."""
     from ir_ads_tpu_torch import val_mm
     from ir_ads_tpu_torch.evaluation import semseg_eval
 
@@ -3599,7 +3641,8 @@ def _counted_eval(seed: int, mode: str):
     torch.cuda.reset_peak_memory_stats()
     kernels = _reset_launches()
     try:
-        result = val_mm.main(eval_config(mode), device="cuda", dispatch="r5", seed=seed)
+        result = val_mm.main(cfg or eval_config(mode), device="cuda", dispatch="r5",
+                             seed=seed)
     finally:
         val_mm.make_forward_fn = semseg_eval.make_forward_fn
     launches = {k.name: k.launches for k in kernels}
@@ -3690,18 +3733,18 @@ EVAL_FAULTS = dict(swin_block="rel-pos bias dropped", block_tail="adapter droppe
                    dscf_rows="rpe bias dropped", dscf_rpe_packed="the all-f32 form")
 
 
-def _held_launches(run, what, tag):
-    """Run ``run()`` with each launch of the six kernels of r5's forward held
-    against its plain version and its planted fault on its own inputs
-    (``_eval_launch_checks``' bars); ``tag()`` names the launch's place
-    (an MSF scale, a request).  Fails if a launch misses its bar or a
-    fault passes it over all of them.  Returns the log [(tag, kernel,
+def _held_launches(run, what, tag, names=None):
+    """Run ``run()`` with each launch of the six kernels of r5's forward (or
+    of those in ``names``) held against its plain version and its planted
+    fault on its own inputs (``_eval_launch_checks``' bars); ``tag()`` names
+    the launch's place (an MSF scale, a request).  Fails if a launch misses
+    its bar or a fault passes it over all of them.  Returns the log [(tag, kernel,
     shape, rel, share, fault rel, fault share, size, the largest |got -
     plain| / (atol x rms(plain) + rtol |plain|))]."""
     from ir_ads_tpu_torch.models.backbones import swin
 
     log, saved = [], {}
-    checks = _eval_launch_checks()
+    checks = [c for c in _eval_launch_checks() if names is None or c[0] in names]
     for name, attr, plain, faulted, _, residual, (atol, rtol) in checks:
         saved[attr] = kernel = getattr(swin, attr)
 
@@ -4465,15 +4508,216 @@ def phase_swin_l_dual(seed, requests, batch, card_line):
     return total, dict(swin_l_serve=serve_l, swin_l_train=train_l, dual=dual)
 
 
+# --------------------------------------------------------------------------
+# phase 10: the legacy semseg family (CMNeXt-B2, CMX-B2)
+# --------------------------------------------------------------------------
+
+CMNEXT_B2, CMX_B2 = "CMNeXt-B2", "CMX-B2"
+LEGACY_CONFIG = "ir_ads_tpu_torch/configs/nyu_rgbd_synthetic_cmnext_b2.yaml"
+LEGACY_EVAL_IMAGES = 2
+# CMNeXt-B2 under r5 at 480x640: the einsum DSCF at every stage, its bias by
+# K6 at stages 2-3 (30x40 and 15x20 planes), in the XLA form at stages 0-1
+# (120x160, 60x80); CMX-B2 runs no kernel of the port
+LEGACY_LAUNCHES = {CMNEXT_B2: {"dscf_rpe_packed": 2}, CMX_B2: {}}
+# The requests' logits against the all-plain path: LOGIT_TOL, and bit for
+# bit, for K6 is its plain version bit for bit and the rest of the path is
+# the same PyTorch on the same card (0 of 24,576,000 logits apart on an H100
+# 80GB HBM3 at 700 W).  LOGIT_TOL alone cannot see a fault in K6 there: a K6
+# sampling at (x, y) moved the logits 1.06e-2 mean, 2.16e-2 max, labels
+# 0.9934, for the bias of stages 2-3 reaches the head through two of its four
+# levels, at H/16 and H/32.  Planted faults: that one, and K6's all-f32 form.
+#
+# One frame in f32 on the card against the same model on the host CPU: the
+# CPU tests' bar.  Under "xla": K6 stores bf16 only, and r5 differs from xla
+# by K6 alone, which the bf16 requests hold bit for bit
+CARD_CPU_TOL = dict(atol=2e-3, rtol=1e-3)
+
+
+def _rpe_packed_swapped(pos, table, h, w, dt):
+    """K6's plain version with a planted fault: each key's bias sampled at
+    (x, y) in place of (y, x)."""
+    from ir_ads_tpu_torch.ops import dscf_rpe_packed as k6
+
+    return k6.rpe_bias_packed_reference(pos.flip(-1).float(), table.float(), h, w, dt)
+
+
+def _rpe_packed_f32(pos, table, h, w, dt):
+    """K6's all-f32 form (phase 3's planted fault: only the output rounded)."""
+    from ir_ads_tpu_torch.ops import dscf_rpe as k3
+
+    return k3.rpe_bias_f32(pos.float(), table.float(), h, w, "bemhw").flatten(3).to(dt)
+
+
+def _busy(fn):
+    """``fn()`` under torch.profiler, as profile_port.py profiles a part: (wall
+    ms, the summed device time of its kernels and copies in ms, the idle
+    share 1 - busy / wall), busy and idle None where the profiler saw no
+    device time."""
+    from profile_port import profiled
+
+    part = profiled(fn)[1]
+    wall, busy = part["wall_ms"], part["device_busy_ms"]
+    return (wall, busy, part["idle_share"]) if busy > 0 else (wall, None, None)
+
+
+def _card_vs_cpu(backbone, seed, rgb, dep, what):
+    """One frame's f32 fused-head logits of ``backbone`` (the xla dispatch,
+    weights from ``seed``) on the card against the same model on the host
+    CPU, at ``CARD_CPU_TOL``.  Returns (max |diff|, the largest |diff| over
+    its bar, the CPU's max |logit|, the CPU's seconds)."""
+    import copy
+
+    from ir_ads_tpu_torch.data.augmentations import IMAGENET_MEAN, IMAGENET_STD
+    from ir_ads_tpu_torch.models import build_model
+
+    cpu = build_model("CMNeXt", backbone, NUM_CLASSES, dispatch="xla", seed=seed,
+                      upsample_logits=False)
+    card = copy.deepcopy(cpu).cuda()
+    x_rgb = ((rgb[:1].float() / 255.0 - torch.as_tensor(IMAGENET_MEAN)) /
+             torch.as_tensor(IMAGENET_STD)).float()
+    x_dep = dep[:1].float() / 255.0
+    with torch.no_grad():
+        t = time.time()
+        want = cpu.forward_fused(x_rgb, x_dep)
+        cpu_s = time.time() - t
+        got = card.forward_fused(x_rgb.cuda(), x_dep.cuda()).cpu()
+    err = (got - want).abs()
+    worst = float((err / (CARD_CPU_TOL["atol"] + CARD_CPU_TOL["rtol"] * want.abs())).max())
+    print(f"  {what} f32 on the card vs the host CPU (xla dispatch, one frame, logits "
+          f"{tuple(want.shape)}): max |diff| {float(err.max()):.3e}, largest |diff| over "
+          f"atol {CARD_CPU_TOL['atol']} + rtol {CARD_CPU_TOL['rtol']} |cpu| {worst:.3f} "
+          f"(tol 1), max |logit| {float(want.abs().max()):.3f}; CPU forward {cpu_s:.1f} s",
+          flush=True)
+    if not bool(torch.isfinite(got).all()) or worst > 1.0:
+        fail(f"the {what} logits on the card disagree with the host CPU's")
+    del card, cpu
+    torch.cuda.empty_cache()
+    return float(err.max()), worst, float(want.abs().max()), cpu_s
+
+
+def phase_legacy_serve(seed, backbone, frames, requests, batch, card_line):
+    """One legacy model behind ``SemSegPredictor`` under r5 (module
+    docstring, phase 10).  Returns (launches, the record)."""
+    from ir_ads_tpu_torch.serve import SemSegPredictor
+
+    t0 = time.time()
+    pred = SemSegPredictor(device="cuda", seed=seed, num_classes=NUM_CLASSES,
+                           image_size=IMAGE, backbone=backbone)
+    n_params = sum(p.numel() for p in pred.model.parameters())
+    print(f"  model: {backbone}, {n_params / 1e6:.1f} M parameters, bf16, r5 dispatch, "
+          f"built in {time.time() - t0:.1f} s", flush=True)
+    lat, outs, launches = _served(pred, frames, requests, batch, LEGACY_LAUNCHES[backbone],
+                                  f"{backbone} r5")
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    wall, busy, idle = _busy(lambda: pred(*frames[0]))
+    record = dict(params_m=n_params / 1e6, latency_ms=lat, p50_ms=_p50(lat),
+                  frames_per_s=batch * 1e3 / _p50(lat), peak_memory_gib=peak,
+                  profiled_wall_ms=wall, device_busy_ms=busy, idle_share=idle)
+    if LEGACY_LAUNCHES[backbone]:
+        held = _held_launches(lambda: pred(*frames[0]), f"one {backbone} request",
+                              lambda: None, names=("dscf_rpe_packed",))
+        want = _plain_request(pred, frames)
+        ok = _compare(*outs[0], *want, f"{backbone} kernel path", LOGIT_TOL)
+        differ = int((outs[0][0] != want[0]).sum())
+        print(f"  {backbone} kernel path vs plain path: {differ} of {want[0].numel()} "
+              "logits differ (bar 0)", flush=True)
+        if not ok or differ:
+            fail(f"the {backbone} kernel path disagrees with the plain path end to end")
+        record.update(launches_held=len(held), logits_differ_vs_plain=differ)
+        for what, fault in (("K6 sampling at (x, y)", _rpe_packed_swapped),
+                            ("K6's all-f32 form", _rpe_packed_f32)):
+            bad = _plain_request(pred, frames, rpe_bias_packed=fault)
+            _compare(*bad, *want, f"{backbone} planted fault ({what}; LOGIT_TOL read, the "
+                     "bar is bit equality)", LOGIT_TOL)
+            n_bad = int((bad[0] != want[0]).sum())
+            print(f"  {backbone} planted fault ({what}): {n_bad} logits differ", flush=True)
+            if not n_bad:
+                fail(f"{what} passes the {backbone} end-to-end bar")
+            record[f"fault_rel_mean ({what})"] = float(
+                (bad[0] - want[0]).abs().mean() / want[0].abs().mean())
+    busy_s = "not measured" if busy is None else f"{busy:.2f} ms, idle share {idle:.3f}"
+    print(f"  {backbone} r5: {requests} requests x {batch} frames 480x640 RGB-D, flip, "
+          f"latency ms {['%.1f' % v for v in lat]} p50 {_p50(lat):.1f}, "
+          f"{batch * 1e3 / _p50(lat):.2f} frames/s, peak memory {peak:.2f} GiB; one "
+          f"profiled request: wall {wall:.2f} ms, device busy {busy_s} [{card_line}]",
+          flush=True)
+    print(f"  launches on the {backbone} r5 path ({requests} requests): "
+          f"{ {k: v for k, v in launches.items() if v} }", flush=True)
+    del pred, outs
+    torch.cuda.empty_cache()
+    record["card_vs_cpu"] = dict(zip(("max_abs_diff", "worst_over_bar", "max_abs_logit",
+                                      "cpu_s"),
+                                     _card_vs_cpu(backbone, seed, *frames[0], backbone)))
+    return launches, record
+
+
+def phase_legacy_eval(seed, card_line):
+    """val_mm with LEGACY_CONFIG on ``LEGACY_EVAL_IMAGES`` images (module
+    docstring, phase 10).  Returns (launches, the record)."""
+    from ir_ads_tpu_torch.evaluation.semseg_eval import align32
+    from ir_ads_tpu_torch.utils.config import _merge, load_config
+
+    cfg = _merge(load_config(LEGACY_CONFIG),
+                 {"DATASET": {"KWARGS": {"length": LEGACY_EVAL_IMAGES}}})
+    if cfg["MODEL"]["BACKBONE"] != CMNEXT_B2 or not cfg["EVAL"]["MSF"]["ENABLE"]:
+        fail(f"{LEGACY_CONFIG} is not CMNeXt-B2 with MSF")
+    scales = tuple(cfg["EVAL"]["MSF"]["SCALES"])
+    result, calls, launches, model = _counted_eval(seed, "msf", cfg)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    shapes = [(2, align32(s * IMAGE[0]), align32(s * IMAGE[1]), 3)
+              for s in scales] * LEGACY_EVAL_IMAGES
+    per_scale = {s: expected_launches(model, sh[1:3]).get("dscf_rpe_packed", 0)
+                 for s, sh in zip(scales, shapes)}
+    summed = _check_calls(calls, model, shapes, "CMNeXt-B2 msf")
+    if {k: v for k, v in launches.items() if v} != summed:
+        fail(f"CMNeXt-B2 msf: the kernels launched {launches}, the forwards {summed}")
+    # the largest DSCF score tensor: stage 0 at the last scale, the image and
+    # its flip, 2 heads, every query pixel against 2n keys, f32
+    h0, w0 = align32(scales[-1] * IMAGE[0]) // 4, align32(scales[-1] * IMAGE[1]) // 4
+    n = ((h0 + 8 - 9) // 8 + 1) * ((w0 + 8 - 9) // 8 + 1)
+    scores_gib = 2 * 2 * h0 * w0 * 2 * n * 4 / 2**30
+    lat = [t * 1e3 for t in result["latency_s"]]
+    p50 = _p50(lat[1:])  # the first image warms up
+    print(f"  val_mm --cfg {LEGACY_CONFIG}: {LEGACY_EVAL_IMAGES} images of 480x640 RGB-D, "
+          f"MSF at {list(scales)} with flip, mIoU {result['miou']} (random weights); ms per "
+          f"image {['%.1f' % v for v in lat]}, {1e3 / p50:.3f} images/s after the first; "
+          f"peak memory {peak:.2f} GiB, of which the f32 scores of stage 0 at scale "
+          f"{scales[-1]} ({h0}x{w0} queries x {2 * n} keys x 2 heads x 2 images) are "
+          f"{scores_gib:.2f} GiB [{card_line}]", flush=True)
+    print(f"  K6 launches per MSF scale: {per_scale}; on the eval path "
+          f"({LEGACY_EVAL_IMAGES} images): { {k: v for k, v in launches.items() if v} }",
+          flush=True)
+    del model
+    torch.cuda.empty_cache()
+    return launches, dict(miou=result["miou"], latency_ms=lat, p50_ms=p50,
+                          images_per_s=1e3 / p50, peak_memory_gib=peak,
+                          stage0_scores_gib=scores_gib, k6_per_scale=per_scale)
+
+
+def phase_legacy(seed, requests, batch, card_line):
+    """Phase 10 (module docstring).  Returns (the launches of its driven
+    paths, summed, the record)."""
+    frames = _request_frames(seed, requests, batch)
+    total, record = {}, {}
+    for backbone in (CMNEXT_B2, CMX_B2):
+        launches, record[backbone] = phase_legacy_serve(seed, backbone, frames, requests,
+                                                        batch, card_line)
+        _add(total, launches)
+    launches, record["val_mm"] = phase_legacy_eval(seed, card_line)
+    _add(total, launches)
+    return total, record
+
+
 def kernel_table(rows, launches, launches_i8, module_launches, train_launches, det_launches,
-                 eval_launches, train_mm_launches, phase9_launches):
+                 eval_launches, train_mm_launches, phase9_launches, legacy_launches):
     """One entry per kernel; ``launches`` sums the main paths' runs (the
     serving requests under r5, r4i8, r2, r1, xla, v7_01, v5, map,
     dscf_pallas4, dscf_pallas and dscf_pallas2, r5 on flat frames with the
     XLA patch embedding and with K19, the training steps, the detection
     requests, the three eval modes' images, the training entry point's
-    run with its gates and its drop_rate step, and phase 9's Swin-L and
-    dual paths, each counted from 0; K20 runs on none of them)."""
+    run with its gates and its drop_rate step, phase 9's Swin-L and dual
+    paths, and phase 10's legacy requests and MSF images, each counted from
+    0; K20 runs on none of them)."""
     from ir_ads_tpu_torch.ops.cuda_lib import PKG
 
     out = []
@@ -4488,6 +4732,7 @@ def kernel_table(rows, launches, launches_i8, module_launches, train_launches, d
             launches=(launches[k.name] + launches_i8[k.name] + train_launches[k.name]
                       + det_launches[k.name] + eval_launches.get(k.name, 0)
                       + train_mm_launches[k.name] + phase9_launches.get(k.name, 0)
+                      + legacy_launches.get(k.name, 0)
                       + sum(m[k.name] for m in module_launches.values())),
             launches_serve=launches[k.name], launches_serve_r4i8=launches_i8[k.name],
             **{f"launches_serve_{d}": m[k.name] for d, m in module_launches.items()},
@@ -4496,6 +4741,7 @@ def kernel_table(rows, launches, launches_i8, module_launches, train_launches, d
             launches_eval=eval_launches.get(k.name, 0),
             launches_train_mm=train_mm_launches[k.name],
             launches_swin_l_dual=phase9_launches.get(k.name, 0),
+            launches_legacy=legacy_launches.get(k.name, 0),
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=first["ms"], plain_ms=first["plain_ms"],
             bound_ms=first["bound_ms"], bound_by=first["bound_by"],
@@ -4563,13 +4809,16 @@ def main():
     print("phase 9: Swin-L and dual_batch", flush=True)
     phase9_launches, swin_l_dual = phase_swin_l_dual(args.seed, args.requests, args.batch,
                                                      card_line)
+    print("phase 10: the legacy family (CMNeXt-B2, CMX-B2)", flush=True)
+    legacy_launches, legacy = phase_legacy(args.seed, args.requests, args.batch, card_line)
 
     print(json.dumps({"kernels": kernel_table(rows, launches, launches_i8, module_launches,
                                               train_launches, det_launches, eval_launches,
-                                              train_mm_launches, phase9_launches),
+                                              train_mm_launches, phase9_launches,
+                                              legacy_launches),
                       "serve": serve, "train": train, "detect": detect, "evaluate": evaluate,
-                      "train_mm": train_mm, "swin_l_dual": swin_l_dual, "repair": repair,
-                      "card": card_line}))
+                      "train_mm": train_mm, "swin_l_dual": swin_l_dual, "legacy": legacy,
+                      "repair": repair, "card": card_line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

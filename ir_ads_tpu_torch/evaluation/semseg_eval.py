@@ -36,12 +36,12 @@ MSF_SCALES = (0.5, 0.75, 1.0, 1.25, 1.5, 1.75)
 
 
 def make_forward_fn(model, device_norm: bool = False) -> Callable:
-    """(rgb, dte) -> fused-head logits of the eval-mode CMNeXt ``model``,
-    with no autograd; the inputs are cast to the model's compute dtype (its
-    patch projection's).  ``device_norm``: the inputs are (B, H, W, 3) uint8
-    batches on the device, normalised there (pairs with
-    ``augmentations.get_val_augmentation_device_norm``)."""
-    dtype = model.backbone.patch_embed.projection.weight.dtype
+    """(rgb, dte) -> fused-head logits of the eval-mode CMNeXt or
+    CMNeXtLegacy ``model``, with no autograd; the inputs are cast to the
+    model's compute dtype (its classifier's).  ``device_norm``: the inputs
+    are (B, H, W, 3) uint8 batches on the device, normalised there (pairs
+    with ``augmentations.get_val_augmentation_device_norm``)."""
+    dtype = model.decode_head.linear_pred.weight.dtype
 
     def forward(rgb: torch.Tensor, dte: torch.Tensor) -> torch.Tensor:
         if device_norm:

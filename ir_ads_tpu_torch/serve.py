@@ -133,8 +133,13 @@ class SemSegPredictor:
     read by ``utils.checkpoint.load_weights``), else drawn from ``seed``.
     The model runs the backbone and the fused head only
     (``semseg_eval.make_forward_fn``, the eval forward ``val_mm`` runs).
-    ``backbone``: ``"SwinTransformer-B"`` or ``"SwinTransformer-L"``;
-    ``backbone_kwargs`` may set ``dual_batch``.
+    ``backbone``: ``"SwinTransformer-B"`` or ``"SwinTransformer-L"``
+    (``backbone_kwargs`` may set ``dual_batch``; ``head_dims`` defaults to
+    (512, 256)), or a legacy model, ``"CMNeXt-B0"``..``"CMNeXt-B5"`` (the
+    MiT dual stream, under ``"r5"`` or ``"xla"``) or ``"CMX-B0"``..
+    ``"CMX-B5"`` (``models.CMNeXtLegacy``), which takes none of
+    ``backbone_kwargs``, ``head_dims``, ``flat_input`` and a
+    ``patch_embed`` other than ``"xla"``.
     """
 
     def __init__(
@@ -145,7 +150,7 @@ class SemSegPredictor:
         num_classes: int = 40,
         image_size: Tuple[int, int] = (480, 640),
         backbone_kwargs: Optional[dict] = None,
-        head_dims: Tuple[int, int] = (512, 256),
+        head_dims: Optional[Tuple[int, int]] = None,
         dispatch: str = "r5",
         flat_input: bool = False,
         patch_embed: str = "xla",
@@ -153,7 +158,7 @@ class SemSegPredictor:
         model_path: str = "",
         backbone: str = "SwinTransformer-B",
     ):
-        from ir_ads_tpu_torch.models import build_model
+        from ir_ads_tpu_torch.models import build_model, is_legacy
 
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -162,15 +167,18 @@ class SemSegPredictor:
         if patch_embed == "pallas" and not flat_input:
             raise ValueError("SemSegPredictor: patch_embed='pallas' (K19) takes flat input: "
                              "pass flat_input=True")
+        if flat_input and is_legacy(backbone):
+            raise ValueError(f"SemSegPredictor: flat_input has no counterpart in the legacy "
+                             f"model {backbone!r}, whose patch embeddings are convolutions")
         self.dtype = dtype
         self.flat_input = flat_input
         if state_dict is None and model_path:
             state_dict = weights_from(model_path)
         # the int8 sites of an int8 dispatch are quantized from f32, then cast
+        kw = {} if head_dims is None else dict(head_dims=head_dims)
         model = build_model("CMNeXt", backbone, num_classes, dtype,
                             backbone_kwargs, dispatch, state_dict, seed,
-                            head_dims=head_dims, upsample_logits=False,
-                            patch_embed=patch_embed)
+                            upsample_logits=False, patch_embed=patch_embed, **kw)
         self.model = model.to(self.device)
         self.mean = torch.as_tensor(IMAGENET_MEAN, device=self.device)
         self.std = torch.as_tensor(IMAGENET_STD, device=self.device)

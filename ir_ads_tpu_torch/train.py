@@ -93,7 +93,8 @@ class SemSegTrainer:
     from ``seed`` too (the repository holds no checkpoint) unless
     ``state_dict`` is given.  ``dtype`` is the compute dtype; parameters
     stay f32.  ``backbone``: ``"SwinTransformer-B"`` or
-    ``"SwinTransformer-L"`` (block remat on, as the JAX package runs it)."""
+    ``"SwinTransformer-L"`` (block remat on, as the JAX package runs it);
+    a legacy backbone raises."""
 
     def __init__(
         self,
@@ -108,8 +109,10 @@ class SemSegTrainer:
         state_dict: Optional[Dict[str, torch.Tensor]] = None,
         backbone: str = "SwinTransformer-B",
     ):
+        from ir_ads_tpu_torch.models import refuse_legacy_training
         from ir_ads_tpu_torch.serve import init_random_
 
+        refuse_legacy_training(backbone)
         device = _require_device(device, "SemSegTrainer")
         model = CMNeXt(backbone=backbone, num_classes=num_classes,
                        backbone_kwargs=backbone_kwargs,

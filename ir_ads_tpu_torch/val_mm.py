@@ -10,7 +10,9 @@ report next to ``EVAL.MODEL_PATH`` when one is given.  Weights come from
 ``EVAL.MODEL_PATH`` (a JAX checkpoint's weights.msgpack, or its directory)
 or, without one, are drawn from ``--seed``.  ``EVAL.CACHE_DIR`` serves the
 val split from a decode-once ``RawCache`` with the normalisation on the
-device.  ``TRAIN.AMP`` chooses bf16 (the default) or f32.
+device.  ``TRAIN.AMP`` chooses bf16 (the default) or f32.  ``MODEL.BACKBONE``
+is a Swin CMNeXt's or a legacy model's (``CMNeXt-B0``..``B5``, ``CMX-B0``..
+``B5``, under ``--dispatch`` r5 or xla; ``models.CMNeXtLegacy``).
 
 Beyond the JAX val_mm.py: ``DATASET.KWARGS`` goes to the dataset's constructor
 (``Synthetic``'s ``image_size``, ``num_classes``, ``length``), with
@@ -99,10 +101,12 @@ def main(cfg: Dict, device: str = "cuda", dispatch: str = "r5", seed: int = 0,
     dataset, device_norm = _val_dataset(cfg)
     model = build_eval_model(cfg, dataset.n_classes, device, dispatch, seed)
     forward = make_forward_fn(model, device_norm=device_norm)
-    if model.backbone.DeformMPGBlocks[-1].deform_atten.rpe3 == "pallas":
-        logger.info(f"dispatch {dispatch}: the einsum DSCF's rpe bias (level 3 at 480x640) "
-                    "by the packed kernel (K6), where the JAX package's default r5 builds "
-                    "it in XLA (a recorded choice, ROADMAP Queue 3 item 1)")
+    dscf = getattr(model.backbone, "DeformMPGBlocks", None)  # CMX has no DSCF
+    if dscf is not None and dscf[-1].deform_atten.rpe3 == "pallas":
+        logger.info(f"dispatch {dispatch}: the einsum DSCF's rpe bias on planes of at most "
+                    "2048 pixels (at 480x640: the Swin CMNeXt's level 3, the MiT's stages "
+                    "2-3) by the packed kernel (K6), where the JAX package's default r5 "
+                    "builds it in XLA (a recorded choice, ROADMAP Queue 3 item 1)")
     loader = DataLoader(dataset, eval_cfg["BATCH_SIZE"], shuffle=False, drop_last=False,
                         workers=workers)
     metrics = Metrics(dataset.n_classes, cfg["DATASET"]["IGNORE_LABEL"],

@@ -6,11 +6,12 @@ one step of its trainer, under torch.profiler.
                             [--dispatch r5|r4|r4i8|r2|r1|xla|v7_01|v5|map|
                                         dscf_pallas4|dscf_pallas|dscf_pallas2]
                             [--flat [--patch-embed xla|xla2|pallas]]
-                            [--requests N] [--backbone SwinTransformer-L] [--dual]
+                            [--requests N] [--backbone SwinTransformer-L|CMNeXt-B2|CMX-B2]
+                            [--dual]
     python3 profile_port.py --train [--seed 0] [--batch 4] [--backbone SwinTransformer-L]
                             [--dual]
     python3 profile_port.py --det [--seed 0]
-    python3 profile_port.py --eval [--seed 0]
+    python3 profile_port.py --eval [--seed 0] [--backbone CMNeXt-B2]
     python3 profile_port.py --dscf [--seed 0]
     python3 profile_port.py --jmajor-v1 [--seed 0]
     python3 profile_port.py --rpe [--seed 0]
@@ -23,7 +24,8 @@ one step of its trainer, under torch.profiler.
     (each also takes --port-dir DIR)
 
 Serving: builds the full-size predictor (Swin-B CMNeXt, or with --backbone
-SwinTransformer-L the Swin-L one; --dual: both streams through each stage
+SwinTransformer-L the Swin-L one, or a legacy CMNeXt-Bx / CMX-Bx under r5
+or xla; --dual: both streams through each stage
 in one call, ``dual_batch``; 480x640 RGB-D, flip, bf16, weights from
 --seed) under the given kernel dispatch (r5, the default,
 r4, the w8a8 r4i8, the module-path sets r2, r1 and xla, the block
@@ -50,7 +52,7 @@ after it, one more profiled request gives K9's device time by launch, the
 encoder's six and the decoder's six.
 Evaluation (--eval): builds the model as ``ir_ads_tpu_torch.val_mm`` does
 for ``chip_smoke.py``'s phase 7 (configs/nyu_rgbd.yaml's EVAL: Swin-B
-CMNeXt, bf16, r5, 40 classes, weights from --seed), runs one warm-up MSF
+CMNeXt, or --backbone, bf16, r5, 40 classes, weights from --seed), runs one warm-up MSF
 image (480x640 RGB-D, six scales, flip), then profiles one MSF image scale
 by scale (the resize, the forward of the image and its flip, the two
 resizes and the softmax) and whole: device time by port kernel at each
@@ -788,6 +790,7 @@ def profile_eval(args) -> dict:
 
     smoke = _chip_smoke()
     cfg = smoke.eval_config("msf")
+    cfg["MODEL"]["BACKBONE"] = args.backbone
     model = build_eval_model(cfg, smoke.NUM_CLASSES, "cuda", "r5", args.seed)
     forward = make_forward_fn(model)
     g = torch.Generator().manual_seed(args.seed + 1)
@@ -800,11 +803,12 @@ def profile_eval(args) -> dict:
     for s in scales:
         size = (align32(s * smoke.IMAGE[0]), align32(s * smoke.IMAGE[1]))
         _, part = profiled(lambda: msf_logits(forward, rgb, dte, (s,)), args.top)
-        show(f"{torch.cuda.get_device_name(0)}; r5 MSF scale {s} ({size[0]}x{size[1]}, "
-             f"image and flip)", part)
+        show(f"{torch.cuda.get_device_name(0)}; {_model_name(args)}; r5 MSF scale {s} "
+             f"({size[0]}x{size[1]}, image and flip)", part)
         out[str(s)] = part
     _, part = profiled(lambda: msf_logits(forward, rgb, dte, scales), args.top)
-    show(f"{torch.cuda.get_device_name(0)}; r5 MSF image, six scales with flip", part)
+    show(f"{torch.cuda.get_device_name(0)}; {_model_name(args)}; r5 MSF image, six scales "
+         "with flip", part)
     out["image"] = part
     return dict(out, peak_memory_gib=torch.cuda.max_memory_allocated() / 2**30)
 
@@ -943,8 +947,10 @@ def main():
                     choices=("r5", "r4", "r4i8", "r2", "r1", "xla", "v7_01", "v5", "map",
                              "dscf_pallas4", "dscf_pallas", "dscf_pallas2"))
     ap.add_argument("--backbone", default="SwinTransformer-B",
-                    choices=("SwinTransformer-B", "SwinTransformer-L"),
-                    help="serving and --train: the CMNeXt's backbone")
+                    choices=("SwinTransformer-B", "SwinTransformer-L",
+                             *(f"{f}-B{i}" for f in ("CMNeXt", "CMX") for i in range(6))),
+                    help="serving, --eval and --train: the model's backbone (a legacy "
+                         "CMNeXt-Bx or CMX-Bx serves and evaluates only)")
     ap.add_argument("--dual", action="store_true",
                     help="serving and --train: both streams through each stage in one call")
     ap.add_argument("--flat", action="store_true",

@@ -305,9 +305,15 @@ def test_cache_path_and_single_scale(weights, tmp_path):
 
 
 def test_legacy_backbones_raise():
+    """The legacy models build under r5 and xla (tests/test_torch_mit.py,
+    tests/test_torch_cmx.py) and raise where the port has no counterpart:
+    the other dispatches, the train dispatch, the Swin options."""
     for bb in ("CMNeXt-B2", "CMX-B2"):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-            build_model("CMNeXt", bb, CLASSES)
+        for dispatch in ("r4", "train"):
+            with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+                build_model("CMNeXt", bb, CLASSES, dispatch=dispatch)
+        with pytest.raises(ValueError, match="dual_batch"):
+            build_model("CMNeXt", bb, CLASSES, backbone_kwargs=dict(dual_batch=True))
 
 
 def test_infer_matches_jax_infer_mm(jax_model, weights, tmp_path, monkeypatch):
