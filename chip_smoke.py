@@ -32,10 +32,16 @@ Phases, each of which raises on failure:
      form at levels 0-3, each also held to a share of differing outputs
      (planted faults: K3's rounding for K18, padded bias columns 0 for K17,
      the packed form for K16 and K4's unpacked form, the rpe bias dropped
-     for K4's packed form); K4's two forms, K17 and K16 over the shape
-     envelope (the tiny configurations' planes, odd widths, tiles over
-     several image rows, more keys than the tensor-core design takes; K16
-     also bit for bit against K3 followed by K4 unpacked);
+     for K4's packed form); K4's unpacked form at the MiT's head widths
+     (10 channels at the 30x40 plane of BG 16, 4 and 5 at CMNeXt-B0's four
+     stages), held to ``ROUNDING_SHARE`` (planted faults: a head's last
+     channel dropped, or each head's first channel overwritten by the
+     previous head's last, as a store past the head would leave it); K4's
+     two forms, K17 and K16 over the shape envelope (the tiny
+     configurations' planes, odd widths, tiles over several image rows,
+     more keys than the tensor-core design takes; K4's unpacked form also
+     at 4, 5 and 10 channels a head; K16 also bit for bit against K3
+     followed by K4 unpacked);
      K19 (the flat patch embedding) on one stream of a request's flat
      frames (planted fault: the XLA form, whose LayerNorm scale and bias
      stay f32; F.conv2d then F.layer_norm timed for the record) and K20
@@ -234,11 +240,29 @@ Phases, each of which raises on failure:
      idle share.  CMX-B2 the same way, with no kernel launched.  For both,
      one frame's f32 logits on the card against the same model's on the
      host CPU (the xla dispatch: K6 stores bf16 only) at the CPU tests'
-     atol 2e-3 / rtol 1e-3.  Then ``val_mm.main`` on
+     atol 2e-3 / rtol 1e-3.  CMNeXt-B2 under r4 and r4i8 (K3 + K4's
+     unpacked form at every stage, at 8, 8, 10 and 8 channels a head: K3
+     4 and K4 4 a request), every K3 and K4 launch of one request held
+     against its plain version (``_held_launches``), the logits against the
+     all-plain path at ``LOGIT_TOL`` (under r4 a K4 without its rpe bias
+     must fail it), p50, frames/s, busy and idle.  Then ``val_mm.main`` on
      ir_ads_tpu_torch/configs/nyu_rgbd_synthetic_cmnext_b2.yaml (2 of its
      Synthetic images: MSF at six scales with flip), each eval forward's
      launches against ``expected_launches`` at its size, images/s, peak
-     memory beside the reckoned size of stage 0's f32 scores at scale 1.75.
+     memory beside the reckoned size of stage 0's f32 scores at scale 1.75;
+ 11. the legacy family trained: ``SemSegTrainer(backbone="CMNeXt-B2")``
+     and ``"CMX-B2"`` (the train dispatch, bf16 on f32 masters, the
+     recipe's adapter-only AdamW, drop-path, the adapters' and the head's
+     dropout) for 3 steps of 4 480x640 frames: finite losses, launches per
+     step ``LEGACY_TRAIN_LAUNCHES`` (K6 2 for CMNeXt-B2, none for CMX-B2),
+     p50 step, images/s, peak memory; CMNeXt-B2's first step's loss and
+     update of the trainable parameters against the all-plain path
+     (``LEGACY_STEP_TOL``).  Then ``train_mm.main`` on
+     ir_ads_tpu_torch/configs/nyu_rgbd_synthetic_cmnext_b2_train.yaml (2
+     epochs of 2 steps, the r5 gate after each, K6 2 a step and 4 a gate),
+     latest/ read back bit for bit, and the run resumed from latest/ for
+     one step against two uninterrupted runs (``RESUME_TOL``; fresh AdamW
+     moments must fail).
 The line before the last is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``.  Nothing of JAX is imported.
 """
@@ -1189,9 +1213,14 @@ SWIN_SHARE = dict(swin_block=0.04, swin_block_v6=0.30, swin_block_int8=0.07,
 JMAJOR_SHARE = 0.01  # K18's (check_rpe_jmajor)
 
 
-def check_rows(g, b, level, packed=True, hc=8):
+def check_rows(g, b, level, packed=True, hc=8, fault=None):
     """K4 at one DSCF level's serving shape, heads of ``hc`` channels (8:
-    Swin-B, 12: Swin-L)."""
+    Swin-B, 12: Swin-L, 10: the MiT's stage 2 of CMNeXt-B1..B5, 4 and 5:
+    CMNeXt-B0's stages).  ``fault``: the planted fault of a head width that
+    is not a whole plane, "channel dropped" (the head's last channel of v
+    zero in the plain version) or "next head overwritten" (the plain
+    output with each head's first channel overwritten by the previous
+    head's last, as a store past the head would leave it)."""
     from ir_ads_tpu_torch.ops import dscf_rows as k4
     from ir_ads_tpu_torch.ops import dscf_rpe as k3
 
@@ -1209,7 +1238,21 @@ def check_rows(g, b, level, packed=True, hc=8):
     vh = v.reshape(bg, m, hg, hc).transpose(1, 2)
     mask = bias.permute(0, 1, 2, 4, 3).reshape(bg, hg, h * w, m).contiguous()
     flops = 4 * hc * bg * hg * h * w * m
-    if packed:
+    if fault == "channel dropped":
+        v_bad = v.clone()
+        v_bad.view(bg, m, hg, hc)[..., hc - 1] = 0
+        fault = f"channel {hc - 1} of each head dropped"
+        faulted = functools.partial(k4.dscf_rows_reference, q, k, v_bad, bias, scale, hg,
+                                    packed)
+    elif fault == "next head overwritten":
+        def faulted():
+            out = k4.dscf_rows_reference(q, k, v, bias, scale, hg, packed)
+            heads = out.view(bg, h * w, hg, hc)
+            heads[:, :, 1:, 0] = heads[:, :, :-1, hc - 1].clone()
+            return out
+
+        fault = "each head's first channel overwritten by the previous head's last"
+    elif packed:
         fault = "rpe bias dropped"
         faulted = lambda: k4.dscf_rows_reference(  # noqa: E731
             q, k, v, torch.zeros_like(bias), scale, hg, True)
@@ -1229,7 +1272,7 @@ def check_rows(g, b, level, packed=True, hc=8):
         # flipping a rounding now and then
         atol=1e-2, rtol=2e-2, share_tol=ROUNDING_SHARE,
         bytes=nbytes(q, k, v, bias) + nbytes(q), flops=flops,
-        rate=BF16_TENSOR_FLOPS,
+        rate=BF16_TENSOR_FLOPS, hc=hc,
     )
 
 
@@ -1332,13 +1375,19 @@ def check_dscf_attention(g, b, level):
 PACKED_ENVELOPE_K4 = ((16, 32, 64), (8, 16, 32), (4, 8, 16), (2, 4, 8), (16, 20, 40),
                       (4, 5, 10), (2, 3, 6), (4, 10, 600), (7, 9, 50), (5, 8, 2100))
 PACKED_ENVELOPE_K17 = ((77, 128), (33, 384), (20, 896), (20, 3584))
+# K4's unpacked form at the MiT's head widths: whole 8-pixel copies of the
+# bias, an odd width (16-bit copies), the served M on a narrow plane, and
+# more keys than the tensor-core design takes (the thread form)
+ENVELOPE_WIDTHS = ((16, 20, 40), (7, 9, 50), (4, 10, 600), (5, 8, 2100))
 ENVELOPE_K16 = ((16, 32, 64), (4, 8, 16), (2, 4, 8), (12, 10, 600), (8, 5, 50), (7, 8, 50),
                 (5, 8, 2100))
 
 
 def check_packed_envelope(g):
     """K4's two forms, K17 and K16 at the shapes of PACKED_ENVELOPE_* and
-    ENVELOPE_K16, 2 groups of 2 heads, against their plain versions: K4's
+    ENVELOPE_K16, and K4's unpacked form at 4, 5 and 10 channels a head at
+    those of ENVELOPE_WIDTHS, 2 groups of 2 heads, against their plain
+    versions: K4's
     bar and the differing share (ROUNDING_SHARE); K16 also bit for bit
     against K3 followed by K4 unpacked on the same inputs (the table
     (2, 2, 2h - 1, 2w - 1), as the model sizes it)."""
@@ -1353,6 +1402,11 @@ def check_packed_envelope(g):
                                      _rand(g, bg, hg, h, m, w, std=0.5)),
               k4.dscf_rows_attention, k4.dscf_rows_reference, (scale, hg, packed), None)
              for packed in (True, False) for h, w, m in PACKED_ENVELOPE_K4]
+    cases += [(f"K4 unpacked hc={hc} {h}x{w} M={m}",
+               lambda h=h, w=w, m=m, hc=hc: (*(_rand(g, bg, n, hg * hc) for n in (h * w, m, m)),
+                                             _rand(g, bg, hg, h, m, w, std=0.5)),
+               k4.dscf_rows_attention, k4.dscf_rows_reference, (hc ** -0.5, hg, False), None)
+              for hc in (4, 5, 10) for h, w, m in ENVELOPE_WIDTHS]
     cases += [(f"K17 HW={hw} Mp={mp}", lambda hw=hw, mp=mp: (
         *(_rand(g, bg, n, 16) for n in (hw, mp, mp)),
         _rand(g, bg, hw, hg * mp, std=0.5)), k17.dscf_attention,
@@ -1878,6 +1932,18 @@ def phase_kernels(seed: int, images: int):
         *(functools.partial(check_rows, g, images, level, True, 12) for level in (0, 1, 2)),
         *(functools.partial(check_rows, g, images, level, False, 12) for level in (0, 1, 2, 3)),
         *(functools.partial(check_rows_bwd, g, TRAIN_BATCH, level, 12) for level in (0, 1, 2)),
+        # the legacy CMNeXt under r4, r4i8, r2, v5 and map (phase 10): K4's
+        # unpacked form (level 3 at every MiT stage) at the MiT's head widths,
+        # 10 at stage 2 of CMNeXt-B1..B5 (BG 16, 30x40, M 600) and CMNeXt-B0's
+        # 4, 4, 5, 4 at its four stages; its 8 at the other stages of B1-B5 is
+        # the unpacked form at levels 0-3 below, and K3 at the MiT's stage-0
+        # plane (g 1, 120x160) is check_rpe's level 0 above
+        functools.partial(check_rows, g, images, 2, False, 10, "channel dropped"),
+        functools.partial(check_rows, g, images, 2, False, 10, "next head overwritten"),
+        functools.partial(check_rows, g, images, 0, False, 4, "channel dropped"),
+        functools.partial(check_rows, g, images, 1, False, 4, "next head overwritten"),
+        functools.partial(check_rows, g, images, 2, False, 5, "next head overwritten"),
+        functools.partial(check_rows, g, images, 3, False, 4, "channel dropped"),
         # the detection path: K9 as the encoder's self-attention and the
         # decoder's cross-attention run it (bf16), and once each in f32
         lambda: check_msdeform(g, s_det, torch.bfloat16, "no -0.5"),
@@ -2150,15 +2216,23 @@ def expected_launches(model, image=IMAGE):
 
 def _legacy_launches(model, image, n):
     """``expected_launches`` of a legacy model: no Swin block; the MiT's
-    einsum DSCF at every stage, its bias by K6 on the stage's plane (the
-    image / 4 halved by each later patch embedding, rounding up) where the
-    dispatch takes the packed kernel for at most 2048 pixels; CMX none."""
+    DSCF at every stage on the stage's plane (the image / 4 halved by each
+    later patch embedding, rounding up), with n = hk x wk offsets a field
+    (the offset head's 9x9 convolution of stride 8, 4, 2, 1, padding 4):
+    K3 + K4 where the dispatch takes pallas3 and 2n % 8 == 0, else the
+    einsum attention, its bias by K6 where the dispatch takes the packed
+    kernel for at most 2048 pixels; CMX none."""
     h, w = -(-image[0] // 4), -(-image[1] // 4)
     for i, dm in enumerate(getattr(model.backbone, "DeformMPGBlocks", ())):
         if i:
             h, w = -(-h // 2), -(-w // 2)
-        if dm.deform_atten.bias_kernel(h, w):
-            n["dscf_rpe_packed"] += 1
+        da, s = dm.deform_atten, 8 >> i
+        offsets = ((h - 1) // s + 1) * ((w - 1) // s + 1)
+        names = DSCF_BRANCH_KERNELS[da.branch(offsets)]
+        if not names and da.bias_kernel(h, w):
+            names = ("dscf_rpe_packed",)
+        for k in names:
+            n[k] += 1
     return n
 
 
@@ -3928,11 +4002,11 @@ class _Stop(Exception):
     """Ends a driven run after a given number of steps (not a failure)."""
 
 
-def train_mm_config(**sections) -> dict:
-    """The card's training config, ``sections`` merged over it."""
+def train_mm_config(path=TRAIN_MM_CONFIG, **sections) -> dict:
+    """The card's training config (``path``), ``sections`` merged over it."""
     from ir_ads_tpu_torch.utils.config import _merge, load_config
 
-    return _merge(load_config(TRAIN_MM_CONFIG), sections)
+    return _merge(load_config(path), sections)
 
 
 def _driven_train_mm(cfg, save_dir, seed, stop_at=None):
@@ -4121,6 +4195,58 @@ def _host_batch_ms(cfg):
     return per_batch, (time.perf_counter() - t) * 1e3 / len(ds)
 
 
+def _resume_check(path, tmp, seed, stored_epoch, steps_per_epoch, card_line):
+    """The run of config ``path`` that wrote ``tmp``/a/latest after epoch
+    ``stored_epoch``, resumed from there for one step, against two
+    uninterrupted runs (``RESUME_TOL``; a resume with fresh AdamW moments
+    must fail).  Returns the distances."""
+    from ir_ads_tpu_torch import train_mm
+
+    cfg3 = train_mm_config(path, TRAIN={"EPOCHS": stored_epoch + 1})
+    n = stored_epoch * steps_per_epoch  # the stored step: the next is the one compared
+    updates = {}
+    for name in ("B", "C"):
+        _, _, _, _, st, before = _driven_train_mm(cfg3, f"{tmp}/{name}", seed, n + 1)
+        updates[name] = _trainable(st) - before[n]
+        del st, before
+    load = train_mm.load_checkpoint
+
+    def fresh_moments(directory, state):
+        manifest = load(directory, state)
+        state.optimizer.state.clear()
+        return manifest
+
+    resumed = {}
+    for name, loader in (("resumed", load), ("fault", fresh_moments)):
+        train_mm.load_checkpoint = loader
+        try:
+            res = _driven_train_mm(train_mm_config(path, TRAIN={"EPOCHS": stored_epoch + 1},
+                                                   MODEL={"RESUME": f"{tmp}/a/latest"}),
+                                   f"{tmp}/{name}", seed, n + 1)
+        finally:
+            train_mm.load_checkpoint = load
+        first = res[1][0][0]
+        if first != n:
+            fail(f"the {name} run took step {first} first, not the stored step {n}")
+        resumed[name] = _trainable(res[4]) - res[5][n]
+        del res
+    ref = updates["B"]
+    rel = {name: float((u - ref).norm() / ref.norm())
+           for name, u in (("uninterrupted C", updates["C"]),
+                           ("resumed", resumed["resumed"]),
+                           ("fault: fresh AdamW moments", resumed["fault"]))}
+    print(f"  resume of {path} at epoch {stored_epoch}, step {n}: the step's update of the "
+          f"trainable parameters against uninterrupted run B's, ||u - u_B|| / ||u_B||: "
+          + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
+          + f" (tol {RESUME_TOL['rel']}) [{card_line}]", flush=True)
+    if rel["resumed"] > RESUME_TOL["rel"]:
+        fail("the resumed run's step disagrees with the uninterrupted runs'")
+    if rel["fault: fresh AdamW moments"] <= RESUME_TOL["rel"]:
+        fail("a resume with fresh AdamW moments passes the resume bar")
+    torch.cuda.empty_cache()
+    return rel
+
+
 def phase_train_mm(seed: int, card_line: str):
     """Phase 8 (module docstring).  Returns (the launches of the driven run
     and of the drop_rate step, the record)."""
@@ -4187,53 +4313,8 @@ def phase_train_mm(seed: int, card_line: str):
               f"against a step's p50 {p50:.1f} ms [{card_line}]", flush=True)
         del state, live, back, result
 
-        # resume: a third epoch from latest/, against uninterrupted runs
-        cfg3 = train_mm_config(TRAIN={"EPOCHS": 3})
-        n = stored["epoch"] * epochs[0]["steps"]  # the stored step: the fifth is the next
-        updates = {}
-        for name in ("B", "C"):
-            _, _, _, _, st, before = _driven_train_mm(cfg3, f"{tmp}/{name}", seed, n + 1)
-            updates[name] = _trainable(st) - before[n]
-            del st, before
-        from ir_ads_tpu_torch import train_mm
-
-        load = train_mm.load_checkpoint
-
-        def fresh_moments(directory, state):
-            manifest = load(directory, state)
-            state.optimizer.state.clear()
-            return manifest
-
-        resumed = {}
-        for name, loader in (("resumed", load), ("fault", fresh_moments)):
-            train_mm.load_checkpoint = loader
-            try:
-                res = _driven_train_mm(train_mm_config(TRAIN={"EPOCHS": 3},
-                                                       MODEL={"RESUME": f"{tmp}/a/latest"}),
-                                       f"{tmp}/{name}", seed, n + 1)
-            finally:
-                train_mm.load_checkpoint = load
-            first = res[1][0][0]
-            if first != n:
-                fail(f"the {name} run took step {first} first, not the stored step {n}")
-            resumed[name] = _trainable(res[4]) - res[5][n]
-            del res
-        ref = updates["B"]
-        rel = {name: float((u - ref).norm() / ref.norm())
-               for name, u in (("uninterrupted C", updates["C"]),
-                               ("resumed", resumed["resumed"]),
-                               ("fault: fresh AdamW moments", resumed["fault"]))}
-        print(f"  resume at epoch {stored['epoch']}, step {n}: the step's update of the "
-              f"trainable parameters against uninterrupted run B's, ||u - u_B|| / ||u_B||: "
-              + ", ".join(f"{k} {v:.3e}" for k, v in rel.items())
-              + f" (tol {RESUME_TOL['rel']}) [{card_line}]", flush=True)
-        if rel["resumed"] > RESUME_TOL["rel"]:
-            fail("the resumed run's step disagrees with the uninterrupted runs'")
-        if rel["fault: fresh AdamW moments"] <= RESUME_TOL["rel"]:
-            fail("a resume with fresh AdamW moments passes the resume bar")
-        record["resume_rel"] = rel
-        del updates, resumed, ref
-        torch.cuda.empty_cache()
+        record["resume_rel"] = _resume_check(TRAIN_MM_CONFIG, tmp, seed, stored["epoch"],
+                                             epochs[0]["steps"], card_line)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
 
@@ -4518,7 +4599,13 @@ LEGACY_EVAL_IMAGES = 2
 # CMNeXt-B2 under r5 at 480x640: the einsum DSCF at every stage, its bias by
 # K6 at stages 2-3 (30x40 and 15x20 planes), in the XLA form at stages 0-1
 # (120x160, 60x80); CMX-B2 runs no kernel of the port
-LEGACY_LAUNCHES = {CMNEXT_B2: {"dscf_rpe_packed": 2}, CMX_B2: {}}
+# CMNeXt-B2 under r4 and r4i8 at 480x640: n = 15 x 20 offsets a field at
+# every stage (2n % 8 == 0), so every stage takes the rows path, K3 + K4's
+# unpacked form at 8, 8, 10 and 8 channels a head; r4i8 also runs the DSCF
+# projections and the head in s8 (torch._int_mm)
+LEGACY_ROWS = ("r4", "r4i8")
+LEGACY_LAUNCHES = {(CMNEXT_B2, "r5"): {"dscf_rpe_packed": 2}, (CMX_B2, "r5"): {},
+                   **{(CMNEXT_B2, d): {"dscf_rpe": 4, "dscf_rows": 4} for d in LEGACY_ROWS}}
 # The requests' logits against the all-plain path: LOGIT_TOL, and bit for
 # bit, for K6 is its plain version bit for bit and the rest of the path is
 # the same PyTorch on the same card (0 of 24,576,000 logits apart on an H100
@@ -4595,25 +4682,56 @@ def _card_vs_cpu(backbone, seed, rgb, dep, what):
     return float(err.max()), worst, float(want.abs().max()), cpu_s
 
 
-def phase_legacy_serve(seed, backbone, frames, requests, batch, card_line):
-    """One legacy model behind ``SemSegPredictor`` under r5 (module
+def _rows_no_bias(q, k, v, bias, *rest):
+    """K4's plain version with a planted fault: the rpe bias dropped."""
+    from ir_ads_tpu_torch.ops import dscf_rows as k4
+
+    return k4.dscf_rows_reference(q, k, v, torch.zeros_like(bias), *rest)
+
+
+def phase_legacy_rows(pred, backbone, dispatch, frames, outs, record):
+    """CMNeXt-B2 under r4 or r4i8 (module docstring, phase 10): each K3 and
+    K4 launch of one request held against its plain version, the logits
+    against the all-plain path at ``LOGIT_TOL`` (under r4 a K4 without its
+    rpe bias must fail it)."""
+    held = _held_launches(lambda: pred(*frames[0]), f"one {backbone} {dispatch} request",
+                          lambda: None, names=("dscf_rpe", "dscf_rows"))
+    want = _plain_request(pred, frames)
+    if not _compare(*outs[0], *want, f"{backbone} {dispatch} kernel path", LOGIT_TOL):
+        fail(f"the {backbone} {dispatch} kernel path disagrees with the plain path end to end")
+    record.update(launches_held=len(held), logits_rel_mean_vs_plain=float(
+        (outs[0][0] - want[0]).abs().mean() / want[0].abs().mean()))
+    if dispatch == "r4":
+        bad = _plain_request(pred, frames, dscf_rows_attention=_rows_no_bias)
+        if _compare(*bad, *want, f"{backbone} planted fault (K4 without its rpe bias)",
+                    LOGIT_TOL):
+            fail(f"K4 without its rpe bias passes the {backbone} end-to-end bar")
+        record["fault_rel_mean (K4 without its rpe bias)"] = float(
+            (bad[0] - want[0]).abs().mean() / want[0].abs().mean())
+
+
+def phase_legacy_serve(seed, backbone, frames, requests, batch, card_line, dispatch="r5"):
+    """One legacy model behind ``SemSegPredictor`` under ``dispatch`` (module
     docstring, phase 10).  Returns (launches, the record)."""
     from ir_ads_tpu_torch.serve import SemSegPredictor
 
     t0 = time.time()
     pred = SemSegPredictor(device="cuda", seed=seed, num_classes=NUM_CLASSES,
-                           image_size=IMAGE, backbone=backbone)
+                           image_size=IMAGE, backbone=backbone, dispatch=dispatch)
     n_params = sum(p.numel() for p in pred.model.parameters())
-    print(f"  model: {backbone}, {n_params / 1e6:.1f} M parameters, bf16, r5 dispatch, "
-          f"built in {time.time() - t0:.1f} s", flush=True)
-    lat, outs, launches = _served(pred, frames, requests, batch, LEGACY_LAUNCHES[backbone],
-                                  f"{backbone} r5")
+    print(f"  model: {backbone}, {n_params / 1e6:.1f} M parameters, bf16, {dispatch} "
+          f"dispatch, built in {time.time() - t0:.1f} s", flush=True)
+    per_request = LEGACY_LAUNCHES[(backbone, dispatch)]
+    lat, outs, launches = _served(pred, frames, requests, batch, per_request,
+                                  f"{backbone} {dispatch}")
     peak = torch.cuda.max_memory_allocated() / 2**30
     wall, busy, idle = _busy(lambda: pred(*frames[0]))
     record = dict(params_m=n_params / 1e6, latency_ms=lat, p50_ms=_p50(lat),
                   frames_per_s=batch * 1e3 / _p50(lat), peak_memory_gib=peak,
                   profiled_wall_ms=wall, device_busy_ms=busy, idle_share=idle)
-    if LEGACY_LAUNCHES[backbone]:
+    if dispatch in LEGACY_ROWS:
+        phase_legacy_rows(pred, backbone, dispatch, frames, outs, record)
+    elif per_request:
         held = _held_launches(lambda: pred(*frames[0]), f"one {backbone} request",
                               lambda: None, names=("dscf_rpe_packed",))
         want = _plain_request(pred, frames)
@@ -4636,18 +4754,19 @@ def phase_legacy_serve(seed, backbone, frames, requests, batch, card_line):
             record[f"fault_rel_mean ({what})"] = float(
                 (bad[0] - want[0]).abs().mean() / want[0].abs().mean())
     busy_s = "not measured" if busy is None else f"{busy:.2f} ms, idle share {idle:.3f}"
-    print(f"  {backbone} r5: {requests} requests x {batch} frames 480x640 RGB-D, flip, "
-          f"latency ms {['%.1f' % v for v in lat]} p50 {_p50(lat):.1f}, "
+    print(f"  {backbone} {dispatch}: {requests} requests x {batch} frames 480x640 RGB-D, "
+          f"flip, latency ms {['%.1f' % v for v in lat]} p50 {_p50(lat):.1f}, "
           f"{batch * 1e3 / _p50(lat):.2f} frames/s, peak memory {peak:.2f} GiB; one "
           f"profiled request: wall {wall:.2f} ms, device busy {busy_s} [{card_line}]",
           flush=True)
-    print(f"  launches on the {backbone} r5 path ({requests} requests): "
+    print(f"  launches on the {backbone} {dispatch} path ({requests} requests): "
           f"{ {k: v for k, v in launches.items() if v} }", flush=True)
     del pred, outs
     torch.cuda.empty_cache()
-    record["card_vs_cpu"] = dict(zip(("max_abs_diff", "worst_over_bar", "max_abs_logit",
-                                      "cpu_s"),
-                                     _card_vs_cpu(backbone, seed, *frames[0], backbone)))
+    if dispatch == "r5":
+        record["card_vs_cpu"] = dict(zip(("max_abs_diff", "worst_over_bar", "max_abs_logit",
+                                          "cpu_s"),
+                                         _card_vs_cpu(backbone, seed, *frames[0], backbone)))
     return launches, record
 
 
@@ -4699,24 +4818,197 @@ def phase_legacy(seed, requests, batch, card_line):
     paths, summed, the record)."""
     frames = _request_frames(seed, requests, batch)
     total, record = {}, {}
-    for backbone in (CMNEXT_B2, CMX_B2):
-        launches, record[backbone] = phase_legacy_serve(seed, backbone, frames, requests,
-                                                        batch, card_line)
+    for backbone, dispatch in LEGACY_LAUNCHES:
+        launches, record[f"{backbone} {dispatch}"] = phase_legacy_serve(
+            seed, backbone, frames, requests, batch, card_line, dispatch)
         _add(total, launches)
     launches, record["val_mm"] = phase_legacy_eval(seed, card_line)
     _add(total, launches)
     return total, record
 
 
+# --------------------------------------------------------------------------
+# phase 11: the legacy family trained (CMNeXt-B2, CMX-B2)
+# --------------------------------------------------------------------------
+
+LEGACY_TRAIN_CONFIG = "ir_ads_tpu_torch/configs/nyu_rgbd_synthetic_cmnext_b2_train.yaml"
+LEGACY_TRAIN_STEPS = 3
+# The train dispatch on a legacy model: the einsum DSCF at every MiT stage,
+# its bias by K6 at stages 2-3 (30x40 and 15x20: 2 launches a step, in the
+# forward; the backward goes through its f32 twin), no other kernel; CMX-B2
+# runs none.  The gate is r5's single-scale forward: K6 2 an image.
+LEGACY_TRAIN_LAUNCHES = {CMNEXT_B2: {"dscf_rpe_packed": 2}, CMX_B2: {}}
+# CMNeXt-B2's first step (the recipe's drop-path, dropout and adapter
+# dropout on, drawn from the step's generator) against the same step with
+# K6's plain version in its place: K6 is its plain version bit for bit, so
+# the two differ only by what a second run of the kernel path differs by
+# (PyTorch's backward sums with atomics).  Bars: the loss within
+# GRAD_TOL's 2e-3 relative, and the step's update of the trainable
+# parameters, ||u - u_plain|| / ||u_plain||, no further than
+# ``noise_ratio`` times the second kernel run's (or equal, where the runs
+# are bit-equal).
+LEGACY_STEP_TOL = dict(loss=GRAD_TOL["loss"], noise_ratio=GRAD_TOL["noise_ratio"])
+
+
+def _legacy_first_step(seed, backbone, batch, plain=False):
+    """A fresh ``SemSegTrainer``'s first step on ``batch`` (with ``plain``,
+    K6's plain version in the kernel's place).  Returns (loss, the update of
+    the trainable parameters as one vector)."""
+    from ir_ads_tpu_torch.train import SemSegTrainer
+
+    tr = SemSegTrainer(device="cuda", dtype=torch.bfloat16, seed=seed,
+                       num_classes=NUM_CLASSES, backbone=backbone)
+    before = _trainable(tr.state)
+    restore = _swap_train_path(plain=("dscf_rpe_packed",)) if plain else (lambda: None)
+    try:
+        loss = tr.step(*batch)["loss"]
+    finally:
+        restore()
+    update = _trainable(tr.state) - before
+    del tr
+    torch.cuda.empty_cache()
+    return loss, update
+
+
+def phase_legacy_steps(seed, backbone, card_line):
+    """``LEGACY_TRAIN_STEPS`` steps of ``SemSegTrainer`` (module docstring,
+    phase 11).  Returns (launches, the record)."""
+    from ir_ads_tpu_torch.train import SemSegTrainer
+
+    batches = _train_batches(seed, TRAIN_BATCH, LEGACY_TRAIN_STEPS)
+    tr = SemSegTrainer(device="cuda", dtype=torch.bfloat16, seed=seed,
+                       num_classes=NUM_CLASSES, backbone=backbone)
+    n_trained = sum(p.numel() for p in tr.model.parameters() if p.requires_grad)
+    torch.cuda.reset_peak_memory_stats()
+    kernels = _reset_launches()
+    losses, ms, per_step = [], [], []
+    for b in batches:
+        before = {k.name: k.launches for k in kernels}
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        losses.append(tr.step(*b)["loss"])
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t) * 1e3)
+        per_step.append({k.name: k.launches - before[k.name] for k in kernels
+                         if k.launches > before[k.name]})
+    launches = {k.name: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    del tr
+    torch.cuda.empty_cache()
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"{backbone}: a training step's loss is not finite: {losses}")
+    if any(got != LEGACY_TRAIN_LAUNCHES[backbone] for got in per_step):
+        fail(f"{backbone} training steps launched {per_step}, expected "
+             f"{LEGACY_TRAIN_LAUNCHES[backbone]} each")
+    p50 = _p50(ms[1:])  # the first step warms up
+    print(f"  {backbone} SemSegTrainer: {LEGACY_TRAIN_STEPS} steps x {TRAIN_BATCH} frames "
+          f"{IMAGE[0]}x{IMAGE[1]}, bf16 on f32 masters, {n_trained / 1e6:.2f} M trainable "
+          f"(adapter-only), losses {['%.4f' % v for v in losses]}, step ms "
+          f"{['%.1f' % v for v in ms]} p50 after the first {p50:.1f}, "
+          f"{TRAIN_BATCH * 1e3 / p50:.2f} images/s, peak memory {peak:.2f} GiB; launches a "
+          f"step {per_step[0]} [{card_line}]", flush=True)
+    record = dict(losses=losses, step_ms=ms, p50_step_ms=p50,
+                  images_per_s=TRAIN_BATCH * 1e3 / p50, peak_memory_gib=peak,
+                  trainable_m=n_trained / 1e6, launches_per_step=per_step[0])
+    if not LEGACY_TRAIN_LAUNCHES[backbone]:
+        print(f"  {backbone}: no kernel of the port on its training path, so no plain path "
+              "to hold it against", flush=True)
+        return launches, record
+    kernel = _legacy_first_step(seed, backbone, batches[0])
+    again = _legacy_first_step(seed, backbone, batches[0])
+    plain = _legacy_first_step(seed, backbone, batches[0], plain=True)
+
+    def rel(u):
+        return float((u - plain[1]).norm() / plain[1].norm())
+
+    loss_rel = abs(kernel[0] - plain[0]) / abs(plain[0])
+    noise, dist = float((again[1] - kernel[1]).norm() / plain[1].norm()), rel(kernel[1])
+    print(f"  {backbone} first step against the all-plain path (K6's plain version): loss "
+          f"{kernel[0]:.6f} vs {plain[0]:.6f}, rel {loss_rel:.3e} (tol "
+          f"{LEGACY_STEP_TOL['loss']}); the update of the trainable parameters "
+          f"||u - u_plain|| / ||u_plain|| {dist:.3e}, a second kernel run's distance from "
+          f"the first {noise:.3e} (tol {LEGACY_STEP_TOL['noise_ratio']} x that, or 0) "
+          f"[{card_line}]", flush=True)
+    if loss_rel > LEGACY_STEP_TOL["loss"] or dist > LEGACY_STEP_TOL["noise_ratio"] * noise:
+        fail(f"{backbone}'s first training step disagrees with the all-plain path")
+    record.update(first_step_loss_rel=loss_rel, first_step_update_rel=dist,
+                  first_step_noise_rel=noise)
+    return launches, record
+
+
+def phase_legacy_train_mm(seed, card_line):
+    """``train_mm.main`` on LEGACY_TRAIN_CONFIG, then the resume (module
+    docstring, phase 11).  Returns (launches, the record)."""
+    import tempfile
+
+    from ir_ads_tpu_torch.utils.checkpoint import load_weights
+    from ir_ads_tpu_torch.utils.jax_params import from_flax
+
+    cfg = train_mm_config(LEGACY_TRAIN_CONFIG)
+    n_val = cfg["DATASET"]["VAL_KWARGS"]["length"]
+    want_step = LEGACY_TRAIN_LAUNCHES[cfg["MODEL"]["BACKBONE"]]
+    want_gate = {"dscf_rpe_packed": LEGACY_LAUNCHES[(CMNEXT_B2, "r5")]["dscf_rpe_packed"]
+                 * n_val}
+    tmp = tempfile.mkdtemp(prefix="train_mm_legacy_")
+    try:
+        result, steps, gates, launches, state, _ = _driven_train_mm(cfg, f"{tmp}/a", seed)
+        epochs = result["epochs"]
+        for e in epochs:
+            if not (math.isfinite(e["loss"]) and e["miou"] is not None
+                    and math.isfinite(e["miou"])):
+                fail(f"legacy train_mm epoch {e['epoch']}: loss {e['loss']}, mIoU {e['miou']}")
+        per_step = [{k: v for k, v in got.items() if v} for _, got, _ in steps]
+        if any(got != want_step for got in per_step):
+            fail(f"legacy train_mm steps launched {per_step}, expected {want_step} each")
+        if len(gates) != len(epochs) or any(g != want_gate for g in gates):
+            fail(f"legacy train_mm's gates launched {gates}, expected {want_gate} each")
+        live = state.model.state_dict()
+        back = from_flax(load_weights(f"{tmp}/a/latest"))
+        if set(back) != set(live) or not all(torch.equal(back[k], t.cpu())
+                                             for k, t in live.items()):
+            fail("the legacy latest/ does not read back as the live state dict bit for bit")
+        ms = [t for _, _, t in steps]
+        print(f"  train_mm --cfg {LEGACY_TRAIN_CONFIG}: {len(epochs)} epochs of "
+              f"{epochs[0]['steps']} steps, losses {['%.4f' % e['loss'] for e in epochs]}, "
+              f"gate mIoU {[e['miou'] for e in epochs]} (random weights), step ms "
+              f"{['%.1f' % v for v in ms]}, gate s "
+              f"{['%.2f' % e['gate_seconds'] for e in epochs]}, checkpoints "
+              f"{[e['checkpoint_bytes'] for e in epochs]} bytes [{card_line}]", flush=True)
+        with open(f"{tmp}/a/latest/manifest.json") as f:
+            stored = json.load(f)
+        del state, live, back, result
+        record = dict(epochs=epochs, step_ms=ms,
+                      resume_rel=_resume_check(LEGACY_TRAIN_CONFIG, tmp, seed,
+                                               stored["epoch"], epochs[0]["steps"],
+                                               card_line))
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return launches, record
+
+
+def phase_legacy_train(seed, card_line):
+    """Phase 11 (module docstring).  Returns (the launches of its driven
+    paths, summed, the record)."""
+    total, record = {}, {}
+    for backbone in (CMNEXT_B2, CMX_B2):
+        launches, record[backbone] = phase_legacy_steps(seed, backbone, card_line)
+        _add(total, launches)
+    launches, record["train_mm"] = phase_legacy_train_mm(seed, card_line)
+    _add(total, launches)
+    return total, record
+
+
 def kernel_table(rows, launches, launches_i8, module_launches, train_launches, det_launches,
-                 eval_launches, train_mm_launches, phase9_launches, legacy_launches):
+                 eval_launches, train_mm_launches, phase9_launches, legacy_launches,
+                 legacy_train_launches):
     """One entry per kernel; ``launches`` sums the main paths' runs (the
     serving requests under r5, r4i8, r2, r1, xla, v7_01, v5, map,
     dscf_pallas4, dscf_pallas and dscf_pallas2, r5 on flat frames with the
     XLA patch embedding and with K19, the training steps, the detection
     requests, the three eval modes' images, the training entry point's
     run with its gates and its drop_rate step, phase 9's Swin-L and dual
-    paths, and phase 10's legacy requests and MSF images, each counted from
+    paths, phase 10's legacy requests (r5, r4, r4i8) and MSF images, and
+    phase 11's legacy training steps and train_mm runs, each counted from
     0; K20 runs on none of them)."""
     from ir_ads_tpu_torch.ops.cuda_lib import PKG
 
@@ -4733,6 +5025,7 @@ def kernel_table(rows, launches, launches_i8, module_launches, train_launches, d
                       + det_launches[k.name] + eval_launches.get(k.name, 0)
                       + train_mm_launches[k.name] + phase9_launches.get(k.name, 0)
                       + legacy_launches.get(k.name, 0)
+                      + legacy_train_launches.get(k.name, 0)
                       + sum(m[k.name] for m in module_launches.values())),
             launches_serve=launches[k.name], launches_serve_r4i8=launches_i8[k.name],
             **{f"launches_serve_{d}": m[k.name] for d, m in module_launches.items()},
@@ -4742,6 +5035,7 @@ def kernel_table(rows, launches, launches_i8, module_launches, train_launches, d
             launches_train_mm=train_mm_launches[k.name],
             launches_swin_l_dual=phase9_launches.get(k.name, 0),
             launches_legacy=legacy_launches.get(k.name, 0),
+            launches_legacy_train=legacy_train_launches.get(k.name, 0),
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=first["ms"], plain_ms=first["plain_ms"],
             bound_ms=first["bound_ms"], bound_by=first["bound_by"],
@@ -4751,10 +5045,13 @@ def kernel_table(rows, launches, launches_i8, module_launches, train_launches, d
                 "plain_ms", "bound_ms", "bound_by", "library_ms", "composition_ms",
                 "share", "fault_share", "composition_differ", "not_composition_differ",
                 "dq_share", "launch_ms", "rowmax_differ", "scale_differ", "codes_differ",
-                "fault_codes_differ")
+                "fault_codes_differ", "hc")
                 if key in c}
                    for c in cases],
         ))
+        widths = sorted({c["hc"] for c in cases if "hc" in c})
+        if widths:  # K4's channels a head, each held at a served shape
+            out[-1]["head_widths"] = widths
         # the device kernels of a sequence timed by launch (K1, K2, K5, K10, K11,
         # K13, K14)
         names = [ln["kernel"] for c in cases for ln in c.get("launch_ms", ())]
@@ -4811,14 +5108,16 @@ def main():
                                                      card_line)
     print("phase 10: the legacy family (CMNeXt-B2, CMX-B2)", flush=True)
     legacy_launches, legacy = phase_legacy(args.seed, args.requests, args.batch, card_line)
+    print("phase 11: the legacy family trained (CMNeXt-B2, CMX-B2)", flush=True)
+    legacy_train_launches, legacy_train = phase_legacy_train(args.seed, card_line)
 
     print(json.dumps({"kernels": kernel_table(rows, launches, launches_i8, module_launches,
                                               train_launches, det_launches, eval_launches,
                                               train_mm_launches, phase9_launches,
-                                              legacy_launches),
+                                              legacy_launches, legacy_train_launches),
                       "serve": serve, "train": train, "detect": detect, "evaluate": evaluate,
                       "train_mm": train_mm, "swin_l_dual": swin_l_dual, "legacy": legacy,
-                      "repair": repair, "card": card_line}))
+                      "legacy_train": legacy_train, "repair": repair, "card": card_line}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

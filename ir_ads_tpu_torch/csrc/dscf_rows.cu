@@ -43,12 +43,19 @@
 // den, then for P.V, reading the bias along the query column, so every
 // pass coalesces.
 //
-// A head has 8 channels (every Swin-B level) or 12 (every Swin-L level):
-// the kernels are templates of the width (hc).  At 12, K and V are staged
-// as two planes of 8-channel rows, the second's channels 12-15 zero in
-// shared memory (never in device memory): the score is two m16n8k8
-// products into one f32 accumulator and P.V one m16n8k16 product a plane,
-// so the rounding points stay the plain version's.
+// A head has 8 channels (every Swin-B level), 12 (every Swin-L level), or
+// at the MiT's stages 8, 8, 10, 8 (CMNeXt-B1..B5) and 4, 4, 5, 4
+// (CMNeXt-B0): the kernels are templates of the width (hc).  At 10 and 12,
+// K and V are staged as two planes of 8-channel rows, the second's
+// channels past the head zero in shared memory (never in device memory):
+// the score is two m16n8k8 products into one f32 accumulator and P.V one
+// m16n8k16 product a plane, so the rounding points stay the plain
+// version's.  At 4 and 5 the one plane's channels past the head are zero.
+// A head's row starts on a 16-byte boundary only at 8 channels; at 12 on an
+// 8-byte one, at 4 and 10 on a 4-byte one and at 5 on a 2-byte one, and
+// each width reads its rows in words of that size (load_head_row,
+// scaled_query_channels).  The store writes each channel of the head alone:
+// at gc = 10 and 20 the channels past a head are the next head's.
 #include "dscf.cuh"
 
 using namespace port;
@@ -159,12 +166,12 @@ dscf_rows_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const size_t r1 = (size_t)bg * HW + p0 + min(g + 8, rows - 1);
     const bf16* q0 = q + r0 * GC + e * HC;
     const bf16* q1 = q + r1 * GC + e * HC;
-    const unsigned qa0 = scaled_query_pair(q0, t, scale);
-    const unsigned qa1 = scaled_query_pair(q1, t, scale);
-    // the second plane's channels 8 + 2t, 9 + 2t, zero past the head
-    const bool hi = P > 1 && 8 + 2 * t < HC;
-    const unsigned qa2 = hi ? scaled_query_pair(q0 + 8, t, scale) : 0u;
-    const unsigned qa3 = hi ? scaled_query_pair(q1 + 8, t, scale) : 0u;
+    // channels 2t, 2t + 1 of the first plane and 8 + 2t, 9 + 2t of the
+    // second, zero past the head
+    const unsigned qa0 = scaled_query_channels<HC>(q0, 2 * t, scale);
+    const unsigned qa1 = scaled_query_channels<HC>(q1, 2 * t, scale);
+    const unsigned qa2 = P > 1 ? scaled_query_channels<HC>(q0, 8 + 2 * t, scale) : 0u;
+    const unsigned qa3 = P > 1 ? scaled_query_channels<HC>(q1, 8 + 2 * t, scale) : 0u;
     float o[4 * P];
     dscf_attend_mma<Packed, NT, HC>(qa0, qa1, K_s + key0, V_s + key0, [&](int nt, float* b) {
       // matrix m of the ldmatrix: n-tile nt + m / 2, query half m % 2
@@ -223,13 +230,18 @@ int launch(const void* q, const void* k, const void* v, const void* bias, void* 
 
 }  // namespace
 
-// hc: channels per head, 8 or 12.
+// hc: channels per head, 4, 5, 8, 10 or 12.
 extern "C" int dscf_rows_attention(const void* q, const void* k, const void* v,
                                    const void* bias, void* out, int BG, int hg,
                                    int h, int w, int M, int Mp, float scale,
                                    int packed, int hc, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  if (hc == 8) return launch<8>(q, k, v, bias, out, BG, hg, h, w, M, Mp, scale, packed, s);
-  if (hc == 12) return launch<12>(q, k, v, bias, out, BG, hg, h, w, M, Mp, scale, packed, s);
-  return (int)cudaErrorInvalidValue;
+  switch (hc) {
+    case 4: return launch<4>(q, k, v, bias, out, BG, hg, h, w, M, Mp, scale, packed, s);
+    case 5: return launch<5>(q, k, v, bias, out, BG, hg, h, w, M, Mp, scale, packed, s);
+    case 8: return launch<8>(q, k, v, bias, out, BG, hg, h, w, M, Mp, scale, packed, s);
+    case 10: return launch<10>(q, k, v, bias, out, BG, hg, h, w, M, Mp, scale, packed, s);
+    case 12: return launch<12>(q, k, v, bias, out, BG, hg, h, w, M, Mp, scale, packed, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

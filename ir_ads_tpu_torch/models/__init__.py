@@ -7,99 +7,121 @@ from ``seed``.  The int8 sites of an int8 dispatch are quantized from the
 f32 weights, then the model is cast to ``dtype`` (None keeps f32) as flax
 computes (``serve.cast_model_``).
 
-The legacy models take ``LEGACY_DISPATCH``: ``"r5"`` (the MiT DSCF's
-einsum bias by K6 on planes of at most ``RPE3_PLANE_MAX`` pixels, as the
-JAX package computes under ``IR_ADS_DSCF_ATTN=...,xla`` with
-``IR_ADS_DSCF_RPE3=pallas``) or ``"xla"`` (the XLA-form bias everywhere).
-The other dispatches, the ``train`` dispatch among them, and the Swin
-options (``backbone_kwargs``, ``patch_embed``, ``head_dims``, ``use_remat``)
-raise.
+A legacy model reads from the dispatch what the JAX environment it stands
+for gives such a model (``legacy_dispatch``): its MiT DSCF (every stage at
+level 3) takes the dispatch's level-3 attention with its ``rpe3``, and its
+int8 sites are those of ``IR_ADS_INT8=1``, the DSCF projections and the
+head's composed projection (the MiT's own linears stay float).  So r4,
+r4i8, r2, v5 and map run K3 + K4 at every stage, r1 is xla, v7_01 and
+dscf_pallas4 are r5, and ``train`` is the einsum DSCF (K6 under autograd
+at stages 2-3) with drop-path, the adapters' and the head's dropout and
+train-mode BatchNorms.  dscf_pallas and dscf_pallas2 raise: they need K17
+at the MiT's 10 channels a head.  The Swin options (``backbone_kwargs``,
+``patch_embed``, ``head_dims``, ``use_remat``) raise by name.  There is no
+MMST modality mask (the JAX ``build_model`` drops ``mmst_mask``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 
 from ir_ads_tpu_torch.models.backbones.cmx import CMX
 from ir_ads_tpu_torch.models.backbones.mit import MiTDualStream
+from ir_ads_tpu_torch.models.backbones.swin import DISPATCH
 from ir_ads_tpu_torch.models.cmnext import BACKBONES, CMNeXt
 from ir_ads_tpu_torch.models.heads.segformer import SegFormerHead
 from ir_ads_tpu_torch.ops.int8 import quantize_int8_
 from ir_ads_tpu_torch.ops.layers import resize_bilinear
 
 LEGACY = ("CMNeXt", "CMX")
-# dispatch -> the MiT DSCF's rpe3 (models/backbones/swin.py DSCF_RPE3)
-LEGACY_DISPATCH = {"r5": "pallas", "xla": "xla"}
+HEAD_DROP = 0.1  # the JAX SegFormerHead's dropout before the classifier
 
 
 def is_legacy(backbone: str) -> bool:
     return backbone.split("-")[0] in LEGACY
 
 
-def refuse_legacy_training(backbone: str) -> None:
-    """Raise for a legacy backbone: the trainers take the Swin CMNeXt only."""
-    if is_legacy(backbone):
+def legacy_dispatch(dispatch: str) -> Tuple[str, bool, str]:
+    """(the MiT DSCF's attention, int8, rpe3) of a legacy model under
+    ``dispatch``: the dispatch's level-3 DSCF entry, int8 flag and einsum
+    bias."""
+    if dispatch not in DISPATCH:
+        raise NotImplementedError(f"dispatch {dispatch!r}: the port has {list(DISPATCH)}")
+    _, dscf_attn, _, int8, rpe3 = DISPATCH[dispatch]
+    if dscf_attn[3] not in ("pallas3", "xla"):
         raise NotImplementedError(
-            f"backbone {backbone!r}: the legacy models are ported for eval only; their "
-            "training (BatchNorm statistics, drop-path) is ROADMAP Queue 1 item 4")
+            f"dispatch {dispatch!r}: on a legacy model its DSCF attention "
+            f"{dscf_attn[3]!r} needs K17 at the MiT's 10 channels a head, which ROADMAP "
+            "Queue 1 item 2 joins to templating K16 and K17 on head width")
+    return dscf_attn[3], int8, rpe3
 
 
 class CMNeXtLegacy(nn.Module):
     """Single-head legacy model: the MiT dual stream (``"CMNeXt-Bx"``) or CMX
     (``"CMX-Bx"``), decoded by one SegFormer head of embed 256.  ``forward``
     returns the fused logits three times, as the JAX model does, so that the
-    Swin CMNeXt's entry points take it; ``forward_fused`` returns them once.
-    ``upsample_logits``: the logits at the input's size (bilinear,
-    align_corners=False), else at the head's H/4.  Eval only: train mode
-    raises."""
+    Swin CMNeXt's entry points take it (the loss then takes them three
+    times, and their gradients add as JAX's do); ``forward_fused`` returns
+    them once.  ``upsample_logits``: the logits at the input's size
+    (bilinear, align_corners=False), else at the head's H/4.  Train mode is
+    the ``train`` dispatch's: there drop-path (the JAX backbones' rate
+    0.1), the adapters' dropout (0.1, CMNeXt only) and the head's
+    (``head_drop``) draw from ``forward``'s ``generator``."""
 
     def __init__(self, backbone: str = "CMNeXt-B2", num_classes: int = 25,
-                 dispatch: str = "r5", upsample_logits: bool = True):
+                 dispatch: str = "r5", upsample_logits: bool = True,
+                 head_drop: float = HEAD_DROP):
         super().__init__()
         family, _, variant = backbone.partition("-")
         if family not in LEGACY:
             raise ValueError(f"unknown legacy backbone {backbone!r}")
-        if dispatch not in LEGACY_DISPATCH:
-            raise NotImplementedError(
-                f"dispatch {dispatch!r}: the legacy models take {list(LEGACY_DISPATCH)}; "
-                "the MiT DSCF under r4, r4i8, r2, v5 and map (K3 + K4 at 10 channels a "
-                "head) is ROADMAP Queue 1 item 4")
+        dscf_attn, int8, rpe3 = legacy_dispatch(dispatch)
         self.name, self.dispatch = backbone, dispatch
         if family == "CMNeXt":
-            self.backbone = MiTDualStream(variant, rpe3=LEGACY_DISPATCH[dispatch])
+            self.backbone = MiTDualStream(variant, dscf_attn, int8, rpe3)
         else:
             self.backbone = CMX(variant)
-        self.decode_head = SegFormerHead(self.backbone.num_features, 256, num_classes)
+        self.decode_head = SegFormerHead(self.backbone.num_features, 256, num_classes, int8)
         self.upsample_logits = upsample_logits
+        self.head_drop = float(head_drop)
 
     def train(self, mode: bool = True) -> "CMNeXtLegacy":
-        if mode:
-            refuse_legacy_training(self.name)
-        return super().train(False)
+        if mode and self.dispatch != "train":
+            raise NotImplementedError(
+                f"{self.name} under dispatch {self.dispatch!r} is an eval model: build it "
+                "with dispatch='train' to train it")
+        return super().train(mode)
 
-    def forward(self, x_rgb: torch.Tensor, x_dte: torch.Tensor):
-        y = self.forward_fused(x_rgb, x_dte)
+    def forward(self, x_rgb: torch.Tensor, x_dte: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
+        feats = self.backbone(x_rgb, x_dte, generator)
+        drop = self.head_drop if self.training else 0.0
+        y = self._upsample(self.decode_head(feats, drop, generator), x_rgb)
         return y, y, y
 
     def forward_fused(self, x_rgb: torch.Tensor, x_dte: torch.Tensor) -> torch.Tensor:
-        y = self.decode_head(self.backbone(x_rgb, x_dte))
+        return self._upsample(self.decode_head(self.backbone(x_rgb, x_dte)), x_rgb)
+
+    def _upsample(self, y: torch.Tensor, x_rgb: torch.Tensor) -> torch.Tensor:
         return resize_bilinear(y, x_rgb.shape[1:3]) if self.upsample_logits else y
 
 
-def _legacy(backbone: str, num_classes: int, backbone_kwargs: Optional[dict],
-            dispatch: str, upsample_logits: bool = True, **kw) -> CMNeXtLegacy:
-    """The legacy model, refusing the Swin CMNeXt's options by name."""
-    if dispatch == "train":
-        refuse_legacy_training(backbone)
+def refuse_swin_options(backbone: str, backbone_kwargs: Optional[dict], **kw) -> None:
+    """Raise by name on an option of the Swin CMNeXt given to a legacy model."""
     for key, value in {**(backbone_kwargs or {}), **kw}.items():
         if key == "patch_embed" and value == "xla":
             continue  # the entry points' default; the MiT embeds are convolutions
         raise ValueError(f"{key}={value!r}: the legacy model {backbone!r} has no such "
                          "option (its backbone takes no kwargs, its patch embeddings are "
                          "convolutions and its head is one SegFormer head of embed 256)")
+
+
+def _legacy(backbone: str, num_classes: int, backbone_kwargs: Optional[dict],
+            dispatch: str, upsample_logits: bool = True, **kw) -> CMNeXtLegacy:
+    refuse_swin_options(backbone, backbone_kwargs, **kw)
     return CMNeXtLegacy(backbone, num_classes, dispatch, upsample_logits)
 
 

@@ -1,5 +1,5 @@
-"""Legacy MiT (SegFormer) dual-stream backbone of CMNeXt-B0..B5, NHWC, in
-eval.  Counterpart of ir_ads_tpu/models/backbones/mit.py: the Swin
+"""Legacy MiT (SegFormer) dual-stream backbone of CMNeXt-B0..B5, NHWC.
+Counterpart of ir_ads_tpu/models/backbones/mit.py: the Swin
 flagship's MAPA adapters, MPG prompting and DSCF fusion on SegFormer MiT
 blocks (overlapping patch embeddings, spatial-reduction attention, Mix-FFN
 with a depthwise convolution).  As there:
@@ -8,33 +8,47 @@ with a depthwise convolution).  As there:
     added to both streams;
   * the block weights are shared by the two streams; each stream has its
     own adapter (ratio 0.25, no skip), which reads the un-normed x and
-    joins the FFN inside the residual: ``x + (mlp(norm2 x) + 0.5
+    joins the FFN inside the residual: ``x + drop_path(mlp(norm2 x) + 0.5
     adapter(x))``;
   * the DSCF runs at ``level=3`` at every stage (ratio 0.25, unit
-    ``deform_weight``): the einsum attention, its rpe bias by K6
-    (ops/dscf_rpe_packed.py) on query planes of at most ``RPE3_PLANE_MAX``
-    pixels under ``rpe3="pallas"``, else in the XLA form;
+    ``deform_weight``) with the attention that the dispatch gives level 3
+    (``swin.DISPATCH[d][1][3]``, as the JAX package's ``IR_ADS_DSCF_ATTN``
+    list gives its last entry to every level-3 module): ``pallas3`` under
+    r4, r4i8, r2, v5 and map, the rows bias (K3) and K4's unpacked form
+    (the reference's ``IR_ADS_DSCF_PACKED`` "1,1,1,0" at level 3) where
+    the 2n keys are a multiple of 8, else the einsum; ``xla`` (the einsum)
+    under r5, train, r1, xla, v7_01 and dscf_pallas4.  The einsum's rpe
+    bias is the dispatch's ``rpe3``: K6 (ops/dscf_rpe_packed.py) on query
+    planes of at most ``RPE3_PLANE_MAX`` pixels under r5, r4, r4i8, train,
+    v7_01, v5 and dscf_pallas4, the XLA form under r2, r1, xla and map (a
+    recorded choice, ROADMAP Queue 3 item 1);
   * the next stage takes the normed stream maps, and the backbone returns
     only the fused pyramid.
+
+In train mode (the ``train`` dispatch) drop-path acts on both residual
+branches of every block, its rates ``linspace(0, 0.1, sum(depths))`` over
+the blocks (the shared block draws once a stream), the adapters drop their
+hidden units at 0.1 (the JAX modules' rates) and the DSCF's
+BatchNorm normalises with the batch's statistics; every draw comes from the
+``generator`` handed to ``forward``.
 
 Parameter names are the flax tree's (``patch_embed{i}``, ``block{i}_{j}``,
 ...), with the Swin port's names where the two share a module
 (``MPGBlocks``, ``DeformMPGBlocks``, ``MLP_RGB_Adapter``), so that
-utils/jax_params.from_flax maps either tree.  Eval only: drop-path, the
-adapters' dropout and the DSCF's BatchNorm in train mode are not here
-(``models.CMNeXtLegacy`` refuses train mode).
+utils/jax_params.from_flax maps either tree.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from ir_ads_tpu_torch.models.backbones.swin import Adapter, DeformMPGBlock
-from ir_ads_tpu_torch.ops.layers import conv2d, gelu, layer_norm, linear, q_scale
+from ir_ads_tpu_torch.ops.layers import conv2d, drop_path, gelu, layer_norm, linear, q_scale
 
 MIT_SETTINGS = {
     # name: (embed_dims, depths)
@@ -51,6 +65,15 @@ PATCH = ((7, 4), (3, 2), (3, 2), (3, 2))  # (kernel, stride), padding kernel // 
 DSCF_STRIDES = (8, 4, 2, 1)
 DSCF_GROUPS = (1, 2, 4, 8)
 DSCF_HEADS = (2, 4, 8, 16)
+DROP_PATH_RATE = 0.1  # the JAX MiTDualStream's and CMX's default
+ADAPTER_DROP = 0.1  # the JAX Adapter's default
+
+
+def drop_path_rates(depths) -> List[List[float]]:
+    """Each stage's blocks' drop-path rates: ``linspace(0, DROP_PATH_RATE,
+    sum(depths))`` over the blocks in order."""
+    dpr = np.linspace(0.0, DROP_PATH_RATE, sum(depths)).tolist()
+    return [dpr[sum(depths[:i]):sum(depths[:i + 1])] for i in range(len(depths))]
 
 
 def nhwc_conv(x: torch.Tensor, conv: nn.Conv2d) -> torch.Tensor:
@@ -131,11 +154,14 @@ class MixFFN(nn.Module):
 
 
 class CEBlock(nn.Module):
-    """MiT block with per-stream adapters: ``x + attn(norm1 x)``, then
-    ``x + (mlp(norm2 x) + 0.5 adapter(x))``."""
+    """MiT block with per-stream adapters: ``x + drop_path(attn(norm1 x))``,
+    then ``x + drop_path(mlp(norm2 x) + 0.5 adapter(x))``; drop-path and the
+    adapter's dropout act in train mode only."""
 
-    def __init__(self, dim: int, num_heads: int, sr_ratio: int, adapter_ratio: float = 0.25):
+    def __init__(self, dim: int, num_heads: int, sr_ratio: int, adapter_ratio: float = 0.25,
+                 drop_path_rate: float = 0.0):
         super().__init__()
+        self.drop_path_rate, self.adapter_drop = float(drop_path_rate), ADAPTER_DROP
         self.norm1 = nn.LayerNorm(dim, eps=1e-5)
         self.attn = SRAttention(dim, num_heads, sr_ratio)
         self.norm2 = nn.LayerNorm(dim, eps=1e-5)
@@ -143,13 +169,17 @@ class CEBlock(nn.Module):
         self.MLP_RGB_Adapter = Adapter(dim, adapter_ratio)
         self.MLP_DTE_Adapter = Adapter(dim, adapter_ratio)
 
-    def forward(self, x: torch.Tensor, sub_mode: str) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, sub_mode: str,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
         if sub_mode not in ("rgb", "dte"):
             raise NotImplementedError(f"sub_mode={sub_mode!r}: a stream is 'rgb' or 'dte'")
-        x = x + self.attn(layer_norm(x, self.norm1))
+        on = self.training
+        x = x + drop_path(self.attn(layer_norm(x, self.norm1)), self.drop_path_rate, on,
+                          generator)
         mlp = self.mlp(layer_norm(x, self.norm2))
-        adapter = (self.MLP_RGB_Adapter if sub_mode == "rgb" else self.MLP_DTE_Adapter)(x)
-        return x + (mlp + 0.5 * adapter)
+        adapter = (self.MLP_RGB_Adapter if sub_mode == "rgb" else self.MLP_DTE_Adapter)(
+            x, self.adapter_drop if on else 0.0, generator)
+        return x + drop_path(mlp + 0.5 * adapter, self.drop_path_rate, on, generator)
 
 
 class AddMPGBlock(nn.Module):
@@ -167,16 +197,20 @@ class AddMPGBlock(nn.Module):
 
 
 class MiTDualStream(nn.Module):
-    """Dual-stream MiT returning the fused 4-level pyramid.  ``rpe3``: the
-    DSCF einsum branch's bias, ``"pallas"`` (K6 where the plane has at most
-    ``RPE3_PLANE_MAX`` pixels) or ``"xla"``."""
+    """Dual-stream MiT returning the fused 4-level pyramid.  ``dscf_attn``:
+    the DSCF attention of every stage (the dispatch's level-3 entry,
+    ``"pallas3"`` or ``"xla"``); ``int8``: the DSCF's int8 sites (r4i8);
+    ``rpe3``: the einsum branch's bias, ``"pallas"`` (K6 where the plane has
+    at most ``RPE3_PLANE_MAX`` pixels) or ``"xla"``."""
 
-    def __init__(self, variant: str = "B2", rpe3: str = "pallas"):
+    def __init__(self, variant: str = "B2", dscf_attn: str = "xla", int8: bool = False,
+                 rpe3: str = "pallas"):
         super().__init__()
         if variant not in MIT_SETTINGS:
             raise ValueError(f"MiT variant {variant!r}: one of {list(MIT_SETTINGS)}")
         dims, depths = MIT_SETTINGS[variant]
         self.num_features, self.depths = list(dims), list(depths)
+        rates = drop_path_rates(depths)
         for i in range(4):
             k, s = PATCH[i]
             cin = 3 if i == 0 else dims[i - 1]
@@ -185,14 +219,16 @@ class MiTDualStream(nn.Module):
                 setattr(self, f"{pre}patch_norm{i + 1}", nn.LayerNorm(dims[i], eps=1e-5))
                 setattr(self, f"{pre}norm{i + 1}", nn.LayerNorm(dims[i], eps=1e-5))
             for j in range(depths[i]):
-                setattr(self, f"block{i + 1}_{j}", CEBlock(dims[i], HEADS[i], SR_RATIOS[i]))
+                setattr(self, f"block{i + 1}_{j}",
+                        CEBlock(dims[i], HEADS[i], SR_RATIOS[i], drop_path_rate=rates[i][j]))
         self.MPGBlocks = nn.ModuleList(AddMPGBlock(d) for d in dims)
         self.DeformMPGBlocks = nn.ModuleList(
             DeformMPGBlock(dims[i], DSCF_STRIDES[i], DSCF_GROUPS[i], DSCF_HEADS[i], level=3,
-                           ratio=0.25, attn_impl="xla", rpe3=rpe3)
+                           ratio=0.25, attn_impl=dscf_attn, int8=int8, rpe3=rpe3)
             for i in range(4))
 
-    def forward(self, x_rgb: torch.Tensor, x_dte: torch.Tensor) -> List[torch.Tensor]:
+    def forward(self, x_rgb: torch.Tensor, x_dte: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> List[torch.Tensor]:
         check_frames(x_rgb)
         outs = []
         for i in range(4):
@@ -204,7 +240,8 @@ class MiTDualStream(nn.Module):
             x_rgb, x_dte = x_rgb + fuse, x_dte + fuse
             for j in range(self.depths[i]):
                 block = getattr(self, f"block{i + 1}_{j}")
-                x_rgb, x_dte = block(x_rgb, "rgb"), block(x_dte, "dte")
+                x_rgb = block(x_rgb, "rgb", generator)
+                x_dte = block(x_dte, "dte", generator)
             x_rgb = layer_norm(x_rgb, getattr(self, f"norm{i + 1}"))
             x_dte = layer_norm(x_dte, getattr(self, f"extra_norm{i + 1}"))
             outs.append(self.DeformMPGBlocks[i](x_rgb, x_dte))

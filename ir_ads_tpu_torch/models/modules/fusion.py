@@ -1,6 +1,8 @@
-"""CMX fusion modules, NHWC, in eval: Feature Rectify (FRM) and Feature
-Fusion (FFM).  Counterpart of ir_ads_tpu/models/modules/fusion.py, with its
-parameter names.
+"""CMX fusion modules, NHWC: Feature Rectify (FRM) and Feature Fusion
+(FFM).  Counterpart of ir_ads_tpu/models/modules/fusion.py, with its
+parameter names.  In train mode the FFM's two BatchNorms normalise with the
+batch's statistics and update their running ones as flax does (momentum
+0.9: ``layers.FlaxBatchNorm2d``).
 
 FRM corrects each stream by channel- and spatial-weighted contributions of
 the other; FFM crosses the streams by linear attention (each stream's

@@ -35,7 +35,10 @@ KERNEL = CudaKernel(
     replaces="ir_ads_tpu/ops/pallas_dscf.py:681",
 )
 HEAD_CHANNELS = 8  # K16's and K17's channels per head (every Swin-B DSCF level)
-ROWS_HEAD_CHANNELS = (8, 12)  # K4's and K8's: Swin-B's and Swin-L's
+# K8's channels per head: Swin-B's and Swin-L's.  K4 also takes the MiT's
+# 4, 5 and 10 (ops/dscf_rows.HEAD_CHANNELS); no path backpropagates through
+# those yet (the train dispatch gives the MiT's DSCF the einsum attention)
+ROWS_HEAD_CHANNELS = (8, 12)
 # of the 227 KB of shared memory a block may take: 96 bytes a key and 14 KB
 # besides at 8 channels, 160 bytes and 20 KB at 12 (keys in steps of 16)
 MAX_KEYS = {8: 2272, 12: 1312}
@@ -89,7 +92,12 @@ def dscf_rows_bwd(
     q, k, v, bias, dout = (t.contiguous() for t in (q, k, v, bias, dout))
     check_cuda("dscf_rows_bwd", q, k, v, bias, dout)
     hc = gc // hg
-    if gc != hg * hc or hc not in ROWS_HEAD_CHANNELS or w % 8 or m > MAX_KEYS[hc]:
+    if gc == hg * hc and hc not in ROWS_HEAD_CHANNELS:
+        raise NotImplementedError(
+            f"dscf_rows_bwd: K8 takes {ROWS_HEAD_CHANNELS} channels per head, not {hc}; "
+            "the MiT's 4, 5 and 10 wait for a path that backpropagates through K4 there "
+            "(ROADMAP Queue 1 item 4)")
+    if gc != hg * hc or w % 8 or m > MAX_KEYS[hc]:
         raise ValueError(f"dscf_rows_bwd: needs {ROWS_HEAD_CHANNELS} channels per head, "
                          f"w % 8 == 0 and at most MAX_KEYS[hc] keys ({MAX_KEYS}); got "
                          f"{q.shape} {bias.shape} with {hg} heads")

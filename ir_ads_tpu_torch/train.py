@@ -1,7 +1,8 @@
 """The model and the training state from a config, and ``SemSegTrainer``.
 
 ``build_model_and_state`` is the counterpart of
-``train_mm.build_model_and_state``: CMNeXt under the ``train`` kernel
+``train_mm.build_model_and_state``: the config's model (the Swin CMNeXt, or
+a legacy CMNeXt-Bx or CMX-Bx) under the ``train`` kernel
 dispatch with f32 master parameters (bf16 compute when ``TRAIN.AMP``), the
 config's ``MODEL``, ``OPTIMIZER``, ``SCHEDULER`` and ``LOSS``, the schedule
 over ``(EPOCHS + 1) * iters_per_epoch`` steps with ``WARMUP`` epochs of
@@ -93,8 +94,11 @@ class SemSegTrainer:
     from ``seed`` too (the repository holds no checkpoint) unless
     ``state_dict`` is given.  ``dtype`` is the compute dtype; parameters
     stay f32.  ``backbone``: ``"SwinTransformer-B"`` or
-    ``"SwinTransformer-L"`` (block remat on, as the JAX package runs it);
-    a legacy backbone raises."""
+    ``"SwinTransformer-L"`` (block remat on, as the JAX package runs it),
+    or a legacy model, ``"CMNeXt-B0"``..``"CMNeXt-B5"`` or
+    ``"CMX-B0"``..``"CMX-B5"`` (``models.CMNeXtLegacy`` under the train
+    dispatch, its head's dropout ``head_drop``; it has no modality mask and
+    takes none of ``backbone_kwargs`` and ``head_dims``, which raise)."""
 
     def __init__(
         self,
@@ -103,21 +107,25 @@ class SemSegTrainer:
         seed: int = 0,
         num_classes: int = 40,
         backbone_kwargs: Optional[dict] = None,
-        head_dims: Tuple[int, int] = (512, 256),
+        head_dims: Optional[Tuple[int, int]] = None,
         head_drop: float = 0.1,
         mmst_mask: bool = True,
         state_dict: Optional[Dict[str, torch.Tensor]] = None,
         backbone: str = "SwinTransformer-B",
     ):
-        from ir_ads_tpu_torch.models import refuse_legacy_training
+        from ir_ads_tpu_torch.models import CMNeXtLegacy, is_legacy, refuse_swin_options
         from ir_ads_tpu_torch.serve import init_random_
 
-        refuse_legacy_training(backbone)
         device = _require_device(device, "SemSegTrainer")
-        model = CMNeXt(backbone=backbone, num_classes=num_classes,
-                       backbone_kwargs=backbone_kwargs,
-                       head_dims=head_dims, upsample_logits=True, dispatch="train",
-                       head_drop=head_drop, mmst_mask=mmst_mask)
+        if is_legacy(backbone):
+            refuse_swin_options(backbone, backbone_kwargs,
+                                **({} if head_dims is None else dict(head_dims=head_dims)))
+            model = CMNeXtLegacy(backbone, num_classes, "train", head_drop=head_drop)
+        else:
+            model = CMNeXt(backbone=backbone, num_classes=num_classes,
+                           backbone_kwargs=backbone_kwargs,
+                           head_dims=head_dims or (512, 256), upsample_logits=True,
+                           dispatch="train", head_drop=head_drop, mmst_mask=mmst_mask)
         if state_dict is None:
             init_random_(model, seed)
         else:

@@ -83,11 +83,8 @@ def main(cfg: Dict, save_dir: Optional[Path] = None, device: str = "cuda", seed:
          workers: str = "thread") -> Dict:
     """Train; returns {"best_miou", "best_epoch", "epochs" (per epoch: loss,
     images/s, seconds, mIoU or None, the gate's seconds, the checkpoints'
-    bytes and seconds), "state" (the ``TrainState``)}.  A legacy backbone
-    (CMNeXt-Bx, CMX-Bx) raises: its training is not ported."""
-    from ir_ads_tpu_torch.models import refuse_legacy_training
-
-    refuse_legacy_training(cfg["MODEL"]["BACKBONE"])
+    bytes and seconds), "state" (the ``TrainState``)}.  ``MODEL.BACKBONE``
+    may name a legacy model (CMNeXt-B0..B5, CMX-B0..B5)."""
     save_dir = Path(save_dir) if save_dir is not None else save_dir_of(cfg)
     save_dir.mkdir(parents=True, exist_ok=True)
     with log_to_file(get_logger(), save_dir / "train.log") as logger:

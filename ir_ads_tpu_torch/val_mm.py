@@ -12,7 +12,8 @@ or, without one, are drawn from ``--seed``.  ``EVAL.CACHE_DIR`` serves the
 val split from a decode-once ``RawCache`` with the normalisation on the
 device.  ``TRAIN.AMP`` chooses bf16 (the default) or f32.  ``MODEL.BACKBONE``
 is a Swin CMNeXt's or a legacy model's (``CMNeXt-B0``..``B5``, ``CMX-B0``..
-``B5``, under ``--dispatch`` r5 or xla; ``models.CMNeXtLegacy``).
+``B5``, under every ``--dispatch`` but dscf_pallas and dscf_pallas2;
+``models.CMNeXtLegacy``).
 
 Beyond the JAX val_mm.py: ``DATASET.KWARGS`` goes to the dataset's constructor
 (``Synthetic``'s ``image_size``, ``num_classes``, ``length``), with
@@ -22,7 +23,8 @@ multi-device and not ported.
 
 Under r5 (and every dispatch whose einsum DSCF takes K6) the einsum
 branch's rpe bias comes from the packed kernel, where the JAX package's
-default r5 leaves it to XLA (ROADMAP Queue 3 item 1); the log says so.
+default r5 leaves it to XLA (ROADMAP Queue 3 item 1); the log says so, and
+it states level 3's attention (the MiT's DSCF runs level 3 at every stage).
 """
 
 from __future__ import annotations
@@ -102,6 +104,10 @@ def main(cfg: Dict, device: str = "cuda", dispatch: str = "r5", seed: int = 0,
     model = build_eval_model(cfg, dataset.n_classes, device, dispatch, seed)
     forward = make_forward_fn(model, device_norm=device_norm)
     dscf = getattr(model.backbone, "DeformMPGBlocks", None)  # CMX has no DSCF
+    if dscf is not None and dscf[-1].deform_atten.attn_impl == "pallas3":
+        logger.info(f"dispatch {dispatch}: DSCF level 3 (the MiT's every stage) by the rows "
+                    "bias (K3) and the unpacked rows attention (K4) where its 2n keys are a "
+                    "multiple of 8, else by the einsum attention")
     if dscf is not None and dscf[-1].deform_atten.rpe3 == "pallas":
         logger.info(f"dispatch {dispatch}: the einsum DSCF's rpe bias on planes of at most "
                     "2048 pixels (at 480x640: the Swin CMNeXt's level 3, the MiT's stages "

@@ -24,8 +24,8 @@ one step of its trainer, under torch.profiler.
     (each also takes --port-dir DIR)
 
 Serving: builds the full-size predictor (Swin-B CMNeXt, or with --backbone
-SwinTransformer-L the Swin-L one, or a legacy CMNeXt-Bx / CMX-Bx under r5
-or xla; --dual: both streams through each stage
+SwinTransformer-L the Swin-L one, or a legacy CMNeXt-Bx / CMX-Bx under any
+dispatch but dscf_pallas and dscf_pallas2; --dual: both streams through each stage
 in one call, ``dual_batch``; 480x640 RGB-D, flip, bf16, weights from
 --seed) under the given kernel dispatch (r5, the default,
 r4, the w8a8 r4i8, the module-path sets r2, r1 and xla, the block
@@ -721,11 +721,27 @@ def det_outputs(seed: int) -> dict:
                 boxes=seen["pred_boxes"][-1])
 
 
+def build_every_kernel() -> None:
+    """Build every CUDA kernel of the imported port package at once (one
+    nvcc a source, in parallel), as ``chip_smoke.py``'s phase 2 does, so
+    that a run that meets them one by one does not build them in turn."""
+    import importlib
+    import pkgutil
+
+    import ir_ads_tpu_torch.ops as ops
+    from ir_ads_tpu_torch.ops.cuda_lib import CudaKernel, build_all
+
+    mods = [importlib.import_module(f"{ops.__name__}.{m.name}")
+            for m in pkgutil.iter_modules(ops.__path__)]
+    build_all([m.KERNEL for m in mods if isinstance(getattr(m, "KERNEL", None), CudaKernel)])
+
+
 def save_logits(args) -> dict:
     """One request's logits under each dispatch of --logits, into
     --logits-dir; ``det``: one detection request's raw outputs."""
     from ir_ads_tpu_torch.serve import SemSegPredictor
 
+    build_every_kernel()
     os.makedirs(args.logits_dir, exist_ok=True)
     g = torch.Generator().manual_seed(args.seed + 1)
     rgb, dep = (torch.randint(0, 256, (args.batch, 480, 640, 3), generator=g,
@@ -749,7 +765,8 @@ def save_logits(args) -> dict:
         base, _, embed = name.partition("_flat")
         flat = name != base
         pred = SemSegPredictor(device="cuda", seed=args.seed, dispatch=base, flat_input=flat,
-                               patch_embed="pallas" if embed == "_pallas" else "xla")
+                               patch_embed="pallas" if embed == "_pallas" else "xla",
+                               backbone=args.backbone)
         logits, _ = pred(rgb, dep)
         torch.save(logits.cpu(), path)
         saved[name] = dict(path=path, shape=list(logits.shape),
@@ -949,8 +966,7 @@ def main():
     ap.add_argument("--backbone", default="SwinTransformer-B",
                     choices=("SwinTransformer-B", "SwinTransformer-L",
                              *(f"{f}-B{i}" for f in ("CMNeXt", "CMX") for i in range(6))),
-                    help="serving, --eval and --train: the model's backbone (a legacy "
-                         "CMNeXt-Bx or CMX-Bx serves and evaluates only)")
+                    help="serving, --eval, --train and --logits: the model's backbone")
     ap.add_argument("--dual", action="store_true",
                     help="serving and --train: both streams through each stage in one call")
     ap.add_argument("--flat", action="store_true",

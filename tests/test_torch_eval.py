@@ -305,15 +305,20 @@ def test_cache_path_and_single_scale(weights, tmp_path):
 
 
 def test_legacy_backbones_raise():
-    """The legacy models build under r5 and xla (tests/test_torch_mit.py,
-    tests/test_torch_cmx.py) and raise where the port has no counterpart:
-    the other dispatches, the train dispatch, the Swin options."""
+    """The legacy models build under every dispatch the JAX package gives a
+    meaning for them (tests/test_torch_legacy_dispatch.py,
+    tests/test_torch_legacy_train.py) and raise where the port has no
+    counterpart: dscf_pallas and dscf_pallas2 (K17 at 10 channels a head),
+    the Swin options."""
     for bb in ("CMNeXt-B2", "CMX-B2"):
-        for dispatch in ("r4", "train"):
-            with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
+        for dispatch in ("dscf_pallas", "dscf_pallas2"):
+            with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
                 build_model("CMNeXt", bb, CLASSES, dispatch=dispatch)
-        with pytest.raises(ValueError, match="dual_batch"):
-            build_model("CMNeXt", bb, CLASSES, backbone_kwargs=dict(dual_batch=True))
+        for key in ("dual_batch", "use_remat"):
+            with pytest.raises(ValueError, match=key):
+                build_model("CMNeXt", bb, CLASSES, backbone_kwargs={key: True})
+        with pytest.raises(ValueError, match="head_dims"):
+            build_model("CMNeXt", bb, CLASSES, head_dims=(512, 256))
 
 
 def test_infer_matches_jax_infer_mm(jax_model, weights, tmp_path, monkeypatch):

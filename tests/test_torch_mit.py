@@ -76,6 +76,11 @@ def legacy_variables(module, seed, *args):
     identity weights 1 + 0.02 N(0, 1), scales 1 + 0.05 N(0, 1), variances in
     [0.5, 1.5), other leaves 0.05 N(0, 1)."""
     shapes = jax.eval_shape(lambda: module.init({"params": jax.random.PRNGKey(0)}, *args))
+    return fill_variables(shapes, seed)
+
+
+def fill_variables(shapes, seed):
+    """``legacy_variables``'s values in the shapes of the tree ``shapes``."""
     rng = np.random.RandomState(seed)
 
     def fill(path, leaf):
@@ -408,10 +413,13 @@ def test_infer_mm_predicts_with_cmnext_b0():
 
 
 def test_legacy_refusals(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("CMNeXt", "CMNeXt-B0", CLASSES, dispatch="r4")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        build_model("CMNeXt", "CMNeXt-B0", CLASSES, dispatch="r4i8")  # int8
+    """What the legacy models refuse: the DSCF variants that need K17 at the
+    MiT's 10 channels a head, the Swin options, flat frames, and train mode
+    on a model built for an eval dispatch (tests/test_torch_legacy_train.py
+    trains them under the train dispatch)."""
+    for dispatch in ("dscf_pallas", "dscf_pallas2"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            build_model("CMNeXt", "CMNeXt-B0", CLASSES, dispatch=dispatch)
     with pytest.raises(ValueError, match="flat_input"):
         SemSegPredictor(device="cpu", backbone="CMNeXt-B0", flat_input=True)
     with pytest.raises(ValueError, match="patch_embed"):
@@ -421,14 +429,16 @@ def test_legacy_refusals(tmp_path):
             build_model("CMNeXt", "CMNeXt-B0", CLASSES, backbone_kwargs={key: True})
     with pytest.raises(ValueError, match="head_dims"):
         SemSegPredictor(device="cpu", backbone="CMNeXt-B0", head_dims=(512, 256))
-    cfg = _merge(_cfg("CMNeXt-B0"), {"SAVE_DIR": str(tmp_path)})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    cfg = _merge(_cfg("CMNeXt-B0"), {"SAVE_DIR": str(tmp_path),
+                                     "MODEL": {"BACKBONE_KWARGS": {"use_remat": True}}})
+    with pytest.raises(ValueError, match="use_remat"):
         train_mm.main(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        SemSegTrainer(device="cpu", backbone="CMNeXt-B0")
+    with pytest.raises(ValueError, match="head_dims"):
+        SemSegTrainer(device="cpu", backbone="CMNeXt-B0", head_dims=(512, 256))
     model = build_model("CMNeXt", "CMNeXt-B0", CLASSES)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="dispatch='train'"):
         model.train()
     assert not model.training
+    assert build_model("CMNeXt", "CMNeXt-B0", CLASSES, dispatch="train").train().training
     with pytest.raises(ValueError, match="flat"):
         model.forward_fused(torch.zeros(1, H, W * 3), torch.zeros(1, H, W * 3))
