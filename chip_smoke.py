@@ -263,6 +263,24 @@ Phases, each of which raises on failure:
      latest/ read back bit for bit, and the run resumed from latest/ for
      one step against two uninterrupted runs (``RESUME_TOL``; fresh AdamW
      moments must fail).
+ 12. DINO-R50 training at configs/detection/dino_r50.py's width (2000
+     queries + 200 CDN, 512x512, batch 4, bf16 on f32 masters): (a) K9's
+     backward kernel alone at the step's encoder (Lq 5440) and decoder (Lq
+     2200) shapes, bf16 and f32, against ``ms_deform_attn_bwd_plain`` (each
+     output to ``K9_BWD_REL``; planted faults: the out-of-bounds value term
+     kept in dlocations, the -0.5 dropped), autograd through four
+     F.grid_sample timed beside it; (b) ``DetTrainState`` steps: launches
+     a step ``DET_TRAIN_LAUNCHES`` (K9 24, its backward 12), p50 of 3 after
+     a warm-up, peak memory, the auction's iterations and share of the step,
+     every K9 launch of a step held against its plain version, the first
+     step's loss and update against the all-plain path (K9's plain forward
+     in the kernel's order, its plain backward) within 2x two kernel runs'
+     distance (``DET_STEP_TOL``; a backward keeping the out-of-bounds value
+     term must fail), the kernel path's selections and assignments
+     replayed in each run; (c)
+     ``train_net.main`` on 8 synthetic 512x512 images (``DET_NET_FLAGS``:
+     4 steps, the EMA weights' COCO eval, the weights written and read
+     back).
 The line before the last is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``.  Nothing of JAX is imported.
 """
@@ -270,6 +288,7 @@ The line before the last is the kernel table as JSON, the last line
 from __future__ import annotations
 
 import argparse
+import contextlib
 import functools
 import json
 import math
@@ -2152,16 +2171,16 @@ LOGIT_TOL_I8 = dict(rel_mean=1.6e-2, rel_max=0.06, label_agree=0.96)
 def _ops_modules():
     from ir_ads_tpu_torch.ops import (
         block_tail, block_tail_int8, dscf_attention, dscf_fused, dscf_rows, dscf_rows_bwd,
-        dscf_rpe, dscf_rpe_jmajor, dscf_rpe_packed, msdeform, patch_embed, swin_block,
-        swin_block_full, swin_block_int8, swin_block_v6, swin_block_v7, window_attention_map,
-        window_attention_qkv, window_attention_v1, window_attn_bwd,
+        dscf_rpe, dscf_rpe_jmajor, dscf_rpe_packed, msdeform, msdeform_bwd, patch_embed,
+        swin_block, swin_block_full, swin_block_int8, swin_block_v6, swin_block_v7,
+        window_attention_map, window_attention_qkv, window_attention_v1, window_attn_bwd,
     )
 
     return (swin_block, block_tail, swin_block_v6, dscf_rpe, dscf_rows,
             dscf_rpe_packed, window_attn_bwd, dscf_rows_bwd, msdeform, swin_block_int8,
             block_tail_int8, window_attention_qkv, swin_block_v7, swin_block_full,
             window_attention_map, dscf_fused, dscf_attention, dscf_rpe_jmajor, patch_embed,
-            window_attention_v1)
+            window_attention_v1, msdeform_bwd)
 
 
 # the kernels of each DSCF branch (``DAttentionMM.branch``); the einsum
@@ -3016,7 +3035,7 @@ TRAIN_LAUNCHES = {"swin_block": 48, "window_attn_bwd": 48, "dscf_rpe": 3,
                   "swin_block_int8": 0, "block_tail_int8": 0, "window_attention_qkv": 0,
                   "swin_block_v7": 0, "swin_block_full": 0, "window_attention_map": 0,
                   "dscf_fused": 0, "dscf_attention": 0, "dscf_rpe_jmajor": 0,
-                  "patch_embed": 0, "window_attention_v1": 0}
+                  "patch_embed": 0, "window_attention_v1": 0, "msdeform_bwd": 0}
 
 # One forward and backward in bf16 with f32 master parameters, every
 # stochastic rate 0, gradients taken group by group (a group's parameters as
@@ -4998,9 +5017,535 @@ def phase_legacy_train(seed, card_line):
     return total, record
 
 
+# --------------------------------------------------------------------------
+# phase 12: DINO-R50 training, K9 under autograd with its backward kernel
+# --------------------------------------------------------------------------
+
+DET_TRAIN_IMAGE = (512, 512)   # train_net's default --image-size
+DET_TRAIN_BATCH = 4            # train_net's default --batch-size
+DET_TRAIN_LEVELS = ((64, 64), (32, 32), (16, 16), (8, 8))
+DET_TRAIN_MAX_GT, DET_TRAIN_DN = 20, 100
+DET_TRAIN_DN_QUERIES = 200     # 2 * max_gt * (dn 100 // max_gt 20 = 5 groups)
+# a step: the teacher's 12 forward launches and the student's 12, whose 12
+# backward launches K9's backward takes
+DET_TRAIN_LAUNCHES = {"msdeform": 24, "msdeform_bwd": 12}
+DET_TRAIN_STEPS = 3            # timed, after one warm-up step
+# K9's backward against its plain version: bf16 outputs (dvalue summed in
+# f32 by atomics in a varying order, then one rounding; dweights one
+# rounding) may land one bf16 ulp apart, so their element bar is 1e-2 x rms
+# + 1e-2 relative; dlocations stays f32 (dot products of the same bf16
+# values in another order): 1e-3 x rms + 1e-3.  f32: 1e-4 both.  Each
+# output's ||diff|| / ||ref|| <= K9_BWD_REL.
+K9_BWD_REL = 1e-2
+# The first step against the all-plain path, both taking the kernel path's
+# proposal selections and assignments (a near-tie there would otherwise
+# pick other queries): the loss within 2e-3 relative, and the update of
+# every parameter no further from the kernel path's than 2x a second kernel
+# run's (which differs by the backward's atomics), as phase 11 holds the
+# legacy step; a backward that keeps the out-of-bounds value term in
+# dlocations must fail that.  The all-plain path's K9 forward is its plain
+# version in the kernel's order of work (``ms_deform_attn_ordered``, the
+# kernel's bits): K9's plain version sums in another order, one bf16 ulp
+# apart on some outputs, and Adam's first update is about lr * sign(g), so
+# each flipped near-zero gradient moves the update by 2 lr: that path lies
+# about 6x as far as the atomics do (PERF.md).  The clipped gradient Adam
+# takes is linear in those roundings: both all-plain paths, in the kernel's
+# order and in the plain version's own, hold it within 2e-2 of the kernel
+# path's (a few bf16 ulps) over every parameter and over the
+# sampling_offsets leaves alone (where dlocations enters the parameters),
+# and the out-of-bounds fault must lie beyond that in one of the two.
+DET_STEP_TOL = dict(loss=2e-3, noise_ratio=2.0, grad=2e-2, launch_rel=REL_TOL)
+
+
+def _k9_inputs(g, lq, dtype, b=DET_TRAIN_BATCH, shapes=DET_TRAIN_LEVELS):
+    """K9's inputs at the training step's shapes (as ``check_msdeform``
+    draws them at serving's): value (B, 5440, 8, 32), the encoder's own
+    positions or the decoder's references, offsets of a few pixels."""
+    from ir_ads_tpu_torch.detection.transformer import make_encoder_reference_points
+
+    heads, d, points, levels = 8, 32, 4, len(shapes)
+    s = sum(h * w for h, w in shapes)
+    value = _rand(g, b, s, heads, d, dtype=dtype)
+    if lq == s:
+        ref = torch.from_numpy(make_encoder_reference_points(shapes)).cuda()[None].expand(
+            b, -1, -1, -1)
+    else:
+        ref = torch.rand(b, lq, 1, 2, generator=g, device="cuda").expand(-1, -1, levels, -1)
+    norm = torch.tensor([[w, h] for h, w in shapes], dtype=torch.float32, device="cuda")
+    reach = torch.arange(1, points + 1, device="cuda")[None, None, None, None, :, None]
+    offsets = torch.randn(b, lq, heads, levels, points, 2, generator=g, device="cuda") * reach
+    loc = (ref[:, :, None, :, None, :] + offsets / norm[None, None, None, :, None, :]).contiguous()
+    att = torch.softmax(torch.randn(b, lq, heads, levels * points, generator=g, device="cuda"),
+                        -1).reshape(b, lq, heads, levels, points).to(dtype)
+    gout = _rand(g, b, lq, heads * d, dtype=dtype)
+    return value, loc, att, gout
+
+
+def _bwd_oob_kept(value, spatial_shapes, locations, weights, grad_out):
+    """K9's plain backward with the planted fault 'the out-of-bounds value
+    term kept in dlocations': a corner outside its level adds its clamped
+    neighbour's dot product to the location gradient."""
+    from ir_ads_tpu_torch.ops.msdeform import corner_terms
+    from ir_ads_tpu_torch.ops.msdeform_bwd import corner_derivatives, ms_deform_attn_bwd_plain
+
+    dvalue, _, datt = ms_deform_attn_bwd_plain(value, spatial_shapes, locations, weights,
+                                               grad_out)
+    b, s, heads, d = value.shape
+    lq = locations.shape[1]
+    g = grad_out.reshape(b, lq, heads, 1, d).float()
+    rows = value.permute(0, 2, 1, 3).reshape(b * heads * s, d)
+    base = ((torch.arange(b, device=value.device)[:, None] * heads
+             + torch.arange(heads, device=value.device)[None, :]) * s)[:, None, :, None]
+    dloc = torch.zeros(locations.shape, dtype=torch.float32, device=value.device)
+    start = 0
+    for lvl, (h, w) in enumerate(spatial_shapes):
+        a = weights[:, :, :, lvl].float()
+        tx = ty = 0.0
+        corners, fx, fy = corner_terms(h, w, locations[:, :, :, lvl].float())
+        for (idx, _, _), ddx, ddy in zip(corners, *corner_derivatives(fx, fy)):
+            flat = (idx + start + base).reshape(-1)
+            dot = (rows.index_select(0, flat).reshape(*idx.shape, d).float() * g).sum(-1)
+            tx, ty = tx + ddx * dot, ty + ddy * dot
+        dloc[:, :, :, lvl, :, 0] = tx * (a * w)
+        dloc[:, :, :, lvl, :, 1] = ty * (a * h)
+        start += h * w
+    return dvalue, dloc, datt
+
+
+def _bwd_without_half_pixel(value, spatial_shapes, locations, weights, grad_out):
+    """K9's plain backward with the planted fault 'no -0.5'."""
+    from ir_ads_tpu_torch.ops.msdeform_bwd import ms_deform_attn_bwd_plain
+
+    return ms_deform_attn_bwd_plain(
+        value, spatial_shapes, _without_half_pixel(locations.float(), spatial_shapes),
+        weights, grad_out)
+
+
+def check_msdeform_bwd(g, lq, dtype, fault):
+    """K9's backward at the DINO-R50 training step's encoder (Lq = 5440) or
+    decoder (Lq = 2200: 2000 queries and 200 CDN queries) shape, batch 4."""
+    from ir_ads_tpu_torch.ops import msdeform_bwd as kb
+    from ir_ads_tpu_torch.ops.msdeform import corner_tables
+
+    shapes = DET_TRAIN_LEVELS
+    value, loc, att, gout = _k9_inputs(g, lq, dtype)
+    b, s, heads, d = value.shape
+    levels, points = len(shapes), loc.shape[4]
+    wgt = torch.stack(corner_tables(shapes, loc, att)[1])
+    read = int((wgt != 0).sum())  # corners this run's data reads (and scatters into)
+    outside = 1.0 - read / wgt.numel()
+    del wgt
+    bad = _bwd_oob_kept if fault == "out-of-bounds value term kept" else _bwd_without_half_pixel
+
+    # the library call: autograd through four F.grid_sample and the weighted
+    # sum, in f32; its graph is built once and only the backward is timed
+    vf, grids, af = (value.float().requires_grad_(), (2 * loc - 1).requires_grad_(),
+                     att.float().requires_grad_())
+    out, start = 0, 0
+    for lvl, (h, w) in enumerate(shapes):
+        v = vf[:, start:start + h * w].permute(0, 2, 3, 1).reshape(b * heads, d, h, w)
+        start += h * w
+        gl = grids[:, :, :, lvl].permute(0, 2, 1, 3, 4).reshape(b * heads, lq, points, 2)
+        smp = F.grid_sample(v, gl, mode="bilinear", padding_mode="zeros",
+                            align_corners=False)  # (B*H, D, Lq, P)
+        a = af[:, :, :, lvl].permute(0, 2, 1, 3).reshape(b * heads, 1, lq, points)
+        out = out + (smp * a).sum(-1)
+    gl_out = gout.float().reshape(b, lq, heads, d).permute(0, 2, 3, 1).reshape(b * heads, d, lq)
+
+    def library():
+        return torch.autograd.grad(out, (vf, grids, af), gl_out, retain_graph=True)
+
+    f32 = dtype == torch.float32
+    tol_b, tol_l = (1e-4, 1e-4) if f32 else (1e-2, 1e-3)
+    return dict(
+        name="msdeform_bwd",
+        case=f"Lq={lq} {'f32' if f32 else 'bf16'} B={b} ({outside:.3f} of corners outside; "
+             f"{read * d * 2 / 1e6:.0f} M gathered and scattered values; "
+             f"{DET_TRAIN_LAUNCHES['msdeform_bwd']} launches per step)",
+        run=lambda: kb.ms_deform_attn_bwd(value, shapes, loc, att, gout),
+        plain=lambda: kb.ms_deform_attn_bwd_plain(value, shapes, loc, att, gout),
+        faulted=lambda: bad(value, shapes, loc, att, gout),
+        fault=fault, base=None, library=library,
+        outputs=["dvalue", "dlocations", "dweights"], atol_of_rms=True,
+        atol=[tol_b, tol_l, tol_b], rtol=[tol_b, tol_l, tol_b], rel_tol=K9_BWD_REL,
+        bytes=(nbytes(value, loc, att, gout) + nbytes(value, att)
+               + loc.numel() * 4),
+        flops=lq * b * heads * levels * points * (4 * d * 4 + 60), rate=F32_FLOPS,
+    )
+
+
+def _det_train_batch(seed, n=DET_TRAIN_BATCH, image=DET_TRAIN_IMAGE,
+                     max_gt=DET_TRAIN_MAX_GT, mask=128):
+    """(strong, weak, labels, boxes, valid, masks) on the card: raw 0-255
+    images, 8 to 20 GT boxes an image, their box masks at 128 x 128 (the
+    mapper's mask size)."""
+    g = torch.Generator().manual_seed(seed)
+    strong = torch.randint(0, 256, (n, *image, 3), generator=g).float()
+    weak = torch.randint(0, 256, (n, *image, 3), generator=g).float()
+    labels = torch.randint(0, DET_CLASSES, (n, max_gt), generator=g)
+    counts = torch.randint(8, max_gt + 1, (n,), generator=g)
+    valid = torch.arange(max_gt)[None] < counts[:, None]
+    cxcy = torch.rand(n, max_gt, 2, generator=g) * 0.7 + 0.15
+    wh = torch.rand(n, max_gt, 2, generator=g) * 0.25 + 0.05
+    boxes = torch.cat([cxcy, wh], -1) * valid[..., None]
+    grid = (torch.arange(mask) + 0.5) / mask
+    inside = ((grid[None, None, None, :] - boxes[..., 0, None, None]).abs()
+              < boxes[..., 2, None, None] / 2) & (
+        (grid[None, None, :, None] - boxes[..., 1, None, None]).abs()
+        < boxes[..., 3, None, None] / 2)
+    masks = (inside & valid[..., None, None]).float()
+    return [t.cuda() for t in (strong, weak, labels, boxes, valid, masks)]
+
+
+def _det_trainer(seed):
+    """A full-width DINO-R50 trainer, every weight drawn from ``seed``
+    (``serve.init_random_``, as DetPredictor draws them), bf16 compute over
+    f32 masters."""
+    from ir_ads_tpu_torch.detection.dino import DINODetector
+    from ir_ads_tpu_torch.detection.train import DetTrainState
+    from ir_ads_tpu_torch.serve import init_random_
+
+    model = DINODetector(num_classes=DET_CLASSES, num_queries=DET_QUERIES,
+                         dn_number=DET_TRAIN_DN, max_gt=DET_TRAIN_MAX_GT)
+    init_random_(model, seed)
+    return DetTrainState.create(model.cuda(), dtype=torch.bfloat16, seed=seed)
+
+
+@contextlib.contextmanager
+def _k9_swapped(fwd=None, bwd=None):
+    """K9's forward (``msdeform._forward``, every launch under autograd or
+    not) replaced by ``fwd`` and its backward (``ms_deform_attn_bwd``) by
+    ``bwd`` while the block runs; None keeps the kernel."""
+    from ir_ads_tpu_torch.ops import msdeform as k9
+    from ir_ads_tpu_torch.ops import msdeform_bwd as kb
+
+    saved = k9._forward, kb.ms_deform_attn_bwd
+    k9._forward, kb.ms_deform_attn_bwd = fwd or saved[0], bwd or saved[1]
+    try:
+        yield saved
+    finally:
+        k9._forward, kb.ms_deform_attn_bwd = saved
+
+
+class _Replay:
+    """Records the proposal selections (``transformer.top_k``) and the
+    assignments (``criterion.hungarian_match``) of one step, or replays
+    them in the same order in another."""
+
+    def __init__(self):
+        from ir_ads_tpu_torch.detection import criterion, transformer
+
+        self.mods, self.tape, self.at = (transformer, criterion), [], None
+
+    def __enter__(self):
+        tr, crit = self.mods
+        self.saved = tr.top_k, crit.hungarian_match
+
+        def wrap(fn):
+            def run(*args, **kw):
+                if self.at is None:
+                    out = fn(*args, **kw)
+                    self.tape.append(out)
+                    return out
+                out = self.tape[self.at]
+                self.at += 1
+                return out
+            return run
+
+        tr.top_k, crit.hungarian_match = (wrap(f) for f in self.saved)
+        return self
+
+    def replay(self):
+        """Replay the tape from its start."""
+        self.at = 0
+
+    def __exit__(self, *exc):
+        tr, crit = self.mods
+        tr.top_k, crit.hungarian_match = self.saved
+
+
+def _first_det_step(seed, batch, fwd=None, bwd=None):
+    """A fresh trainer's first step on ``batch``, K9's forward and backward
+    swapped for ``fwd`` and ``bwd`` (``_k9_swapped``).  Returns (loss, the
+    update of every parameter as one vector, the clipped gradient Adam
+    took, as one vector, the mask of the sampling_offsets leaves in it)."""
+    state = _det_trainer(seed)
+    before = torch.cat([v.detach().flatten() for v in state.params.values()])
+    offsets = torch.cat([torch.full((v.numel(),), "sampling_offsets" in k, device=v.device)
+                         for k, v in state.params.items()])
+    grads, adam_step = [], state.opt.step
+
+    def step(*args, **kw):
+        grads.append(torch.cat([v.grad.flatten() for v in state.params.values()]))
+        return adam_step(*args, **kw)
+
+    state.opt.step = step
+    with _k9_swapped(fwd, bwd):
+        loss = float(state.train_step(batch)["loss"])
+    update = torch.cat([v.detach().flatten() for v in state.params.values()]) - before
+    del state, before
+    torch.cuda.empty_cache()
+    return loss, update, grads[0], offsets
+
+
+def _checked_det_step(state, batch):
+    """One step with every K9 launch, forward and backward, held against
+    its plain version on its own inputs.  Returns the relative errors of
+    the forward launches and, per output, of the backward launches."""
+    from ir_ads_tpu_torch.ops import msdeform as k9
+    from ir_ads_tpu_torch.ops import msdeform_bwd as kb
+
+    fwd_log, bwd_log, kernels = [], [], []
+
+    def fwd(value, spatial_shapes, locations, weights):
+        got = kernels[0][0](value, spatial_shapes, locations, weights)
+        want = k9.ms_deform_attn_plain(value, spatial_shapes, locations, weights)
+        fwd_log.append(_rel(got, want, None))
+        return got
+
+    def bwd(value, spatial_shapes, locations, weights, grad_out):
+        got = kernels[0][1](value, spatial_shapes, locations, weights, grad_out)
+        want = kb.ms_deform_attn_bwd_plain(value, spatial_shapes, locations, weights, grad_out)
+        bwd_log.append(tuple(_rel(a, b, None) for a, b in zip(got, want)))
+        return got
+
+    with _k9_swapped(fwd, bwd) as saved:
+        kernels.append(saved)
+        state.train_step(batch)
+    torch.cuda.synchronize()
+    return fwd_log, bwd_log
+
+
+def phase_det_train_step(seed, card_line):
+    """(b) one full-width step: launches, 1 + 3 steps' p50, peak memory, the
+    auction's iterations and share of the step, every K9 launch held, and
+    the first step against the all-plain path."""
+    from ir_ads_tpu_torch.detection import matcher
+
+    batches = [_det_train_batch(seed + i) for i in range(DET_TRAIN_STEPS + 1)]
+    t0 = time.time()
+    state = _det_trainer(seed)
+    n_params = sum(v.numel() for v in state.params.values())
+    print(f"  model: DINO-R50 deformable-mask detector at configs/detection/dino_r50.py's "
+          f"width, {n_params / 1e6:.1f} M parameters (f32 masters, bf16 compute), 6 + 6 "
+          f"layers, {DET_QUERIES} queries + {DET_TRAIN_DN_QUERIES} CDN, built in "
+          f"{time.time() - t0:.1f} s", flush=True)
+
+    auction_ms, auction_iters = [], []
+    saved_auction = matcher.auction_match
+
+    def timed_auction(cost, *a, **kw):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out, iters = matcher.auction_solve(cost, *a, **kw)
+        torch.cuda.synchronize()
+        auction_ms.append((time.perf_counter() - t) * 1e3)
+        auction_iters.append(max(iters))
+        return out
+
+    matcher.auction_match = timed_auction
+    torch.cuda.reset_peak_memory_stats()
+    kernels = _reset_launches()
+    losses, ms, per_step, auctions, auction_share = [], [], [], [], []
+    try:
+        for b in batches:
+            before = {k.name: k.launches for k in kernels}
+            auction_ms.clear()
+            auction_iters.clear()
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            m = state.train_step(b)
+            losses.append(float(m["loss"]))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t) * 1e3)
+            per_step.append({k.name: k.launches - before[k.name] for k in kernels
+                             if k.launches > before[k.name]})
+            auctions.append(list(auction_iters))
+            auction_share.append(sum(auction_ms) / ms[-1])
+    finally:
+        matcher.auction_match = saved_auction
+    launches = {k.name: k.launches for k in kernels}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if not all(math.isfinite(v) for v in losses):
+        fail(f"a DINO training step's loss is not finite: {losses}")
+    if any(p != DET_TRAIN_LAUNCHES for p in per_step):
+        fail(f"the DINO training steps launched {per_step}, expected {DET_TRAIN_LAUNCHES} each")
+    p50 = _p50(ms[1:])
+    print(f"  {DET_TRAIN_STEPS + 1} steps x {DET_TRAIN_BATCH} images {DET_TRAIN_IMAGE[0]}x"
+          f"{DET_TRAIN_IMAGE[1]} (the first warms up): losses {['%.4f' % v for v in losses]}, "
+          f"step ms {['%.1f' % v for v in ms]}, p50 of the last {DET_TRAIN_STEPS} {p50:.1f}, "
+          f"{DET_TRAIN_BATCH * 1e3 / p50:.2f} images/s, peak memory {peak:.2f} GiB; launches "
+          f"a step {per_step[0]}; auction solves a step {len(auctions[-1])} (7 set criteria "
+          f"at (Q, G) = ({DET_QUERIES}, {DET_TRAIN_MAX_GT}), the consistency at ({DET_QUERIES}, "
+          f"{DET_QUERIES})), iterations by solve {auctions[1:]}, their share of the step "
+          f"{['%.3f' % v for v in auction_share]} [{card_line}]", flush=True)
+
+    fwd_log, bwd_log = _checked_det_step(state, batches[0])
+    worst_f = max(fwd_log)
+    worst_b = [max(e[i] for e in bwd_log) for i in range(3)]
+    print(f"  every K9 launch of a step against its plain version on its own inputs: forward "
+          f"{len(fwd_log)} launches, ||diff|| / ||ref|| worst {worst_f:.3e} (tol "
+          f"{DET_STEP_TOL['launch_rel']}); backward {len(bwd_log)} launches, worst dvalue "
+          f"{worst_b[0]:.3e}, dlocations {worst_b[1]:.3e}, dweights {worst_b[2]:.3e} (tol "
+          f"{K9_BWD_REL})", flush=True)
+    if len(fwd_log) != DET_TRAIN_LAUNCHES["msdeform"] or \
+            len(bwd_log) != DET_TRAIN_LAUNCHES["msdeform_bwd"]:
+        fail(f"{len(fwd_log)} forward and {len(bwd_log)} backward K9 launches were checked "
+             "inside the step")
+    if worst_f > DET_STEP_TOL["launch_rel"] or max(worst_b) > K9_BWD_REL:
+        fail("K9 or its backward disagrees with its plain version inside the training step")
+    del state
+    torch.cuda.empty_cache()
+
+    from ir_ads_tpu_torch.ops.msdeform import ms_deform_attn_ordered, ms_deform_attn_plain
+    from ir_ads_tpu_torch.ops.msdeform_bwd import ms_deform_attn_bwd_plain
+
+    runs = dict(kernel={}, again={},
+                plain=dict(fwd=ms_deform_attn_ordered, bwd=ms_deform_attn_bwd_plain),
+                fault=dict(bwd=_bwd_oob_kept),
+                plain_sums=dict(fwd=ms_deform_attn_plain, bwd=ms_deform_attn_bwd_plain))
+    with _Replay() as tape:
+        for i, (name, swap) in enumerate(runs.items()):
+            if i:
+                tape.replay()
+            runs[name] = _first_det_step(seed, batches[0], **swap)
+    u = {k: v[1] for k, v in runs.items()}
+    ref = float(u["plain"].norm())
+    dist = lambda a, b: float((u[a] - u[b]).norm()) / ref  # noqa: E731
+    loss_rel = abs(runs["kernel"][0] - runs["plain"][0]) / abs(runs["plain"][0])
+    noise, plain_dist = dist("again", "kernel"), dist("plain", "kernel")
+    fault_dist, sums_dist = dist("fault", "kernel"), dist("plain_sums", "kernel")
+    ratio = DET_STEP_TOL["noise_ratio"]
+    print(f"  first step, the kernel path's {len(tape.tape)} selections and assignments "
+          f"replayed in each run; distances ||u - u_kernel|| / ||u_plain|| of the update of "
+          f"every parameter: a second kernel run {noise:.3e}; the all-plain path (K9's plain "
+          f"forward in the kernel's order, its plain backward) {plain_dist:.3e} (tol {ratio} "
+          f"x the second run's, or 0); planted fault (the out-of-bounds value term kept in "
+          f"dlocations) {fault_dist:.3e}; for the record, K9's plain version summing in its "
+          f"own order {sums_dist:.3e}; loss {runs['kernel'][0]:.6f} vs the all-plain "
+          f"{runs['plain'][0]:.6f}, rel {loss_rel:.3e} (tol {DET_STEP_TOL['loss']}) "
+          f"[{card_line}]", flush=True)
+
+    g, offsets = {k: v[2] for k, v in runs.items()}, runs["kernel"][3]
+
+    def gdist(name, part):
+        want = g["kernel"] if part is None else g["kernel"][part]
+        got = g[name] if part is None else g[name][part]
+        return float((got - want).norm()) / float(want.norm())
+
+    grad = {k: (gdist(k, None), gdist(k, offsets))
+            for k in ("again", "plain", "plain_sums", "fault")}
+    tol_g = DET_STEP_TOL["grad"]
+    print("  first step, the clipped gradient Adam takes, ||g - g_kernel|| / ||g_kernel|| "
+          "over every parameter / over the sampling_offsets leaves alone: "
+          + "; ".join(f"{k} {a:.3e} / {b:.3e}" for k, (a, b) in grad.items())
+          + f" (tol {tol_g} for both plain paths; the fault must lie beyond it)", flush=True)
+    if loss_rel > DET_STEP_TOL["loss"] or plain_dist > ratio * noise:
+        fail("the DINO training step disagrees with the all-plain path")
+    if max(grad["plain"] + grad["plain_sums"]) > tol_g:
+        fail("the DINO training step's gradient disagrees with the all-plain path's")
+    if fault_dist <= ratio * noise:
+        fail("a K9 backward keeping the out-of-bounds value term passes the update bar")
+    if max(grad["fault"]) <= tol_g:
+        fail("a K9 backward keeping the out-of-bounds value term passes the gradient bar")
+    return launches, dict(losses=losses, step_ms=ms, p50_step_ms=p50,
+                          images_per_s=DET_TRAIN_BATCH * 1e3 / p50, peak_memory_gib=peak,
+                          launches_per_step=per_step[0], auction_iters=auctions,
+                          auction_share=auction_share, launch_rel_fwd=worst_f,
+                          launch_rel_bwd=worst_b, first_step_loss_rel=loss_rel,
+                          first_step_noise_rel=noise, first_step_plain_rel=plain_dist,
+                          first_step_fault_rel=fault_dist, first_step_plain_sums_rel=sums_dist,
+                          first_step_grad_rel=grad,
+                          params_m=n_params / 1e6)
+
+
+DET_NET_FLAGS = ("--num-queries", "2000", "--batch-size", "4", "--max-iter", "4",
+                 "--eval-period", "4")
+DET_NET_IMAGES = 8
+
+
+def phase_det_train_net(seed, card_line):
+    """(c) ``train_net.main`` on a synthetic COCO set of 8 images at 512 x
+    512 (20 classes) written by the port's ``make_synthetic_coco``: 4
+    steps, the EMA weights' COCO eval at step 4, the weights written and
+    read back, the final eval."""
+    import tempfile
+
+    from ir_ads_tpu_torch import train_net
+    from ir_ads_tpu_torch.utils.checkpoint import load_dino_weights
+
+    tmp = tempfile.mkdtemp(prefix="det_train_net_", dir=os.path.dirname(os.path.abspath(
+        __file__)))
+    try:
+        ann, images = train_net.make_synthetic_coco(os.path.join(tmp, "coco"),
+                                                    n_images=DET_NET_IMAGES, size=512,
+                                                    n_classes=DET_CLASSES, seed=seed)
+        out = os.path.join(tmp, "out")
+        kernels = _reset_launches()
+        t = time.time()
+        stats = train_net.main(["--train-json", ann, "--train-root", images, "--val-json", ann,
+                                "--val-root", images, *DET_NET_FLAGS, "--output", out,
+                                "--seed", str(seed)])
+        wall = time.time() - t
+        launches = {k.name: k.launches for k in kernels}
+        want = {"msdeform": 4 * DET_TRAIN_LAUNCHES["msdeform"]
+                + 2 * DET_NET_IMAGES * DET_LAUNCHES, "msdeform_bwd": 4 * 12}
+        got = {k: v for k, v in launches.items() if v}
+        if got != want:
+            fail(f"train_net launched {got}, expected {want}")
+        read = {n: load_dino_weights(os.path.join(out, n))
+                for n in ("weights.msgpack", "ema_weights.msgpack")}
+        n = {k: len(v) for k, v in read.items()}
+        if not all(all(bool(torch.isfinite(t).all()) for t in sd.values())
+                   for sd in read.values()):
+            fail("train_net wrote non-finite weights")
+        if not stats or not all(math.isfinite(stats[k]) for k in ("AP", "AP50", "AR@100")):
+            fail(f"train_net's eval gave {stats}")
+        with open(os.path.join(out, "train.log")) as f:
+            log = f.read()
+        if log.count("eval: AP=") != 2 or "iter 4/4" not in log:
+            fail("train_net's log lacks its step or its two evals")
+        print(f"  train_net.main {' '.join(DET_NET_FLAGS)} on {DET_NET_IMAGES} synthetic "
+              f"images 512x512, {DET_CLASSES} classes: {wall:.1f} s (4 steps, the EMA eval at "
+              f"step 4, weights written, the final eval); launches {got}; weights read back "
+              f"({n['weights.msgpack']} and {n['ema_weights.msgpack']} tensors); final eval "
+              f"AP {stats['AP']:.4f} AP50 {stats['AP50']:.4f} AR@100 {stats['AR@100']:.4f} "
+              f"[{card_line}]", flush=True)
+        return launches, dict(wall_s=wall, launches=got, stats=stats)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_det_train(seed, card_line):
+    """Phase 12: (a) K9's backward alone, (b) the full-width step, (c) the
+    entry point.  Returns (the backward's kernel rows, launches, record)."""
+    t0 = time.time()
+    g = torch.Generator(device="cuda").manual_seed(seed + 12)
+    s = sum(h * w for h, w in DET_TRAIN_LEVELS)
+    lq_dec = DET_QUERIES + DET_TRAIN_DN_QUERIES
+    rows = [hold(check_msdeform_bwd(g, lq, dt, fault)) for lq, dt, fault in (
+        (s, torch.bfloat16, "out-of-bounds value term kept"),
+        (lq_dec, torch.bfloat16, "no -0.5"),
+        (s, torch.float32, "no -0.5"),
+        (lq_dec, torch.float32, "out-of-bounds value term kept"))]
+    t_a = time.time() - t0
+    step_launches, step = phase_det_train_step(seed, card_line)
+    t_b = time.time() - t0 - t_a
+    net_launches, net = phase_det_train_net(seed, card_line)
+    total = dict(step_launches)
+    _add(total, net_launches)
+    print(f"  phase 12: (a) {t_a:.1f} s, (b) {t_b:.1f} s, (c) {net['wall_s']:.1f} s",
+          flush=True)
+    return rows, total, dict(step=step, train_net=net,
+                             backward=[{k: r[k] for k in ("case", "rel_err", "fault",
+                                                          "fault_rel_err", "ms", "plain_ms",
+                                                          "library_ms", "bound_ms")}
+                                       for r in rows])
+
+
 def kernel_table(rows, launches, launches_i8, module_launches, train_launches, det_launches,
                  eval_launches, train_mm_launches, phase9_launches, legacy_launches,
-                 legacy_train_launches):
+                 legacy_train_launches, det_train_launches):
     """One entry per kernel; ``launches`` sums the main paths' runs (the
     serving requests under r5, r4i8, r2, r1, xla, v7_01, v5, map,
     dscf_pallas4, dscf_pallas and dscf_pallas2, r5 on flat frames with the
@@ -5008,8 +5553,9 @@ def kernel_table(rows, launches, launches_i8, module_launches, train_launches, d
     requests, the three eval modes' images, the training entry point's
     run with its gates and its drop_rate step, phase 9's Swin-L and dual
     paths, phase 10's legacy requests (r5, r4, r4i8) and MSF images, and
-    phase 11's legacy training steps and train_mm runs, each counted from
-    0; K20 runs on none of them)."""
+    phase 11's legacy training steps and train_mm runs, and phase 12's
+    DINO training steps and train_net run, each counted from 0; K20 runs
+    on none of them)."""
     from ir_ads_tpu_torch.ops.cuda_lib import PKG
 
     out = []
@@ -5026,6 +5572,7 @@ def kernel_table(rows, launches, launches_i8, module_launches, train_launches, d
                       + train_mm_launches[k.name] + phase9_launches.get(k.name, 0)
                       + legacy_launches.get(k.name, 0)
                       + legacy_train_launches.get(k.name, 0)
+                      + det_train_launches.get(k.name, 0)
                       + sum(m[k.name] for m in module_launches.values())),
             launches_serve=launches[k.name], launches_serve_r4i8=launches_i8[k.name],
             **{f"launches_serve_{d}": m[k.name] for d, m in module_launches.items()},
@@ -5036,6 +5583,7 @@ def kernel_table(rows, launches, launches_i8, module_launches, train_launches, d
             launches_swin_l_dual=phase9_launches.get(k.name, 0),
             launches_legacy=legacy_launches.get(k.name, 0),
             launches_legacy_train=legacy_train_launches.get(k.name, 0),
+            launches_det_train=det_train_launches.get(k.name, 0),
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=first["ms"], plain_ms=first["plain_ms"],
             bound_ms=first["bound_ms"], bound_by=first["bound_by"],
@@ -5058,6 +5606,9 @@ def kernel_table(rows, launches, launches_i8, module_launches, train_launches, d
         if names:
             out[-1]["device_kernels"] = sorted(set(names))
     return out
+
+
+T_START = time.time()
 
 
 def main():
@@ -5110,14 +5661,18 @@ def main():
     legacy_launches, legacy = phase_legacy(args.seed, args.requests, args.batch, card_line)
     print("phase 11: the legacy family trained (CMNeXt-B2, CMX-B2)", flush=True)
     legacy_train_launches, legacy_train = phase_legacy_train(args.seed, card_line)
+    print("phase 12: DINO-R50 training (K9 under autograd, its backward kernel)", flush=True)
+    bwd_rows, det_train_launches, det_train = phase_det_train(args.seed, card_line)
 
-    print(json.dumps({"kernels": kernel_table(rows, launches, launches_i8, module_launches,
-                                              train_launches, det_launches, eval_launches,
-                                              train_mm_launches, phase9_launches,
-                                              legacy_launches, legacy_train_launches),
+    print(json.dumps({"kernels": kernel_table(rows + bwd_rows, launches, launches_i8,
+                                              module_launches, train_launches, det_launches,
+                                              eval_launches, train_mm_launches,
+                                              phase9_launches, legacy_launches,
+                                              legacy_train_launches, det_train_launches),
                       "serve": serve, "train": train, "detect": detect, "evaluate": evaluate,
                       "train_mm": train_mm, "swin_l_dual": swin_l_dual, "legacy": legacy,
-                      "legacy_train": legacy_train, "repair": repair, "card": card_line}))
+                      "legacy_train": legacy_train, "det_train": det_train, "repair": repair,
+                      "card": card_line, "wall_s": time.time() - T_START}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,18 +1,27 @@
-"""vCLR deformable-mask DINO detector, inference: counterpart of
-ir_ads_tpu/detection/dino.py (``DINODetector`` with ``train=False``).
+"""vCLR deformable-mask DINO detector: counterpart of
+ir_ads_tpu/detection/dino.py (``DINODetector``).
 
 ResNet backbone -> ChannelMapper neck -> DINO transformer -> per-layer class,
 box, ROI and mask heads; the mask logits are the product of each query's mask
 embedding with a fused-FPN segmentation map.  Inference ranks boxes by
 sqrt(class score x mask score) and applies class-agnostic NMS
-(``nms_topk``).  The CDN denoising queries, the criterion and the EMA teacher
-belong to training and are not here; the transformer keeps its
-``dn_queries / dn_refs / attn_mask`` arguments.
+(``nms_topk``).
+
+The module's mode is the JAX module's ``train`` flag.  In train mode (the
+student) the forward takes the padded GT and adds the CDN denoising queries
+and their attention mask (``detection.cdn``; the draws come as tensors or
+from a generator), the segmentation map's BatchNorm runs on batch
+statistics and updates its running ones (the backbone's stays frozen), the
+label encoder is tethered into the graph, and the mask heads' embeddings
+are returned with the segmentation features instead of the mask stack (the
+criterion forms the matched masks).  In eval mode (inference, the EMA
+teacher) it returns the eval dict, masks on request.
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+import functools
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -20,6 +29,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from ir_ads_tpu_torch.detection.box_ops import box_cxcywh_to_xyxy, box_iou
+from ir_ads_tpu_torch.detection.cdn import (
+    Draws, cdn_draws, cdn_groups, generate_cdn_queries, make_cdn_attn_mask,
+)
 from ir_ads_tpu_torch.detection.transformer import (
     MLP, NORM_EPS, DINOTransformer, layer_norm, top_k,
 )
@@ -74,18 +86,36 @@ class ChannelMapper(nn.Module):
         return outs
 
 
+@functools.lru_cache(maxsize=4)
+def _cdn_attn_mask(max_gt: int, n_groups: int, num_queries: int,
+                   device: torch.device) -> torch.Tensor:
+    return torch.from_numpy(make_cdn_attn_mask(max_gt, n_groups, num_queries)).to(device)
+
+
 class DINODetector(nn.Module):
-    """``forward(images, want_masks=True)``: (B, H, W, 3) raw RGB 0..255 ->
-    the JAX detector's eval dict: pred_logits (L, B, Q, classes), pred_boxes
-    (L, B, Q, 4) cxcywh, pred_rois, pred_queries, enc_logits, enc_boxes,
-    enc_rois and, on request, pred_masks (L, B, Q, h0, w0) f32 and enc_masks."""
+    """``forward(images, want_masks=True)`` in eval mode: (B, H, W, 3) raw
+    RGB 0..255 -> the JAX detector's eval dict: pred_logits (L, B, Q,
+    classes), pred_boxes (L, B, Q, 4) cxcywh, pred_rois, pred_queries,
+    enc_logits, enc_boxes, enc_rois and, on request, pred_masks (L, B, Q, h0,
+    w0) f32 and enc_masks.
+
+    ``forward(images, gt_labels, gt_boxes, gt_valid, cdn_draws=draws)`` in
+    train mode: the same keys but the masks, the
+    queries being ``2 * max_gt * groups`` CDN queries then the matching
+    ones, plus pred_mask_embeds (L, B, Q, levels * C), enc_mask_embed,
+    seg_feat (B, h0 * w0, levels * C), seg_hw, n_dn and n_groups."""
 
     def __init__(self, num_classes: int = 80, num_queries: int = 900,
                  embed_dim: int = 256, num_encoder_layers: int = 6,
                  num_decoder_layers: int = 6, num_levels: int = 4,
-                 backbone_arch: str = "resnet50"):
+                 backbone_arch: str = "resnet50", dn_number: int = 100,
+                 label_noise_ratio: float = 0.5, box_noise_scale: float = 1.0,
+                 max_gt: int = 20):
         super().__init__()
+        self.num_classes, self.num_queries = num_classes, num_queries
         self.num_decoder_layers = num_decoder_layers
+        self.dn_number, self.max_gt = dn_number, max_gt
+        self.label_noise_ratio, self.box_noise_scale = label_noise_ratio, box_noise_scale
         block, _, widths = ARCHS[backbone_arch]
         self.backbone = ResNet(backbone_arch, out_features=("res3", "res4", "res5"))
         self.neck = ChannelMapper([w * block.expansion for w in widths[1:]],
@@ -115,13 +145,28 @@ class DINODetector(nn.Module):
         self.register_buffer("pixel_mean", torch.from_numpy(PIXEL_MEAN), persistent=False)
         self.register_buffer("pixel_std", torch.from_numpy(PIXEL_STD), persistent=False)
 
-    def forward(self, images: torch.Tensor, want_masks: bool = True) -> Dict[str, torch.Tensor]:
+    def forward(self, images: torch.Tensor, gt_labels: Optional[torch.Tensor] = None,
+                gt_boxes: Optional[torch.Tensor] = None,
+                gt_valid: Optional[torch.Tensor] = None, want_masks: bool = True,
+                cdn_draws: Optional[Draws] = None) -> Dict[str, torch.Tensor]:
         dtype = self.class_embed[0].weight.dtype
         x = ((images.float() - self.pixel_mean.float()) / self.pixel_std.float()).to(dtype)
         feats = self.backbone(x)
         levels = self.neck([feats["res3"], feats["res4"], feats["res5"]])
-        out = self.transformer(levels, self.class_embed, self.bbox_embed)
+
+        dn_queries = dn_refs = attn_mask = None
+        n_groups = 0
+        if self.training and gt_labels is not None and self.dn_number > 0:
+            n_groups = cdn_groups(self.dn_number, self.max_gt)
+            dn_queries, dn_refs = generate_cdn_queries(
+                gt_labels, gt_boxes, gt_valid, self.label_enc.weight.to(dtype), cdn_draws,
+                n_groups, self.label_noise_ratio, self.box_noise_scale)
+            attn_mask = _cdn_attn_mask(self.max_gt, n_groups, self.num_queries, x.device)
+        out = self.transformer(levels, self.class_embed, self.bbox_embed,
+                               dn_queries, dn_refs, attn_mask)
         hidden = out["hidden_states"]
+        if self.training:  # the label encoder stays in the graph without CDN too
+            hidden = hidden + (self.label_enc.weight[0, 0] * 0.0).to(hidden.dtype)
 
         # fused FPN segmentation features: every level's encoder memory
         # upsampled to level 0's resolution, concat, conv residual, LN
@@ -157,11 +202,22 @@ class DINODetector(nn.Module):
             "enc_boxes": out["enc_coord"],
             "enc_rois": rois(n, out["enc_state"]),
         }
-        if want_masks:
+        if self.training:
+            result.update(
+                pred_mask_embeds=torch.stack([self.mask_embed[i](hidden[i]) for i in range(n)]),
+                enc_mask_embed=self.mask_embed[n](out["enc_state"]),
+                seg_feat=seg_flat, seg_hw=(h0, w0),
+                n_dn=2 * self.max_gt * n_groups, n_groups=n_groups)
+        elif want_masks:
             result["pred_masks"] = torch.stack(
                 [mask_logits(self.mask_embed[i], hidden[i]) for i in range(n)])
             result["enc_masks"] = mask_logits(self.mask_embed[n], out["enc_state"])
         return result
+
+
+    def cdn_draws(self, generator: torch.Generator, batch: int, n_groups: int) -> Draws:
+        """The CDN draws of one train forward of ``batch`` images."""
+        return cdn_draws(generator, (batch, n_groups, 2, self.max_gt), self.num_classes)
 
 
 def split_dn(tensor: torch.Tensor, n_dn: int) -> Tuple[torch.Tensor, torch.Tensor]:

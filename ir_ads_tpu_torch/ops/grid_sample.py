@@ -1,6 +1,9 @@
-"""Bilinear sampling for the deformable cross-modal fusion (DSCF).
+"""Bilinear sampling: counterpart of ir_ads_tpu/ops/grid_sample.py.
 
-Counterpart of ir_ads_tpu/ops/grid_sample.py: ``grid_sample_matmul`` is
+``grid_sample`` is the gather form (four corner gathers, an out-of-bounds
+corner's weight zeroed on its clamped index), which the detection
+criterion's point sampling uses; it is XLA code in the JAX package, not a
+Pallas kernel, and tensor ops here.  ``grid_sample_matmul`` is
 ``F.grid_sample(mode='bilinear', padding_mode='zeros')`` written as two
 separable hat-weight contractions, exact for the few hundred sample points a
 DSCF level draws from a feature map.
@@ -9,6 +12,36 @@ DSCF level draws from a feature map.
 from __future__ import annotations
 
 import torch
+
+
+def grid_sample(img: torch.Tensor, grid: torch.Tensor,
+                align_corners: bool = False) -> torch.Tensor:
+    """img (B, H, W, C); grid (B, Hg, Wg, 2) as (x, y) in [-1, 1].  Returns
+    (B, Hg, Wg, C) in ``img.dtype``; the corners are summed in f32.
+    Differentiable in both (the corner indices carry no gradient)."""
+    b, h, w, c = img.shape
+    gx, gy = grid[..., 0].float(), grid[..., 1].float()
+    if align_corners:
+        ix = (gx + 1.0) * 0.5 * (w - 1)
+        iy = (gy + 1.0) * 0.5 * (h - 1)
+    else:
+        ix = ((gx + 1.0) * w - 1.0) * 0.5
+        iy = ((gy + 1.0) * h - 1.0) * 0.5
+    x0, y0 = torch.floor(ix), torch.floor(iy)
+    fx, fy = ix - x0, iy - y0
+    x0i, y0i = x0.long(), y0.long()
+    rows = img.reshape(b, h * w, c)
+
+    def corner(xi, yi, wgt):
+        valid = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+        flat = (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).reshape(b, -1, 1)
+        vals = torch.gather(rows, 1, flat.expand(-1, -1, c)).reshape(*xi.shape, c)
+        wgt = torch.where(valid, wgt, torch.zeros_like(wgt))
+        return vals.float() * wgt[..., None]
+
+    out = (corner(x0i, y0i, (1 - fx) * (1 - fy)) + corner(x0i + 1, y0i, fx * (1 - fy))
+           + corner(x0i, y0i + 1, (1 - fx) * fy) + corner(x0i + 1, y0i + 1, fx * fy))
+    return out.to(img.dtype)
 
 
 def grid_sample_matmul(

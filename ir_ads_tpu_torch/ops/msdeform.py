@@ -19,7 +19,11 @@ L * P * 4 slots summed in f32, one rounding to the value dtype.  (The JAX
 package's CPU default, ``ms_deform_attn_xla``, samples per level in the value
 dtype and then weights: the same function in f32, not in bf16.)
 
-Forward only: the wrapper raises when an input requires a gradient.
+Under autograd (an input requires a gradient and grad mode is on) the
+wrapper goes through ``MSDeformAttnFunction``: the same forward, and as
+backward K9's backward kernel (``ops.msdeform_bwd``, csrc/msdeform_bwd.cu),
+which also runs its plain version only for CPU tensors.  Without a gradient
+the wrapper calls the forward directly, bits as before.
 """
 
 from __future__ import annotations
@@ -40,6 +44,25 @@ KERNEL = CudaKernel(
 Shapes = Sequence[Tuple[int, int]]
 
 
+def corner_terms(h: int, w: int, loc: torch.Tensor):
+    """One level's corners for locations ``loc`` (..., 2) f32 in [0, 1]
+    (pixel coordinate ``loc * size - 0.5``, align_corners=False): a list of
+    four (flat index into the level, clamped; inside the level; bilinear
+    weight), then the fractions (fx, fy)."""
+    gx = loc[..., 0] * w - 0.5  # align_corners=False
+    gy = loc[..., 1] * h - 0.5
+    x0, y0 = torch.floor(gx), torch.floor(gy)
+    fx, fy = gx - x0, gy - y0
+    x0i, y0i = x0.long(), y0.long()
+    corners = []
+    for dy, dx, cw in ((0, 0, (1 - fx) * (1 - fy)), (0, 1, fx * (1 - fy)),
+                       (1, 0, (1 - fx) * fy), (1, 1, fx * fy)):
+        xi, yi = x0i + dx, y0i + dy
+        valid = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
+        corners.append((yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1), valid, cw))
+    return corners, fx, fy
+
+
 def corner_tables(spatial_shapes: Shapes, locations: torch.Tensor,
                   weights: torch.Tensor):
     """Per level, the flat corner indices into the level-concatenated value
@@ -51,21 +74,11 @@ def corner_tables(spatial_shapes: Shapes, locations: torch.Tensor,
     idx, wgt = [], []
     start = 0
     for lvl, (h, w) in enumerate(spatial_shapes):
-        gx = loc[:, :, :, lvl, :, 0] * w - 0.5  # align_corners=False
-        gy = loc[:, :, :, lvl, :, 1] * h - 0.5
-        x0, y0 = torch.floor(gx), torch.floor(gy)
-        fx, fy = gx - x0, gy - y0
-        x0i, y0i = x0.long(), y0.long()
         a = att[:, :, :, lvl]  # (B, Lq, H, P)
-        lvl_idx, lvl_wgt = [], []
-        for dy, dx, cw in ((0, 0, (1 - fx) * (1 - fy)), (0, 1, fx * (1 - fy)),
-                           (1, 0, (1 - fx) * fy), (1, 1, fx * fy)):
-            xi, yi = x0i + dx, y0i + dy
-            valid = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
-            lvl_idx.append(start + yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1))
-            lvl_wgt.append(torch.where(valid, cw, torch.zeros_like(cw)) * a)
-        idx.append(torch.stack(lvl_idx, -1))
-        wgt.append(torch.stack(lvl_wgt, -1))
+        corners = corner_terms(h, w, loc[:, :, :, lvl])[0]
+        idx.append(torch.stack([start + i for i, _, _ in corners], -1))
+        wgt.append(torch.stack([torch.where(v, cw, torch.zeros_like(cw)) * a
+                                for _, v, cw in corners], -1))
         start += h * w
     return idx, wgt
 
@@ -88,6 +101,78 @@ def ms_deform_attn_plain(value: torch.Tensor, spatial_shapes: Shapes,
     return acc.to(value.dtype).reshape(b, lq, heads * d)
 
 
+def fma_f32(v: torch.Tensor, w: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
+    """fmaf(v, w, acc) for f32 tensors (finite, no overflow): one rounding of
+    v * w + acc to f32, by f64 rounded to odd (the product of a bf16 or f32
+    value and an f32 weight is exact in f64; TwoSum's error decides the last
+    bit)."""
+    a, p = acc.double(), v.double() * w.double()
+    s = a + p
+    bb = s - a
+    err = (a - (s - bb)) + (p - bb)  # s + err == a + p exactly
+    even = (s.view(torch.int64) & 1) == 0
+    toward = torch.where(err > 0, torch.full_like(s, float("inf")),
+                         torch.full_like(s, float("-inf")))
+    return torch.where((err != 0) & even, torch.nextafter(s, toward), s).float()
+
+
+def ordered_sums(value: torch.Tensor, spatial_shapes: Shapes, locations: torch.Tensor,
+                 weights: torch.Tensor, skip_zero: bool = False) -> torch.Tensor:
+    """The plain version in the kernel's order of work (csrc/msdeform.cu):
+    per channel one f32 chain of fused multiply-adds from +0, sample-major
+    (level, point), then corner, every corner added.  Returns the f32 sums
+    (B, Lq, H, D), the kernel's bits on finite inputs.  ``skip_zero``: the
+    first design's chain, which took no corner of weight 0."""
+    b, s, heads, d = value.shape
+    lq = locations.shape[1]
+    idx, wgt = corner_tables(spatial_shapes, locations, weights)
+    idx = torch.stack(idx, 3).reshape(b, lq, heads, -1, 4)  # sample-major
+    wgt = torch.stack(wgt, 3).reshape(b, lq, heads, -1, 4)
+    rows = value.float().permute(0, 2, 1, 3)  # (B, H, S, D)
+    bi = torch.arange(b, device=value.device)[:, None, None]
+    hi = torch.arange(heads, device=value.device)[None, None, :]
+    acc = torch.zeros(b, lq, heads, d, device=value.device)
+    for smp in range(idx.shape[3]):
+        for k in range(4):
+            v = rows[bi, hi, idx[:, :, :, smp, k]]  # (B, Lq, H, D)
+            w = wgt[:, :, :, smp, k, None]
+            nxt = fma_f32(v, w.expand_as(v), acc)
+            acc = torch.where(w != 0, nxt, acc) if skip_zero else nxt
+    return acc
+
+
+def ms_deform_attn_ordered(value: torch.Tensor, spatial_shapes: Shapes,
+                           locations: torch.Tensor, weights: torch.Tensor) -> torch.Tensor:
+    """``ordered_sums`` rounded once to the value dtype, (B, Lq, heads * D):
+    the plain version with the kernel's bits, where ``ms_deform_attn_plain``
+    sums in another order (one bf16 ulp apart on some outputs)."""
+    b, lq = locations.shape[:2]
+    return ordered_sums(value, spatial_shapes, locations, weights).to(value.dtype).reshape(
+        b, lq, -1)
+
+
+class MSDeformAttnFunction(torch.autograd.Function):
+    """K9 under autograd: the forward kernel, and K9's backward kernel for
+    the gradients (each its plain version for CPU tensors)."""
+
+    @staticmethod
+    def forward(ctx, value, locations, weights, spatial_shapes):
+        ctx.spatial_shapes = spatial_shapes
+        ctx.save_for_backward(value, locations, weights)
+        return _forward(value, spatial_shapes, locations, weights)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        from ir_ads_tpu_torch.ops import msdeform_bwd
+
+        value, locations, weights = ctx.saved_tensors
+        dvalue, dloc, datt = msdeform_bwd.ms_deform_attn_bwd(value, ctx.spatial_shapes,
+                                                             locations, weights, grad_out)
+        need = ctx.needs_input_grad
+        return (dvalue if need[0] else None, dloc if need[1] else None,
+                datt if need[2] else None, None)
+
+
 def ms_deform_attn(
     value: torch.Tensor,      # (B, sum(h*w), heads, D) bf16 or f32
     spatial_shapes: Shapes,   # static [(h, w), ...]
@@ -97,9 +182,12 @@ def ms_deform_attn(
     """Returns (B, Lq, heads * D) in the value dtype."""
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (value, locations, weights)):
-        raise RuntimeError(
-            "ms_deform_attn is forward-only: it has no backward yet and an input "
-            "requires a gradient; run it under torch.no_grad()")
+        shapes = tuple((int(h), int(w)) for h, w in spatial_shapes)
+        return MSDeformAttnFunction.apply(value, locations, weights, shapes)
+    return _forward(value, spatial_shapes, locations, weights)
+
+
+def _forward(value, spatial_shapes, locations, weights) -> torch.Tensor:
     if value.device.type == "cpu":
         return ms_deform_attn_plain(value, spatial_shapes, locations, weights)
     b, s, heads, d = value.shape

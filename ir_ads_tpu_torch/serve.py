@@ -248,19 +248,24 @@ class DetPredictor:
         return self.postprocess(out, want_masks)
 
     def postprocess(self, out, want_masks: bool = False):
-        logits = out["pred_logits"][-1].float()
-        boxes = out["pred_boxes"][-1]
-        masks = out["pred_masks"][-1]  # (B, Q, h0, w0) logits, f32
-        scores = logits.sigmoid()
-        # mask-scored ranking: sqrt(class score x mean foreground probability)
-        mask_fg = (masks > 0).float()
-        mask_score = (mask_fg * masks.float().sigmoid()).sum((-2, -1)) / (
-            mask_fg.sum((-2, -1)) + 1e-10)
-        cls_scores = torch.sqrt(scores.amax(-1) * mask_score.clamp(min=1e-6))
-        cls_ids = scores.argmax(-1)
-        s, xyxy, keep = nms_topk(cls_scores, boxes, topk=min(self.topk, boxes.shape[1]),
-                                 iou_thresh=self.iou_thresh)
-        order = torch.argsort(-torch.where(keep, s, -torch.ones_like(s)), dim=1,
-                              stable=True)
-        result = (s, xyxy, keep, cls_ids, order)
-        return result + (masks,) if want_masks else result
+        return det_postprocess(out, self.topk, self.iou_thresh, want_masks)
+
+
+def det_postprocess(out, topk: int = 300, iou_thresh: float = 0.7, want_masks: bool = False):
+    """``DetPredictor``'s post-processing of an eval forward's dict (the last
+    layer's logits, boxes and mask logits)."""
+    logits = out["pred_logits"][-1].float()
+    boxes = out["pred_boxes"][-1]
+    masks = out["pred_masks"][-1]  # (B, Q, h0, w0) logits, f32
+    scores = logits.sigmoid()
+    # mask-scored ranking: sqrt(class score x mean foreground probability)
+    mask_fg = (masks > 0).float()
+    mask_score = (mask_fg * masks.float().sigmoid()).sum((-2, -1)) / (
+        mask_fg.sum((-2, -1)) + 1e-10)
+    cls_scores = torch.sqrt(scores.amax(-1) * mask_score.clamp(min=1e-6))
+    cls_ids = scores.argmax(-1)
+    s, xyxy, keep = nms_topk(cls_scores, boxes, topk=min(topk, boxes.shape[1]),
+                             iou_thresh=iou_thresh)
+    order = torch.argsort(-torch.where(keep, s, -torch.ones_like(s)), dim=1, stable=True)
+    result = (s, xyxy, keep, cls_ids, order)
+    return result + (masks,) if want_masks else result

@@ -132,6 +132,23 @@ def save_weights(path: str, state_dict: Dict[str, torch.Tensor]) -> int:
     return _write(path, to_flax(state_dict))
 
 
+def save_dino_weights(path: str, state_dict: Dict[str, torch.Tensor]) -> int:
+    """A ``DINODetector`` state_dict as the JAX package's weights.msgpack
+    (``dino_to_flax``, the unrolled transformer layout, which the JAX
+    train_net's template has); returns the bytes written."""
+    from ir_ads_tpu_torch.utils.jax_params import dino_to_flax
+
+    return _write(path, dino_to_flax(state_dict))
+
+
+def load_dino_weights(path: str) -> Dict[str, torch.Tensor]:
+    """A detector's weights.msgpack (either transformer layout) as the
+    port's state_dict."""
+    from ir_ads_tpu_torch.utils.jax_params import dino_from_flax
+
+    return dino_from_flax(load_weights(path))
+
+
 # --------------------------------------------------------------------------
 # optax's state tree
 # --------------------------------------------------------------------------

@@ -352,3 +352,109 @@ def dino_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
         if name.endswith("running_var") and ".norm." not in name:
             sd[name[: -len("running_var")] + "num_batches_tracked"] = torch.tensor(0)
     return sd
+
+
+_DINO_TOP_INV = {v: k for k, v in _DINO_TOP.items()}
+_DINO_TRANSFORMER_INV = {v: k for k, v in _DINO_TRANSFORMER.items()}
+_DINO_LAYER_INV = {v: k for k, v in _DINO_LAYER.items()}
+
+
+def _mlp_layers(rest: str) -> Tuple[str, ...]:
+    """``layers.k`` (an MLP's layer) -> ``layer{k}``."""
+    m = re.fullmatch(r"layers\.(\d+)", rest)
+    return (f"layer{m.group(1)}",)
+
+
+def _dino_flax_module(module: str, n_mapped: int) -> Tuple[str, ...]:
+    """The flax module path of a port module path (``_dino_module``'s
+    inverse); norms of the backbone end in their ``BatchNorm_0``."""
+    m = re.fullmatch(r"backbone\.stem\.conv1(\.norm)?", module)
+    if m:
+        return ("backbone", "stem_bn", "BatchNorm_0") if m.group(1) else ("backbone", "stem_conv")
+    m = re.fullmatch(r"backbone\.res(\d)\.(\d+)\.(conv(\d)|shortcut)(\.norm)?", module)
+    if m:
+        block = f"layer{int(m.group(1)) - 1}_{m.group(2)}"
+        kind = "downsample_" if m.group(3) == "shortcut" else ""
+        num = m.group(4) or ""
+        if m.group(5):
+            return ("backbone", block, f"{kind}bn{num}", "BatchNorm_0")
+        return ("backbone", block, f"{kind}conv{num}")
+    m = re.fullmatch(r"neck\.(convs|extra_convs)\.(\d+)\.(conv|gn)", module)
+    if m:
+        i = int(m.group(2)) + (n_mapped if m.group(1) == "extra_convs" else 0)
+        return ("neck", f"{'extra_' if m.group(1) == 'extra_convs' else ''}{m.group(3)}_{i}")
+    if module in _DINO_TOP_INV:
+        return (_DINO_TOP_INV[module],)
+    m = re.fullmatch(r"(mask_embed|ROI_embed)\.(\d+)(?:\.0)?\.(layers\.\d+)", module)
+    if m:
+        name = "mask_embed" if m.group(1) == "mask_embed" else "roi_embed"
+        return (f"{name}_{m.group(2)}",) + _mlp_layers(m.group(3))
+    m = re.fullmatch(r"class_embed\.(\d+)", module)
+    if m:
+        return ("transformer", f"class_embed_{m.group(1)}")
+    m = re.fullmatch(r"bbox_embed\.(\d+)\.(layers\.\d+)", module)
+    if m:
+        return ("transformer", f"bbox_embed_{m.group(1)}") + _mlp_layers(m.group(2))
+    for port, flax in _DINO_TRANSFORMER_INV.items():
+        if module == port or module.startswith(port + ".layers."):
+            rest = module[len(port) + 1:]
+            return ("transformer", flax) + (_mlp_layers(rest) if rest else ())
+    m = re.fullmatch(r"transformer\.(encoder|decoder)\.layers\.(\d+)\.(.*)", module)
+    if m:
+        base = ("transformer", f"{m.group(1)}_{m.group(2)}")
+        part = m.group(3)
+        a = re.fullmatch(r"attentions\.(\d)\.(?:attn\.)?(\w+)", part)
+        if a:
+            slot = "cross_attn" if a.group(1) == "1" else "self_attn"
+            return base + (slot, a.group(2))
+        if part in _DINO_LAYER_INV:
+            return base + ("ffn", _DINO_LAYER_INV[part])
+        n = re.fullmatch(r"norms\.(\d)", part)
+        if n:
+            return base + (f"norm{int(n.group(1)) + 1}",)
+    raise ValueError(f"dino_to_flax: no flax module for {module!r}")
+
+
+def dino_to_flax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Dict]:
+    """The port's ``DINODetector`` state_dict (or any dict keyed by its
+    parameter and statistic names) -> the flax ``{"params", "batch_stats"}``
+    tree of the unrolled transformer layout, numpy, f32 for f32 and bf16
+    tensors: ``dino_from_flax``'s inverse.  The decoder self-attention's
+    packed projections are split into q_proj / k_proj / v_proj.  Each
+    name is checked by mapping its flax path forward again."""
+    n_mapped = len({n.split(".")[2] for n in state_dict if n.startswith("neck.convs.")})
+    out: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
+    for name, t in state_dict.items():
+        module, leaf = name.rsplit(".", 1)
+        if leaf in _BUFFERS:
+            continue
+        arr = t.detach().cpu()
+        arr = (arr.float() if arr.dtype == torch.bfloat16 else arr).numpy()
+        if name == "label_enc.weight":
+            _put(out["params"], ("label_enc",), np.array(arr))
+            continue
+        if name in ("transformer.level_embeds", "transformer.tgt_embed.weight"):
+            _put(out["params"], ("transformer", module.split(".")[1] if leaf == "weight"
+                                 else leaf), np.array(arr))
+            continue
+        if leaf.startswith("in_proj_"):  # torch's packed MHA projections
+            path = _dino_flax_module(module + ".q_proj", n_mapped)[:-1]
+            kind = "kernel" if leaf == "in_proj_weight" else "bias"
+            for i, part in enumerate(np.split(arr, 3)):
+                _put(out["params"], path + (f"{'qkv'[i]}_proj", kind),
+                     np.array(part.T if kind == "kernel" else part))
+            continue
+        path = _dino_flax_module(module, n_mapped)
+        coll = "params"
+        if leaf in ("running_mean", "running_var"):
+            coll, leaf = "batch_stats", leaf[len("running_"):]
+        elif leaf == "weight":
+            leaf = "kernel" if arr.ndim in (2, 4) else "scale"
+        if leaf == "kernel":
+            arr = arr.T if arr.ndim == 2 else arr.transpose(2, 3, 1, 0)
+        _put(out[coll], path + (leaf,), np.array(arr, order="C"))
+    back = dino_from_flax(out)
+    for name in state_dict:
+        if name.rsplit(".", 1)[1] not in _BUFFERS and name not in back:
+            raise ValueError(f"dino_to_flax: {name} does not map back")
+    return out

@@ -11,6 +11,7 @@ one step of its trainer, under torch.profiler.
     python3 profile_port.py --train [--seed 0] [--batch 4] [--backbone SwinTransformer-L]
                             [--dual]
     python3 profile_port.py --det [--seed 0]
+    python3 profile_port.py --det-train [--seed 0]
     python3 profile_port.py --eval [--seed 0] [--backbone CMNeXt-B2]
     python3 profile_port.py --dscf [--seed 0]
     python3 profile_port.py --jmajor-v1 [--seed 0]
@@ -50,6 +51,14 @@ that, one unprofiled request's timeline is split by module (backbone, neck,
 encoder, decoder, the seg map and mask heads) with CUDA events around each;
 after it, one more profiled request gives K9's device time by launch, the
 encoder's six and the decoder's six.
+Detection training (--det-train): ``chip_smoke.py`` phase 12's full-width
+DINO-R50 trainer and batch (4 images 512x512, 2000 queries + 200 CDN, bf16
+on f32 masters), two warm-up steps, then one step profiled in three parts:
+the EMA teacher, the student and the losses (the auction among
+them); the backward; AdamW and the EMA update.  Device time by
+kernel (K9 and its backward), busy and idle share, peak memory; then 4 + 4
+unprofiled steps in turns with the auction's host read every iteration
+and every ``matcher.AUCTION_CHECK_EVERY``.
 Evaluation (--eval): builds the model as ``ir_ads_tpu_torch.val_mm`` does
 for ``chip_smoke.py``'s phase 7 (configs/nyu_rgbd.yaml's EVAL: Swin-B
 CMNeXt, or --backbone, bf16, r5, 40 classes, weights from --seed), runs one warm-up MSF
@@ -152,6 +161,7 @@ BY_KERNEL = {
     "K7": ("window_attn_bwd_kernel", "window_attn_bwd_mma_kernel"),
     "K8": ("dscf_rows_bwd_kernel",),
     "K9": ("msdeform_kernel", "msdeform_pairs_kernel"),
+    "K9 backward": ("msdeform_bwd_kernel",),
     "K10 rows": ("k10_ln1_kernel", "igemm_kernel<K10QkvOut", "k10_att_quant_kernel",
                  "igemm_kernel<K10ProjAdd", "ln_quant_qkv_kernel", "quant_proj_add_kernel"),
     "K10 attention": ("int8_attn_mma_kernel",),
@@ -871,6 +881,74 @@ def profile_step(args) -> dict:
                 backward=bwd, optimizer=upd, k7_ms=k7["ms"], k7_share=k7["ms"] / busy)
 
 
+def profile_det_step(args) -> dict:
+    """One full-width DINO-R50 training step (``chip_smoke.py`` phase 12's
+    trainer and batch, --det-train) taken apart: the teacher, student and
+    losses; the backward; the optimizer and the EMA update."""
+    c = _chip_smoke()
+    state = c._det_trainer(args.seed)
+    batch = c._det_train_batch(args.seed)
+    for _ in range(2):
+        state.train_step(batch)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def forward():
+        draws = state.draws(batch[0].shape[0])
+        return state.losses(state.params, batch, draws, state.teacher(batch[1]))[0]
+
+    total, fwd = profiled(forward, args.top)
+    grads, bwd = profiled(lambda: torch.autograd.grad(
+        total, list(state.params.values()), allow_unused=True), args.top)
+
+    _, upd = profiled(lambda: state.apply_gradients(grads), args.top)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    card = (f"{torch.cuda.get_device_name(0)}; DINO-R50 train step of "
+            f"{c.DET_TRAIN_BATCH} images {c.DET_TRAIN_IMAGE[0]}x{c.DET_TRAIN_IMAGE[1]}, "
+            f"{c.DET_QUERIES} queries + {c.DET_TRAIN_DN_QUERIES} CDN")
+    for what, part in (("teacher + student + losses", fwd), ("backward", bwd),
+                       ("optimizer + EMA", upd)):
+        show(f"{card}; {what}", part)
+    busy = sum(p["device_busy_ms"] for p in (fwd, bwd, upd))
+    wall = sum(p["wall_ms"] for p in (fwd, bwd, upd))
+    k9 = {k: sum(p["by_kernel"].get(k, dict(ms=0.0))["ms"] for p in (fwd, bwd))
+          for k in ("K9", "K9 backward")}
+    print(f"{card}: wall {wall:.2f} ms (profiler on), device busy {busy:.2f} ms, idle share "
+          f"{1 - busy / wall:.3f}, peak memory {peak:.2f} GiB; K9 {k9['K9']:.3f} ms, its "
+          f"backward {k9['K9 backward']:.3f} ms, "
+          f"{(k9['K9'] + k9['K9 backward']) / busy:.3f} of the device busy time")
+    turns = auction_read_turns(state, batch)
+    print(f"{card}: step ms in turns by the auction's host-read period (iterations) "
+          + "; ".join(f"{k}: {['%.1f' % v for v in vs]}, p50 {sorted(vs)[len(vs) // 2]:.1f}"
+                      for k, vs in turns.items()))
+    return dict(what="det_train", batch=c.DET_TRAIN_BATCH, wall_ms=wall, device_busy_ms=busy,
+                idle_share=1 - busy / wall, peak_memory_gib=peak, forward=fwd, backward=bwd,
+                optimizer=upd, k9_ms=k9["K9"], k9_backward_ms=k9["K9 backward"],
+                auction_read_turns=turns)
+
+
+def auction_read_turns(state, batch, rounds: int = 4) -> dict:
+    """Unprofiled steps in turns with the auction reading its flag on the
+    host every iteration and every ``AUCTION_CHECK_EVERY`` (the shipped
+    period; the assignments are the same): step ms by period."""
+    from ir_ads_tpu_torch.detection import matcher
+
+    shipped = matcher.AUCTION_CHECK_EVERY
+    out = {1: [], shipped: []}
+    try:
+        for r in range(rounds):
+            for every in (1, shipped) if r % 2 == 0 else (shipped, 1):
+                matcher.AUCTION_CHECK_EVERY = every
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                state.train_step(batch)
+                torch.cuda.synchronize()
+                out[every].append((time.perf_counter() - t) * 1e3)
+    finally:
+        matcher.AUCTION_CHECK_EVERY = shipped
+    return out
+
+
 def launch_ms(fn, names) -> list:
     """Device time (ms) of each launch of the device kernels ``names`` in
     one profiled call of ``fn``, in the order they ran."""
@@ -977,6 +1055,8 @@ def main():
                     help="profile one training step instead of one request")
     ap.add_argument("--eval", action="store_true",
                     help="one MSF image of the eval entry point, scale by scale")
+    ap.add_argument("--det-train", action="store_true",
+                    help="one DINO-R50 training step: forward, backward, optimizer")
     ap.add_argument("--det", action="store_true",
                     help="profile one detection request instead")
     ap.add_argument("--dscf", action="store_true",
@@ -1024,6 +1104,7 @@ def main():
            else time_rpe if args.rpe
            else time_qkv_map_bwd if args.qkv_map_bwd else save_logits if args.logits
            else swin_shares if args.shares else time_k9_k19 if args.k9_k19
+           else profile_det_step if args.det_train
            else profile_detection if args.det else profile_eval if args.eval
            else profile_step if args.train else profile_request)
     print(json.dumps(run(args)))

@@ -17,7 +17,8 @@ import pytest
 
 from ir_ads_tpu_torch.ops import (
     block_tail, block_tail_int8, dscf_attention, dscf_fused, dscf_rows, dscf_rows_bwd, dscf_rpe,
-    dscf_rpe_jmajor, dscf_rpe_packed, msdeform, patch_embed, swin_block, swin_block_full,
+    dscf_rpe_jmajor, dscf_rpe_packed, msdeform, msdeform_bwd, patch_embed, swin_block,
+    swin_block_full,
     swin_block_int8, swin_block_v6, swin_block_v7, window_attention_map, window_attention_qkv,
     window_attention_v1, window_attn_bwd,
 )
@@ -25,7 +26,8 @@ from ir_ads_tpu_torch.ops import (
 MODULES = (swin_block, block_tail, dscf_rpe, dscf_rows, swin_block_v6, dscf_rpe_packed,
            window_attn_bwd, dscf_rows_bwd, msdeform, swin_block_int8, block_tail_int8,
            window_attention_qkv, swin_block_v7, swin_block_full, window_attention_map,
-           dscf_fused, dscf_attention, dscf_rpe_jmajor, patch_embed, window_attention_v1)
+           dscf_fused, dscf_attention, dscf_rpe_jmajor, patch_embed, window_attention_v1,
+           msdeform_bwd)
 
 
 def _c_parameters(source: str, fn: str):

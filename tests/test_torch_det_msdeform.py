@@ -96,11 +96,26 @@ def test_wrapper_on_cpu_runs_plain_and_counts_nothing():
 
 
 def test_wrapper_is_forward_only():
+    """(K9 was forward-only; it now has a backward.)  On CPU tensors a
+    gradient flows through the wrapper to all three inputs, and it is the
+    plain backward's, with no kernel launched; under ``no_grad`` the output
+    is the plain forward's bit for bit."""
+    from ir_ads_tpu_torch.ops.msdeform_bwd import KERNEL as BWD, ms_deform_attn_bwd_plain
+
+    shapes = SHAPE_SETS[0][0]
     value, loc, w = (torch.from_numpy(a) for a in _data(3, *SHAPE_SETS[0]))
-    with pytest.raises(RuntimeError, match="forward-only"):
-        msdeform.ms_deform_attn(value.requires_grad_(), SHAPE_SETS[0][0], loc, w)
+    leaves = [t.clone().requires_grad_() for t in (value, loc, w)]
+    out = msdeform.ms_deform_attn(leaves[0], shapes, leaves[1], leaves[2])
+    g = torch.randn(out.shape, generator=torch.Generator().manual_seed(0))
+    out.backward(g)
+    want = ms_deform_attn_bwd_plain(value, shapes, loc, w, g)
+    for leaf, ref in zip(leaves, want):
+        assert leaf.grad is not None and torch.equal(leaf.grad, ref)
+    assert float(leaves[1].grad.abs().sum()) > 0
     with torch.no_grad():
-        msdeform.ms_deform_attn(value, SHAPE_SETS[0][0], loc, w)
+        got = msdeform.ms_deform_attn(leaves[0], shapes, leaves[1], leaves[2])
+    assert torch.equal(got, msdeform.ms_deform_attn_plain(value, shapes, loc, w))
+    assert msdeform.KERNEL.launches == 0 and BWD.launches == 0
 
 
 def test_offset_bias_init_matches_jax():

@@ -12,7 +12,8 @@ outside every level, attention weights of exactly 0, and sums that cancel to
 zero.  The ordered chain is also held to tests/test_torch_det_msdeform.py's
 bars against the interpreted Pallas kernel, in f32 and bf16.
 
-The corners are ``ops.msdeform.corner_tables``: the kernel's per-sample
+The chain is ``ops.msdeform.ordered_sums`` (``ms_deform_attn_ordered``
+rounds it once).  The corners are ``ops.msdeform.corner_tables``: the kernel's per-sample
 arithmetic (the pixel coordinate and the corner weight rounded as separate
 f32 operations, the attention weight times the corner weight one f32
 product).  A fused multiply-add is emulated exactly: the product of a bf16
@@ -36,39 +37,26 @@ SHAPE_SETS = [  # tests/test_torch_det_msdeform.py's
 ]
 
 
-def fma_f32(v: torch.Tensor, w: torch.Tensor, acc: torch.Tensor) -> torch.Tensor:
-    """fmaf(v, w, acc) for f32 tensors (finite, no overflow): one rounding of
-    v * w + acc to f32, by f64 rounded to odd."""
-    a, p = acc.double(), v.double() * w.double()  # the product is exact
-    s = a + p
-    bb = s - a
-    err = (a - (s - bb)) + (p - bb)  # s + err == a + p exactly (TwoSum)
-    even = (s.view(torch.int64) & 1) == 0
-    toward = torch.where(err > 0, torch.full_like(s, np.inf), torch.full_like(s, -np.inf))
-    odd = torch.where((err != 0) & even, torch.nextafter(s, toward), s)
-    return odd.float()
+fma_f32 = msdeform.fma_f32
+
+
+@pytest.fixture(autouse=True)
+def one_thread():
+    """The chains are hundreds of small f64 operations: one thread, so
+    parallel test workers do not oversubscribe the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def ordered(value, shapes, loc, att, skip_zero=False):
-    """K9's chain per channel: f32 accumulators (B, Lq, H, D) and the output
-    (B, Lq, H*D) in the value dtype.  ``skip_zero``: the first design's
-    chain, which took no corner of weight 0."""
-    b, s, heads, d = value.shape
-    lq = loc.shape[1]
-    idx, wgt = msdeform.corner_tables(shapes, loc, att)  # L x (B, Lq, H, P, 4)
-    idx = torch.stack(idx, 3).reshape(b, lq, heads, -1, 4)  # sample-major
-    wgt = torch.stack(wgt, 3).reshape(b, lq, heads, -1, 4)
-    rows = value.float().permute(0, 2, 1, 3)  # (B, H, S, D)
-    bi = torch.arange(b)[:, None, None]
-    hi = torch.arange(heads)[None, None, :]
-    acc = torch.zeros(b, lq, heads, d)
-    for smp in range(idx.shape[3]):
-        for k in range(4):
-            v = rows[bi, hi, idx[:, :, :, smp, k]]  # (B, Lq, H, D)
-            w = wgt[:, :, :, smp, k, None]
-            nxt = fma_f32(v, w.expand_as(v), acc)
-            acc = torch.where(w != 0, nxt, acc) if skip_zero else nxt
-    return acc, acc.to(value.dtype).reshape(b, lq, heads * d)
+    """K9's chain per channel (``ops.msdeform.ordered_sums``): the f32
+    accumulators (B, Lq, H, D) and the output (B, Lq, H*D) in the value
+    dtype.  ``skip_zero``: the first design's chain, which took no corner
+    of weight 0."""
+    acc = msdeform.ordered_sums(value, shapes, loc, att, skip_zero)
+    return acc, acc.to(value.dtype).reshape(acc.shape[0], acc.shape[1], -1)
 
 
 def _data(seed, shapes, bs, heads, d, lq, points, kind="random"):
@@ -141,8 +129,8 @@ def test_ordered_chain_matches_the_pallas_kernel_f32(shapes, bs, heads, d, lq, p
     value, loc, w = _data(0, shapes, bs, heads, d, lq, points)
     want = ms_deform_attn_pallas(jnp.asarray(value), shapes, jnp.asarray(loc),
                                  jnp.asarray(w), True)
-    _, got = ordered(torch.from_numpy(value), shapes, torch.from_numpy(loc),
-                     torch.from_numpy(w))
+    got = msdeform.ms_deform_attn_ordered(torch.from_numpy(value), shapes,
+                                          torch.from_numpy(loc), torch.from_numpy(w))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-5)
 
 
@@ -155,8 +143,9 @@ def test_ordered_chain_matches_the_pallas_kernel_bf16(shapes, bs, heads, d, lq, 
     wb = jnp.asarray(w).astype(jnp.bfloat16)
     want = np.asarray(ms_deform_attn_pallas(vb, shapes, jnp.asarray(loc), wb, True)
                       .astype(jnp.float32))
-    _, got = ordered(torch.from_numpy(value).bfloat16(), shapes, torch.from_numpy(loc),
-                     torch.from_numpy(w).bfloat16())
+    got = msdeform.ms_deform_attn_ordered(torch.from_numpy(value).bfloat16(), shapes,
+                                          torch.from_numpy(loc),
+                                          torch.from_numpy(w).bfloat16())
     assert got.dtype == torch.bfloat16
     got = got.float().numpy()
     np.testing.assert_allclose(got, want, rtol=2 ** -7, atol=2 ** -9)
