@@ -281,6 +281,27 @@ Phases, each of which raises on failure:
      ``train_net.main`` on 8 synthetic 512x512 images (``DET_NET_FLAGS``:
      4 steps, the EMA weights' COCO eval, the weights written and read
      back).
+ 13. The anomaly stack and the LVIS evaluator.  An MVTec-AD class tree is
+     written from --seed (``AD_TREE``: 64 train/good, 16 test/good, 10 each
+     of three defects, 1024x1024 RGB PNG).  (a) ``train_ad.main`` at the JAX
+     driver's defaults (``AD_FLAGS``: ResNet-18, 448x448, batch 48, lr 2e-4,
+     10 anomalies, LightSB with 10 potentials) cut to one epoch of 8 steps
+     (``AD_CUTS``): no hand-written kernel launches; step p50 (each step
+     synchronised), images/s, peak memory, the host milliseconds of a
+     ``balanced_batches`` batch, the eval pass's and the LightSB fit's
+     seconds, its final objective, the three AUROCs, the weights file read
+     back bit for bit.  (b) One f32 deviation step on the card against the
+     same step on the host CPU (same weights, the first balanced batch):
+     the loss and each parameter group's gradient at ``AD_STEP_TOL``, a
+     second card run's distance printed; the trunk's BatchNorm in eval mode
+     must fail.  (c) LightSB (dim 512, 10 potentials, batch 128, diagonal
+     and rotated): ``get_log_C``, ``get_log_potential``, ``get_drift`` and a
+     10-step Euler-Maruyama rollout on the same noise, card against host
+     CPU at ``SB_CARD_TOL``; the drift without its epsilon * gradient term
+     must fail.  (d) ``train_net.main --evaluator lvis`` on phase 12 (c)'s
+     synthetic set with every third box enlarged (``LVIS_NET_FLAGS``: two
+     steps, then the LVIS evaluation): its keys finite, K9's launches as
+     counted.
 The line before the last is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``.  Nothing of JAX is imported.
 """
@@ -5543,9 +5564,406 @@ def phase_det_train(seed, card_line):
                                        for r in rows])
 
 
+# --------------------------------------------------------------------------
+# phase 13: the anomaly stack (train_ad) and the LVIS evaluator
+# --------------------------------------------------------------------------
+
+# the JAX driver's defaults (train_ad.py:103-119); the cuts: --epochs 30 -> 1,
+# --steps_per_epoch 20 -> 8
+AD_FLAGS = ("--backbone", "resnet18", "--img_size", "448", "--batch_size", "48", "--lr", "2e-4",
+            "--nAnomaly", "10", "--lightsb", "--sb_potentials", "10")
+AD_CUTS = ("--epochs", "1", "--steps_per_epoch", "8")
+AD_BATCH, AD_STEPS = 48, 8
+AD_TREE = dict(train_good=64, test_good=16, defects=("crack", "hole", "scratch"),
+               per_defect=10, size=1024)
+AD_GROUPS = ("features.stem", "features.res2", "features.res3", "features.res4",
+             "features.res5", "score_head")
+# one f32 deviation step on the card against the same step on the host CPU
+# (the loss relative, each group's gradient distance over its norm); set
+# from three card runs' readings, 4.659e-3 at most in each (the loss equal):
+# f32's own distance from the f64 step (3.70e-3 the card's, 3.85e-3 the
+# host's), printed beside it; card run to run 1.2e-5
+AD_STEP_TOL = dict(loss=1e-5, group=2e-2)
+# LightSB on the card against the host CPU: max |card - cpu| over max |cpu|;
+# readings 1.5e-7 (log C) to 1.82e-4 (the diagonal drift, where the host's
+# f32 lies 1.51e-4 from the f64 result and the card's 3.14e-5: the drift's
+# two terms cancel), the f64 distances printed beside them
+SB_CARD_TOL = 1e-3
+SB_DIM, SB_N, SB_BATCH, SB_STEPS = 512, 10, 128, 10
+LVIS_KEYS = ("AP", "AP50", "AP75", "APs", "APm", "APl", "AR@300")
+LVIS_NET_FLAGS = ("--num-queries", "2000", "--batch-size", "4", "--max-iter", "2",
+                  "--evaluator", "lvis")
+
+
+def _mvtec_tree(root, seed):
+    """An MVTec-AD class tree of 1024x1024 RGB PNGs (``AD_TREE``): smooth
+    random textures with pixel noise; a defect image carries a dark stroke.
+    Returns the seconds it took."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    from PIL import Image
+
+    size = AD_TREE["size"]
+    jobs = [("train", "good", i) for i in range(AD_TREE["train_good"])]
+    jobs += [("test", "good", i) for i in range(AD_TREE["test_good"])]
+    jobs += [("test", d, i) for d in AD_TREE["defects"] for i in range(AD_TREE["per_defect"])]
+
+    def write(k):
+        split, cl, i = jobs[k]
+        rng = np.random.RandomState([seed, k])
+        base = Image.fromarray(rng.randint(0, 256, (32, 32, 3), dtype=np.uint8))
+        img = np.asarray(base.resize((size, size), Image.BICUBIC), np.int16)
+        img = img + rng.randint(-8, 9, img.shape)
+        if cl != "good":
+            y, x = rng.randint(size // 16, size - size // 16, 2)
+            img[y: y + size // 85 + 1, x: x + rng.randint(size // 16, size // 4)] //= 4
+        d = os.path.join(root, "widget", split, cl)
+        os.makedirs(d, exist_ok=True)
+        Image.fromarray(np.clip(img, 0, 255).astype(np.uint8)).save(
+            os.path.join(d, f"{i:03d}.png"), compress_level=1)
+
+    t = time.time()
+    with ThreadPoolExecutor(8) as pool:
+        list(pool.map(write, range(len(jobs))))
+    return time.time() - t
+
+
+@contextlib.contextmanager
+def _instrumented_train_ad():
+    """While the block runs, each call of ``train_ad``'s ``train_step``
+    (synchronised), ``evaluate``, ``fit_lightsb``, ``auroc`` and ``build``
+    is recorded as (seconds, result), and each batch of
+    ``balanced_batches`` by its host seconds."""
+    from ir_ads_tpu_torch import train_ad
+
+    names = ("train_step", "evaluate", "fit_lightsb", "auroc", "build")
+    saved = {k: getattr(train_ad, k) for k in names + ("balanced_batches",)}
+    rec = {k: [] for k in saved}
+
+    def recorded(name):
+        def run(*a, **kw):
+            if name == "train_step":
+                torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = saved[name](*a, **kw)
+            if name == "train_step":
+                torch.cuda.synchronize()
+            rec[name].append((time.perf_counter() - t, out))
+            return out
+        return run
+
+    def balanced_batches(*a, **kw):
+        it = saved["balanced_batches"](*a, **kw)
+        while True:
+            t = time.perf_counter()
+            batch = next(it, None)
+            if batch is None:
+                return
+            rec["balanced_batches"].append(time.perf_counter() - t)
+            yield batch
+
+    for k in names:
+        setattr(train_ad, k, recorded(k))
+    train_ad.balanced_batches = balanced_batches
+    try:
+        yield rec
+    finally:
+        for k, f in saved.items():
+            setattr(train_ad, k, f)
+
+
+def phase_anomaly_train(seed, root, card_line):
+    """(a) ``train_ad.main`` on the card at the JAX driver's defaults
+    (``AD_FLAGS``) with ``AD_CUTS``; no hand-written kernel launches."""
+    from ir_ads_tpu_torch import train_ad
+    from ir_ads_tpu_torch.utils.checkpoint import load_anomaly_weights
+
+    out = os.path.join(root, "out")
+    argv = ["--dataset_root", root, "--classname", "widget", *AD_FLAGS, *AD_CUTS,
+            "--output", out, "--seed", str(seed)]
+    kernels = _reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.time()
+    with _instrumented_train_ad() as rec:
+        roc = train_ad.main(argv)
+    wall = time.time() - t
+    launches = {k.name: k.launches for k in kernels if k.launches}
+    if launches:
+        fail(f"train_ad launched hand-written kernels: {launches}")
+    step_ms = [1e3 * dt for dt, _ in rec["train_step"]]
+    batch_ms = [1e3 * dt for dt in rec["balanced_batches"]]
+    (eval_s, (scores, _, _)), (feats_s, _) = rec["evaluate"]
+    (fit_s, (_, _, objective)), = rec["fit_lightsb"]
+    rocs = dict(zip(("deviation", "lightsb", "combined"), (r for _, r in rec["auroc"])))
+    if len(step_ms) != AD_STEPS or rocs["deviation"] != roc or len(rocs) != 3 or not all(
+            math.isfinite(v) for v in (*rocs.values(), objective)):
+        fail(f"train_ad ran {len(step_ms)} steps; AUROCs {rocs}, LightSB objective {objective}")
+    path = os.path.join(out, "widget_weights.msgpack")
+    sd = load_anomaly_weights(path)
+    want = rec["build"][0][1][0].state_dict()
+    if set(sd) != set(want) or not all(torch.equal(sd[k], want[k].cpu()) for k in want):
+        fail("the weights file does not read back as the trained model")
+    step = _p50(step_ms)
+    res = dict(wall_s=wall, step_ms=step_ms, step_p50_ms=step, images_per_s=AD_BATCH * 1e3 / step,
+               end_to_end_images_per_s=AD_BATCH * AD_STEPS * 1e3 / (sum(step_ms) + sum(batch_ms)),
+               peak_gib=torch.cuda.max_memory_allocated() / 2 ** 30, batch_ms=batch_ms,
+               batch_p50_ms=_p50(batch_ms), eval_s=eval_s, train_features_s=feats_s, fit_s=fit_s,
+               fit_objective=objective, auroc=rocs, distinct_test_scores=len(set(scores.tolist())),
+               weights_bytes=os.path.getsize(path))
+    print(f"  (a) train_ad.main {' '.join(AD_FLAGS)} {' '.join(AD_CUTS)} (cut from --epochs 30 "
+          f"--steps_per_epoch 20): {wall:.1f} s; step p50 {step:.2f} ms ({res['images_per_s']:.1f} "
+          f"images/s on the device; {res['end_to_end_images_per_s']:.1f} with the loader), "
+          f"peak {res['peak_gib']:.2f} GiB; balanced_batches host {res['batch_p50_ms']:.1f} ms "
+          f"a batch (p50); eval pass {res['eval_s']:.2f} s, training features "
+          f"{res['train_features_s']:.2f} s, LightSB fit {res['fit_s']:.2f} s (final objective "
+          f"{res['fit_objective']:.4f}); AUROC deviation {rocs['deviation']:.4f} LightSB "
+          f"{rocs['lightsb']:.4f} combined {rocs['combined']:.4f} ({res['distinct_test_scores']} "
+          f"distinct test scores of {len(scores)}); no kernel launched; weights "
+          f"read back ({res['weights_bytes']} bytes) [{card_line}]", flush=True)
+    return res
+
+
+def _deviation_grads(sd, imgs, labels, device, bn_eval=False, dtype=torch.float32):
+    """One deviation step's loss and gradients (``train_ad.train_step``;
+    ``bn_eval``: the planted fault, the trunk's BatchNorm in eval mode)."""
+    from ir_ads_tpu_torch import train_ad
+    from ir_ads_tpu_torch.anomaly import AnomalyScoreNet, deviation_loss
+
+    model = AnomalyScoreNet("resnet18")
+    model.load_state_dict(sd)
+    model.to(device, dtype)
+    x, y = imgs.to(device, dtype), labels.to(device)
+    if bn_eval:
+        model.train()
+        model.features.eval()
+        loss = deviation_loss(model(x)[0], (y > 0).float())
+        loss.backward()
+        loss = loss.detach()
+    else:
+        loss = train_ad.train_step(model, torch.optim.SGD(model.parameters(), lr=0.0), x, y)
+    return float(loss), {n: p.grad.detach().cpu().double() for n, p in model.named_parameters()}
+
+
+def _group_distances(grads, want):
+    out = {}
+    for g in AD_GROUPS:
+        names = [n for n in want if n.startswith(g + ".")]
+        d = sum(float(((grads[n] - want[n]) ** 2).sum()) for n in names)
+        out[g] = math.sqrt(d / sum(float((want[n] ** 2).sum()) for n in names))
+    return out
+
+
+def phase_anomaly_step(seed, root, card_line):
+    """(b) One deviation step on the card against the same step on the host
+    CPU: the same weights and batch (the first of ``balanced_batches`` at
+    448 x 448, batch 48), f32, TF32 off.  Bars ``AD_STEP_TOL``; a second
+    card run reads cuDNN's run-to-run noise; the trunk's BatchNorm in eval
+    mode must fail."""
+    from ir_ads_tpu_torch.anomaly import AnomalyScoreNet
+    from ir_ads_tpu_torch.anomaly.data import ADConfig, MVTecAD, balanced_batches
+
+    ds = MVTecAD(ADConfig(root, "widget", n_anomaly=10, img_size=448), train=True)
+    imgs, labels = next(balanced_batches(ds, AD_BATCH, 1, seed=10))
+    imgs, labels = torch.from_numpy(imgs), torch.from_numpy(labels)
+    sd = AnomalyScoreNet("resnet18", generator=torch.Generator().manual_seed(seed)).state_dict()
+    t = time.time()
+    loss_cpu, g_cpu = _deviation_grads(sd, imgs, labels, "cpu")
+    cpu_s = time.time() - t
+    runs = [_deviation_grads(sd, imgs, labels, "cuda") for _ in range(2)]
+    loss_f, g_f = _deviation_grads(sd, imgs, labels, "cuda", bn_eval=True)
+    _, g_64 = _deviation_grads(sd, imgs, labels, "cpu", dtype=torch.float64)
+    res = dict(cpu_s=cpu_s, loss_cpu=loss_cpu, runs=[], tol=AD_STEP_TOL,
+               f64=dict(card=_group_distances(runs[0][1], g_64),
+                        cpu=_group_distances(g_cpu, g_64)))
+    for loss, g in runs:
+        res["runs"].append(dict(loss_rel=abs(loss - loss_cpu) / abs(loss_cpu),
+                                group_rel=_group_distances(g, g_cpu)))
+    res["card_noise"] = _group_distances(runs[1][1], runs[0][1])
+    res["fault"] = dict(loss_rel=abs(loss_f - loss_cpu) / abs(loss_cpu),
+                        group_rel=_group_distances(g_f, g_cpu))
+
+    def within(r):
+        return (r["loss_rel"] <= AD_STEP_TOL["loss"]
+                and max(r["group_rel"].values()) <= AD_STEP_TOL["group"])
+
+    worst = max(max(r["group_rel"].values()) for r in res["runs"])
+    print(f"  (b) one deviation step, {AD_BATCH} x 448 x 448, f32: card against the host CPU "
+          f"({cpu_s:.1f} s there): loss {[r['loss_rel'] for r in res['runs']]}, group gradients "
+          f"at most {worst:.3e} (bar {AD_STEP_TOL}; card run to run at most "
+          f"{max(res['card_noise'].values()):.3e}; from the f64 step on the host: the card "
+          f"{max(res['f64']['card'].values()):.3e}, the host's f32 "
+          f"{max(res['f64']['cpu'].values()):.3e}); BatchNorm in eval mode: loss "
+          f"{res['fault']['loss_rel']:.3e}, groups at least "
+          f"{min(res['fault']['group_rel'].values()):.3e} [{card_line}]", flush=True)
+    for r in res["runs"]:
+        if not within(r):
+            fail(f"the deviation step on the card misses the host CPU's: {r}")
+    if within(res["fault"]):
+        fail(f"the step with the trunk's BatchNorm in eval mode passes the bar: {res['fault']}")
+    return res
+
+
+def _sb_outputs(params, eps, x, t, noise, drift=None):
+    """get_log_C, get_log_potential, get_drift and a ``SB_STEPS``-step
+    Euler-Maruyama rollout on ``noise`` (``drift`` in place of
+    ``sb.get_drift`` where given: the planted fault)."""
+    from ir_ads_tpu_torch.anomaly import sb
+
+    saved = sb.get_drift
+    sb.get_drift = drift or saved
+    try:
+        with torch.no_grad():
+            return dict(log_C=sb.get_log_C(params, eps, x),
+                        log_potential=sb.get_log_potential(params, eps, x),
+                        drift=sb.get_drift(params, eps, x, t),
+                        euler_maruyama=sb.sample_euler_maruyama(params, eps, x, noise))
+    finally:
+        sb.get_drift = saved
+
+
+def _drift_without_grad(params, eps, x, t):
+    return -x / (1 - t[:, None])
+
+
+def phase_lightsb(seed, card_line):
+    """(c) LightSB on the card against the host CPU at dim 512, 10
+    potentials, batch 128, epsilon 1 (``fit_lightsb``'s), diagonal and
+    rotated: each output to ``SB_CARD_TOL``; the drift without its
+    epsilon * gradient term must fail."""
+    from ir_ads_tpu_torch.anomaly import LightSBParams
+
+    g = torch.Generator().manual_seed(seed + 13)
+    res = {}
+    for rotated in (False, True):
+        p = LightSBParams(
+            log_alpha_raw=torch.randn(SB_N, generator=g) * 0.1,
+            r=torch.randn(SB_N, SB_DIM, generator=g),
+            S_log_diag=torch.randn(SB_N, SB_DIM, generator=g) * 0.3 - 1.0,
+            S_rot_raw=torch.randn(SB_N, SB_DIM, SB_DIM, generator=g) if rotated else None)
+        x = torch.randn(SB_BATCH, SB_DIM, generator=g)
+        t = torch.rand(SB_BATCH, generator=g) * 0.9
+        noise = torch.randn(SB_STEPS, SB_BATCH, SB_DIM, generator=g)
+        cpu = _sb_outputs(p, 1.0, x, t, noise)
+        exact = _sb_outputs(LightSBParams(*(None if a is None else a.double() for a in p)), 1.0,
+                            x.double(), t.double(), noise.double())
+        pc = LightSBParams(*(None if a is None else a.cuda() for a in p))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        card = _sb_outputs(pc, 1.0, x.cuda(), t.cuda(), noise.cuda())
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        fault = _sb_outputs(pc, 1.0, x.cuda(), t.cuda(), noise.cuda(), _drift_without_grad)
+
+        def rel(a, b):
+            return float((a.cpu().double() - b.double()).abs().max() / b.abs().max())
+
+        got = {k: rel(card[k], cpu[k]) for k in cpu}
+        bad = {k: rel(fault[k], cpu[k]) for k in ("drift", "euler_maruyama")}
+        f64 = {k: (rel(card[k], exact[k]), rel(cpu[k], exact[k])) for k in cpu}
+        kind = "rotated" if rotated else "diagonal"
+        res[kind] = dict(rel=got, fault=bad, f64_card_cpu=f64, card_ms=ms)
+        print(f"  (c) LightSB {kind}, dim {SB_DIM}, n {SB_N}, batch {SB_BATCH}: card against the "
+              f"host CPU {got} (bar {SB_CARD_TOL}); from the f64 result on the host (card, host "
+              f"f32) {f64}; the drift without its gradient term {bad}; the four on the card "
+              f"{ms:.1f} ms [{card_line}]", flush=True)
+    for kind, r in res.items():
+        if max(r["rel"].values()) > SB_CARD_TOL:
+            fail(f"LightSB {kind} on the card misses the host CPU's: {r['rel']}")
+        if min(r["fault"].values()) <= SB_CARD_TOL:
+            fail(f"LightSB {kind}: the drift without its gradient term passes the bar: "
+                 f"{r['fault']}")
+    return res
+
+
+def _with_every_size(ann_path):
+    """The synthetic COCO set's boxes are 10-40 px, so no GT is large (96^2
+    and over) and APl would be NaN: every third box (and its polygon) is
+    scaled 6x about its corner, clipped to the image."""
+    with open(ann_path) as f:
+        coco = json.load(f)
+    size = {im["id"]: (im["width"], im["height"]) for im in coco["images"]}
+    for i, a in enumerate(coco["annotations"]):
+        if i % 3:
+            continue
+        x, y, w, h = a["bbox"]
+        iw, ih = size[a["image_id"]]
+        w, h = min(6 * w, iw - x), min(6 * h, ih - y)
+        a["bbox"], a["area"] = [x, y, w, h], w * h
+        a["segmentation"] = [[x, y, x + w, y, x + w, y + h, x, y + h]]
+    with open(ann_path, "w") as f:
+        json.dump(coco, f)
+
+
+def phase_lvis(seed, card_line):
+    """(d) ``train_net.main --evaluator lvis`` on phase 12 (c)'s synthetic
+    set (8 images 512 x 512, 20 classes) with every size bucket given GT:
+    two steps, then the EMA weights' LVIS evaluation; the LVIS keys finite,
+    K9's launches as counted."""
+    import tempfile
+
+    from ir_ads_tpu_torch import train_net
+
+    tmp = tempfile.mkdtemp(prefix="det_lvis_", dir=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        ann, images = train_net.make_synthetic_coco(os.path.join(tmp, "coco"),
+                                                    n_images=DET_NET_IMAGES, size=512,
+                                                    n_classes=DET_CLASSES, seed=seed)
+        _with_every_size(ann)
+        kernels = _reset_launches()
+        t = time.time()
+        stats = train_net.main(["--train-json", ann, "--train-root", images, "--val-json", ann,
+                                "--val-root", images, *LVIS_NET_FLAGS, "--output",
+                                os.path.join(tmp, "out"), "--seed", str(seed)])
+        wall = time.time() - t
+        launches = {k.name: k.launches for k in kernels}
+        got = {k: v for k, v in launches.items() if v}
+        want = {"msdeform": 2 * DET_TRAIN_LAUNCHES["msdeform"] + DET_NET_IMAGES * DET_LAUNCHES,
+                "msdeform_bwd": 2 * DET_TRAIN_LAUNCHES["msdeform_bwd"]}
+        if got != want:
+            fail(f"train_net --evaluator lvis launched {got}, expected {want}")
+        if not stats or set(stats) != set(LVIS_KEYS) or not all(
+                math.isfinite(stats[k]) for k in LVIS_KEYS):
+            fail(f"train_net --evaluator lvis gave {stats}")
+        print(f"  (d) train_net.main {' '.join(LVIS_NET_FLAGS)} on {DET_NET_IMAGES} synthetic "
+              f"images 512x512 (every third box 6x): {wall:.1f} s; launches {got}; "
+              + " ".join(f"{k} {stats[k]:.4f}" for k in LVIS_KEYS) + f" [{card_line}]",
+              flush=True)
+        return launches, dict(wall_s=wall, launches=got, stats=stats)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_anomaly(seed, card_line):
+    """Phase 13: (a) ``train_ad`` end to end, (b) its step against the host
+    CPU, (c) LightSB against the host CPU, (d) the LVIS evaluation.  Returns
+    (phase 13's launches, record)."""
+    import tempfile
+
+    root = tempfile.mkdtemp(prefix="mvtec_", dir=os.path.dirname(os.path.abspath(__file__)))
+    try:
+        tree_s = _mvtec_tree(root, seed)
+        print(f"  MVTec-AD tree: {AD_TREE} written in {tree_s:.1f} s", flush=True)
+        t0 = time.time()
+        train = phase_anomaly_train(seed, root, card_line)
+        t_a = time.time() - t0
+        step = phase_anomaly_step(seed, root, card_line)
+        t_b = time.time() - t0 - t_a
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    t1 = time.time()
+    lightsb = phase_lightsb(seed, card_line)
+    t_c = time.time() - t1
+    launches, lvis = phase_lvis(seed, card_line)
+    print(f"  phase 13: (a) {t_a:.1f} s, (b) {t_b:.1f} s, (c) {t_c:.1f} s, (d) "
+          f"{lvis['wall_s']:.1f} s", flush=True)
+    return launches, dict(tree_s=tree_s, train_ad=train, step=step, lightsb=lightsb, lvis=lvis,
+                          cuts=dict(epochs="30 -> 1", steps_per_epoch="20 -> 8"))
+
+
 def kernel_table(rows, launches, launches_i8, module_launches, train_launches, det_launches,
                  eval_launches, train_mm_launches, phase9_launches, legacy_launches,
-                 legacy_train_launches, det_train_launches):
+                 legacy_train_launches, det_train_launches, anomaly_launches):
     """One entry per kernel; ``launches`` sums the main paths' runs (the
     serving requests under r5, r4i8, r2, r1, xla, v7_01, v5, map,
     dscf_pallas4, dscf_pallas and dscf_pallas2, r5 on flat frames with the
@@ -5553,9 +5971,10 @@ def kernel_table(rows, launches, launches_i8, module_launches, train_launches, d
     requests, the three eval modes' images, the training entry point's
     run with its gates and its drop_rate step, phase 9's Swin-L and dual
     paths, phase 10's legacy requests (r5, r4, r4i8) and MSF images, and
-    phase 11's legacy training steps and train_mm runs, and phase 12's
-    DINO training steps and train_net run, each counted from 0; K20 runs
-    on none of them)."""
+    phase 11's legacy training steps and train_mm runs, phase 12's DINO
+    training steps and train_net run, and phase 13's (train_ad launches
+    none; its LVIS run K9 and K9's backward), each counted from 0; K20
+    runs on none of them)."""
     from ir_ads_tpu_torch.ops.cuda_lib import PKG
 
     out = []
@@ -5573,6 +5992,7 @@ def kernel_table(rows, launches, launches_i8, module_launches, train_launches, d
                       + legacy_launches.get(k.name, 0)
                       + legacy_train_launches.get(k.name, 0)
                       + det_train_launches.get(k.name, 0)
+                      + anomaly_launches.get(k.name, 0)
                       + sum(m[k.name] for m in module_launches.values())),
             launches_serve=launches[k.name], launches_serve_r4i8=launches_i8[k.name],
             **{f"launches_serve_{d}": m[k.name] for d, m in module_launches.items()},
@@ -5584,6 +6004,7 @@ def kernel_table(rows, launches, launches_i8, module_launches, train_launches, d
             launches_legacy=legacy_launches.get(k.name, 0),
             launches_legacy_train=legacy_train_launches.get(k.name, 0),
             launches_det_train=det_train_launches.get(k.name, 0),
+            launches_anomaly_lvis=anomaly_launches.get(k.name, 0),
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=first["ms"], plain_ms=first["plain_ms"],
             bound_ms=first["bound_ms"], bound_by=first["bound_by"],
@@ -5663,15 +6084,19 @@ def main():
     legacy_train_launches, legacy_train = phase_legacy_train(args.seed, card_line)
     print("phase 12: DINO-R50 training (K9 under autograd, its backward kernel)", flush=True)
     bwd_rows, det_train_launches, det_train = phase_det_train(args.seed, card_line)
+    print("phase 13: the anomaly stack (train_ad, LightSB) and the LVIS evaluator", flush=True)
+    anomaly_launches, anomaly = phase_anomaly(args.seed, card_line)
 
     print(json.dumps({"kernels": kernel_table(rows + bwd_rows, launches, launches_i8,
                                               module_launches, train_launches, det_launches,
                                               eval_launches, train_mm_launches,
                                               phase9_launches, legacy_launches,
-                                              legacy_train_launches, det_train_launches),
+                                              legacy_train_launches, det_train_launches,
+                                              anomaly_launches),
                       "serve": serve, "train": train, "detect": detect, "evaluate": evaluate,
                       "train_mm": train_mm, "swin_l_dual": swin_l_dual, "legacy": legacy,
-                      "legacy_train": legacy_train, "det_train": det_train, "repair": repair,
+                      "legacy_train": legacy_train, "det_train": det_train, "anomaly": anomaly,
+                      "repair": repair,
                       "card": card_line, "wall_s": time.time() - T_START}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,10 @@ package's train_net.py entry point.
 
 Trains the vCLR deformable-mask DINO (``detection.train``: EMA teacher on
 the weak view, CDN denoising, Hungarian + mask + consistency losses) and
-evaluates the EMA weights with the COCO AP / AR@{1..900} suite.  Runs on the
+evaluates the EMA weights with the COCO AP / AR@{1..900} suite, or with
+``--evaluator lvis`` the LVIS federated rules (``detection.lvis_eval``;
+each image's ``neg_category_ids`` and ``not_exhaustive_category_ids`` from
+the sample where it has them, else exhaustive).  Runs on the
 GPU in bf16 over f32 master parameters unless ``--device cpu`` is given
 (f32, the kernels' plain versions).
 
@@ -15,7 +18,7 @@ GPU in bf16 over f32 master parameters unless ``--device cpu`` is given
 the model (ResNet-18, embed 32, 1 + 1 layers, 20 queries, 96 px).  The
 weights (``weights.msgpack``, ``ema_weights.msgpack``) are the JAX
 package's files: its train_net ``--resume`` reads them, and ``--resume``
-here reads its.  ``--evaluator lvis`` is not ported and raises.
+here reads its.
 """
 
 from __future__ import annotations
@@ -34,6 +37,7 @@ from ir_ads_tpu_torch.detection.data import (
     CocoDetection, ViewSamplingMapper, detection_batches,
 )
 from ir_ads_tpu_torch.detection.dino import DINODetector
+from ir_ads_tpu_torch.detection.lvis_eval import LVISEvaluator
 from ir_ads_tpu_torch.detection.train import DetTrainState
 from ir_ads_tpu_torch.serve import det_postprocess
 from ir_ads_tpu_torch.utils.checkpoint import load_dino_weights, save_dino_weights
@@ -76,14 +80,11 @@ def make_synthetic_coco(root: str, n_images: int = 8, size: int = 96, n_classes:
 def evaluate_detector(state: DetTrainState, mapper: ViewSamplingMapper, logger, topk: int = 300,
                       score_thresh: float = 0.0, class_agnostic: bool = False,
                       evaluator: str = "coco") -> Dict[str, float]:
-    """Inference with the EMA weights over the dataset, then the COCO
-    summary (train_net.py's ``evaluate_detector``)."""
+    """Inference with the EMA weights over the dataset, then the COCO or
+    the LVIS summary (train_net.py's ``evaluate_detector``)."""
     from torch.func import functional_call
 
-    if evaluator == "lvis":
-        raise NotImplementedError("train_net: --evaluator lvis needs lvis_eval.py, which the "
-                                  "port does not have yet")
-    ev = COCOEvaluator(class_agnostic=class_agnostic)
+    ev = LVISEvaluator() if evaluator == "lvis" else COCOEvaluator(class_agnostic=class_agnostic)
     model, variables = state.model, state.variables(state.ema_params)
     model.eval()
     rng = np.random.default_rng(0)
@@ -107,7 +108,12 @@ def evaluate_detector(state: DetTrainState, mapper: ViewSamplingMapper, logger, 
                              gt_cxcywh[:, 2] * ow, gt_cxcywh[:, 3] * oh], axis=-1)
         labels = (np.zeros(sel.sum(), int) if class_agnostic
                   else cls_ids[0].cpu().numpy()[: len(xyxy)][sel])
-        ev.add_image(boxes, s[sel], labels, gt_boxes, sample.labels[sample.valid])
+        extra = {}
+        if evaluator == "lvis":
+            extra = dict(neg_category_ids=getattr(sample, "neg_category_ids", ()),
+                         not_exhaustive_category_ids=getattr(
+                             sample, "not_exhaustive_category_ids", ()))
+        ev.add_image(boxes, s[sel], labels, gt_boxes, sample.labels[sample.valid], **extra)
     stats = ev.summarize()
     logger.info("eval: " + "  ".join(f"{k}={v:.4f}" for k, v in stats.items()))
     return stats
@@ -138,7 +144,7 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
     p.add_argument("--class-agnostic-eval", action="store_true")
     p.add_argument("--no-teacher", action="store_true")
     p.add_argument("--evaluator", default="coco", choices=["coco", "lvis"],
-                   help="COCO AP (LVIS federated evaluation is not ported)")
+                   help="COCO AP or LVIS federated evaluation")
     p.add_argument("--output", default="output/detection")
     p.add_argument("--resume", default="")
     p.add_argument("--device", default="cuda")
@@ -148,9 +154,6 @@ def parse_args(argv: Optional[List[str]] = None) -> argparse.Namespace:
 
 def main(argv: Optional[List[str]] = None) -> Optional[Dict[str, float]]:
     args = parse_args(argv)
-    if args.evaluator == "lvis":
-        raise NotImplementedError("train_net: --evaluator lvis needs lvis_eval.py, which the "
-                                  "port does not have yet")
     device = torch.device(args.device)
     if device.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("train_net: CUDA is not available (pass --device cpu to run the "

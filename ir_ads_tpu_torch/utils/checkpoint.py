@@ -149,6 +149,23 @@ def load_dino_weights(path: str) -> Dict[str, torch.Tensor]:
     return dino_from_flax(load_weights(path))
 
 
+def save_anomaly_weights(path: str, state_dict: Dict[str, torch.Tensor]) -> int:
+    """An ``AnomalyScoreNet`` state_dict as the file the JAX train_ad's
+    ``save_weights(path, params, batch_stats)`` writes (``anomaly_to_flax``);
+    returns the bytes written."""
+    from ir_ads_tpu_torch.utils.jax_params import anomaly_to_flax
+
+    return _write(path, anomaly_to_flax(state_dict))
+
+
+def load_anomaly_weights(path: str) -> Dict[str, torch.Tensor]:
+    """An anomaly weights file of either package as the port's
+    ``AnomalyScoreNet`` state_dict."""
+    from ir_ads_tpu_torch.utils.jax_params import anomaly_from_flax
+
+    return anomaly_from_flax(load_weights(path))
+
+
 # --------------------------------------------------------------------------
 # optax's state tree
 # --------------------------------------------------------------------------

@@ -31,7 +31,9 @@ its flax path forward again.
 ``dino_from_flax(variables)`` does the same for the detection stack's
 ``DINODetector`` (``ir_ads_tpu_torch.detection.dino``): the inverse of
 ``import_dino_state_dict``, from either parameter layout of the flax
-transformer (unrolled, or stacked by ``scan_layers``).
+transformer (unrolled, or stacked by ``scan_layers``); ``dino_to_flax`` is
+its inverse.  ``anomaly_from_flax`` / ``anomaly_to_flax`` map the anomaly
+stack's ``AnomalyScoreNet`` (its ResNet trunk by the detector's names).
 """
 
 from __future__ import annotations
@@ -428,8 +430,7 @@ def dino_to_flax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Dict]:
         module, leaf = name.rsplit(".", 1)
         if leaf in _BUFFERS:
             continue
-        arr = t.detach().cpu()
-        arr = (arr.float() if arr.dtype == torch.bfloat16 else arr).numpy()
+        arr = _numpy(t)
         if name == "label_enc.weight":
             _put(out["params"], ("label_enc",), np.array(arr))
             continue
@@ -444,17 +445,74 @@ def dino_to_flax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Dict]:
                 _put(out["params"], path + (f"{'qkv'[i]}_proj", kind),
                      np.array(part.T if kind == "kernel" else part))
             continue
-        path = _dino_flax_module(module, n_mapped)
-        coll = "params"
-        if leaf in ("running_mean", "running_var"):
-            coll, leaf = "batch_stats", leaf[len("running_"):]
-        elif leaf == "weight":
-            leaf = "kernel" if arr.ndim in (2, 4) else "scale"
-        if leaf == "kernel":
-            arr = arr.T if arr.ndim == 2 else arr.transpose(2, 3, 1, 0)
-        _put(out[coll], path + (leaf,), np.array(arr, order="C"))
+        coll, leaf, arr = _to_flax_leaf(leaf, arr)
+        _put(out[coll], _dino_flax_module(module, n_mapped) + (leaf,), arr)
     back = dino_from_flax(out)
     for name in state_dict:
         if name.rsplit(".", 1)[1] not in _BUFFERS and name not in back:
             raise ValueError(f"dino_to_flax: {name} does not map back")
+    return out
+
+
+def _to_flax_leaf(leaf: str, arr: np.ndarray) -> Tuple[str, str, np.ndarray]:
+    """(collection, flax leaf name, array in flax's layout) of a port
+    parameter or statistic."""
+    coll = "params"
+    if leaf in ("running_mean", "running_var"):
+        coll, leaf = "batch_stats", leaf[len("running_"):]
+    elif leaf == "weight":
+        leaf = "kernel" if arr.ndim in (2, 4) else "scale"
+    if leaf == "kernel":
+        arr = arr.T if arr.ndim == 2 else arr.transpose(2, 3, 1, 0)
+    return coll, leaf, np.array(arr, order="C")
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+
+
+# --------------------------------------------------------------------------
+# anomaly: AnomalyScoreNet
+# --------------------------------------------------------------------------
+
+def anomaly_from_flax(variables: Dict) -> Dict[str, torch.Tensor]:
+    """flax ``AnomalyScoreNet`` variables (nested dicts of numpy arrays) ->
+    the port's state_dict: the trunk (``features``) through the detector's
+    ResNet map, the head's Dense as ``score_head``; every BatchNorm's
+    ``num_batches_tracked`` 0."""
+    sd: Dict[str, torch.Tensor] = {}
+    for coll in ("params", "batch_stats"):
+        for path, arr in _walk(variables.get(coll, {})):
+            leaf = path[-1]
+            mods = tuple(s for s in path[:-1] if s != "BatchNorm_0")
+            if mods == ("score_head",):
+                name = "score_head"
+            elif mods[0] == "features":
+                name = "features" + _dino_module(("backbone",) + mods[1:], 0)[len("backbone"):]
+            else:
+                raise ValueError(f"anomaly_from_flax: no port module for {'/'.join(path)}")
+            sd[f"{name}.{_LEAF.get(leaf, leaf)}"] = _tensor(leaf, arr)
+    for name in list(sd):
+        if name.endswith("running_var"):
+            sd[name[: -len("running_var")] + "num_batches_tracked"] = torch.tensor(0)
+    return sd
+
+
+def anomaly_to_flax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Dict]:
+    """The port's ``AnomalyScoreNet`` state_dict -> the flax ``{"params",
+    "batch_stats"}`` tree of numpy arrays: ``anomaly_from_flax``'s inverse."""
+    out: Dict[str, Dict] = {"params": {}, "batch_stats": {}}
+    for name, t in state_dict.items():
+        module, leaf = name.rsplit(".", 1)
+        if leaf in _BUFFERS:
+            continue
+        if module == "score_head":
+            path: Tuple[str, ...] = ("score_head",)
+        elif module.startswith("features."):
+            path = ("features",) + _dino_flax_module("backbone" + module[len("features"):], 0)[1:]
+        else:
+            raise ValueError(f"anomaly_to_flax: no flax module for {name!r}")
+        coll, leaf, arr = _to_flax_leaf(leaf, _numpy(t))
+        _put(out[coll], path + (leaf,), arr)
     return out

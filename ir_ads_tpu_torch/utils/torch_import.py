@@ -30,9 +30,23 @@ the kernel widened by the shrink factor (antialiased).  ``F.interpolate(
 mode="bicubic")`` takes a = -0.75, clamps at the borders and does not
 antialias, so the resize is written out here to JAX's definition.
 
-The DINO half of the JAX importer (``import_dino_state_dict``) is not
-ported yet.  Works on tensors or numpy arrays: ``torch.load`` a .pth and
-pass its state_dict.
+``import_dino_state_dict``: the DINO half, a reference vCLR-DINO
+state_dict onto the port's ``DINODetector``.  It reads the keys the JAX
+importer reads (the d2 ResNet-50's res2-res5 at 3/4/6/3 blocks, neck convs
+0-7, encoder and decoder layers 0-11, heads 0-7), with the same warnings in
+the port's names, and raises the same KeyError where a module it reads
+lacks a tensor (a norm's bias, a BatchNorm's statistics).  The decoder
+self-attention's packed ``in_proj`` is taken as its q, k and v thirds, each
+held to the target's third (``name[q]``, ``[k]``, ``[v]`` in a warning), as
+the JAX importer splits it into three projections.  Extra neck convs land
+at the level after the checkpoint's mapped ones, counted in the target.
+JAX's ``stack_`` / ``unstack_encoder_layers`` and the decoder forms convert
+between flax's unrolled and scanned (``scan_layers``) layouts; the port has
+one layout and ``jax_params.dino_from_flax`` unstacks a scanned tree, so
+they need no counterpart.
+
+Works on tensors or numpy arrays: ``torch.load`` a .pth and pass its
+state_dict.
 """
 
 from __future__ import annotations
@@ -144,3 +158,148 @@ def import_pretrained_swin(sd: Mapping, target: StateDict,
             extra["extra_" + k] = v
     sd.update(extra)
     return import_cmnext_state_dict({"backbone." + k: v for k, v in sd.items()}, target)
+
+
+def import_dino_state_dict(target: StateDict, sd: Mapping) -> Tuple[StateDict, List[str]]:
+    """A reference vCLR-DINO state_dict (projects/.../modeling/dino.py over
+    detrex layers) onto ``target`` (the port ``DINODetector``'s
+    state_dict).  Returns (the new state_dict, warnings): the module
+    docstring's semantics."""
+    sd = {k: _tensor(v) for k, v in sd.items()}
+    out = {k: v.clone() for k, v in target.items()}
+    warnings: List[str] = []
+
+    def assign(name: str, value: torch.Tensor, part: int = -1) -> None:
+        label = name if part < 0 else f"{name}[{'qkv'[part]}]"
+        if name not in out:
+            warnings.append(f"no param {label}")
+            return
+        dst = out[name]
+        if part >= 0:
+            n = dst.shape[0] // 3
+            dst = dst[part * n: (part + 1) * n]
+        if tuple(dst.shape) != tuple(value.shape):
+            warnings.append(f"shape mismatch {label}: {tuple(dst.shape)} vs "
+                            f"{tuple(value.shape)}")
+        else:
+            dst.copy_(value.to(dst.dtype))
+
+    def linear(prefix: str, name: str = "") -> None:  # also a conv: bias if present
+        name = name or prefix
+        assign(f"{name}.weight", sd[f"{prefix}.weight"])
+        if f"{prefix}.bias" in sd:
+            assign(f"{name}.bias", sd[f"{prefix}.bias"])
+
+    def norm(prefix: str, name: str = "",
+             leaves: Tuple[str, ...] = ("weight", "bias")) -> None:
+        for k in leaves:
+            assign(f"{name or prefix}.{k}", sd[f"{prefix}.{k}"])
+
+    def batch_norm(prefix: str) -> None:
+        norm(prefix, leaves=("weight", "bias", "running_mean", "running_var"))
+
+    def conv_norm(prefix: str) -> None:  # d2 Conv2d with its FrozenBN as .norm
+        assign(f"{prefix}.weight", sd[f"{prefix}.weight"])
+        batch_norm(f"{prefix}.norm")
+
+    def msdeform(prefix: str) -> None:
+        for sub in ("sampling_offsets", "attention_weights", "value_proj", "output_proj"):
+            linear(f"{prefix}.{sub}")
+
+    def torch_mha(prefix: str) -> None:  # packed qkv, taken a third at a time
+        w, b = sd[f"{prefix}.attn.in_proj_weight"], sd[f"{prefix}.attn.in_proj_bias"]
+        c = w.shape[1]
+        for i in range(3):
+            assign(f"{prefix}.attn.in_proj_weight", w[i * c: (i + 1) * c], i)
+            assign(f"{prefix}.attn.in_proj_bias", b[i * c: (i + 1) * c], i)
+        linear(f"{prefix}.attn.out_proj")
+
+    def mlp(prefix: str, n: int = 3) -> None:
+        for i in range(n):
+            linear(f"{prefix}.layers.{i}")
+
+    # d2 ResNet-50 backbone (stem + res2..5 bottlenecks)
+    if "backbone.stem.conv1.weight" in sd:
+        conv_norm("backbone.stem.conv1")
+        for res, n_blocks in {2: 3, 3: 4, 4: 6, 5: 3}.items():
+            for j in range(n_blocks):
+                base = f"backbone.res{res}.{j}"
+                if f"{base}.conv1.weight" not in sd:
+                    continue
+                for ci in (1, 2, 3):
+                    conv_norm(f"{base}.conv{ci}")
+                if f"{base}.shortcut.weight" in sd:
+                    conv_norm(f"{base}.shortcut")
+
+    # neck (ChannelMapper): extra convs continue the checkpoint's level index
+    n_ref = len([k for k in sd if k.startswith("neck.convs.") and k.endswith(".conv.weight")])
+    n_target = len({k.split(".")[2] for k in out if k.startswith("neck.convs.")})
+    for i in range(8):
+        if f"neck.convs.{i}.conv.weight" in sd:
+            linear(f"neck.convs.{i}.conv")
+            norm(f"neck.convs.{i}.gn")
+        if f"neck.extra_convs.{i}.conv.weight" in sd:
+            j = n_ref + i - n_target
+            linear(f"neck.extra_convs.{i}.conv", f"neck.extra_convs.{j}.conv")
+            norm(f"neck.extra_convs.{i}.gn", f"neck.extra_convs.{j}.gn")
+
+    tr = "transformer"
+    if f"{tr}.level_embeds" in sd:
+        assign(f"{tr}.level_embeds", sd[f"{tr}.level_embeds"])
+    if f"{tr}.tgt_embed.weight" in sd:
+        assign(f"{tr}.tgt_embed.weight", sd[f"{tr}.tgt_embed.weight"])
+    if f"{tr}.enc_output.weight" in sd:
+        linear(f"{tr}.enc_output")
+        norm(f"{tr}.enc_output_norm")
+    if "label_enc.weight" in sd:
+        assign("label_enc.weight", sd["label_enc.weight"])
+
+    # encoder layers: attentions.0 = MSDeformAttn; norms.{0,1}; ffns.0
+    for i in range(12):
+        base = f"{tr}.encoder.layers.{i}"
+        if f"{base}.attentions.0.sampling_offsets.weight" not in sd:
+            continue
+        msdeform(f"{base}.attentions.0")
+        norm(f"{base}.norms.0")
+        norm(f"{base}.norms.1")
+        linear(f"{base}.ffns.0.layers.0.0")
+        linear(f"{base}.ffns.0.layers.1")
+
+    # decoder layers: attentions.0 = packed-qkv MHA, attentions.1 = MSDeformAttn
+    for i in range(12):
+        base = f"{tr}.decoder.layers.{i}"
+        if f"{base}.attentions.0.attn.in_proj_weight" in sd:
+            torch_mha(f"{base}.attentions.0")
+        if f"{base}.attentions.1.sampling_offsets.weight" in sd:
+            msdeform(f"{base}.attentions.1")
+        for k in range(3):
+            if f"{base}.norms.{k}.weight" in sd:
+                norm(f"{base}.norms.{k}")
+        if f"{base}.ffns.0.layers.0.0.weight" in sd:
+            linear(f"{base}.ffns.0.layers.0.0")
+            linear(f"{base}.ffns.0.layers.1")
+
+    if f"{tr}.decoder.ref_point_head.layers.0.weight" in sd:
+        mlp(f"{tr}.decoder.ref_point_head", 2)
+    if f"{tr}.decoder.norm.weight" in sd:
+        norm(f"{tr}.decoder.norm")
+
+    # shared heads (the class_embed / bbox_embed ModuleLists, dino.py:218-231)
+    for i in range(8):
+        if f"class_embed.{i}.weight" in sd:
+            linear(f"class_embed.{i}")
+        if f"bbox_embed.{i}.layers.0.weight" in sd:
+            mlp(f"bbox_embed.{i}")
+        if f"mask_embed.{i}.layers.0.weight" in sd:
+            mlp(f"mask_embed.{i}")
+        if f"ROI_embed.{i}.0.layers.0.weight" in sd:
+            mlp(f"ROI_embed.{i}.0")
+
+    # fused-FPN seg mapping (dino.py:256-262)
+    if "mapping_fpn_features_for_seg.0.weight" in sd:
+        linear("mapping_fpn_features_for_seg.0")
+        batch_norm("mapping_fpn_features_for_seg.1")
+        linear("mapping_fpn_features_for_seg.3")
+        norm("post_layernorm")
+
+    return out, warnings
