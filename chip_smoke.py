@@ -36,12 +36,19 @@ Phases, each of which raises on failure:
      (10 channels at the 30x40 plane of BG 16, 4 and 5 at CMNeXt-B0's four
      stages), held to ``ROUNDING_SHARE`` (planted faults: a head's last
      channel dropped, or each head's first channel overwritten by the
-     previous head's last, as a store past the head would leave it); K4's
-     two forms, K17 and K16 over the shape envelope (the tiny
-     configurations' planes, odd widths, tiles over several image rows,
-     more keys than the tensor-core design takes; K4's unpacked form also
-     at 4, 5 and 10 channels a head; K16 also bit for bit against K3
-     followed by K4 unpacked);
+     previous head's last, as a store past the head would leave it); K16 at
+     12 channels a head at Swin-L's levels 0-2 (bit for bit against K3 then
+     K4 unpacked at 12) and K17 at 12 at its four levels, at 10 (the
+     MiT's stage 2 of CMNeXt-B1..B5, BG 16 at 30x40) and at CMNeXt-B0's 4,
+     4, 5, 4 (planted faults: the padded bias columns 0, and at 10, 4 and 5
+     the width's own, as K4's); K4's two forms, K17 and K16 over the shape
+     envelope (the tiny configurations' planes, odd widths, tiles over
+     several image rows, more keys than the tensor-core design takes; K4's
+     unpacked form also at 4, 5 and 10 channels a head, K17 at 4, 5, 10 and
+     12, K16 at 12; K16 also bit for bit against K3 followed by K4
+     unpacked), then the refusals that must raise on the card: K17 and K16
+     at a width they are not built for, K17's thread form and K16 past
+     their shared memory;
      K19 (the flat patch embedding) on one stream of a request's flat
      frames (planted fault: the XLA form, whose LayerNorm scale and bias
      stay f32; F.conv2d then F.layer_norm timed for the record) and K20
@@ -224,7 +231,17 @@ Phases, each of which raises on failure:
      4, K2 8, K5 20, K3 3, K4 3, K6 1), logits against r5's streams in turn
      (bit for bit, else ``LOGIT_TOL``), and one dual training step (K1 24,
      K7 24) against the streams-in-turn step at phase 5's control bar.
-     Prints p50 ms, frames/s and images/s beside the card line;
+     Prints p50 ms, frames/s and images/s beside the card line.  Then
+     Swin-L under every other dispatch (``phase_swin_l_dispatches``: r4,
+     v5, r4i8, r2, r1, xla, map, v7_01, dscf_pallas4 with K16 at 12
+     channels a head, dscf_pallas and dscf_pallas2 with K17 at 12), one
+     request of --batch frames each after a warm-up: launches
+     (``SWIN_L_LAUNCHES``, Swin-B's per dispatch), every launch of the
+     dispatch's kernels held against its plain version on its own inputs
+     (``_held_launches`` with K10-K18 added, phase 3's bars; K1, K14, K10,
+     K13, K12, K15 at C = 192 x 2^s, K11 at 4C), the logits against the
+     dispatch's all-plain path (``LOGIT_TOL``; r4i8 ``LOGIT_TOL_I8``) with
+     ``SWIN_L_FAULTS``' planted fault failing it;
  10. the legacy family at full width (``models.CMNeXtLegacy``, weights from
      --seed, bf16, r5).  CMNeXt-B2 (the MiT dual stream: embed
      64/128/320/512, depths 3/4/6/3, the einsum DSCF at every stage) behind
@@ -245,7 +262,13 @@ Phases, each of which raises on failure:
      4 and K4 4 a request), every K3 and K4 launch of one request held
      against its plain version (``_held_launches``), the logits against the
      all-plain path at ``LOGIT_TOL`` (under r4 a K4 without its rpe bias
-     must fail it), p50, frames/s, busy and idle.  Then ``val_mm.main`` on
+     must fail it), p50, frames/s, busy and idle.  CMNeXt-B2 under
+     dscf_pallas and dscf_pallas2 (``LEGACY_PACKED``: K17 at every stage
+     at 8, 8, 10 and 8 channels a head, K18 too under dscf_pallas2), every
+     K17 and K18 launch of one request held against its plain version, a
+     launch at 10 channels among them, the logits against the all-plain
+     path at ``LOGIT_TOL``, which K17 without its rpe bias must fail.  Then
+     ``val_mm.main`` on
      ir_ads_tpu_torch/configs/nyu_rgbd_synthetic_cmnext_b2.yaml (2 of its
      Synthetic images: MSF at six scales with flip), each eval forward's
      launches against ``expected_launches`` at its size, images/s, peak
@@ -1278,20 +1301,9 @@ def check_rows(g, b, level, packed=True, hc=8, fault=None):
     vh = v.reshape(bg, m, hg, hc).transpose(1, 2)
     mask = bias.permute(0, 1, 2, 4, 3).reshape(bg, hg, h * w, m).contiguous()
     flops = 4 * hc * bg * hg * h * w * m
-    if fault == "channel dropped":
-        v_bad = v.clone()
-        v_bad.view(bg, m, hg, hc)[..., hc - 1] = 0
-        fault = f"channel {hc - 1} of each head dropped"
-        faulted = functools.partial(k4.dscf_rows_reference, q, k, v_bad, bias, scale, hg,
-                                    packed)
-    elif fault == "next head overwritten":
-        def faulted():
-            out = k4.dscf_rows_reference(q, k, v, bias, scale, hg, packed)
-            heads = out.view(bg, h * w, hg, hc)
-            heads[:, :, 1:, 0] = heads[:, :, :-1, hc - 1].clone()
-            return out
-
-        fault = "each head's first channel overwritten by the previous head's last"
+    if fault is not None:
+        fault, faulted = _head_faults(k4.dscf_rows_reference, (q, k, v, bias, scale, hg, packed),
+                                      bg, h * w, hg, hc, fault)
     elif packed:
         fault = "rpe bias dropped"
         faulted = lambda: k4.dscf_rows_reference(  # noqa: E731
@@ -1370,37 +1382,69 @@ def _packed_bias(bias5, m, mp, pad=-1e9):
     return packed.reshape(bg, h * w, hg * mp).contiguous()
 
 
-def check_dscf_attention(g, b, level):
+def _head_faults(plain, args, bg, hw, hg, hc, fault):
+    """The planted faults of a head width that is not a whole plane (the
+    rows of ``check_rows``): "channel dropped" (the head's last channel of
+    v zero in the plain version, ``args`` = (q, k, v, ...)) or "next head
+    overwritten" (the plain output with each head's first channel
+    overwritten by the previous head's last, as a store past the head would
+    leave it).  Returns (what, faulted)."""
+    if fault == "channel dropped":
+        q, k, v, *rest = args
+        v_bad = v.clone()
+        v_bad.view(*v.shape[:2], hg, hc)[..., hc - 1] = 0
+        return (f"channel {hc - 1} of each head dropped",
+                functools.partial(plain, q, k, v_bad, *rest))
+
+    def faulted():
+        out = plain(*args)
+        heads = out.view(bg, hw, hg, hc)
+        heads[:, :, 1:, 0] = heads[:, :, :-1, hc - 1].clone()
+        return out
+
+    return "each head's first channel overwritten by the previous head's last", faulted
+
+
+def check_dscf_attention(g, b, level, hc=8, fault=None):
     """K17 (the pallas / pallas2 attention) on the packed bias K18 builds,
-    Mp = 640.  Planted fault: the padded bias columns 0, not -1e9 (the zero
-    keys then take a share of every softmax)."""
+    Mp = 640, heads of ``hc`` channels (8: Swin-B, 12: Swin-L, 10: the MiT's
+    stage 2 of CMNeXt-B1..B5, 4 and 5: CMNeXt-B0's stages).  Planted fault:
+    the padded bias columns 0, not -1e9 (the zero keys then take a share of
+    every softmax), or ``fault`` as ``_head_faults`` makes it."""
     from ir_ads_tpu_torch.ops import dscf_attention as k17
     from ir_ads_tpu_torch.ops import dscf_rpe_jmajor as k18
 
     h, w, groups, bg, hg, m, pos, table = _dscf_inputs(g, b, level)
-    hw, mp, gc = h * w, 640, 16
+    hw, mp, gc = h * w, 640, hg * hc
     q = _rand(g, bg, hw, gc)
     k, v = (F.pad(_rand(g, bg, m, gc), (0, 0, 0, mp - m)) for _ in range(2))
     bias5 = k18.rpe_bias_jmajor(pos, table, h, w, torch.bfloat16)
     bias = _packed_bias(bias5, m, mp, k17.NEG_INF)
     bad = _packed_bias(bias5, m, mp, 0.0)
     del bias5
-    scale = 8 ** -0.5
-    heads_of = lambda t, n: t.reshape(bg, n, hg, 8).transpose(1, 2)  # noqa: E731
+    scale = hc ** -0.5
+    heads_of = lambda t, n: t.reshape(bg, n, hg, hc).transpose(1, 2)  # noqa: E731
     qh, kh, vh = heads_of(q, hw), heads_of(k, mp), heads_of(v, mp)
     mask = bias.reshape(bg, hw, hg, mp).transpose(1, 2).contiguous()
+    if fault is None:
+        fault = "padded bias columns 0, not -1e9"
+        faulted = lambda: k17.dscf_attention_reference(q, k, v, bad, scale, hg)  # noqa: E731
+    else:
+        del bad
+        fault, faulted = _head_faults(k17.dscf_attention_reference,
+                                      (q, k, v, bias, scale, hg), bg, hw, hg, hc, fault)
     return dict(
-        name="dscf_attention", case=f"level {level} plane {h}x{w} BG={bg} Mp={mp}",
+        name="dscf_attention", case=f"level {level} plane {h}x{w} BG={bg} Mp={mp}"
+        + ("" if hc == 8 else f" hc={hc}"),
         run=lambda: k17.dscf_attention(q, k, v, bias, scale, hg),
         plain=lambda: k17.dscf_attention_reference(q, k, v, bias, scale, hg),
-        faulted=lambda: k17.dscf_attention_reference(q, k, v, bad, scale, hg),
-        fault="padded bias columns 0, not -1e9", base=None,
+        faulted=faulted, fault=fault, base=None,
         library=lambda: F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
                                                        scale=scale),
         # K4's packed form: the same rounding points, another f32 max/sum order
         atol=1e-2, rtol=2e-2, share_tol=ROUNDING_SHARE,
-        bytes=nbytes(q, k, v, bias) + nbytes(q), flops=4 * 8 * bg * hg * hw * mp,
-        rate=BF16_TENSOR_FLOPS,
+        bytes=nbytes(q, k, v, bias) + nbytes(q), flops=4 * hc * bg * hg * hw * mp,
+        rate=BF16_TENSOR_FLOPS, hc=hc,
     )
 
 
@@ -1419,18 +1463,26 @@ PACKED_ENVELOPE_K17 = ((77, 128), (33, 384), (20, 896), (20, 3584))
 # bias, an odd width (16-bit copies), the served M on a narrow plane, and
 # more keys than the tensor-core design takes (the thread form)
 ENVELOPE_WIDTHS = ((16, 20, 40), (7, 9, 50), (4, 10, 600), (5, 8, 2100))
+# K17's thread form stages K and V as f32: 2 Mp hc 4 bytes of shared memory
+K17_THREAD_SMEM = 232448
 ENVELOPE_K16 = ((16, 32, 64), (4, 8, 16), (2, 4, 8), (12, 10, 600), (8, 5, 50), (7, 8, 50),
                 (5, 8, 2100))
 
 
 def check_packed_envelope(g):
     """K4's two forms, K17 and K16 at the shapes of PACKED_ENVELOPE_* and
-    ENVELOPE_K16, and K4's unpacked form at 4, 5 and 10 channels a head at
-    those of ENVELOPE_WIDTHS, 2 groups of 2 heads, against their plain
-    versions: K4's
-    bar and the differing share (ROUNDING_SHARE); K16 also bit for bit
-    against K3 followed by K4 unpacked on the same inputs (the table
-    (2, 2, 2h - 1, 2w - 1), as the model sizes it)."""
+    ENVELOPE_K16, K4's unpacked form at 4, 5 and 10 channels a head at
+    those of ENVELOPE_WIDTHS, K17 at 4, 5, 10 and 12 at those of
+    PACKED_ENVELOPE_K17 (at 12 up to the 2304 keys its thread form stages
+    in shared memory) and K16 at 12 at those of ENVELOPE_K16, 2 groups of
+    2 heads, against their plain versions: K4's bar and the differing share
+    (ROUNDING_SHARE); K16 also bit for bit against K3 followed by K4
+    unpacked on the same inputs (the table (2, 2, 2h - 1, 2w - 1), as the
+    model sizes it).  Then the refusals, each of which must raise on the
+    card and never fall back: K17 and K16 at a width they are not built
+    for (ValueError), K17's thread form at 12 channels past its shared
+    memory and K16 with a table past it (the launch refused:
+    RuntimeError)."""
     from ir_ads_tpu_torch.ops import dscf_attention as k17
     from ir_ads_tpu_torch.ops import dscf_fused as k16
     from ir_ads_tpu_torch.ops import dscf_rows as k4
@@ -1447,21 +1499,25 @@ def check_packed_envelope(g):
                                              _rand(g, bg, hg, h, m, w, std=0.5)),
                k4.dscf_rows_attention, k4.dscf_rows_reference, (hc ** -0.5, hg, False), None)
               for hc in (4, 5, 10) for h, w, m in ENVELOPE_WIDTHS]
-    cases += [(f"K17 HW={hw} Mp={mp}", lambda hw=hw, mp=mp: (
-        *(_rand(g, bg, n, 16) for n in (hw, mp, mp)),
-        _rand(g, bg, hw, hg * mp, std=0.5)), k17.dscf_attention,
-        k17.dscf_attention_reference, (scale, hg), None) for hw, mp in PACKED_ENVELOPE_K17]
+    cases += [(f"K17 HW={hw} Mp={mp}" + ("" if hc == 8 else f" hc={hc}"),
+               lambda hw=hw, mp=mp, hc=hc: (*(_rand(g, bg, n, hg * hc) for n in (hw, mp, mp)),
+                                            _rand(g, bg, hw, hg * mp, std=0.5)),
+               k17.dscf_attention, k17.dscf_attention_reference, (hc ** -0.5, hg), None)
+              for hc in (8, 4, 5, 10, 12) for hw, mp in PACKED_ENVELOPE_K17
+              if 2 * mp * hc * 4 <= K17_THREAD_SMEM]
 
     def two_kernels(q, k, v, pos, table, h, w, scale, hg):
         bias = k3.rpe_bias_rows(pos, table, h, w, q.dtype)
         return k4.dscf_rows_attention(q, k, v, bias, scale, hg, False)
 
-    cases += [(f"K16 {h}x{w} M={m}", lambda h=h, w=w, m=m: (
-        *(_rand(g, bg, n, 16) for n in (h * w, m, m)),
-        torch.rand(bg, m, 2, generator=g, device="cuda") * 2 - 1,
-        _rand(g, 2, hg, 2 * h - 1, 2 * w - 1, std=0.5, dtype=torch.float32)),
-        k16.dscf_fused_attention, k16.dscf_fused_reference, (h, w, scale, hg), two_kernels)
-        for h, w, m in ENVELOPE_K16]
+    cases += [(f"K16 {h}x{w} M={m}" + ("" if hc == 8 else f" hc={hc}"),
+               lambda h=h, w=w, m=m, hc=hc: (
+                   *(_rand(g, bg, n, hg * hc) for n in (h * w, m, m)),
+                   torch.rand(bg, m, 2, generator=g, device="cuda") * 2 - 1,
+                   _rand(g, 2, hg, 2 * h - 1, 2 * w - 1, std=0.5, dtype=torch.float32)),
+               k16.dscf_fused_attention, k16.dscf_fused_reference, (h, w, hc ** -0.5, hg),
+               two_kernels)
+              for hc in (8, 12) for h, w, m in ENVELOPE_K16]
     for what, make, run, plain, rest, composed in cases:
         args = make()
         got, want = run(*args, *rest), plain(*args, *rest)
@@ -1479,21 +1535,50 @@ def check_packed_envelope(g):
               flush=True)
         if not ok:
             fail(f"{what} disagrees with its plain version")
+    refusals = [
+        ("K17 at 6 channels a head", ValueError, lambda: k17.dscf_attention(
+            *(_rand(g, bg, n, hg * 6) for n in (20, 128, 128)),
+            _rand(g, bg, 20, hg * 128), 6 ** -0.5, hg)),
+        ("K16 at 10 channels a head", ValueError, lambda: k16.dscf_fused_attention(
+            *(_rand(g, bg, n, hg * 10) for n in (64, 50, 50)),
+            torch.rand(bg, 50, 2, generator=g, device="cuda") * 2 - 1,
+            _rand(g, 2, hg, 15, 31, dtype=torch.float32), 4, 16, 10 ** -0.5, hg)),
+        ("K17 at 12 channels, Mp 3584 (thread form past its shared memory)", RuntimeError,
+         lambda: k17.dscf_attention(*(_rand(g, bg, n, hg * 12) for n in (20, 3584, 3584)),
+                                    _rand(g, bg, 20, hg * 3584), 12 ** -0.5, hg)),
+        ("K16 at 12 channels, a 320x320 table (past its shared memory)", RuntimeError,
+         lambda: k16.dscf_fused_attention(
+             *(_rand(g, bg, n, hg * 12) for n in (64, 600, 600)),
+             torch.rand(bg, 600, 2, generator=g, device="cuda") * 2 - 1,
+             _rand(g, 2, hg, 320, 320, dtype=torch.float32), 4, 16, 12 ** -0.5, hg)),
+    ]
+    for what, error, call in refusals:
+        launched = (k16.KERNEL.launches, k17.KERNEL.launches)
+        try:
+            call()
+            torch.cuda.synchronize()
+        except error as e:
+            print(f"  envelope        {what}: refused ({type(e).__name__}: {e})", flush=True)
+        else:
+            fail(f"{what} was not refused")
+        if (k16.KERNEL.launches, k17.KERNEL.launches) != launched:
+            fail(f"{what}: a refused call counted a launch")
 
 
-def check_dscf_fused(g, b, level):
-    """K16 (pallas4): against its plain version (K3's then K4's unpacked),
-    and bit for bit against K3 followed by K4 with packed=False on the same
-    inputs, which K3 followed by K4 in the packed form must not be.  Planted
-    fault: the packed form (normalise before P.V)."""
+def check_dscf_fused(g, b, level, hc=8):
+    """K16 (pallas4) with heads of ``hc`` channels (8: Swin-B, 12: Swin-L):
+    against its plain version (K3's then K4's unpacked), and bit for bit
+    against K3 followed by K4 with packed=False on the same inputs, which
+    K3 followed by K4 in the packed form must not be.  Planted fault: the
+    packed form (normalise before P.V)."""
     from ir_ads_tpu_torch.ops import dscf_fused as k16
     from ir_ads_tpu_torch.ops import dscf_rows as k4
     from ir_ads_tpu_torch.ops import dscf_rpe as k3
 
     h, w, groups, bg, hg, m, pos, table = _dscf_inputs(g, b, level)
-    gc = 16
+    gc = hg * hc
     q, k, v = (_rand(g, bg, n, gc) for n in (h * w, m, m))
-    scale = 8 ** -0.5
+    scale = hc ** -0.5
     bf = torch.bfloat16
 
     def two_kernels(packed):
@@ -1502,7 +1587,8 @@ def check_dscf_fused(g, b, level):
 
     scores = bg * hg * h * w * m
     return dict(
-        name="dscf_fused", case=f"level {level} plane {h}x{w} BG={bg}",
+        name="dscf_fused", case=f"level {level} plane {h}x{w} BG={bg}"
+        + ("" if hc == 8 else f" hc={hc}"),
         run=lambda: k16.dscf_fused_attention(q, k, v, pos, table, h, w, scale, hg),
         plain=lambda: k16.dscf_fused_reference(q, k, v, pos, table, h, w, scale, hg),
         faulted=lambda: k4.dscf_rows_reference(
@@ -1515,7 +1601,7 @@ def check_dscf_fused(g, b, level):
         atol=1e-2, rtol=2e-2, share_tol=ROUNDING_SHARE,
         bytes=nbytes(q, k, v, pos, table) + nbytes(q),
         # the bias sample (f32, as K3's count) and the score and P.V dots
-        flops=(scores * 20, scores * 32), rate=(F32_FLOPS, BF16_TENSOR_FLOPS),
+        flops=(scores * 20, scores * 4 * hc), rate=(F32_FLOPS, BF16_TENSOR_FLOPS), hc=hc,
     )
 
 
@@ -2018,6 +2104,21 @@ def phase_kernels(seed: int, images: int):
           for clamped in (False, True) for level in (0, 1, 2, 3)),
         *(functools.partial(check_dscf_attention, g, images, level) for level in (0, 3)),
         *(functools.partial(check_dscf_fused, g, images, level) for level in (0, 1, 2)),
+        # the DSCF variants at the other head widths: K16 at 12 channels a
+        # head at Swin-L's levels 0-2 (dscf_pallas4), K17 at 12 at its four
+        # levels (dscf_pallas, dscf_pallas2), and on the legacy CMNeXt under
+        # dscf_pallas and dscf_pallas2 (every MiT stage at level 3): at 10
+        # (CMNeXt-B1..B5's stage 2, BG 16 at 30x40) and at CMNeXt-B0's 4, 4,
+        # 5, 4, with the width's own planted faults beside the padding's
+        *(functools.partial(check_dscf_fused, g, images, level, 12) for level in (0, 1, 2)),
+        *(functools.partial(check_dscf_attention, g, images, level, 12)
+          for level in (0, 1, 2, 3)),
+        functools.partial(check_dscf_attention, g, images, 2, 10),
+        functools.partial(check_dscf_attention, g, images, 2, 10, "next head overwritten"),
+        functools.partial(check_dscf_attention, g, images, 0, 4),
+        functools.partial(check_dscf_attention, g, images, 1, 4, "channel dropped"),
+        functools.partial(check_dscf_attention, g, images, 2, 5, "next head overwritten"),
+        functools.partial(check_dscf_attention, g, images, 3, 4),
         *(functools.partial(check_rows, g, images, level, packed=False)
           for level in (0, 1, 2, 3)),
         # the flat r5 path: K19 on one stream of a request; K20 (v1, which
@@ -3847,10 +3948,88 @@ EVAL_FAULTS = dict(swin_block="rel-pos bias dropped", block_tail="adapter droppe
                    dscf_rows="rpe bias dropped", dscf_rpe_packed="the all-f32 form")
 
 
-def _held_launches(run, what, tag, names=None):
+def _variant_launch_checks():
+    """``_eval_launch_checks``' tuples for the kernels the other dispatches
+    add (K10-K18), with phase 3's bars: K10, K13 and K14 their
+    ``SWIN_SHARE`` limits, K12, K15, K16 and K17 ``ROUNDING_SHARE``, K18
+    ``JMAJOR_SHARE``, K11 none; K10 and K11 their ``INT8_REL_TOL`` on what
+    they add (``LAUNCH_REL_TOL``).  Each plain version takes the wrapper's
+    arguments and rounds its parameters as the wrapper does.  Planted
+    faults (``VARIANT_FAULTS``): K10, K12 without the shift-region mask
+    (the shifted launches), K11 and K13 without the adapter, K14 and K15
+    without the rel-pos bias, K16, K17 and K18 phase 3's."""
+    from ir_ads_tpu_torch.ops import block_tail_int8 as k11
+    from ir_ads_tpu_torch.ops import swin_block_full as k14
+    from ir_ads_tpu_torch.ops import swin_block_int8 as k10
+    from ir_ads_tpu_torch.ops import swin_block_v7 as k13
+    from ir_ads_tpu_torch.ops import window_attention_map as k15
+    from ir_ads_tpu_torch.ops import window_attention_qkv as k12
+
+    def int8_block(x, ln_w, ln_b, wqkv_q, sqkv, bqkv, wproj_q, sproj, bproj, bias, region,
+                   *rest, keep_region=True):
+        ln_w, ln_b, bqkv, bproj = (t.to(x.dtype) for t in (ln_w, ln_b, bqkv, bproj))
+        return k10.window_block_int8_reference(
+            x, ln_w, ln_b, wqkv_q, sqkv.float(), bqkv, wproj_q, sproj.float(), bproj,
+            bias.float(), region if keep_region else None, *rest)
+
+    def int8_tail(x, ln_w, ln_b, w1_q, s1, b1, w2_q, s2, b2, *adapter, adapter_scale=0.5):
+        ln_w, ln_b, b1, b2 = (t.to(x.dtype) for t in (ln_w, ln_b, b1, b2))
+        return k11.block_tail_int8_reference(
+            x, ln_w, ln_b, w1_q, s1.float(), b1, w2_q, s2.float(), b2,
+            *(t.to(x.dtype) for t in adapter), adapter_scale=adapter_scale)
+
+    def qkv(qkv_rows, bias, region, scale, heads, keep_region=True):
+        return k12.window_attention_qkv_reference(qkv_rows, bias.float(),
+                                                  region if keep_region else None, scale, heads)
+
+    def v7(x, attn, tail, region, *rest, adapter_scale=0.5):
+        attn = tuple(t.to(x.dtype) for t in attn[:6]) + (attn[6].float(),)
+        return k13.window_block_v7_reference(x, attn, tuple(t.to(x.dtype) for t in tail),
+                                             region, *rest, adapter_scale=adapter_scale)
+
+    def full(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, *rest, bias_scale=1.0):
+        params = (t.to(x.dtype) for t in (ln_w, ln_b, wqkv, bqkv, wproj, bproj))
+        return k14.window_block_full_reference(x, *params, bias.float() * bias_scale, *rest)
+
+    def qkv_map(qkv_rows, bias, *rest, bias_scale=1.0):
+        return k15.window_attention_map_reference(qkv_rows, bias.float() * bias_scale, *rest)
+
+    dscf = {c[0]: c for d in ("dscf_pallas4", "dscf_pallas", "dscf_pallas2")
+            for c in _dscf_launch_checks(d)}
+    return [
+        ("swin_block_int8", "window_block_int8", int8_block,
+         functools.partial(int8_block, keep_region=False), SWIN_SHARE["swin_block_int8"], True,
+         (3e-2, 2e-2)),
+        ("block_tail_int8", "block_tail_int8", int8_tail,
+         functools.partial(int8_tail, adapter_scale=0.0), None, True, (3e-2, 2e-2)),
+        ("window_attention_qkv", "window_attention_qkv", qkv,
+         functools.partial(qkv, keep_region=False), ROUNDING_SHARE, False, (1e-2, 2e-2)),
+        ("swin_block_v7", "window_block_v7", v7, functools.partial(v7, adapter_scale=0.0),
+         SWIN_SHARE["swin_block_v7"], True, (3e-2, 2e-2)),
+        ("swin_block_full", "window_block_full", full, functools.partial(full, bias_scale=0.0),
+         SWIN_SHARE["swin_block_full"], True, (3e-2, 2e-2)),
+        ("window_attention_map", "window_attention_map", qkv_map,
+         functools.partial(qkv_map, bias_scale=0.0), ROUNDING_SHARE, False, (1e-2, 2e-2)),
+        *((name, *dscf[name][1:5], False, bar)
+          for name, bar in (("dscf_fused", (1e-2, 2e-2)), ("dscf_attention", (1e-2, 2e-2)),
+                            ("dscf_rpe_jmajor", (1e-4, 2.0 ** -7)))),
+    ]
+
+
+VARIANT_FAULTS = dict(swin_block_int8="region mask dropped", block_tail_int8="adapter dropped",
+                      window_attention_qkv="region mask dropped",
+                      swin_block_v7="adapter dropped", swin_block_full="rel-pos bias dropped",
+                      window_attention_map="rel-pos bias dropped",
+                      dscf_fused="the packed form", dscf_attention="padded bias columns 0",
+                      dscf_rpe_jmajor="K3's form")
+LAUNCH_REL_TOL = {k: INT8_REL_TOL[k] for k in ("swin_block_int8", "block_tail_int8")}
+
+
+def _held_launches(run, what, tag, names=None, shares=None):
     """Run ``run()`` with each launch of the six kernels of r5's forward (or
     of those in ``names``) held against its plain version and its planted
-    fault on its own inputs (``_eval_launch_checks``' bars); ``tag()`` names
+    fault on its own inputs (``_eval_launch_checks``' bars, the share bars
+    of ``shares`` over them where it names the kernel); ``tag()`` names
     the launch's place (an MSF scale, a request).  Fails if a launch misses
     its bar or a fault passes it over all of them.  Returns the log [(tag, kernel,
     shape, rel, share, fault rel, fault share, size, the largest |got -
@@ -3858,7 +4037,8 @@ def _held_launches(run, what, tag, names=None):
     from ir_ads_tpu_torch.models.backbones import swin
 
     log, saved = [], {}
-    checks = [c for c in _eval_launch_checks() if names is None or c[0] in names]
+    checks = [c for c in _eval_launch_checks() + (_variant_launch_checks() if names else [])
+              if names is None or c[0] in names]
     for name, attr, plain, faulted, _, residual, (atol, rtol) in checks:
         saved[attr] = kernel = getattr(swin, attr)
 
@@ -3882,7 +4062,7 @@ def _held_launches(run, what, tag, names=None):
     finally:
         for attr, f in saved.items():
             setattr(swin, attr, f)
-    bars = {c[0]: c[4] for c in checks}
+    bars = {c[0]: (shares or {}).get(c[0], c[4]) for c in checks}
     for name in bars:
         mine = [e for e in log if e[1] == name]
         if not mine:
@@ -3892,7 +4072,7 @@ def _held_launches(run, what, tag, names=None):
         size = sum(e[7] for e in mine)
         fault_share = sum(e[6] * e[7] for e in mine) / size
         fault_rel = max(e[5] for e in mine)
-        rel_tol = 0.0 if bars[name] == 0.0 else REL_TOL
+        rel_tol = 0.0 if bars[name] == 0.0 else LAUNCH_REL_TOL.get(name, REL_TOL)
         elem = max(e[8] for e in mine)
         tags = sorted({e[0] for e in mine}, key=str)
         print(f"  {name}: {len(mine)} launches in {what}" + (f" at {tags}" if tags != [None]
@@ -3900,7 +4080,8 @@ def _held_launches(run, what, tag, names=None):
               + f": worst rel {worst[3]:.3e} ({worst[0]}, "
               f"{worst[2]}; tol {rel_tol}), largest share apart {share:.4f} (tol "
               f"{bars[name]}), largest element error over its bar {elem:.3f} (tol 1); "
-              f"planted fault '{EVAL_FAULTS[name]}': worst rel {fault_rel:.3e}, share "
+              f"planted fault '{({**EVAL_FAULTS, **VARIANT_FAULTS})[name]}': worst rel "
+              f"{fault_rel:.3e}, share "
               f"{fault_share:.4f}", flush=True)
         bad = [e for e in mine if e[3] > rel_tol or e[8] > 1.0
                or (bars[name] is not None and e[4] > bars[name])]
@@ -4431,6 +4612,120 @@ def phase_swin_l_serve(seed, frames, requests, batch, card_line):
     return launches, record
 
 
+# Swin-L under the other dispatches: its depths (2/2/18/2) and DSCF levels
+# are Swin-B's, so a request launches what a Swin-B request does
+R4_LAUNCHES = {"swin_block": 48, "block_tail": 48, "dscf_rpe": 4, "dscf_rows": 4}
+# The share of a launch's outputs apart from its plain version on Swin-L's
+# served inputs, where it passes phase 3's: K1 at stage 3 (C = 1536, under
+# r4) read 0.0417 against SWIN_SHARE's 0.04, its sums over K = C 1.5 times
+# Swin-B's widest; K10 read up to 0.2248, 41 of a request's 48 launches
+# over 0.07, an f32 ulp of the plain version's row scale moving an s8 code
+# and with it the row's product (LOGIT_TOL_I8's cause), where phase 3's
+# random inputs read 0.028-0.046 (an H100 80GB HBM3 at 700 W, this
+# script's phase with the bars reported).  Held at 1.33-1.44 times those readings, as SWIN_SHARE
+# is set; their planted faults read 0.83 (K1) and rel 0.52 (K10, whose
+# share, 0.21, sits below its own bar: the rel bar catches it).
+SWIN_L_SHARE = dict(swin_block=0.06, swin_block_int8=0.30)
+SWIN_L_LAUNCHES = {"r4": R4_LAUNCHES, "v5": VARIANT_LAUNCHES["v5"], "r4i8": R4I8_LAUNCHES,
+                   **MODULE_LAUNCHES, "map": VARIANT_LAUNCHES["map"],
+                   "v7_01": VARIANT_LAUNCHES["v7_01"], **DSCF_LAUNCHES}
+
+
+def _block_tail_no_adapter(x, *params):
+    """K2's plain version with a planted fault: the adapter dropped."""
+    from ir_ads_tpu_torch.ops.block_tail import block_tail_reference
+
+    return block_tail_reference(x, *params, adapter_scale=0.0)
+
+
+def _window_block_full_no_region(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, region,
+                                 *rest):
+    """K14's plain version with K1's planted fault: no shift-region mask."""
+    from ir_ads_tpu_torch.ops.swin_block_full import window_block_full_reference
+
+    return window_block_full_reference(x, ln_w, ln_b, wqkv, bqkv, wproj, bproj, bias, None,
+                                       *rest)
+
+
+def _window_attention_map_no_region(qkv, bias, region, *rest):
+    """K15's plain version with K12's planted fault: no shift-region mask."""
+    from ir_ads_tpu_torch.ops.window_attention_map import window_attention_map_reference
+
+    return window_attention_map_reference(qkv, bias, None, *rest)
+
+
+def _window_block_v7_no_region(x, attn, tail, region, *rest):
+    """K13's plain version with K1's planted fault: no shift-region mask."""
+    from ir_ads_tpu_torch.ops.swin_block_v7 import window_block_v7_reference
+
+    return window_block_v7_reference(x, attn, tail, None, *rest)
+
+
+# the planted fault of each dispatch's logit bar, in the plain path: one of
+# the dispatch's own trunk kernels (the DSCF variants' levels 0-2 enter the
+# logits times deform_weight, 1e-3: their kernels are held launch by launch)
+SWIN_L_FAULTS = {
+    "r4": ("K1 without the shift-region mask", dict(window_block=_window_block_no_region)),
+    "v5": ("K14 without the shift-region mask",
+           dict(window_block_full=_window_block_full_no_region)),
+    "r4i8": ("K10 without the shift-region mask",
+             dict(window_block_int8=_window_block_int8_no_region)),
+    "r2": ("K12 without the shift-region mask",
+           dict(window_attention_qkv=_window_attention_qkv_no_region)),
+    "r1": ("K12 without the shift-region mask",
+           dict(window_attention_qkv=_window_attention_qkv_no_region)),
+    "xla": ("K2 without its adapter", dict(block_tail=_block_tail_no_adapter)),
+    "map": ("K15 without the shift-region mask",
+            dict(window_attention_map=_window_attention_map_no_region)),
+    "v7_01": ("K13 without the shift-region mask",
+              dict(window_block_v7=_window_block_v7_no_region)),
+    **{d: ("K5 without the shift-region mask", dict(window_block_v6=_window_block_v6_no_region))
+       for d in DSCF_LAUNCHES},
+}
+
+
+def phase_swin_l_dispatches(seed, frames, batch, card_line):
+    """Swin-L under every dispatch but r5 and train (module docstring, phase
+    9): for each, one request after a warm-up, launches against
+    ``SWIN_L_LAUNCHES``, every launch of the dispatch's kernels held against
+    its plain version (``_held_launches``, phase 3's bars), the logits
+    against the dispatch's all-plain path (``LOGIT_TOL``, r4i8's
+    ``LOGIT_TOL_I8`` as phase 4 holds it) with ``SWIN_L_FAULTS``' fault
+    failing it.  Returns (the launches, summed, the record)."""
+    from ir_ads_tpu_torch.serve import SemSegPredictor
+
+    total, record = {}, {}
+    frames = frames[:1]
+    for dispatch, want_launches in SWIN_L_LAUNCHES.items():
+        t0 = time.time()
+        pred = SemSegPredictor(device="cuda", seed=seed, num_classes=NUM_CLASSES,
+                               image_size=IMAGE, backbone=SWIN_L, dispatch=dispatch)
+        what = f"Swin-L {dispatch}"
+        lat, outs, launches = _served(pred, frames, 1, batch, want_launches, what)
+        _add(total, launches)
+        held = _held_launches(lambda: pred(*frames[0]), f"one {what} request", lambda: None,
+                              names=tuple(want_launches), shares=SWIN_L_SHARE)
+        tol = LOGIT_TOL_I8 if dispatch == "r4i8" else LOGIT_TOL
+        want = _plain_request(pred, frames)
+        if not _compare(*outs[0], *want, f"{what} kernel path", tol):
+            fail(f"the {what} kernel path disagrees with the plain path end to end")
+        fault, swap = SWIN_L_FAULTS[dispatch]
+        bad = _plain_request(pred, frames, **swap)
+        if _compare(*bad, *want, f"{what} planted fault ({fault})", tol):
+            fail(f"{fault} passes the {what} end-to-end bar")
+        rel = float((outs[0][0] - want[0]).abs().mean() / want[0].abs().mean())
+        print(f"  {what}: 1 request x {batch} frames 480x640 RGB-D, flip, {lat[0]:.1f} ms "
+              f"({batch * 1e3 / lat[0]:.2f} frames/s), {len(held)} launches held, "
+              f"{time.time() - t0:.1f} s in all [{card_line}]", flush=True)
+        print(f"  launches on the {what} path (1 request): {launches}", flush=True)
+        record[dispatch] = dict(latency_ms=lat[0], frames_per_s=batch * 1e3 / lat[0],
+                                launches_held=len(held), logits_rel_mean_vs_plain=rel,
+                                phase_s=time.time() - t0)
+        del pred, outs, want, bad
+        torch.cuda.empty_cache()
+    return total, record
+
+
 def phase_swin_l_train(seed, card_line):
     from ir_ads_tpu_torch.models.backbones import swin
 
@@ -4622,6 +4917,13 @@ def phase_swin_l_dual(seed, requests, batch, card_line):
     total = {}
     launches, serve_l = phase_swin_l_serve(seed, frames, requests, batch, card_line)
     _add(total, launches)
+    t0 = time.time()
+    launches, dispatches_l = phase_swin_l_dispatches(seed, frames, batch, card_line)
+    _add(total, launches)
+    serve_l["dispatches"] = dispatches_l
+    serve_l["dispatches_s"] = time.time() - t0
+    print(f"  Swin-L under {len(dispatches_l)} dispatches: {time.time() - t0:.1f} s "
+          f"[{card_line}]", flush=True)
     launches, train_l = phase_swin_l_train(seed, card_line)
     _add(total, launches)
     launches, dual = phase_dual(seed, frames, requests, batch, card_line)
@@ -4644,8 +4946,14 @@ LEGACY_EVAL_IMAGES = 2
 # unpacked form at 8, 8, 10 and 8 channels a head; r4i8 also runs the DSCF
 # projections and the head in s8 (torch._int_mm)
 LEGACY_ROWS = ("r4", "r4i8")
+# CMNeXt-B2 under dscf_pallas and dscf_pallas2: K17 at every stage (8, 8,
+# 10 and 8 channels a head, the 2n = 600 keys padded to 640), its bias in
+# the XLA form or from K18
+LEGACY_PACKED = {"dscf_pallas": {"dscf_attention": 4},
+                 "dscf_pallas2": {"dscf_rpe_jmajor": 4, "dscf_attention": 4}}
 LEGACY_LAUNCHES = {(CMNEXT_B2, "r5"): {"dscf_rpe_packed": 2}, (CMX_B2, "r5"): {},
-                   **{(CMNEXT_B2, d): {"dscf_rpe": 4, "dscf_rows": 4} for d in LEGACY_ROWS}}
+                   **{(CMNEXT_B2, d): {"dscf_rpe": 4, "dscf_rows": 4} for d in LEGACY_ROWS},
+                   **{(CMNEXT_B2, d): n for d, n in LEGACY_PACKED.items()}}
 # The requests' logits against the all-plain path: LOGIT_TOL, and bit for
 # bit, for K6 is its plain version bit for bit and the rest of the path is
 # the same PyTorch on the same card (0 of 24,576,000 logits apart on an H100
@@ -4750,6 +5058,41 @@ def phase_legacy_rows(pred, backbone, dispatch, frames, outs, record):
             (bad[0] - want[0]).abs().mean() / want[0].abs().mean())
 
 
+def _attention_no_bias(q, k, v, bias, *rest):
+    """K17's plain version with a planted fault: the rpe bias dropped, the
+    -1e9 of the padded keys kept."""
+    from ir_ads_tpu_torch.ops import dscf_attention as k17
+
+    return k17.dscf_attention_reference(
+        q, k, v, torch.where(bias < -1e8, bias, 0.0).to(bias.dtype), *rest)
+
+
+def phase_legacy_packed(pred, backbone, dispatch, frames, outs, record):
+    """CMNeXt-B2 under dscf_pallas or dscf_pallas2 (module docstring, phase
+    10): each K17 (and K18) launch of one request held against its plain
+    version, K17 at the MiT's 10 channels a head among them; the logits
+    against the all-plain path at ``LOGIT_TOL``, which K17 without its rpe
+    bias must fail."""
+    names = tuple(LEGACY_PACKED[dispatch])
+    held = _held_launches(lambda: pred(*frames[0]), f"one {backbone} {dispatch} request",
+                          lambda: None, names=names)
+    widths = sorted({e[2][-1] // 2 for e in held if e[1] == "dscf_attention"})
+    print(f"  {backbone} {dispatch}: K17 held at {widths} channels a head (hg 2)", flush=True)
+    if 10 not in widths:
+        fail(f"{backbone} {dispatch}: no K17 launch at 10 channels a head")
+    want = _plain_request(pred, frames)
+    if not _compare(*outs[0], *want, f"{backbone} {dispatch} kernel path", LOGIT_TOL):
+        fail(f"the {backbone} {dispatch} kernel path disagrees with the plain path end to end")
+    bad = _plain_request(pred, frames, dscf_attention=_attention_no_bias)
+    if _compare(*bad, *want, f"{backbone} planted fault (K17 without its rpe bias)",
+                LOGIT_TOL):
+        fail(f"K17 without its rpe bias passes the {backbone} {dispatch} end-to-end bar")
+    record.update(launches_held=len(held), k17_head_widths=widths,
+                  logits_rel_mean_vs_plain=float(
+                      (outs[0][0] - want[0]).abs().mean() / want[0].abs().mean()),
+                  fault_rel_mean=float((bad[0] - want[0]).abs().mean() / want[0].abs().mean()))
+
+
 def phase_legacy_serve(seed, backbone, frames, requests, batch, card_line, dispatch="r5"):
     """One legacy model behind ``SemSegPredictor`` under ``dispatch`` (module
     docstring, phase 10).  Returns (launches, the record)."""
@@ -4771,6 +5114,8 @@ def phase_legacy_serve(seed, backbone, frames, requests, batch, card_line, dispa
                   profiled_wall_ms=wall, device_busy_ms=busy, idle_share=idle)
     if dispatch in LEGACY_ROWS:
         phase_legacy_rows(pred, backbone, dispatch, frames, outs, record)
+    elif dispatch in LEGACY_PACKED:
+        phase_legacy_packed(pred, backbone, dispatch, frames, outs, record)
     elif per_request:
         held = _held_launches(lambda: pred(*frames[0]), f"one {backbone} request",
                               lambda: None, names=("dscf_rpe_packed",))
@@ -6057,7 +6402,8 @@ def main():
     print(f"phase 2: built {len(logs)} sources of {len(_ops_modules())} kernels in "
           f"{time.time() - t0:.1f} s", flush=True)
     for name, log in logs.items():
-        regs = [ln.strip() for ln in log.splitlines() if "registers" in ln or "spill" in ln]
+        regs = [ln.strip() for ln in log.splitlines()
+                if "registers" in ln or "spill" in ln or ln.startswith("nvcc ")]
         print(f"  {name}: " + " | ".join(regs), flush=True)
 
     print("phase 3: kernels against their plain versions (main-path shapes)", flush=True)

@@ -41,15 +41,49 @@
 // Past 1024 keys: one block per (bg, head) and 256 query pixels, one
 // thread per query pixel (dscf_attend<false>, as K4 there), the sample
 // computed whole in each of its two passes.
+//
+// A head has 8 channels (every Swin-B DSCF level) or 12 (every Swin-L
+// level): the kernels are templates of the width (HC), as K4's are, and
+// only these two are instantiated, since no path runs K16 at the MiT's 4,
+// 5 or 10 (a legacy model takes level 3's DSCF entry, the einsum under
+// dscf_pallas4); at 12 only the tile counts FusedTiles names.  At 12 channels K and V are staged as two planes of
+// 8-channel rows, the channels past the head zero, and the query's A
+// fragments of the second plane come from channels 8-11 (csrc/dscf.cuh's
+// load_head_row and scaled_query_channels, 8-byte and 4-byte words): the
+// sampling in the score loop is the same for every width, and the score
+// is two m16n8k8 products into one accumulator, P.V one m16n8k16 a plane,
+// K4's steps at 12 channels, so K16 stays bit-equal to K3 then K4.  The
+// second plane adds 20 KB of K and V rows at 600 keys (94 KB a block at
+// Swin-L's level 2, two blocks an SM); where the shared memory a launch
+// needs passes what a block may take, the launch is refused
+// (cudaErrorInvalidValue) and the wrapper raises.
 #include "dscf.cuh"
 
 using namespace port;
 
 namespace {
 
-constexpr int HC = kDscfHeadChannels;
 constexpr int kMaxTiles = 32;  // n-tiles a warp at most: M <= 1024 on the tensor cores
 
+// The n-tile counts the tensor-core kernel is built for, by head width: at
+// 8 channels K4's counts, so that K16 stays bit-equal to K3 then K4 at
+// every M up to 1024; at 12 the count of Swin-L's M = 600 at 480x640 (20)
+// and the smallest (4, M <= 128), each a kernel that nvcc takes about 14 s
+// for, the largest counts the longest; past the last count the thread form
+// runs.  Where K4 at 12 takes another count (M 129..512, 641..1024) K16
+// has its rounding points and another order of the f32 sums.
+template <int HC>
+struct FusedTiles {
+  using Counts = WarpTiles<4, 8, 12, 16, 20, 24, 28, kMaxTiles>;
+  static constexpr int kMax = kMaxTiles;
+};
+template <>
+struct FusedTiles<12> {
+  using Counts = WarpTiles<4, 20>;
+  static constexpr int kMax = 20;
+};
+
+template <int HC>
 __global__ void __launch_bounds__(kThreads)
 dscf_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                   const bf16* __restrict__ v, const float* __restrict__ pos,
@@ -61,14 +95,14 @@ dscf_fused_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   float* V_s = kv_s + M * HC;
   const int bg = blockIdx.y / hg, e = blockIdx.y % hg;
   const int HW = h * w, GC = hg * HC;
-  stage_head_kv(k + (size_t)bg * Mp * GC + e * HC, v + (size_t)bg * Mp * GC + e * HC, M,
-                GC, K_s, V_s);
+  stage_head_kv<HC>(k + (size_t)bg * Mp * GC + e * HC, v + (size_t)bg * Mp * GC + e * HC,
+                    M, GC, K_s, V_s);
   const int p = blockIdx.x * kThreads + threadIdx.x;
   if (p >= HW) return;
   const int r = p / w, c = p % w;
   float qs[HC], acc[HC];
-  scaled_query(q + ((size_t)bg * HW + p) * GC + e * HC, scale, qs);
-  dscf_attend<false>(qs, K_s, V_s, M, [&](int j) {
+  scaled_query<HC>(q + ((size_t)bg * HW + p) * GC + e * HC, scale, qs);
+  dscf_attend<false, HC>(qs, K_s, V_s, M, [&](int j) {
     return round_bf16(rpe_sample(pos, table, bg, e, j, r, c, G, hg, M, s1, s2, ay, ax));
   }, acc);
   bf16* op = out + ((size_t)bg * HW + p) * GC + e * HC;
@@ -82,33 +116,35 @@ __host__ __device__ __forceinline__ int tile_span(int p0, int HW, int w) {
   return (end - 1) / w - p0 / w + 1;
 }
 
-// Shared memory: K and V rows (padded to the warps' keys), (by, bx) of each
-// key, then ``span`` image rows' y parts of each key (rpe_pair's y1, and
-// the middle two bf16 hat weights as one word), then the bf16 table with a
-// row and a column of zeros past its last, (S1 + 1) x (S2 + 1).  At Swin-B's
-// shapes three blocks fit on an SM.
-template <int NT>
+// Shared memory: K and V rows (padded to the warps' keys, a plane of them
+// per 8 channels of the head), (by, bx) of each key, then ``span`` image
+// rows' y parts of each key (rpe_pair's y1, and the middle two bf16 hat
+// weights as one word), then the bf16 table with a row and a column of
+// zeros past its last, (S1 + 1) x (S2 + 1).  At Swin-B's shapes three
+// blocks fit on an SM, at Swin-L's two.
+template <int NT, int HC>
 size_t fused_smem(int M, int span, int s1, int s2) {
   constexpr int kRows = kMmaWarps * 8 * NT;
-  return (size_t)kRows * 2 * sizeof(uint4) +
+  return (size_t)kRows * 2 * kHeadPlanes<HC> * sizeof(uint4) +
          (size_t)M * (2 * sizeof(float) + span * sizeof(uint2)) +
          (size_t)(s1 + 1) * (s2 + 1) * sizeof(bf16);
 }
 
-template <int NT>
+template <int NT, int HC>
 __global__ void __launch_bounds__(kMmaThreads, 2)
 dscf_fused_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                       const bf16* __restrict__ v, const float* __restrict__ pos,
                       const float* __restrict__ table, bf16* __restrict__ out, int G,
                       int hg, int h, int w, int M, int Mp, int s1, int s2, float scale,
                       float ay, float ax, int span) {
+  constexpr int P = kHeadPlanes<HC>;
   constexpr int kRows = kMmaWarps * 8 * NT;  // keys padded to the warps' n-tiles
   constexpr int kTableLoads = 8;             // table loads in flight a thread
   extern __shared__ __align__(16) uint4 fused_s[];
-  __shared__ PackedRed red;
-  uint4* K_s = fused_s;
-  uint4* V_s = K_s + kRows;
-  float* by_s = reinterpret_cast<float*>(V_s + kRows);
+  __shared__ PackedRedT<HC> red;
+  uint4* K_s = fused_s;  // P planes of kRows rows each, then V's
+  uint4* V_s = K_s + P * kRows;
+  float* by_s = reinterpret_cast<float*>(V_s + P * kRows);
   float* bx_s = by_s + M;
   uint2* y_s = reinterpret_cast<uint2*>(bx_s + M);  // span x M
   bf16* T_s = reinterpret_cast<bf16*>(y_s + span * M);
@@ -130,8 +166,8 @@ dscf_fused_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       if (i < STP) T_s[i] = __float2bfloat16(t[u]);
     }
   }
-  stage_kv_rows(k + (size_t)bg * Mp * GC + e * HC, v + (size_t)bg * Mp * GC + e * HC, M, GC,
-                kRows, K_s, V_s);
+  stage_kv_rows<HC>(k + (size_t)bg * Mp * GC + e * HC, v + (size_t)bg * Mp * GC + e * HC, M,
+                    GC, kRows, K_s, V_s);
   for (int j = threadIdx.x; j < M; j += kMmaThreads) {
     const RpeKey key = rpe_key(pos + ((size_t)bg * M + j) * 2, s1, s2);
     by_s[j] = key.by;
@@ -159,10 +195,16 @@ dscf_fused_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     const uint2* ya = y_s + (ra - r0) * M;
     const uint2* yb = y_s + (rb - r0) * M;
     const float aca = __fmul_rn(ax, (float)(pa % w)), acb = __fmul_rn(ax, (float)(pb % w));
-    const unsigned qa0 = scaled_query_pair(q + ((size_t)bg * HW + pa) * GC + e * HC, t, scale);
-    const unsigned qa1 = scaled_query_pair(q + ((size_t)bg * HW + pb) * GC + e * HC, t, scale);
-    float o[4];
-    dscf_attend_mma<false, NT>(qa0, qa1, K_s + key0, V_s + key0, [&](int nt, float* b) {
+    const bf16* q0 = q + ((size_t)bg * HW + pa) * GC + e * HC;
+    const bf16* q1 = q + ((size_t)bg * HW + pb) * GC + e * HC;
+    // channels 2t, 2t + 1 of the first plane and 8 + 2t, 9 + 2t of the
+    // second, zero past the head
+    const unsigned qa0 = scaled_query_channels<HC>(q0, 2 * t, scale);
+    const unsigned qa1 = scaled_query_channels<HC>(q1, 2 * t, scale);
+    const unsigned qa2 = P > 1 ? scaled_query_channels<HC>(q0, 8 + 2 * t, scale) : 0u;
+    const unsigned qa3 = P > 1 ? scaled_query_channels<HC>(q1, 8 + 2 * t, scale) : 0u;
+    float o[4 * P];
+    dscf_attend_mma<false, NT, HC>(qa0, qa1, K_s + key0, V_s + key0, [&](int nt, float* b) {
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
 #pragma unroll
@@ -183,25 +225,22 @@ dscf_fused_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
           }
         }
       }
-    }, red, o);
-    store_tile<false>(o, red, out + ((size_t)bg * HW + p0) * GC + e * HC, GC, rows);
+    }, red, o, qa2, qa3);
+    store_tile<false, HC>(o, red, out + ((size_t)bg * HW + p0) * GC + e * HC, GC, rows);
   }
 }
 
-}  // namespace
-
-extern "C" int dscf_fused_attention(const void* q, const void* k, const void* v,
-                                    const void* pos, const void* table, void* out,
-                                    int BG, int G, int hg, int h, int w, int M, int Mp,
-                                    int s1, int s2, float scale, float ay, float ax,
-                                    void* stream) {
-  auto st = static_cast<cudaStream_t>(stream);
-  if (M > 32 * kMaxTiles) {  // too many keys for the tensor-core design
+template <int HC>
+int launch(const void* q, const void* k, const void* v, const void* pos, const void* table,
+           void* out, int BG, int G, int hg, int h, int w, int M, int Mp, int s1, int s2,
+           float scale, float ay, float ax, cudaStream_t st) {
+  if (M > 32 * FusedTiles<HC>::kMax) {  // too many keys for the tensor-core kernels built
     const size_t smem = (size_t)2 * M * HC * sizeof(float);
-    cudaFuncSetAttribute(dscf_fused_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+    if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
+    cudaFuncSetAttribute(dscf_fused_kernel<HC>, cudaFuncAttributeMaxDynamicSharedMemorySize,
                          (int)smem);
     dim3 grid((h * w + kThreads - 1) / kThreads, BG * hg);
-    dscf_fused_kernel<<<grid, kThreads, smem, st>>>(
+    dscf_fused_kernel<HC><<<grid, kThreads, smem, st>>>(
         (const bf16*)q, (const bf16*)k, (const bf16*)v, (const float*)pos,
         (const float*)table, (bf16*)out, G, hg, h, w, M, Mp, s1, s2, scale, ay, ax);
     return (int)cudaGetLastError();
@@ -209,10 +248,10 @@ extern "C" int dscf_fused_attention(const void* q, const void* k, const void* v,
   const int HW = h * w, tiles = (HW + kTileRows - 1) / kTileRows;
   int span = 1;
   for (int p0 = 0; p0 < HW; p0 += kTileRows) span = std::max(span, tile_span(p0, HW, w));
-  return WarpTiles<4, 8, 12, 16, 20, 24, 28, kMaxTiles>::with((M + 31) / 32, [&](auto nt) {
+  return FusedTiles<HC>::Counts::with((M + 31) / 32, [&](auto nt) {
     constexpr int NT = decltype(nt)::value;
-    auto kernel = dscf_fused_mma_kernel<NT>;
-    const size_t smem = fused_smem<NT>(M, span, s1, s2);
+    auto kernel = dscf_fused_mma_kernel<NT, HC>;
+    const size_t smem = fused_smem<NT, HC>(M, span, s1, s2);
     if (smem > (size_t)kSmemMax) return (int)cudaErrorInvalidValue;
     const dim3 grid = plane_grid(kernel, smem, BG * hg, tiles);
     kernel<<<grid, kMmaThreads, smem, st>>>(
@@ -220,4 +259,24 @@ extern "C" int dscf_fused_attention(const void* q, const void* k, const void* v,
         (const float*)table, (bf16*)out, G, hg, h, w, M, Mp, s1, s2, scale, ay, ax, span);
     return (int)cudaGetLastError();
   });
+}
+
+}  // namespace
+
+// hc: channels per head, 8 or 12.
+extern "C" int dscf_fused_attention(const void* q, const void* k, const void* v,
+                                    const void* pos, const void* table, void* out,
+                                    int BG, int G, int hg, int h, int w, int M, int Mp,
+                                    int s1, int s2, float scale, float ay, float ax, int hc,
+                                    void* stream) {
+  auto st = static_cast<cudaStream_t>(stream);
+  switch (hc) {
+    case 8:
+      return launch<8>(q, k, v, pos, table, out, BG, G, hg, h, w, M, Mp, s1, s2, scale, ay,
+                       ax, st);
+    case 12:
+      return launch<12>(q, k, v, pos, table, out, BG, G, hg, h, w, M, Mp, s1, s2, scale, ay,
+                        ax, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -12,11 +12,12 @@ for gives such a model (``legacy_dispatch``): its MiT DSCF (every stage at
 level 3) takes the dispatch's level-3 attention with its ``rpe3``, and its
 int8 sites are those of ``IR_ADS_INT8=1``, the DSCF projections and the
 head's composed projection (the MiT's own linears stay float).  So r4,
-r4i8, r2, v5 and map run K3 + K4 at every stage, r1 is xla, v7_01 and
-dscf_pallas4 are r5, and ``train`` is the einsum DSCF (K6 under autograd
-at stages 2-3) with drop-path, the adapters' and the head's dropout and
-train-mode BatchNorms.  dscf_pallas and dscf_pallas2 raise: they need K17
-at the MiT's 10 channels a head.  The Swin options (``backbone_kwargs``,
+r4i8, r2, v5 and map run K3 + K4 at every stage, dscf_pallas K17 at every
+stage (the bias in the XLA form) and dscf_pallas2 K18 + K17, at the MiT's
+8, 8, 10, 8 channels a head (4, 4, 5, 4 on CMNeXt-B0); r1 is xla, v7_01
+and dscf_pallas4 are r5, and ``train`` is the einsum DSCF (K6 under
+autograd at stages 2-3) with drop-path, the adapters' and the head's
+dropout and train-mode BatchNorms.  The Swin options (``backbone_kwargs``,
 ``patch_embed``, ``head_dims``, ``use_remat``) raise by name.  There is no
 MMST modality mask (the JAX ``build_model`` drops ``mmst_mask``).
 """
@@ -51,11 +52,6 @@ def legacy_dispatch(dispatch: str) -> Tuple[str, bool, str]:
     if dispatch not in DISPATCH:
         raise NotImplementedError(f"dispatch {dispatch!r}: the port has {list(DISPATCH)}")
     _, dscf_attn, _, int8, rpe3 = DISPATCH[dispatch]
-    if dscf_attn[3] not in ("pallas3", "xla"):
-        raise NotImplementedError(
-            f"dispatch {dispatch!r}: on a legacy model its DSCF attention "
-            f"{dscf_attn[3]!r} needs K17 at the MiT's 10 channels a head, which ROADMAP "
-            "Queue 1 item 2 joins to templating K16 and K17 on head width")
     return dscf_attn[3], int8, rpe3
 
 

@@ -16,8 +16,10 @@ with a depthwise convolution).  As there:
     list gives its last entry to every level-3 module): ``pallas3`` under
     r4, r4i8, r2, v5 and map, the rows bias (K3) and K4's unpacked form
     (the reference's ``IR_ADS_DSCF_PACKED`` "1,1,1,0" at level 3) where
-    the 2n keys are a multiple of 8, else the einsum; ``xla`` (the einsum)
-    under r5, train, r1, xla, v7_01 and dscf_pallas4.  The einsum's rpe
+    the 2n keys are a multiple of 8, else the einsum; ``pallas`` and
+    ``pallas2`` under dscf_pallas and dscf_pallas2, K17 over the packed
+    bias (its keys padded to 128) in the XLA form or from K18; ``xla`` (the
+    einsum) under r5, train, r1, xla, v7_01 and dscf_pallas4.  The einsum's rpe
     bias is the dispatch's ``rpe3``: K6 (ops/dscf_rpe_packed.py) on query
     planes of at most ``RPE3_PLANE_MAX`` pixels under r5, r4, r4i8, train,
     v7_01, v5 and dscf_pallas4, the XLA form under r2, r1, xla and map (a
@@ -199,7 +201,7 @@ class AddMPGBlock(nn.Module):
 class MiTDualStream(nn.Module):
     """Dual-stream MiT returning the fused 4-level pyramid.  ``dscf_attn``:
     the DSCF attention of every stage (the dispatch's level-3 entry,
-    ``"pallas3"`` or ``"xla"``); ``int8``: the DSCF's int8 sites (r4i8);
+    ``"pallas3"``, ``"pallas"``, ``"pallas2"`` or ``"xla"``); ``int8``: the DSCF's int8 sites (r4i8);
     ``rpe3``: the einsum branch's bias, ``"pallas"`` (K6 where the plane has
     at most ``RPE3_PLANE_MAX`` pixels) or ``"xla"``."""
 

@@ -16,6 +16,8 @@ import ctypes
 import os
 import shutil
 import subprocess
+import threading
+import time
 from pathlib import Path
 from typing import Dict, List, Sequence
 
@@ -110,19 +112,24 @@ def build_all(kernels: Sequence[CudaKernel]) -> Dict[str, str]:
     """Compile every stale library in parallel (one nvcc per source).
 
     Returns the compiler output (ptxas register and shared-memory report) by
-    source name; raises with that output if any build fails."""
+    source name, its first line the seconds that source's nvcc took; raises
+    with that output if any build fails."""
     units = {k.unit: k for k in kernels}
+    t0 = time.time()
     procs = {name: k.start_build() for name, k in units.items()}
-    logs: Dict[str, str] = {}
-    failed = []
-    for name, proc in procs.items():
-        if proc is None:
-            logs[name] = "up to date"
-            continue
+    logs = {name: "up to date" for name, proc in procs.items() if proc is None}
+
+    def wait(name, proc):  # one reader a process: a full pipe would stall nvcc
         out, _ = proc.communicate()
-        logs[name] = out
-        if proc.returncode != 0:
-            failed.append(name)
+        logs[name] = f"nvcc {time.time() - t0:.1f} s\n{out}"
+
+    readers = [threading.Thread(target=wait, args=item) for item in procs.items()
+               if item[1] is not None]
+    for r in readers:
+        r.start()
+    for r in readers:
+        r.join()
+    failed = [name for name, proc in procs.items() if proc is not None and proc.returncode]
     if failed:
         raise RuntimeError(
             "nvcc failed for " + ", ".join(failed) + ":\n"

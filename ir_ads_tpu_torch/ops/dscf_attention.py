@@ -8,7 +8,12 @@ csrc/dscf_attention.cu; its header states the bound and the design.
 
 Layouts, the TPU kernel's: q (BG, HW, GC), k and v (BG, Mp, GC) with Mp a
 multiple of 128, bias (BG, HW, hg*Mp) with head e's keys at lanes
-[e*Mp, (e+1)*Mp); head e holds channels [e*hc, (e+1)*hc).  The caller pads
+[e*Mp, (e+1)*Mp); head e holds channels [e*hc, (e+1)*hc).  The kernel takes
+K4's widths, hc = 8 (every Swin-B DSCF level), 12 (every Swin-L level), and
+the MiT's 10, 4 and 5 (``dscf_heads.HEAD_CHANNELS``), with K4's design: a
+head of 10 or 12 channels staged as two planes of 8 channels, a head of 4
+or 5 as one, the channels past the head zero, rows read in words the
+head's alignment allows and each channel stored alone.  The caller pads
 the keys with zeros and their bias columns with -1e9, as DAttentionMM does.
 Rounding: ``bf16(q * scale) . k`` in f32 plus the bias in f32, an f32
 softmax, the normalised probabilities rounded to the value dtype before P.V
@@ -16,8 +21,11 @@ softmax, the normalised probabilities rounded to the value dtype before P.V
 ``packed=True`` form (``dscf_rows.attend_reference``).
 
 ``dscf_attention`` launches the kernel for CUDA tensors and runs
-``dscf_attention_reference``, the plain version, only for CPU tensors.  It
-is differentiable: its backward is the vjp of the plain version, as the JAX
+``dscf_attention_reference``, the plain version (any width), only for CPU
+tensors.  On a CUDA tensor a width outside the five raises ``ValueError``,
+and a launch the card refuses (the thread form past 1024 keys stages K and
+V in shared memory: at 12 channels up to 2304 keys) raises ``RuntimeError``;
+nothing falls back to the plain version.  It is differentiable: its backward is the vjp of the plain version, as the JAX
 package's ``_bwd`` takes ``jax.vjp`` of ``dscf_reference``.
 """
 
@@ -27,11 +35,11 @@ import torch
 
 from ir_ads_tpu_torch.ops.cuda_lib import FLOAT, INT, VOIDP, CudaKernel, check_cuda, ptr
 from ir_ads_tpu_torch.ops.layers import q_scale
+from ir_ads_tpu_torch.ops.dscf_heads import head_channels
 from ir_ads_tpu_torch.ops.dscf_rows import attend_reference
-from ir_ads_tpu_torch.ops.dscf_rows_bwd import HEAD_CHANNELS
 
 KERNEL = CudaKernel(
-    "dscf_attention", "dscf_attention", [VOIDP] * 5 + [INT] * 4 + [FLOAT],
+    "dscf_attention", "dscf_attention", [VOIDP] * 5 + [INT] * 4 + [FLOAT, INT],
     replaces="ir_ads_tpu/ops/pallas_dscf.py:44",
 )
 NEG_INF = -1e9  # the bias of a padded key (pallas_dscf.NEG_INF)
@@ -61,12 +69,13 @@ def _forward(q, k, v, bias, scale, hg):
         return dscf_attention_reference(q, k, v, bias, scale, hg)
     q, k, v, bias = (t.contiguous() for t in (q, k, v, bias))
     check_cuda("dscf_attention", q, k, v, bias)
-    if gc != hg * HEAD_CHANNELS or mp % KEY_LANES:
-        raise ValueError(f"dscf_attention: needs {HEAD_CHANNELS} channels per head and "
-                         f"keys padded to a multiple of {KEY_LANES}, got {tuple(k.shape)}")
+    hc = head_channels("dscf_attention", gc, hg)
+    if mp % KEY_LANES:
+        raise ValueError(f"dscf_attention: needs keys padded to a multiple of {KEY_LANES}, "
+                         f"got {tuple(k.shape)}")
     out = torch.empty_like(q)
     KERNEL.call(ptr(q), ptr(k), ptr(v), ptr(bias), ptr(out), bg, hg, hw, mp,
-                q_scale(scale, q.dtype))
+                q_scale(scale, q.dtype), hc)
     return out
 
 

@@ -18,8 +18,14 @@ by K4 with ``packed=False``, and the plain version
 ``dscf_fused_reference`` is exactly that composition of their plain
 versions (``dscf_rpe.rpe_bias_rows_reference``, then
 ``dscf_rows.dscf_rows_reference(..., packed=False)``); the CUDA kernel runs
-K3's and K4's device code and is bit-equal on the card to the two kernels.
-The bias is rounded to q's dtype, the reference's store dtype.
+K3's and K4's device code and is bit-equal on the card to the two kernels
+(at 12 channels a head where both take the same tile count: M up to 128,
+513 to 640, and past 1024).  The bias is rounded to q's dtype, the
+reference's store dtype.  The kernel takes heads of 8 channels (every
+Swin-B DSCF level) and 12 (every Swin-L level), the widths a path runs it
+at (``dscf_heads.HEAD_CHANNELS``): at 12, K and V staged as two 8-channel
+planes, as K4 does, on the tensor cores up to 640 keys (Swin-L's 600) and
+a thread a query pixel past them.
 
 Layouts: q (BG, h*w, GC), k and v (BG, Mp, GC) with Mp >= M, pos (BG, M, 2)
 f32 (y, x) in [-1, 1], table (G, hg, S1, S2) f32; BG = B * G group-minor.
@@ -27,7 +33,10 @@ f32 (y, x) in [-1, 1], table (G, hg, S1, S2) f32; BG = B * G group-minor.
 ``dscf_fused_attention`` raises ``ValueError`` where the reference's
 ``_pick_band_rows`` does (``band_rows``), so that pallas4 has the
 reference's domain, on every device.  It launches the kernel for CUDA
-tensors and runs the plain version only for CPU tensors.  It is
+tensors and runs the plain version (any width) only for CPU tensors.  On a
+CUDA tensor another width raises ``ValueError``, and a launch whose shared
+memory passes what a block may take is refused and raises
+``RuntimeError``; nothing falls back to the plain version.  It is
 differentiable in q, k, v, pos and table: its backward is the vjp of the
 plain version (recomputed), as ``_dscf_fused_bwd`` takes ``jax.vjp`` of the
 twin.
@@ -38,13 +47,13 @@ from __future__ import annotations
 import torch
 
 from ir_ads_tpu_torch.ops.cuda_lib import FLOAT, INT, VOIDP, CudaKernel, check_cuda, ptr
+from ir_ads_tpu_torch.ops.dscf_heads import head_channels
 from ir_ads_tpu_torch.ops.layers import q_scale
 from ir_ads_tpu_torch.ops.dscf_rows import dscf_rows_reference
-from ir_ads_tpu_torch.ops.dscf_rows_bwd import HEAD_CHANNELS
 from ir_ads_tpu_torch.ops.dscf_rpe import hat_slopes, rpe_bias_rows_reference
 
 KERNEL = CudaKernel(
-    "dscf_fused", "dscf_fused_attention", [VOIDP] * 6 + [INT] * 9 + [FLOAT] * 3,
+    "dscf_fused", "dscf_fused_attention", [VOIDP] * 6 + [INT] * 9 + [FLOAT] * 3 + [INT],
     replaces="ir_ads_tpu/ops/pallas_dscf.py:460",
 )
 BAND_BYTES = 24 * 1024 * 1024  # the reference's VMEM budget for a band's bias
@@ -82,12 +91,11 @@ def _forward(q, k, v, pos, table, h, w, scale, hg):
     q, k, v, pos, table = (t.contiguous() for t in (q, k, v, pos, table))
     check_cuda("dscf_fused_attention", q, k, v)
     check_cuda("dscf_fused_attention", pos, table, dtype=torch.float32)
-    if gc != hg * HEAD_CHANNELS:
-        raise ValueError(f"dscf_fused_attention: needs {HEAD_CHANNELS} channels per head")
+    hc = head_channels("dscf_fused", gc, hg)
     g, _, s1, s2 = table.shape
     out = torch.empty_like(q)
     KERNEL.call(ptr(q), ptr(k), ptr(v), ptr(pos), ptr(table), ptr(out), bg, g, hg, h, w, m,
-                mp, s1, s2, q_scale(scale, q.dtype), *hat_slopes(s1, s2, h, w))
+                mp, s1, s2, q_scale(scale, q.dtype), *hat_slopes(s1, s2, h, w), hc)
     return out
 
 

@@ -28,9 +28,9 @@ rounding now and then.
 
 Layouts: q (BG, h*w, GC), k and v (BG, Mp, GC) with Mp >= M (rows past M are
 padding and never attended), bias (BG, hg, h, M, w); head e of a group holds
-channels [e*hc, (e+1)*hc).  The kernel takes the ``HEAD_CHANNELS`` widths:
-hc = 8 (every Swin-B DSCF level), 12 (every Swin-L level), and the MiT's
-10 (stage 2 of CMNeXt-B1..B5: 320 x 0.25 / 8 heads), 4 and 5 (CMNeXt-B0's
+channels [e*hc, (e+1)*hc).  The kernel takes the widths
+``dscf_heads.HEAD_CHANNELS["dscf_rows"]``: hc = 8 (every Swin-B DSCF
+level), 12 (every Swin-L level), and the MiT's 10 (stage 2 of CMNeXt-B1..B5: 320 x 0.25 / 8 heads), 4 and 5 (CMNeXt-B0's
 stages 0, 1, 3 and 2).  A head of 10 or 12 channels is staged in shared
 memory as two planes of 8 channels, the channels past the head zero, and a
 head of 4 or 5 as one such plane, so that the score and P.V products keep
@@ -51,6 +51,7 @@ import torch
 from ir_ads_tpu_torch.ops.cuda_lib import (
     FLOAT, INT, VOIDP, CudaKernel, check_cuda, ptr, up,
 )
+from ir_ads_tpu_torch.ops.dscf_heads import head_channels
 from ir_ads_tpu_torch.ops.layers import q_scale
 from ir_ads_tpu_torch.ops.dscf_rows_bwd import dscf_rows_bwd
 
@@ -58,8 +59,6 @@ KERNEL = CudaKernel(
     "dscf_rows", "dscf_rows_attention", [VOIDP] * 5 + [INT] * 6 + [FLOAT, INT, INT],
     replaces="ir_ads_tpu/ops/pallas_dscf.py:190",
 )
-# K4's channels per head: Swin-B's 8, Swin-L's 12, the MiT's 10, 4 and 5
-HEAD_CHANNELS = (4, 5, 8, 10, 12)
 
 
 def attend_reference(qh, kh, vh, bh, scale, packed):
@@ -100,10 +99,7 @@ def _forward(q, k, v, bias, scale, hg, packed):
         return dscf_rows_reference(q, k, v, bias, scale, hg, packed)
     q, k, v, bias = (t.contiguous() for t in (q, k, v, bias))
     check_cuda("dscf_rows_attention", q, k, v, bias)
-    hc = gc // hg
-    if gc != hg * hc or hc not in HEAD_CHANNELS:
-        raise ValueError(f"dscf_rows_attention: needs {HEAD_CHANNELS} channels per head; "
-                         f"got {gc} over {hg} heads")
+    hc = head_channels("dscf_rows", gc, hg)
     out = torch.empty_like(q)
     KERNEL.call(ptr(q), ptr(k), ptr(v), ptr(bias), ptr(out), bg, hg, h, w, m,
                 mp, q_scale(scale, q.dtype), int(bool(packed)), hc)

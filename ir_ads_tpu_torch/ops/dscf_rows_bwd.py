@@ -29,16 +29,16 @@ import torch.nn.functional as F
 from ir_ads_tpu_torch.ops.cuda_lib import (
     FLOAT, INT, VOIDP, CudaKernel, check_cuda, ptr, up,
 )
+from ir_ads_tpu_torch.ops.dscf_heads import HEAD_CHANNELS
 
 KERNEL = CudaKernel(
     "dscf_rows_bwd", "dscf_rows_bwd", [VOIDP] * 9 + [INT] * 6 + [FLOAT, INT],
     replaces="ir_ads_tpu/ops/pallas_dscf.py:681",
 )
-HEAD_CHANNELS = 8  # K16's and K17's channels per head (every Swin-B DSCF level)
 # K8's channels per head: Swin-B's and Swin-L's.  K4 also takes the MiT's
-# 4, 5 and 10 (ops/dscf_rows.HEAD_CHANNELS); no path backpropagates through
-# those yet (the train dispatch gives the MiT's DSCF the einsum attention)
-ROWS_HEAD_CHANNELS = (8, 12)
+# 4, 5 and 10; no path backpropagates through those yet (the train
+# dispatch gives the MiT's DSCF the einsum attention)
+WIDTHS = HEAD_CHANNELS["dscf_rows_bwd"]
 # of the 227 KB of shared memory a block may take: 96 bytes a key and 14 KB
 # besides at 8 channels, 160 bytes and 20 KB at 12 (keys in steps of 16)
 MAX_KEYS = {8: 2272, 12: 1312}
@@ -92,13 +92,13 @@ def dscf_rows_bwd(
     q, k, v, bias, dout = (t.contiguous() for t in (q, k, v, bias, dout))
     check_cuda("dscf_rows_bwd", q, k, v, bias, dout)
     hc = gc // hg
-    if gc == hg * hc and hc not in ROWS_HEAD_CHANNELS:
+    if gc == hg * hc and hc not in WIDTHS:
         raise NotImplementedError(
-            f"dscf_rows_bwd: K8 takes {ROWS_HEAD_CHANNELS} channels per head, not {hc}; "
+            f"dscf_rows_bwd: K8 takes {WIDTHS} channels per head, not {hc}; "
             "the MiT's 4, 5 and 10 wait for a path that backpropagates through K4 there "
             "(ROADMAP Queue 1 item 4)")
     if gc != hg * hc or w % 8 or m > MAX_KEYS[hc]:
-        raise ValueError(f"dscf_rows_bwd: needs {ROWS_HEAD_CHANNELS} channels per head, "
+        raise ValueError(f"dscf_rows_bwd: needs {WIDTHS} channels per head, "
                          f"w % 8 == 0 and at most MAX_KEYS[hc] keys ({MAX_KEYS}); got "
                          f"{q.shape} {bias.shape} with {hg} heads")
     dq = torch.empty_like(q)

@@ -136,8 +136,7 @@ class SemSegPredictor:
     ``backbone``: ``"SwinTransformer-B"`` or ``"SwinTransformer-L"``
     (``backbone_kwargs`` may set ``dual_batch``; ``head_dims`` defaults to
     (512, 256)), or a legacy model, ``"CMNeXt-B0"``..``"CMNeXt-B5"`` (the
-    MiT dual stream, under every dispatch but dscf_pallas and dscf_pallas2:
-    ``models.legacy_dispatch``) or ``"CMX-B0"``..
+    MiT dual stream, under every dispatch: ``models.legacy_dispatch``) or ``"CMX-B0"``..
     ``"CMX-B5"`` (``models.CMNeXtLegacy``), which takes none of
     ``backbone_kwargs``, ``head_dims``, ``flat_input`` and a
     ``patch_embed`` other than ``"xla"``.

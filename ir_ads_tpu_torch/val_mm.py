@@ -12,8 +12,7 @@ or, without one, are drawn from ``--seed``.  ``EVAL.CACHE_DIR`` serves the
 val split from a decode-once ``RawCache`` with the normalisation on the
 device.  ``TRAIN.AMP`` chooses bf16 (the default) or f32.  ``MODEL.BACKBONE``
 is a Swin CMNeXt's or a legacy model's (``CMNeXt-B0``..``B5``, ``CMX-B0``..
-``B5``, under every ``--dispatch`` but dscf_pallas and dscf_pallas2;
-``models.CMNeXtLegacy``).
+``B5``, under every ``--dispatch``; ``models.CMNeXtLegacy``).
 
 Beyond the JAX val_mm.py: ``DATASET.KWARGS`` goes to the dataset's constructor
 (``Synthetic``'s ``image_size``, ``num_classes``, ``length``), with

@@ -307,13 +307,16 @@ def test_cache_path_and_single_scale(weights, tmp_path):
 def test_legacy_backbones_raise():
     """The legacy models build under every dispatch the JAX package gives a
     meaning for them (tests/test_torch_legacy_dispatch.py,
-    tests/test_torch_legacy_train.py) and raise where the port has no
-    counterpart: dscf_pallas and dscf_pallas2 (K17 at 10 channels a head),
-    the Swin options."""
+    tests/test_torch_legacy_train.py), dscf_pallas and dscf_pallas2 too
+    (K17 at every MiT stage, at 8, 8, 10 and 8 channels a head), and raise
+    where the port has no counterpart: the Swin options."""
     for bb in ("CMNeXt-B2", "CMX-B2"):
         for dispatch in ("dscf_pallas", "dscf_pallas2"):
-            with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-                build_model("CMNeXt", bb, CLASSES, dispatch=dispatch)
+            model = build_model("CMNeXt", bb, CLASSES, dispatch=dispatch)
+            dscf = [m.deform_atten for m in getattr(model.backbone, "DeformMPGBlocks", ())]
+            assert [(d.attn_impl, d.proj_q.out_channels // d.n_heads) for d in dscf] == (
+                [(dispatch[len("dscf_"):], hc) for hc in (8, 8, 10, 8)]
+                if bb == "CMNeXt-B2" else [])
         for key in ("dual_batch", "use_remat"):
             with pytest.raises(ValueError, match=key):
                 build_model("CMNeXt", bb, CLASSES, backbone_kwargs={key: True})

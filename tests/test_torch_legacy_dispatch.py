@@ -30,12 +30,17 @@ and v5 and in the XLA form under r2 and map.
     and under the float dispatches bit-equal to r5, which
     tests/test_torch_cmx.py holds against JAX.
   * r1 bit-equal to xla, v7_01 and dscf_pallas4 bit-equal to r5, on both
-    legacy families; dscf_pallas and dscf_pallas2 raise, naming ROADMAP.
+    legacy families, and dscf_pallas and dscf_pallas2 on CMX-B0 (no DSCF).
+  * CMNeXt-B0 under dscf_pallas and dscf_pallas2 (K17's plain version at
+    every stage, at 4, 4, 5 and 4 channels a head, the 16 keys padded to
+    128; the bias in the XLA form or by K18's plain version) against JAX's
+    under ``IR_ADS_DSCF_ATTN=pallas`` and ``pallas2`` at 64x112, the bars
+    above.
   * ``SemSegPredictor``, ``val_mm`` and ``infer_mm`` take the new
     dispatches.
 
-About 95 s in one process: four JAX compiles of CMNeXt-B0, two of its
-int8 DSCF and one of CMX-B0, the port in one thread.
+About two minutes in one process: six JAX compiles of CMNeXt-B0, two of
+its int8 DSCF and one of CMX-B0, the port in one thread.
 """
 
 import jax
@@ -68,6 +73,8 @@ ENV = {
     "v5": {"IR_ADS_SWIN_ATTN": "pallas5", "IR_ADS_DSCF_ATTN": "pallas3",
            "IR_ADS_DSCF_RPE3": "pallas"},
     "map": {"IR_ADS_SWIN_ATTN": "pallas_map", "IR_ADS_DSCF_ATTN": "pallas3"},
+    "dscf_pallas": {"IR_ADS_DSCF_ATTN": "pallas"},
+    "dscf_pallas2": {"IR_ADS_DSCF_ATTN": "pallas2"},
 }
 # what a legacy model reads of the environment
 READ = ("IR_ADS_DSCF_ATTN", "IR_ADS_DSCF_RPE3", "IR_ADS_INT8")
@@ -115,10 +122,10 @@ def test_rows_attention_at_mit_head_widths_matches_pallas(hc):
 
 
 def test_k4_and_k8_head_widths():
-    from ir_ads_tpu_torch.ops import dscf_rows_bwd
+    from ir_ads_tpu_torch.ops.dscf_heads import HEAD_CHANNELS
 
-    assert dscf_rows.HEAD_CHANNELS == (4, 5, 8, 10, 12)
-    assert dscf_rows_bwd.ROWS_HEAD_CHANNELS == (8, 12)
+    assert HEAD_CHANNELS["dscf_rows"] == (4, 5, 8, 10, 12)
+    assert HEAD_CHANNELS["dscf_rows_bwd"] == (8, 12)
 
 
 # --------------------------------------------------------------------------
@@ -257,11 +264,25 @@ def test_r1_v7_01_and_dscf_pallas4_are_xla_and_r5(b0, backbone):
 
     assert torch.equal(logits("r1"), logits("xla"))
     r5 = logits("r5")
-    for d in ("v7_01", "dscf_pallas4"):
+    same = ("v7_01", "dscf_pallas4") + (("dscf_pallas", "dscf_pallas2")
+                                        if backbone == "CMX-B0" else ())
+    for d in same:
         assert torch.equal(logits(d), r5), d
-    for d in ("dscf_pallas", "dscf_pallas2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 2"):
-            build_model("CMNeXt", backbone, CLASSES, dispatch=d)
+
+
+@pytest.mark.parametrize("dispatch", ["dscf_pallas", "dscf_pallas2"])
+def test_cmnext_b0_matches_jax_under_dscf_pallas(b0, dispatch):
+    """The MiT's DSCF on K17 (with K18's bias under dscf_pallas2) at every
+    stage, where dscf_pallas and dscf_pallas2 were refused before K17 took
+    the MiT's head widths."""
+    port, got = _port(b0, "rows", dispatch)
+    dscf = [m.deform_atten for m in port.backbone.DeformMPGBlocks]
+    assert {d.attn_impl for d in dscf} == {dispatch[len("dscf_"):]}
+    assert all(d.level == 3 for d in dscf)
+    assert [d.proj_q.out_channels // d.n_heads for d in dscf] == [4, 4, 5, 4]
+    want = _jax(b0, "rows", dispatch)
+    assert got.shape == (2, *SIZES["rows"], CLASSES) and np.abs(want).max() > 0.5
+    np.testing.assert_allclose(got, want, atol=ATOL, rtol=RTOL)
 
 
 @pytest.mark.parametrize("dispatch", ["r4", "r4i8"])

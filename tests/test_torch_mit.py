@@ -413,13 +413,16 @@ def test_infer_mm_predicts_with_cmnext_b0():
 
 
 def test_legacy_refusals(tmp_path):
-    """What the legacy models refuse: the DSCF variants that need K17 at the
-    MiT's 10 channels a head, the Swin options, flat frames, and train mode
-    on a model built for an eval dispatch (tests/test_torch_legacy_train.py
-    trains them under the train dispatch)."""
+    """What the legacy models refuse: the Swin options, flat frames, and
+    train mode on a model built for an eval dispatch
+    (tests/test_torch_legacy_train.py trains them under the train
+    dispatch).  The DSCF variants dscf_pallas and dscf_pallas2 build, K17
+    at every stage (tests/test_torch_legacy_dispatch.py holds them against
+    JAX)."""
     for dispatch in ("dscf_pallas", "dscf_pallas2"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            build_model("CMNeXt", "CMNeXt-B0", CLASSES, dispatch=dispatch)
+        model = build_model("CMNeXt", "CMNeXt-B0", CLASSES, dispatch=dispatch)
+        assert {m.deform_atten.attn_impl for m in model.backbone.DeformMPGBlocks} == {
+            dispatch[len("dscf_"):]}
     with pytest.raises(ValueError, match="flat_input"):
         SemSegPredictor(device="cpu", backbone="CMNeXt-B0", flat_input=True)
     with pytest.raises(ValueError, match="patch_embed"):
