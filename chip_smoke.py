@@ -325,6 +325,24 @@ Phases, each of which raises on failure:
      synthetic set with every third box enlarged (``LVIS_NET_FLAGS``: two
      steps, then the LVIS evaluation): its keys finite, K9's launches as
      counted.
+ 14. The semseg library and the sharded eval.  (a) ``val_mm.main`` on
+     ir_ads_tpu_torch/configs/nyu_rgbd_synthetic.yaml with
+     EVAL.SPATIAL_SHARD {ENABLE: true, HALO: 96} (Swin-B, r5, bf16,
+     ``SHARD_IMAGES`` Synthetic 480x640 images): one card is one strip of
+     672x640, the image with 96 zero rows above and below; each forward's
+     launches from the dispatch at 672x640; the logits bit for bit the
+     model's on the zero-padded input cropped back (tile equivalence), the
+     first image's within ``LOGIT_TOL`` of the all-plain path, which a K5
+     without its shift-region mask must fail; images/s.  (b) Every
+     ``HEADS`` entry but the served SegFormer head at its JAX default width
+     (UPer 128, FPN 128, FCN 256, Cond 512, LightHam 512, SF 256, FaPN 128,
+     Lawin 512 with patch 8) on the fused pyramid the r5 trunk gives for 2
+     frames of 480x640 (Lawin: 512x640), bf16 and f32 on the card, the f32
+     logits against the same head on the host CPU at ``CARD_CPU_TOL``
+     (TF32 off); each timed.  (c) RegNetX-400MF, RegNetY-4GF, ConvNeXt-T,
+     FocalNet-T, ViT-S and InternImage-T at 480x640, ViTDet-B, EVA02-B and
+     MViTv2-T at 1024x1024, full depth, one frame, f32 on the card against
+     the host CPU at ``CARD_CPU_TOL``; each timed in f32 and bf16.
 The line before the last is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``.  Nothing of JAX is imported.
 """
@@ -6306,9 +6324,280 @@ def phase_anomaly(seed, card_line):
                           cuts=dict(epochs="30 -> 1", steps_per_epoch="20 -> 8"))
 
 
+# --------------------------------------------------------------------------
+# phase 14: the semseg library (HEADS, BACKBONES) and the sharded eval
+# --------------------------------------------------------------------------
+
+SHARD_CONFIG = "ir_ads_tpu_torch/configs/nyu_rgbd_synthetic.yaml"
+SHARD_HALO = 96                # val_mm's default EVAL.SPATIAL_SHARD.HALO
+SHARD_IMAGES = 5
+# one card: one strip, the 480x640 image with 96 zero rows above and below
+SHARD_STRIP = (IMAGE[0] + 2 * SHARD_HALO, IMAGE[1])
+# the fused pyramid of the served Swin-B r5 trunk: its channels, and the
+# frames it decodes (2 of 480x640; Lawin needs level 1's sides to be
+# multiples of its patch 8, so it decodes 2 of 512x640)
+TRUNK_DIMS = (128, 256, 512, 1024)
+LAWIN_IMAGE = (512, 640)
+# each head's width as its JAX constructor's default gives it (printed)
+HEAD_WIDTHS = {"UPerHead": "channel 128", "FPNHead": "channel 128",
+               "FCNHead": "channel 256", "CondHead": "channel 512",
+               "LightHamHead": "ham_channels 512", "SFHead": "channel 256",
+               "FaPNHead": "channel 128", "LawinHead": "embed_dim 512, patch 8"}
+# RegNet, every BACKBONES entry and EVA-02 at its default config, on one
+# frame of this size: the detection trunks of detectron2's ViTDet and MViTv2
+# projects at their 1024x1024 inputs, the rest at the served 480x640
+BACKBONE_INPUT = {"regnetx_400mf": IMAGE, "regnety_4gf": IMAGE, "convnext": IMAGE,
+                  "focalnet": IMAGE, "vit": IMAGE, "internimage": IMAGE,
+                  "vitdet": (1024, 1024), "eva02": (1024, 1024), "mvit": (1024, 1024)}
+
+
+def _backbone(name):
+    from ir_ads_tpu_torch.models.backbones.alt_backbones import BACKBONES, EVA02ViT, ViT
+    from ir_ads_tpu_torch.models.backbones.regnet import RegNet
+    from ir_ads_tpu_torch.models.projects.mvit import MViT
+
+    if name.startswith("regnet"):
+        return RegNet(name)
+    special = {"vit": lambda: ViT(img_size=IMAGE), "eva02": EVA02ViT,
+               "mvit": lambda: MViT(img_size=BACKBONE_INPUT["mvit"])}
+    return special.get(name, BACKBONES.get(name))()
+
+
+def _card_cpu(got, want, what):
+    """f32 output on the card against the host CPU's at ``CARD_CPU_TOL``:
+    (max |diff|, the largest |diff| over its bar, max |cpu|)."""
+    got = got.float().cpu()
+    err = (got - want).abs()
+    worst = float((err / (CARD_CPU_TOL["atol"] + CARD_CPU_TOL["rtol"] * want.abs())).max())
+    if not bool(torch.isfinite(got).all()) or worst > 1.0:
+        fail(f"{what} on the card disagrees with the host CPU: max |diff| "
+             f"{float(err.max()):.3e}, {worst:.3f} of its bar")
+    return float(err.max()), worst, float(want.abs().max())
+
+
+def phase_sharded_eval(seed, card_line):
+    """Phase 14 (a): ``val_mm.main`` with EVAL.SPATIAL_SHARD on the card.
+    Returns (launches, record, the model)."""
+    from ir_ads_tpu_torch import val_mm
+    from ir_ads_tpu_torch.data.loader import DataLoader
+    from ir_ads_tpu_torch.evaluation.semseg_eval import make_forward_fn
+    from ir_ads_tpu_torch.ops.layers import resize_bilinear
+    from ir_ads_tpu_torch.utils.config import load_config
+
+    cfg = load_config(SHARD_CONFIG)
+    cfg["EVAL"]["SPATIAL_SHARD"] = {"ENABLE": True, "HALO": SHARD_HALO}
+    cfg["DATASET"]["KWARGS"]["length"] = SHARD_IMAGES
+    kept, make = [], val_mm.make_spatial_forward
+
+    def keeping(*args, **kw):  # val_mm's predict, its logits kept
+        predict = make(*args, **kw)
+
+        def run(rgb, dte):
+            kept.append(predict(rgb, dte))
+            return kept[-1]
+        return run
+
+    val_mm.make_spatial_forward = keeping
+    try:
+        result, calls, launches, model = _counted_eval(seed, "spatial_shard", cfg)
+    finally:
+        val_mm.make_spatial_forward = make
+    if result["mode"] != "spatial_shard":
+        fail(f"val_mm ran {result['mode']}, not the sharded eval")
+    summed = _check_calls(calls, model, [(1, *SHARD_STRIP, 3)] * SHARD_IMAGES,
+                          "the sharded eval")
+    launches = {k: v for k, v in launches.items() if v}
+    if launches != summed:
+        fail(f"the sharded eval launched {launches}, its forwards {summed}")
+    lat = [t * 1e3 for t in result["latency_s"]]
+    p50 = _p50(lat[1:])
+    print(f"  sharded eval (one strip of {SHARD_STRIP[0]}x{SHARD_STRIP[1]}, halo "
+          f"{SHARD_HALO}): {SHARD_IMAGES} images of 480x640 RGB-D, mIoU {result['miou']}; ms "
+          f"per image {['%.1f' % v for v in lat]}, p50 after the first {p50:.1f}, "
+          f"{1e3 / p50:.3f} images/s [{card_line}]", flush=True)
+    print(f"  launches on the sharded eval path ({SHARD_IMAGES} images): {launches}",
+          flush=True)
+
+    # tile equivalence, bit for bit: the model on the zero-padded image
+    forward = make_forward_fn(model)
+    h = SHARD_HALO
+    loader = DataLoader(val_mm._val_dataset(cfg)[0], 1, shuffle=False, drop_last=False)
+    frames = [(torch.from_numpy(b[0]).cuda(), torch.from_numpy(b[1]).cuda()) for b in loader]
+    apart = []
+    if len(kept) != len(frames):
+        fail(f"the sharded eval predicted {len(kept)} batches of {len(frames)}")
+    for got, (rgb, dte) in zip(kept, frames):
+        want = forward(F.pad(rgb, (0, 0, 0, 0, h, h)), F.pad(dte, (0, 0, 0, 0, h, h)))
+        want = resize_bilinear(want, SHARD_STRIP, align_corners=False)[:, h:-h]
+        apart.append(int((got != want).sum()))
+    print(f"  sharded logits against the model on the zero-padded {SHARD_STRIP[0]}x"
+          f"{SHARD_STRIP[1]} input cropped back: {apart} of {kept[0].numel()} "
+          "apart per image (tol 0)", flush=True)
+    if any(apart):
+        fail("the sharded eval's logits are not the haloed crop's forward")
+
+    # the all-plain path, and a planted fault that must fail its bar
+    predict = val_mm.make_spatial_forward(model, False, h, [torch.device("cuda", 0)])
+    got = kept[0].float()
+    rgb, dte = frames[0]
+    restore = _plain_path()
+    try:
+        want = predict(rgb, dte).float()
+    finally:
+        restore()
+    ok = _compare(got, got.argmax(-1), want, want.argmax(-1), "sharded logits", LOGIT_TOL)
+    restore = _plain_path(window_block_v6=_window_block_v6_no_region)
+    try:
+        bad = predict(rgb, dte).float()
+    finally:
+        restore()
+    seen = not _compare(bad, bad.argmax(-1), want, want.argmax(-1),
+                        "planted fault (K5 without the shift-region mask)", LOGIT_TOL)
+    if not ok:
+        fail("the sharded eval's logits disagree with the all-plain path")
+    if not seen:
+        fail("a K5 without its shift-region mask passes the sharded eval's logit bar")
+    return launches, dict(images=SHARD_IMAGES, strip=list(SHARD_STRIP), halo=h,
+                          miou=result["miou"], latency_ms=lat, p50_ms=p50,
+                          images_per_s=1e3 / p50, crop_apart=apart, launches=launches), model
+
+
+def _pyramid(model, size, seed):
+    """The fused 4-level pyramid of the served trunk (``model``, bf16 r5) for
+    2 frames of ``size`` from ``seed``, in f32, and the kernels' launches."""
+    from ir_ads_tpu_torch.data.augmentations import IMAGENET_MEAN, IMAGENET_STD
+
+    g = torch.Generator().manual_seed(seed)
+    rgb = torch.randint(0, 256, (2, *size, 3), generator=g, dtype=torch.uint8)
+    dep = torch.randint(0, 256, (2, *size, 3), generator=g, dtype=torch.uint8)
+    x_rgb = (rgb.float() / 255.0 - torch.as_tensor(IMAGENET_MEAN)) / torch.as_tensor(
+        IMAGENET_STD)
+    x_dep = dep.float() / 255.0
+    kernels = _reset_launches()
+    with torch.no_grad():
+        feats = model.backbone(x_rgb.cuda().bfloat16(), x_dep.cuda().bfloat16())[0]
+    torch.cuda.synchronize()
+    launches = {k.name: k.launches for k in kernels if k.launches}
+    want = {k: v for k, v in expected_launches(model, size).items() if v}
+    if launches != want:
+        fail(f"the trunk at {size} launched {launches}, its dispatch gives {want}")
+    dims = tuple(f.shape[-1] for f in feats)
+    if dims != TRUNK_DIMS:
+        fail(f"the trunk's pyramid has {dims} channels, not {TRUNK_DIMS}")
+    return [f.float() for f in feats], launches
+
+
+def phase_heads(seed, model, card_line):
+    """Phase 14 (b): every HEADS entry but the served SegFormer head at its
+    default width on the trunk's pyramid, bf16 and f32 on the card, f32
+    against the host CPU.  Returns (the trunk's launches, record)."""
+    import copy
+
+    from ir_ads_tpu_torch.models.heads import HEADS
+
+    pyramids, launches = {}, {}
+    for size in (IMAGE, LAWIN_IMAGE):
+        pyramids[size], n = _pyramid(model, size, seed + 14)
+        _add(launches, n)
+    print(f"  the r5 trunk's pyramids for the heads (2 frames of {IMAGE} and "
+          f"{LAWIN_IMAGE}): {[tuple(f.shape) for f in pyramids[IMAGE]]}, launches "
+          f"{launches}", flush=True)
+    record = {}
+    for name, width in HEAD_WIDTHS.items():
+        feats = pyramids[LAWIN_IMAGE if name == "LawinHead" else IMAGE]
+        torch.manual_seed(seed)
+        head = HEADS[name](TRUNK_DIMS, num_classes=NUM_CLASSES).eval()
+        card = copy.deepcopy(head).cuda()
+        kw_cpu, kw_card = {}, {}
+        if name == "LightHamHead":  # the NMF bases, one draw for both sides
+            bases = torch.rand((2, 512, 64), generator=torch.Generator().manual_seed(seed))
+            kw_cpu, kw_card = {"bases": bases}, {"bases": bases.cuda()}
+        f16 = [f.bfloat16() for f in feats]
+        with torch.no_grad():
+            got = card(feats, **kw_card)
+            got16 = card(f16, **kw_card)
+            ms32 = time_ms(lambda: card(feats, **kw_card), iters=5, warmup=1)
+            ms16 = time_ms(lambda: card(f16, **kw_card), iters=5, warmup=1)
+            t = time.time()
+            want = head([f.cpu() for f in feats], **kw_cpu)
+            cpu_s = time.time() - t
+        diff, worst, top = _card_cpu(got, want, name)
+        rel16 = _rel(got16.float(), got.float(), None)
+        if not bool(torch.isfinite(got16).all()):
+            fail(f"{name}: non-finite bf16 logits")
+        print(f"  {name} ({width}): logits {tuple(got.shape)}; f32 card vs host CPU max "
+              f"|diff| {diff:.3e} ({worst:.3f} of atol {CARD_CPU_TOL['atol']} + rtol "
+              f"{CARD_CPU_TOL['rtol']} |cpu|; max |logit| {top:.3f}), bf16 vs f32 rel "
+              f"{rel16:.3e}; ms bf16 {ms16:.3f}, f32 {ms32:.3f}, host CPU f32 {cpu_s:.2f} s "
+              f"[{card_line}]", flush=True)
+        record[name] = dict(width=width, shape=list(got.shape), max_diff=diff, over_bar=worst,
+                            bf16_rel=rel16, ms_bf16=ms16, ms_f32=ms32, cpu_s=cpu_s)
+        del head, card, got, got16, want
+        torch.cuda.empty_cache()
+    return launches, record
+
+
+def phase_backbones(seed, card_line):
+    """Phase 14 (c): RegNet, every BACKBONES entry and EVA-02 at its default
+    config on one frame, f32 on the card against the host CPU, and timed
+    in f32 and bf16 on the card.  Returns the record."""
+    import copy
+
+    record = {}
+    for name, size in BACKBONE_INPUT.items():
+        torch.manual_seed(seed)
+        net = _backbone(name).eval()
+        card = copy.deepcopy(net).cuda()
+        x = torch.randn(1, *size, 3, generator=torch.Generator().manual_seed(seed))
+        xc = x.cuda()
+        with torch.no_grad():
+            got = card(xc)
+            ms32 = time_ms(lambda: card(xc), iters=3, warmup=1)
+            ms16 = time_ms(lambda: card(xc.bfloat16()), iters=3, warmup=1)
+            t = time.time()
+            want = net(x)
+            cpu_s = time.time() - t
+        if sorted(got) != sorted(want):
+            fail(f"{name}: outputs {sorted(got)} on the card, {sorted(want)} on the CPU")
+        worst = {k: _card_cpu(got[k], want[k], f"{name} {k}") for k in want}
+        params = sum(p.numel() for p in net.parameters()) / 1e6
+        print(f"  {name} ({params:.1f} M parameters, {size[0]}x{size[1]}): "
+              + ", ".join(f"{k} {tuple(want[k].shape)} max |diff| {v[0]:.3e} ({v[1]:.3f} of "
+                          f"its bar, max |cpu| {v[2]:.3f})" for k, v in worst.items())
+              + f"; ms f32 {ms32:.2f}, bf16 {ms16:.2f}, host CPU f32 {cpu_s:.2f} s "
+              f"[{card_line}]", flush=True)
+        record[name] = dict(input=list(size), params_m=params, ms_f32=ms32, ms_bf16=ms16,
+                            cpu_s=cpu_s, outputs={k: dict(shape=list(want[k].shape),
+                                                          max_diff=v[0], over_bar=v[1])
+                                                  for k, v in worst.items()})
+        del net, card, got, want
+        torch.cuda.empty_cache()
+    return record
+
+
+def phase_library(seed, card_line):
+    """Phase 14: (a) the sharded eval, (b) the heads, (c) the backbones.
+    Returns (phase 14's launches, record)."""
+    t0 = time.time()
+    launches, sharded, model = phase_sharded_eval(seed, card_line)
+    t_a = time.time() - t0
+    trunk, heads = phase_heads(seed, model, card_line)
+    _add(launches, trunk)
+    del model
+    torch.cuda.empty_cache()
+    t_b = time.time() - t0 - t_a
+    backbones = phase_backbones(seed, card_line)
+    t_c = time.time() - t0 - t_a - t_b
+    print(f"  phase 14: (a) {t_a:.1f} s, (b) {t_b:.1f} s, (c) {t_c:.1f} s; launches "
+          f"{launches}", flush=True)
+    return launches, dict(sharded_eval=sharded, heads=heads, backbones=backbones,
+                          seconds=dict(a=t_a, b=t_b, c=t_c))
+
+
 def kernel_table(rows, launches, launches_i8, module_launches, train_launches, det_launches,
                  eval_launches, train_mm_launches, phase9_launches, legacy_launches,
-                 legacy_train_launches, det_train_launches, anomaly_launches):
+                 legacy_train_launches, det_train_launches, anomaly_launches,
+                 library_launches):
     """One entry per kernel; ``launches`` sums the main paths' runs (the
     serving requests under r5, r4i8, r2, r1, xla, v7_01, v5, map,
     dscf_pallas4, dscf_pallas and dscf_pallas2, r5 on flat frames with the
@@ -6317,9 +6606,10 @@ def kernel_table(rows, launches, launches_i8, module_launches, train_launches, d
     run with its gates and its drop_rate step, phase 9's Swin-L and dual
     paths, phase 10's legacy requests (r5, r4, r4i8) and MSF images, and
     phase 11's legacy training steps and train_mm runs, phase 12's DINO
-    training steps and train_net run, and phase 13's (train_ad launches
-    none; its LVIS run K9 and K9's backward), each counted from 0; K20
-    runs on none of them)."""
+    training steps and train_net run, phase 13's (train_ad launches
+    none; its LVIS run K9 and K9's backward), and phase 14's (the sharded
+    eval's images and the trunk's pyramids for the heads), each counted
+    from 0; K20 runs on none of them)."""
     from ir_ads_tpu_torch.ops.cuda_lib import PKG
 
     out = []
@@ -6338,6 +6628,7 @@ def kernel_table(rows, launches, launches_i8, module_launches, train_launches, d
                       + legacy_train_launches.get(k.name, 0)
                       + det_train_launches.get(k.name, 0)
                       + anomaly_launches.get(k.name, 0)
+                      + library_launches.get(k.name, 0)
                       + sum(m[k.name] for m in module_launches.values())),
             launches_serve=launches[k.name], launches_serve_r4i8=launches_i8[k.name],
             **{f"launches_serve_{d}": m[k.name] for d, m in module_launches.items()},
@@ -6350,6 +6641,7 @@ def kernel_table(rows, launches, launches_i8, module_launches, train_launches, d
             launches_legacy_train=legacy_train_launches.get(k.name, 0),
             launches_det_train=det_train_launches.get(k.name, 0),
             launches_anomaly_lvis=anomaly_launches.get(k.name, 0),
+            launches_library=library_launches.get(k.name, 0),
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=first["ms"], plain_ms=first["plain_ms"],
             bound_ms=first["bound_ms"], bound_by=first["bound_by"],
@@ -6432,17 +6724,19 @@ def main():
     bwd_rows, det_train_launches, det_train = phase_det_train(args.seed, card_line)
     print("phase 13: the anomaly stack (train_ad, LightSB) and the LVIS evaluator", flush=True)
     anomaly_launches, anomaly = phase_anomaly(args.seed, card_line)
+    print("phase 14: the semseg library (heads, backbones) and the sharded eval", flush=True)
+    library_launches, library = phase_library(args.seed, card_line)
 
     print(json.dumps({"kernels": kernel_table(rows + bwd_rows, launches, launches_i8,
                                               module_launches, train_launches, det_launches,
                                               eval_launches, train_mm_launches,
                                               phase9_launches, legacy_launches,
                                               legacy_train_launches, det_train_launches,
-                                              anomaly_launches),
+                                              anomaly_launches, library_launches),
                       "serve": serve, "train": train, "detect": detect, "evaluate": evaluate,
                       "train_mm": train_mm, "swin_l_dual": swin_l_dual, "legacy": legacy,
                       "legacy_train": legacy_train, "det_train": det_train, "anomaly": anomaly,
-                      "repair": repair,
+                      "library": library, "repair": repair,
                       "card": card_line, "wall_s": time.time() - T_START}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,6 @@
 """Segmentation evaluation: the eval forward, single-scale, multi-scale +
 flip (MSF) and sliding-window prediction, and the loop over batches.
-Counterpart of ir_ads_tpu/evaluation/semseg_eval.py (the spatially sharded
-forward is multi-device and not ported).
+Counterpart of ir_ads_tpu/evaluation/semseg_eval.py.
 
 ``make_forward_fn`` runs the backbone and the fused head only, which is
 what the JAX eval forward computes once XLA drops the two unused heads.
@@ -177,5 +176,31 @@ def make_sliding_window_fn(
             total[:, y:y + th, x:x + tw] += logits[i]
             count[y:y + th, x:x + tw] += 1.0
         return (total / count)[:, :h, :w]
+
+    return predict
+
+
+def make_spatial_sharded_forward(forward: Callable, n: int, halo: int,
+                                 devices: Optional[Sequence] = None) -> Callable:
+    """predict(*mods) -> ``forward`` run H-sharded in ``n`` strips, each
+    with ``halo`` rows of its neighbours (zeros past the image), the halo
+    cropped off (``parallel.halo.spatial_shard_apply``).  ``forward`` maps a
+    (B, h + 2 * halo, W, sum C) strip of the modalities packed along
+    channels to (B, h + 2 * halo, W, K) logits.
+
+    Whole-image equality holds at the strips' inner boundaries when the
+    halo covers the network's receptive field (conv stacks, shifted windows
+    of bounded reach); the image's outer bands see zeros where the whole
+    image wraps its shifted windows.  A DSCF model (CMNeXt) samples over its
+    whole input in the strip's normalised coordinates, so no halo covers it:
+    its contract is tile equivalence, each strip's output equal to the
+    model's on that strip's haloed crop (the JAX package's
+    ``make_spatial_sharded_forward`` docstring).  H must divide by ``n``."""
+    from ir_ads_tpu_torch.parallel.halo import spatial_shard_apply
+
+    sharded = spatial_shard_apply(forward, n, halo, devices)
+
+    def predict(*mods: torch.Tensor) -> torch.Tensor:
+        return sharded(mods[0] if len(mods) == 1 else torch.cat(mods, -1))
 
     return predict

@@ -288,12 +288,20 @@ class PatchMerging(nn.Module):
 def resize_bilinear(
     x: torch.Tensor, size: Sequence[int], align_corners: bool = False
 ) -> torch.Tensor:
-    """Bilinear resize of an NHWC tensor, torch ``F.interpolate`` semantics."""
+    """Bilinear resize of an NHWC tensor, torch ``F.interpolate`` semantics.
+    With align_corners=False, a map that shrinks along either axis is
+    antialiased, as ``jax.image.resize`` (the reference's) antialiases it:
+    the triangle filter widened by the scale, its weights renormalised at
+    the borders, in f32 (an upsampling is the same either way)."""
     nh, nw = int(size[0]), int(size[1])
     if (nh, nw) == tuple(x.shape[1:3]):
         return x
     if align_corners:
         return _resize_align_corners(x, nh, nw)
+    if nh < x.shape[1] or nw < x.shape[2]:  # antialiased, in f32
+        y = F.interpolate(x.permute(0, 3, 1, 2).float(), size=(nh, nw), mode="bilinear",
+                          align_corners=False, antialias=True)
+        return y.permute(0, 2, 3, 1).to(x.dtype)
     y = F.interpolate(
         x.permute(0, 3, 1, 2), size=(nh, nw), mode="bilinear",
         align_corners=False,
@@ -329,3 +337,102 @@ def _resize_align_corners(x: torch.Tensor, nh: int, nw: int) -> torch.Tensor:
     xf = torch.einsum("bhwc,hH->bHwc", x.float(), wy)
     xf = torch.einsum("bHwc,wW->bHWc", xf, wx)
     return xf.to(x.dtype)
+
+
+# --------------------------------------------------------------------------
+# flax's layers on NHWC maps, for the semseg library's heads, modules and
+# backbones (models/heads/{extra,align}_heads.py, models/modules/
+# attention_modules.py, models/backbones/{regnet,alt_backbones}.py,
+# models/projects/{vitdet,mvit}.py): a flax module's parameters map to these
+# by name (``utils.jax_params.library_from_flax``), and each computes as its
+# flax layer does (``with_bias``; normalisations in f32, rounded once).
+# --------------------------------------------------------------------------
+
+
+def same_padding(size: int, kernel: int, stride: int) -> tuple:
+    """flax's ``padding="SAME"`` along one axis: (low, high) so that the
+    output has ceil(size / stride) entries, the odd pixel at the end."""
+    total = max((-(-size // stride) - 1) * stride + kernel - size, 0)
+    return total // 2, total - total // 2
+
+
+class Dense(nn.Linear):
+    """flax ``nn.Dense`` on the last axis (``linear``)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return linear(x, self)
+
+
+class Conv(nn.Conv2d):
+    """flax ``nn.Conv`` on an NHWC map: ``padding`` an int (each side) or
+    ``"same"`` (flax's default, ``same_padding`` at run time)."""
+
+    def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1, padding=0,
+                 groups: int = 1, bias: bool = True):
+        self.same = padding == "same"
+        super().__init__(cin, cout, kernel, stride, 0 if self.same else padding,
+                         groups=groups, bias=bias)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.permute(0, 3, 1, 2)
+        if self.same:
+            (k, _), (s, _) = self.kernel_size, self.stride
+            top, bottom = same_padding(x.shape[2], k, s)
+            left, right = same_padding(x.shape[3], k, s)
+            if top or bottom or left or right:
+                x = F.pad(x, (left, right, top, bottom))
+        return conv2d(x, self).permute(0, 2, 3, 1)
+
+
+class ConvTranspose(nn.Module):
+    """flax ``nn.ConvTranspose`` with kernel == stride and SAME padding (the
+    only form the library uses): out[s*i + a] = x[i] @ K[s - 1 - a], the
+    kernel flipped against torch's ``conv_transpose2d``.  The weight is
+    held as a convolution's, (out, in, kh, kw), so that a flax kernel
+    (kh, kw, in, out) maps to it as every convolution kernel does."""
+
+    def __init__(self, cin: int, cout: int, kernel: int):
+        super().__init__()
+        self.stride = kernel
+        self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel))
+        self.bias = nn.Parameter(torch.zeros(cout))
+        nn.init.kaiming_uniform_(self.weight, a=5 ** 0.5)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = cast(self.weight, x).transpose(0, 1).flip(2, 3)
+        y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w, None, self.stride)
+        return with_bias(y, cast(self.bias, x), dim=1).permute(0, 2, 3, 1)
+
+
+class BatchNorm(FlaxBatchNorm2d):
+    """flax ``nn.BatchNorm(momentum=0.9, epsilon=1e-5)`` on an NHWC map:
+    batch statistics in train mode, running ones in eval mode."""
+
+    def __init__(self, channels: int, eps: float = 1e-5):
+        super().__init__(channels, eps=eps, momentum=0.1)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+class GroupNormNHWC(GroupNorm):
+    """flax ``nn.GroupNorm`` (32 groups, eps 1e-6 by default) on an NHWC map."""
+
+    def __init__(self, channels: int, groups: int = 32, eps: float = 1e-6):
+        super().__init__(groups, channels, eps=eps)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.permute(0, 3, 1, 2)).permute(0, 2, 3, 1)
+
+
+def max_pool(x: torch.Tensor, kernel: int, stride: int, padding: int = 0) -> torch.Tensor:
+    """flax ``nn.max_pool`` on an NHWC map (VALID unless ``padding``, which
+    pads with -inf)."""
+    if kernel == 1:
+        return x[:, ::stride, ::stride]
+    return F.max_pool2d(x.permute(0, 3, 1, 2), kernel, stride, padding).permute(0, 2, 3, 1)
+
+
+def avg_pool(x: torch.Tensor, kernel: int, stride: int) -> torch.Tensor:
+    """flax ``nn.avg_pool`` on an NHWC map, VALID."""
+    return F.avg_pool2d(x.permute(0, 3, 1, 2), kernel, stride).permute(0, 2, 3, 1)

@@ -34,6 +34,8 @@ its flax path forward again.
 transformer (unrolled, or stacked by ``scan_layers``); ``dino_to_flax`` is
 its inverse.  ``anomaly_from_flax`` / ``anomaly_to_flax`` map the anomaly
 stack's ``AnomalyScoreNet`` (its ResNet trunk by the detector's names).
+``library_from_flax`` maps the semseg library's heads, attention modules
+and backbones, whose port attributes carry the flax modules' names.
 """
 
 from __future__ import annotations
@@ -97,10 +99,13 @@ def _module_name(seg: str, parent: str) -> str:
 
 
 def _tensor(leaf: str, arr: np.ndarray) -> torch.Tensor:
-    if leaf == "kernel" and arr.ndim == 2:
-        arr = arr.T
-    elif leaf == "kernel" and arr.ndim == 4:
-        arr = arr.transpose(3, 2, 0, 1)
+    """A flax leaf in the port's layout: a Dense kernel (in, out) as a
+    Linear weight, a Conv kernel (k, in, out) / (kh, kw, in, out) as a
+    Conv1d / Conv2d weight (a depthwise (k, k, 1, C) as (C, 1, k, k)); every
+    other leaf as flax holds it."""
+    order = {2: (1, 0), 3: (2, 1, 0), 4: (3, 2, 0, 1)}.get(arr.ndim)
+    if leaf == "kernel" and order:
+        arr = arr.transpose(order)
     return torch.from_numpy(np.array(arr, dtype=np.float32))  # own, writable copy
 
 
@@ -516,3 +521,35 @@ def anomaly_to_flax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Dict]:
         coll, leaf, arr = _to_flax_leaf(leaf, _numpy(t))
         _put(out[coll], path + (leaf,), arr)
     return out
+
+
+# --------------------------------------------------------------------------
+# the semseg library: heads, attention modules, alternative backbones
+# --------------------------------------------------------------------------
+
+def library_from_flax(variables: Dict, module: torch.nn.Module = None) -> Dict[str, torch.Tensor]:
+    """flax variables of a module of the semseg library (models/heads/
+    {extra,align}_heads.py, models/modules/attention_modules.py,
+    models/backbones/{regnet,alt_backbones}.py, models/projects/{vitdet,
+    mvit}.py) -> the port module's state_dict: the flax path joined by dots,
+    ``kernel`` / ``scale`` as ``weight`` (``_tensor``; ``pos_embed``,
+    ``rel_pos_*``, ``gamma``, ``layer_scale_*`` and FaPN's ``dcn_kernel``
+    as flax holds them), the batch statistics as ``running_mean`` /
+    ``running_var``.  With ``module`` the
+    buffers flax does not hold (``num_batches_tracked``) come from it, and a
+    name on either side alone raises."""
+    sd: Dict[str, torch.Tensor] = {}
+    for coll in ("params", "batch_stats"):
+        for path, arr in _walk(variables.get(coll, {})):
+            leaf = path[-1]
+            sd[".".join(path[:-1] + (_LEAF.get(leaf, leaf),))] = _tensor(leaf, arr)
+    if module is not None:
+        own = module.state_dict()
+        for name, t in own.items():
+            if name not in sd and name.endswith("num_batches_tracked"):
+                sd[name] = t.clone()
+        missing, extra = sorted(set(own) - set(sd)), sorted(set(sd) - set(own))
+        if missing or extra:
+            raise ValueError(f"library_from_flax: port names without a flax leaf {missing}, "
+                             f"flax leaves without a port name {extra}")
+    return sd

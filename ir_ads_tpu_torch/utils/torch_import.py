@@ -73,7 +73,7 @@ def _keys_cubic(x: np.ndarray) -> np.ndarray:
     return np.where(x >= two, x.dtype.type(0.0), out)
 
 
-def _resize_weights(n_in: int, n_out: int) -> np.ndarray:
+def cubic_resize_weights(n_in: int, n_out: int) -> np.ndarray:
     """(n_in, n_out) f32 weights of one axis of jax.image.resize's bicubic
     (``scale_and_translate`` with no translation, antialiased), in its f32
     steps: half-pixel sample positions, the kernel widened by 1 / scale when
@@ -102,7 +102,7 @@ def _resize_bias_table(table, target_len: int) -> np.ndarray:
     s2 = int(round(target_len ** 0.5))
     if s1 * s1 != l1 or s2 * s2 != target_len:
         raise ValueError(f"non-square bias table {l1} -> {target_len}")
-    w = _resize_weights(s1, s2).astype(np.float64)  # the products summed in f64
+    w = cubic_resize_weights(s1, s2).astype(np.float64)  # the products summed in f64
     out = np.einsum("ijc,ia,jb->abc", table.reshape(s1, s1, nh), w, w)
     return out.reshape(target_len, nh).astype(np.float32)
 

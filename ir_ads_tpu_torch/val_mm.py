@@ -2,8 +2,9 @@
 
     python -m ir_ads_tpu_torch.val_mm --cfg configs/nyu_rgbd.yaml [--dispatch r5] [--device cuda]
 
-Evaluates the config's model on its dataset's val split in one of three
-modes: multi-scale + flip (``EVAL.MSF.ENABLE``), sliding window
+Evaluates the config's model on its dataset's val split in one of four
+modes: spatially sharded (``EVAL.SPATIAL_SHARD.ENABLE``, ``HALO`` rows, 96
+by default), multi-scale + flip (``EVAL.MSF.ENABLE``), sliding window
 (``EVAL.SLIDING.ENABLE``: tile, overlap, flip) or single-scale.  Prints the
 mIoU / mF1 / mAcc line and the images/s line, and writes the per-class
 report next to ``EVAL.MODEL_PATH`` when one is given.  Weights come from
@@ -17,8 +18,17 @@ is a Swin CMNeXt's or a legacy model's (``CMNeXt-B0``..``B5``, ``CMX-B0``..
 Beyond the JAX val_mm.py: ``DATASET.KWARGS`` goes to the dataset's constructor
 (``Synthetic``'s ``image_size``, ``num_classes``, ``length``), with
 ``DATASET.VAL_KWARGS`` over it (``datasets.dataset_kwargs``); ``--workers``
-chooses the loader's threads or processes.  ``EVAL.SPATIAL_SHARD`` is
-multi-device and not ported.
+chooses the loader's threads or processes.
+
+``EVAL.SPATIAL_SHARD`` splits each image along H into one strip per device
+in use (every card on CUDA, one on the CPU: the JAX val_mm.py's
+``make_mesh(data=1, space=len(jax.devices()))``), pads each strip with
+``HALO`` rows of its neighbours (zeros at the image's edges), runs the
+eval forward, upsampled to the strip's size, on each strip and crops the
+halo off (``evaluation.semseg_eval.make_spatial_sharded_forward``).  On
+one device the one strip is the image with ``HALO`` zero rows above and
+below.  A CMNeXt's DSCF samples over its whole input, so its contract is
+tile equivalence, not whole-image equality; the log says so.
 
 Under r5 (and every dispatch whose einsum DSCF takes K6) the einsum
 branch's rpe bias comes from the packed kernel, where the JAX package's
@@ -29,6 +39,7 @@ it states level 3's attention (the MiT's DSCF runs level 3 at every stage).
 from __future__ import annotations
 
 import argparse
+import copy
 import os
 import time
 from typing import Dict, List, Optional
@@ -42,9 +53,10 @@ from ir_ads_tpu_torch.data.cache import RawCache
 from ir_ads_tpu_torch.data.datasets import dataset_kwargs, get_dataset
 from ir_ads_tpu_torch.data.loader import DataLoader
 from ir_ads_tpu_torch.evaluation.semseg_eval import (
-    evaluate, make_forward_fn, make_sliding_window_fn,
+    evaluate, make_forward_fn, make_sliding_window_fn, make_spatial_sharded_forward,
 )
 from ir_ads_tpu_torch.models import build_model
+from ir_ads_tpu_torch.ops.layers import resize_bilinear
 from ir_ads_tpu_torch.training.metrics import Metrics
 from ir_ads_tpu_torch.utils.config import load_config
 from ir_ads_tpu_torch.utils.logging import get_logger
@@ -90,15 +102,40 @@ def _val_dataset(cfg: Dict):
     return cached, True
 
 
+def shard_devices(device: str) -> List[torch.device]:
+    """The devices the spatially sharded eval splits an image over: every
+    card on CUDA, the one CPU otherwise."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+    return [dev]
+
+
+def make_spatial_forward(model, device_norm: bool, halo: int,
+                         devices: List[torch.device]):
+    """predict(rgb, dte) -> (B, H, W, K) logits of ``model``'s eval forward
+    run H-sharded over ``devices`` (a copy of the model on each device it
+    is not on), each strip's logits upsampled to the strip's size as the
+    model's own upsample does.  Each strip runs with its card current
+    (``parallel.halo.spatial_shard_apply``)."""
+    home = next(model.parameters()).device
+    models = {str(d): model if d == home else copy.deepcopy(model).to(d) for d in devices}
+    forwards = {k: make_forward_fn(m, device_norm=device_norm) for k, m in models.items()}
+
+    def packed_forward(packed: torch.Tensor) -> torch.Tensor:
+        rgb, dte = packed.chunk(2, -1)
+        y = forwards[str(packed.device)](rgb, dte)
+        return resize_bilinear(y, packed.shape[1:3], align_corners=False)
+
+    return make_spatial_sharded_forward(packed_forward, len(devices), halo, devices)
+
+
 def main(cfg: Dict, device: str = "cuda", dispatch: str = "r5", seed: int = 0,
          workers: str = "thread") -> Dict:
     """Evaluate; returns {"miou", "mf1", "macc", "ious", "images", "seconds",
     "latency_s" (per batch, to a device synchronize), "mode"}."""
     logger = get_logger()
     eval_cfg = cfg["EVAL"]
-    if (eval_cfg.get("SPATIAL_SHARD") or {}).get("ENABLE", False):
-        raise NotImplementedError("EVAL.SPATIAL_SHARD: the spatially sharded eval is "
-                                  "multi-device and not ported yet (ROADMAP Queue 1 item 4)")
     dataset, device_norm = _val_dataset(cfg)
     model = build_eval_model(cfg, dataset.n_classes, device, dispatch, seed)
     forward = make_forward_fn(model, device_norm=device_norm)
@@ -124,15 +161,31 @@ def main(cfg: Dict, device: str = "cuda", dispatch: str = "r5", seed: int = 0,
                    torch.from_numpy(b[-1]).to(dev))
 
     sliding = eval_cfg.get("SLIDING") or {}
+    spatial = eval_cfg.get("SPATIAL_SHARD") or {}
     msf = eval_cfg["MSF"]
     latency: List[float] = []
-    t0 = time.time()
-    if sliding.get("ENABLE", False):
+    predict = None
+    if spatial.get("ENABLE", False):
+        mode = "spatial_shard"
+        devices = shard_devices(device)
+        halo = int(spatial.get("HALO", 96))
+        predict = make_spatial_forward(model, device_norm, halo, devices)
+        logger.info(f"spatial shard: {len(devices)} strip(s) of H / {len(devices)} rows "
+                    f"with a halo of {halo}")
+        if dscf is not None:
+            logger.info("spatial shard: the DSCF samples over its whole strip, so the logits "
+                        "are each haloed strip's forward (tile equivalence), not the whole "
+                        "image's")
+    elif sliding.get("ENABLE", False):
         mode = "sliding"
         predict = make_sliding_window_fn(
             forward, tuple(eval_cfg["IMAGE_SIZE"]),
             tuple(sliding.get("TILE_SIZE", eval_cfg["IMAGE_SIZE"])), dataset.n_classes,
             overlap=sliding.get("OVERLAP", 1.0 / 3.0), flip=sliding.get("FLIP", True))
+    else:
+        mode = "msf" if msf["ENABLE"] else "single-scale"
+    t0 = time.time()
+    if predict is not None:
         for rgb, dte, label in batches():
             t = time.perf_counter()
             logits = predict(rgb, dte)
@@ -141,7 +194,6 @@ def main(cfg: Dict, device: str = "cuda", dispatch: str = "r5", seed: int = 0,
                 torch.cuda.synchronize()
             latency.append(time.perf_counter() - t)
     else:
-        mode = "msf" if msf["ENABLE"] else "single-scale"
         evaluate(forward, batches(), metrics, msf=msf["ENABLE"], scales=tuple(msf["SCALES"]),
                  flip=msf["FLIP"], timings=latency)
     elapsed = time.time() - t0

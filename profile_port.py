@@ -22,6 +22,7 @@ one step of its trainer, under torch.profiler.
     python3 profile_port.py --logits r5,r4,...,r5_flat,r5_flat_pallas,det --logits-dir DIR
                             [--seed 0]
     python3 profile_port.py --same-logits DIR_A DIR_B
+    python3 profile_port.py --shard-cards [--seed 0]
     (each also takes --port-dir DIR)
 
 Serving: builds the full-size predictor (Swin-B CMNeXt, or with --backbone
@@ -66,6 +67,12 @@ image (480x640 RGB-D, six scales, flip), then profiles one MSF image scale
 by scale (the resize, the forward of the image and its flip, the two
 resizes and the softmax) and whole: device time by port kernel at each
 scale, busy time and idle share.
+Sharded eval over the cards (--shard-cards): ``ir_ads_tpu_torch.val_mm``
+with EVAL.SPATIAL_SHARD as ``chip_smoke.py``'s phase 14 (a) runs it (Swin-B
+CMNeXt, bf16, r5, 480x640 Synthetic frames, a halo of 96), here over every
+visible card, one strip a card; each image's logits held bit-equal to the
+same strips run one after another on card 0, and the time of each
+image both ways (host clock, to a synchronize of every card).
 DSCF attention (--dscf): K4's two forms at DSCF levels 0-3 (bias as K3
 writes it, contiguous), K17 at levels 0 and 3 (the packed bias as K18's
 layout pads it) and K16 at levels 0-2, 4 images, each timed with CUDA
@@ -811,6 +818,61 @@ def same_logits(dir_a: str, dir_b: str) -> dict:
     return dict(a=dir_a, b=dir_b, logits=out)
 
 
+def shard_cards(args) -> dict:
+    from ir_ads_tpu_torch import val_mm
+    from ir_ads_tpu_torch.data.loader import DataLoader
+    from ir_ads_tpu_torch.utils.config import load_config
+
+    smoke = _chip_smoke()
+    build_every_kernel()
+    n = torch.cuda.device_count()
+    cfg = load_config(smoke.SHARD_CONFIG)
+    cfg["EVAL"]["SPATIAL_SHARD"] = {"ENABLE": True, "HALO": smoke.SHARD_HALO}
+    cfg["DATASET"]["KWARGS"]["length"] = smoke.SHARD_IMAGES
+    kept, seen, make = [], {}, val_mm.make_spatial_forward
+
+    def keeping(model, device_norm, halo, devices):  # val_mm's predict, its logits kept
+        seen.update(model=model, device_norm=device_norm, devices=devices)
+        predict = make(model, device_norm, halo, devices)
+
+        def run(rgb, dte):
+            kept.append(predict(rgb, dte))
+            return kept[-1]
+        return run
+
+    val_mm.make_spatial_forward = keeping
+    kernels = smoke._reset_launches()
+    try:
+        result = val_mm.main(cfg, device="cuda", dispatch="r5", seed=args.seed)
+    finally:
+        val_mm.make_spatial_forward = make
+    if len(seen["devices"]) != n:
+        raise SystemExit(f"val_mm sharded over {seen['devices']}, not the {n} cards")
+    launches = {k.name: k.launches for k in kernels if k.launches}
+    one_card = make(seen["model"], seen["device_norm"], smoke.SHARD_HALO,
+                    [torch.device("cuda", 0)] * n)
+    loader = DataLoader(val_mm._val_dataset(cfg)[0], cfg["EVAL"]["BATCH_SIZE"], shuffle=False,
+                        drop_last=False)
+    apart, one_ms = [], []
+    for got, b in zip(kept, loader):
+        rgb, dte = (torch.from_numpy(t).cuda() for t in (b[0], b[1 % (len(b) - 1)]))
+        t = time.perf_counter()
+        want = one_card(rgb, dte)
+        torch.cuda.synchronize()
+        one_ms.append((time.perf_counter() - t) * 1e3)
+        apart.append(int((got != want).sum()))
+    cards_ms = [v * 1e3 for v in result["latency_s"]]
+    print(f"{n} card(s), {n} strip(s) of {smoke.IMAGE[0] // n}+2x{smoke.SHARD_HALO} rows: "
+          f"{len(kept)} images, their logits against the strips one after another on card "
+          f"0: {apart} of {kept[0].numel()} apart (tol 0); ms an image over the cards "
+          f"{['%.1f' % v for v in cards_ms]}, on card 0 {['%.1f' % v for v in one_ms]}; "
+          f"launches over the cards {launches}", flush=True)
+    if len(kept) != smoke.SHARD_IMAGES or any(apart):
+        raise SystemExit("the sharded eval over the cards is not the strips' forward on card 0")
+    return dict(cards=n, images=len(kept), apart=apart, cards_ms=cards_ms, card0_ms=one_ms,
+                miou=result["miou"], launches=launches)
+
+
 def profile_eval(args) -> dict:
     from ir_ads_tpu_torch.evaluation.semseg_eval import align32, make_forward_fn, msf_logits
     from ir_ads_tpu_torch.val_mm import build_eval_model
@@ -1079,6 +1141,8 @@ def main():
                     help="where --logits saves them")
     ap.add_argument("--same-logits", nargs=2, default=None, metavar=("A", "B"),
                     help="count the logits that differ between two --logits-dir")
+    ap.add_argument("--shard-cards", action="store_true",
+                    help="val_mm's sharded eval over every card, against card 0 alone")
     ap.add_argument("--requests", type=int, default=0,
                     help="serving: first time this many requests and print their p50")
     ap.add_argument("--port-dir", default=None,
@@ -1101,6 +1165,7 @@ def main():
     if args.batch is None:
         args.batch = 4 if args.train else 2
     run = (time_dscf if args.dscf else time_jmajor_v1 if args.jmajor_v1
+           else shard_cards if args.shard_cards
            else time_rpe if args.rpe
            else time_qkv_map_bwd if args.qkv_map_bwd else save_logits if args.logits
            else swin_shares if args.shares else time_k9_k19 if args.k9_k19

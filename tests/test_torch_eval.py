@@ -54,6 +54,7 @@ from ir_ads_tpu_torch.utils.config import DEFAULTS, _merge, load_config
 from ir_ads_tpu_torch.utils.jax_params import from_flax
 from test_torch_model import TINY
 from test_torch_slice_r5 import R5_ENV
+from test_torch_spatial_shard import keep_sharded_logits
 
 ROOT = Path(__file__).resolve().parent.parent
 H, W = 64, 128
@@ -290,18 +291,22 @@ def test_predictor_keeps_its_logits_and_loads_a_checkpoint(jax_model, weights):
     assert torch.equal(by_path, by_dict)
 
 
-def test_cache_path_and_single_scale(weights, tmp_path):
+def test_cache_path_and_single_scale(weights, tmp_path, monkeypatch):
     """Single-scale eval from a RawCache (uint8 batches normalised on the
-    device) gives the host-normalised path's metrics; the sharded eval
-    raises."""
+    device) gives the host-normalised path's metrics; the sharded eval runs
+    from it too, its zero halo rows normalised on the device as the JAX
+    val_mm.py's are (tests/test_torch_spatial_shard.py holds its logits)."""
     plain = val_mm.main(_cfg(weights), device="cpu")
     cached = val_mm.main(_cfg(weights, CACHE_DIR=str(tmp_path / "cache")), device="cpu")
     assert plain["mode"] == cached["mode"] == "single-scale"
     assert (plain["miou"], plain["mf1"], plain["macc"]) == (
         cached["miou"], cached["mf1"], cached["macc"])
     assert json.loads((tmp_path / "cache" / "meta.json").read_text())["n"] == 2
-    with pytest.raises(NotImplementedError, match="Queue 1 item 4"):
-        val_mm.main(_cfg(weights, SPATIAL_SHARD={"ENABLE": True}), device="cpu")
+    kept = keep_sharded_logits(monkeypatch)
+    sharded = val_mm.main(_cfg(weights, CACHE_DIR=str(tmp_path / "cache"),
+                               SPATIAL_SHARD={"ENABLE": True, "HALO": 16}), device="cpu")
+    assert sharded["mode"] == "spatial_shard" and np.isfinite(sharded["miou"])
+    assert [tuple(t.shape) for t in kept] == [(2, H, W, CLASSES)]
 
 
 def test_legacy_backbones_raise():

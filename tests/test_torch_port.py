@@ -237,14 +237,18 @@ def test_predictor_on_cpu_normalizes_like_infer_mm():
     assert torch.equal(labels, logits.argmax(-1))
 
 
-@pytest.mark.parametrize("align_corners", [False, True])
-def test_resize_bilinear_matches_jax(align_corners):
+@pytest.mark.parametrize("align_corners,size", [
+    (False, (32, 48)), (True, (32, 48)),  # upsampling
+    (False, (3, 5)), (True, (3, 5)),      # shrinking: antialiased without align_corners
+    (False, (3, 48)), (True, (3, 48)),    # one axis shrinking, the other growing
+], ids=["False", "True", "False-shrink", "True-shrink", "False-mixed", "True-mixed"])
+def test_resize_bilinear_matches_jax(align_corners, size):
     from ir_ads_tpu.ops.layers import resize_bilinear as jax_resize
     from ir_ads_tpu_torch.ops.layers import resize_bilinear
 
     x = np.random.RandomState(14).randn(2, 8, 12, 5).astype(np.float32)
-    want = jax_resize(jnp.asarray(x), (32, 48), align_corners=align_corners)
-    got = resize_bilinear(torch.from_numpy(x), (32, 48), align_corners=align_corners)
+    want = jax_resize(jnp.asarray(x), size, align_corners=align_corners)
+    got = resize_bilinear(torch.from_numpy(x), size, align_corners=align_corners)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5, rtol=1e-5)
 
 
