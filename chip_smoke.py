@@ -343,6 +343,40 @@ Phases, each of which raises on failure:
      FocalNet-T, ViT-S and InternImage-T at 480x640, ViTDet-B, EVA02-B and
      MViTv2-T at 1024x1024, full depth, one frame, f32 on the card against
      the host CPU at ``CARD_CPU_TOL``; each timed in f32 and bf16.
+ 15. The detectron2 models, the demo and the projects.  (a) Mask R-CNN,
+     Keypoint R-CNN, RetinaNet and FCOS at the JAX constructors' defaults
+     (ResNet-50, FPN 256, 80 classes; Keypoint R-CNN 1 class, 17
+     keypoints; 256 proposals, mask_pool 14) on ``D2_IMAGES`` images of
+     ``DET_IMAGE``, eval in f32 and bf16 (ms; Mask R-CNN's f32 peak memory
+     held under a quarter of one per-proposal copy of P2, which its ROI
+     aligns never build): the f32 FPN levels, the RPN's objectness and
+     deltas, RetinaNet's and FCOS's logits and deltas against the host
+     CPU's on every image, and the R-CNN ROI stage on the card's
+     proposals against the host CPU's, at ``CARD_CPU_TOL``; a
+     ``roi_align`` without the aligned half-pixel offset must fail the ROI
+     bar; one f32 Mask R-CNN training step (GT on the eval proposals,
+     ``D2_GT`` of ``D2_MAX_GT`` boxes with masks): losses and gradients
+     finite, the losses within ``D2_LOSS_TOL`` of the host CPU's on the
+     card's proposals.  (b) ``demo.main`` with its defaults
+     (DINO-R50, 900 queries, 512 px, bf16) and ``--track hungarian`` on
+     ``DEMO_FRAMES`` synthetic JPEG frames: K9 12 a frame, counted from 0;
+     the tracks the port's tracker's on the demo's detections; each frame
+     of the model ``main`` built against the same model on the all-plain
+     path at ``DET_TOL`` (encoder memory, proposal scores, selected tokens;
+     then on the demo's tokens each query's score and box, and the scores
+     and boxes ``main`` returned, on its NMS-kept set), the plain K9
+     without the -0.5 beyond them; ms a frame.
+     (c) DeepLabV3+ on the ResNet-50 pyramid of a ``DEEPLAB_CROP`` crop,
+     PreciseBN over ``BN_BATCHES`` batches of it, the Panoptic-DeepLab heads
+     and ``get_panoptic_segmentation`` at ``PANOPTIC_IMAGE`` (ids and
+     centres exact against the host CPU on the heads' outputs and on a
+     synthetic scene of ``PANOPTIC_INSTANCES`` instances),
+     ``PointRendMaskHead`` (against the host CPU on the card's selected
+     points; ROIs pooled at ``ROI_POOL``) and ``DensePoseChartHead`` (at
+     ``DENSEPOSE_POOL``) on ``PROJECT_ROIS`` ROIs of Mask R-CNN's P2
+     (both images), ``TridentBottleneck`` at
+     ``TRIDENT_RES4``, ``swap_align2nat`` and ``vq_update``, each f32 on the
+     card against the host CPU at ``CARD_CPU_TOL``, each timed in bf16.
 The line before the last is the kernel table as JSON, the last line
 ``{"ok": true, "device": {...}}``.  Nothing of JAX is imported.
 """
@@ -6363,12 +6397,18 @@ def _backbone(name):
     return special.get(name, BACKBONES.get(name))()
 
 
+def _over_bar(got, want) -> float:
+    """The largest |card - cpu| over ``CARD_CPU_TOL``'s bar (> 1: outside)."""
+    err = (got.float().cpu() - want).abs()
+    return float((err / (CARD_CPU_TOL["atol"] + CARD_CPU_TOL["rtol"] * want.abs())).max())
+
+
 def _card_cpu(got, want, what):
     """f32 output on the card against the host CPU's at ``CARD_CPU_TOL``:
     (max |diff|, the largest |diff| over its bar, max |cpu|)."""
     got = got.float().cpu()
     err = (got - want).abs()
-    worst = float((err / (CARD_CPU_TOL["atol"] + CARD_CPU_TOL["rtol"] * want.abs())).max())
+    worst = _over_bar(got, want)
     if not bool(torch.isfinite(got).all()) or worst > 1.0:
         fail(f"{what} on the card disagrees with the host CPU: max |diff| "
              f"{float(err.max()):.3e}, {worst:.3f} of its bar")
@@ -6594,10 +6634,711 @@ def phase_library(seed, card_line):
                           seconds=dict(a=t_a, b=t_b, c=t_c))
 
 
+# --------------------------------------------------------------------------
+# phase 15: the detectron2 models, the detection demo, the projects
+# --------------------------------------------------------------------------
+
+D2_IMAGES = 2                  # a detector forward's images, each DET_IMAGE (800x1216)
+D2_MAX_GT = 20                 # the JAX constructors' max_gt
+D2_GT = (12, 20)               # valid GT boxes in the training step's two images
+D2_LOSS_TOL = 2e-3             # relative, each training loss against the host CPU's
+D2_COPY_BYTES = 4 * 512 * 200 * 304 * 256  # the reference's (R, H, W, C) P2 copy in f32
+DEMO_FRAMES = 8
+DEMO_FRAME = (480, 640)        # (height, width) of the synthetic JPEG frames
+# detectron2's DeepLab Cityscapes crop and Panoptic-DeepLab's Cityscapes test
+# input; 19 Cityscapes classes, 11-18 things
+DEEPLAB_CROP = (512, 1024)
+PANOPTIC_IMAGE = (1024, 2048)
+CITYSCAPES_CLASSES, CITYSCAPES_THINGS = 19, range(11, 19)
+PANOPTIC_INSTANCES = 120       # the synthetic panoptic scene's
+PROJECT_ROIS = 100             # PointRend's instances and DensePose's ROIs
+ROI_POOL = 14                  # PointRend's ROI pool, the mask branch's (mask_pool)
+DENSEPOSE_POOL = 28            # DensePose's (its detectron2 config's POOLER_RESOLUTION)
+TRIDENT_RES4 = (50, 76, 1024)  # res4 of 800x1216: TridentNet's C4 blocks, 256 wide inside
+SWAP_INPUT = (100, 152, 225)   # P3 of 800x1216, a 15 x 15 mask window, lambda 2
+SWAP_LAMBDA = 2
+BN_BATCHES = 4
+VQ_CODES, VQ_DIM, VQ_VECTORS = 512, 64, 8192
+
+
+def _d2_model(name, seed):
+    """A detectron2 detector at its JAX constructor's defaults, weights
+    drawn from ``seed``, in eval mode on the CPU."""
+    from ir_ads_tpu_torch.detection import meta_arch as ma
+    from ir_ads_tpu_torch.serve import init_random_
+
+    model = dict(mask_rcnn=ma.MaskRCNN, keypoint_rcnn=ma.KeypointRCNN,
+                 retinanet=ma.RetinaNet, fcos=ma.FCOS)[name]()
+    init_random_(model, seed)
+    return model.eval()
+
+
+def _held(pairs, record, what):
+    """Each (name, card, cpu) at ``CARD_CPU_TOL`` (``_card_cpu``); the worst
+    into ``record``."""
+    worst = {}
+    for name, got, want in pairs:
+        diff, over, top = _card_cpu(got, want, f"{what} {name}")
+        worst[name] = dict(max_diff=diff, over_bar=over, max_cpu=top)
+    record["held"] = worst
+    return max(v["over_bar"] for v in worst.values())
+
+
+def _d2_eval(name, seed, images, card_line):
+    """(a) One detector: the eval forward on the card in f32 (peak memory)
+    and bf16 (ms), the f32 outputs before any selection against the host
+    CPU's on every image, the ROI stage on the card's proposals against the
+    host CPU's.  Returns (record, the card's model and f32 output, the
+    CPU's model, output and ROI stage)."""
+    import copy
+
+    from ir_ads_tpu_torch.serve import cast_model_
+
+    cpu = _d2_model(name, seed)
+    model = copy.deepcopy(cpu).cuda()
+    x = images.cuda()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.no_grad():
+        out = model(x)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+    m16 = copy.deepcopy(model)
+    cast_model_(m16, torch.bfloat16)
+    with torch.no_grad():
+        ms32 = time_ms(lambda: model(x), iters=5, warmup=2)
+        ms16 = time_ms(lambda: m16(x), iters=5, warmup=2)
+        out16 = m16(x)
+    del m16
+    t = time.time()
+    with torch.no_grad():
+        want = cpu(images)
+    rcnn = name.endswith("rcnn")
+    pairs = [(f"P{i + (2 if rcnn else 3)}", out["levels"][i], w)
+             for i, w in enumerate(want["levels"])]
+    keys = (("rpn_obj", "rpn_deltas") if rcnn else ("logits", "deltas") if name == "retinanet"
+            else ("logits", "ltrb", "centerness"))
+    pairs += [(k, out[k], want[k]) for k in keys]
+    record = dict(images=D2_IMAGES, image=list(DET_IMAGE), ms_f32=ms32, ms_bf16=ms16,
+                  peak_gib_f32=peak, params_m=sum(p.numel() for p in cpu.parameters()) / 1e6)
+    heads, roi = (), None
+    if rcnn:
+        heads = ("cls_logits", "boxes") + (("mask_logits",) if name == "mask_rcnn"
+                                           else ("keypoint_logits",))
+        with torch.no_grad():
+            roi = cpu.roi_stage(want["levels"], out["proposals"].cpu())
+        pairs += [(f"roi {k}", out[k], roi[k]) for k in heads]
+    record["cpu_s"] = time.time() - t
+    worst = _held(pairs, record, name)
+    finite16 = all(bool(torch.isfinite(out16[k].float()).all()) for k in keys + heads)
+    if not finite16:
+        fail(f"{name}: non-finite bf16 outputs")
+    print(f"  {name} ({record['params_m']:.1f} M parameters): {D2_IMAGES} x {DET_IMAGE[0]}x"
+          f"{DET_IMAGE[1]}; f32 against the host CPU (every image) before the selection "
+          + ", ".join(f"{k} {v['max_diff']:.2e}" for k, v in record["held"].items()
+                      if not k.startswith("roi"))
+          + (", the ROI stage on the card's proposals "
+             + ", ".join(f"{k[4:]} {v['max_diff']:.2e}" for k, v in record["held"].items()
+                         if k.startswith("roi")) if rcnn else "")
+          + f" (worst {worst:.3f} of the bar); ms f32 {ms32:.2f}, bf16 {ms16:.2f}; peak "
+          f"{peak:.2f} GiB in f32; host CPU {record['cpu_s']:.1f} s [{card_line}]", flush=True)
+    return record, model, out, cpu, want, roi
+
+
+def _roi_fault(model, cpu_roi, out):
+    """The card's ROI stage with ``roi_align`` without the aligned
+    half-pixel offset, over the bar against the host CPU's ROI stage."""
+    from ir_ads_tpu_torch.detection import meta_arch as ma
+
+    keep = ma.roi_align
+    ma.roi_align = functools.partial(keep, aligned=False)
+    try:
+        with torch.no_grad():
+            bad = model.roi_stage(out["levels"], out["proposals"])
+    finally:
+        ma.roi_align = keep
+    return max(_over_bar(bad[k], cpu_roi[k]) for k in ("cls_logits", "mask_logits"))
+
+
+def _d2_gt(proposals, seed):
+    """Synthetic GT on the card's eval proposals (so that proposals match):
+    D2_GT boxes an image clipped into it, padded to D2_MAX_GT, random labels,
+    an ellipse mask a box."""
+    g = torch.Generator().manual_seed(seed)
+    h, w = DET_IMAGE
+    b = proposals.shape[0]
+    boxes = torch.zeros(b, D2_MAX_GT, 4)
+    valid = torch.zeros(b, D2_MAX_GT, dtype=torch.bool)
+    for i, n in enumerate(D2_GT):
+        p = proposals[i, :n].cpu().float()
+        p = torch.stack([p[:, 0].clamp(0, w - 16), p[:, 1].clamp(0, h - 16),
+                         p[:, 2].clamp(0, w), p[:, 3].clamp(0, h)], -1)
+        p[:, 2:] = torch.maximum(p[:, 2:], p[:, :2] + 16)
+        boxes[i, :n], valid[i, :n] = p, True
+    labels = torch.randint(0, 80, (b, D2_MAX_GT), generator=g)
+    yy = torch.arange(h, dtype=torch.float32)[:, None]
+    xx = torch.arange(w, dtype=torch.float32)[None]
+    cx, cy = (boxes[..., 0] + boxes[..., 2]) / 2, (boxes[..., 1] + boxes[..., 3]) / 2
+    rx, ry = (boxes[..., 2] - boxes[..., 0]) / 2, (boxes[..., 3] - boxes[..., 1]) / 2
+    masks = (((xx - cx[..., None, None]) / rx.clamp(min=1)[..., None, None]) ** 2
+             + ((yy - cy[..., None, None]) / ry.clamp(min=1)[..., None, None]) ** 2) <= 1
+    return dict(gt_boxes=boxes, gt_labels=labels, gt_valid=valid, gt_masks=masks & valid[
+        ..., None, None])
+
+
+def _d2_train(model, eval_out, cpu, cpu_out, images, seed, card_line):
+    """(a) One train-mode forward and backward of Mask R-CNN on the card in
+    f32, GT on the eval forward's proposals: losses and gradients finite,
+    and against the host CPU's on the card's proposals (``D2_LOSS_TOL``,
+    relative).  ``cpu_out``: the CPU's eval output and ROI stage."""
+    gt = _d2_gt(eval_out["proposals"], seed)
+    gtc = {k: v.cuda() for k, v in gt.items()}
+    model.train()
+    t = time.perf_counter()
+    out = model(images.cuda(), **gtc)
+    loss = sum(out["losses"].values())
+    loss.backward()
+    torch.cuda.synchronize()
+    step_ms = (time.perf_counter() - t) * 1e3
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    if not all(bool(torch.isfinite(v).all()) for v in out["losses"].values()) or not all(
+            bool(torch.isfinite(gr).all()) for gr in grads):
+        fail("Mask R-CNN's training step: non-finite losses or gradients")
+    got = {k: v.detach() for k, v in out["losses"].items()}
+    with torch.no_grad():
+        props = out["proposals"].detach()
+        if not torch.equal(props, eval_out["proposals"]):  # else the eval ROI stage's
+            cpu_out = {**cpu_out, **cpu.roi_stage(cpu_out["levels"], props.cpu())}
+        want = cpu.losses(cpu_out, *(gt[k] for k in ("gt_boxes", "gt_labels", "gt_valid",
+                                                    "gt_masks")))
+    model.eval()
+    rel = {k: abs(float(got[k]) - float(want[k])) / max(abs(float(want[k])), 1e-12)
+           for k in want}
+    print(f"  Mask R-CNN training step ({D2_IMAGES} x {DET_IMAGE[0]}x{DET_IMAGE[1]}, f32, GT "
+          f"{D2_GT} of max_gt {D2_MAX_GT}): losses "
+          + ", ".join(f"{k} {float(v.detach()):.4f}" for k, v in out["losses"].items())
+          + f"; {step_ms:.1f} ms forward + backward; against the host CPU on the card's "
+          "proposals, relative: " + ", ".join(f"{k} {v:.2e}" for k, v in rel.items())
+          + f" (tol {D2_LOSS_TOL}) [{card_line}]", flush=True)
+    if max(rel.values()) > D2_LOSS_TOL:
+        fail("Mask R-CNN's training losses disagree with the host CPU's")
+    if float(want["loss_mask"]) <= 0 or float(want["loss_roi_reg"]) <= 0:
+        fail("the training step's GT matched no proposal")
+    model.zero_grad(set_to_none=True)
+    return dict(losses={k: float(v.detach()) for k, v in out["losses"].items()}, loss_rel=rel,
+                ms=step_ms)
+
+
+def phase_d2_detectors(seed, card_line):
+    """Phase 15 (a).  Returns (record, Mask R-CNN on the card, its f32 eval
+    output)."""
+    g = torch.Generator().manual_seed(seed + 15)
+    images = torch.randn(D2_IMAGES, *DET_IMAGE, 3, generator=g)
+    record, kept = {}, None
+    for name in ("mask_rcnn", "keypoint_rcnn", "retinanet", "fcos"):
+        rec, model, out, cpu, want, cpu_roi = _d2_eval(name, seed, images, card_line)
+        if name == "mask_rcnn":
+            if rec["peak_gib_f32"] * 2**30 > D2_COPY_BYTES / 4:
+                fail(f"Mask R-CNN's eval forward peaks at {rec['peak_gib_f32']:.2f} GiB: "
+                     "its ROI aligns copy the P2 map per proposal")
+            over = _roi_fault(model, cpu_roi, out)
+            print(f"  Mask R-CNN: peak {rec['peak_gib_f32']:.2f} GiB against the "
+                  f"{D2_COPY_BYTES / 2**30:.1f} GiB of one (512, 200, 304, 256) f32 copy of P2; "
+                  f"planted fault (roi_align without the aligned half-pixel): {over:.1f} of "
+                  "the ROI-stage bar", flush=True)
+            if over <= 1.0:
+                fail("a roi_align without the aligned offset passes the ROI-stage bar")
+            rec["fault_over_bar"] = over
+            rec["train"] = _d2_train(model, out, cpu, {**want, **cpu_roi}, images, seed,
+                                     card_line)
+            kept = (model, out)
+        record[name] = rec
+        del cpu, want
+        if name != "mask_rcnn":
+            del model, out
+        torch.cuda.empty_cache()
+    return record, kept
+
+
+def _dino_record(out):
+    """What a check of the demo reads from its transformer's output."""
+    return dict(memory=out["memory"], scores=out["enc_scores"], tokens=out["topk_idx"],
+                logits=out["pred_logits"][-1], boxes=out["pred_boxes"][-1],
+                query_scores=out["pred_logits"][-1].float().sigmoid().amax(-1))
+
+
+def _dino_seen(model, img, sample=None, tokens=None):
+    """One forward of the demo's detector with K9's wrapper replaced by
+    ``sample`` (the kernel when None) and, with ``tokens``, the
+    transformer's top-k replaced by them: ``_dino_record`` of what the
+    transformer returns."""
+    from ir_ads_tpu_torch.detection import msdeform_attn as det_attn
+    from ir_ads_tpu_torch.detection import transformer as det_tr
+
+    saved = det_attn.ms_deform_attn, det_tr.top_k
+    det_attn.ms_deform_attn = sample or saved[0]
+    if tokens is not None:
+        det_tr.top_k = lambda scores, k: (torch.gather(scores, 1, tokens), tokens)
+    seen = []
+    hook = model.transformer.register_forward_hook(
+        lambda mod, args, out: seen.append(_dino_record(out)))
+    try:
+        with torch.no_grad():
+            model(img, want_masks=False)
+        torch.cuda.synchronize()
+    finally:
+        hook.remove()
+        det_attn.ms_deform_attn, det_tr.top_k = saved
+    return seen[0]
+
+
+def _demo_frames(root, seed):
+    """DEMO_FRAMES JPEG frames: noise and one bright rectangle moving right."""
+    from PIL import Image
+
+    g = torch.Generator().manual_seed(seed)
+    h, w = DEMO_FRAME
+    for t in range(DEMO_FRAMES):
+        img = (torch.rand(h, w, 3, generator=g) * 80).to(torch.uint8).numpy()
+        img[140:300, 60 + 40 * t:220 + 40 * t] = (230, 200, 60)
+        Image.fromarray(img).save(os.path.join(root, f"frame{t:02d}.jpg"))
+
+
+def _demo_returned(r, seen, plain, k):
+    """The scores and boxes ``demo.main`` returned for a frame (``r``)
+    against ``plain`` (``_dino_seen`` of the same frame on the demo's
+    selected tokens, K9 replaced) at the queries the demo ranked first
+    (``seen``: the demo model's own output), on the demo's NMS-kept set:
+    mean |diff| / mean |ref| each.  Fails where the returned scores are not
+    the watched model's."""
+    import numpy as np
+
+    from ir_ads_tpu_torch.detection.box_ops import box_cxcywh_to_xyxy
+    from ir_ads_tpu_torch.detection.transformer import top_k
+
+    top, idx = top_k(seen["query_scores"], k)
+    if not np.array_equal(top[0].cpu().numpy(), r["scores"]):
+        fail("the demo's returned scores are not its model's")
+    keep = torch.from_numpy(r["keep"])
+    got_s, got_b = torch.from_numpy(r["scores"])[keep], torch.from_numpy(r["boxes"])[keep]
+    want_s = plain["query_scores"][0, idx[0]].cpu()[keep]
+    want_b = box_cxcywh_to_xyxy(plain["boxes"][0, idx[0]].float()).cpu()[keep]
+    return dict(returned_scores=float((got_s - want_s).abs().mean() / want_s.abs().mean()),
+                returned_boxes=float((got_b - want_b).abs().mean() / want_b.abs().mean()))
+
+
+def phase_demo(seed, card_line):
+    """Phase 15 (b): ``demo.main`` on the card with its defaults and
+    ``--track hungarian``, its model watched (each frame's transformer
+    output).  Each frame against the same model on the all-plain path; the
+    scores and boxes ``main`` returned against the all-plain path on the
+    demo's selected tokens.  Returns (its launches, record)."""
+    import tempfile
+
+    import numpy as np
+    from PIL import Image
+
+    from ir_ads_tpu_torch.demo import demo
+    from ir_ads_tpu_torch.detection.tracking import HungarianIOUTracker
+    from ir_ads_tpu_torch.ops.msdeform import ms_deform_attn_plain
+
+    build, built = demo.build_model, []
+
+    def build_watched(args):
+        model = build(args)
+        seen = []
+        hook = model.transformer.register_forward_hook(
+            lambda mod, a, out: seen.append(_dino_record(out)))
+        built.append((model, seen, hook))
+        return model
+
+    with tempfile.TemporaryDirectory() as root:
+        frames, out_dir = os.path.join(root, "frames"), os.path.join(root, "out")
+        os.makedirs(frames)
+        _demo_frames(frames, seed)
+        argv = ["--input", frames, "--output", out_dir, "--track", "hungarian"]
+        kernels = _reset_launches()
+        demo.build_model = build_watched
+        t = time.time()
+        try:
+            results = demo.main(argv)
+            torch.cuda.synchronize()
+        finally:
+            demo.build_model = build
+        wall = time.time() - t
+        launches = {k.name: k.launches for k in kernels if k.launches}
+        if launches != {"msdeform": DET_LAUNCHES * DEMO_FRAMES}:
+            fail(f"the demo launched {launches} over {DEMO_FRAMES} frames, expected "
+                 f"msdeform {DET_LAUNCHES * DEMO_FRAMES}")
+        if len(results) != DEMO_FRAMES or len(os.listdir(out_dir)) != DEMO_FRAMES:
+            fail(f"the demo returned {len(results)} frames and wrote {len(os.listdir(out_dir))}")
+        args = demo.parse_args(argv)
+        inputs = [torch.from_numpy(demo.load_image(np.asarray(Image.open(os.path.join(
+            frames, r["name"])).convert("RGB")), args.image_size)[None]).cuda() for r in results]
+    model, demo_seen, hook = built[0]
+    hook.remove()
+    if len(demo_seen) != DEMO_FRAMES:
+        fail(f"the demo's model ran {len(demo_seen)} times over {DEMO_FRAMES} frames")
+
+    # the tracks: the port's HungarianIOUTracker fed the demo's detections
+    tracker = HungarianIOUTracker()
+    for r in results:
+        sel = r["keep"] & (r["scores"] > args.score_thresh)
+        want = [(x.track_id, x.label, x.score, tuple(x.box)) for x in tracker.update(
+            r["boxes"][sel], r["classes"][: len(r["boxes"])][sel], r["scores"][sel])]
+        if want != [(i, lab, sc, tuple(b)) for i, b, lab, sc in r["tracks"]]:
+            fail(f"the demo's tracks on {r['name']} are not the tracker's")
+
+    # each frame against the all-plain path, the returned detections on the
+    # demo's tokens; the planted K9 fault beyond the bars
+    k = min(100, args.num_queries)
+    mean_rel = lambda x, y: float((x.float() - y.float()).abs().mean()  # noqa: E731
+                                  / y.float().abs().mean())
+    rows, keep_agree = [], []
+    for i, (img, r, got) in enumerate(zip(inputs, results, demo_seen)):
+        want = _dino_seen(model, img, ms_deform_attn_plain)
+        forced = _dino_seen(model, img, ms_deform_attn_plain, tokens=got["tokens"])
+        valid = torch.isfinite(want["scores"])
+        rows.append(dict(
+            memory=mean_rel(got["memory"], want["memory"]),
+            scores=mean_rel(got["scores"][valid], want["scores"][valid]),
+            tokens=len(set(got["tokens"][0].tolist()) & set(want["tokens"][0].tolist()))
+            / args.num_queries,
+            query_scores=mean_rel(got["query_scores"], forced["query_scores"]),
+            boxes=mean_rel(got["boxes"], forced["boxes"]),
+            **_demo_returned(r, got, forced, k)))
+        post = demo.postprocess({"pred_logits": [forced["logits"]],
+                                 "pred_boxes": [forced["boxes"]]}, args.num_queries)
+        keep_agree.append(float((post[2][0].cpu().numpy() == r["keep"]).mean()))
+        if i == 0:
+            bad = _dino_seen(model, img, _plain_without_half_pixel)
+            bad_forced = _dino_seen(model, img, _plain_without_half_pixel, tokens=got["tokens"])
+            fault = dict(memory=mean_rel(bad["memory"], want["memory"]),
+                         scores=mean_rel(bad["scores"][valid], want["scores"][valid]),
+                         **_demo_returned(r, got, bad_forced, k))
+    worst = {n: (min if n == "tokens" else max)(row[n] for row in rows) for n in rows[0]}
+    bars = dict(memory=DET_TOL["memory"], scores=DET_TOL["scores"], tokens=DET_TOL["tokens"],
+                query_scores=DET_TOL["scores"], boxes=DET_TOL["boxes"],
+                returned_scores=DET_TOL["scores"], returned_boxes=DET_TOL["boxes"])
+    ms = [r["ms"] for r in results]
+    p50 = _p50(ms[1:])
+    print(f"  the demo (DINO-R50, {args.num_queries} queries, {args.image_size} px, bf16, "
+          f"--track hungarian): {DEMO_FRAMES} frames of {DEMO_FRAME[1]}x{DEMO_FRAME[0]}, ms a "
+          f"frame {['%.1f' % v for v in ms]}, p50 after the first {p50:.1f}, main's wall "
+          f"{wall:.1f} s; launches {launches}; tracks a frame "
+          f"{[len(r['tracks']) for r in results]} [{card_line}]", flush=True)
+    print("  the demo's frames against the all-plain path, worst over frames (mean |diff| / "
+          "mean |ref|; tokens the floor; queries and returned detections on the demo's "
+          "tokens): " + ", ".join(f"{n} {v:.3e} (tol {bars[n]})" for n, v in worst.items())
+          + f"; NMS keep agreeing {min(keep_agree):.3f}; planted fault (plain K9 without the "
+          "-0.5): " + ", ".join(f"{n} {v:.3e}" for n, v in fault.items()), flush=True)
+    if any(worst[n] > bars[n] for n in bars if n != "tokens") or worst["tokens"] < bars["tokens"]:
+        fail("the demo's detections disagree with the all-plain path")
+    if all(fault[n] <= bars[n] for n in fault):
+        fail("a K9 without the -0.5 passes the demo's bars")
+    del model
+    torch.cuda.empty_cache()
+    return launches, dict(frames=DEMO_FRAMES, frame=list(DEMO_FRAME), ms=ms, p50_ms=p50,
+                          wall_s=wall, launches=launches, agreement=worst,
+                          keep_agreeing=keep_agree, fault=fault,
+                          tracks=[len(r["tracks"]) for r in results])
+
+
+def _resnet50_pyramid(size, seed):
+    """The port's ResNet-50 (frozen BN, weights drawn from ``seed``) on one
+    frame of ``size`` on the card in f32: {res2 .. res5} on the card."""
+    from ir_ads_tpu_torch.models.backbones.resnet import ResNet
+    from ir_ads_tpu_torch.serve import init_random_
+
+    net = ResNet("resnet50")
+    init_random_(net, seed)
+    x = torch.randn(1, *size, 3, generator=torch.Generator().manual_seed(seed))
+    with torch.no_grad():
+        return net.eval().cuda()(x.cuda())
+
+
+def _bf16(a):
+    """Floating tensors in bf16, through lists and (named) tuples."""
+    if torch.is_tensor(a):
+        return a.bfloat16() if a.is_floating_point() else a
+    if isinstance(a, list):
+        return [_bf16(t) for t in a]
+    if isinstance(a, tuple):
+        return type(a)(*(_bf16(t) for t in a))
+    return a
+
+
+def _project(name, size, card, cpu_ins, card_ins, record, card_line, outputs=None):
+    """One project module or function (``card``; a module's CPU twin has its
+    weights): f32 on the card against the host CPU, bf16 ms.  Returns the
+    card's f32 outputs as a dict (``outputs`` makes it)."""
+    import copy
+
+    from ir_ads_tpu_torch.serve import cast_model_
+
+    cpu = copy.deepcopy(card).cpu() if isinstance(card, torch.nn.Module) else card
+    run = (outputs or (lambda o: o if isinstance(o, dict) else {"out": o} if torch.is_tensor(o)
+                       else {str(i): v for i, v in enumerate(o)}))
+    with torch.no_grad():
+        got = run(card(*card_ins))
+        t = time.time()
+        want = run(cpu(*cpu_ins))
+        cpu_s = time.time() - t
+        ms32 = time_ms(lambda: card(*card_ins), iters=3, warmup=1)
+        if isinstance(card, torch.nn.Module):
+            c16 = copy.deepcopy(card)
+            cast_model_(c16, torch.bfloat16)
+        else:
+            c16 = card
+        ins16 = [_bf16(a) for a in card_ins]
+        ms16 = time_ms(lambda: c16(*ins16), iters=3, warmup=1)
+    rec = dict(size=size, ms_f32=ms32, ms_bf16=ms16, cpu_s=cpu_s)
+    worst = _held([(k, got[k], want[k]) for k in want], rec, name)
+    print(f"  {name} ({size}): " + ", ".join(
+        f"{k} {tuple(want[k].shape)} max |diff| {v['max_diff']:.2e}"
+        for k, v in rec["held"].items())
+          + f" (worst {worst:.3f} of the bar); ms f32 {ms32:.2f}, bf16 {ms16:.2f}; host CPU "
+          f"{cpu_s:.2f} s [{card_line}]", flush=True)
+    record[name] = rec
+    return got
+
+
+def _panoptic_scene(g):
+    """(semantic ids, centre heatmap, offsets) of a synthetic
+    ``PANOPTIC_IMAGE`` scene on the card: ``PANOPTIC_INSTANCES`` gaussian
+    centres, each with a thing class inside a disc, stuff classes in bands
+    elsewhere, offsets to the nearest centre with unit noise."""
+    h, w = PANOPTIC_IMAGE
+    n = PANOPTIC_INSTANCES
+    cy = torch.rand(n, generator=g) * (h - 64) + 32
+    cx = torch.rand(n, generator=g) * (w - 64) + 32
+    cls = torch.tensor(list(CITYSCAPES_THINGS))[torch.randint(0, 8, (n,), generator=g)]
+    noise = torch.randn(h, w, 2, generator=g)
+    cy, cx, cls, noise = cy.cuda(), cx.cuda(), cls.cuda(), noise.cuda()
+    yy = torch.arange(h, device="cuda", dtype=torch.float32)[:, None].expand(h, w)
+    xx = torch.arange(w, device="cuda", dtype=torch.float32)[None].expand(h, w)
+    heat = torch.zeros(h, w, device="cuda")
+    best = torch.full((h, w), float("inf"), device="cuda")
+    near = torch.zeros(h, w, dtype=torch.long, device="cuda")
+    for i in range(n):
+        d2 = (yy - cy[i]) ** 2 + (xx - cx[i]) ** 2
+        heat = torch.maximum(heat, torch.exp(-d2 / 200.0))
+        closer = d2 < best
+        best, near = torch.where(closer, d2, best), torch.where(closer, i, near)
+    stuff = (yy // (h // 11)).long().clamp(max=10)
+    sem = torch.where(best < 30.0 ** 2, cls[near], stuff)
+    offsets = torch.stack([cy[near] - yy, cx[near] - xx], -1) + noise
+    return sem, heat, offsets
+
+
+def phase_projects(seed, mask_rcnn, card_line):
+    """Phase 15 (c): the detectron2 projects and the quantizer at their JAX
+    constructors' defaults, f32 on the card against the host CPU, bf16 ms."""
+    import copy
+
+    from ir_ads_tpu_torch.detection.rotated_boxes import roi_align
+    from ir_ads_tpu_torch.models.projects import point_rend as pr
+    from ir_ads_tpu_torch.models.projects.deeplab import DeepLabV3PlusHead
+    from ir_ads_tpu_torch.models.projects.densepose import DensePoseChartHead
+    from ir_ads_tpu_torch.models.projects.panoptic_deeplab import (
+        PanopticDeepLabInsEmbedHead, PanopticDeepLabSemSegHead, get_panoptic_segmentation)
+    from ir_ads_tpu_torch.models.projects.precise_bn import recompute_bn_stats
+    from ir_ads_tpu_torch.models.projects.tensormask import swap_align2nat
+    from ir_ads_tpu_torch.models.projects.tridentnet import TridentBottleneck
+    from ir_ads_tpu_torch.ops import quantize as vq
+    from ir_ads_tpu_torch.serve import cast_model_, init_random_
+
+    record = {}
+    g = torch.Generator().manual_seed(seed + 16)
+
+    def drawn(module):
+        init_random_(module, seed)
+        return module.eval().cuda()
+
+    # DeepLabV3+ on the ResNet-50 pyramid of a 512x1024 crop (res2, res5)
+    feats = _resnet50_pyramid(DEEPLAB_CROP, seed)
+    ins = [feats["res2"], feats["res5"]]
+    head = drawn(DeepLabV3PlusHead((256, 2048), CITYSCAPES_CLASSES))
+    _project("DeepLabV3PlusHead", f"{DEEPLAB_CROP[0]}x{DEEPLAB_CROP[1]}", head,
+             [[f.cpu() for f in ins]], [ins], record, card_line)
+
+    # PreciseBN over BN_BATCHES batches of that pyramid's shapes (the
+    # dropout off: the card's and the CPU's generators draw other masks)
+    cpu_head = DeepLabV3PlusHead((256, 2048), CITYSCAPES_CLASSES, dropout=0.0)
+    init_random_(cpu_head, seed)
+    head = copy.deepcopy(cpu_head.eval()).cuda()
+    batches = [[torch.randn(f.shape, generator=g) for f in ins] for _ in range(BN_BATCHES)]
+    t = time.time()
+    recompute_bn_stats(head, [([f.cuda() for f in b],) for b in batches])
+    torch.cuda.synchronize()
+    bn_ms = (time.time() - t) * 1e3
+    recompute_bn_stats(cpu_head, [(b,) for b in batches])
+    sd = cpu_head.state_dict()
+    rec = dict(batches=BN_BATCHES, ms=bn_ms)
+    worst = _held([(k, v, sd[k]) for k, v in head.state_dict().items() if "running" in k],
+                  rec, "recompute_bn_stats")
+    print(f"  recompute_bn_stats over {BN_BATCHES} batches (DeepLabV3+ head, "
+          f"{sum('running_mean' in k for k in sd)} BatchNorms): running statistics against the "
+          f"host CPU worst {worst:.3f} of the bar; {bn_ms:.1f} ms on the card (f32) "
+          f"[{card_line}]", flush=True)
+    record["recompute_bn_stats"] = rec
+    del feats, ins, head, cpu_head
+
+    # Panoptic-DeepLab's heads and post-processing at 1024x2048 (res2, res3, res5)
+    feats = _resnet50_pyramid(PANOPTIC_IMAGE, seed + 1)
+    ins = [feats["res2"], feats["res3"], feats["res5"]]
+    size = f"{PANOPTIC_IMAGE[0]}x{PANOPTIC_IMAGE[1]}"
+    sem = _project("PanopticDeepLabSemSegHead", size,
+                   drawn(PanopticDeepLabSemSegHead((256, 512, 2048), CITYSCAPES_CLASSES)),
+                   [[f.cpu() for f in ins]], [ins], record, card_line)["out"]
+    center, offset = _project("PanopticDeepLabInsEmbedHead", size,
+                              drawn(PanopticDeepLabInsEmbedHead((256, 512, 2048))),
+                              [[f.cpu() for f in ins]], [ins], record, card_line).values()
+    del feats, ins
+    thing = torch.zeros(CITYSCAPES_CLASSES, dtype=torch.bool)
+    thing[list(CITYSCAPES_THINGS)] = True
+    rec = {}
+    for what, args in (("the heads' outputs", (sem[0].argmax(-1), center[0, ..., 0], offset[0])),
+                       ("a synthetic scene", _panoptic_scene(g))):
+        with torch.no_grad():
+            pan, ctr = get_panoptic_segmentation(*args, thing.cuda())
+            pan_cpu, ctr_cpu = get_panoptic_segmentation(*(a.cpu() for a in args), thing)
+            ms32 = time_ms(lambda: get_panoptic_segmentation(*args, thing.cuda()), 3, 1)
+            ms16 = time_ms(lambda: get_panoptic_segmentation(*_bf16(list(args)),
+                                                             thing.cuda()), 3, 1)
+        apart = int((pan.cpu() != pan_cpu).sum()) + int((ctr.cpu() != ctr_cpu).sum())
+        ids = len(torch.unique(pan_cpu))
+        print(f"  get_panoptic_segmentation ({size}, top_k 200) on {what}: {ids} panoptic ids; "
+              f"against the host CPU on the same inputs {apart} ids and centres apart (tol 0); "
+              f"ms f32 {ms32:.2f}, bf16 {ms16:.2f} [{card_line}]", flush=True)
+        if apart:
+            fail("get_panoptic_segmentation on the card differs from the host CPU's")
+        rec[what] = dict(ids=ids, apart=apart, ms_f32=ms32, ms_bf16=ms16)
+    if rec["a synthetic scene"]["ids"] < PANOPTIC_INSTANCES // 2:
+        fail("the synthetic panoptic scene lost instances")
+    record["get_panoptic_segmentation"] = dict(size=size, **rec)
+    del sem, center, offset, args, pan
+
+    # PointRend and DensePose on 100 ROIs of Mask R-CNN's P2, the first
+    # proposals of each image
+    model, out = mask_rcnn
+    p2 = out["levels"][0]
+    half = PROJECT_ROIS // D2_IMAGES
+    boxes = out["proposals"][:, :half].reshape(-1, 4)
+    batch_idx = torch.arange(D2_IMAGES).repeat_interleave(half)
+    rois = torch.cat([batch_idx[:, None].to(boxes), boxes], -1)
+    with torch.no_grad():
+        pooled = roi_align(p2, rois, (ROI_POOL, ROI_POOL), 0.25)
+    classes = torch.randint(0, 80, (PROJECT_ROIS,), generator=g)
+    head = drawn(pr.PointRendMaskHead(80))
+    cpu_head = copy.deepcopy(head).cpu()
+    chosen, replay = [], []
+    pick = pr.get_uncertain_point_coords_on_grid
+
+    def recording(unc, n):
+        chosen.append(pick(unc, n))
+        return chosen[-1]
+
+    def replaying(unc, n):
+        own = pick(unc, n)
+        idx, coords = chosen[len(replay)]
+        replay.append(int((own[0] != idx.cpu()).sum()))
+        return idx.cpu(), coords.cpu()
+
+    def fine(features, bx, bi):
+        return lambda c: pr.sample_fine_features(features, 0.25, bi,
+                                                 pr.point_coords_wrt_image(bx, c))
+
+    pr.get_uncertain_point_coords_on_grid = recording
+    try:
+        with torch.no_grad():
+            got = head.subdivision_inference(fine(p2, boxes, batch_idx.cuda()),
+                                             head.coarse(pooled), classes.cuda())
+            torch.cuda.synchronize()
+            pr.get_uncertain_point_coords_on_grid = replaying
+            t = time.time()
+            want = cpu_head.subdivision_inference(fine(p2.cpu(), boxes.cpu(), batch_idx),
+                                                  cpu_head.coarse(pooled.cpu()), classes)
+            cpu_s = time.time() - t
+    finally:
+        pr.get_uncertain_point_coords_on_grid = pick
+    c16 = copy.deepcopy(head)
+    cast_model_(c16, torch.bfloat16)
+    with torch.no_grad():
+        ms32 = time_ms(lambda: head.subdivision_inference(
+            fine(p2, boxes, batch_idx.cuda()), head.coarse(pooled), classes.cuda()), 3, 1)
+        ms16 = time_ms(lambda: c16.subdivision_inference(
+            fine(p2.bfloat16(), boxes, batch_idx.cuda()), c16.coarse(pooled.bfloat16()),
+            classes.cuda()), 3, 1)
+    rec = dict(rois=PROJECT_ROIS, ms_f32=ms32, ms_bf16=ms16, cpu_s=cpu_s,
+               cpu_own_selection_apart=replay)
+    worst = _held([("mask logits", got, want)], rec, "PointRendMaskHead")
+    print(f"  PointRendMaskHead ({PROJECT_ROIS} instances, 3 subdivision steps of 784 points): "
+          f"mask logits {tuple(want.shape)} against the host CPU on the card's selected "
+          f"points, max |diff| {rec['held']['mask logits']['max_diff']:.2e} (worst "
+          f"{worst:.3f} of the bar; the CPU's own selection would differ at {replay} points); "
+          f"ms f32 {ms32:.2f}, bf16 {ms16:.2f}; host CPU {cpu_s:.2f} s [{card_line}]",
+          flush=True)
+    record["PointRendMaskHead"] = rec
+    del head, cpu_head, c16, pooled
+    with torch.no_grad():
+        pooled = roi_align(p2, rois, (DENSEPOSE_POOL, DENSEPOSE_POOL), 0.25)
+    _project("DensePoseChartHead", f"{PROJECT_ROIS} ROIs of {DENSEPOSE_POOL}x{DENSEPOSE_POOL}",
+             drawn(DensePoseChartHead(256)), [pooled.cpu()], [pooled], record, card_line)
+    del pooled, p2
+
+    # TridentNet's bottleneck at res4 of 800x1216, its three branches
+    x = torch.randn(1, *TRIDENT_RES4, generator=g)
+    _project("TridentBottleneck", f"{TRIDENT_RES4[0]}x{TRIDENT_RES4[1]}x{TRIDENT_RES4[2]}",
+             drawn(TridentBottleneck(1024, 256, 1024)), [x], [x.cuda()], record, card_line)
+
+    # SwapAlign2Nat
+    x = torch.randn(1, *SWAP_INPUT, generator=g)
+    _project("swap_align2nat", f"{SWAP_INPUT}, lambda {SWAP_LAMBDA}",
+             lambda t: swap_align2nat(t, SWAP_LAMBDA), [x], [x.cuda()], record, card_line)
+
+    # the vector quantizer: inputs near the codes (a trained codebook's use)
+    state = vq.vq_init(g, VQ_CODES, VQ_DIM)
+    pick_idx = torch.randint(0, VQ_CODES // 2, (VQ_VECTORS,), generator=g)
+    xs = state.codebook[pick_idx] + 0.01 * torch.randn(VQ_VECTORS, VQ_DIM, generator=g)
+    rand_idx = vq.vq_draws(g, VQ_CODES, VQ_VECTORS)
+
+    def step(s, x, r):
+        codes, quant, new = vq.vq_update(s, x, r)
+        return {"codes": codes.float(), "quantized": quant, "codebook": new.codebook,
+                "ema_count": new.ema_count, "ema_sum": new.ema_sum}
+
+    card_state = vq.VQState(*(t.cuda() for t in state))
+    _project("vq_update", f"{VQ_VECTORS} x {VQ_DIM} on {VQ_CODES} codes",
+             lambda s, x, r: step(s, x, r), [state, xs, rand_idx],
+             [card_state, xs.cuda(), rand_idx.cuda()], record, card_line,
+             outputs=lambda o: o)
+    return record
+
+
+def phase_detectron2(seed, card_line):
+    """Phase 15: (a) the four detectron2 detectors, (b) the demo, (c) the
+    projects and the quantizer.  Returns (the demo's launches, record)."""
+    t0 = time.time()
+    detectors, mask_rcnn = phase_d2_detectors(seed, card_line)
+    t_a = time.time() - t0
+    launches, demo_rec = phase_demo(seed, card_line)
+    t_b = time.time() - t0 - t_a
+    projects = phase_projects(seed, mask_rcnn, card_line)
+    del mask_rcnn
+    torch.cuda.empty_cache()
+    t_c = time.time() - t0 - t_a - t_b
+    print(f"  phase 15: (a) {t_a:.1f} s, (b) {t_b:.1f} s, (c) {t_c:.1f} s; launches "
+          f"{launches}", flush=True)
+    return launches, dict(detectors=detectors, demo=demo_rec, projects=projects,
+                          seconds=dict(a=t_a, b=t_b, c=t_c))
+
+
 def kernel_table(rows, launches, launches_i8, module_launches, train_launches, det_launches,
                  eval_launches, train_mm_launches, phase9_launches, legacy_launches,
                  legacy_train_launches, det_train_launches, anomaly_launches,
-                 library_launches):
+                 library_launches, demo_launches):
     """One entry per kernel; ``launches`` sums the main paths' runs (the
     serving requests under r5, r4i8, r2, r1, xla, v7_01, v5, map,
     dscf_pallas4, dscf_pallas and dscf_pallas2, r5 on flat frames with the
@@ -6607,9 +7348,11 @@ def kernel_table(rows, launches, launches_i8, module_launches, train_launches, d
     paths, phase 10's legacy requests (r5, r4, r4i8) and MSF images, and
     phase 11's legacy training steps and train_mm runs, phase 12's DINO
     training steps and train_net run, phase 13's (train_ad launches
-    none; its LVIS run K9 and K9's backward), and phase 14's (the sharded
-    eval's images and the trunk's pyramids for the heads), each counted
-    from 0; K20 runs on none of them)."""
+    none; its LVIS run K9 and K9's backward), phase 14's (the sharded
+    eval's images and the trunk's pyramids for the heads) and phase 15's
+    (the demo's frames: K9 12 a frame; the detectron2 detectors and
+    projects launch no kernel of the port), each counted from 0; K20 runs
+    on none of them)."""
     from ir_ads_tpu_torch.ops.cuda_lib import PKG
 
     out = []
@@ -6629,6 +7372,7 @@ def kernel_table(rows, launches, launches_i8, module_launches, train_launches, d
                       + det_train_launches.get(k.name, 0)
                       + anomaly_launches.get(k.name, 0)
                       + library_launches.get(k.name, 0)
+                      + demo_launches.get(k.name, 0)
                       + sum(m[k.name] for m in module_launches.values())),
             launches_serve=launches[k.name], launches_serve_r4i8=launches_i8[k.name],
             **{f"launches_serve_{d}": m[k.name] for d, m in module_launches.items()},
@@ -6642,6 +7386,7 @@ def kernel_table(rows, launches, launches_i8, module_launches, train_launches, d
             launches_det_train=det_train_launches.get(k.name, 0),
             launches_anomaly_lvis=anomaly_launches.get(k.name, 0),
             launches_library=library_launches.get(k.name, 0),
+            launches_demo=demo_launches.get(k.name, 0),
             max_abs_err=max(c["max_abs_err"] for c in cases),
             ms=first["ms"], plain_ms=first["plain_ms"],
             bound_ms=first["bound_ms"], bound_by=first["bound_by"],
@@ -6726,17 +7471,21 @@ def main():
     anomaly_launches, anomaly = phase_anomaly(args.seed, card_line)
     print("phase 14: the semseg library (heads, backbones) and the sharded eval", flush=True)
     library_launches, library = phase_library(args.seed, card_line)
+    print("phase 15: the detectron2 detectors, the detection demo and the projects",
+          flush=True)
+    demo_launches, detectron2 = phase_detectron2(args.seed, card_line)
 
     print(json.dumps({"kernels": kernel_table(rows + bwd_rows, launches, launches_i8,
                                               module_launches, train_launches, det_launches,
                                               eval_launches, train_mm_launches,
                                               phase9_launches, legacy_launches,
                                               legacy_train_launches, det_train_launches,
-                                              anomaly_launches, library_launches),
+                                              anomaly_launches, library_launches,
+                                              demo_launches),
                       "serve": serve, "train": train, "detect": detect, "evaluate": evaluate,
                       "train_mm": train_mm, "swin_l_dual": swin_l_dual, "legacy": legacy,
                       "legacy_train": legacy_train, "det_train": det_train, "anomaly": anomaly,
-                      "library": library, "repair": repair,
+                      "library": library, "detectron2": detectron2, "repair": repair,
                       "card": card_line, "wall_s": time.time() - T_START}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

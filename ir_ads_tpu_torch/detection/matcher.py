@@ -130,3 +130,24 @@ def match_cost(
         for p, t in zip(pred_boxes, gt_boxes)])
     cost = 2.0 * cls_cost + 5.0 * bbox_cost + 2.0 * giou_cost
     return torch.where(gt_valid[:, None, :], cost, torch.full_like(cost, 1e8))
+
+
+def dynamic_k_match(
+    cost: torch.Tensor,  # (B, Q, G)
+    ious: torch.Tensor,  # (B, Q, G) prediction-GT IoUs
+    gt_valid: torch.Tensor,  # (B, G)
+    max_k: int = 10,
+) -> torch.Tensor:
+    """SimOTA-style dynamic-k assignment (the reference's
+    HungarianMatcherDynamicK, shipped unused): each GT takes its
+    clip(round(sum of its top-10 IoUs), 1, max_k) cheapest queries, and a
+    query claimed by several GTs keeps the cheapest.  Returns the (B, Q, G)
+    bool assignment."""
+    b, q, g = cost.shape
+    topk_iou = torch.topk(ious.transpose(1, 2), min(max_k, q), dim=-1).values  # (B, G, k)
+    dynamic_k = torch.round(topk_iou.sum(-1)).long().clamp(1, max_k)
+    order = torch.sort(cost.transpose(1, 2), dim=-1, stable=True)[1]  # (B, G, Q)
+    ranks = torch.argsort(order, dim=-1)  # each query's rank for each GT
+    assign = ((ranks < dynamic_k[..., None]) & gt_valid[..., None]).transpose(1, 2)  # (B, Q, G)
+    best_gt = torch.where(assign, cost, torch.full_like(cost, 1e9)).argmin(-1)
+    return assign & torch.nn.functional.one_hot(best_gt, g).bool()

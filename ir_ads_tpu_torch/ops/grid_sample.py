@@ -11,14 +11,26 @@ DSCF level draws from a feature map.
 
 from __future__ import annotations
 
+from typing import Optional
+
 import torch
 
 
 def grid_sample(img: torch.Tensor, grid: torch.Tensor,
-                align_corners: bool = False) -> torch.Tensor:
+                align_corners: bool = False,
+                batch_idx: Optional[torch.Tensor] = None) -> torch.Tensor:
     """img (B, H, W, C); grid (B, Hg, Wg, 2) as (x, y) in [-1, 1].  Returns
     (B, Hg, Wg, C) in ``img.dtype``; the corners are summed in f32.
-    Differentiable in both (the corner indices carry no gradient)."""
+    Differentiable in both (the corner indices carry no gradient).
+
+    With ``batch_idx`` (R,) the grid is (R, Hg, Wg, 2) and grid r samples
+    image ``batch_idx[r]``: the reference's ``grid_sample(img[batch_idx],
+    grid)`` (ROI align's form) without the (R, H, W, C) copy, the corner
+    rows selected from the flat (B * H * W, C) map.  Without it grid b
+    samples image b by a gather on the (B, H * W, C) view: on the card
+    PyTorch runs a gather or a row selection on the flat map with its
+    vectorised row kernel, several times slower at narrow rows (DCNv3's 16
+    channels), and on the CPU ``index_select`` outruns a flat ``gather``."""
     b, h, w, c = img.shape
     gx, gy = grid[..., 0].float(), grid[..., 1].float()
     if align_corners:
@@ -30,12 +42,21 @@ def grid_sample(img: torch.Tensor, grid: torch.Tensor,
     x0, y0 = torch.floor(ix), torch.floor(iy)
     fx, fy = ix - x0, iy - y0
     x0i, y0i = x0.long(), y0.long()
-    rows = img.reshape(b, h * w, c)
+    if batch_idx is None:
+        rows = img.reshape(b, h * w, c)
+
+        def take(flat):
+            return torch.gather(rows, 1, flat.reshape(b, -1, 1).expand(-1, -1, c))
+    else:
+        rows = img.reshape(b * h * w, c)
+        base = (batch_idx.long() * (h * w)).reshape(-1, *[1] * (grid.dim() - 2))
+
+        def take(flat):
+            return rows.index_select(0, (base + flat).reshape(-1))
 
     def corner(xi, yi, wgt):
         valid = (xi >= 0) & (xi < w) & (yi >= 0) & (yi < h)
-        flat = (yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).reshape(b, -1, 1)
-        vals = torch.gather(rows, 1, flat.expand(-1, -1, c)).reshape(*xi.shape, c)
+        vals = take(yi.clamp(0, h - 1) * w + xi.clamp(0, w - 1)).reshape(*xi.shape, c)
         wgt = torch.where(valid, wgt, torch.zeros_like(wgt))
         return vals.float() * wgt[..., None]
 

@@ -365,13 +365,13 @@ class Dense(nn.Linear):
 
 class Conv(nn.Conv2d):
     """flax ``nn.Conv`` on an NHWC map: ``padding`` an int (each side) or
-    ``"same"`` (flax's default, ``same_padding`` at run time)."""
+    ``"same"`` (flax's default, ``same_padding`` at run time; undilated)."""
 
     def __init__(self, cin: int, cout: int, kernel: int, stride: int = 1, padding=0,
-                 groups: int = 1, bias: bool = True):
+                 groups: int = 1, bias: bool = True, dilation: int = 1):
         self.same = padding == "same"
         super().__init__(cin, cout, kernel, stride, 0 if self.same else padding,
-                         groups=groups, bias=bias)
+                         dilation=dilation, groups=groups, bias=bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.permute(0, 3, 1, 2)
@@ -385,15 +385,23 @@ class Conv(nn.Conv2d):
 
 
 class ConvTranspose(nn.Module):
-    """flax ``nn.ConvTranspose`` with kernel == stride and SAME padding (the
-    only form the library uses): out[s*i + a] = x[i] @ K[s - 1 - a], the
-    kernel flipped against torch's ``conv_transpose2d``.  The weight is
-    held as a convolution's, (out, in, kh, kw), so that a flax kernel
-    (kh, kw, in, out) maps to it as every convolution kernel does."""
+    """flax ``nn.ConvTranspose`` with SAME padding (its default): the
+    dilated input correlated with the kernel K, which is torch's
+    ``conv_transpose2d`` with the kernel flipped.  Its full output (padding
+    k - 1 on each side of the dilated input) is cropped to flax's padding,
+    pad_a = k - 1 where s > k - 1 else ceil((k + s - 2) / 2), which leaves
+    in * s outputs: at kernel == stride nothing is cropped (out[s*i + a] =
+    x[i] @ K[s - 1 - a]), at k = 4, s = 2 one row and column each side
+    (torch's ``ConvTranspose2d(k=4, s=2, p=1)``).  ``stride`` defaults to
+    ``kernel``.  The weight is held as a convolution's, (out, in, kh, kw),
+    so that a flax kernel (kh, kw, in, out) maps to it as every convolution
+    kernel does."""
 
-    def __init__(self, cin: int, cout: int, kernel: int):
+    def __init__(self, cin: int, cout: int, kernel: int, stride: Optional[int] = None):
         super().__init__()
-        self.stride = kernel
+        self.stride = stride or kernel
+        pad_a = kernel - 1 if self.stride > kernel - 1 else -(-(kernel + self.stride - 2) // 2)
+        self.crop = kernel - 1 - pad_a
         self.weight = nn.Parameter(torch.empty(cout, cin, kernel, kernel))
         self.bias = nn.Parameter(torch.zeros(cout))
         nn.init.kaiming_uniform_(self.weight, a=5 ** 0.5)
@@ -401,6 +409,9 @@ class ConvTranspose(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         w = cast(self.weight, x).transpose(0, 1).flip(2, 3)
         y = F.conv_transpose2d(x.permute(0, 3, 1, 2), w, None, self.stride)
+        h, wd, c = x.shape[1] * self.stride, x.shape[2] * self.stride, self.crop
+        if (h, wd) != tuple(y.shape[2:]):
+            y = y[:, :, c:c + h, c:c + wd]
         return with_bias(y, cast(self.bias, x), dim=1).permute(0, 2, 3, 1)
 
 

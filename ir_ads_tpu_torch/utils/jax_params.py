@@ -35,7 +35,8 @@ transformer (unrolled, or stacked by ``scan_layers``); ``dino_to_flax`` is
 its inverse.  ``anomaly_from_flax`` / ``anomaly_to_flax`` map the anomaly
 stack's ``AnomalyScoreNet`` (its ResNet trunk by the detector's names).
 ``library_from_flax`` maps the semseg library's heads, attention modules
-and backbones, whose port attributes carry the flax modules' names.
+and backbones, the detection meta-architectures and ROI heads and the
+detectron2 projects, whose port attributes carry the flax modules' names.
 """
 
 from __future__ import annotations
@@ -527,11 +528,29 @@ def anomaly_to_flax(state_dict: Dict[str, torch.Tensor]) -> Dict[str, Dict]:
 # the semseg library: heads, attention modules, alternative backbones
 # --------------------------------------------------------------------------
 
+_RESNET_PART = re.compile(r"stem_conv|stem_bn|layer\d+_\d+")
+
+
+def _library_module(mods: Tuple[str, ...]) -> str:
+    """The port's module path of a flax module path: joined by dots, but a
+    ResNet (a ``backbone`` whose child is ``stem_*`` or ``layer{i}_{j}``, the
+    detection meta-architectures') under the detector's names
+    (``_dino_module``: ``backbone.res2.0.conv1.norm`` ...)."""
+    for i in range(1, len(mods)):
+        if mods[i - 1] == "backbone" and _RESNET_PART.fullmatch(mods[i]):
+            rest = tuple(m for m in mods[i:] if m != "BatchNorm_0")
+            return ".".join(mods[:i - 1] + (_dino_module(("backbone",) + rest, 0),))
+    return ".".join(mods)
+
+
 def library_from_flax(variables: Dict, module: torch.nn.Module = None) -> Dict[str, torch.Tensor]:
     """flax variables of a module of the semseg library (models/heads/
     {extra,align}_heads.py, models/modules/attention_modules.py,
     models/backbones/{regnet,alt_backbones}.py, models/projects/{vitdet,
-    mvit}.py) -> the port module's state_dict: the flax path joined by dots,
+    mvit}.py), of a detection meta-architecture or ROI head (detection/
+    {meta_arch,roi_heads}.py), of a detectron2 project (models/projects/*)
+    -> the port module's state_dict: the flax path joined by dots (a
+    ResNet ``backbone`` by the detector's names, ``_library_module``),
     ``kernel`` / ``scale`` as ``weight`` (``_tensor``; ``pos_embed``,
     ``rel_pos_*``, ``gamma``, ``layer_scale_*`` and FaPN's ``dcn_kernel``
     as flax holds them), the batch statistics as ``running_mean`` /
@@ -542,7 +561,8 @@ def library_from_flax(variables: Dict, module: torch.nn.Module = None) -> Dict[s
     for coll in ("params", "batch_stats"):
         for path, arr in _walk(variables.get(coll, {})):
             leaf = path[-1]
-            sd[".".join(path[:-1] + (_LEAF.get(leaf, leaf),))] = _tensor(leaf, arr)
+            name = ".".join(filter(None, (_library_module(path[:-1]), _LEAF.get(leaf, leaf))))
+            sd[name] = _tensor(leaf, arr)
     if module is not None:
         own = module.state_dict()
         for name, t in own.items():

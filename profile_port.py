@@ -23,6 +23,7 @@ one step of its trainer, under torch.profiler.
                             [--seed 0]
     python3 profile_port.py --same-logits DIR_A DIR_B
     python3 profile_port.py --shard-cards [--seed 0]
+    python3 profile_port.py --grid-sample [--seed 0]
     (each also takes --port-dir DIR)
 
 Serving: builds the full-size predictor (Swin-B CMNeXt, or with --backbone
@@ -117,6 +118,13 @@ counts, for each name in both (each tensor of a saved dict), the elements
 of A and B that differ: run the first with --port-dir on the parent, then
 on the change, to show which paths a change leaves bit for bit as they
 were.
+The gather-form bilinear sampler (--grid-sample): ``ops.grid_sample.
+grid_sample`` at the shapes of its callers on the card's paths (the DINO
+mask loss's point sampling, InternImage-T's DCNv3 and FaPN's deformable
+conv at 480x640, SFNet's flow warp, and, where the checkout's sampler takes
+``batch_idx``, Mask R-CNN's ROI align on P2 of 2 x 800x1216), f32, by
+CUDA events and by the profiler's device time; with --port-dir in turns
+with the parent.
 --port-dir DIR imports the port package from DIR, another checkout (the
 parent commit unpacked with ``git archive``), so that two commits can be
 run in turns on one card.
@@ -556,6 +564,41 @@ def time_rpe(args) -> dict:
             del pos, table, grid, tb
             torch.cuda.empty_cache()
     return dict(device=torch.cuda.get_device_name(0), kernels=rows)
+
+
+def time_grid_sample(args) -> dict:
+    """``grid_sample`` at its callers' shapes (f32), by CUDA events and by
+    the profiler's device time; the ROI-align form only where the imported
+    sampler takes ``batch_idx``."""
+    import inspect
+
+    from ir_ads_tpu_torch.ops.grid_sample import grid_sample
+
+    g = torch.Generator(device="cuda").manual_seed(args.seed)
+    # (name, image (B, H, W, C), grid (R, Hg, Wg), align_corners, images sampled)
+    cases = [("mask-loss points", (80, 128, 128, 1), (80, 37632, 1), False, None),
+             ("mask-loss GT points", (80, 512, 512, 1), (80, 12544, 1), False, None),
+             ("DCNv3 stage 0", (4, 120, 160, 16), (4, 19200, 9), True, None),
+             ("FaPN deformable conv", (1, 120, 160, 128), (1, 19200, 9), True, None),
+             ("SFNet flow warp", (1, 120, 160, 256), (1, 120, 160), False, None)]
+    if "batch_idx" in inspect.signature(grid_sample).parameters:
+        cases.append(("ROI align P2", (2, 200, 304, 256), (512, 28, 28), True, 2))
+    rows = []
+    for name, img_shape, grid_shape, corners, images in cases:
+        img = torch.randn(img_shape, generator=g, device="cuda")
+        grid = torch.rand(*grid_shape, 2, generator=g, device="cuda") * 2.2 - 1.1
+        kw = dict(align_corners=corners)
+        if images:
+            kw["batch_idx"] = torch.arange(images, device="cuda").repeat_interleave(
+                grid_shape[0] // images)
+        run = lambda: grid_sample(img, grid, **kw)  # noqa: E731
+        times = dict(ms=_events_ms(run), device_ms=_device_ms(run))
+        rows.append(dict(case=name, image=list(img_shape), grid=list(grid_shape), **times))
+        print(f"{name} (image {img_shape}, grid {grid_shape}): "
+              + ", ".join(f"{k} {v:.4f}" for k, v in times.items()), flush=True)
+        del img, grid
+        torch.cuda.empty_cache()
+    return dict(device=torch.cuda.get_device_name(0), cases=rows)
 
 
 def _chip_smoke():
@@ -1141,6 +1184,8 @@ def main():
                     help="where --logits saves them")
     ap.add_argument("--same-logits", nargs=2, default=None, metavar=("A", "B"),
                     help="count the logits that differ between two --logits-dir")
+    ap.add_argument("--grid-sample", action="store_true",
+                    help="time ops.grid_sample at its callers' shapes instead")
     ap.add_argument("--shard-cards", action="store_true",
                     help="val_mm's sharded eval over every card, against card 0 alone")
     ap.add_argument("--requests", type=int, default=0,
@@ -1166,7 +1211,7 @@ def main():
         args.batch = 4 if args.train else 2
     run = (time_dscf if args.dscf else time_jmajor_v1 if args.jmajor_v1
            else shard_cards if args.shard_cards
-           else time_rpe if args.rpe
+           else time_rpe if args.rpe else time_grid_sample if args.grid_sample
            else time_qkv_map_bwd if args.qkv_map_bwd else save_logits if args.logits
            else swin_shares if args.shares else time_k9_k19 if args.k9_k19
            else profile_det_step if args.det_train
